@@ -1,0 +1,17 @@
+"""long-vita-tpu-torch: the PyTorch/CUDA port of long_vita_tpu for NVIDIA Hopper.
+
+Module paths and public function names mirror the JAX package
+(``long_vita_tpu``), which stays the reference the port is tested against.
+The port imports torch and never jax; its hand-written CUDA kernels build
+from ``ops/csrc/`` at first use.
+
+Quick API (text serving):
+    from long_vita_tpu_torch.config import long_vita_14b
+    from long_vita_tpu_torch.models.qwen2 import init_qwen2_params
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+"""
+__version__ = "0.1.0"
+
+from long_vita_tpu_torch.config import LongVITAConfig, TextConfig
+
+__all__ = ["LongVITAConfig", "TextConfig"]

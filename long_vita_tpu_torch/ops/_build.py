@@ -1,0 +1,89 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each source under ``ops/csrc/`` compiles on first use into a shared library
+with a plain C interface under ``build/kernels/`` at the repository root
+(git-ignored). The library's file name carries a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+nvcc's output (``-Xptxas -v``: registers, shared memory, spills) is kept in a
+``.log`` beside the library.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine with neither nvcc nor a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from CUDA_HOME (default /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the CUDA kernels of "
+        "long_vita_tpu_torch are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to for its current content."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for its hash exists."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}) building {name}.cu:\n"
+            f"{' '.join(cmd)}\n{res.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed, then load (once per process) ``csrc/<name>.cu``."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _loaded[name] = lib
+        return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of ``csrc/<name>.cu``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""

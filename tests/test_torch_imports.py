@@ -1,0 +1,93 @@
+"""PyTorch port: it imports and serves with JAX unavailable, and
+chip_smoke.py refuses to run without a GPU."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "long_vita_tpu_torch"
+
+_NO_JAX_GENERATE = """
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np, torch
+import long_vita_tpu_torch
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.inference.engine import InferenceEngine
+from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.models.qwen2 import init_qwen2_params
+from long_vita_tpu_torch.ops import _build, _target, attention, flash_attention, rope
+from long_vita_tpu_torch.utils import convert
+
+class Tok:
+    def decode(self, ids, skip_special_tokens=True):
+        return ",".join(map(str, ids))
+
+class MM:
+    tokenizer = Tok()
+    def expand(self, input_ids, images=(), videos=(), max_num_frame=None):
+        class E:
+            pass
+        e = E()
+        e.input_ids, e.images, e.image_indices = list(input_ids), None, None
+        return e
+
+cfg = tiny_test_config()
+params = init_qwen2_params(torch.Generator().manual_seed(0), cfg.text)
+eng = InferenceEngine(params, cfg, MM(), max_seq_len=128, chunk=32)
+out = eng.generate(input_ids=list(range(45)), sampling=SamplingParams(max_new_tokens=5))
+assert len(out.token_ids) == 5, out
+assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
+print("OK", out.text)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    return env
+
+
+def test_port_imports_and_generates_without_jax():
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_GENERATE], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("OK ")
+
+
+def test_no_jax_import_in_the_port():
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert len(files) > 10 and not offenders, offenders
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
+    """With no CUDA device (this machine), or copied away from the repo,
+    chip_smoke.py exits non-zero and prints no result line."""
+    import torch
+
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("a CUDA device is present")
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    env = _env()
+    if alone:
+        cwd = tmp_path
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+        env.pop("PYTHONPATH")
+    res = subprocess.run(
+        [sys.executable, str(script)], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
