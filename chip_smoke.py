@@ -4,18 +4,28 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero):
-  1. build the CUDA kernel library from the sources in this checkout;
-  2. hold the flash-forward kernel against its plain PyTorch version on the
-     card at the serving shapes, with stated tolerances, and time it;
-  3. serve the full-width, full-depth Qwen2.5-14B text decoder (random bf16
-     weights from a seeded generator) through InferenceEngine: greedy
+  1. build the three CUDA kernels from the sources in this checkout (one
+     nvcc each, in parallel) and print nvcc's register/spill lines;
+  2. hold each kernel against its plain PyTorch version on the card at the
+     shapes the serving path gives it, with stated tolerances, and time both
+     with CUDA events: K1 the flash forward, K2 the int8 flash forward, K3
+     the ViT's short attention;
+  3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
+     bf16 weights from a seeded generator) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
-     the kernel's launches; then compare the prefill's last-row logits with
-     a no-cache forward through the plain attention.
+     K1's launches; then the prefill's last-row logits against two plain
+     references;
+  4. multimodal serving: the same decoder with a random InternViT-300M tower
+     and projector: a 64-frame video into an int8 cache, twice; a ragged
+     batch of a 7-tile image and a 16-frame video into an int8 cache; the
+     video into a bf16 cache. Launch counts of K1, K2 and K3 are checked
+     against the layers and chunks the requests need; the video's last-row
+     logits and its encoded features are held against the same flow on the
+     plain versions.
 
-The last two lines of stdout are the kernel report and
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
-prints no result.
+The card's nvidia-smi line is the first line of stdout and is repeated
+before the last two, which are the kernel report and {"ok": true, "device":
+{...}}. Without a CUDA device the script exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -41,6 +51,20 @@ F32_ATOL = 1e-4
 # at cosine 0.9985 and a max logit move of 3.1% of the spread; the bounds
 # leave room for that floor and catch a kernel that is wrong.
 LOGIT_COS, LOGIT_SPREAD_FRAC = 0.995, 0.05
+# ViT features through K3 vs through the plain attention, 24 bf16 layers of
+# random weights then the projector: the two round p to bf16 at different
+# points (running vs final max), which each layer carries forward; the
+# bound on the relative Frobenius error and the worst row's cosine leaves
+# room for that and catches a kernel that is wrong.
+FEAT_REL_ERR, FEAT_ROW_COS = 0.05, 0.99
+SOURCES = {
+    "flash_fwd": ("long_vita_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "long_vita_tpu/ops/flash_attention.py:144"),
+    "flash_fwd_quant": ("long_vita_tpu_torch/ops/csrc/flash_fwd_quant.cu",
+                        "long_vita_tpu/ops/flash_attention.py:261"),
+    "short_attn": ("long_vita_tpu_torch/ops/csrc/short_attn.cu",
+                   "long_vita_tpu/ops/flash_attention.py:1192"),
+}
 
 
 def _nvidia_smi() -> str:
@@ -69,16 +93,38 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _counters():
+    """The three kernels' wrappers, whose ``launches`` count kernel launches."""
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    return {
+        "flash_fwd": fa.flash_attention,
+        "flash_fwd_quant": fa.flash_attention_quant,
+        "short_attn": fa.short_attention,
+    }
+
+
+def _reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
 def phase_build() -> None:
     from long_vita_tpu_torch.ops import _build
     from long_vita_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     fa.build()
-    print(f"[build] flash_fwd built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log("flash_fwd").splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill", "error")):
-            print(f"[build] {line.strip()}")
+    print(f"[build] {', '.join(SOURCES)} built (in parallel) and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
+                print(f"[build] {name}: {line.strip()}")
 
 
 def _kernel_case(name, q, k, v, *, f32=False, **kw) -> float:
@@ -173,66 +219,215 @@ def phase_kernels() -> dict:
     return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms}
 
 
+def _pair_case(name, kernel, plain, n_counter, *, lse_atol=LSE_ATOL) -> float:
+    """Run a kernel (which must launch once) and its plain version on the
+    same inputs; hold o to O_ATOL + O_RTOL * |plain| and lse to lse_atol.
+    -> max |o err|."""
+    import torch
+
+    before = n_counter.launches
+    o, lse = kernel()
+    torch.cuda.synchronize()
+    if n_counter.launches != before + 1:
+        raise AssertionError(f"[{name}] kernel launch count did not rise by 1")
+    ro, rlse = plain()
+    err_o = (o.float() - ro.float()).abs()
+    err_lse = (lse - rlse).abs().max().item() if lse.numel() else 0.0
+    ok = bool((err_o <= O_ATOL + O_RTOL * ro.float().abs()).all()) and err_lse <= lse_atol
+    ok = ok and bool(torch.isfinite(o.float()).all())
+    print(f"[kernel] {name}: max|o-ref| {err_o.max().item():.3e} max|lse-ref| {err_lse:.3e} "
+          f"(tol o {O_ATOL}+{O_RTOL}*|ref|, lse {lse_atol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{name}] kernel disagrees with the plain version")
+    return err_o.max().item()
+
+
+def phase_kernels_quant() -> dict:
+    """K2 at the serving shape: a 2048-row chunk at offset 14336 against an
+    int8 cache [1, 32768, 8, 128] with 16384 valid slots, codes and scales
+    from quantize_kv of seeded bf16 values; and kv_valid_len = 0."""
+    import torch
+
+    from long_vita_tpu_torch.models.qwen2 import quantize_kv
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q = rnd(1, 2048, 40, 128)
+    k, ks = quantize_kv(rnd(1, 32768, 8, 128))
+    v, vs = quantize_kv(rnd(1, 32768, 8, 128))
+    kw = dict(q_offset=14336, kv_valid_len=16384)
+    err = _pair_case(
+        "K2 chunk 2048 @14336 vs int8 cache 32768 len 16384",
+        lambda: fa.flash_attention_quant(q, k, ks, v, vs, return_lse=True, **kw),
+        lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw),
+        fa.flash_attention_quant,
+    )
+    before = fa.flash_attention_quant.launches
+    o0, lse0 = fa.flash_attention_quant(
+        q[:, :256], k, ks, v, vs, q_offset=14336, kv_valid_len=0, return_lse=True
+    )
+    torch.cuda.synchronize()
+    if fa.flash_attention_quant.launches != before + 1:
+        raise AssertionError("[K2 kv_valid_len=0] kernel launch count did not rise by 1")
+    if not (bool((o0 == 0).all()) and bool((lse0 == fa.NEG_INF).all())):
+        raise AssertionError("[K2 kv_valid_len=0] must give o = 0, lse = -2^30")
+    print("[kernel] K2 kv_valid_len=0: o == 0 and lse == -2^30 ok")
+    kern_ms = _cuda_ms(lambda: fa.flash_attention_quant(q, k, ks, v, vs, **kw), reps=20)
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw), reps=5)
+    pairs = 2048 * 14336 + 2048 * 2049 // 2  # unmasked (q, k) pairs
+    tflops = 4 * 40 * 128 * pairs / (kern_ms * 1e-3) / 1e12
+    print(f"[kernel] K2 timing, median of CUDA events: kernel {kern_ms:.3f} ms "
+          f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms")
+    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms}
+
+
+def phase_kernels_short() -> dict:
+    """K3 at the encode shape, q/k/v as the ViT hands them over (strided
+    views of one [64, 1025, 3, 16, 64] qkv projection), and one short
+    unaligned case."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    errs = []
+    for n, s in ((64, 1025), (3, 257)):
+        qkv = torch.randn((n, s, 3, 16, 64), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        errs.append(_pair_case(
+            f"K3 [{n}, {s}, 16, 64]",
+            lambda: fa.short_attention(q, k, v, return_lse=True),
+            lambda: fa.short_attention_reference(q, k, v),
+            fa.short_attention,
+        ))
+        if n == 64:
+            kern_ms = _cuda_ms(lambda: fa.short_attention(q, k, v), reps=20)
+            plain_ms = _cuda_ms(lambda: fa.short_attention_reference(q, k, v), reps=5)
+    tflops = 4 * 64 * 16 * 1025 * 1025 * 64 / (kern_ms * 1e-3) / 1e12
+    print(f"[kernel] K3 timing at [64, 1025, 16, 64], median of CUDA events: kernel "
+          f"{kern_ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
+    return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms}
+
+
 class _Tok:
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(str(int(t)) for t in ids)
 
 
+# stand-in ids of the tokens the expansion inserts (<img>, <vid>, their
+# context tokens, ...): any ids of the vocabulary do for random weights; 198
+# is Qwen2's "\n". The <image>/<video> tags are replaced by the expansion and
+# lie past the vocabulary, so no random text id is taken for one.
+(IMG_START, IMG_END, IMG_CTX, VID_START, VID_END, VID_CTX, PATCH_START,
+ PATCH_END, PATCH_CTX) = range(151670, 151679)
+NL = 198
+IMG_TAG, VID_TAG = 1_000_000, 1_000_001
+
+
 class _StubMM:
-    """Token ids in, token ids out: the multimodal tokenizer interface
-    (expand / tokenizer.decode) without tokenizer files."""
+    """The multimodal tokenizer's interface (expand / tokenizer.decode)
+    without tokenizer files, PIL or JAX: token ids in, token ids out, and
+    the tag expansion of long_vita_tpu/data/multimodal.py (_block,
+    _expand_image, _expand_video) on pre-made tiles. An image is (tiles
+    [1 + rows * cols, 448, 448, 3], (rows, cols)), the thumbnail first: a
+    thumbnail block, then per grid row a newline and per tile a patch block.
+    A video is frames [F, 448, 448, 3]: a vid_start, T context ids and a
+    vid_end per frame."""
 
     tokenizer = _Tok()
+
+    def __init__(self, t: int = 256):
+        self.t = t
+
+    def _block(self, ids, start, ctx, end, indices):
+        import numpy as np
+
+        ids.append(start)
+        seq = np.arange(len(ids), len(ids) + self.t, dtype=np.int64)
+        indices.append(np.stack([np.zeros(self.t, np.int64), seq]))
+        ids.extend([ctx] * self.t)
+        ids.append(end)
 
     def expand(self, input_ids, images=(), videos=(), max_num_frame=None):
         import types
 
+        import numpy as np
+
+        images, videos = list(images), list(videos)
+        ids, stacks, indices = [], [], []
+        for tok in input_ids:
+            if tok == IMG_TAG:
+                tiles, (rows, cols) = images.pop(0)
+                stacks.append(tiles)
+                self._block(ids, IMG_START, IMG_CTX, IMG_END, indices)
+                for _ in range(rows if len(tiles) > 1 else 0):
+                    ids.append(NL)
+                    for _ in range(cols):
+                        self._block(ids, PATCH_START, PATCH_CTX, PATCH_END, indices)
+            elif tok == VID_TAG:
+                frames = videos.pop(0)
+                stacks.append(frames)
+                for _ in range(len(frames)):
+                    self._block(ids, VID_START, VID_CTX, VID_END, indices)
+            else:
+                ids.append(int(tok))
+        if not stacks:
+            return types.SimpleNamespace(input_ids=ids, images=None, image_indices=None)
         return types.SimpleNamespace(
-            input_ids=list(input_ids), images=None, image_indices=None
+            input_ids=ids, images=np.concatenate(stacks), image_indices=np.stack(indices, 1)
         )
 
 
-def _plain_chunked_last_row(params, tc, ids, chunk, max_seq):
+def _plain_chunked_last_row(text, tc, ids, chunk, max_seq, *, feats=None,
+                            indices=None, quantize=False):
     """engine.prefill's flow (chunks against a cache, then the last row
-    decode-style) with attention forced to the plain version."""
+    decode-style) with attention forced to the plain versions. With feats,
+    the tile features are merged into the embeddings first, where the
+    engine's per-chunk scatter puts them; quantize: an int8 cache."""
+    import dataclasses
+
     import torch
 
     from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.models.long_vita import merge_image_embeddings
 
-    n = ids.shape[1]
+    dev = text.embed.device
+    n = len(ids)
     padded = -(-n // chunk) * chunk
-    cache = qwen2.KVCache.zeros(tc, 1, -(-max_seq // chunk) * chunk, device=ids.device)
-    ids = torch.nn.functional.pad(ids, (0, padded - n))
+    ids_t = torch.zeros((1, padded), dtype=torch.long, device=dev)
+    ids_t[0, :n] = torch.as_tensor(ids, device=dev)
+    embeds = qwen2.embed_tokens(text, ids_t)
+    if feats is not None:
+        embeds = merge_image_embeddings(embeds, feats, torch.as_tensor(indices, device=dev))
+    cache = qwen2.KVCache.zeros(
+        tc, 1, -(-max_seq // chunk) * chunk, device=dev, quantize=quantize
+    )
     for start in range(0, padded, chunk):
-        pos = start + torch.arange(chunk, device=ids.device)[None]
+        pos = start + torch.arange(chunk, device=dev)[None]
         _, cache = qwen2.qwen2_decoder(
-            params, qwen2.embed_tokens(params, ids[:, start : start + chunk]), pos, tc,
-            kv_cache=cache, attn_impl="xla",
+            text, embeds[:, start : start + chunk], pos, tc, kv_cache=cache, attn_impl="xla"
         )
     hidden, _ = qwen2.qwen2_decoder(
-        params, qwen2.embed_tokens(params, ids[:, n - 1 : n]),
-        torch.full((1, 1), n - 1, device=ids.device), tc,
-        kv_cache=qwen2.KVCache(cache.k, cache.v, n - 1), attn_impl="xla",
+        text, qwen2.embed_tokens(text, ids_t[:, n - 1 : n]),
+        torch.full((1, 1), n - 1, device=dev), tc,
+        kv_cache=dataclasses.replace(cache, length=n - 1), attn_impl="xla",
     )
     return hidden[:, -1]
 
 
-def phase_serving() -> int:
-    """-> flash kernel launches made by the serving requests."""
-    import numpy as np
+def _text_params(cfg, dev):
+    """The full Qwen2.5-14B decoder with random bf16 weights (seed SEED)."""
     import torch
-    import torch.nn.functional as F
 
-    from long_vita_tpu_torch.config import long_vita_14b
-    from long_vita_tpu_torch.inference.engine import InferenceEngine
-    from long_vita_tpu_torch.inference.sampler import SamplingParams
     from long_vita_tpu_torch.models import qwen2
-    from long_vita_tpu_torch.ops import flash_attention as fa
 
-    cfg = long_vita_14b()
     tc = cfg.text
-    dev = torch.device("cuda")
-    chunk, max_seq = 2048, 16384
     t0 = time.perf_counter()
     params = qwen2.init_qwen2_params(
         torch.Generator(device=dev).manual_seed(SEED), tc, dtype=torch.bfloat16, device=dev
@@ -245,6 +440,55 @@ def phase_serving() -> int:
         f"vocab {tc.vocab_size}; {n_params / 1e9:.3f} B random bf16 params "
         f"(seed {SEED}) built in {time.perf_counter() - t0:.1f} s"
     )
+    return params
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _check_launches(counts: dict, expected: dict) -> None:
+    print(f"[counts] launches {counts}, expected {expected}")
+    if counts != expected:
+        raise AssertionError(
+            "the main path did not launch each kernel once per layer and chunk "
+            "(or encode batch) it needs"
+        )
+
+
+def _logit_check(tag, name, logits, ref) -> bool:
+    import torch.nn.functional as F
+
+    cos = F.cosine_similarity(logits, ref, dim=-1).item()
+    max_abs = (logits - ref).abs().max().item()
+    spread = (ref.max() - ref.min()).item()
+    good = cos >= LOGIT_COS and max_abs <= LOGIT_SPREAD_FRAC * spread
+    print(f"[{tag}] last-row logits, {name}: cosine {cos:.6f} (>= {LOGIT_COS}), "
+          f"max|diff| {max_abs:.4f} (<= {LOGIT_SPREAD_FRAC} x spread {spread:.3f}) "
+          f"{'ok' if good else 'FAIL'}")
+    return good
+
+
+def phase_serving(params) -> int:
+    """Text serving. -> K1 launches made by the serving requests."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_14b
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.models import qwen2
+
+    cfg = long_vita_14b()
+    tc = cfg.text
+    dev = torch.device("cuda")
+    chunk, max_seq = 2048, 16384
     engine = InferenceEngine(params, cfg, _StubMM(), max_seq_len=max_seq, chunk=chunk)
     rng = np.random.default_rng(SEED)
     vocab = tc.vocab_size
@@ -256,34 +500,28 @@ def phase_serving() -> int:
     def chunks(n):
         return -(-n // chunk)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
-
     # ---- the main path: requests through the engine's public entry points
-    fa.flash_attention.launches = 0
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    first, t_first = timed(lambda: engine.generate(input_ids=prompt, sampling=greedy))
-    again, t_again = timed(lambda: engine.generate(input_ids=prompt, sampling=greedy))
-    batched, t_batch = timed(lambda: engine.generate_batch(
+    first, t_first = _timed(lambda: engine.generate(input_ids=prompt, sampling=greedy))
+    again, t_again = _timed(lambda: engine.generate(input_ids=prompt, sampling=greedy))
+    batched, t_batch = _timed(lambda: engine.generate_batch(
         batch, sampling=SamplingParams(max_new_tokens=16)
     ))
-    sampled, _ = timed(lambda: engine.generate(
+    sampled, _ = _timed(lambda: engine.generate(
         input_ids=sampled_prompt, seed=1,
         sampling=SamplingParams(greedy=False, temperature=0.7, top_p=0.9, max_new_tokens=16),
     ))
-    launches = fa.flash_attention.launches
+    counts = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     n_chunks = 2 * chunks(len(prompt)) + chunks(4000) + chunks(len(sampled_prompt))
-    expected = tc.num_hidden_layers * n_chunks
-    print(f"[serve] flash launches {launches}, expected {tc.num_hidden_layers} layers x "
-          f"{n_chunks} prefill chunks = {expected}")
-    if launches != expected:
-        raise AssertionError("the prefill did not go through the flash kernel once per layer and chunk")
+    print(f"[serve] expected flash_fwd launches: {tc.num_hidden_layers} layers x "
+          f"{n_chunks} prefill chunks")
+    _check_launches(counts, {
+        "flash_fwd": tc.num_hidden_layers * n_chunks, "flash_fwd_quant": 0, "short_attn": 0,
+    })
+    launches = counts["flash_fwd"]
     if first.token_ids != again.token_ids:
         raise AssertionError(f"repeat greedy generate differs: {first.token_ids} vs {again.token_ids}")
     outs = [first, again, *batched, sampled]
@@ -294,8 +532,8 @@ def phase_serving() -> int:
           f"tokens in {t_batch:.2f} s; sampled (T 0.7, top-p 0.9) -> {sampled.token_ids[:8]} ...")
 
     # ---- timings of the solo request (warm): TTFT = prefill + first token
-    (cache, hidden, _), t_prefill = timed(lambda: engine.prefill(prompt))
-    _, t_head = timed(lambda: qwen2.lm_head(params, hidden).argmax(-1))
+    (cache, hidden, _), t_prefill = _timed(lambda: engine.prefill(prompt))
+    _, t_head = _timed(lambda: qwen2.lm_head(params, hidden).argmax(-1))
     ttft = t_prefill + t_head
     decode_ms = (t_again - ttft) / (len(again.token_ids) - 1) * 1e3
     print(
@@ -319,20 +557,171 @@ def phase_serving() -> int:
     )
     nocache = qwen2.lm_head(params, ref_hidden[:, -1])
     del ref_hidden
-    chunked = qwen2.lm_head(params, _plain_chunked_last_row(params, tc, ids, chunk, max_seq))
+    chunked = qwen2.lm_head(params, _plain_chunked_last_row(params, tc, prompt, chunk, max_seq))
     ok = bool(torch.isfinite(logits).all()) and logits.shape == (1, vocab)
     for name, ref in (("plain no-cache forward", nocache), ("plain chunked prefill", chunked)):
-        cos = F.cosine_similarity(logits, ref, dim=-1).item()
-        max_abs = (logits - ref).abs().max().item()
-        spread = (ref.max() - ref.min()).item()
-        good = cos >= LOGIT_COS and max_abs <= LOGIT_SPREAD_FRAC * spread
-        ok = ok and good
-        print(f"[serve] last-row logits, kernel path vs {name}: cosine {cos:.6f} "
-              f"(>= {LOGIT_COS}), max|diff| {max_abs:.4f} (<= {LOGIT_SPREAD_FRAC} x spread "
-              f"{spread:.3f}) {'ok' if good else 'FAIL'}")
+        ok = _logit_check("serve", f"kernel path vs {name}", logits, ref) and ok
     if not ok:
         raise AssertionError("kernel-path logits disagree with the plain forward")
     return launches
+
+
+def _encode_batches(n: int, transfer_chunk: int, vision_chunk: int) -> int:
+    """ViT batches the engine's encode of n tiles runs (pieces of
+    transfer_chunk tiles, padded, when n exceeds one piece)."""
+    if n <= transfer_chunk:
+        return -(-n // vision_chunk)
+    return -(-n // transfer_chunk) * -(-transfer_chunk // vision_chunk)
+
+
+def phase_multimodal(
+    text_params, cfg, dev, *, n_frames=64, batch_frames=16, grid=(2, 3),
+    chunk=2048, max_seq=32768, vision_chunk=64, new_tokens=16,
+) -> dict:
+    """Image and video serving at full width. -> launch counts of the run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.models.intern_vit import init_vit_params
+    from long_vita_tpu_torch.models.long_vita import LongVITAParams, encode_images
+    from long_vita_tpu_torch.models.projector import init_projector_params
+
+    vc, tc = cfg.vision, cfg.text
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lv = LongVITAParams(
+        text=text_params,
+        vision=init_vit_params(gen, vc, torch.bfloat16, dev),
+        projector=init_projector_params(gen, cfg, torch.bfloat16, dev),
+    )
+    n_vis = sum(p.numel() for p in lv.vision.parameters())
+    n_proj = sum(p.numel() for p in lv.projector.parameters())
+    rng = np.random.default_rng(SEED)
+
+    def tiles(n):
+        return rng.standard_normal((n, vc.image_size, vc.image_size, 3), dtype=np.float32)
+
+    # a trained projector maps into the embedding space; the random one's
+    # rows come out ~20x the embedding table's scale, and 16K such rows swamp
+    # the prompt. Its second matrix is scaled so that the features of two
+    # probe tiles have the table's standard deviation.
+    probe = encode_images(lv, torch.from_numpy(tiles(2)).to(dev, torch.bfloat16), cfg)
+    ratio = (text_params.embed.float().std() / probe.float().std()).item()
+    lv.projector.fc2.weight.mul_(ratio)
+
+    def text(n):
+        return rng.integers(0, 151643, n).tolist()
+
+    video, short_video = tiles(n_frames), tiles(batch_frames)
+    image = (tiles(1 + grid[0] * grid[1]), grid)
+    print(f"[mm] InternViT-300M ({vc.num_hidden_layers} layers, hidden {vc.hidden_size}, "
+          f"{vc.num_attention_heads} heads, {vc.seq_len} tokens a tile) {n_vis / 1e6:.1f} M and "
+          f"projector {n_proj / 1e6:.1f} M random bf16 params (seed {SEED + 1}; projector "
+          f"output scaled by {ratio:.4f} to the embedding table's std), seeded f32 pixels: "
+          f"built in {time.perf_counter() - t0:.1f} s")
+
+    mm = _StubMM(cfg.image_token_length)
+    req_i = [*text(20), VID_TAG, *text(20)]
+    reqs_ii = [
+        {"input_ids": [*text(20), IMG_TAG, *text(20)], "images": [image]},
+        {"input_ids": [*text(20), VID_TAG, *text(20)], "videos": [short_video]},
+    ]
+    x = mm.expand(req_i, videos=[video])
+    n_i = len(x.input_ids)
+    lens_ii = [
+        len(mm.expand(r["input_ids"], r.get("images", ()), r.get("videos", ())).input_ids)
+        for r in reqs_ii
+    ]
+    kw = dict(max_seq_len=max_seq, chunk=chunk, vision_chunk=vision_chunk)
+    eng_q = InferenceEngine(lv, cfg, mm, kv_quant=True, **kw)
+    eng_b = InferenceEngine(lv, cfg, mm, **kw)
+    greedy = SamplingParams(max_new_tokens=new_tokens)
+
+    # ---- the main path: requests through the engine's public entry points
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first, t_first = _timed(lambda: eng_q.generate(input_ids=req_i, videos=[video], sampling=greedy))
+    again, t_again = _timed(lambda: eng_q.generate(input_ids=req_i, videos=[video], sampling=greedy))
+    batched, t_batch = _timed(lambda: eng_q.generate_batch(reqs_ii, sampling=greedy))
+    bf16, t_bf16 = _timed(lambda: eng_b.generate(input_ids=req_i, videos=[video], sampling=greedy))
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_layers, n_vit = tc.num_hidden_layers, vc.num_hidden_layers
+    tc_tiles = eng_q.transfer_chunk
+
+    def chunks(n):
+        return -(-n // chunk)
+
+    enc_i = _encode_batches(n_frames, tc_tiles, vision_chunk)
+    enc_ii = _encode_batches(1 + grid[0] * grid[1] + batch_frames, tc_tiles, vision_chunk)
+    print(f"[mm] (i) {n_frames}-frame video, {n_i} tokens ({chunks(n_i)} chunks of {chunk}); "
+          f"(ii) batch of a {1 + grid[0] * grid[1]}-tile image and a {batch_frames}-frame "
+          f"video, {lens_ii} tokens ({chunks(max(lens_ii))} chunks); (iii) = (i), bf16 cache")
+    _check_launches(counts, {
+        "flash_fwd": n_layers * chunks(n_i),
+        "flash_fwd_quant": n_layers * (2 * chunks(n_i) + chunks(max(lens_ii))),
+        "short_attn": n_vit * (3 * enc_i + enc_ii),
+    })
+    if first.token_ids != again.token_ids:
+        raise AssertionError(f"repeat greedy generate differs: {first.token_ids} vs {again.token_ids}")
+    outs = [first, again, *batched, bf16]
+    if not all(r.token_ids and all(0 <= t < tc.vocab_size for t in r.token_ids) for r in outs):
+        raise AssertionError("empty output or token id outside [0, vocab)")
+    if [r.prompt_tokens for r in outs] != [n_i, n_i, *lens_ii, n_i]:
+        raise AssertionError("prompt lengths differ from the expansion's")
+    print(f"[mm] (i) int8 cache, greedy x2 identical ({len(first.token_ids)} tokens, "
+          f"{len(set(first.token_ids))} distinct): "
+          f"{first.token_ids[:8]} ... in {t_first:.2f} / {t_again:.2f} s; (ii) -> "
+          f"{[len(r.token_ids) for r in batched]} tokens in {t_batch:.2f} s; (iii) bf16 cache "
+          f"-> {bf16.token_ids[:8]} ... in {t_bf16:.2f} s; peak allocated {peak_gb:.2f} GB")
+
+    # ---- timings (warm): encode, TTFT = prefill (encode included) + head
+    feats, t_enc = _timed(lambda: eng_q._encode_images_host(x.images))
+    (cache, hid_q, _), t_pre_q = _timed(lambda: eng_q.prefill(x.input_ids, x.images, x.image_indices))
+    del cache
+    logits_q, t_head_q = _timed(lambda: qwen2.lm_head(text_params, hid_q))
+    (cache, hid_b, _), t_pre_b = _timed(lambda: eng_b.prefill(x.input_ids, x.images, x.image_indices))
+    del cache
+    logits_b, t_head_b = _timed(lambda: qwen2.lm_head(text_params, hid_b))
+    ttft_q, ttft_b = t_pre_q + t_head_q, t_pre_b + t_head_b
+    decode_ms = (t_again - ttft_q) / (len(again.token_ids) - 1) * 1e3
+    print(f"[mm] ViT encode of {n_frames} frames (host cast + copy + {enc_i} batch(es) of "
+          f"{vision_chunk}): {t_enc * 1e3:.1f} ms = {n_frames / t_enc:.1f} frames/s; TTFT (i) "
+          f"int8 cache {ttft_q * 1e3:.1f} ms ({n_i / t_pre_q:.0f} prompt tokens/s), (iii) bf16 "
+          f"cache {ttft_b * 1e3:.1f} ms; decode with the int8 cache {decode_ms:.2f} ms/token")
+
+    # ---- the kernel path against the same flow on the plain versions
+    pixels = torch.from_numpy(x.images).to(torch.bfloat16).to(dev)
+    plain_feats = encode_images(lv, pixels, cfg, chunk=vision_chunk, attn_impl="xla")
+    del pixels
+    diff = (feats.float() - plain_feats.float()).reshape(-1, feats.shape[-1])
+    ref = plain_feats.float().reshape(-1, feats.shape[-1])
+    rel = (diff.norm() / ref.norm()).item()
+    row_cos = F.cosine_similarity(feats.float().reshape(-1, feats.shape[-1]), ref, dim=-1).min().item()
+    good_feats = rel <= FEAT_REL_ERR and row_cos >= FEAT_ROW_COS
+    print(f"[mm] encoded features, K3 vs the plain ViT attention: relative error {rel:.3e} "
+          f"(<= {FEAT_REL_ERR}), worst row cosine {row_cos:.6f} (>= {FEAT_ROW_COS}) "
+          f"{'ok' if good_feats else 'FAIL'}")
+    del feats
+    plain_hidden = _plain_chunked_last_row(
+        text_params, tc, x.input_ids, chunk, max_seq, feats=plain_feats,
+        indices=x.image_indices, quantize=True,
+    )
+    plain_logits = qwen2.lm_head(text_params, plain_hidden)
+    ok = bool(torch.isfinite(logits_q).all()) and logits_q.shape == (1, tc.vocab_size)
+    ok = _logit_check("mm", "K3 + K2 path vs the plain ViT attention + plain int8 prefill",
+                      logits_q, plain_logits) and ok
+    cos_qb = F.cosine_similarity(logits_q, logits_b, dim=-1).item()
+    print(f"[mm] (for the record) last-row logits, int8 cache (i) vs bf16 cache (iii): "
+          f"cosine {cos_qb:.6f}")
+    if not (ok and good_feats):
+        raise AssertionError("the kernel path disagrees with the plain versions")
+    return counts
 
 
 def main() -> int:
@@ -344,19 +733,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = _nvidia_smi()
+    print(smi)
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    from long_vita_tpu_torch.config import long_vita_14b
+
     phase_build()
-    kern = phase_kernels()
-    launches = phase_serving()
-    report = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "long_vita_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "long_vita_tpu/ops/flash_attention.py:144",
-        "launches": launches,
-        **kern,
-    }]}
+    kern = {
+        "flash_fwd": phase_kernels(),
+        "flash_fwd_quant": phase_kernels_quant(),
+        "short_attn": phase_kernels_short(),
+    }
+    cfg, dev = long_vita_14b(), torch.device("cuda")
+    params = _text_params(cfg, dev)
+    launches = dict.fromkeys(SOURCES, 0)
+    launches["flash_fwd"] = phase_serving(params)
+    for name, n in phase_multimodal(params, cfg, dev).items():
+        launches[name] += n
+    report = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], **kern[name]}
+        for name, (src, replaces) in SOURCES.items()
+    ]}
     print(smi)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ Module paths and public function names mirror the JAX package
 The port imports torch and never jax; its hand-written CUDA kernels build
 from ``ops/csrc/`` at first use.
 
-Quick API (text serving):
+Quick API (image, video and text serving):
     from long_vita_tpu_torch.config import long_vita_14b
-    from long_vita_tpu_torch.models.qwen2 import init_qwen2_params
+    from long_vita_tpu_torch.models.long_vita import init_long_vita_params
     from long_vita_tpu_torch.inference.engine import InferenceEngine
+    # weights from the JAX package: utils.convert.long_vita_params_from_jax
 """
 __version__ = "0.1.0"
 

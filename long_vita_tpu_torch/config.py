@@ -7,8 +7,12 @@ copying it.
 from long_vita_tpu.config import (  # noqa: F401
     LongVITAConfig,
     TextConfig,
+    VisionConfig,
     long_vita_14b,
     tiny_test_config,
 )
 
-__all__ = ["LongVITAConfig", "TextConfig", "long_vita_14b", "tiny_test_config"]
+__all__ = [
+    "LongVITAConfig", "TextConfig", "VisionConfig", "long_vita_14b",
+    "tiny_test_config",
+]

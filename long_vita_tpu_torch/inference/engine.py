@@ -1,10 +1,17 @@
-"""Inference engine: chunked text prefill + KV-cache decode, one device.
+"""Inference engine: chunked multimodal prefill + KV-cache decode, one device.
 
-Counterpart of long_vita_tpu/inference/engine.py (text-only, single device).
-The serving path is the JAX engine's:
+Counterpart of long_vita_tpu/inference/engine.py (single device). The
+serving path is the JAX engine's:
 
+  - the multimodal tokenizer expands <image>/<video> tags into context-token
+    runs; the tiles are encoded up front in pieces of ``transfer_chunk``
+    tiles (each cast to the cache dtype on the host before the copy), in ViT
+    batches of ``vision_chunk`` through the single-pass attention kernel K3,
+    into one feature buffer;
   - prompts pad to a multiple of ``chunk`` and stream through the decoder in
-    chunks against a preallocated cache (the flash kernel on CUDA);
+    chunks against a preallocated cache (flash kernel K1 on CUDA, or the int8
+    flash kernel K2 with ``kv_quant``); each chunk's embeddings take the
+    feature rows whose positions fall inside it;
   - the cache length is then cut back to the true prompt length, and the
     last real token is re-run decode-style against the cache without it, so
     the first sampled token sees exactly the unpadded prompt;
@@ -13,9 +20,9 @@ The serving path is the JAX engine's:
 
 PyTorch runs eagerly, so there is no jit: a donated JAX buffer becomes a
 cache written in place. Randomness is one ``torch.Generator`` per request,
-seeded from ``seed``. Images, videos, the int8 KV cache, weight
-quantization, meshes, the prefix cache and speculative decoding are later
-slices and raise NotImplementedError.
+seeded from ``seed``. Weight quantization, meshes, the prefix cache,
+speculative decoding and interleaved encode are later slices and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,11 +35,41 @@ import torch
 from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.inference.sampler import SamplingParams, sample
 from long_vita_tpu_torch.models import qwen2
+from long_vita_tpu_torch.models.long_vita import LongVITAParams, encode_images
 from long_vita_tpu_torch.models.qwen2 import KVCache, Qwen2Params
+
+_OOB_SEQ = 2**30  # a feature row at this position lands in no chunk
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
+
+
+def _host_cast_pixels(images: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Pixels as a host tensor of the cache dtype: an f32 stack is cast to
+    bf16 on the host, so the copy to the card moves half the bytes."""
+    return torch.from_numpy(np.ascontiguousarray(images)).to(dtype)
+
+
+def _pad_tiles(arr: np.ndarray, n: int) -> np.ndarray:
+    """Append zero tiles up to n."""
+    if arr.shape[0] == n:
+        return arr
+    pad = np.zeros((n - arr.shape[0], *arr.shape[1:]), arr.dtype)
+    return np.concatenate([arr, pad], 0)
+
+
+def _pad_scatter_indices(indices, n_feat_rows: int) -> np.ndarray:
+    """Match the [2, N_tiles, T] scatter indices to a feature buffer padded
+    to n_feat_rows tiles: the extra tiles get (batch 0, seq 2^30), which no
+    chunk's scatter keeps."""
+    idx = np.asarray(indices)
+    short = n_feat_rows - idx.shape[1]
+    if short <= 0:
+        return idx
+    pad = np.zeros((2, short, idx.shape[2]), idx.dtype)
+    pad[1] = _OOB_SEQ
+    return np.concatenate([idx, pad], 1)
 
 
 def _later(feature: str, item: str) -> NotImplementedError:
@@ -60,6 +97,8 @@ class PrefillJob:
     padded: int
     start: int = 0
     last_hidden: Optional[torch.Tensor] = None
+    feats: Optional[torch.Tensor] = None  # [N_tiles (padded), T, H] on device
+    indices: Optional[np.ndarray] = None  # [2, N_tiles (padded), T] host
 
     @property
     def done(self) -> bool:
@@ -69,27 +108,33 @@ class PrefillJob:
 class InferenceEngine:
     def __init__(
         self,
-        params: Qwen2Params,
+        params,
         cfg: LongVITAConfig,
         mm_tokenizer,
         *,
         max_seq_len: int = 16384,
         chunk: int = 2048,
+        vision_chunk: int = 64,
         cache_dtype: torch.dtype = torch.bfloat16,
         kv_quant: bool = False,
         mesh=None,
         decode_segment: int = 64,
         prefix_cache_entries: int = 0,
         speculative_k: int = 0,
+        transfer_chunk: int = 256,
         weight_quant: Optional[str] = None,
+        interleave_encode: bool = False,
     ):
-        """params: the text decoder's weights (models/qwen2.py), already on
-        the serving device. mm_tokenizer: anything with ``expand(input_ids,
+        """params: a ``LongVITAParams`` (models/long_vita.py), or the text
+        decoder's ``Qwen2Params`` alone for text-only serving, already on the
+        serving device. mm_tokenizer: anything with ``expand(input_ids,
         images=, videos=, max_num_frame=)`` returning an object with
         ``input_ids``/``images``/``image_indices``, and ``tokenizer.decode``
-        (the JAX package's MultimodalTokenizer interface)."""
-        if kv_quant:
-            raise _later("kv_quant (int8 KV cache)", "int8 KV with K2")
+        (the JAX package's MultimodalTokenizer interface).
+
+        kv_quant: an int8 KV cache with per-(token, kv head) f32 scales.
+        vision_chunk: tiles per ViT batch; transfer_chunk: tiles per host ->
+        device piece of the up-front encode (0: one piece)."""
         if weight_quant is not None:
             raise _later(f"weight_quant={weight_quant!r}", "w8a16/w4 with K6")
         if mesh is not None:
@@ -98,45 +143,107 @@ class InferenceEngine:
             raise _later("prefix_cache_entries", "server/CLI")
         if speculative_k:
             raise _later("speculative_k", "server/CLI")
+        if interleave_encode:
+            raise _later("interleave_encode=True", "server/CLI: interleave_encode")
         self.params = params
+        self.text: Qwen2Params = params.text if isinstance(params, LongVITAParams) else params
         self.cfg = cfg
         self.mm = mm_tokenizer
         self.max_seq_len = max_seq_len
         self.chunk = chunk
+        self.vision_chunk = vision_chunk
+        self.transfer_chunk = transfer_chunk
         self.cache_dtype = cache_dtype
+        self.kv_quant = kv_quant
         self.decode_segment = decode_segment
         self.eos_id = cfg.text.eos_token_id
-        self.device = params.embed.device
+        self.device = self.text.embed.device
 
     # ---- pieces (the JAX engine's jitted functions) ----------------------
 
     def _make_cache(self, batch: int, max_len: int) -> KVCache:
         return KVCache.zeros(
             self.cfg.text, batch=batch, max_len=max_len,
-            dtype=self.cache_dtype, device=self.device,
+            dtype=self.cache_dtype, device=self.device, quantize=self.kv_quant,
         )
 
-    def _embed_chunk(self, ids_chunk: torch.Tensor) -> torch.Tensor:
-        return qwen2.embed_tokens(self.params, ids_chunk).to(self.cache_dtype)
+    def _encode(self, tiles: np.ndarray) -> torch.Tensor:
+        pixels = _host_cast_pixels(tiles, self.cache_dtype).to(self.device)
+        return encode_images(
+            self.params, pixels, self.cfg, chunk=self.vision_chunk, attn_impl="short"
+        )
+
+    def _encode_images_host(self, images: np.ndarray) -> torch.Tensor:
+        """Encode a host tile stack in pieces of ``transfer_chunk`` tiles
+        into one feature buffer (a stack within one piece is encoded at
+        once). The buffer is padded to a transfer_chunk multiple with the
+        encodings of zero tiles; _pad_scatter_indices sends those rows
+        nowhere."""
+        if not isinstance(self.params, LongVITAParams):
+            raise ValueError(
+                "images need a LongVITAParams engine: this one was built with "
+                "the text decoder's weights alone"
+            )
+        arr = np.asarray(images)
+        n, tc = arr.shape[0], self.transfer_chunk
+        if not tc or n <= tc:
+            return self._encode(arr)
+        buf = None
+        for i in range(0, n, tc):
+            part = self._encode(_pad_tiles(arr[i : i + tc], tc))
+            if buf is None:
+                buf = torch.empty(
+                    (_round_up(n, tc), *part.shape[1:]), dtype=part.dtype, device=part.device
+                )
+            buf[i : i + tc] = part
+        return buf
+
+    def _media(self, images, image_indices):
+        """-> (feature buffer, host scatter indices padded to it), or Nones."""
+        if images is None or np.asarray(images).shape[0] == 0:
+            return None, None
+        feats = self._encode_images_host(images)
+        return feats, _pad_scatter_indices(image_indices, feats.shape[0])
+
+    def _embed_chunk(self, ids_chunk: torch.Tensor, feats=None, indices=None, start: int = 0):
+        """Token embeddings of one prompt chunk, with the feature rows whose
+        (batch, seq - start) falls inside the chunk; every other row (an
+        earlier or later chunk's, or a padded tile's) is dropped."""
+        embeds = qwen2.embed_tokens(self.text, ids_chunk)
+        if feats is not None:
+            b_idx = indices[0].reshape(-1)
+            s_idx = indices[1].reshape(-1) - start
+            rows = np.nonzero(
+                (b_idx >= 0) & (b_idx < ids_chunk.shape[0])
+                & (s_idx >= 0) & (s_idx < ids_chunk.shape[1])
+            )[0]
+            if rows.size:
+                flat = feats.reshape(-1, feats.shape[-1])
+                dev = self.device
+                embeds[torch.as_tensor(b_idx[rows], device=dev),
+                       torch.as_tensor(s_idx[rows], device=dev)] = (
+                    flat[torch.as_tensor(rows, device=dev)].to(embeds.dtype)
+                )
+        return embeds.to(self.cache_dtype)
 
     def _prefill_chunk(self, embeds, start: int, cache: KVCache):
         """One prompt chunk through the decoder, extending the cache."""
         positions = start + torch.arange(embeds.shape[1], device=self.device)[None]
         hidden, cache = qwen2.qwen2_decoder(
-            self.params, embeds, positions, self.cfg.text, kv_cache=cache,
+            self.text, embeds, positions, self.cfg.text, kv_cache=cache,
         )
         return hidden[:, -1], cache
 
     def _last_row(self, token, pos, cache: KVCache):
         """Decode-style pass of the final real prompt token (no sampling)."""
-        embeds = qwen2.embed_tokens(self.params, token)
+        embeds = qwen2.embed_tokens(self.text, token)
         hidden, cache = qwen2.qwen2_decoder(
-            self.params, embeds, pos, self.cfg.text, kv_cache=cache,
+            self.text, embeds, pos, self.cfg.text, kv_cache=cache,
         )
         return hidden[:, -1], cache
 
     def _head_sample(self, hidden, generator, sp: SamplingParams):
-        logits = qwen2.lm_head(self.params, hidden)
+        logits = qwen2.lm_head(self.text, hidden)
         token = sample(logits, generator, sp)
         logprob = torch.log_softmax(logits, dim=-1).gather(-1, token[:, None])[:, 0]
         return token, logprob
@@ -150,12 +257,12 @@ class InferenceEngine:
         cap = self.max_seq_len - 1  # last admissible token position
         toks, lps = [], []
         for i in range(n):
-            embeds = qwen2.embed_tokens(self.params, token)
+            embeds = qwen2.embed_tokens(self.text, token)
             hidden, cache = qwen2.qwen2_decoder(
-                self.params, embeds, (start_pos + i)[:, None], self.cfg.text,
+                self.text, embeds, (start_pos + i)[:, None], self.cfg.text,
                 kv_cache=cache,
             )
-            logits = qwen2.lm_head(self.params, hidden[:, -1])
+            logits = qwen2.lm_head(self.text, hidden[:, -1])
             next_token = sample(logits, generator, sp)
             done = done | (start_pos + i >= cap)
             next_token = torch.where(done, self.eos_id, next_token)
@@ -197,21 +304,19 @@ class InferenceEngine:
         lps = np.concatenate(lp_parts, axis=1)[:, :budget]
         return tokens, lps, cache, done
 
-    def _expand(self, input_ids, images, videos, max_num_frame):
-        if len(images) or len(videos):
-            raise _later("images and videos", "vision with K3")
-        expanded = self.mm.expand(
-            input_ids, images=(), videos=(), max_num_frame=max_num_frame
-        )
-        if expanded.images is not None:
-            raise _later("image features", "vision with K3")
-        return expanded
-
     # ---- public API ------------------------------------------------------
 
-    def start_prefill(self, input_ids: Sequence[int]) -> PrefillJob:
+    def start_prefill(
+        self,
+        input_ids: Sequence[int],
+        images: Optional[np.ndarray] = None,
+        image_indices: Optional[np.ndarray] = None,
+    ) -> PrefillJob:
         """Begin an incremental prefill; drive with prefill_step, then
-        finish_prefill. (prefill() wraps the three for one-shot callers.)"""
+        finish_prefill. (prefill() wraps the three for one-shot callers.)
+        images [N, H, W, 3] host tiles and image_indices [2, N, T] as the
+        multimodal tokenizer's expand returns them; the tiles are encoded
+        here, before the first chunk."""
         true_len = len(input_ids)
         if true_len > self.max_seq_len:
             raise ValueError(
@@ -221,18 +326,21 @@ class InferenceEngine:
         padded = _round_up(true_len, self.chunk)
         ids = np.zeros((1, padded), np.int64)
         ids[0, :true_len] = input_ids
+        feats, indices = self._media(images, image_indices)
         cache = self._make_cache(
             batch=1, max_len=_round_up(self.max_seq_len, self.chunk)
         )
         return PrefillJob(
             ids=torch.as_tensor(ids, device=self.device), cache=cache,
-            true_len=true_len, padded=padded,
+            true_len=true_len, padded=padded, feats=feats, indices=indices,
         )
 
     def prefill_step(self, job: PrefillJob) -> bool:
         """Run ONE prompt chunk; returns True when all chunks are done."""
         start = job.start
-        chunk_embeds = self._embed_chunk(job.ids[:, start : start + self.chunk])
+        chunk_embeds = self._embed_chunk(
+            job.ids[:, start : start + self.chunk], job.feats, job.indices, start
+        )
         job.last_hidden, job.cache = self._prefill_chunk(chunk_embeds, start, job.cache)
         job.start = start + self.chunk
         return job.done
@@ -243,34 +351,44 @@ class InferenceEngine:
             raise ValueError("prefill_step until done before finish_prefill")
         true_len, cache, last_hidden = job.true_len, job.cache, job.last_hidden
         # padded tail slots hold garbage kv; shrink the cache to the truth so
-        # decode masks them and overwrites them one position at a time
-        cache = KVCache(cache.k, cache.v, true_len)
+        # decode masks them and overwrites them one position at a time (an
+        # int8 cache keeps its scales)
+        cache = dataclasses.replace(cache, length=true_len)
         if job.padded != true_len:
             # recompute the last row exactly: a decode-style pass of the final
             # real token against the same buffers with length true_len - 1
-            cache_minus = KVCache(cache.k, cache.v, true_len - 1)
+            # (a prompt ends with a text token, so no feature lands there)
+            cache_minus = dataclasses.replace(cache, length=true_len - 1)
             tok = job.ids[:, true_len - 1 : true_len]
             pos = torch.full((1, 1), true_len - 1, device=self.device)
             last_hidden, cache = self._last_row(tok, pos, cache_minus)
         return cache, last_hidden, true_len
 
-    def prefill(self, input_ids: Sequence[int]) -> tuple[KVCache, torch.Tensor, int]:
+    def prefill(
+        self,
+        input_ids: Sequence[int],
+        images: Optional[np.ndarray] = None,
+        image_indices: Optional[np.ndarray] = None,
+    ) -> tuple[KVCache, torch.Tensor, int]:
         """-> (cache at true length, last-row hidden, true prompt length)."""
-        job = self.start_prefill(input_ids)
+        job = self.start_prefill(input_ids, images, image_indices)
         while not job.done:
             self.prefill_step(job)
         return self.finish_prefill(job)
 
     def prefill_batch(
-        self, batch_ids: list[Sequence[int]]
+        self, batch_inputs: list[tuple]
     ) -> tuple[KVCache, torch.Tensor, np.ndarray]:
         """Batched ragged prefill: every prompt pads to one chunk multiple and
         the rows stream through the decoder together; a per-row frontier
         (a [B] cache length) then realigns each row at its true length.
 
+        batch_inputs: one (input_ids, images, image_indices) per row (images
+        and image_indices None for a text row). The rows' tile stacks are
+        encoded as one, with each row's scatter batch index set to the row.
         -> (cache with per-row lengths, last-row hidden [B, H], lengths [B])."""
-        bsz = len(batch_ids)
-        lengths = np.asarray([len(x) for x in batch_ids], np.int64)
+        bsz = len(batch_inputs)
+        lengths = np.asarray([len(x[0]) for x in batch_inputs], np.int64)
         if lengths.max() > self.max_seq_len:
             raise ValueError(
                 f"prompt {int(lengths.max())} exceeds max_seq_len "
@@ -278,22 +396,38 @@ class InferenceEngine:
             )
         padded = _round_up(int(lengths.max()), self.chunk)
         ids_np = np.zeros((bsz, padded), np.int64)
-        for row, toks in enumerate(batch_ids):
+        for row, (toks, _, _) in enumerate(batch_inputs):
             ids_np[row, : len(toks)] = toks
         ids = torch.as_tensor(ids_np, device=self.device)
+
+        stacks, idx_parts = [], []
+        for row, (_, imgs, idx) in enumerate(batch_inputs):
+            if imgs is None or np.asarray(imgs).shape[0] == 0:
+                continue
+            stacks.append(np.asarray(imgs))
+            idx = np.array(idx, copy=True)
+            idx[0] = row
+            idx_parts.append(idx)
+        feats = indices = None
+        if stacks:
+            feats, indices = self._media(
+                np.concatenate(stacks, 0), np.concatenate(idx_parts, 1)
+            )
 
         cache = self._make_cache(
             batch=bsz, max_len=_round_up(self.max_seq_len, self.chunk)
         )
         for start in range(0, padded, self.chunk):
-            chunk_embeds = self._embed_chunk(ids[:, start : start + self.chunk])
+            chunk_embeds = self._embed_chunk(
+                ids[:, start : start + self.chunk], feats, indices, start
+            )
             _, cache = self._prefill_chunk(chunk_embeds, start, cache)
         # realign every row: re-run its final prompt token decode-style
         # against a per-row frontier of len - 1 (the write overwrites slot
         # len - 1 with the identical kv; causality hides each row's padded-
         # prefill garbage beyond its frontier)
         frontier = torch.as_tensor(lengths - 1, device=self.device)
-        cache = KVCache(cache.k, cache.v, frontier)
+        cache = dataclasses.replace(cache, length=frontier)
         last_tok = torch.as_tensor(
             np.take_along_axis(ids_np, lengths[:, None] - 1, axis=1),
             device=self.device,
@@ -309,18 +443,19 @@ class InferenceEngine:
         seed: int = 0,
     ) -> list[GenerationResult]:
         """Decode several requests in lockstep. Each request dict:
-        {"messages": [...]} or {"input_ids": [...]} (media keys raise)."""
+        {"messages": [...]} or {"input_ids": [...]}, plus optional "images",
+        "videos" and "max_num_frame"."""
         expanded = []
         for r in requests:
             input_ids = r.get("input_ids")
             if input_ids is None:
                 input_ids = self.mm.encode_chat(r["messages"])
-            expanded.append(self._expand(
-                input_ids, r.get("images", ()), r.get("videos", ()),
-                r.get("max_num_frame"),
+            expanded.append(self.mm.expand(
+                input_ids, images=r.get("images", ()), videos=r.get("videos", ()),
+                max_num_frame=r.get("max_num_frame"),
             ))
         cache, last_hidden, lengths = self.prefill_batch(
-            [e.input_ids for e in expanded]
+            [(e.input_ids, e.images, e.image_indices) for e in expanded]
         )
         bsz = len(requests)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -370,11 +505,16 @@ class InferenceEngine:
         seed: int = 0,
         max_num_frame: Optional[int] = None,
     ) -> GenerationResult:
-        """Chat generate from ``messages`` (needs a tokenizer) or token ids."""
+        """Chat generate from ``messages`` (needs a tokenizer) or token ids;
+        <image>/<video> tags in the prompt take ``images``/``videos``."""
         if input_ids is None:
             input_ids = self.mm.encode_chat(messages)
-        expanded = self._expand(input_ids, images, videos, max_num_frame)
-        cache, last_hidden, true_len = self.prefill(expanded.input_ids)
+        expanded = self.mm.expand(
+            input_ids, images=images, videos=videos, max_num_frame=max_num_frame
+        )
+        cache, last_hidden, true_len = self.prefill(
+            expanded.input_ids, expanded.images, expanded.image_indices
+        )
         gen = torch.Generator(device=self.device).manual_seed(seed)
         token, first_lp = self._head_sample(last_hidden, gen, sampling)
         token = token.reshape(1, 1)

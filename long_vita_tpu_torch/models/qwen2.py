@@ -10,6 +10,7 @@ Differences from the JAX package, all of form rather than of numbers:
   - dense weights are kept in ``nn.Linear`` orientation ``[out, in]`` (the
     JAX kernels are ``[in, out]``; utils/convert.py transposes);
   - the KV cache is a pair of preallocated ``[L, B, Smax, Hkv, D]`` buffers
+    (int8 codes plus ``[L, B, Smax, Hkv, 1]`` f32 scales when quantized)
     written in place, where JAX threads a donated scan carry.
 """
 from __future__ import annotations
@@ -23,7 +24,11 @@ from torch import nn
 
 from long_vita_tpu_torch.config import TextConfig
 from long_vita_tpu_torch.ops._target import on_cuda
-from long_vita_tpu_torch.ops.attention import dot_product_attention
+from long_vita_tpu_torch.ops.attention import (
+    dot_product_attention,
+    quant_prefill_attention,
+    xla_attention_quant,
+)
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 CacheLen = Union[int, torch.Tensor]
@@ -85,26 +90,54 @@ class KVCache:
     length: the number of valid positions — a Python int when it is
     batch-uniform, or a [B] integer tensor (ragged batched serving: each
     row's tokens stay packed from slot 0, writes land at each row's own
-    frontier, and the causal mask hides what lies beyond it)."""
+    frontier, and the causal mask hides what lies beyond it).
+
+    An int8 cache (``zeros(..., quantize=True)``) stores int8 codes in k/v
+    and one f32 scale per (token, kv head) in k_scale/v_scale
+    [L, B, Smax, Hkv, 1]: about half the bytes per token of a bf16 cache."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: CacheLen
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @classmethod
     def zeros(
         cls, cfg: TextConfig, batch: int, max_len: int,
         dtype: torch.dtype = torch.bfloat16, device=None,
+        quantize: bool = False,
     ) -> "KVCache":
         shape = (
             cfg.num_hidden_layers, batch, max_len,
             cfg.num_key_value_heads, cfg.head_dim,
         )
+        if quantize:
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                length=0,
+                k_scale=torch.zeros(shape[:-1] + (1,), device=device),
+                v_scale=torch.zeros(shape[:-1] + (1,), device=device),
+            )
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             length=0,
         )
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: [..., D] -> (int8 codes, f32 scale
+    [..., 1]). scale = max(amax, 1e-8) / 127; codes round half to even and
+    clip to +-127, bit for bit the JAX package's quantize_kv."""
+    xf = x.float()
+    scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
 
 
 def _proj(entry: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +165,7 @@ def _attention_block(
     cos: torch.Tensor,
     sin: torch.Tensor,
     cfg: TextConfig,
-    cache_kv: Optional[tuple[torch.Tensor, torch.Tensor, int]],
+    cache_kv: Optional[tuple],
     cache_len: Optional[CacheLen],
     position_ids: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
@@ -150,31 +183,53 @@ def _attention_block(
     q, k = apply_rope(q, k, cos, sin)
 
     if cache_kv is not None:
-        ck_full, cv_full, layer_idx = cache_kv
-        ck, cv = ck_full[layer_idx], cv_full[layer_idx]  # views [B, Smax, Hkv, D]
-        k_w, v_w = k.to(ck.dtype), v.to(cv.dtype)
+        # views [B, Smax, Hkv, D] (scales [B, Smax, Hkv, 1]) of layer_idx
+        ck_full, cv_full, ks_full, vs_full, layer_idx = cache_kv
+        quant = ks_full is not None
+        bufs = [ck_full[layer_idx], cv_full[layer_idx]]
+        if quant:
+            k_w, k_sc = quantize_kv(k)
+            v_w, v_sc = quantize_kv(v)
+            bufs += [ks_full[layer_idx], vs_full[layer_idx]]
+            new = [k_w, v_w, k_sc, v_sc]
+        else:
+            new = [k.to(bufs[0].dtype), v.to(bufs[1].dtype)]
         if torch.is_tensor(cache_len):
-            _row_write(ck, k_w, cache_len)
-            _row_write(cv, v_w, cache_len)
+            for buf, x_new in zip(bufs, new):
+                _row_write(buf, x_new, cache_len)
             kv_valid = (cache_len + s).expand(b)
         else:
             # dynamic_update_slice semantics: the start clamps so the write fits
-            start = min(max(cache_len, 0), ck.shape[1] - s)
-            ck[:, start : start + s] = k_w
-            cv[:, start : start + s] = v_w
+            start = min(max(cache_len, 0), bufs[0].shape[1] - s)
+            for buf, x_new in zip(bufs, new):
+                buf[:, start : start + s] = x_new
             kv_valid = torch.full((b,), cache_len + s, dtype=torch.long, device=x.device)
             # the frontier is known on the host: slots past it are masked in
             # any case, so attention is handed only the written prefix
-            ck, cv = ck[:, : cache_len + s], cv[:, : cache_len + s]
-        skv = ck.shape[1]
-        out = dot_product_attention(
-            q, ck, cv,
-            causal=True,
-            q_positions=position_ids,
-            kv_positions=torch.arange(skv, device=x.device)[None].expand(b, skv),
-            kv_valid_len=kv_valid,
-            impl=attn_impl,
-        )
+            bufs = [buf[:, : cache_len + s] for buf in bufs]
+        skv = bufs[0].shape[1]
+        kv_positions = torch.arange(skv, device=x.device)[None].expand(b, skv)
+        if quant:
+            ck, cv, ks, vs = bufs
+            if s > 1:
+                out = quant_prefill_attention(
+                    q, ck, ks, cv, vs, q_positions=position_ids,
+                    kv_valid_len=kv_valid, impl=attn_impl,
+                )
+            else:
+                out = xla_attention_quant(
+                    q, ck, ks, cv, vs, q_positions=position_ids,
+                    kv_positions=kv_positions, kv_valid_len=kv_valid,
+                )
+        else:
+            out = dot_product_attention(
+                q, bufs[0], bufs[1],
+                causal=True,
+                q_positions=position_ids,
+                kv_positions=kv_positions,
+                kv_valid_len=kv_valid,
+                impl=attn_impl,
+            )
     else:
         out = dot_product_attention(
             q, k, v,
@@ -233,15 +288,17 @@ def qwen2_decoder(
     x = inputs_embeds
     cache_len = kv_cache.length if kv_cache is not None else None
     for i, layer in enumerate(params.layers):
-        cache_kv = (kv_cache.k, kv_cache.v, i) if kv_cache is not None else None
+        cache_kv = None
+        if kv_cache is not None:
+            cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
         x = decoder_layer(
             layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
             segment_ids, attn_impl,
         )
     new_cache = None
     if kv_cache is not None:
-        new_cache = KVCache(
-            kv_cache.k, kv_cache.v, kv_cache.length + inputs_embeds.shape[1]
+        new_cache = dataclasses.replace(
+            kv_cache, length=kv_cache.length + inputs_embeds.shape[1]
         )
     return rms_norm(x, params.final_norm, cfg.rms_norm_eps), new_cache
 

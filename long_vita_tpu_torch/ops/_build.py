@@ -46,31 +46,65 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to for its current content."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to for its current content (the
+    source, the shared headers of ``csrc/`` and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for its hash exists."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu``; None if its library already exists.
+    -> (process, temporary output, final output, command)."""
     out = library_path(name)
     if out.is_file():
-        return out
+        return None
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+    return proc, tmp, out, cmd
+
+
+def _finish(name: str, started) -> Path:
+    proc, tmp, out, cmd = started
+    stdout, stderr = proc.communicate()
+    out.with_suffix(".log").write_text(stdout + stderr)
+    if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {name}.cu:\n"
-            f"{' '.join(cmd)}\n{res.stderr}"
+            f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+            f"{' '.join(cmd)}\n{stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for its hash exists."""
+    started = _start(name)
+    return library_path(name) if started is None else _finish(name, started)
+
+
+def build_all(names) -> None:
+    """Compile several sources at once: one nvcc process each, all started
+    before the first is waited for."""
+    started = {name: _start(name) for name in names}
+    errors = []
+    for name, st in started.items():
+        if st is None:
+            continue
+        try:
+            _finish(name, st)
+        except RuntimeError as e:  # wait for the others before raising
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:

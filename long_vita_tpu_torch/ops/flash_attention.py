@@ -1,8 +1,18 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper.
+"""Attention kernels written by hand for Hopper, with their plain versions.
 
-Counterpart of long_vita_tpu/ops/flash_attention.py:flash_attention (:1488),
-whose forward is the Pallas kernel `_fwd_kernel` (:144). The CUDA source is
-``csrc/flash_fwd.cu``; it is built with nvcc at first use (ops/_build.py).
+Counterpart of long_vita_tpu/ops/flash_attention.py. Three forward kernels,
+each a CUDA C++ source under ``csrc/`` built with nvcc at first use
+(ops/_build.py), each with its own launch counter on its wrapper:
+
+  - ``flash_attention`` (:1488; Pallas `_fwd_kernel` :144 -> K1,
+    ``csrc/flash_fwd.cu``): flash forward, GQA, offsets, kv_valid_len,
+    segment ids;
+  - ``flash_attention_quant`` (:1360; Pallas `_fwd_quant_kernel` :261 -> K2,
+    ``csrc/flash_fwd_quant.cu``): causal flash forward against an int8 KV
+    cache with per-(token, kv head) f32 scales;
+  - ``short_attention`` (:1227; Pallas `_short_nc_kernel` :1192 -> K3,
+    ``csrc/short_attn.cu``): non-causal attention over a short sequence (the
+    ViT's 1025 tokens), forward only.
 
 Public contract, as in the JAX package: model layout ``[B, S, H, D]``; the
 q/kv position offsets are taken from element ``[0, 0]`` of the positions when
@@ -10,8 +20,8 @@ given; ``kv_valid_len`` is batch-uniform (element 0 of a ``[B]`` vector);
 returns ``o`` or ``(o, lse)`` with lse f32 ``[B, Hq, Sq]``.
 
 Dispatch is by device (ops/_target.py): a CUDA tensor launches the kernel or
-raises; a CPU tensor takes ``flash_attention_reference``, the plain PyTorch
-version of the kernel's semantics.
+raises; a CPU tensor takes the kernel's plain PyTorch version
+(``*_reference``).
 
 Empty rows: a query row with no unmasked key gets o = 0 and lse = -2^30.
 The Pallas kernel gives the same for every row whose blocks are all skipped
@@ -34,29 +44,72 @@ NEG_INF = -(2.0**30)
 
 IntLike = Union[int, torch.Tensor]
 
-_C_ARGTYPES = (
-    [ctypes.c_void_p] * 8       # q k v o lse qseg kseg meta
-    + [ctypes.c_longlong] * 10  # batch/seq strides of q k v o, segment batch strides
-    + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale dtype stream
-)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
+# source under csrc/ -> (C entry point, its argument types)
+_KERNELS = {
+    "flash_fwd": ("lvt_flash_fwd", (
+        [ctypes.c_void_p] * 8       # q k v o lse qseg kseg meta
+        + [ctypes.c_longlong] * 10  # batch/seq strides of q k v o, segment batch strides
+        + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale dtype stream
+    )),
+    "flash_fwd_quant": ("lvt_flash_fwd_quant", (
+        [ctypes.c_void_p] * 8       # q k v k_scale v_scale o lse meta
+        + [ctypes.c_longlong] * 14  # batch/seq strides of q k v o; b/s/h of both scales
+        + [ctypes.c_int] * 6        # batch sq skv hq hkv d
+        + [ctypes.c_float, ctypes.c_void_p]  # scale stream
+    )),
+    "short_attn": ("lvt_short_attn", (
+        [ctypes.c_void_p] * 5       # q k v o lse
+        + [ctypes.c_longlong] * 8   # batch/seq strides of q k v o
+        + [ctypes.c_int] * 4        # batch s hq hkv
+        + [ctypes.c_float, ctypes.c_void_p]  # scale stream
+    )),
+}
 
-def _lib():
+
+def _kernel(source: str):
+    """The C entry point of ``csrc/<source>.cu``, built and loaded if needed."""
     from long_vita_tpu_torch.ops import _build
 
-    lib = _build.load("flash_fwd")
-    fn = lib.lvt_flash_fwd
+    name, argtypes = _KERNELS[source]
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = _C_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def build() -> None:
-    """Build (if needed) and load the kernel library."""
-    _lib()
+    """Build every kernel library (one nvcc each, in parallel) and load it."""
+    from long_vita_tpu_torch.ops import _build
+
+    _build.build_all(_KERNELS)
+    for source in _KERNELS:
+        _kernel(source)
+
+
+def _launch(source: str, dev: torch.device, *args) -> None:
+    """Call a kernel's C entry point on ``dev``'s current stream (tensors
+    pass as their data pointers); raise on a CUDA error."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel(source)(
+            *(a.data_ptr() if torch.is_tensor(a) else a for a in args), stream
+        )
+    if err:
+        raise RuntimeError(f"{source} launch failed: cudaError_t {err}")
+
+
+def _device_meta(dev, *values: IntLike) -> torch.Tensor:
+    """int32 scalars on the device, read by a kernel as the Pallas kernels
+    read their scalar-prefetch operands: no host sync when a value is
+    already a device tensor."""
+    meta = torch.empty(len(values), dtype=torch.int32, device=dev)
+    for i, x in enumerate(values):
+        meta[i] = x
+    return meta
 
 
 def flash_attention(
@@ -111,7 +164,7 @@ def _check_operand(name: str, x: torch.Tensor, d: int) -> None:
             f"{name}: the [H, D] dims must be packed (strides {x.stride()})"
         )
     vec = 16 // x.element_size()
-    if x.dtype == torch.bfloat16 and (
+    if x.dtype != torch.float32 and (
         x.data_ptr() % 16 or x.stride(0) % vec or x.stride(1) % vec
     ):
         raise ValueError(f"{name}: rows must be 16-byte aligned for the kernel")
@@ -142,29 +195,15 @@ def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
     dev = q.device
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    # offsets and length stay on the device (no host sync); the kernel reads
-    # them, as the Pallas kernel reads its scalar-prefetch operands
-    meta = torch.empty(3, dtype=torch.int32, device=dev)
-    meta[0] = q_offset
-    meta[1] = kv_offset
-    meta[2] = kv_len
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lvt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(),
-            qseg.data_ptr() if qseg is not None else None,
-            kseg.data_ptr() if kseg is not None else None,
-            meta.data_ptr(),
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-            sq if qseg is not None else 0, skv if kseg is not None else 0,
-            b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
-            _DTYPE_CODE[q.dtype], stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
+    meta = _device_meta(dev, q_offset, kv_offset, kv_len)
+    _launch(
+        "flash_fwd", dev, q, k, v, o, lse, qseg, kseg, meta,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
+        sq if qseg is not None else 0, skv if kseg is not None else 0,
+        b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
+        _DTYPE_CODE[q.dtype],
+    )
     flash_attention.launches += 1
     return o, lse
 
@@ -216,3 +255,200 @@ def flash_attention_reference(
     o = o / torch.where(l == 0, 1.0, l).permute(0, 3, 1, 2, 4)
     lse = torch.where(l == 0, NEG_INF, m + torch.log(l))[..., 0]
     return o.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq)
+
+
+# ---------------------------------------------------------------------------
+# K2: causal flash forward against an int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    q_offset: IntLike = 0,
+    kv_offset: IntLike = 0,
+    kv_valid_len: Optional[IntLike] = None,
+    return_lse: bool = False,
+):
+    """Causal attention of q [B, Sq, Hq, D] against int8 codes k_q, v_q
+    [B, Skv, Hkv, D] with f32 scales [B, Skv, Hkv, 1] (chunked prefill into
+    an int8 cache; forward only, no segments). -> o [B, Sq, Hq, D] in q's
+    dtype (and lse [B, Hq, Sq] f32 when return_lse)."""
+    if kv_valid_len is None:
+        kv_valid_len = k_q.shape[1]
+    elif torch.is_tensor(kv_valid_len) and kv_valid_len.ndim:
+        kv_valid_len = kv_valid_len.reshape(-1)[0]
+    if on_cuda(q, k_q, k_scale, v_q, v_scale):
+        o, lse = _flash_quant_cuda(
+            q, k_q, k_scale, v_q, v_scale, q_offset, kv_offset, kv_valid_len
+        )
+    else:
+        o, lse = flash_attention_quant_reference(
+            q, k_q, k_scale, v_q, v_scale, q_offset=q_offset,
+            kv_offset=kv_offset, kv_valid_len=kv_valid_len,
+        )
+    return (o, lse) if return_lse else o
+
+
+flash_attention_quant.launches = 0  # CUDA kernel launches
+
+
+def _flash_quant_cuda(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if q.dtype != torch.bfloat16 or k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(
+            f"int8 flash kernel takes bf16 q and int8 k/v, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {ks.dtype}/{vs.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"int8 flash kernel takes head dim 64 or 128, got {d}")
+    if k.shape != v.shape or k.shape[0] != b or hq % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if ks.shape != (b, skv, hkv, 1) or vs.shape != ks.shape:
+        raise ValueError(
+            f"scales must be [B, Skv, Hkv, 1] = {(b, skv, hkv, 1)}, got "
+            f"{tuple(ks.shape)} and {tuple(vs.shape)}"
+        )
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, d)
+
+    dev = q.device
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    meta = _device_meta(dev, q_offset, kv_offset, kv_len)
+    _launch(
+        "flash_fwd_quant", dev, q, k, v, ks, vs, o, lse, meta,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
+        ks.stride(0), ks.stride(1), ks.stride(2),
+        vs.stride(0), vs.stride(1), vs.stride(2),
+        b, sq, skv, hq, hkv, d, 1.0 / math.sqrt(d),
+    )
+    flash_attention_quant.launches += 1
+    return o, lse
+
+
+def flash_attention_quant_reference(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    q_offset: IntLike = 0,
+    kv_offset: IntLike = 0,
+    kv_valid_len: Optional[IntLike] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, in the kernel's order of operations:
+    codes cast to q's dtype, s = (q.k * 1/sqrt(D)) * k_scale in f32, causal
+    and kv_valid_len masks, l sums p, and p * v_scale is cast to q's dtype
+    before the P.V product. -> (o [B,Sq,Hq,D], lse [B,Hq,Sq]); an empty row
+    gives o = 0 and lse = -2^30. Keys past kv_valid_len are sliced off."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k_q.shape[1], k_q.shape[2]
+    g = hq // hkv
+    kv_len = skv if kv_valid_len is None else min(max(int(kv_valid_len), 0), skv)
+    dev = q.device
+
+    def rows(scale):  # [B, S, Hkv, 1] -> [B, Hkv, 1, 1, S] f32
+        return scale[:, :kv_len, :, 0].float().permute(0, 2, 1)[:, :, None, None, :]
+
+    k = k_q[:, :kv_len].to(q.dtype).float()
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * (1.0 / math.sqrt(d))
+    s = s * rows(k_scale)
+    qpos = int(q_offset) + torch.arange(sq, device=dev)
+    kpos = int(kv_offset) + torch.arange(kv_len, device=dev)
+    mask = kpos[None, :] <= qpos[:, None]  # [Sq, Skv]
+    s.masked_fill_(~mask, NEG_INF)
+    m = s.amax(-1, keepdim=True) if kv_len else torch.full(
+        s.shape[:-1] + (1,), NEG_INF, device=dev
+    )
+    p = s.sub_(m).exp_().masked_fill_(~mask, 0.0)  # s is not used again
+    l = p.sum(-1, keepdim=True)  # [B, Hkv, G, Sq, 1]
+    pv = p.mul_(rows(v_scale)).to(q.dtype).float()
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pv, v_q[:, :kv_len].to(q.dtype).float())
+    o = o / torch.where(l == 0, 1.0, l).permute(0, 3, 1, 2, 4)
+    lse = torch.where(l == 0, NEG_INF, m + torch.log(l))[..., 0]
+    return o.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq)
+
+
+# ---------------------------------------------------------------------------
+# K3: non-causal attention over short sequences (the ViT), forward only
+# ---------------------------------------------------------------------------
+
+
+def short_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    return_lse: bool = False,
+):
+    """Non-causal attention over a whole short sequence (the ViT's 1025
+    tokens), no masks: q [B, S, Hq, D], k/v [B, S, Hkv, D] -> o (and lse
+    [B, Hq, S] f32 when return_lse). Forward only: the JAX custom_vjp
+    backward comes with training (ROADMAP: port queue, training)."""
+    if on_cuda(q, k, v):
+        o, lse = _short_cuda(q, k, v)
+    else:
+        o, lse = short_attention_reference(q, k, v)
+    return (o, lse) if return_lse else o
+
+
+short_attention.launches = 0  # CUDA kernel launches
+
+
+def _short_cuda(q, k, v):
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"short attention kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if d != 64:
+        raise ValueError(f"short attention kernel takes head dim 64, got {d}")
+    if k.shape != v.shape or k.shape[:2] != (b, s) or hq % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if b > 65535:
+        raise ValueError(f"at most 65535 sequences a launch, got {b}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, d)
+    dev = q.device
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    _launch(
+        "short_attn", dev, q, k, v, o, lse,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
+        b, s, hq, hkv, 1.0 / math.sqrt(d),
+    )
+    short_attention.launches += 1
+    return o, lse
+
+
+def short_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3 (the Pallas `_short_nc_kernel`): f32
+    logits, one softmax pass with p = exp(s - max) cast to v's dtype before
+    P.V, the divide by max(l, 1e-30) after P.V, lse = m + log(max(l, 1e-30)).
+    -> (o [B, S, Hq, D], lse [B, Hq, S]). GQA grouped, K/V never repeated."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d).float()
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(d))
+    m = sc.amax(-1, keepdim=True)
+    p = sc.sub_(m).exp_()  # sc is not used again
+    l = p.sum(-1, keepdim=True).clamp_min_(1e-30)  # [B, Hkv, G, S, 1]
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    o = o / l.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(l))[..., 0].reshape(b, hq, s)
+    return o.reshape(b, s, hq, d).to(q.dtype), lse

@@ -2,7 +2,9 @@
 
 ``params_from_jax`` takes the JAX decoder's parameter tree with its arrays
 already on the host as numpy (``jax.tree.map(np.asarray, params)`` on the
-caller's side; this module imports no JAX) and builds a ``Qwen2Params``:
+caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
+``long_vita_params_from_jax`` does the same for the whole VLM tree
+({"text", "vision", "projector"}) and builds a ``LongVITAParams``:
 
   - the stacked ``[L, ...]`` layer arrays are split per layer;
   - each dense kernel ``[in, out]`` is transposed to ``nn.Linear``'s
@@ -17,6 +19,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from long_vita_tpu_torch.models.intern_vit import (
+    LayerNormParams,
+    VisionParams,
+    VitEmbeddings,
+    VitLayer,
+)
+from long_vita_tpu_torch.models.long_vita import LongVITAParams
+from long_vita_tpu_torch.models.projector import ProjectorParams
 from long_vita_tpu_torch.models.qwen2 import Dense, DecoderLayer, Qwen2Params
 
 _QUANT_OR_LORA = ("kernel_q", "kernel_p4", "lora")
@@ -77,4 +87,69 @@ def params_from_jax(
         layers=out_layers,
         final_norm=t(tree["final_norm"]),
         lm_head=Dense(t(np.asarray(tree["lm_head"]["kernel"]).T)),
+    )
+
+
+def vision_params_from_jax(
+    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+) -> VisionParams:
+    """JAX InternViT tree (``params["vision"]``) -> VisionParams."""
+
+    def t(arr):
+        return _tensor(arr, device, dtype)
+
+    emb, layers = tree["embeddings"], tree["layers"]
+
+    def dense(entry, i=None):
+        kernel, bias = entry["kernel"], entry["bias"]
+        if i is not None:
+            kernel, bias = kernel[i], bias[i]
+        return Dense(t(np.asarray(kernel).T), t(bias))  # [in, out] -> [out, in]
+
+    def norm(name, i):
+        return LayerNormParams(t(layers[name]["scale"][i]), t(layers[name]["bias"][i]))
+
+    n_layers = np.asarray(layers["ls1"]).shape[0]
+    return VisionParams(
+        embeddings=VitEmbeddings(
+            patch_embed=dense(emb["patch_embed"]),
+            cls_token=t(emb["cls_token"]),
+            pos_embed=t(emb["pos_embed"]),
+        ),
+        layers=[
+            VitLayer(
+                norm1=norm("norm1", i), qkv=dense(layers["qkv"], i),
+                proj=dense(layers["proj"], i), ls1=t(layers["ls1"][i]),
+                norm2=norm("norm2", i), fc1=dense(layers["fc1"], i),
+                fc2=dense(layers["fc2"], i), ls2=t(layers["ls2"][i]),
+            )
+            for i in range(n_layers)
+        ],
+    )
+
+
+def projector_params_from_jax(
+    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+) -> ProjectorParams:
+    """JAX projector tree (``params["projector"]``) -> ProjectorParams."""
+
+    def t(arr):
+        return _tensor(arr, device, dtype)
+
+    return ProjectorParams(
+        pre_norm=LayerNormParams(t(tree["pre_norm"]["scale"]), t(tree["pre_norm"]["bias"])),
+        fc1=Dense(t(np.asarray(tree["fc1"]["kernel"]).T)),
+        fc2=Dense(t(np.asarray(tree["fc2"]["kernel"]).T)),
+    )
+
+
+def long_vita_params_from_jax(
+    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+) -> LongVITAParams:
+    """JAX LongVITA tree {"text", "vision", "projector"} of numpy arrays ->
+    LongVITAParams on ``device``, cast to ``dtype`` when given."""
+    return LongVITAParams(
+        text=params_from_jax(tree["text"], device, dtype),
+        vision=vision_params_from_jax(tree["vision"], device, dtype),
+        projector=projector_params_from_jax(tree["projector"], device, dtype),
     )

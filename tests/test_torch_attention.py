@@ -75,5 +75,10 @@ def test_dot_product_attention_routes_cpu_to_xla():
     np.testing.assert_allclose(
         got.numpy(), tatt.xla_attention(q, k, v, causal=True).numpy(), rtol=0, atol=0
     )
-    with pytest.raises(NotImplementedError, match="K3"):
-        tatt.dot_product_attention(q, k, v, causal=False, impl="short")
+    # "short" (the ViT kernel K3) is for CUDA; the CPU routes it as "auto"
+    np.testing.assert_allclose(
+        tatt.dot_product_attention(q, k, v, causal=False, impl="short").numpy(),
+        tatt.xla_attention(q, k, v, causal=False).numpy(), rtol=0, atol=0,
+    )
+    with pytest.raises(ValueError, match="unknown"):
+        tatt.dot_product_attention(q, k, v, impl="bogus")

@@ -1,5 +1,5 @@
-"""PyTorch port: it imports and serves with JAX unavailable, and
-chip_smoke.py refuses to run without a GPU."""
+"""PyTorch port: it imports and serves text and media with JAX and PIL
+unavailable, and chip_smoke.py refuses to run without a GPU."""
 import os
 import re
 import shutil
@@ -15,11 +15,14 @@ PKG = ROOT / "long_vita_tpu_torch"
 _NO_JAX_GENERATE = """
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["PIL"] = None  # nor may the media path need PIL
 import numpy as np, torch
 import long_vita_tpu_torch
 from long_vita_tpu_torch.config import tiny_test_config
 from long_vita_tpu_torch.inference.engine import InferenceEngine
 from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.models import intern_vit, long_vita, projector
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
 from long_vita_tpu_torch.models.qwen2 import init_qwen2_params
 from long_vita_tpu_torch.ops import _build, _target, attention, flash_attention, rope
 from long_vita_tpu_torch.utils import convert
@@ -35,6 +38,15 @@ class MM:
             pass
         e = E()
         e.input_ids, e.images, e.image_indices = list(input_ids), None, None
+        if len(videos):  # one 4-token frame block per frame, after the prompt
+            frames = np.asarray(videos[0])
+            n, t = len(frames), 4
+            e.image_indices = np.stack([
+                np.zeros((n, t), np.int64),
+                len(e.input_ids) + np.arange(n * t).reshape(n, t),
+            ])
+            e.input_ids += [7] * (n * t) + [8, 9]
+            e.images = frames
         return e
 
 cfg = tiny_test_config()
@@ -42,8 +54,15 @@ params = init_qwen2_params(torch.Generator().manual_seed(0), cfg.text)
 eng = InferenceEngine(params, cfg, MM(), max_seq_len=128, chunk=32)
 out = eng.generate(input_ids=list(range(45)), sampling=SamplingParams(max_new_tokens=5))
 assert len(out.token_ids) == 5, out
-assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
-print("OK", out.text)
+vlm = init_long_vita_params(torch.Generator().manual_seed(1), cfg)
+eng = InferenceEngine(vlm, cfg, MM(), max_seq_len=128, chunk=32, kv_quant=True)
+frames = np.random.default_rng(0).standard_normal((3, 56, 56, 3)).astype(np.float32)
+media = eng.generate(input_ids=list(range(30)), videos=[frames], sampling=SamplingParams(max_new_tokens=5))
+assert len(media.token_ids) == 5 and media.prompt_tokens == 44, media
+loaded = [m for m, v in sys.modules.items() if v is not None]
+assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
+assert not any(m.startswith(("PIL", "long_vita_tpu.data")) for m in loaded)
+print("OK", out.text, media.text)
 """
 
 
