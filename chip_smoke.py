@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero):
-  1. build the three CUDA kernels from the sources in this checkout (one
-     nvcc each, in parallel) and print nvcc's register/spill lines;
+  1. build the five CUDA sources from this checkout (one nvcc each, in
+     parallel) and print nvcc's register/spill lines;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the serving path gives it, with stated tolerances, and time both
-     with CUDA events: K1 the flash forward, K2 the int8 flash forward, K3
-     the ViT's short attention;
+     shapes the serving and training paths give it, with stated tolerances,
+     and time both with CUDA events: K1 the flash forward, K2 the int8 flash
+     forward, K3 the ViT's short attention, K4 the one-pass flash backward,
+     K5 the two-pass flash backward (its dkv and dq entry points);
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
      bf16 weights from a seeded generator) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
@@ -21,7 +22,20 @@ Phases (each raises on failure; the script then exits non-zero):
      video into a bf16 cache. Launch counts of K1, K2 and K3 are checked
      against the layers and chunks the requests need; the video's last-row
      logits and its encoded features are held against the same flow on the
-     plain versions.
+     plain versions;
+  5. T1, stage-1 alignment at 32K (configs/stage1_alignment.yaml's regime):
+     the same decoder and a random tower and projector, text and vision
+     frozen, the projector trained at lr 1e-3, full remat, through
+     Trainer.train for 2 steps on one packed row of a 64-frame video, a
+     16-frame video, a 7-tile image and text; the backward takes K5. The
+     loss must fall, the projector move and the frozen weights stay
+     bit-identical; launch counts are checked per step;
+  6. T2, a trainable tower at 16K: text frozen, the tower (lr x 0.1) and
+     projector trained, 2 steps on a 16-frame video, a 7-tile image and
+     text; the backward takes K4 in the decoder and the tower. Then the
+     trainable gradients of one step at 4096 tokens through the kernels are
+     held against the same step on the plain attention, and the same gate
+     must reject the step with a fault planted in the decoder's K4.
 
 The card's nvidia-smi line is the first line of stdout and is repeated
 before the last two, which are the kernel report and {"ok": true, "device":
@@ -30,6 +44,7 @@ before the last two, which are the kernel report and {"ok": true, "device":
 from __future__ import annotations
 
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -57,6 +72,25 @@ LOGIT_COS, LOGIT_SPREAD_FRAC = 0.995, 0.05
 # bound on the relative Frobenius error and the worst row's cosine leaves
 # room for that and catches a kernel that is wrong.
 FEAT_REL_ERR, FEAT_ROW_COS = 0.05, 0.99
+# bf16 backward kernel vs the plain backward: both round p and dS to bf16 at
+# the same points but from f32 logits summed in another order, so a rounding
+# can flip; each gradient sums thousands of such products. Held elementwise
+# to GRAD_TOL x max|ref| absolute + GRAD_TOL relative (measured on the H100
+# at 0.1-0.3% of max|ref|).
+GRAD_TOL = 1e-2
+# T2: the trainable gradients of one step through the kernels vs the same
+# step on the plain attention, 48 bf16 layers of random weights: cosine of
+# the flattened gradients and the relative loss difference. Measured on an
+# H100: sound runs 0.9948-0.9961; each bf16 path lands at 0.9963 against
+# the same step in f32, so the gap is bf16 rounding at different points,
+# amplified by 72 random layers (K4's dQ atomics in another order alone give
+# 0.9998). Dropping one kv tile's dQ, or its dK and dV, in the decoder's K4
+# reads 0.915-0.960, and the gate sits between. A fault in the tower's
+# backward moves nothing this can see (random ViT weights give near-uniform
+# attention, so dS is small); the kernel phase's elementwise check is the
+# tower's guard.
+TRAIN_GRAD_COS, TRAIN_LOSS_REL = 0.99, 1e-2
+# entry point -> (source, the Pallas kernel it replaces)
 SOURCES = {
     "flash_fwd": ("long_vita_tpu_torch/ops/csrc/flash_fwd.cu",
                   "long_vita_tpu/ops/flash_attention.py:144"),
@@ -64,6 +98,12 @@ SOURCES = {
                         "long_vita_tpu/ops/flash_attention.py:261"),
     "short_attn": ("long_vita_tpu_torch/ops/csrc/short_attn.cu",
                    "long_vita_tpu/ops/flash_attention.py:1192"),
+    "flash_bwd": ("long_vita_tpu_torch/ops/csrc/flash_bwd.cu",
+                  "long_vita_tpu/ops/flash_attention.py:588"),
+    "flash_bwd_dkv": ("long_vita_tpu_torch/ops/csrc/flash_bwd_2pass.cu",
+                      "long_vita_tpu/ops/flash_attention.py:454"),
+    "flash_bwd_dq": ("long_vita_tpu_torch/ops/csrc/flash_bwd_2pass.cu",
+                     "long_vita_tpu/ops/flash_attention.py:530"),
 }
 
 
@@ -94,13 +134,16 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def _counters():
-    """The three kernels' wrappers, whose ``launches`` count kernel launches."""
+    """The kernels' wrappers, whose ``launches`` count kernel launches."""
     from long_vita_tpu_torch.ops import flash_attention as fa
 
     return {
         "flash_fwd": fa.flash_attention,
         "flash_fwd_quant": fa.flash_attention_quant,
         "short_attn": fa.short_attention,
+        "flash_bwd": fa.flash_bwd_fused,
+        "flash_bwd_dkv": fa.flash_bwd_dkv,
+        "flash_bwd_dq": fa.flash_bwd_dq,
     }
 
 
@@ -119,9 +162,9 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     fa.build()
-    print(f"[build] {', '.join(SOURCES)} built (in parallel) and loaded in "
+    print(f"[build] {', '.join(fa.SOURCES)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in SOURCES:
+    for name in fa.SOURCES:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 print(f"[build] {name}: {line.strip()}")
@@ -315,6 +358,124 @@ def phase_kernels_short() -> dict:
     return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms}
 
 
+def _segments(b, s, cuts, dev):
+    import torch
+
+    seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+    for c in cuts:
+        seg[:, c:] += 1
+    return seg
+
+
+def _grad_errs(name, got, ref) -> list:
+    """Hold each gradient to GRAD_TOL x max|ref| + GRAD_TOL x |ref|;
+    -> [max |err| of dq, dk, dv]."""
+    import torch
+
+    errs, ok = [], True
+    for g, r in zip(got, ref):
+        err = (g.float() - r.float()).abs()
+        scale = r.float().abs().max().item()
+        ok = ok and bool((err <= GRAD_TOL * scale + GRAD_TOL * r.float().abs()).all())
+        ok = ok and bool(torch.isfinite(g.float()).all()) and g.shape == r.shape
+        errs.append(err.max().item())
+    print(f"[kernel] {name}: max|d-ref| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+          f"(tol {GRAD_TOL} x max|ref| + {GRAD_TOL} x |ref|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{name}] backward kernel disagrees with the plain backward")
+    return errs
+
+
+def phase_kernels_bwd() -> dict:
+    """K4 and K5 against the plain backward: the decoder's training shape at
+    4096 tokens ([1, 4096, 40/8, 128], causal, 3 segments; K5 called
+    directly, since JAX's rule picks K4 there) and K4 at the ViT's [16, 1025,
+    16, 64] non-causal. Each entry point and the plain backward timed with
+    CUDA events, then K4 at 16K and K5 at 32K alone, the shapes T2 and T1
+    give them."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def operands(s):
+        q, k, v, do = rnd(1, s, 40, 128), rnd(1, s, 8, 128), rnd(1, s, 8, 128), rnd(1, s, 40, 128)
+        seg = _segments(1, s, (s // 4, 5 * s // 8), dev)
+        kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        return q, k, v, o, lse, do, kw
+
+    def run(fused, counter, entries, q, k, v, o, lse, do, **kw):
+        """K4 (fused) or K5, forced whatever JAX's rule picks at the shape."""
+        before = [e.launches for e in entries]
+        got = fa._flash_bwd_cuda(q, k, v, o, lse, do, kw["causal"], 0, 0, k.shape[1],
+                                 kw.get("q_segment_ids"), kw.get("kv_segment_ids"), fused)
+        torch.cuda.synchronize()
+        if [e.launches for e in entries] != [n + 1 for n in before]:
+            raise AssertionError(f"[{counter}] kernel launch count did not rise by 1")
+        return got
+
+    q, k, v, o, lse, do, kw = operands(4096)
+    if not fa.bwd_uses_fused(1, 4096, 4096, 40, 128, 2):
+        raise AssertionError("JAX's rule takes the one-pass backward at 4096 tokens")
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    k4 = _grad_errs("K4 [1, 4096, 40/8, 128] causal, 3 segments",
+                    run(True, "K4", [fa.flash_bwd_fused], q, k, v, o, lse, do, **kw), ref)
+    k5 = _grad_errs("K5 [1, 4096, 40/8, 128] causal, 3 segments",
+                    run(False, "K5", [fa.flash_bwd_dkv, fa.flash_bwd_dq], q, k, v, o, lse, do, **kw),
+                    ref)
+    del ref
+    a4 = fa.bwd_operands(q, k, v, o, lse, do, True, 0, 0, 4096, kw["q_segment_ids"],
+                         kw["kv_segment_ids"], True)
+    a5 = fa.bwd_operands(q, k, v, o, lse, do, True, 0, 0, 4096, kw["q_segment_ids"],
+                         kw["kv_segment_ids"], False)
+    k4_ms = _cuda_ms(lambda: fa.flash_bwd_fused(a4), reps=10)
+    dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(a5), reps=10)
+    dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(a5), reps=10)
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw), reps=3)
+    flops = 2.5 * 4 * 40 * 128 * 4096 * 4096 / 2  # fwd-equivalent x 2.5, causal half
+    print(f"[kernel] backward timing at [1, 4096, 40/8, 128], median of CUDA events: K4 "
+          f"{k4_ms:.3f} ms ({flops / k4_ms / 1e9:.1f} TFLOP/s on the causal half), K5 dkv "
+          f"{dkv_ms:.3f} + dq {dq_ms:.3f} ms, plain backward {plain_ms:.3f} ms")
+    del q, k, v, o, lse, do, a4, a5
+
+    qkv = rnd(16, 1025, 3, 16, 64)
+    qv, kv_, vv = qkv.unbind(2)
+    dov = rnd(16, 1025, 16, 64)
+    ov, lsev = fa.short_attention(qv, kv_, vv, return_lse=True)
+    if not fa.bwd_uses_fused(16, 1025, 1025, 16, 64, 2):
+        raise AssertionError("JAX's rule takes the one-pass backward for the ViT")
+    refv = fa.flash_attention_bwd_reference(qv, kv_, vv, ov, lsev, dov, causal=False)
+    vit = _grad_errs("K4 [16, 1025, 16, 64] non-causal (the ViT)",
+                     run(True, "K4", [fa.flash_bwd_fused], qv, kv_, vv, ov, lsev, dov,
+                         causal=False), refv)
+    del qkv, refv
+
+    for s, fused in ((16384, True), (32768, False)):
+        if fa.bwd_uses_fused(1, s, s, 40, 128, 2) is not fused:
+            raise AssertionError(f"JAX's rule at {s} tokens is not {'K4' if fused else 'K5'}")
+        q, k, v, o, lse, do, kw = operands(s)
+        ms = _cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=3)
+        fwd_ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
+        flops = 2.5 * 4 * 40 * 128 * s * s / 2
+        print(f"[kernel] {'K4' if fused else 'K5'} alone at [1, {s}, 40/8, 128] causal, 3 "
+              f"segments: {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s on the causal half); "
+              f"K1 forward {fwd_ms:.2f} ms")
+        del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return {
+        "flash_bwd": {"max_abs_err": max(k4 + vit), "ms": k4_ms, "plain_ms": plain_ms},
+        "flash_bwd_dkv": {"max_abs_err": max(k5[1:]), "ms": dkv_ms, "plain_ms": plain_ms},
+        "flash_bwd_dq": {"max_abs_err": k5[0], "ms": dq_ms, "plain_ms": plain_ms},
+    }
+
+
 class _Tok:
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(str(int(t)) for t in ids)
@@ -454,6 +615,8 @@ def _timed(fn):
 
 
 def _check_launches(counts: dict, expected: dict) -> None:
+    """Kernels missing from ``expected`` must not have launched."""
+    expected = {**dict.fromkeys(counts, 0), **expected}
     print(f"[counts] launches {counts}, expected {expected}")
     if counts != expected:
         raise AssertionError(
@@ -566,6 +729,31 @@ def phase_serving(params) -> int:
     return launches
 
 
+def _vlm_params(text_params, cfg, dev, seed, probe_tiles):
+    """The decoder with a random InternViT-300M and projector (bf16, from
+    ``seed``). A trained projector maps into the embedding space; the random
+    one's rows come out ~20x the embedding table's scale, and 16K such rows
+    swamp the prompt. Its second matrix is scaled so that the features of the
+    probe tiles have the table's standard deviation. -> (params, scale)."""
+    import torch
+
+    from long_vita_tpu_torch.models.intern_vit import init_vit_params
+    from long_vita_tpu_torch.models.long_vita import LongVITAParams, encode_images
+    from long_vita_tpu_torch.models.projector import init_projector_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lv = LongVITAParams(
+        text=text_params,
+        vision=init_vit_params(gen, cfg.vision, torch.bfloat16, dev),
+        projector=init_projector_params(gen, cfg, torch.bfloat16, dev),
+    )
+    with torch.no_grad():
+        probe = encode_images(lv, torch.from_numpy(probe_tiles).to(dev, torch.bfloat16), cfg)
+        ratio = (text_params.embed.float().std() / probe.float().std()).item()
+        lv.projector.fc2.weight.mul_(ratio)
+    return lv, ratio
+
+
 def _encode_batches(n: int, transfer_chunk: int, vision_chunk: int) -> int:
     """ViT batches the engine's encode of n tiles runs (pieces of
     transfer_chunk tiles, padded, when n exceeds one piece)."""
@@ -586,32 +774,18 @@ def phase_multimodal(
     from long_vita_tpu_torch.inference.engine import InferenceEngine
     from long_vita_tpu_torch.inference.sampler import SamplingParams
     from long_vita_tpu_torch.models import qwen2
-    from long_vita_tpu_torch.models.intern_vit import init_vit_params
-    from long_vita_tpu_torch.models.long_vita import LongVITAParams, encode_images
-    from long_vita_tpu_torch.models.projector import init_projector_params
+    from long_vita_tpu_torch.models.long_vita import encode_images
 
     vc, tc = cfg.vision, cfg.text
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    lv = LongVITAParams(
-        text=text_params,
-        vision=init_vit_params(gen, vc, torch.bfloat16, dev),
-        projector=init_projector_params(gen, cfg, torch.bfloat16, dev),
-    )
-    n_vis = sum(p.numel() for p in lv.vision.parameters())
-    n_proj = sum(p.numel() for p in lv.projector.parameters())
     rng = np.random.default_rng(SEED)
 
     def tiles(n):
         return rng.standard_normal((n, vc.image_size, vc.image_size, 3), dtype=np.float32)
 
-    # a trained projector maps into the embedding space; the random one's
-    # rows come out ~20x the embedding table's scale, and 16K such rows swamp
-    # the prompt. Its second matrix is scaled so that the features of two
-    # probe tiles have the table's standard deviation.
-    probe = encode_images(lv, torch.from_numpy(tiles(2)).to(dev, torch.bfloat16), cfg)
-    ratio = (text_params.embed.float().std() / probe.float().std()).item()
-    lv.projector.fc2.weight.mul_(ratio)
+    lv, ratio = _vlm_params(text_params, cfg, dev, SEED + 1, tiles(2))
+    n_vis = sum(p.numel() for p in lv.vision.parameters())
+    n_proj = sum(p.numel() for p in lv.projector.parameters())
 
     def text(n):
         return rng.integers(0, 151643, n).tolist()
@@ -724,6 +898,272 @@ def phase_multimodal(
     return counts
 
 
+def _train_pack(cfg, seq_len, videos, images, rng, *, text_segments, answer=300,
+                text_sup=700):
+    """One packed training row of seq_len tokens, as the data pipeline packs
+    samples: a sample per video (frames [F, 448, 448, 3]) and per image
+    ((tiles, (rows, cols))), each a 30-token prompt around the media and a
+    supervised answer of ``answer`` tokens, then ``text_segments`` text-only
+    samples filling the row with their last ``text_sup`` tokens supervised.
+    Positions restart per sample; tiles are concatenated in order."""
+    import numpy as np
+
+    from long_vita_tpu_torch.training.loss import IGNORE_INDEX, Pack
+
+    mm = _StubMM(cfg.image_token_length)
+
+    def text(n):  # ids below Qwen2's first special token
+        return rng.integers(0, min(151643, cfg.text.vocab_size), n).tolist()
+
+    samples = []  # (ids, labels, tiles, image_indices)
+    for tag, media in [(VID_TAG, v) for v in videos] + [(IMG_TAG, i) for i in images]:
+        x = mm.expand([*text(15), tag, *text(15)],
+                      images=[media] if tag == IMG_TAG else (),
+                      videos=[media] if tag == VID_TAG else ())
+        ans = text(answer)
+        samples.append((x.input_ids + ans, [IGNORE_INDEX] * len(x.input_ids) + ans,
+                        x.images, x.image_indices))
+    rest = seq_len - sum(len(smp[0]) for smp in samples)
+    sizes = [rest // text_segments] * text_segments
+    sizes[-1] += rest - sum(sizes)
+    for n in sizes:
+        ids = text(n)
+        samples.append((ids, [IGNORE_INDEX] * (n - text_sup) + ids[n - text_sup:], None, None))
+    tokens, labels, pos, seg, tiles, indices = [], [], [], [], [], []
+    for i, (ids, lab, t, idx) in enumerate(samples):
+        if t is not None:
+            idx = idx.copy()
+            idx[1] += len(tokens)
+            tiles.append(t)
+            indices.append(idx)
+        tokens += ids
+        labels += lab
+        pos += range(len(ids))
+        seg += [i] * len(ids)
+    as32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    return Pack(as32(tokens), as32(labels), as32(pos), as32(seg),
+                np.concatenate(tiles), np.concatenate(indices, axis=1))
+
+
+def _fingerprint(p) -> int:
+    """A position-weighted int64 sum of a tensor's raw bits (1 + index mod
+    65521 as weights, in chunks to bound the temporaries): any change of its
+    bits changes it, short of a collision."""
+    import torch
+
+    bits = p.detach().reshape(-1).view(torch.int16 if p.element_size() == 2 else torch.int32)
+    total, step = 0, 1 << 26
+    for i in range(0, bits.numel(), step):
+        chunk = bits[i:i + step].to(torch.int64)
+        w = (torch.arange(i, i + chunk.numel(), device=p.device) % 65521) + 1
+        total += int((chunk * w).sum())
+    return total
+
+
+def _snapshot(module, trained) -> dict:
+    """Copies of the trained parameters, fingerprints of the others."""
+    return {n: (p.detach().clone() if n in trained else _fingerprint(p))
+            for n, p in module.named_parameters()}
+
+
+def _moved(module, snap) -> set:
+    import torch
+
+    return {n for n, p in module.named_parameters()
+            if (not torch.equal(p.detach(), snap[n]) if torch.is_tensor(snap[n])
+                else _fingerprint(p) != snap[n])}
+
+
+def phase_train(text_params, cfg, dev, *, tag, seq_len, videos, grid, freeze_vision,
+                vit_lr_mult=1.0, text_segments=4, answer=300, text_sup=700, steps=2,
+                budget=4096, vision_chunk=64, seed) -> tuple:
+    """Train the VLM for ``steps`` steps on one packed row through
+    Trainer.train: text frozen, the tower frozen or trained, the projector
+    trained, full remat, stage 1's schedule (configs/stage1_alignment.yaml:
+    lr 1e-3, 30 warmup steps of 1000, so step 0 moves nothing and step 1
+    takes lr / 30: Adam's first step moves every weight by about its lr,
+    and at 1e-3 that is larger than the scaled projector's weights). Checks
+    the launch counts, that the loss after the steps (a no-grad pass over
+    the same row on the same path) is below the first step's, that the projector's
+    matrices moved and every frozen parameter kept its bits.
+    -> (launch counts, the VLM params)."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.training.loss import collate_packs, to_device
+    from long_vita_tpu_torch.training.optimizer import OptimizerConfig
+    from long_vita_tpu_torch.training.train_step import loss_fn
+    from long_vita_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    vc, tc = cfg.vision, cfg.text
+    rng = np.random.default_rng(seed)
+
+    def tiles(n):
+        return rng.standard_normal((n, vc.image_size, vc.image_size, 3), dtype=np.float32)
+
+    t0 = time.perf_counter()
+    lv, ratio = _vlm_params(text_params, cfg, dev, seed, tiles(2))
+    pack = _train_pack(cfg, seq_len, [tiles(f) for f in videos],
+                       [(tiles(1 + grid[0] * grid[1]), grid)], rng, text_segments=text_segments,
+                       answer=answer, text_sup=text_sup)
+    batch = collate_packs([pack], budget)
+    n_tiles = len(pack.images)
+    optim = OptimizerConfig(lr=1e-3, warmup_steps=30, total_steps=1000, freeze_text=True,
+                            freeze_vision=freeze_vision, vit_lr_mult=vit_lr_mult)
+    trainer = Trainer(lv, cfg, TrainerConfig(
+        seq_len=seq_len, logit_budget=budget, steps=steps, remat=True,
+        vision_chunk=vision_chunk, optim=optim,
+    ))
+    trained = {n for n, p in lv.named_parameters() if p.requires_grad}
+    print(f"[{tag}] pack of {seq_len} tokens: {len(set(pack.segment_ids.tolist()))} samples, "
+          f"videos of {list(videos)} frames and a {1 + grid[0] * grid[1]}-tile image "
+          f"({n_tiles} tiles), {int((batch['labels'] != -100).sum())} supervised rows in a "
+          f"budget of {budget}; trained: {len(trained)} tensors "
+          f"({sum(p.numel() for n, p in lv.named_parameters() if n in trained) / 1e6:.1f} M, "
+          f"{'projector' if freeze_vision else f'tower at lr x {vit_lr_mult} and projector'}); "
+          f"projector output scaled by {ratio:.4f}; set up in {time.perf_counter() - t0:.1f} s")
+    before = _snapshot(lv, trained)
+    stamps = []
+
+    def batches():
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield batch
+
+    # ---- the main path: Trainer.train
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = trainer.train(batches())["losses"]
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+
+    n_layers, n_vit = tc.num_hidden_layers, vc.num_hidden_layers
+    vit_batches = [min(vision_chunk, n_tiles - i) for i in range(0, n_tiles, vision_chunk)]
+    dec_fused = fa.bwd_uses_fused(1, seq_len, seq_len, tc.num_attention_heads, tc.head_dim, 2)
+    expected = dict.fromkeys(counts, 0)
+    bwd = "flash_bwd" if dec_fused else None
+    if freeze_vision:
+        expected["flash_fwd"] = 2 * n_layers * steps
+        expected["short_attn"] = n_vit * len(vit_batches) * steps
+    else:
+        expected["flash_fwd"] = 2 * (n_layers + n_vit * len(vit_batches)) * steps
+        for b in vit_batches:
+            if not fa.bwd_uses_fused(b, vc.seq_len, vc.seq_len, vc.num_attention_heads,
+                                     vc.head_dim, 2):
+                raise AssertionError("this phase expects the one-pass backward in the tower")
+            expected["flash_bwd"] += n_vit * steps
+    if bwd:
+        expected["flash_bwd"] += n_layers * steps
+    else:
+        expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = n_layers * steps
+    print(f"[{tag}] decoder backward: {'K4 (one pass)' if dec_fused else 'K5 (two pass)'}; "
+          f"{len(vit_batches)} ViT batch(es) of {vit_batches} tiles a step")
+    _check_launches(counts, expected)
+
+    # bf16 weights take the Adam update rounded to bf16 (no master copy, as
+    # in the JAX package): an update below half an ulp leaves a weight as it
+    # is (a norm scale at 1.0 has an ulp of 2^-7; the tower's weights do not
+    # move at lr 1e-3 x 0.1 / 30). The projector's matrices are held to
+    # moving; the rest of what trains is reported.
+    moved = _moved(lv, before)
+    del before
+    must = {n for n, p in lv.projector.named_parameters(prefix="projector") if p.dim() >= 2}
+    stuck = sorted(must - moved)
+    wrong = sorted(moved - trained)
+    with torch.no_grad():  # the same row and path as the steps, no remat
+        after = loss_fn(lv, to_device(batch, dev), cfg, False, vision_chunk,
+                        freeze_vision)[0].item()
+    print(f"[{tag}] losses of the steps {losses}, after them {after}; steps "
+          f"{[round(t, 2) for t in step_s]} s = {[round(seq_len / t) for t in step_s]} "
+          f"tokens/s; peak allocated {peak_gb:.2f} GB; trained tensors that moved: "
+          f"{len(moved & trained)} of {len(trained)}; frozen ones that did: {len(wrong)}")
+    if len(losses) != steps or not all(np.isfinite(losses + [after])) or not after < losses[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall: {losses}, after {after}")
+    if stuck or wrong:
+        raise AssertionError(f"[{tag}] trained but unchanged {stuck[:5]}; frozen but changed "
+                             f"{wrong[:5]}")
+    del trainer
+    return counts, lv
+
+
+def phase_train_grads(lv, cfg, dev, *, seq_len=4096, grid=(2, 3), vision_chunk=64,
+                      answer=300, text_sup=700) -> None:
+    """The trainable gradients (tower and projector, text frozen) of one
+    step on a seq_len-token pack with a 7-tile image, through the kernels
+    and through the plain attention (attn_impl "xla": xla_attention in the
+    decoder and the tower). Then the control: the same step with a fault
+    planted in the decoder's K4 (dK and dV of kv tile 0 dropped), which the
+    gate must reject."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.training.loss import collate_packs, to_device
+    from long_vita_tpu_torch.training.train_step import gradients, loss_fn
+    from long_vita_tpu_torch.utils.convert import set_requires_grad
+
+    rng = np.random.default_rng(SEED + 7)
+    size = cfg.vision.image_size
+    tiles = rng.standard_normal((1 + grid[0] * grid[1], size, size, 3), dtype=np.float32)
+    pack = _train_pack(cfg, seq_len, [], [(tiles, grid)], rng, text_segments=2,
+                       answer=answer, text_sup=text_sup)
+    batch = to_device(collate_packs([pack], seq_len), dev)
+    set_requires_grad(lv, freeze_text=True)
+
+    def step(impl):
+        lv.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(lv, batch, cfg, True, vision_chunk, False, attn_impl=impl)
+        loss.backward()
+        grads = {n: g.float().flatten() for n, g in gradients(lv).items()}
+        lv.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def gate(name, run, ref) -> bool:
+        (lk, gk), (lp, gp) = run, ref
+        loss_rel = abs(lk - lp) / abs(lp)
+        cos = {}
+        for group in ("vision.", "projector.", ""):
+            names = [n for n in gk if n.startswith(group)]
+            a, b = torch.cat([gk[n] for n in names]), torch.cat([gp[n] for n in names])
+            cos[group or "all"] = F.cosine_similarity(a, b, dim=0).item()
+        worst = min(F.cosine_similarity(gk[n], gp[n], dim=0).item() for n in gk)
+        passes = cos["all"] >= TRAIN_GRAD_COS and loss_rel <= TRAIN_LOSS_REL
+        print(f"[T2] one step at {seq_len} tokens, {name} vs plain attention: loss {lk:.6f} vs "
+              f"{lp:.6f} (rel {loss_rel:.2e} <= {TRAIN_LOSS_REL}); gradient cosine all "
+              f"{cos['all']:.6f} (>= {TRAIN_GRAD_COS}), tower {cos['vision.']:.6f}, projector "
+              f"{cos['projector.']:.6f}, worst tensor {worst:.6f}: "
+              f"{'passes' if passes else 'fails'} the gate")
+        return passes
+
+    plain = step("xla")
+    good = gate("kernels", step("auto"), plain)
+    kernel = fa.flash_bwd_fused
+
+    def planted(a):
+        kernel(a)
+        if a["q"].shape[-1] == 128:  # the decoder's
+            a["dk"][:, :64].zero_()
+            a["dv"][:, :64].zero_()
+
+    planted.launches = 0
+    fa.flash_bwd_fused = planted
+    try:
+        caught = not gate("kernels with a planted fault (decoder K4 loses dK, dV of kv tile 0)",
+                          step("auto"), plain)
+    finally:
+        fa.flash_bwd_fused = kernel
+    if not good:
+        raise AssertionError("the kernel path's gradients disagree with the plain attention's")
+    if not caught:
+        raise AssertionError("the T2 gate did not reject the planted fault")
+
+
 def main() -> int:
     import torch
 
@@ -743,6 +1183,7 @@ def main() -> int:
         "flash_fwd": phase_kernels(),
         "flash_fwd_quant": phase_kernels_quant(),
         "short_attn": phase_kernels_short(),
+        **phase_kernels_bwd(),
     }
     cfg, dev = long_vita_14b(), torch.device("cuda")
     params = _text_params(cfg, dev)
@@ -750,6 +1191,24 @@ def main() -> int:
     launches["flash_fwd"] = phase_serving(params)
     for name, n in phase_multimodal(params, cfg, dev).items():
         launches[name] += n
+    torch.cuda.empty_cache()  # the serving engines and their caches are gone
+    log = logging.getLogger("long_vita_tpu_torch.training.trainer")  # a line per step
+    log.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[trainer] %(message)s"))
+    log.addHandler(handler)
+    counts, lv = phase_train(params, cfg, dev, tag="T1", seq_len=32768, videos=(64, 16),
+                             grid=(2, 3), freeze_vision=True, seed=SEED + 5)
+    del lv
+    for name, n in counts.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    counts, lv = phase_train(params, cfg, dev, tag="T2", seq_len=16384, videos=(16,),
+                             grid=(2, 3), freeze_vision=False, vit_lr_mult=0.1, seed=SEED + 6)
+    for name, n in counts.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    phase_train_grads(lv, cfg, dev)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **kern[name]}

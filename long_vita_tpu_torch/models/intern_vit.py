@@ -7,8 +7,9 @@ a learned position embedding, then pre-LayerNorm layers with per-channel layer
 scales ls1/ls2, non-causal attention with a qkv bias and an exact-GELU MLP.
 
 Differences from the JAX package, of form rather than of numbers: the stacked
-``[L, ...]`` layers walked by ``lax.scan`` become a ``ModuleList``, and dense
-weights are kept as ``[out, in]`` (utils/convert.py transposes). The patch
+``[L, ...]`` layers walked by ``lax.scan`` become a ``ModuleList`` (each layer
+optionally under torch.utils.checkpoint), and dense weights are kept as
+``[out, in]`` (utils/convert.py transposes). The patch
 embedding stays one GEMM: a Conv2d would need its kernel permuted and would
 run through cuDNN, in TF32 by default on the card.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from long_vita_tpu_torch.config import VisionConfig
 from long_vita_tpu_torch.models.qwen2 import Dense, _frozen
@@ -138,11 +140,18 @@ def intern_vit(
     cfg: VisionConfig,
     *,
     attn_impl: str = "auto",
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Encode tiles: [N, H, W, 3] -> [N, 1 + gh*gw, hidden] (CLS included)."""
+    """Encode tiles: [N, H, W, 3] -> [N, 1 + gh*gw, hidden] (CLS included).
+    remat: each layer keeps only its input for the backward and runs again
+    there (the JAX package's per-layer jax.checkpoint, :113-114)."""
     x = vit_embeddings(params.embeddings, pixels, cfg)
     for layer in params.layers:
-        x = vit_layer(layer, x, cfg, attn_impl)
+        if remat:
+            x = checkpoint(vit_layer, layer, x, cfg, attn_impl, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = vit_layer(layer, x, cfg, attn_impl)
     return x
 
 

@@ -5,13 +5,17 @@ token stripped and the patches projected; the projected rows are scattered
 into the token embeddings at ``image_indices`` ([2, N_tiles, T] of (batch,
 seq) positions); the decoder then runs as plain Qwen2.
 
+Training takes the same forward with per-layer remat (decoder and tower),
+freeze_vision (the tower and its CLS strip under torch.no_grad, the
+projector differentiable) and return_aux (the dense model's MoE aux, 0).
 Not ported here: the mesh paths (tile-sharded encode, the chunked merge, the
-vocab-parallel embed), remat and the training-only freeze switches (ROADMAP:
-port queue, multi-GPU and training).
+vocab-parallel embed) and the chunk-level tower remat "vit" (ROADMAP: port
+queue, multi-GPU and training).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -42,6 +46,8 @@ def encode_images(
     *,
     chunk: int = 0,
     attn_impl: str = "auto",
+    remat: bool = False,
+    freeze_tower: bool = False,
 ) -> torch.Tensor:
     """[N_tiles, H, W, 3] -> [N_tiles, image_token_length, lm_hidden].
 
@@ -50,11 +56,18 @@ def encode_images(
     partial batch runs as it is: JAX pads it with zero tiles only because
     lax.map needs one shape, and every tile is encoded on its own, so the
     features are the same. attn_impl "short" selects the single-pass ViT
-    attention kernel K3 (forward-only callers)."""
+    attention kernel K3. freeze_tower runs the tower and its CLS strip under
+    torch.no_grad (the JAX stop_gradient on the tower features, :81-88): no
+    tower backward, while the projector keeps its gradients. remat: per-layer
+    recompute in a trainable tower."""
 
     def encode(tiles):
-        feats = intern_vit(params.vision, tiles, cfg.vision, attn_impl=attn_impl)
-        return project_features(params.projector, feats[:, 1:], cfg)  # strip CLS
+        with torch.no_grad() if freeze_tower else contextlib.nullcontext():
+            feats = intern_vit(
+                params.vision, tiles, cfg.vision, attn_impl=attn_impl,
+                remat=remat and not freeze_tower,
+            )[:, 1:]  # strip CLS
+        return project_features(params.projector, feats, cfg)
 
     n = images.shape[0]
     if not chunk or n <= chunk:
@@ -95,27 +108,41 @@ def long_vita_forward(
     logit_positions: Optional[torch.Tensor] = None,
     vision_chunk: int = 0,
     attn_impl: str = "auto",
+    remat: Union[bool, str] = False,
+    return_aux: bool = False,
+    freeze_vision: bool = False,
     head: bool = True,
-) -> tuple[torch.Tensor, Optional[KVCache]]:
+):
     """The full VLM forward on one device.
 
     logit_positions: optional [B, M] positions whose rows alone reach the
     vocabulary head (the logits-masked head). head=False returns those
-    (final-normed) hidden rows instead of logits. -> (logits [B, S or M,
-    vocab] f32, or hidden rows; the cache at its new length, or None)."""
+    (final-normed) hidden rows instead of logits. remat: per-layer recompute
+    of the decoder and the tower (qwen2.check_remat). freeze_vision: the
+    tower runs without gradients and with the single-pass attention K3
+    ("short"), as in the JAX package (:321-331). -> (logits [B, S or M,
+    vocab] f32, or hidden rows; the cache at its new length, or None), and
+    with return_aux the MoE aux loss, 0 for the dense model."""
+    qwen2.check_remat(remat)
     inputs_embeds = qwen2.embed_tokens(params.text, input_ids)
     if images is not None:
         image_embeds = encode_images(
-            params, images, cfg, chunk=vision_chunk, attn_impl=attn_impl
+            params, images, cfg, chunk=vision_chunk,
+            attn_impl="short" if freeze_vision else attn_impl,
+            remat=bool(remat), freeze_tower=freeze_vision,
         )
         inputs_embeds = merge_image_embeddings(inputs_embeds, image_embeds, image_indices)
     hidden, new_cache = qwen2.qwen2_decoder(
         params.text, inputs_embeds, position_ids, cfg.text,
         kv_cache=kv_cache, segment_ids=segment_ids, attn_impl=attn_impl,
+        remat=remat,
     )
     if logit_positions is not None:
         hidden = torch.take_along_dim(hidden, logit_positions[:, :, None].long(), dim=1)
-    return (qwen2.lm_head(params.text, hidden) if head else hidden), new_cache
+    out = qwen2.lm_head(params.text, hidden) if head else hidden
+    if return_aux:
+        return out, new_cache, torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return out, new_cache
 
 
 def init_long_vita_params(

@@ -6,7 +6,10 @@ rotate-half RoPE, SwiGLU MLP, untied lm_head.
 
 Differences from the JAX package, all of form rather than of numbers:
   - the stacked ``[L, ...]`` parameter pytree scanned by ``lax.scan`` becomes
-    a ``ModuleList`` of ``DecoderLayer``s walked by a Python loop;
+    a ``ModuleList`` of ``DecoderLayer``s walked by a Python loop, each layer
+    optionally under torch.utils.checkpoint (remat);
+  - parameters are created with requires_grad=False; training turns it on
+    for what it differentiates (utils/convert.set_requires_grad);
   - dense weights are kept in ``nn.Linear`` orientation ``[out, in]`` (the
     JAX kernels are ``[in, out]``; utils/convert.py transposes);
   - the KV cache is a pair of preallocated ``[L, B, Smax, Hkv, D]`` buffers
@@ -21,6 +24,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from long_vita_tpu_torch.config import TextConfig
 from long_vita_tpu_torch.ops._target import on_cuda
@@ -269,6 +273,23 @@ def decoder_layer(
     return x + _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps))
 
 
+def check_remat(remat) -> bool:
+    """The JAX package's remat levels (qwen2._remat_policy :776): True or
+    "full" recompute each layer in the backward (jax.checkpoint with
+    nothing_saveable), False or None keep everything. -> whether to
+    recompute. The selective levels raise until they are ported."""
+    if remat in (True, "full"):
+        return True
+    if remat in (False, None):
+        return False
+    if remat in ("dots", "flash", "vit"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported; the port recomputes whole layers "
+            "(remat=True) (ROADMAP: port queue, training: selective remat)"
+        )
+    raise ValueError(f"unknown remat level {remat!r}")
+
+
 def qwen2_decoder(
     params: Qwen2Params,
     inputs_embeds: torch.Tensor,
@@ -278,12 +299,18 @@ def qwen2_decoder(
     kv_cache: Optional[KVCache] = None,
     segment_ids: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat: Union[bool, str] = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder. inputs_embeds [B, S, H]; position_ids [B|1, S].
+
+    remat (True / "full"): without a cache, each layer keeps only its input
+    for the backward and runs again there (torch.utils.checkpoint, the
+    counterpart of jax.checkpoint with nothing_saveable).
 
     -> (final_norm(hidden) [B, S, H], the cache at length + S, or None).
     The cache's buffers are written in place; the returned KVCache shares
     them."""
+    recompute = check_remat(remat) and kv_cache is None
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     x = inputs_embeds
     cache_len = kv_cache.length if kv_cache is not None else None
@@ -291,10 +318,13 @@ def qwen2_decoder(
         cache_kv = None
         if kv_cache is not None:
             cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
-        x = decoder_layer(
-            layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-            segment_ids, attn_impl,
-        )
+        args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
+                segment_ids, attn_impl)
+        if recompute:
+            x = checkpoint(decoder_layer, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = decoder_layer(*args)
     new_cache = None
     if kv_cache is not None:
         new_cache = dataclasses.replace(
@@ -315,14 +345,43 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
 
     A bf16 product rounded to bf16 before the argmax would be a different
     result, so: on CUDA the bf16 GEMM writes f32 directly (torch.mm with
-    out_dtype=float32, f32 accumulation in cuBLAS); elsewhere the operands
-    are widened to f32 first, which is exact for bf16."""
+    out_dtype=float32, f32 accumulation in cuBLAS; _F32Logits gives it a
+    backward); elsewhere the operands are widened to f32 first, which is
+    exact for bf16."""
     w = params.lm_head.weight  # [V, H]
     if w.dtype != torch.float32 and on_cuda(hidden, w):
-        flat = hidden.reshape(-1, hidden.shape[-1])
-        out = torch.mm(flat, w.t(), out_dtype=torch.float32)
+        out = _F32Logits.apply(hidden.reshape(-1, hidden.shape[-1]), w)
         return out.reshape(*hidden.shape[:-1], w.shape[0])
     return F.linear(hidden.float(), w.float())
+
+
+class _F32Logits(torch.autograd.Function):
+    """flat [N, H] x weight [V, H] -> f32 logits [N, V] from one bf16 GEMM.
+    torch.mm with out_dtype has no derivative, so the backward is written
+    out, at the precision of JAX's transpose rule (an f32 product of the f32
+    logit gradient and the bf16 operand, cast once to the operand's dtype):
+    the gradient is split into two bf16 halves, hi = bf16(g) and lo =
+    bf16(g - hi), which carry 16 of its 24 mantissa bits, and each product
+    is the f32 sum of two bf16 GEMMs."""
+
+    @staticmethod
+    def forward(ctx, flat, w):
+        ctx.save_for_backward(flat, w)
+        return torch.mm(flat, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, w = ctx.saved_tensors
+        hi = g.to(w.dtype)
+        lo = (g - hi.float()).to(w.dtype)
+
+        def product(a_hi, a_lo, b, dtype):
+            return (torch.mm(a_hi, b, out_dtype=torch.float32)
+                    + torch.mm(a_lo, b, out_dtype=torch.float32)).to(dtype)
+
+        d_flat = product(hi, lo, w, flat.dtype) if ctx.needs_input_grad[0] else None
+        d_w = product(hi.t(), lo.t(), flat, w.dtype) if ctx.needs_input_grad[1] else None
+        return d_flat, d_w
 
 
 def init_qwen2_params(

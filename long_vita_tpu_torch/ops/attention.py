@@ -217,9 +217,12 @@ def dot_product_attention(
     Shapes as xla_attention; impl "auto" | "flash" | "short" | "xla".
 
     "short" is the ViT's single-pass kernel K3 (short_attention), chosen
-    explicitly by forward-only callers (the serving encode): on CUDA, for
+    explicitly by the serving encode and by training with a frozen tower
+    (long_vita_forward's freeze_vision, under no_grad): on CUDA, for
     non-causal attention without segments or kv_valid_len over one sequence
-    of at most 2048 tokens; any other call routes as "auto" does."""
+    of at most 2048 tokens; any other call routes as "auto" does. A
+    trainable tower takes "auto", i.e. flash, whose backward is K4/K5; both
+    kernels' wrappers are differentiable."""
     if impl == "auto":
         impl = _pick_impl(q, k, causal, kv_valid_len)
     if impl == "short":

@@ -38,6 +38,20 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// Four 8x8 bf16 matrices from shared memory, each transposed on the way
+// (ldmatrix .trans): lanes 0-15 give the addresses of rows 0-15 of a 16-row
+// block at columns c, lanes 16-31 the same rows at columns c + 8. For a
+// row-major tile [k][n] this yields the B fragments (b0, b1) of two
+// neighbouring n-tiles: r0, r1 for columns c..c+7 and r2, r3 for c+8..c+15.
+// Addresses must be 16-byte aligned.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

@@ -1,23 +1,34 @@
 """Attention kernels written by hand for Hopper, with their plain versions.
 
-Counterpart of long_vita_tpu/ops/flash_attention.py. Three forward kernels,
-each a CUDA C++ source under ``csrc/`` built with nvcc at first use
-(ops/_build.py), each with its own launch counter on its wrapper:
+Counterpart of long_vita_tpu/ops/flash_attention.py. Three forward and two
+backward kernels, CUDA C++ sources under ``csrc/`` built with nvcc at first
+use (ops/_build.py); every entry point has its own launch counter on its
+wrapper:
 
   - ``flash_attention`` (:1488; Pallas `_fwd_kernel` :144 -> K1,
     ``csrc/flash_fwd.cu``): flash forward, GQA, offsets, kv_valid_len,
-    segment ids;
+    segment ids; differentiable (the counterpart of ``_flash_core``'s
+    custom_vjp, :839-921), its backward K4 or K5 as the JAX package chooses
+    (``bwd_uses_fused``);
+  - ``flash_bwd_fused`` (Pallas `_bwd_fused_kernel` :588 -> K4,
+    ``csrc/flash_bwd.cu``): the one-pass backward, dQ added into an f32
+    buffer;
+  - ``flash_bwd_dkv`` and ``flash_bwd_dq`` (Pallas `_bwd_dkv_kernel` :454 and
+    `_bwd_dq_kernel` :530 -> K5, ``csrc/flash_bwd_2pass.cu``): the two-pass
+    backward, no memory that grows with the number of kv blocks;
   - ``flash_attention_quant`` (:1360; Pallas `_fwd_quant_kernel` :261 -> K2,
     ``csrc/flash_fwd_quant.cu``): causal flash forward against an int8 KV
-    cache with per-(token, kv head) f32 scales;
+    cache with per-(token, kv head) f32 scales, forward only;
   - ``short_attention`` (:1227; Pallas `_short_nc_kernel` :1192 -> K3,
     ``csrc/short_attn.cu``): non-causal attention over a short sequence (the
-    ViT's 1025 tokens), forward only.
+    ViT's 1025 tokens); differentiable, its backward K4/K5 fed K3's own
+    (o, lse) as the JAX ``_short_attention_bwd`` does.
 
 Public contract, as in the JAX package: model layout ``[B, S, H, D]``; the
 q/kv position offsets are taken from element ``[0, 0]`` of the positions when
 given; ``kv_valid_len`` is batch-uniform (element 0 of a ``[B]`` vector);
-returns ``o`` or ``(o, lse)`` with lse f32 ``[B, Hq, Sq]``.
+returns ``o`` or ``(o, lse)`` with lse f32 ``[B, Hq, Sq]`` (lse is not
+differentiable).
 
 Dispatch is by device (ops/_target.py): a CUDA tensor launches the kernel or
 raises; a CPU tensor takes the kernel's plain PyTorch version
@@ -46,35 +57,45 @@ IntLike = Union[int, torch.Tensor]
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
-# source under csrc/ -> (C entry point, its argument types)
+_BWD_ARGS = (
+    [ctypes.c_void_p] * 12      # q k v do lse delta dq dk dv qseg kseg meta
+    + [ctypes.c_longlong] * 10  # batch/seq strides of q k v do, segment batch strides
+    + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale dtype stream
+)
+# C entry point -> (its source under csrc/, its argument types)
 _KERNELS = {
-    "flash_fwd": ("lvt_flash_fwd", (
+    "lvt_flash_fwd": ("flash_fwd", (
         [ctypes.c_void_p] * 8       # q k v o lse qseg kseg meta
         + [ctypes.c_longlong] * 10  # batch/seq strides of q k v o, segment batch strides
         + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale dtype stream
     )),
-    "flash_fwd_quant": ("lvt_flash_fwd_quant", (
+    "lvt_flash_fwd_quant": ("flash_fwd_quant", (
         [ctypes.c_void_p] * 8       # q k v k_scale v_scale o lse meta
         + [ctypes.c_longlong] * 14  # batch/seq strides of q k v o; b/s/h of both scales
         + [ctypes.c_int] * 6        # batch sq skv hq hkv d
         + [ctypes.c_float, ctypes.c_void_p]  # scale stream
     )),
-    "short_attn": ("lvt_short_attn", (
+    "lvt_short_attn": ("short_attn", (
         [ctypes.c_void_p] * 5       # q k v o lse
         + [ctypes.c_longlong] * 8   # batch/seq strides of q k v o
         + [ctypes.c_int] * 4        # batch s hq hkv
         + [ctypes.c_float, ctypes.c_void_p]  # scale stream
     )),
+    "lvt_flash_bwd": ("flash_bwd", _BWD_ARGS),
+    "lvt_flash_bwd_dkv": ("flash_bwd_2pass", _BWD_ARGS),
+    "lvt_flash_bwd_dq": ("flash_bwd_2pass", _BWD_ARGS),
 }
+SOURCES = tuple(dict.fromkeys(source for source, _ in _KERNELS.values()))
 
 
-def _kernel(source: str):
-    """The C entry point of ``csrc/<source>.cu``, built and loaded if needed."""
+def _kernel(entry: str):
+    """The C entry point ``entry``, its library built and loaded if needed."""
     from long_vita_tpu_torch.ops import _build
 
-    name, argtypes = _KERNELS[source]
-    fn = getattr(_build.load(source), name)
+    source, argtypes = _KERNELS[entry]
+    fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -85,21 +106,21 @@ def build() -> None:
     """Build every kernel library (one nvcc each, in parallel) and load it."""
     from long_vita_tpu_torch.ops import _build
 
-    _build.build_all(_KERNELS)
-    for source in _KERNELS:
-        _kernel(source)
+    _build.build_all(SOURCES)
+    for entry in _KERNELS:
+        _kernel(entry)
 
 
-def _launch(source: str, dev: torch.device, *args) -> None:
+def _launch(entry: str, dev: torch.device, *args) -> None:
     """Call a kernel's C entry point on ``dev``'s current stream (tensors
     pass as their data pointers); raise on a CUDA error."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel(source)(
+        err = _kernel(entry)(
             *(a.data_ptr() if torch.is_tensor(a) else a for a in args), stream
         )
     if err:
-        raise RuntimeError(f"{source} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
 
 
 def _device_meta(dev, *values: IntLike) -> torch.Tensor:
@@ -128,7 +149,8 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D]. -> o [B, Sq, Hq, D]
-    (and lse [B, Hq, Sq] f32 when return_lse)."""
+    (and lse [B, Hq, Sq] f32 when return_lse). Differentiable in q, k, v;
+    offsets, kv_valid_len and segment ids pass through to the backward."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
     if q_positions is not None:
@@ -139,21 +161,45 @@ def flash_attention(
         kv_valid_len = k.shape[1]
     elif torch.is_tensor(kv_valid_len) and kv_valid_len.ndim:
         kv_valid_len = kv_valid_len.reshape(-1)[0]
-    if on_cuda(q, k, v, q_segment_ids, kv_segment_ids):
-        o, lse = _flash_cuda(
-            q, k, v, causal, q_offset, kv_offset, kv_valid_len,
-            q_segment_ids, kv_segment_ids,
-        )
-    else:
-        o, lse = flash_attention_reference(
-            q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
-            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            kv_valid_len=kv_valid_len,
-        )
+    o, lse = _FlashAttention.apply(
+        q, k, v, q_segment_ids, kv_segment_ids,
+        (causal, q_offset, kv_offset, kv_valid_len),
+    )
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0  # CUDA kernel launches (the wrapper counts them)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward saving (o, lse); K4 or K5 backward (``_flash_core`` with
+    its custom_vjp). On CPU tensors: the plain forward and backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, mask):
+        causal, q_offset, kv_offset, kv_len = mask
+        if on_cuda(q, k, v, qseg, kseg):
+            o, lse = _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg)
+        else:
+            o, lse = flash_attention_reference(
+                q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+                q_segment_ids=qseg, kv_segment_ids=kseg, kv_valid_len=kv_len,
+            )
+        ctx.mask = mask
+        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
+        causal, q_offset, kv_offset, kv_len = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
+            kv_offset=kv_offset, kv_valid_len=kv_len, q_segment_ids=qseg,
+            kv_segment_ids=kseg,
+        )
+        return dq, dk, dv, None, None, None
 
 
 def _check_operand(name: str, x: torch.Tensor, d: int) -> None:
@@ -197,7 +243,7 @@ def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     meta = _device_meta(dev, q_offset, kv_offset, kv_len)
     _launch(
-        "flash_fwd", dev, q, k, v, o, lse, qseg, kseg, meta,
+        "lvt_flash_fwd", dev, q, k, v, o, lse, qseg, kseg, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         sq if qseg is not None else 0, skv if kseg is not None else 0,
@@ -255,6 +301,247 @@ def flash_attention_reference(
     o = o / torch.where(l == 0, 1.0, l).permute(0, 3, 1, 2, 4)
     lse = torch.where(l == 0, NEG_INF, m + torch.log(l))[..., 0]
     return o.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq)
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the flash backward
+# ---------------------------------------------------------------------------
+
+# The JAX package's backward blocks and its rule between the one-pass and the
+# two-pass kernels (long_vita_tpu/ops/flash_attention.py:52-73, 887-911). They
+# choose the kernel here; the CUDA kernels' own tiles are fixed.
+DEFAULT_BLOCK_Q = DEFAULT_BLOCK_KV = 1024
+BWD_BLOCK_Q_CAP, BWD_BLOCK_KV_CAP = 1024, 512
+BWD_BLOCK_KV_MAJOR = 4096
+FUSED_BWD_DQ_BYTES_CAP = 2 * 1024**3
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def bwd_uses_fused(
+    b: int, sq: int, skv: int, hq: int, d: int, itemsize: int, *, short: bool = False
+) -> bool:
+    """The JAX package's choice of the one-pass backward (K4, True) over the
+    two-pass one (K5, False) for q [b, sq, hq, d] against skv keys.
+
+    JAX decides on the padded head-major shapes its backward sees: the
+    forward's blocks (1024, or 576 for a ragged sequence of at most 2048) pad
+    the sequences and a head dim that is not a multiple of 64 pads to 128
+    (``flash_attention`` :1515-1526, ``_prepare`` :1165); short_attention's
+    backward pads its sequence to 128 and D to 128 (:1252-1253); the backward
+    caps the blocks at 1024 x 512 and pads again (:879-901). It takes the
+    one-pass kernel while its dq partials, one q-sized array per 4096-key
+    major block, fit FUSED_BWD_DQ_BYTES_CAP (:906-911)."""
+    if short:
+        sq_pad = skv_pad = _round_up(sq, 128)
+        d_pad = _round_up(d, 128)
+        block_q, block_kv = DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV
+    else:
+        block_q, block_kv = DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV
+        if sq <= 2048 and _round_up(sq, 128) % block_q:
+            block_q = min(block_q, 576)
+        if skv <= 2048 and _round_up(skv, 128) % block_kv:
+            block_kv = min(block_kv, 576)
+        block_q = min(block_q, _round_up(sq, 128))
+        block_kv = min(block_kv, _round_up(skv, 128))
+        sq_pad, skv_pad = _round_up(sq, block_q), _round_up(skv, block_kv)
+        d_pad = d if d % 64 == 0 else _round_up(d, 128)
+    sq_pad = _round_up(sq_pad, min(block_q, BWD_BLOCK_Q_CAP))
+    skv_pad = _round_up(skv_pad, min(block_kv, BWD_BLOCK_KV_CAP))
+    n_kv_major = max(1, skv_pad // BWD_BLOCK_KV_MAJOR)
+    return n_kv_major * b * hq * sq_pad * d_pad * itemsize <= FUSED_BWD_DQ_BYTES_CAP
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: IntLike = 0,
+    kv_offset: IntLike = 0,
+    kv_valid_len: Optional[IntLike] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    short: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of flash attention from the forward's (o, lse)
+    and the output gradient do. On CUDA: K4 or K5, as the JAX package
+    chooses (bwd_uses_fused; short: the rule of short_attention's backward).
+    On the CPU: the plain backward."""
+    if kv_valid_len is None:
+        kv_valid_len = k.shape[1]
+    if on_cuda(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids):
+        b, sq, hq, d = q.shape
+        fused = bwd_uses_fused(b, sq, k.shape[1], hq, d, q.element_size(), short=short)
+        return _flash_bwd_cuda(
+            q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_valid_len,
+            q_segment_ids, kv_segment_ids, fused,
+        )
+    return flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
+        kv_offset=kv_offset, kv_valid_len=kv_valid_len,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+    )
+
+
+def _bwd_launch(entry: str, a: dict) -> None:
+    """One backward entry point; ``a`` holds the operands _flash_bwd_cuda
+    prepared (every entry takes the same argument list)."""
+    q, k, v, do = a["q"], a["k"], a["v"], a["do"]
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _launch(
+        entry, q.device, q, k, v, do, a["lse"], a["delta"], a["dq"], a["dk"],
+        a["dv"], a["qseg"], a["kseg"], a["meta"],
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), do.stride(0), do.stride(1),
+        sq if a["qseg"] is not None else 0, skv if a["kseg"] is not None else 0,
+        b, sq, skv, hq, hkv, d, int(a["causal"]), 1.0 / math.sqrt(d),
+        _DTYPE_CODE[q.dtype],
+    )
+
+
+def flash_bwd_fused(a: dict) -> None:
+    """K4: dk, dv and the f32 dq sums of the prepared operands ``a``."""
+    _bwd_launch("lvt_flash_bwd", a)
+    flash_bwd_fused.launches += 1
+
+
+def flash_bwd_dkv(a: dict) -> None:
+    """K5, first pass: dk and dv of the prepared operands ``a``."""
+    _bwd_launch("lvt_flash_bwd_dkv", a)
+    flash_bwd_dkv.launches += 1
+
+
+def flash_bwd_dq(a: dict) -> None:
+    """K5, second pass: dq of the prepared operands ``a``."""
+    _bwd_launch("lvt_flash_bwd_dq", a)
+    flash_bwd_dq.launches += 1
+
+
+flash_bwd_fused.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
+                    qseg, kseg, fused):
+    """K4 (fused) or K5 on CUDA tensors. -> (dq, dk, dv) in q's dtype."""
+    a = bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
+                     qseg, kseg, fused)
+    if fused:
+        flash_bwd_fused(a)
+        return a["dq"].to(q.dtype), a["dk"], a["dv"]
+    flash_bwd_dkv(a)
+    flash_bwd_dq(a)
+    return a["dq"], a["dk"], a["dv"]
+
+
+def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
+                 qseg, kseg, fused) -> dict:
+    """Check and prepare what the backward entry points take: delta =
+    rowsum(do * o) in f32 [B, Hq, Sq] (the JAX _flash_core_bwd :874), the
+    mask scalars on the device, and the outputs (dq an f32 buffer of zeros
+    for K4, the input dtype for K5)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash backward kernels take bf16 or f32 q/k/v of one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if d not in (64, 128):
+        raise ValueError(f"flash backward kernels take head dim 64 or 128, got {d}")
+    if k.shape != v.shape or k.shape[0] != b or hq % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq):
+        raise ValueError(
+            f"o/do must be {tuple(q.shape)} and lse {(b, hq, sq)}, got "
+            f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}"
+        )
+    do = do.to(q.dtype)
+    if do.stride(3) != 1 or do.stride(2) != d:
+        do = do.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_operand(name, x, d)
+    if qseg is not None:
+        if qseg.shape != (b, sq) or kseg.shape != (b, skv):
+            raise ValueError("segment ids must be [B, Sq] and [B, Skv]")
+        qseg = qseg.to(torch.int32).contiguous()
+        kseg = kseg.to(torch.int32).contiguous()
+
+    dev = q.device
+    return dict(
+        q=q, k=k, v=v, do=do, lse=lse.float().contiguous(),
+        delta=(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous(),
+        qseg=qseg, kseg=kseg, meta=_device_meta(dev, q_offset, kv_offset, kv_len),
+        causal=causal,
+        dq=(torch.zeros((b, sq, hq, d), dtype=torch.float32, device=dev) if fused
+            else torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)),
+        dk=torch.empty((b, skv, hkv, d), dtype=q.dtype, device=dev),
+        dv=torch.empty((b, skv, hkv, d), dtype=q.dtype, device=dev),
+    )
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: IntLike = 0,
+    kv_offset: IntLike = 0,
+    kv_valid_len: Optional[IntLike] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4/K5, the FA-2 backward as the Pallas
+    kernels compute it (:454-693): delta = rowsum(do * o) in f32; p =
+    exp(s * scale - lse) where unmasked, else 0 (the forward's masks); dv =
+    p^T.do with p cast to do's dtype; ds = p * (do.v^T - delta) * scale; dk =
+    ds^T.q and dq = ds.k with ds cast to the input dtype; f32 products, GQA
+    grads summed per kv head. -> (dq, dk, dv) in the input dtype; dk and dv
+    are 0 past kv_valid_len."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kv_len = skv if kv_valid_len is None else min(max(int(kv_valid_len), 0), skv)
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    dog = do.reshape(b, sq, hkv, g, d)
+    kf, vf = k[:, :kv_len].float(), v[:, :kv_len].float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    mask = torch.ones((1, sq, kv_len), dtype=torch.bool, device=dev)
+    if causal:
+        qpos = int(q_offset) + torch.arange(sq, device=dev)
+        kpos = int(kv_offset) + torch.arange(kv_len, device=dev)
+        mask = mask & (kpos[None, :] <= qpos[:, None])[None]
+    if q_segment_ids is not None:
+        mask = mask & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :kv_len])
+    mask = mask[:, None, None]  # [B|1, 1, 1, Sq, Skv]
+    lse5 = lse.float().reshape(b, hkv, g, sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse5), 0.0)
+    delta = (do.float() * o.float()).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), dog.float())
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog.float(), vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).float(), qg)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(), kf)
+
+    def full(x):  # [B, kv_len, Hkv, D] -> [B, Skv, Hkv, D], zero past kv_len
+        return torch.cat([x, x.new_zeros((b, skv - kv_len, hkv, d))], 1) if kv_len < skv else x
+
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), full(dk).to(k.dtype),
+            full(dv).to(v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +611,7 @@ def _flash_quant_cuda(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     meta = _device_meta(dev, q_offset, kv_offset, kv_len)
     _launch(
-        "flash_fwd_quant", dev, q, k, v, ks, vs, o, lse, meta,
+        "lvt_flash_fwd_quant", dev, q, k, v, ks, vs, o, lse, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         ks.stride(0), ks.stride(1), ks.stride(2),
@@ -394,16 +681,28 @@ def short_attention(
 ):
     """Non-causal attention over a whole short sequence (the ViT's 1025
     tokens), no masks: q [B, S, Hq, D], k/v [B, S, Hkv, D] -> o (and lse
-    [B, Hq, S] f32 when return_lse). Forward only: the JAX custom_vjp
-    backward comes with training (ROADMAP: port queue, training)."""
-    if on_cuda(q, k, v):
-        o, lse = _short_cuda(q, k, v)
-    else:
-        o, lse = short_attention_reference(q, k, v)
+    [B, Hq, S] f32 when return_lse). Differentiable in q, k, v: the backward
+    feeds K3's own (o, lse) to K4/K5 with causal off, as the JAX
+    ``_short_attention_bwd`` (:1246-1279) does."""
+    o, lse = _ShortAttention.apply(q, k, v)
     return (o, lse) if return_lse else o
 
 
 short_attention.launches = 0  # CUDA kernel launches
+
+
+class _ShortAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = _short_cuda(q, k, v) if on_cuda(q, k, v) else short_attention_reference(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=False, short=True)
 
 
 def _short_cuda(q, k, v):
@@ -425,7 +724,7 @@ def _short_cuda(q, k, v):
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
     _launch(
-        "short_attn", dev, q, k, v, o, lse,
+        "lvt_short_attn", dev, q, k, v, o, lse,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         b, s, hq, hkv, 1.0 / math.sqrt(d),

@@ -11,6 +11,9 @@ caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
     ``[out, in]``;
   - bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) travel as a
     ``uint16`` view and are reinterpreted as ``torch.bfloat16``, bit for bit.
+
+``set_requires_grad`` turns gradients on and off as the JAX training step
+differentiates the same tree.
 """
 from __future__ import annotations
 
@@ -153,3 +156,27 @@ def long_vita_params_from_jax(
         vision=vision_params_from_jax(tree["vision"], device, dtype),
         projector=projector_params_from_jax(tree["projector"], device, dtype),
     )
+
+
+def set_requires_grad(
+    params: LongVITAParams, *, freeze_text: bool = False, freeze_vision: bool = False
+) -> None:
+    """requires_grad per parameter, as the JAX training step takes
+    gradients (train_step.py:61-68, trainer.py:186-194, optimizer.py:52-71):
+
+      - freeze_text: the text tree sits behind jax.lax.stop_gradient, so its
+        weights get no gradient: off (activation gradients still flow
+        through the decoder);
+      - freeze_vision: the tower's features are stop_gradient'd (the tower
+        runs under torch.no_grad here): off for the tower;
+      - everything else is on, the projector always: a leaf frozen only by
+        the optimizer's mask (freeze_projector, freeze_embed) keeps its
+        gradient, which clip_by_global_norm and the grad_norm metric count,
+        and takes a zero update."""
+    for name, p in params.named_parameters():
+        if name.startswith("text."):
+            p.requires_grad_(not freeze_text)
+        elif name.startswith("vision."):
+            p.requires_grad_(not freeze_vision)
+        else:
+            p.requires_grad_(True)
