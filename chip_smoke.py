@@ -4,33 +4,42 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero):
-  1. build the five CUDA sources from this checkout (one nvcc each, in
+  1. build the six CUDA sources from this checkout (one nvcc each, in
      parallel) and print nvcc's register/spill lines;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the serving and training paths give it, with stated tolerances,
-     and time both with CUDA events: K1 the flash forward, K2 the int8 flash
-     forward, K3 the ViT's short attention, K4 the one-pass flash backward,
-     K5 the two-pass flash backward (its dkv and dq entry points);
+     and time both with CUDA events beside the kernel's bound and the one
+     PyTorch call that computes the same function: K1 the flash forward, K2
+     the int8 flash forward, K3 the ViT's short attention, K4 the one-pass
+     flash backward, K5 the two-pass flash backward (its dkv and dq entry
+     points), K6 the w4a16 product (five 14B shapes, 1 to 512 rows; one 14B
+     matrix quantised on the card against numpy's quantisation, bit for bit);
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
      bf16 weights from a seeded generator) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
      K1's launches; then the prefill's last-row logits against two plain
      references;
-  4. multimodal serving: the same decoder with a random InternViT-300M tower
+  4. quantized serving of the same decoder: weight_quant="int4" (greedy x2,
+     the ragged batch, speculative_k=4, an exact repeat through the prefix
+     cache; K6, its dequantise route and K1 counted exactly; logits against
+     the same flow on K6's plain version) and weight_quant="int8" (greedy
+     x2); the bf16 weights must keep their bits;
+  5. multimodal serving: the same decoder with a random InternViT-300M tower
      and projector: a 64-frame video into an int8 cache, twice; a ragged
      batch of a 7-tile image and a 16-frame video into an int8 cache; the
-     video into a bf16 cache. Launch counts of K1, K2 and K3 are checked
-     against the layers and chunks the requests need; the video's last-row
-     logits and its encoded features are held against the same flow on the
-     plain versions;
-  5. T1, stage-1 alignment at 32K (configs/stage1_alignment.yaml's regime):
+     video into a bf16 cache; the video in pieces of 16 frames encoded up
+     front and interleaved with the prefill chunks (same tokens). Launch
+     counts of K1, K2 and K3 are checked against the layers and chunks the
+     requests need; the video's last-row logits and its encoded features are
+     held against the same flow on the plain versions;
+  6. T1, stage-1 alignment at 32K (configs/stage1_alignment.yaml's regime):
      the same decoder and a random tower and projector, text and vision
      frozen, the projector trained at lr 1e-3, full remat, through
      Trainer.train for 2 steps on one packed row of a 64-frame video, a
      16-frame video, a 7-tile image and text; the backward takes K5. The
      loss must fall, the projector move and the frozen weights stay
      bit-identical; launch counts are checked per step;
-  6. T2, a trainable tower at 16K: text frozen, the tower (lr x 0.1) and
+  7. T2, a trainable tower at 16K: text frozen, the tower (lr x 0.1) and
      projector trained, 2 steps on a 16-frame video, a 7-tile image and
      text; the backward takes K4 in the decoder and the tower. Then the
      trainable gradients of one step at 4096 tokens through the kernels are
@@ -90,6 +99,18 @@ GRAD_TOL = 1e-2
 # attention, so dS is small); the kernel phase's elementwise check is the
 # tower's guard.
 TRAIN_GRAD_COS, TRAIN_LOSS_REL = 0.99, 1e-2
+# K6 vs its plain version: both take each int4 x bf16 product exactly and sum
+# in f32 (in other orders), then round once: bf16 out within 1e-2 x max|ref|
+# (a bf16 rounding is 2^-8 relative), f32 out within 1e-4 x max|ref|.
+W4_BF16_TOL, W4_F32_TOL = 1e-2, 1e-4
+# the 14B shapes K6 is given (in, out) and the row counts it is held at
+W4_SHAPES = {
+    "q_proj/o_proj": (5120, 5120), "k_proj/v_proj": (5120, 1024),
+    "gate_proj/up_proj": (5120, 13824), "down_proj": (13824, 5120), "lm_head": (5120, 152064),
+}
+W4_ROWS = (1, 4, 64, 512)
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12
 # entry point -> (source, the Pallas kernel it replaces)
 SOURCES = {
     "flash_fwd": ("long_vita_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -104,6 +125,8 @@ SOURCES = {
                       "long_vita_tpu/ops/flash_attention.py:454"),
     "flash_bwd_dq": ("long_vita_tpu_torch/ops/csrc/flash_bwd_2pass.cu",
                      "long_vita_tpu/ops/flash_attention.py:530"),
+    "w4_matmul": ("long_vita_tpu_torch/ops/csrc/w4_matmul.cu",
+                  "long_vita_tpu/ops/quant_matmul.py:132"),
 }
 
 
@@ -133,9 +156,39 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _queued_ms(fns, reps: int) -> float:
+    """Device time per call of ``fns`` (taken in turn), from CUDA events
+    around ``reps`` calls queued behind a 20M-cycle sleep kernel, so that the
+    host's launch overhead (tens of microseconds a call, more than a decode-
+    sized kernel takes) does not show. Give several copies of the operands
+    to keep a working set over the 50 MB L2 cold, as decode finds it."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM_BYTES_PER_S and the operations over BF16_FLOPS."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def _counters():
     """The kernels' wrappers, whose ``launches`` count kernel launches."""
     from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.ops import quant_matmul as qm
 
     return {
         "flash_fwd": fa.flash_attention,
@@ -144,27 +197,39 @@ def _counters():
         "flash_bwd": fa.flash_bwd_fused,
         "flash_bwd_dkv": fa.flash_bwd_dkv,
         "flash_bwd_dq": fa.flash_bwd_dq,
+        "w4_matmul": qm.w4_matmul,
     }
 
 
 def _reset_counts() -> None:
+    from long_vita_tpu_torch.ops import quant_matmul as qm
+
     for fn in _counters().values():
         fn.launches = 0
+    qm.w4_matmul_dequant.calls = 0
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Launches of every kernel, and "w4_dequant": the calls of K6's
+    dequantise route (JAX's prefill route, a torch.matmul, no kernel)."""
+    from long_vita_tpu_torch.ops import quant_matmul as qm
+
+    counts = {name: fn.launches for name, fn in _counters().items()}
+    counts["w4_dequant"] = qm.w4_matmul_dequant.calls
+    return counts
 
 
 def phase_build() -> None:
     from long_vita_tpu_torch.ops import _build
-    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.ops import flash_attention  # noqa: F401  (registers K1-K5)
+    from long_vita_tpu_torch.ops import quant_matmul  # noqa: F401  (registers K6)
 
     t0 = time.perf_counter()
-    fa.build()
-    print(f"[build] {', '.join(fa.SOURCES)} built (in parallel) and loaded in "
+    _build.build_registered()
+    sources = _build.registered_sources()
+    print(f"[build] {', '.join(sources)} built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in fa.SOURCES:
+    for name in sources:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 print(f"[build] {name}: {line.strip()}")
@@ -255,11 +320,49 @@ def phase_kernels() -> dict:
     plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(qa, ka, va, **kw_a), reps=5)
     pairs = sum(i + 1 for i in range(4096, 4096 + 2048))  # unmasked (q, k) pairs
     tflops = 4 * 40 * 128 * pairs / (kern_ms * 1e-3) / 1e12
+    # bytes: q and o, the 6144 valid rows of k and v, lse
+    bound = _bound(2 * 2 * qa.numel() + 2 * 2 * 6144 * 8 * 128 + 4 * 2048 * 40,
+                   4 * 40 * 128 * pairs)
+    lib_ms = _sdpa_ms(qa, ka[:, :6144], va[:, :6144], lower_right=True)
     print(
         f"[kernel] (a) timing, median of CUDA events: kernel {kern_ms:.3f} ms "
-        f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms"
+        f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms, bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), F.scaled_dot_product_attention "
+        f"(lower-right causal, kv repeated to 40 heads) {lib_ms:.3f} ms"
     )
-    return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms, **bound,
+            "library_ms": lib_ms}
+
+
+def _sdpa_ms(q, k, v, *, lower_right=False, mask=None, do=None, reps=20) -> float:
+    """F.scaled_dot_product_attention's time on the same q, k, v (model
+    layout [B, S, H, D]; k and v repeated to q's heads outside the timing):
+    non-causal, causal aligned at the bottom right (a chunk against a
+    longer cache), or with a boolean mask; with ``do``, forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+
+    def heads_first(x, rep=1):
+        x = x.repeat_interleave(rep, dim=2) if rep > 1 else x
+        return x.transpose(1, 2).contiguous()
+
+    qt, kt, vt = heads_first(q), heads_first(k, g), heads_first(v, g)
+    if lower_right:
+        from torch.nn.attention.bias import causal_lower_right
+
+        mask = causal_lower_right(q.shape[1], k.shape[1])
+    if do is None:
+        return _cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=reps)
+    leaves = [x.requires_grad_() for x in (qt, kt, vt)]
+    dot = heads_first(do)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        torch.autograd.grad(out, leaves, dot)
+
+    return _cuda_ms(fwd_bwd, reps=reps)
 
 
 def _pair_case(name, kernel, plain, n_counter, *, lse_atol=LSE_ATOL) -> float:
@@ -324,9 +427,14 @@ def phase_kernels_quant() -> dict:
     plain_ms = _cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw), reps=5)
     pairs = 2048 * 14336 + 2048 * 2049 // 2  # unmasked (q, k) pairs
     tflops = 4 * 40 * 128 * pairs / (kern_ms * 1e-3) / 1e12
+    # bytes: q and o, the 16384 valid rows of the int8 codes and their f32 scales, lse
+    bound = _bound(2 * 2 * q.numel() + 2 * 16384 * 8 * (128 + 4) + 4 * 2048 * 40,
+                   4 * 40 * 128 * pairs)
     print(f"[kernel] K2 timing, median of CUDA events: kernel {kern_ms:.3f} ms "
-          f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms}
+          f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); no PyTorch call attends over "
+          f"an int8 cache")
+    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def phase_kernels_short() -> dict:
@@ -352,10 +460,15 @@ def phase_kernels_short() -> dict:
         if n == 64:
             kern_ms = _cuda_ms(lambda: fa.short_attention(q, k, v), reps=20)
             plain_ms = _cuda_ms(lambda: fa.short_attention_reference(q, k, v), reps=5)
+            lib_ms = _sdpa_ms(q, k, v)
+            bound = _bound(4 * 2 * q.numel() + 4 * 64 * 16 * 1025, 4 * 64 * 16 * 1025 * 1025 * 64)
     tflops = 4 * 64 * 16 * 1025 * 1025 * 64 / (kern_ms * 1e-3) / 1e12
     print(f"[kernel] K3 timing at [64, 1025, 16, 64], median of CUDA events: kernel "
-          f"{kern_ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
-    return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms}
+          f"{kern_ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), F.scaled_dot_product_attention "
+          f"{lib_ms:.3f} ms")
+    return {"max_abs_err": max(errs), "ms": kern_ms, "plain_ms": plain_ms, **bound,
+            "library_ms": lib_ms}
 
 
 def _segments(b, s, cuts, dev):
@@ -440,10 +553,28 @@ def phase_kernels_bwd() -> dict:
     dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(a5), reps=10)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw), reps=3)
     flops = 2.5 * 4 * 40 * 128 * 4096 * 4096 / 2  # fwd-equivalent x 2.5, causal half
+    # the bounds count the (q, k) pairs inside the 3 segments: S, dP, dV, dK and
+    # dQ are 2 x D operations a pair and head each (dkv does 4 of the 5, dq 3)
+    seg = kw["q_segment_ids"][0]
+    lens = torch.bincount(seg).tolist()
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    ins = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * lse.numel() + 2 * 4 * 4096  # + lse, delta, segments
+    dkv_bytes = 2 * 2 * k.numel()
+    bounds = {
+        "flash_bwd": _bound(ins + 4 * q.numel() + dkv_bytes, 10 * 40 * 128 * pairs),
+        "flash_bwd_dkv": _bound(ins + dkv_bytes, 8 * 40 * 128 * pairs),
+        "flash_bwd_dq": _bound(ins + 2 * q.numel(), 6 * 40 * 128 * pairs),
+    }
+    mask = (seg[:, None] == seg[None, :]) & torch.ones(4096, 4096, dtype=torch.bool, device=dev).tril()
+    lib_ms = _sdpa_ms(q, k, v, mask=mask, do=do, reps=5)
     print(f"[kernel] backward timing at [1, 4096, 40/8, 128], median of CUDA events: K4 "
           f"{k4_ms:.3f} ms ({flops / k4_ms / 1e9:.1f} TFLOP/s on the causal half), K5 dkv "
-          f"{dkv_ms:.3f} + dq {dq_ms:.3f} ms, plain backward {plain_ms:.3f} ms")
-    del q, k, v, o, lse, do, a4, a5
+          f"{dkv_ms:.3f} + dq {dq_ms:.3f} ms, plain backward {plain_ms:.3f} ms; bounds "
+          f"(operations on {pairs} unmasked pairs) K4 {bounds['flash_bwd']['bound_ms']:.3f}, dkv "
+          f"{bounds['flash_bwd_dkv']['bound_ms']:.3f}, dq {bounds['flash_bwd_dq']['bound_ms']:.3f} "
+          f"ms; F.scaled_dot_product_attention forward + backward (block-causal boolean mask, "
+          f"kv repeated to 40 heads) {lib_ms:.3f} ms")
+    del q, k, v, o, lse, do, a4, a5, mask
 
     qkv = rnd(16, 1025, 3, 16, 64)
     qv, kv_, vv = qkv.unbind(2)
@@ -464,16 +595,123 @@ def phase_kernels_bwd() -> dict:
         ms = _cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=3)
         fwd_ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
         flops = 2.5 * 4 * 40 * 128 * s * s / 2
+        causal_ms = _sdpa_ms(q, k, v, mask=torch.ones(s, s, dtype=torch.bool, device=dev).tril(),
+                             do=do, reps=3) if s == 16384 else None
         print(f"[kernel] {'K4' if fused else 'K5'} alone at [1, {s}, 40/8, 128] causal, 3 "
               f"segments: {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s on the causal half); "
-              f"K1 forward {fwd_ms:.2f} ms")
+              f"K1 forward {fwd_ms:.2f} ms"
+              + (f"; F.scaled_dot_product_attention forward + backward, causal without "
+                 f"segments: {causal_ms:.2f} ms" if causal_ms else ""))
         del q, k, v, o, lse, do
     torch.cuda.empty_cache()
     return {
-        "flash_bwd": {"max_abs_err": max(k4 + vit), "ms": k4_ms, "plain_ms": plain_ms},
-        "flash_bwd_dkv": {"max_abs_err": max(k5[1:]), "ms": dkv_ms, "plain_ms": plain_ms},
-        "flash_bwd_dq": {"max_abs_err": k5[0], "ms": dq_ms, "plain_ms": plain_ms},
+        "flash_bwd": {"max_abs_err": max(k4 + vit), "ms": k4_ms, "plain_ms": plain_ms,
+                      **bounds["flash_bwd"], "library_ms": lib_ms},
+        "flash_bwd_dkv": {"max_abs_err": max(k5[1:]), "ms": dkv_ms, "plain_ms": plain_ms,
+                          **bounds["flash_bwd_dkv"], "library_ms": lib_ms},
+        "flash_bwd_dq": {"max_abs_err": k5[0], "ms": dq_ms, "plain_ms": plain_ms,
+                         **bounds["flash_bwd_dq"], "library_ms": lib_ms},
     }
+
+
+def phase_kernels_w4() -> dict:
+    """K6 against its plain version at the five 14B shapes and rows 1, 4,
+    64 and 512 (bf16 out for the projections, f32 for the head), timed at 1
+    and 512 rows with the plain version, torch.matmul on the dequantised
+    bf16 weight (the nearest library call: JAX's route above 512 rows and
+    what bf16 serving runs) and the bound. Before that, one 14B matrix
+    quantised on the card must equal numpy's host quantisation bit for bit.
+    -> the report entry, timed at q_proj's shape and one row."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.models.quantize import quantize_kernel, quantize_kernel_int4
+    from long_vita_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    # the card's quantisation against numpy's, on gate_proj's matrix
+    w = rnd(13824, 5120, scale=0.02)  # nn.Linear orientation [out, in]
+    packed, scales = quantize_kernel_int4(w)
+    q8, s8 = quantize_kernel(w)
+    host = w.float().cpu().numpy()
+    hp, hs = qm.quantize_int4_grouped(host.T)
+    a = np.max(np.abs(host), axis=-1)
+    h_scale = np.where(a > 0, a / np.float32(127.0), np.float32(1.0))
+    h_q8 = np.rint(host / h_scale[:, None]).astype(np.int8)
+    diff = {name: int((got.cpu().numpy() != want).sum()) for name, got, want in (
+        ("int4 codes", packed, hp), ("int4 scales", scales, hs),
+        ("int8 codes", q8, h_q8), ("int8 scales", s8, h_scale))}
+    same = not any(diff.values())
+    print(f"[w4] gate_proj [13824, 5120] bf16 quantised on the card, int4 (packed "
+          f"{tuple(packed.shape)}, scales {tuple(scales.shape)}) and int8: "
+          f"{'bit for bit equal to' if same else 'DIFFERS from'} numpy's host quantisation "
+          f"(elements that differ: {diff})")
+    if not same:
+        raise AssertionError("quantisation on the card differs from the host's")
+    del w, packed, scales, q8, s8, host
+
+    errs, report = [], None
+    for name, (n_in, n_out) in W4_SHAPES.items():
+        out_dtype = torch.float32 if name == "lm_head" else bf
+        tol = W4_F32_TOL if out_dtype == torch.float32 else W4_BF16_TOL
+        packed, scales = quantize_kernel_int4(rnd(n_out, n_in, scale=0.02))
+        for rows in W4_ROWS:
+            x = rnd(rows, n_in)
+            before = qm.w4_matmul.launches
+            got = qm.w4_matmul(x, packed, scales, out_dtype)
+            torch.cuda.synchronize()
+            if qm.w4_matmul.launches != before + 1:
+                raise AssertionError(f"[w4 {name} rows {rows}] the kernel did not launch once")
+            ref = qm.w4_matmul_reference(x, packed, scales, out_dtype)
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            again = qm.w4_matmul(x, packed, scales, out_dtype)
+            ok = err <= tol * scale and bool(torch.isfinite(got).all()) and torch.equal(again, got)
+            errs.append(err)
+            print(f"[w4] {name} [{rows}, {n_in}] x [{n_in}, {n_out}] -> {str(out_dtype)[6:]}: "
+                  f"max|k-ref| {err:.3e} (<= {tol} x max|ref| {scale:.3f}), a second call "
+                  f"{'has the same bits' if torch.equal(again, got) else 'DIFFERS'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[w4 {name} rows {rows}] K6 disagrees with its plain version")
+            if rows not in (1, 512):
+                continue
+            # timings: enough weight copies to keep the working set over L2
+            n_bytes = packed.numel() + 4 * scales.numel()
+            copies = [(packed, scales)] + [
+                (packed.clone(), scales.clone()) for _ in range(-(-120_000_000 // n_bytes) - 1)
+            ]
+            kern_ms = _queued_ms([lambda p=p, s=s: qm.w4_matmul(x, p, s, out_dtype)
+                                  for p, s in copies], reps=60)
+            del copies
+            plain_ms = _cuda_ms(lambda: qm.w4_matmul_reference(x, packed, scales, out_dtype), reps=3)
+            w_deq = (qm.unpack_int4_torch(packed).reshape(n_in // 128, 128, n_out).float()
+                     * scales[:, None]).reshape(n_in, n_out).to(bf)
+            deqs = [w_deq] + [w_deq.clone() for _ in range(-(-120_000_000 // w_deq.nbytes) - 1)]
+            if out_dtype == torch.float32:
+                lib_ms = _queued_ms([lambda w=w: torch.mm(x, w, out_dtype=torch.float32)
+                                     for w in deqs], reps=60)
+            else:
+                lib_ms = _queued_ms([lambda w=w: torch.matmul(x, w) for w in deqs], reps=60)
+            del deqs, w_deq
+            bound = _bound(2 * x.numel() + n_bytes + got.element_size() * got.numel(),
+                           2 * rows * n_in * n_out)
+            print(f"[w4] {name} at {rows} row(s), device time per call (queued, cold L2): "
+                  f"K6 {kern_ms * 1e3:.1f} us, bound {bound['bound_ms'] * 1e3:.1f} us "
+                  f"({bound['bound_by']}; {bound['bound_ms'] / kern_ms:.1%} of it), torch.matmul "
+                  f"on the dequantised bf16 weight {lib_ms * 1e3:.1f} us (a reference, not the "
+                  f"same function), plain version {plain_ms:.3f} ms")
+            if name == "q_proj/o_proj" and rows == 1:
+                report = {"ms": kern_ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms}
+        del packed, scales
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), **report}
 
 
 class _Tok:
@@ -614,6 +852,53 @@ def _timed(fn):
     return out, time.perf_counter() - t
 
 
+def _decode_profile(engine, prompt, tag: str, steps: int = 16) -> None:
+    """Where a decode step's time goes: ``steps`` greedy decode steps after
+    a prefill of ``prompt``, under torch.profiler. Prints the host's wall
+    time a step, the device's busy time a step (the sum of the kernels'
+    durations) and its share, kernels a step, and K6's share of the busy
+    time. The profiler's own overhead inflates the wall time; the busy time
+    is the device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.models import qwen2
+
+    cache, hidden, n = engine.prefill(prompt)
+    token = qwen2.lm_head(engine.text, hidden).argmax(-1)[:, None]
+    dev = token.device
+    args = (torch.full((1,), n, device=dev), cache, torch.Generator(device=dev).manual_seed(0),
+            SamplingParams(max_new_tokens=steps + 1), steps, torch.zeros(1, dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine._decode_run(token, *args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / steps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6 / steps
+    k6 = sum(e.time_range.elapsed_us() for e in kernels if "w4_" in e.name) / 1e6 / steps
+    print(f"[{tag}] decode profile, {steps} steps: wall {wall * 1e3:.2f} ms a step under the "
+          f"profiler, device busy {busy * 1e3:.2f} ms ({busy / wall:.1%}; idle "
+          f"{1 - busy / wall:.1%}), {len(kernels) / steps:.0f} kernels a step, K6 "
+          f"{k6 * 1e3:.2f} ms of the busy time")
+    del cache
+
+
+def _ttft_decode(engine, prompt, t_generate: float, n_tokens: int) -> tuple:
+    """A warm prefill of ``prompt`` and its head, timed: -> (TTFT s, prefill
+    s, last-row logits, decode ms/token of a generate of ``n_tokens`` tokens
+    that took ``t_generate`` s)."""
+    from long_vita_tpu_torch.models import qwen2
+
+    (cache, hidden, _), t_prefill = _timed(lambda: engine.prefill(prompt))
+    del cache
+    logits, t_head = _timed(lambda: qwen2.lm_head(engine.text, hidden))
+    ttft = t_prefill + t_head
+    return ttft, t_prefill, logits, (t_generate - ttft) / (n_tokens - 1) * 1e3
+
+
 def _check_launches(counts: dict, expected: dict) -> None:
     """Kernels missing from ``expected`` must not have launched."""
     expected = {**dict.fromkeys(counts, 0), **expected}
@@ -638,8 +923,9 @@ def _logit_check(tag, name, logits, ref) -> bool:
     return good
 
 
-def phase_serving(params) -> int:
-    """Text serving. -> K1 launches made by the serving requests."""
+def phase_serving(params) -> tuple:
+    """Text serving. -> (K1 launches made by the serving requests, the
+    kernel path's last-row logits of the 5000-id prompt)."""
     import numpy as np
     import torch
 
@@ -695,10 +981,7 @@ def phase_serving(params) -> int:
           f"tokens in {t_batch:.2f} s; sampled (T 0.7, top-p 0.9) -> {sampled.token_ids[:8]} ...")
 
     # ---- timings of the solo request (warm): TTFT = prefill + first token
-    (cache, hidden, _), t_prefill = _timed(lambda: engine.prefill(prompt))
-    _, t_head = _timed(lambda: qwen2.lm_head(params, hidden).argmax(-1))
-    ttft = t_prefill + t_head
-    decode_ms = (t_again - ttft) / (len(again.token_ids) - 1) * 1e3
+    ttft, t_prefill, logits, decode_ms = _ttft_decode(engine, prompt, t_again, len(again.token_ids))
     print(
         f"[serve] solo 5000-id prompt, 32 greedy tokens: TTFT {ttft * 1e3:.1f} ms "
         f"(prefill {len(prompt) / t_prefill:.0f} prompt tokens/s over "
@@ -711,8 +994,6 @@ def phase_serving(params) -> int:
     # then the decode-style last row) against (i) a no-cache forward of the
     # same 5000 ids through the plain attention and (ii) the same chunked
     # flow with the plain attention, which isolates the kernel
-    logits = qwen2.lm_head(params, hidden)
-    del cache, hidden
     ids = torch.as_tensor([prompt], device=dev)
     ref_hidden, _ = qwen2.qwen2_decoder(
         params, qwen2.embed_tokens(params, ids), torch.arange(len(prompt), device=dev)[None],
@@ -726,7 +1007,209 @@ def phase_serving(params) -> int:
         ok = _logit_check("serve", f"kernel path vs {name}", logits, ref) and ok
     if not ok:
         raise AssertionError("kernel-path logits disagree with the plain forward")
-    return launches
+    _decode_profile(engine, prompt, "serve")
+    return launches, logits
+
+
+def _decode_steps(results, max_new: int, budget: int, segment: int = 64) -> int:
+    """Decode steps engine._decode_run takes for one generate or
+    generate_batch of greedy ``results``: segments of ``segment`` steps
+    (smaller powers of two for a small rest) until ``budget`` tokens, or
+    until the segment in which every row has emitted a stop token (a row
+    shorter than max_new stopped at its length)."""
+    stops = [len(r.token_ids) - 1 if len(r.token_ids) < max_new else None for r in results]
+    if budget <= 0 or all(x is not None and x < 0 for x in stops):
+        return 0
+    stop_at = None if any(x is None for x in stops) else max(stops)
+    steps = 0
+    while budget > 0:
+        n = segment
+        while n // 2 >= budget:
+            n //= 2
+        steps += n
+        budget -= n
+        if stop_at is not None and stop_at < steps:
+            break
+    return steps
+
+
+def phase_int4(params, cfg, dev, bf16_logits) -> dict:
+    """int4 serving (w4a16) of the text-serving decoder through
+    InferenceEngine(weight_quant="int4"): the solo 5000-id prompt with 32
+    greedy tokens twice, the 700 / 2100 / 4000 ragged batch,
+    speculative_k=4 on a prompt that repeats a 64-id pattern, and an exact
+    repeat through prefix_cache_entries=2. Launch counts of K6, its
+    dequantise route and K1 are checked exactly; the last-row logits are
+    held against the same flow with K6's launcher swapped for its plain
+    version. -> the launch counts of the run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.prefix_cache import copy_cache
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.inference.speculative import draft_tokens
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.ops import quant_matmul as qm
+
+    tc = cfg.text
+    chunk, max_seq, k = 2048, 16384, 4
+    kw = dict(max_seq_len=max_seq, chunk=chunk)
+    eng, t_quant = _timed(lambda: InferenceEngine(params, cfg, _StubMM(), weight_quant="int4", **kw))
+    q_bytes = sum(m.packed.nbytes + m.scales.nbytes for m in eng.text.modules()
+                  if isinstance(m, qwen2.QuantDense4))
+    eng_spec = InferenceEngine(eng.params, cfg, _StubMM(), speculative_k=k, **kw)
+    eng_pc = InferenceEngine(eng.params, cfg, _StubMM(), prefix_cache_entries=2, **kw)
+    print(f"[int4] the decoder's 7 x {tc.num_hidden_layers} projections and head quantised on "
+          f"the card in {t_quant:.1f} s: {q_bytes / 1e9:.3f} GB of packed codes and scales "
+          f"(a decode step's K6 reads)")
+    rng = np.random.default_rng(SEED)  # the text-serving phase's prompts
+    vocab = tc.vocab_size
+    prompt = rng.integers(0, vocab, 5000).tolist()
+    batch = [{"input_ids": rng.integers(0, vocab, n).tolist()} for n in (700, 2100, 4000)]
+    spec_prompt = rng.integers(0, vocab, 64).tolist() * 30  # 1920 ids
+    greedy = SamplingParams(max_new_tokens=32)
+
+    def chunks(n):
+        return -(-n // chunk)
+
+    # ---- the main path: requests through the engine's public entry points
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first, t_first = _timed(lambda: eng.generate(input_ids=prompt, sampling=greedy))
+    again, t_again = _timed(lambda: eng.generate(input_ids=prompt, sampling=greedy))
+    batched, t_batch = _timed(lambda: eng.generate_batch(batch, sampling=SamplingParams(max_new_tokens=16)))
+    spec, t_spec = _timed(lambda: eng_spec.generate(input_ids=spec_prompt, sampling=greedy))
+    pc_first, _ = _timed(lambda: eng_pc.generate(input_ids=prompt, sampling=greedy))
+    pc_again, t_pc = _timed(lambda: eng_pc.generate(input_ids=prompt, sampling=greedy))
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    pc = eng_pc.prefix_cache
+    resumed = pc.tokens_saved  # the repeat resumes at the last chunk boundary below 4999
+    n_chunks = 3 * chunks(len(prompt)) + chunks(4000) + chunks(len(spec_prompt)) + chunks(len(prompt) - resumed)
+    solo_budget = min(31, max_seq - 1 - len(prompt))
+    steps = (sum(_decode_steps([r], 32, solo_budget) for r in (first, again, pc_first, pc_again))
+             + _decode_steps(batched, 16, min(15, max_seq - 1 - 700)))
+    per_pass = 7 * tc.num_hidden_layers
+    # K6: each prefill's last-row pass and its first head, each decode step
+    # and each verify step (a pass and its head); the prefill chunks take
+    # the dequantise route
+    print(f"[int4] expected: K1 {tc.num_hidden_layers} x {n_chunks} prefill chunks (the "
+          f"repeat resumed at {resumed}); the dequantise route {per_pass} x {n_chunks}; K6 "
+          f"({per_pass} + 1) x (6 last rows + {steps} decode steps + {eng_spec._spec_steps} "
+          f"verify steps)")
+    _check_launches(counts, {
+        "flash_fwd": tc.num_hidden_layers * n_chunks,
+        "w4_dequant": per_pass * n_chunks,
+        "w4_matmul": (per_pass + 1) * (6 + steps + eng_spec._spec_steps),
+    })
+    if pc.hits != 1 or resumed != 4096:
+        raise AssertionError(f"the repeat did not resume at 4096 (hits {pc.hits}, saved {resumed})")
+    if not (first.token_ids == again.token_ids == pc_first.token_ids == pc_again.token_ids):
+        raise AssertionError(f"int4 greedy runs differ: {first.token_ids} / {again.token_ids} / "
+                             f"{pc_first.token_ids} / {pc_again.token_ids}")
+    outs = [first, again, *batched, spec, pc_first, pc_again]
+    if not all(r.token_ids and all(0 <= t < vocab for t in r.token_ids) for r in outs):
+        raise AssertionError("empty output or token id outside [0, vocab)")
+    print(f"[int4] greedy x2 identical ({len(first.token_ids)} tokens): {first.token_ids[:8]} ...; "
+          f"the prefix-cache repeat (resumed at {resumed}) gives the same tokens; generate_batch "
+          f"700/2100/4000 -> {[len(r.token_ids) for r in batched]} tokens in {t_batch:.2f} s; "
+          f"peak allocated {peak_gb:.2f} GB")
+
+    # ---- timings (warm): TTFT, decode, the prefix hit's TTFT, speculation
+    ttft, t_prefill, logits, decode_ms = _ttft_decode(eng, prompt, t_again, len(again.token_ids))
+    (cache, _, _), t_hit = _timed(lambda: eng_pc.prefill(prompt))
+    del cache
+    print(f"[int4] solo 5000-id prompt, 32 greedy tokens: TTFT {ttft * 1e3:.1f} ms, generate "
+          f"{t_again:.2f} s (first call {t_first:.2f} s), decode {decode_ms:.2f} ms/token; the "
+          f"prefix-cache hit's prefill {t_hit * 1e3:.1f} ms (one chunk) against {t_prefill * 1e3:.1f} ms")
+
+    # ---- the K6 path's last-row logits against the same flow with K6's
+    # launcher swapped for its plain version (nothing else changes)
+    kernel = qm._w4_cuda
+    qm._w4_cuda = lambda x, p, s_, od: qm.w4_matmul_reference(x, p, s_, od)
+    try:
+        cache, hid_plain, _ = eng.prefill(prompt)
+        plain_logits = qwen2.lm_head(eng.text, hid_plain)
+    finally:
+        qm._w4_cuda = kernel
+    del cache
+    ok = bool(torch.isfinite(logits).all()) and logits.shape == (1, vocab)
+    ok = _logit_check("int4", "K6 path vs the same flow on K6's plain version", logits,
+                      plain_logits) and ok
+    cos_bf16 = F.cosine_similarity(logits, bf16_logits, dim=-1).item()
+    print(f"[int4] (for the record, random weights) last-row logits, int4 vs bf16 weights: "
+          f"cosine {cos_bf16:.6f}")
+
+    # ---- speculation: acceptance, the first divergence from plain greedy,
+    # and the verify step's row 0 against the one-row decode at its position
+    emitted = len(spec.token_ids) - 1  # after the first token, which the head samples
+    plain_spec = eng.generate(input_ids=spec_prompt, sampling=greedy)
+    div = next((i for i, (a, b) in enumerate(zip(spec.token_ids, plain_spec.token_ids)) if a != b), None)
+    print(f"[int4] speculative_k={k} on a 64-id pattern x 30: {eng_spec._spec_steps} verify steps "
+          f"for {emitted} tokens ({emitted / max(eng_spec._spec_steps, 1):.2f} a step, "
+          f"{emitted - eng_spec._spec_steps} drafts accepted) in {t_spec:.2f} s; against plain "
+          f"greedy: {'identical' if div is None else f'first divergence at token {div}'}")
+    cache, hidden, n = eng.prefill(spec_prompt)
+    t0 = int(qwen2.lm_head(eng.text, hidden).argmax(-1))
+    drafts = draft_tokens(np.asarray(spec_prompt + [t0]), k - 1)
+    step = torch.zeros((1, k), dtype=torch.long, device=dev)
+    step[0, 0] = t0
+    step[0, 1:1 + len(drafts)] = torch.as_tensor(drafts, device=dev)
+    verify_cache = copy_cache(cache)
+    h1, _ = qwen2.qwen2_decoder(eng.text, qwen2.embed_tokens(eng.text, step[:, :1]),
+                                torch.full((1, 1), n, device=dev), tc, kv_cache=cache)
+    hk, _ = qwen2.qwen2_decoder(eng.text, qwen2.embed_tokens(eng.text, step),
+                                n + torch.arange(k, device=dev)[None], tc, kv_cache=verify_cache)
+    del cache, verify_cache
+    ok = _logit_check("int4", f"the {k}-row verify step's row 0 vs the one-row decode",
+                      qwen2.lm_head(eng.text, hk)[:, 0], qwen2.lm_head(eng.text, h1[:, -1])) and ok
+    if not ok:
+        raise AssertionError("the int4 path's logits disagree")
+    _decode_profile(eng, prompt, "int4")
+    del eng, eng_spec, eng_pc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_int8(params, cfg, dev, bf16_logits) -> dict:
+    """One weight_quant="int8" generate of the 5000-id prompt, greedy x2
+    identical, with TTFT and decode ms/token. w8a16 has no kernel of its
+    own (the JAX package leaves it to XLA): each product casts the int8
+    codes to bf16 first. -> the launch counts of the run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+
+    tc = cfg.text
+    eng, t_quant = _timed(lambda: InferenceEngine(
+        params, cfg, _StubMM(), max_seq_len=16384, chunk=2048, weight_quant="int8"))
+    prompt = np.random.default_rng(SEED).integers(0, tc.vocab_size, 5000).tolist()
+    greedy = SamplingParams(max_new_tokens=32)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first, _ = _timed(lambda: eng.generate(input_ids=prompt, sampling=greedy))
+    again, t_again = _timed(lambda: eng.generate(input_ids=prompt, sampling=greedy))
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_launches(counts, {"flash_fwd": tc.num_hidden_layers * 2 * 3})
+    if first.token_ids != again.token_ids:
+        raise AssertionError(f"int8 greedy runs differ: {first.token_ids} / {again.token_ids}")
+    ttft, _, logits, decode_ms = _ttft_decode(eng, prompt, t_again, len(again.token_ids))
+    cos = F.cosine_similarity(logits, bf16_logits, dim=-1).item()
+    print(f"[int8] weights quantised on the card in {t_quant:.1f} s; greedy x2 identical "
+          f"({len(first.token_ids)} tokens): {first.token_ids[:8]} ...; TTFT {ttft * 1e3:.1f} ms, "
+          f"decode {decode_ms:.2f} ms/token; peak allocated {peak_gb:.2f} GB; (for the record) "
+          f"last-row logits vs bf16 weights: cosine {cos:.6f}")
+    _decode_profile(eng, prompt, "int8")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _vlm_params(text_params, cfg, dev, seed, probe_tiles):
@@ -813,6 +1296,11 @@ def phase_multimodal(
     kw = dict(max_seq_len=max_seq, chunk=chunk, vision_chunk=vision_chunk)
     eng_q = InferenceEngine(lv, cfg, mm, kv_quant=True, **kw)
     eng_b = InferenceEngine(lv, cfg, mm, **kw)
+    # (iv) the video again in transfer pieces of 16 frames, encoded up front
+    # and interleaved with the prefill chunks
+    eng_up = InferenceEngine(lv, cfg, mm, kv_quant=True, transfer_chunk=16, **kw)
+    eng_il = InferenceEngine(lv, cfg, mm, kv_quant=True, transfer_chunk=16,
+                             interleave_encode=True, **kw)
     greedy = SamplingParams(max_new_tokens=new_tokens)
 
     # ---- the main path: requests through the engine's public entry points
@@ -822,6 +1310,8 @@ def phase_multimodal(
     again, t_again = _timed(lambda: eng_q.generate(input_ids=req_i, videos=[video], sampling=greedy))
     batched, t_batch = _timed(lambda: eng_q.generate_batch(reqs_ii, sampling=greedy))
     bf16, t_bf16 = _timed(lambda: eng_b.generate(input_ids=req_i, videos=[video], sampling=greedy))
+    upfront, t_up = _timed(lambda: eng_up.generate(input_ids=req_i, videos=[video], sampling=greedy))
+    interleaved, t_il = _timed(lambda: eng_il.generate(input_ids=req_i, videos=[video], sampling=greedy))
     counts = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -833,20 +1323,28 @@ def phase_multimodal(
 
     enc_i = _encode_batches(n_frames, tc_tiles, vision_chunk)
     enc_ii = _encode_batches(1 + grid[0] * grid[1] + batch_frames, tc_tiles, vision_chunk)
+    enc_iv = _encode_batches(n_frames, 16, vision_chunk)
     print(f"[mm] (i) {n_frames}-frame video, {n_i} tokens ({chunks(n_i)} chunks of {chunk}); "
           f"(ii) batch of a {1 + grid[0] * grid[1]}-tile image and a {batch_frames}-frame "
           f"video, {lens_ii} tokens ({chunks(max(lens_ii))} chunks); (iii) = (i), bf16 cache")
     _check_launches(counts, {
         "flash_fwd": n_layers * chunks(n_i),
-        "flash_fwd_quant": n_layers * (2 * chunks(n_i) + chunks(max(lens_ii))),
-        "short_attn": n_vit * (3 * enc_i + enc_ii),
+        "flash_fwd_quant": n_layers * (4 * chunks(n_i) + chunks(max(lens_ii))),
+        "short_attn": n_vit * (3 * enc_i + enc_ii + 2 * enc_iv),
     })
+    if interleaved.token_ids != upfront.token_ids:
+        raise AssertionError(f"interleaved encode differs from the up-front encode: "
+                             f"{interleaved.token_ids} vs {upfront.token_ids}")
+    print(f"[mm] (iv) pieces of 16 frames ({enc_iv} encode batches each way): interleaved encode "
+          f"gives the up-front encode's tokens ({t_il:.2f} s vs {t_up:.2f} s); against (i), one "
+          f"piece of {n_frames}: {'identical' if upfront.token_ids == first.token_ids else 'differs'} "
+          f"(for the record: other ViT batch sizes may round differently)")
     if first.token_ids != again.token_ids:
         raise AssertionError(f"repeat greedy generate differs: {first.token_ids} vs {again.token_ids}")
-    outs = [first, again, *batched, bf16]
+    outs = [first, again, *batched, bf16, upfront, interleaved]
     if not all(r.token_ids and all(0 <= t < tc.vocab_size for t in r.token_ids) for r in outs):
         raise AssertionError("empty output or token id outside [0, vocab)")
-    if [r.prompt_tokens for r in outs] != [n_i, n_i, *lens_ii, n_i]:
+    if [r.prompt_tokens for r in outs] != [n_i, n_i, *lens_ii, n_i, n_i, n_i]:
         raise AssertionError("prompt lengths differ from the expansion's")
     print(f"[mm] (i) int8 cache, greedy x2 identical ({len(first.token_ids)} tokens, "
           f"{len(set(first.token_ids))} distinct): "
@@ -1184,13 +1682,27 @@ def main() -> int:
         "flash_fwd_quant": phase_kernels_quant(),
         "short_attn": phase_kernels_short(),
         **phase_kernels_bwd(),
+        "w4_matmul": phase_kernels_w4(),
     }
     cfg, dev = long_vita_14b(), torch.device("cuda")
     params = _text_params(cfg, dev)
     launches = dict.fromkeys(SOURCES, 0)
-    launches["flash_fwd"] = phase_serving(params)
-    for name, n in phase_multimodal(params, cfg, dev).items():
-        launches[name] += n
+
+    def add(counts):
+        for name in SOURCES:
+            launches[name] += counts[name]
+
+    launches["flash_fwd"], bf16_logits = phase_serving(params)
+    bits = _snapshot(params, set())
+    add(phase_int4(params, cfg, dev, bf16_logits))
+    add(phase_int8(params, cfg, dev, bf16_logits))
+    changed = _moved(params, bits)
+    print(f"[serve] the bf16 decoder after quantising it twice: {len(changed)} of "
+          f"{len(bits)} tensors changed a bit")
+    if changed:
+        raise AssertionError(f"quantisation changed the bf16 weights: {sorted(changed)[:5]}")
+    del bits
+    add(phase_multimodal(params, cfg, dev))
     torch.cuda.empty_cache()  # the serving engines and their caches are gone
     log = logging.getLogger("long_vita_tpu_torch.training.trainer")  # a line per step
     log.setLevel(logging.INFO)
@@ -1200,13 +1712,11 @@ def main() -> int:
     counts, lv = phase_train(params, cfg, dev, tag="T1", seq_len=32768, videos=(64, 16),
                              grid=(2, 3), freeze_vision=True, seed=SEED + 5)
     del lv
-    for name, n in counts.items():
-        launches[name] += n
+    add(counts)
     torch.cuda.empty_cache()
     counts, lv = phase_train(params, cfg, dev, tag="T2", seq_len=16384, videos=(16,),
                              grid=(2, 3), freeze_vision=False, vit_lr_mult=0.1, seed=SEED + 6)
-    for name, n in counts.items():
-        launches[name] += n
+    add(counts)
     torch.cuda.empty_cache()
     phase_train_grads(lv, cfg, dev)
     report = {"kernels": [

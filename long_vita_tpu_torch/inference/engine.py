@@ -7,7 +7,8 @@ serving path is the JAX engine's:
     runs; the tiles are encoded up front in pieces of ``transfer_chunk``
     tiles (each cast to the cache dtype on the host before the copy), in ViT
     batches of ``vision_chunk`` through the single-pass attention kernel K3,
-    into one feature buffer;
+    into one feature buffer; with ``interleave_encode`` each piece is encoded
+    just before the first prompt chunk its tiles scatter into;
   - prompts pad to a multiple of ``chunk`` and stream through the decoder in
     chunks against a preallocated cache (flash kernel K1 on CUDA, or the int8
     flash kernel K2 with ``kv_quant``); each chunk's embeddings take the
@@ -16,12 +17,18 @@ serving path is the JAX engine's:
     last real token is re-run decode-style against the cache without it, so
     the first sampled token sees exactly the unpadded prompt;
   - decode runs in fixed-size segments with a host early-stop check between
-    them; a ragged batch keeps one frontier per row.
+    them; a ragged batch keeps one frontier per row; greedy requests of an
+    engine with ``speculative_k`` take k-row verify steps instead
+    (inference/speculative.py);
+  - ``prefix_cache_entries`` keeps KV snapshots of recent prompts and resumes
+    a prefill after the longest shared prefix (inference/prefix_cache.py);
+  - ``weight_quant`` ("int8" or "int4") serves a quantized copy of the text
+    decoder (models/quantize.py): int4 projections and head run K6 for
+    decode-sized row counts.
 
 PyTorch runs eagerly, so there is no jit: a donated JAX buffer becomes a
 cache written in place. Randomness is one ``torch.Generator`` per request,
-seeded from ``seed``. Weight quantization, meshes, the prefix cache,
-speculative decoding and interleaved encode are later slices and raise
+seeded from ``seed``. Meshes are a later slice and raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -33,10 +40,16 @@ import numpy as np
 import torch
 
 from long_vita_tpu_torch.config import LongVITAConfig
+from long_vita_tpu_torch.inference.prefix_cache import PrefixCache, media_fingerprint
 from long_vita_tpu_torch.inference.sampler import SamplingParams, sample
+from long_vita_tpu_torch.inference.speculative import speculative_decode
 from long_vita_tpu_torch.models import qwen2
 from long_vita_tpu_torch.models.long_vita import LongVITAParams, encode_images
 from long_vita_tpu_torch.models.qwen2 import KVCache, Qwen2Params
+from long_vita_tpu_torch.models.quantize import (
+    quantize_weights_int4,
+    quantize_weights_int8,
+)
 
 _OOB_SEQ = 2**30  # a feature row at this position lands in no chunk
 
@@ -99,6 +112,13 @@ class PrefillJob:
     last_hidden: Optional[torch.Tensor] = None
     feats: Optional[torch.Tensor] = None  # [N_tiles (padded), T, H] on device
     indices: Optional[np.ndarray] = None  # [2, N_tiles (padded), T] host
+    media_key: str = ""    # prefix-cache fingerprint of the tile stack
+    resumed_from: int = 0  # tokens restored from the prefix cache
+    # interleaved encode: the host tiles not encoded yet, how many are, and
+    # each tile's first prompt row
+    pixels: Optional[np.ndarray] = None
+    tiles_done: int = 0
+    tile_first_row: Optional[np.ndarray] = None
 
     @property
     def done(self) -> bool:
@@ -134,17 +154,32 @@ class InferenceEngine:
 
         kv_quant: an int8 KV cache with per-(token, kv head) f32 scales.
         vision_chunk: tiles per ViT batch; transfer_chunk: tiles per host ->
-        device piece of the up-front encode (0: one piece)."""
-        if weight_quant is not None:
-            raise _later(f"weight_quant={weight_quant!r}", "w8a16/w4 with K6")
+        device piece of the encode (0: one piece); interleave_encode: encode
+        each piece just before the first prompt chunk its tiles scatter into
+        (off by default, as in the JAX package).
+        prefix_cache_entries: KV snapshots kept for prefix reuse (0: off).
+        speculative_k: 0 (off) or the rows of a prompt-lookup verify step
+        (>= 2), for greedy requests of generate.
+        weight_quant: None, "int8" (w8a16) or "int4" (w4a16): the text
+        decoder's projections and head are quantized into a new tree on the
+        parameters' device; ``params`` stays as it is."""
         if mesh is not None:
             raise _later("mesh (multi-device serving)", "multi-GPU")
-        if prefix_cache_entries:
-            raise _later("prefix_cache_entries", "server/CLI")
-        if speculative_k:
-            raise _later("speculative_k", "server/CLI")
-        if interleave_encode:
-            raise _later("interleave_encode=True", "server/CLI: interleave_encode")
+        if speculative_k < 0 or speculative_k == 1:
+            raise ValueError("speculative_k must be 0 (off) or >= 2")
+        self.speculative_k = speculative_k
+        self._spec_steps = 0  # verify steps taken (acceptance telemetry)
+        self.prefix_cache = (
+            PrefixCache(prefix_cache_entries, chunk) if prefix_cache_entries > 0 else None
+        )
+        self.interleave_encode = interleave_encode
+        self.weight_quant = weight_quant
+        if weight_quant == "int8":
+            params = quantize_weights_int8(params)
+        elif weight_quant == "int4":
+            params = quantize_weights_int4(params)
+        elif weight_quant is not None:
+            raise ValueError(f"unknown weight_quant {weight_quant!r}")
         self.params = params
         self.text: Qwen2Params = params.text if isinstance(params, LongVITAParams) else params
         self.cfg = cfg
@@ -168,6 +203,11 @@ class InferenceEngine:
         )
 
     def _encode(self, tiles: np.ndarray) -> torch.Tensor:
+        if not isinstance(self.params, LongVITAParams):
+            raise ValueError(
+                "images need a LongVITAParams engine: this one was built with "
+                "the text decoder's weights alone"
+            )
         pixels = _host_cast_pixels(tiles, self.cache_dtype).to(self.device)
         return encode_images(
             self.params, pixels, self.cfg, chunk=self.vision_chunk, attn_impl="short"
@@ -179,11 +219,6 @@ class InferenceEngine:
         once). The buffer is padded to a transfer_chunk multiple with the
         encodings of zero tiles; _pad_scatter_indices sends those rows
         nowhere."""
-        if not isinstance(self.params, LongVITAParams):
-            raise ValueError(
-                "images need a LongVITAParams engine: this one was built with "
-                "the text decoder's weights alone"
-            )
         arr = np.asarray(images)
         n, tc = arr.shape[0], self.transfer_chunk
         if not tc or n <= tc:
@@ -241,6 +276,20 @@ class InferenceEngine:
             self.text, embeds, pos, self.cfg.text, kv_cache=cache,
         )
         return hidden[:, -1], cache
+
+    def _verify_step(self, tokens, pos0: int, cache: KVCache):
+        """Speculative verify: k tokens [B, k] at positions pos0 .. pos0 + k
+        - 1 against a cache of length pos0. -> (each row's greedy token
+        [B, k], its logprob, the cache at length pos0 + k)."""
+        embeds = qwen2.embed_tokens(self.text, tokens)
+        positions = pos0 + torch.arange(tokens.shape[1], device=self.device)[None]
+        hidden, cache = qwen2.qwen2_decoder(
+            self.text, embeds, positions, self.cfg.text, kv_cache=cache,
+        )
+        logits = qwen2.lm_head(self.text, hidden)  # [B, k, V]
+        out = torch.argmax(logits, dim=-1)
+        lps = torch.log_softmax(logits.float(), dim=-1).gather(-1, out[..., None])[..., 0]
+        return out, lps, cache
 
     def _head_sample(self, hidden, generator, sp: SamplingParams):
         logits = qwen2.lm_head(self.text, hidden)
@@ -316,7 +365,10 @@ class InferenceEngine:
         finish_prefill. (prefill() wraps the three for one-shot callers.)
         images [N, H, W, 3] host tiles and image_indices [2, N, T] as the
         multimodal tokenizer's expand returns them; the tiles are encoded
-        here, before the first chunk."""
+        here, before the first chunk, or with interleave_encode (and more
+        than one transfer piece) by prefill_step. With a prefix cache, a
+        prompt that shares at least a chunk with a snapshot resumes after
+        it."""
         true_len = len(input_ids)
         if true_len > self.max_seq_len:
             raise ValueError(
@@ -326,20 +378,67 @@ class InferenceEngine:
         padded = _round_up(true_len, self.chunk)
         ids = np.zeros((1, padded), np.int64)
         ids[0, :true_len] = input_ids
-        feats, indices = self._media(images, image_indices)
-        cache = self._make_cache(
-            batch=1, max_len=_round_up(self.max_seq_len, self.chunk)
-        )
+        feats = indices = pixels = tile_first_row = None
+        if images is not None and np.asarray(images).shape[0] > 0:
+            arr = np.asarray(images)
+            n, tc = arr.shape[0], self.transfer_chunk
+            if self.interleave_encode and tc and n > tc:
+                pixels = arr
+                tile_first_row = np.asarray(image_indices)[1].min(axis=1)
+                indices = _pad_scatter_indices(image_indices, _round_up(n, tc))
+            else:
+                feats, indices = self._media(arr, image_indices)
+        media_key, cache, start = "", None, 0
+        if self.prefix_cache is not None:
+            media_key = media_fingerprint(images)
+            hit = self.prefix_cache.match(np.asarray(input_ids, np.int32), media_key)
+            if hit is not None:
+                cache, start = hit
+        if cache is None:
+            cache = self._make_cache(
+                batch=1, max_len=_round_up(self.max_seq_len, self.chunk)
+            )
+        tiles_done = 0
+        if pixels is not None and start > 0:
+            # a prefix-cache resume: tiles whose every row lies inside the
+            # restored prefix are never read, so their encodes are skipped
+            last_row = np.asarray(image_indices)[1].max(axis=1)
+            while tiles_done < pixels.shape[0] and last_row[tiles_done] < start:
+                tiles_done += 1
         return PrefillJob(
             ids=torch.as_tensor(ids, device=self.device), cache=cache,
-            true_len=true_len, padded=padded, feats=feats, indices=indices,
+            true_len=true_len, padded=padded, start=start, feats=feats,
+            indices=indices, media_key=media_key, resumed_from=start,
+            pixels=pixels, tiles_done=tiles_done, tile_first_row=tile_first_row,
         )
+
+    def _advance_encode(self, job: PrefillJob, upto_row: int) -> None:
+        """Interleaved encode: encode transfer pieces until every tile whose
+        first row lies below ``upto_row`` has its features in the job's
+        buffer (padded to a transfer-piece multiple, as the up-front encode's)."""
+        if job.pixels is None:
+            return
+        n, tc = job.pixels.shape[0], self.transfer_chunk
+        mask = job.tile_first_row < upto_row
+        need = int(np.nonzero(mask)[0].max()) + 1 if mask.any() else 0
+        while job.tiles_done < need:
+            i = job.tiles_done
+            part = self._encode(_pad_tiles(job.pixels[i : i + tc], tc))
+            if job.feats is None:
+                job.feats = torch.zeros(
+                    (_round_up(n, tc), *part.shape[1:]), dtype=part.dtype, device=part.device
+                )
+            job.feats[i : i + tc] = part
+            job.tiles_done = min(i + tc, n)
 
     def prefill_step(self, job: PrefillJob) -> bool:
         """Run ONE prompt chunk; returns True when all chunks are done."""
         start = job.start
+        self._advance_encode(job, start + self.chunk)
+        # a leading text-only chunk of an interleaved encode has no features yet
+        indices = job.indices if job.feats is not None else None
         chunk_embeds = self._embed_chunk(
-            job.ids[:, start : start + self.chunk], job.feats, job.indices, start
+            job.ids[:, start : start + self.chunk], job.feats, indices, start
         )
         job.last_hidden, job.cache = self._prefill_chunk(chunk_embeds, start, job.cache)
         job.start = start + self.chunk
@@ -512,9 +611,12 @@ class InferenceEngine:
         expanded = self.mm.expand(
             input_ids, images=images, videos=videos, max_num_frame=max_num_frame
         )
-        cache, last_hidden, true_len = self.prefill(
+        job = self.start_prefill(
             expanded.input_ids, expanded.images, expanded.image_indices
         )
+        while not job.done:
+            self.prefill_step(job)
+        cache, last_hidden, true_len = self.finish_prefill(job)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         token, first_lp = self._head_sample(last_hidden, gen, sampling)
         token = token.reshape(1, 1)
@@ -524,17 +626,40 @@ class InferenceEngine:
         logprobs: list[float] = [float(first_lp[0])]
         stop_set = {self.eos_id, *sampling.stop_token_ids}
         if out_tokens[-1] not in stop_set and budget > 0:
-            tokens, lps, cache, _ = self._decode_run(
-                token, torch.full((1,), pos, device=self.device), cache,
-                gen, sampling, budget,
-                torch.zeros(1, dtype=torch.bool, device=self.device),
-            )
-            out_tokens += [int(t) for t in tokens[0]]
-            logprobs += [float(x) for x in lps[0]]
+            if self.speculative_k > 0 and sampling.greedy:
+                hist = np.concatenate([
+                    np.asarray(expanded.input_ids, np.int32),
+                    np.asarray(out_tokens, np.int32),
+                ])
+                toks, lps, cache = speculative_decode(
+                    self, hist, out_tokens[-1], pos, cache, budget, stop_set,
+                    self.speculative_k,
+                )
+                out_tokens += toks
+                logprobs += lps
+            else:
+                tokens, lps, cache, _ = self._decode_run(
+                    token, torch.full((1,), pos, device=self.device), cache,
+                    gen, sampling, budget,
+                    torch.zeros(1, dtype=torch.bool, device=self.device),
+                )
+                out_tokens += [int(t) for t in tokens[0]]
+                logprobs += [float(x) for x in lps[0]]
+        stopped = False
         for idx, t in enumerate(out_tokens):
             if t in stop_set:
                 out_tokens, logprobs = out_tokens[:idx], logprobs[:idx]
+                stopped = True
                 break
+        if self.prefix_cache is not None:
+            # kv is valid for every token fed back: all of them when a stop
+            # ended decode, all but the last sample otherwise
+            n_fed = len(out_tokens) if stopped else max(0, len(out_tokens) - 1)
+            ids_cached = np.concatenate([
+                np.asarray(expanded.input_ids, np.int32),
+                np.asarray(out_tokens[:n_fed], np.int32),
+            ])
+            self.prefix_cache.put(ids_cached, cache, true_len + n_fed, job.media_key)
         text = self.mm.tokenizer.decode(out_tokens, skip_special_tokens=True)
         return GenerationResult(
             out_tokens, text, true_len,

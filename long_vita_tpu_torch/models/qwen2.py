@@ -11,7 +11,9 @@ Differences from the JAX package, all of form rather than of numbers:
   - parameters are created with requires_grad=False; training turns it on
     for what it differentiates (utils/convert.set_requires_grad);
   - dense weights are kept in ``nn.Linear`` orientation ``[out, in]`` (the
-    JAX kernels are ``[in, out]``; utils/convert.py transposes);
+    JAX kernels are ``[in, out]``; utils/convert.py transposes), int8 codes
+    too; packed int4 weights keep the JAX layout ``[in/2, out]`` that K6
+    reads;
   - the KV cache is a pair of preallocated ``[L, B, Smax, Hkv, D]`` buffers
     (int8 codes plus ``[L, B, Smax, Hkv, 1]`` f32 scales when quantized)
     written in place, where JAX threads a donated scan carry.
@@ -33,6 +35,7 @@ from long_vita_tpu_torch.ops.attention import (
     quant_prefill_attention,
     xla_attention_quant,
 )
+from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 CacheLen = Union[int, torch.Tensor]
@@ -51,11 +54,41 @@ class Dense(nn.Module):
         self.bias = _frozen(bias) if bias is not None else None
 
 
+class QuantDense8(nn.Module):
+    """An int8 weight-only projection (w8a16, models/quantize.py): codes
+    ``weight_q`` int8 [out, in], per-output-channel ``scale`` f32 [out], and
+    an optional ``bias`` [out] (the JAX entry {kernel_q, scale, bias})."""
+
+    def __init__(self, weight_q: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.weight_q = _frozen(weight_q)
+        self.scale = _frozen(scale)
+        self.bias = _frozen(bias) if bias is not None else None
+
+
+class QuantDense4(nn.Module):
+    """A packed-int4 weight-only projection (w4a16, read by K6): ``packed``
+    int8 [in/2, out] and group ``scales`` f32 [in/128, out] in the JAX
+    layout, and an optional ``bias`` [out] (the JAX entry {kernel_p4,
+    scale4, bias})."""
+
+    def __init__(self, packed: torch.Tensor, scales: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.packed = _frozen(packed)
+        self.scales = _frozen(scales)
+        self.bias = _frozen(bias) if bias is not None else None
+
+
+Projection = Union[Dense, QuantDense8, QuantDense4]
+
+
 class DecoderLayer(nn.Module):
     def __init__(
-        self, *, input_norm, post_attn_norm, q_proj: Dense, k_proj: Dense,
-        v_proj: Dense, o_proj: Dense, gate_proj: Dense, up_proj: Dense,
-        down_proj: Dense,
+        self, *, input_norm, post_attn_norm, q_proj: Projection, k_proj: Projection,
+        v_proj: Projection, o_proj: Projection, gate_proj: Projection,
+        up_proj: Projection, down_proj: Projection,
     ):
         super().__init__()
         self.input_norm = _frozen(input_norm)
@@ -69,7 +102,7 @@ class Qwen2Params(nn.Module):
 
     def __init__(
         self, *, embed: torch.Tensor, layers: list[DecoderLayer],
-        final_norm: torch.Tensor, lm_head: Dense,
+        final_norm: torch.Tensor, lm_head: Projection,
     ):
         super().__init__()
         self.embed = _frozen(embed)  # [V, H]
@@ -144,9 +177,16 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
 
 
-def _proj(entry: Dense, x: torch.Tensor) -> torch.Tensor:
-    """A dense projection without its bias (callers add it in the param
-    dtype after the product, as the JAX package does)."""
+def _proj(entry: Projection, x: torch.Tensor) -> torch.Tensor:
+    """A projection without its bias (callers add it in the param dtype
+    after the product, as the JAX package does). Dispatches on the layout
+    as the JAX _proj (:174-181): int8 codes cast to x's dtype, the product,
+    then the scale in x's dtype; packed int4 through w4_matmul (K6 for
+    decode-sized row counts, the dequantise route for prefill chunks)."""
+    if isinstance(entry, QuantDense8):
+        return F.linear(x, entry.weight_q.to(x.dtype)) * entry.scale.to(x.dtype)
+    if isinstance(entry, QuantDense4):
+        return w4_matmul(x, entry.packed, entry.scales)
     return F.linear(x, entry.weight)
 
 
@@ -347,8 +387,19 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     result, so: on CUDA the bf16 GEMM writes f32 directly (torch.mm with
     out_dtype=float32, f32 accumulation in cuBLAS; _F32Logits gives it a
     backward); elsewhere the operands are widened to f32 first, which is
-    exact for bf16."""
-    w = params.lm_head.weight  # [V, H]
+    exact for bf16. A quantized head (JAX :969-982): int4 through
+    w4_matmul with f32 out; int8 codes cast to the hidden dtype, the f32
+    product, then the f32 scale."""
+    entry = params.lm_head
+    if isinstance(entry, QuantDense4):
+        return w4_matmul(hidden, entry.packed, entry.scales, out_dtype=torch.float32)
+    if isinstance(entry, QuantDense8):
+        return _f32_logits(hidden, entry.weight_q.to(hidden.dtype)) * entry.scale
+    return _f32_logits(hidden, entry.weight)
+
+
+def _f32_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """hidden [..., H] x w [V, H] -> f32 logits [..., V]."""
     if w.dtype != torch.float32 and on_cuda(hidden, w):
         out = _F32Logits.apply(hidden.reshape(-1, hidden.shape[-1]), w)
         return out.reshape(*hidden.shape[:-1], w.shape[0])

@@ -7,6 +7,10 @@ flags, so an edited source rebuilds and an unchanged one loads at once.
 nvcc's output (``-Xptxas -v``: registers, shared memory, spills) is kept in a
 ``.log`` beside the library.
 
+The ops modules register their C entry points here (``register``: entry
+name, source, ctypes argument types) and launch them through ``launch``;
+``build_registered`` builds every registered source at once.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine with neither nvcc nor a GPU.
 """
@@ -29,6 +33,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# C entry point -> (its source under csrc/, its argument types before the stream)
+_ENTRIES: dict[str, tuple[str, list]] = {}
 
 
 def find_nvcc() -> str:
@@ -121,3 +127,48 @@ def build_log(name: str) -> str:
     """nvcc's output for the current build of ``csrc/<name>.cu``."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.is_file() else ""
+
+
+def register(entry: str, source: str, argtypes) -> None:
+    """Declare the C entry point ``entry`` of ``csrc/<source>.cu``; its last
+    argument, the CUDA stream, is appended to ``argtypes`` here."""
+    _ENTRIES[entry] = (source, [*argtypes, ctypes.c_void_p])
+
+
+def registered_sources() -> tuple[str, ...]:
+    """The sources of the registered entry points, in registration order."""
+    return tuple(dict.fromkeys(source for source, _ in _ENTRIES.values()))
+
+
+def kernel(entry: str):
+    """The registered C entry point ``entry``, its library built and loaded
+    if needed."""
+    source, argtypes = _ENTRIES[entry]
+    fn = getattr(load(source), entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def build_registered() -> None:
+    """Build every registered source (one nvcc each, in parallel) and load
+    every registered entry point."""
+    build_all(registered_sources())
+    for entry in _ENTRIES:
+        kernel(entry)
+
+
+def launch(entry: str, dev, *args) -> None:
+    """Call a registered entry point on ``dev``'s current stream (tensors
+    pass as their data pointers, None as a null pointer); raise on a CUDA
+    error."""
+    import torch
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernel(entry)(
+            *(a.data_ptr() if torch.is_tensor(a) else a for a in args), stream
+        )
+    if err:
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")

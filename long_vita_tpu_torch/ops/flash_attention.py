@@ -2,8 +2,8 @@
 
 Counterpart of long_vita_tpu/ops/flash_attention.py. Three forward and two
 backward kernels, CUDA C++ sources under ``csrc/`` built with nvcc at first
-use (ops/_build.py); every entry point has its own launch counter on its
-wrapper:
+use (ops/_build.py, where the entry points are registered); every entry point
+has its own launch counter on its wrapper:
 
   - ``flash_attention`` (:1488; Pallas `_fwd_kernel` :144 -> K1,
     ``csrc/flash_fwd.cu``): flash forward, GQA, offsets, kv_valid_len,
@@ -49,6 +49,7 @@ from typing import Optional, Union
 
 import torch
 
+from long_vita_tpu_torch.ops import _build
 from long_vita_tpu_torch.ops._target import on_cuda
 
 NEG_INF = -(2.0**30)
@@ -61,66 +62,29 @@ _BWD_ARGS = (
     [ctypes.c_void_p] * 12      # q k v do lse delta dq dk dv qseg kseg meta
     + [ctypes.c_longlong] * 10  # batch/seq strides of q k v do, segment batch strides
     + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale dtype stream
+    + [ctypes.c_float, ctypes.c_int]  # scale dtype
 )
-# C entry point -> (its source under csrc/, its argument types)
-_KERNELS = {
-    "lvt_flash_fwd": ("flash_fwd", (
-        [ctypes.c_void_p] * 8       # q k v o lse qseg kseg meta
-        + [ctypes.c_longlong] * 10  # batch/seq strides of q k v o, segment batch strides
-        + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale dtype stream
-    )),
-    "lvt_flash_fwd_quant": ("flash_fwd_quant", (
-        [ctypes.c_void_p] * 8       # q k v k_scale v_scale o lse meta
-        + [ctypes.c_longlong] * 14  # batch/seq strides of q k v o; b/s/h of both scales
-        + [ctypes.c_int] * 6        # batch sq skv hq hkv d
-        + [ctypes.c_float, ctypes.c_void_p]  # scale stream
-    )),
-    "lvt_short_attn": ("short_attn", (
-        [ctypes.c_void_p] * 5       # q k v o lse
-        + [ctypes.c_longlong] * 8   # batch/seq strides of q k v o
-        + [ctypes.c_int] * 4        # batch s hq hkv
-        + [ctypes.c_float, ctypes.c_void_p]  # scale stream
-    )),
-    "lvt_flash_bwd": ("flash_bwd", _BWD_ARGS),
-    "lvt_flash_bwd_dkv": ("flash_bwd_2pass", _BWD_ARGS),
-    "lvt_flash_bwd_dq": ("flash_bwd_2pass", _BWD_ARGS),
-}
-SOURCES = tuple(dict.fromkeys(source for source, _ in _KERNELS.values()))
-
-
-def _kernel(entry: str):
-    """The C entry point ``entry``, its library built and loaded if needed."""
-    from long_vita_tpu_torch.ops import _build
-
-    source, argtypes = _KERNELS[entry]
-    fn = getattr(_build.load(source), entry)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def build() -> None:
-    """Build every kernel library (one nvcc each, in parallel) and load it."""
-    from long_vita_tpu_torch.ops import _build
-
-    _build.build_all(SOURCES)
-    for entry in _KERNELS:
-        _kernel(entry)
-
-
-def _launch(entry: str, dev: torch.device, *args) -> None:
-    """Call a kernel's C entry point on ``dev``'s current stream (tensors
-    pass as their data pointers); raise on a CUDA error."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel(entry)(
-            *(a.data_ptr() if torch.is_tensor(a) else a for a in args), stream
-        )
-    if err:
-        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
+_build.register("lvt_flash_fwd", "flash_fwd", (
+    [ctypes.c_void_p] * 8       # q k v o lse qseg kseg meta
+    + [ctypes.c_longlong] * 10  # batch/seq strides of q k v o, segment batch strides
+    + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
+    + [ctypes.c_float, ctypes.c_int]  # scale dtype
+))
+_build.register("lvt_flash_fwd_quant", "flash_fwd_quant", (
+    [ctypes.c_void_p] * 8       # q k v k_scale v_scale o lse meta
+    + [ctypes.c_longlong] * 14  # batch/seq strides of q k v o; b/s/h of both scales
+    + [ctypes.c_int] * 6        # batch sq skv hq hkv d
+    + [ctypes.c_float]          # scale
+))
+_build.register("lvt_short_attn", "short_attn", (
+    [ctypes.c_void_p] * 5       # q k v o lse
+    + [ctypes.c_longlong] * 8   # batch/seq strides of q k v o
+    + [ctypes.c_int] * 4        # batch s hq hkv
+    + [ctypes.c_float]          # scale
+))
+_build.register("lvt_flash_bwd", "flash_bwd", _BWD_ARGS)
+_build.register("lvt_flash_bwd_dkv", "flash_bwd_2pass", _BWD_ARGS)
+_build.register("lvt_flash_bwd_dq", "flash_bwd_2pass", _BWD_ARGS)
 
 
 def _device_meta(dev, *values: IntLike) -> torch.Tensor:
@@ -242,7 +206,7 @@ def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     meta = _device_meta(dev, q_offset, kv_offset, kv_len)
-    _launch(
+    _build.launch(
         "lvt_flash_fwd", dev, q, k, v, o, lse, qseg, kseg, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
@@ -396,7 +360,7 @@ def _bwd_launch(entry: str, a: dict) -> None:
     q, k, v, do = a["q"], a["k"], a["v"], a["do"]
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _launch(
+    _build.launch(
         entry, q.device, q, k, v, do, a["lse"], a["delta"], a["dq"], a["dk"],
         a["dv"], a["qseg"], a["kseg"], a["meta"],
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -610,7 +574,7 @@ def _flash_quant_cuda(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     meta = _device_meta(dev, q_offset, kv_offset, kv_len)
-    _launch(
+    _build.launch(
         "lvt_flash_fwd_quant", dev, q, k, v, ks, vs, o, lse, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
@@ -723,7 +687,7 @@ def _short_cuda(q, k, v):
     dev = q.device
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-    _launch(
+    _build.launch(
         "lvt_short_attn", dev, q, k, v, o, lse,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),

@@ -4,9 +4,8 @@ Counterpart of long_vita_tpu/training/loss.py (``cross_entropy``,
 ``make_logit_positions``) and of long_vita_tpu/data/dataset.py's ``Pack`` and
 ``collate_packs``. The JAX collation imports the JAX loss module, and
 ``long_vita_tpu.data`` needs yaml and PIL, none of which the GPU machine has:
-the port carries its own copy here, numpy in and numpy out, so the training
-path imports nothing of ``long_vita_tpu`` beyond ``config`` and
-``constants``.
+the port carries its own copy here, numpy in and numpy out, and imports
+nothing of the JAX package.
 
 Labels are pre-shifted (labels[t] is the target of position t's logits) and
 IGNORE_INDEX (-100) rows contribute nothing; the supervised rows are packed
@@ -22,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from long_vita_tpu.constants import IGNORE_INDEX
+from long_vita_tpu_torch.constants import IGNORE_INDEX
 
 logger = logging.getLogger(__name__)
 

@@ -9,6 +9,11 @@ caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
   - the stacked ``[L, ...]`` layer arrays are split per layer;
   - each dense kernel ``[in, out]`` is transposed to ``nn.Linear``'s
     ``[out, in]``;
+  - a serving tree quantized by the JAX package's models/quantize.py comes
+    across as it is: int8 entries ({kernel_q, scale}) as ``QuantDense8``
+    with the codes transposed to ``[out, in]``, packed int4 entries
+    ({kernel_p4, scale4}) as ``QuantDense4`` in the JAX layout; codes and
+    scales keep their dtypes (``dtype`` casts only float weights);
   - bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) travel as a
     ``uint16`` view and are reinterpreted as ``torch.bfloat16``, bit for bit.
 
@@ -30,9 +35,13 @@ from long_vita_tpu_torch.models.intern_vit import (
 )
 from long_vita_tpu_torch.models.long_vita import LongVITAParams
 from long_vita_tpu_torch.models.projector import ProjectorParams
-from long_vita_tpu_torch.models.qwen2 import Dense, DecoderLayer, Qwen2Params
-
-_QUANT_OR_LORA = ("kernel_q", "kernel_p4", "lora")
+from long_vita_tpu_torch.models.qwen2 import (
+    DecoderLayer,
+    Dense,
+    QuantDense4,
+    QuantDense8,
+    Qwen2Params,
+)
 
 
 def _tensor(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -54,10 +63,10 @@ def params_from_jax(
     tree = tree.get("text", tree)
     layers = tree["layers"]
     for name, entry in layers.items():
-        if isinstance(entry, dict) and any(key in entry for key in _QUANT_OR_LORA):
+        if isinstance(entry, dict) and "lora" in entry:
             raise NotImplementedError(
-                f"layers.{name} is quantized or carries LoRA adapters; the port "
-                "takes dense kernels only (ROADMAP: port queue, w8a16/w4 with K6)"
+                f"layers.{name} carries LoRA adapters; the port takes dense or "
+                "quantized kernels only (ROADMAP: port queue, training)"
             )
     if "router" in layers:
         raise NotImplementedError("MoE layers are ported later (ROADMAP: the rest)")
@@ -65,23 +74,32 @@ def params_from_jax(
     def t(arr):
         return _tensor(arr, device, dtype)
 
-    def dense(name, i, bias=False):
-        entry = layers[name]
-        w = t(np.asarray(entry["kernel"][i]).T)  # [in, out] -> [out, in]
-        return Dense(w, t(entry["bias"][i]) if bias else None)
+    def kept(arr):  # int8 codes and f32 scales keep their dtype
+        return _tensor(arr, device, None)
+
+    def projection(entry, i=None, bias=False):
+        def at(key):
+            return np.asarray(entry[key] if i is None else entry[key][i])
+
+        b = t(at("bias")) if bias else None
+        if "kernel_q" in entry:  # codes [in, out] -> [out, in]
+            return QuantDense8(kept(at("kernel_q").T), kept(at("scale")), b)
+        if "kernel_p4" in entry:
+            return QuantDense4(kept(at("kernel_p4")), kept(at("scale4")), b)
+        return Dense(t(at("kernel").T), b)  # [in, out] -> [out, in]
 
     n_layers = np.asarray(layers["input_norm"]).shape[0]
     out_layers = [
         DecoderLayer(
             input_norm=t(layers["input_norm"][i]),
             post_attn_norm=t(layers["post_attn_norm"][i]),
-            q_proj=dense("q_proj", i, bias=True),
-            k_proj=dense("k_proj", i, bias=True),
-            v_proj=dense("v_proj", i, bias=True),
-            o_proj=dense("o_proj", i),
-            gate_proj=dense("gate_proj", i),
-            up_proj=dense("up_proj", i),
-            down_proj=dense("down_proj", i),
+            q_proj=projection(layers["q_proj"], i, bias=True),
+            k_proj=projection(layers["k_proj"], i, bias=True),
+            v_proj=projection(layers["v_proj"], i, bias=True),
+            o_proj=projection(layers["o_proj"], i),
+            gate_proj=projection(layers["gate_proj"], i),
+            up_proj=projection(layers["up_proj"], i),
+            down_proj=projection(layers["down_proj"], i),
         )
         for i in range(n_layers)
     ]
@@ -89,7 +107,7 @@ def params_from_jax(
         embed=t(tree["embed"]["embedding"]),
         layers=out_layers,
         final_norm=t(tree["final_norm"]),
-        lm_head=Dense(t(np.asarray(tree["lm_head"]["kernel"]).T)),
+        lm_head=projection(tree["lm_head"]),
     )
 
 

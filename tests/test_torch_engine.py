@@ -32,6 +32,7 @@ from long_vita_tpu.models.qwen2 import init_qwen2_params
 from long_vita_tpu_torch.inference.engine import InferenceEngine
 from long_vita_tpu_torch.inference.sampler import SamplingParams
 from long_vita_tpu_torch.utils.convert import long_vita_params_from_jax, params_from_jax
+from test_torch_quantize import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=0, atol=1e-4)
 QUANT_TOL = dict(rtol=0, atol=1e-3)
@@ -187,20 +188,31 @@ def test_sampled_generate_is_seeded(engines):
     assert all(0 <= t < cfg.text.vocab_size for t in a.token_ids)
 
 
-@pytest.mark.parametrize(
-    "kw,item",
-    [
-        (dict(interleave_encode=True), "interleave_encode"),
-        (dict(weight_quant="int8"), "K6"),
-        (dict(mesh=object()), "multi-GPU"),
-        (dict(prefix_cache_entries=4), "server"),
-        (dict(speculative_k=4), "server"),
-    ],
-)
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "multi-GPU")])
 def test_later_slices_raise(engines, kw, item):
     _, port, cfg = engines
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine(port.params, cfg, _MM(), **kw)
+
+
+@pytest.mark.parametrize(
+    "kw,attr,value",
+    [
+        (dict(interleave_encode=True), "interleave_encode", True),
+        (dict(weight_quant="int8"), "weight_quant", "int8"),
+        (dict(prefix_cache_entries=4), "prefix_cache", 4),
+        (dict(speculative_k=4), "speculative_k", 4),
+    ],
+)
+def test_engine_options_of_later_slices_are_accepted(engines, kw, attr, value):
+    """The options that raised before their slices were ported: the engine
+    takes them (their behaviour is held against the JAX engine in
+    test_torch_engine_quant, test_torch_speculative and
+    test_torch_prefix_cache)."""
+    _, port, cfg = engines
+    eng = InferenceEngine(port.params, cfg, _MM(), **kw)
+    got = getattr(eng, attr)
+    assert (got.max_entries if attr == "prefix_cache" else got) == value
 
 
 # ---- media and the int8 cache ----------------------------------------------

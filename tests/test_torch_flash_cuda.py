@@ -1,7 +1,7 @@
 """PyTorch port: the hand-written CUDA kernels (K1 flash forward, K2 int8 flash
-forward, K3 short ViT attention, K4 one-pass and K5 two-pass flash backward)
-against their plain versions, and the f32-logit head's backward against an
-f32 product.
+forward, K3 short ViT attention, K4 one-pass and K5 two-pass flash backward,
+K6 the w4a16 product) against their plain versions, and the f32-logit head's
+backward against an f32 product.
 
 Needs a CUDA GPU (the kernel has no CPU mode): every test carries the
 ``cuda`` marker and skips without one. This file imports no JAX, so it runs
@@ -15,13 +15,18 @@ abs; f32 1e-4 (summation order and exp only). Backward: bf16 gradients
 within 1e-2 x max|ref| abs + 1e-2 rel (both round p and dS to bf16 at the
 same points, but from f32 logits summed in another order, so a rounding can
 flip; each gradient sums up to Sq products), f32 within 1e-5 x max|ref| +
-1e-5 rel.
+1e-5 rel. K6: both sides take each int4 x bf16 product exactly and sum in
+f32 in different orders, then round once: bf16 out within 1e-2 x max|ref|,
+f32 out within 1e-4 x max|ref|; with f32 activations (products rounded in
+f32) 1e-5 x max|ref|.
 """
 import pytest
 import torch
 
 from long_vita_tpu_torch.models.qwen2 import quantize_kv
+from long_vita_tpu_torch.models.quantize import quantize_kernel_int4
 from long_vita_tpu_torch.ops import flash_attention as tfa
+from long_vita_tpu_torch.ops import quant_matmul as tqm
 
 pytestmark = pytest.mark.cuda
 
@@ -241,3 +246,62 @@ def test_f32_head_backward_at_the_budget_shape(gen):
         err = (got.float() - ref).abs()
         assert bool((err <= 2.0**-7 * ref.abs() + 1e-5 * ref.abs().max()).all()), name
         assert (got != ref.to(torch.bfloat16)).float().mean().item() <= share, name
+
+
+def _w4_case(gen, rows, n_in, n_out, x_dtype, out_dtype):
+    w = _rand(gen, (n_out, n_in), torch.bfloat16) * 0.02  # nn.Linear orientation
+    packed, scales = quantize_kernel_int4(w)
+    x = _rand(gen, (rows, n_in), x_dtype)
+    before = tqm.w4_matmul.launches
+    got = tqm.w4_matmul(x, packed, scales, out_dtype)
+    torch.cuda.synchronize()
+    assert tqm.w4_matmul.launches == before + 1 and got.dtype == out_dtype
+    ref = tqm.w4_matmul_reference(x, packed, scales, out_dtype)
+    tol = 1e-5 if x_dtype == torch.float32 else (1e-2 if out_dtype == torch.bfloat16 else 1e-4)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=tol * ref.float().abs().max().item())
+    again = tqm.w4_matmul(x, packed, scales, out_dtype)
+    assert torch.equal(again, got)  # a fixed summation order: the same bits
+    return got
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 512])
+@pytest.mark.parametrize("n_in,n_out", [(5120, 1024), (5120, 152064)], ids=["k_proj", "head"])
+def test_w4_matmul_kernel(gen, rows, n_in, n_out, out_dtype):
+    """K6 at the 14B k_proj and head shapes, a decode row and the kernel
+    route's 512-row limit (k_proj at one row splits its groups over blocks
+    and adds the partials in a second pass)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _w4_case(gen, rows, n_in, n_out, torch.bfloat16, out_dtype)
+
+
+def test_w4_matmul_f32_activations_and_rejects(gen):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _w4_case(gen, 5, 512, 640, torch.float32, torch.float32)
+    packed, scales = quantize_kernel_int4(_rand(gen, (256, 512), torch.bfloat16))
+    x = _rand(gen, (3, 512), torch.bfloat16)
+    with pytest.raises(TypeError):
+        tqm._w4_cuda(x.half(), packed, scales, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tqm._w4_cuda(x, packed, scales.half(), torch.bfloat16)
+    with pytest.raises(ValueError, match="shapes"):
+        tqm._w4_cuda(x, packed, scales[:2], torch.bfloat16)
+
+
+def test_w4_dequant_route_on_the_card(gen):
+    """600 rows take JAX's dequantise route (no launch); its int8 nibble
+    split (arithmetic shifts) gives the CPU's codes for every byte, and its
+    f32-out product agrees with the plain version of the kernel route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    every_byte = torch.arange(-128, 128, dtype=torch.int8).reshape(256, 1)
+    assert torch.equal(tqm.unpack_int4_torch(every_byte.cuda()).cpu(),
+                       tqm.unpack_int4_torch(every_byte))
+    packed, scales = quantize_kernel_int4(_rand(gen, (256, 512), torch.bfloat16) * 0.02)
+    x = _rand(gen, (600, 512), torch.bfloat16)
+    before = (tqm.w4_matmul.launches, tqm.w4_matmul_dequant.calls)
+    got = tqm.w4_matmul(x, packed, scales, torch.float32)
+    assert (tqm.w4_matmul.launches, tqm.w4_matmul_dequant.calls) == (before[0], before[1] + 1)
+    ref = tqm.w4_matmul_reference(x, packed, scales, torch.float32)
+    # the dequantised weight is rounded to bf16 once after its f32 scale
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * ref.abs().max().item())

@@ -69,11 +69,20 @@ def test_params_from_jax_layout_and_bf16_bits():
 
 
 def test_params_from_jax_refuses_quantized_entries():
+    """Quantized serving trees now come across (tests/test_torch_quantize.py
+    holds them bit for bit); entries carrying LoRA adapters are still
+    refused, naming the queue item."""
     cfg = tiny_test_config()
     p = _jax_params(cfg)
-    p["layers"]["q_proj"]["kernel_q"] = p["layers"]["q_proj"].pop("kernel")
+    p["layers"]["q_proj"]["lora"] = {"a": np.zeros((2, 64, 4), np.float32)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         params_from_jax(p)
+    p = _jax_params(cfg)
+    entry = p["layers"]["q_proj"]
+    kernel = np.asarray(entry.pop("kernel"))
+    entry["kernel_q"] = np.zeros(kernel.shape, np.int8)
+    entry["scale"] = np.ones(kernel.shape[::2], np.float32)  # [L, out]
+    assert isinstance(params_from_jax(p).layers[0].q_proj, tq.QuantDense8)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

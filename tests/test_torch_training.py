@@ -48,6 +48,7 @@ from long_vita_tpu_torch.training import train_step as tts
 from long_vita_tpu_torch.training.checkpoint import restore_params_only
 from long_vita_tpu_torch.training.trainer import MeshConfig, Trainer, TrainerConfig
 from long_vita_tpu_torch.utils.convert import long_vita_params_from_jax, set_requires_grad
+from test_torch_quantize import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = tiny_test_config()
