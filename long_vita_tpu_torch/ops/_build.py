@@ -135,6 +135,12 @@ def register(entry: str, source: str, argtypes) -> None:
     _ENTRIES[entry] = (source, [*argtypes, ctypes.c_void_p])
 
 
+def argtypes(entry: str) -> list:
+    """The ctypes argument types of the registered entry point ``entry``,
+    the stream last."""
+    return _ENTRIES[entry][1]
+
+
 def registered_sources() -> tuple[str, ...]:
     """The sources of the registered entry points, in registration order."""
     return tuple(dict.fromkeys(source for source, _ in _ENTRIES.values()))

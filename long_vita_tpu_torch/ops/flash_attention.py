@@ -65,7 +65,7 @@ _BWD_ARGS = (
     + [ctypes.c_float, ctypes.c_int]  # scale dtype
 )
 _build.register("lvt_flash_fwd", "flash_fwd", (
-    [ctypes.c_void_p] * 8       # q k v o lse qseg kseg meta
+    [ctypes.c_void_p] * 9       # q k v o lse qseg kseg seg_ranges meta
     + [ctypes.c_longlong] * 10  # batch/seq strides of q k v o, segment batch strides
     + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
     + [ctypes.c_float, ctypes.c_int]  # scale dtype
@@ -180,7 +180,51 @@ def _check_operand(name: str, x: torch.Tensor, d: int) -> None:
         raise ValueError(f"{name}: rows must be 16-byte aligned for the kernel")
 
 
+# The Hopper forward (K1's bf16 body and K3, csrc/flash_fwd_sm90.cuh) takes
+# a block of 128 query rows (192 at D = 64) and kv tiles of 128 rows on a
+# grid of (Hq, B, q tiles), or (q tiles, Hq, B) without a causal mask, and
+# reads q, k, v through TMA tensor maps: int32 coordinates and at most 65535
+# batch rows, heads and q tiles.
+SM90_BLOCK_KV = 128
+_GRID_YZ_MAX = 65535
+
+
+def sm90_block_q(d: int) -> int:
+    """Query rows a block of the Hopper forward at head dim d."""
+    return 192 if d == 64 else 128
+
+
+def _tile_ranges(seg: torch.Tensor, rows: int) -> torch.Tensor:
+    """[B, S] int32 segment ids -> [B, ceil(S / rows), 2], the (min, max) id
+    of each tile of ``rows`` (the last one padded with its last id): the
+    Hopper forward skips the kv tiles whose range misses a q block's."""
+    b, s = seg.shape
+    if s % rows:
+        seg = torch.cat([seg, seg[:, -1:].expand(b, rows - s % rows)], 1)
+    tiles = seg.reshape(b, -1, rows)
+    return torch.stack([tiles.amin(-1), tiles.amax(-1)], -1)
+
+
+def _check_sm90(b: int, sq: int, skv: int, hq: int, d: int) -> None:
+    if max(b, hq, -(-sq // sm90_block_q(d))) > _GRID_YZ_MAX:
+        raise ValueError(
+            f"at most {_GRID_YZ_MAX} batch rows, heads and tiles of "
+            f"{sm90_block_q(d)} query rows a launch, got B={b}, Hq={hq}, Sq={sq}"
+        )
+    if max(sq, skv) >= 2**31:
+        raise ValueError(f"sequences must be shorter than 2^31 rows, got {sq}/{skv}")
+
+
 def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
+    o, lse, args = flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg)
+    _build.launch("lvt_flash_fwd", q.device, *args)
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
+    """Check q/k/v for K1 and prepare its launch: -> (o, lse, the arguments
+    of lvt_flash_fwd before the stream)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -196,26 +240,34 @@ def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
         )
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, d)
+    if q.dtype == torch.bfloat16:
+        _check_sm90(b, sq, skv, hq, d)
+    kseg_sb, seg_ranges = 0, None
     if qseg is not None:
         if qseg.shape != (b, sq) or kseg.shape != (b, skv):
             raise ValueError("segment ids must be [B, Sq] and [B, Skv]")
         qseg = qseg.to(torch.int32).contiguous()
-        kseg = kseg.to(torch.int32).contiguous()
+        kseg = kseg.to(torch.int32)
+        if sq and skv:
+            seg_ranges = torch.cat(
+                [_tile_ranges(qseg, sm90_block_q(d)), _tile_ranges(kseg, SM90_BLOCK_KV)], 1
+            ).contiguous()
+        # rows of a multiple of 4 ids: TMA strides are multiples of 16 bytes
+        kseg_sb = _round_up(skv, 4)
+        kseg = torch.nn.functional.pad(kseg, (0, kseg_sb - skv)).contiguous()
 
     dev = q.device
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     meta = _device_meta(dev, q_offset, kv_offset, kv_len)
-    _build.launch(
-        "lvt_flash_fwd", dev, q, k, v, o, lse, qseg, kseg, meta,
+    return o, lse, (
+        q, k, v, o, lse, qseg, kseg, seg_ranges, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-        sq if qseg is not None else 0, skv if kseg is not None else 0,
+        sq if qseg is not None else 0, kseg_sb,
         b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
         _DTYPE_CODE[q.dtype],
     )
-    flash_attention.launches += 1
-    return o, lse
 
 
 def flash_attention_reference(
@@ -670,6 +722,15 @@ class _ShortAttention(torch.autograd.Function):
 
 
 def _short_cuda(q, k, v):
+    o, lse, args = short_attn_args(q, k, v)
+    _build.launch("lvt_short_attn", q.device, *args)
+    short_attention.launches += 1
+    return o, lse
+
+
+def short_attn_args(q, k, v):
+    """Check q/k/v for K3 and prepare its launch: -> (o, lse, the arguments
+    of lvt_short_attn before the stream)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -680,21 +741,18 @@ def _short_cuda(q, k, v):
         raise ValueError(f"short attention kernel takes head dim 64, got {d}")
     if k.shape != v.shape or k.shape[:2] != (b, s) or hq % hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 sequences a launch, got {b}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, d)
+    _check_sm90(b, s, s, hq, d)
     dev = q.device
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-    _build.launch(
-        "lvt_short_attn", dev, q, k, v, o, lse,
+    return o, lse, (
+        q, k, v, o, lse,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         b, s, hq, hkv, 1.0 / math.sqrt(d),
     )
-    short_attention.launches += 1
-    return o, lse
 
 
 def short_attention_reference(

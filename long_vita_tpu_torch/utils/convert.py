@@ -17,6 +17,10 @@ caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
   - bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) travel as a
     ``uint16`` view and are reinterpreted as ``torch.bfloat16``, bit for bit.
 
+The tensors land on the card (``device="cuda"``) unless the caller passes
+another device, ``device="cpu"`` included; on a machine without a card the
+default raises rather than building a model that would serve on the host.
+
 ``set_requires_grad`` turns gradients on and off as the JAX training step
 differentiates the same tree.
 """
@@ -44,6 +48,17 @@ from long_vita_tpu_torch.models.qwen2 import (
 )
 
 
+def _target(device) -> torch.device:
+    """The device the tensors go to; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the converted weights go to the card by default; "
+            "pass device='cpu' to build them on the host"
+        )
+    return device
+
+
 def _tensor(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     arr = np.array(arr)  # a writable, contiguous host copy
     if arr.dtype.name == "bfloat16":
@@ -56,10 +71,11 @@ def _tensor(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def params_from_jax(
-    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+    tree: dict[str, Any], device="cuda", dtype: Optional[torch.dtype] = None
 ) -> Qwen2Params:
     """JAX qwen2 tree (or a LongVITA tree with a "text" entry) of numpy
     arrays -> Qwen2Params on ``device``, cast to ``dtype`` when given."""
+    device = _target(device)
     tree = tree.get("text", tree)
     layers = tree["layers"]
     for name, entry in layers.items():
@@ -112,9 +128,10 @@ def params_from_jax(
 
 
 def vision_params_from_jax(
-    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+    tree: dict[str, Any], device="cuda", dtype: Optional[torch.dtype] = None
 ) -> VisionParams:
     """JAX InternViT tree (``params["vision"]``) -> VisionParams."""
+    device = _target(device)
 
     def t(arr):
         return _tensor(arr, device, dtype)
@@ -150,9 +167,10 @@ def vision_params_from_jax(
 
 
 def projector_params_from_jax(
-    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+    tree: dict[str, Any], device="cuda", dtype: Optional[torch.dtype] = None
 ) -> ProjectorParams:
     """JAX projector tree (``params["projector"]``) -> ProjectorParams."""
+    device = _target(device)
 
     def t(arr):
         return _tensor(arr, device, dtype)
@@ -165,7 +183,7 @@ def projector_params_from_jax(
 
 
 def long_vita_params_from_jax(
-    tree: dict[str, Any], device=None, dtype: Optional[torch.dtype] = None
+    tree: dict[str, Any], device="cuda", dtype: Optional[torch.dtype] = None
 ) -> LongVITAParams:
     """JAX LongVITA tree {"text", "vision", "projector"} of numpy arrays ->
     LongVITAParams on ``device``, cast to ``dtype`` when given."""

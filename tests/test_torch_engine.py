@@ -117,7 +117,7 @@ def engines():
     p = jax.tree_util.tree_map_with_path(fill, p)
     kw = dict(max_seq_len=512, chunk=64, decode_segment=8)
     jax_eng = JaxEngine({"text": p}, cfg, _MM(), cache_dtype=jnp.float32, **kw)
-    port = InferenceEngine(params_from_jax(p), cfg, _MM(), cache_dtype=torch.float32, **kw)
+    port = InferenceEngine(params_from_jax(p, device="cpu"), cfg, _MM(), cache_dtype=torch.float32, **kw)
     return jax_eng, port, cfg
 
 
@@ -245,7 +245,7 @@ def media_engines():
     p = jax.tree.map(jnp.asarray, jax.tree_util.tree_map_with_path(fill, p))
     mm = _MM(cfg.image_token_length)
     kw = dict(max_seq_len=512, chunk=64, decode_segment=8, vision_chunk=3, transfer_chunk=4)
-    tp = long_vita_params_from_jax(p)
+    tp = long_vita_params_from_jax(p, device="cpu")
     out = {"cfg": cfg, "mm": mm, "jax_params": p}
     for quant in (False, True):
         out["jax", quant] = JaxEngine(p, cfg, mm, cache_dtype=jnp.float32, kv_quant=quant, **kw)

@@ -32,7 +32,7 @@ KW = dict(max_seq_len=512, chunk=64, decode_segment=8)
 def model(request):
     cfg = GEOMETRIES[request.param]()
     p = jax_params(cfg, seed=0)
-    return request.param, cfg, p, params_from_jax(p)
+    return request.param, cfg, p, params_from_jax(p, device="cpu")
 
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])

@@ -113,3 +113,12 @@ def test_dispatch_is_by_device():
     with pytest.raises(ValueError, match="unsupported"):
         on_cuda(cpu, torch.zeros(1, device="meta"))
 
+
+
+def test_tile_ranges_of_segment_ids():
+    """The (min, max) segment id of each 128-row tile, which the Hopper
+    forward uses to skip kv tiles: the last tile is padded with its last id."""
+    seg = torch.tensor([[0] * 100 + [1] * 60 + [3] * 40, [5] * 130 + [2] * 70], dtype=torch.int32)
+    got = tfa._tile_ranges(seg, 128)
+    assert got.tolist() == [[[0, 1], [1, 3]], [[5, 5], [2, 5]]]
+    assert tfa._tile_ranges(seg[:, :128], 128).tolist() == [[[0, 1]], [[5, 5]]]

@@ -138,6 +138,94 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(gen):
         tfa.short_attention(q, q, q)
 
 
+# The Hopper forward (K1's bf16 body and K3): 128 query rows a block, K/V
+# tiles of 128 rows through TMA, a 16-column product for a tile of which a
+# warpgroup sees at most 16 columns, V's rows past kv_valid_len zeroed.
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("case", [
+    # (Sq, Skv, Hq, Hkv, q_offset, kv_valid_len, causal)
+    (300, 700, 8, 8, 350, 600, True),      # Sq and kv_len off the 128 grid, GQA 1
+    (200, 1024, 40, 8, 100, 129, True),    # GQA 5; one key past a tile: a narrow tile
+    (256, 640, 16, 2, 1000, 640, True),    # GQA 8; q_offset past the cache frontier
+    (129, 512, 8, 1, 0, 300, False),       # non-causal, kv_len inside a tile
+    (1, 2048, 8, 2, 2047, 2048, True),     # one decode-like row at the end
+    (200, 300, 8, 2, 70, 300, True),       # D 64: warpgroup 0's narrow tile is not the block's last
+])
+def test_sm90_forward_shapes(gen, d, case):
+    sq, skv, hq, hkv, q_off, kv_len, causal = case
+    q = _rand(gen, (2, sq, hq, d), torch.bfloat16)
+    k, v = _rand(gen, (2, skv, hkv, d), torch.bfloat16), _rand(gen, (2, skv, hkv, d), torch.bfloat16)
+    _check(q, k, v, causal=causal, q_offset=q_off, kv_valid_len=kv_len)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 127, 128, 333])
+def test_sm90_forward_nan_past_kv_valid_len(gen, kv_len):
+    """Rows of the cache past kv_valid_len hold NaN (TMA loads them as they
+    are): they must not reach o or lse; kv_len 0 gives empty rows."""
+    q = _rand(gen, (1, 200, 8, 128), torch.bfloat16)
+    k, v = _rand(gen, (1, 512, 2, 128), torch.bfloat16), _rand(gen, (1, 512, 2, 128), torch.bfloat16)
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    o, lse = tfa.flash_attention(q, k, v, causal=True, q_offset=400, kv_valid_len=kv_len,
+                                 return_lse=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all())
+    if kv_len == 0:
+        assert bool((o == 0).all()) and bool((lse == tfa.NEG_INF).all())
+    else:
+        _check(q, k, v, causal=True, q_offset=400, kv_valid_len=kv_len)
+
+
+@pytest.mark.parametrize("layout", ["packed", "interleaved"])
+@pytest.mark.parametrize("d", [128, 64])
+def test_sm90_forward_segments(gen, d, layout):
+    """Segments (causal, GQA 5) with an odd Skv: the kv segment ids are
+    padded to a multiple of 4 ids a row for their TMA map. Packed rows let
+    whole kv tiles be skipped; interleaved ids (not sorted) must skip none
+    that holds a match."""
+    s = 1333
+    q = _rand(gen, (2, s, 10, d), torch.bfloat16)
+    k, v = _rand(gen, (2, s, 2, d), torch.bfloat16), _rand(gen, (2, s, 2, d), torch.bfloat16)
+    if layout == "packed":
+        seg = torch.zeros(2, s, dtype=torch.int32, device="cuda")
+        seg[0, 130:] = 1
+        seg[0, 700:] = 2
+        seg[1, 5:] = 1
+        seg[1, 1200:] = 2
+    else:
+        seg = ((torch.arange(s, device="cuda") // 50) % 3).to(torch.int32).expand(2, s)
+    _check(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+
+
+@pytest.mark.parametrize("s", [1, 257, 1025, 2048])
+def test_short_attention_sm90_lengths(gen, s):
+    """K3 at the lengths it meets (1025 = 8 x 128 + 1: one narrow kv tile and
+    a q block of one warpgroup), q/k/v as the strided views of one
+    [N, S, 3, H, 64] qkv projection, never copied."""
+    qkv = _rand(gen, (3, s, 3, 16, 64), torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    before = tfa.short_attention.launches
+    o, lse = tfa.short_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert tfa.short_attention.launches == before + 1
+    ro, rlse = tfa.short_attention_reference(q, k, v)
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+
+
+def test_sm90_wrappers_reject_what_the_tensor_maps_do_not_take(gen):
+    q = _rand(gen, (1, 64, 4, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="batch rows"):
+        x = q.expand(65536, 64, 4, 64)
+        tfa.short_attention(x, x, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        buf = _rand(gen, (64 * 4 * 64 + 4,), torch.bfloat16)
+        t = buf[4:].view(1, 64, 4, 64)  # 8 bytes past an aligned base
+        tfa.flash_attention(t, t, t)
+
+
 def _check_bwd(q, k, v, fused, *, causal, q_offset=0, kv_valid_len=None, seg=None):
     """K4 (fused) or K5 against the plain backward on the same (o, lse, do);
     the kernel is forced, whatever JAX's rule picks at the shape."""

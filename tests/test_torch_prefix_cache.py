@@ -145,7 +145,7 @@ def media(request):
     mm = _MM(cfg.image_token_length)
     kw = dict(max_seq_len=512, chunk=CHUNK * 4, decode_segment=8, vision_chunk=3,
               transfer_chunk=2, weight_quant=quant)
-    tp = long_vita_params_from_jax(p)
+    tp = long_vita_params_from_jax(p, device="cpu")
     return {
         "cfg": cfg, "mm": mm,
         "jax": JaxEngine(p, cfg, mm, cache_dtype=jnp.float32, **kw),

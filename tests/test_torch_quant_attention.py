@@ -220,7 +220,7 @@ def tiny_decoder():
         return a
 
     p = jax.tree_util.tree_map_with_path(fill, p)
-    return cfg, p, params_from_jax(p)
+    return cfg, p, params_from_jax(p, device="cpu")
 
 
 def test_decoder_with_int8_cache_matches(tiny_decoder):

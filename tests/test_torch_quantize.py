@@ -84,7 +84,7 @@ def jax_params(cfg, seed=0):
 def trees(request):
     cfg = GEOMETRIES[request.param]()
     p = jax_params(cfg)
-    return request.param, cfg, p, params_from_jax(p)
+    return request.param, cfg, p, params_from_jax(p, device="cpu")
 
 
 def _bits_equal(a: torch.Tensor, b) -> None:
@@ -168,9 +168,9 @@ def test_params_from_jax_carries_quantized_trees(trees):
     dtype=bf16 keep codes int8 and scales f32."""
     _, _, p, _ = trees
     j8, j4 = quantize_weights_int8_host(p), quantize_weights_int4_host(p)
-    _check_int8(params_from_jax(j8), j8)
-    _check_int4(params_from_jax({"text": j4}), j4)
-    bf = params_from_jax(j4, dtype=torch.bfloat16)
+    _check_int8(params_from_jax(j8, device="cpu"), j8)
+    _check_int4(params_from_jax({"text": j4}, device="cpu"), j4)
+    bf = params_from_jax(j4, dtype=torch.bfloat16, device="cpu")
     assert bf.layers[0].q_proj.packed.dtype == torch.int8
     assert bf.layers[0].q_proj.scales.dtype == torch.float32
     assert bf.layers[0].q_proj.bias.dtype == torch.bfloat16

@@ -41,13 +41,13 @@ def _jax_params(cfg, seed=0, dtype=jnp.float32):
 def model():
     cfg = tiny_test_config()
     p = _jax_params(cfg)
-    return cfg, p, params_from_jax(p)
+    return cfg, p, params_from_jax(p, device="cpu")
 
 
 def test_params_from_jax_layout_and_bf16_bits():
     cfg = tiny_test_config()
     p = _jax_params(cfg, seed=1, dtype=jnp.bfloat16)
-    tp = params_from_jax(p)
+    tp = params_from_jax(p, device="cpu")
     assert len(tp.layers) == cfg.text.num_hidden_layers
     assert tp.embed.dtype == torch.bfloat16
 
@@ -63,8 +63,8 @@ def test_params_from_jax_layout_and_bf16_bits():
         bits(tp.lm_head.weight), np.asarray(p["lm_head"]["kernel"]).T.view(np.uint16)
     )
     # a LongVITA tree with a "text" entry converts the same way
-    assert torch.equal(params_from_jax({"text": p}).final_norm, tp.final_norm)
-    f32 = params_from_jax(p, dtype=torch.float32)
+    assert torch.equal(params_from_jax({"text": p}, device="cpu").final_norm, tp.final_norm)
+    f32 = params_from_jax(p, dtype=torch.float32, device="cpu")
     assert f32.layers[0].up_proj.weight.dtype == torch.float32
 
 
@@ -76,13 +76,53 @@ def test_params_from_jax_refuses_quantized_entries():
     p = _jax_params(cfg)
     p["layers"]["q_proj"]["lora"] = {"a": np.zeros((2, 64, 4), np.float32)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_from_jax(p)
+        params_from_jax(p, device="cpu")
     p = _jax_params(cfg)
     entry = p["layers"]["q_proj"]
     kernel = np.asarray(entry.pop("kernel"))
     entry["kernel_q"] = np.zeros(kernel.shape, np.int8)
     entry["scale"] = np.ones(kernel.shape[::2], np.float32)  # [L, out]
-    assert isinstance(params_from_jax(p).layers[0].q_proj, tq.QuantDense8)
+    assert isinstance(params_from_jax(p, device="cpu").layers[0].q_proj, tq.QuantDense8)
+
+
+@pytest.mark.parametrize("name", [
+    "params_from_jax", "vision_params_from_jax", "projector_params_from_jax",
+    "long_vita_params_from_jax",
+])
+def test_conversion_defaults_to_the_card(monkeypatch, name):
+    """Without device=, the weights go to the card; with no card that
+    raises instead of quietly building host tensors."""
+    from long_vita_tpu_torch.utils import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"text": {}, "vision": {}, "projector": {}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(convert, name)(tree)
+
+
+def test_conversion_to_the_cpu_keeps_every_bit():
+    """device="cpu" gives host tensors equal bit for bit to the JAX arrays."""
+    cfg = tiny_test_config()
+    p = _jax_params(cfg, seed=3, dtype=jnp.bfloat16)
+    tp = params_from_jax(p, device="cpu")
+    assert all(t.device.type == "cpu" for t in tp.parameters())
+
+    def bits(t):
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+    layers = p["layers"]
+    for i, layer in enumerate(tp.layers):
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"):
+            kernel = np.asarray(layers[name]["kernel"][i]).T
+            np.testing.assert_array_equal(bits(getattr(layer, name).weight), kernel.view(np.uint16))
+        for name in ("input_norm", "post_attn_norm"):
+            np.testing.assert_array_equal(
+                bits(getattr(layer, name)), np.asarray(layers[name][i]).view(np.uint16)
+            )
+    np.testing.assert_array_equal(
+        bits(tp.embed), np.asarray(p["embed"]["embedding"]).view(np.uint16)
+    )
+    np.testing.assert_array_equal(bits(tp.final_norm), np.asarray(p["final_norm"]).view(np.uint16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -196,7 +236,7 @@ def test_lm_head_gives_f32_logits(model):
     preferred_element_type=f32 (no bf16 rounding of the logits)."""
     cfg, _, _ = model
     p = _jax_params(cfg, seed=6, dtype=jnp.bfloat16)
-    tp = params_from_jax(p)
+    tp = params_from_jax(p, device="cpu")
     rng = np.random.default_rng(6)
     hid = rng.standard_normal((2, 3, cfg.text.hidden_size)).astype(np.float32)
     want = jq.lm_head(p, jnp.asarray(hid, jnp.bfloat16))

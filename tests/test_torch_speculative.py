@@ -55,7 +55,7 @@ def test_draft_tokens_match_jax_on_random_histories():
 def engines(request):
     cfg = GEOMETRIES[request.param]()
     p = jax_params(cfg, seed=0)
-    tp = params_from_jax(p)
+    tp = params_from_jax(p, device="cpu")
     quant = QUANT[request.param]
     kw = dict(KW, weight_quant=quant)
     return {

@@ -104,7 +104,7 @@ def _jnp(batch):
 
 def _named(tree) -> dict:
     """A JAX tree (params or gradients) as the port's name -> tensor dict."""
-    return {n: p.detach().clone() for n, p in long_vita_params_from_jax(tree).named_parameters()}
+    return {n: p.detach().clone() for n, p in long_vita_params_from_jax(tree, device="cpu").named_parameters()}
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +189,7 @@ def test_optimizer_matches_optax(case):
     ocfg = jopt.OptimizerConfig(**OPT_CASES[case])
     tcfg = topt.OptimizerConfig(**OPT_CASES[case])
     jparams = _jax_params(3)
-    tparams = long_vita_params_from_jax(jparams)
+    tparams = long_vita_params_from_jax(jparams, device="cpu")
     set_requires_grad(tparams)  # every leaf takes a gradient: optax sees them all
     before = {n: p.detach().clone() for n, p in tparams.named_parameters()}
     jtx = jopt.make_optimizer(jparams, ocfg, num_vit_layers=CFG.vision.num_hidden_layers)
@@ -263,7 +263,7 @@ def test_train_step_matches_jax(case):
     flags = _step_flags(spec["optim"])
     batch = _batch()
     jparams = _jax_params(0)
-    tparams = long_vita_params_from_jax(jparams)
+    tparams = long_vita_params_from_jax(jparams, device="cpu")
     set_requires_grad(tparams, **flags)
     before = {n: p.detach().clone() for n, p in tparams.named_parameters()}
 
@@ -318,7 +318,7 @@ def test_grad_accum_steps_match_jax():
     ocfg = dict(lr=1e-3, freeze_text=True)
     micros = [_batch((1,)), _batch((2,))]
     jparams = _jax_params(0)
-    tparams = long_vita_params_from_jax(jparams)
+    tparams = long_vita_params_from_jax(jparams, device="cpu")
     set_requires_grad(tparams, **flags)
     jtx = jopt.make_optimizer(jparams, jopt.OptimizerConfig(**ocfg), 2)
     ttx = topt.make_optimizer(tparams, topt.OptimizerConfig(**ocfg), 2)
@@ -350,7 +350,7 @@ def test_grad_accum_steps_match_jax():
 
 
 def test_requires_grad_follows_the_jax_freezes():
-    p = long_vita_params_from_jax(_jax_params(0))
+    p = long_vita_params_from_jax(_jax_params(0), device="cpu")
     named = dict(p.named_parameters())
     assert not any(x.requires_grad for x in named.values())  # built frozen
     set_requires_grad(p, freeze_text=True, freeze_vision=True)
@@ -367,7 +367,7 @@ def test_requires_grad_follows_the_jax_freezes():
 
 
 def _trainer(tmp, steps, **kw):
-    params = long_vita_params_from_jax(_jax_params(0))
+    params = long_vita_params_from_jax(_jax_params(0), device="cpu")
     tcfg = TrainerConfig(
         seq_len=S, logit_budget=S, steps=steps, remat=True, vision_chunk=1,
         save_dir=str(tmp) if tmp else None,
@@ -395,7 +395,7 @@ def test_trainer_resume_continues_the_loss_trajectory(tmp_path):
     ev = resumed.evaluate(iter(batches[:2]))
     assert np.isfinite(ev["loss"]) and ev["tokens"] > 0
     # stage handoff: the parameters alone, into a fresh model
-    fresh = long_vita_params_from_jax(_jax_params(1))
+    fresh = long_vita_params_from_jax(_jax_params(1), device="cpu")
     restore_params_only(str(tmp_path), fresh)
     for (n, a), (_, b) in zip(fresh.named_parameters(), resumed.state.params.named_parameters()):
         assert torch.equal(a, b), n

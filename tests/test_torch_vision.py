@@ -47,7 +47,7 @@ def _jax_params(cfg, seed=0, dtype=jnp.float32):
 def model():
     cfg = tiny_test_config()
     p = _jax_params(cfg)
-    return cfg, p, long_vita_params_from_jax(p)
+    return cfg, p, long_vita_params_from_jax(p, device="cpu")
 
 
 def _pixels(seed, n, cfg):
@@ -199,7 +199,7 @@ def test_long_vita_forward_matches(model):
 def test_converter_layout_and_bf16_bits():
     cfg = tiny_test_config()
     p = _jax_params(cfg, seed=1, dtype=jnp.bfloat16)
-    tp = long_vita_params_from_jax(p)
+    tp = long_vita_params_from_jax(p, device="cpu")
     assert len(tp.vision.layers) == cfg.vision.num_hidden_layers
 
     def bits(t):
