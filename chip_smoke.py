@@ -5,8 +5,8 @@
 
 Phases (each raises on failure; the script then exits non-zero):
   1. build the six CUDA sources from this checkout (one nvcc each, in
-     parallel) and print nvcc's register/spill lines and the Hopper
-     forward's shared memory;
+     parallel) and print nvcc's register/spill lines, ptxas's performance
+     notes and the Hopper forward's and backward's shared memory;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the serving and training paths give it, with stated tolerances,
      and time both with CUDA events beside the kernel's bound and the one
@@ -15,7 +15,8 @@ Phases (each raises on failure; the script then exits non-zero):
      rows past kv_valid_len), K2 the int8 flash forward, K3 the ViT's short
      attention, K4 the one-pass
      flash backward, K5 the two-pass flash backward (its dkv and dq entry
-     points), K6 the w4a16 product (five 14B shapes, 1 to 512 rows; one 14B
+     points; both also timed at T2's and T1's packed segment layouts beside
+     their bounds), K6 the w4a16 product (five 14B shapes, 1 to 512 rows; one 14B
      matrix quantised on the card against numpy's quantisation, bit for bit);
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
      bf16 weights from a seeded generator) through InferenceEngine: greedy
@@ -234,12 +235,18 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s")
     for name in sources:
         for line in _build.build_log(name).splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "error", "warning")):
+            if any(w in line for w in ("entry function", "registers", "spill", "error", "warning",
+                                       "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}")
     for d in (128, 64):
         print(f"[build] flash_fwd_sm90.cuh: the D={d} forward (K1 bf16, and K3 at D=64) takes "
               f"{_build.load('flash_fwd').lvt_flash_fwd_smem_bytes(d)} bytes of dynamic shared "
               f"memory a block")
+        bwd, dq = _build.load("flash_bwd"), _build.load("flash_bwd_2pass")
+        print(f"[build] flash_bwd_sm90.cuh: at D={d} a kv-major block takes "
+              f"{bwd.lvt_flash_bwd_smem_bytes(d, 1)} bytes of dynamic shared memory in K4 and "
+              f"{bwd.lvt_flash_bwd_smem_bytes(d, 0)} in K5's dkv pass, a dq block "
+              f"{dq.lvt_flash_bwd_dq_smem_bytes(d)}")
 
 
 def _kernel_case(name, q, k, v, *, f32=False, **kw) -> float:
@@ -524,13 +531,79 @@ def _grad_errs(name, got, ref) -> list:
     return errs
 
 
+def _train_segments(s, videos, grid, dev, text_segments=4):
+    """The segment ids [1, s] of phase_train's packed row (_train_pack's
+    layout: a sample per video and image, then text samples)."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_14b
+
+    pack = _train_pack(long_vita_14b(), s, [np.zeros((f, 1, 1, 3), np.float32) for f in videos],
+                       [(np.zeros((1 + grid[0] * grid[1], 1, 1, 3), np.float32), grid)],
+                       np.random.default_rng(SEED), text_segments=text_segments)
+    return torch.from_numpy(pack.segment_ids).to(dev)[None]
+
+
+def _plain_bwd_by_segment(q, k, v, o, lse, do, seg) -> tuple:
+    """The plain backward of one causal row [1, S] of contiguous segments
+    (each id one run of positions), a segment and a kv head's GQA group at a
+    time: no pair across segments is unmasked, so each piece is the whole
+    row's plain backward restricted to it, and the logits of a 16.7K-token
+    segment and 5 q heads (5.6 GB in f32) fit on the card where the whole
+    row's would not. -> (dq, dk, dv) as flash_attention_bwd_reference."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    ids, lens = torch.unique_consecutive(seg[0], return_counts=True)
+    if q.shape[0] != 1 or len(torch.unique(ids)) != len(ids):
+        raise ValueError("one batch row of contiguous segments")
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    a = 0
+    for n in lens.tolist():
+        r = slice(a, a + n)
+        for h in range(hkv):
+            hq, hk = slice(h * g, (h + 1) * g), slice(h, h + 1)
+            dq[:, r, hq], dk[:, r, hk], dv[:, r, hk] = fa.flash_attention_bwd_reference(
+                q[:, r, hq], k[:, r, hk], v[:, r, hk], o[:, r, hq], lse[:, hq, r],
+                do[:, r, hq], causal=True)
+        a += n
+    return dq, dk, dv
+
+
+def _bwd_bounds(q, k, seg) -> dict:
+    """The backward's bounds on one causal self-attention row with
+    contiguous segments: S, dP, dV, dK and dQ are 2 x D operations a (q, k)
+    pair inside a segment and q head (K5's dkv pass does 4 of the 5, its dq
+    pass 3); bytes: q, k, v, do, lse, delta and the ids read once, dq, dk,
+    dv written once (K4's dq as f32 sums). -> (unmasked pairs, {entry: bound})."""
+    import torch
+
+    hq, d = q.shape[2], q.shape[3]
+    lens = torch.unique_consecutive(seg[0], return_counts=True)[1].tolist()
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    ins = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * q.numel() // d + 2 * 4 * seg.numel()
+    dkv_bytes = 2 * 2 * k.numel()
+    op = 2 * hq * d * pairs
+    return pairs, {
+        "flash_bwd": _bound(ins + 4 * q.numel() + dkv_bytes, 5 * op),
+        "flash_bwd_dkv": _bound(ins + dkv_bytes, 4 * op),
+        "flash_bwd_dq": _bound(ins + 2 * q.numel(), 3 * op),
+    }
+
+
 def phase_kernels_bwd() -> dict:
     """K4 and K5 against the plain backward: the decoder's training shape at
     4096 tokens ([1, 4096, 40/8, 128], causal, 3 segments; K5 called
     directly, since JAX's rule picks K4 there) and K4 at the ViT's [16, 1025,
     16, 64] non-causal. Each entry point and the plain backward timed with
     CUDA events, then K4 at 16K and K5 at 32K alone, the shapes T2 and T1
-    give them."""
+    give them, with 3 segments and with the segments of T2's and T1's packed
+    rows, each beside its bound; on the packed rows the kernel is also held
+    to the plain backward, computed a segment at a time."""
     import torch
 
     from long_vita_tpu_torch.ops import flash_attention as fa
@@ -578,18 +651,9 @@ def phase_kernels_bwd() -> dict:
     dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(a5), reps=10)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw), reps=3)
     flops = 2.5 * 4 * 40 * 128 * 4096 * 4096 / 2  # fwd-equivalent x 2.5, causal half
-    # the bounds count the (q, k) pairs inside the 3 segments: S, dP, dV, dK and
-    # dQ are 2 x D operations a pair and head each (dkv does 4 of the 5, dq 3)
+    # the bounds count the (q, k) pairs inside the 3 segments
     seg = kw["q_segment_ids"][0]
-    lens = torch.bincount(seg).tolist()
-    pairs = sum(n * (n + 1) // 2 for n in lens)
-    ins = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * lse.numel() + 2 * 4 * 4096  # + lse, delta, segments
-    dkv_bytes = 2 * 2 * k.numel()
-    bounds = {
-        "flash_bwd": _bound(ins + 4 * q.numel() + dkv_bytes, 10 * 40 * 128 * pairs),
-        "flash_bwd_dkv": _bound(ins + dkv_bytes, 8 * 40 * 128 * pairs),
-        "flash_bwd_dq": _bound(ins + 2 * q.numel(), 6 * 40 * 128 * pairs),
-    }
+    pairs, bounds = _bwd_bounds(q, k, kw["q_segment_ids"])
     mask = (seg[:, None] == seg[None, :]) & torch.ones(4096, 4096, dtype=torch.bool, device=dev).tril()
     lib_ms = _sdpa_ms(q, k, v, mask=mask, do=do, reps=5)
     print(f"[kernel] backward timing at [1, 4096, 40/8, 128], median of CUDA events: K4 "
@@ -613,28 +677,53 @@ def phase_kernels_bwd() -> dict:
                          causal=False), refv)
     del qkv, refv
 
-    for s, fused in ((16384, True), (32768, False)):
+    packed = {}  # K4 at T2's row, K5 at T1's: [max |err| of dq, dk, dv]
+    for s, fused, videos in ((16384, True, (16,)), (32768, False, (64, 16))):
         if fa.bwd_uses_fused(1, s, s, 40, 128, 2) is not fused:
             raise AssertionError(f"JAX's rule at {s} tokens is not {'K4' if fused else 'K5'}")
+        name, row = ("K4", "T2") if fused else ("K5", "T1")
+        entries = ["flash_bwd"] if fused else ["flash_bwd_dkv", "flash_bwd_dq"]
         q, k, v, o, lse, do, kw = operands(s)
-        ms = _cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=3)
-        fwd_ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
-        flops = 2.5 * 4 * 40 * 128 * s * s / 2
-        causal_ms = _sdpa_ms(q, k, v, mask=torch.ones(s, s, dtype=torch.bool, device=dev).tril(),
-                             do=do, reps=3) if s == 16384 else None
-        print(f"[kernel] {'K4' if fused else 'K5'} alone at [1, {s}, 40/8, 128] causal, 3 "
-              f"segments: {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s on the causal half); "
-              f"K1 forward {fwd_ms:.2f} ms"
-              + (f"; F.scaled_dot_product_attention forward + backward, causal without "
-                 f"segments: {causal_ms:.2f} ms" if causal_ms else ""))
+        for layout in ("3 segments", f"{row}'s packed row"):
+            if layout != "3 segments":  # the same tensors, the row's segments
+                seg = _train_segments(s, videos, (2, 3), dev)
+                kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+                o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+                wrappers = ([fa.flash_bwd_fused] if fused
+                            else [fa.flash_bwd_dkv, fa.flash_bwd_dq])
+                got = run(fused, name, wrappers, q, k, v, o, lse, do, **kw)
+                packed[name] = _grad_errs(f"{name} at [1, {s}, 40/8, 128] causal, {layout}", got,
+                                          _plain_bwd_by_segment(q, k, v, o, lse, do, seg))
+                del got
+                meta = fa._device_meta(dev, 0, 0, s)
+                prep_ms = _cuda_ms(lambda: fa.bwd_tile_order(fa.bwd_seg_ranges(seg, seg), s, meta),
+                                   reps=10)
+                print(f"[kernel] {layout}: the tile ranges and grid order (bwd_seg_ranges, "
+                      f"bwd_tile_order) {prep_ms:.3f} ms a backward call")
+            ms = _cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=3)
+            fwd_ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
+            pairs_s, bnd = _bwd_bounds(q, k, kw["q_segment_ids"])
+            bound_ms = sum(bnd[e]["bound_ms"] for e in entries)
+            by = "/".join(sorted({bnd[e]["bound_by"] for e in entries}))
+            flops = 10 * 40 * 128 * pairs_s
+            causal_ms = _sdpa_ms(q, k, v, mask=torch.ones(s, s, dtype=torch.bool, device=dev).tril(),
+                                 do=do, reps=3) if s == 16384 and layout == "3 segments" else None
+            n_seg = len(torch.unique_consecutive(kw["q_segment_ids"][0]))
+            print(f"[kernel] {name} alone at [1, {s}, 40/8, 128] causal, {layout} ({n_seg} "
+                  f"segments, {pairs_s} unmasked pairs): {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s on them), bound {bound_ms:.3f} ms ({by}); "
+                  f"K1 forward {fwd_ms:.2f} ms"
+                  + (f"; F.scaled_dot_product_attention forward + backward, causal without "
+                     f"segments: {causal_ms:.2f} ms" if causal_ms else ""))
         del q, k, v, o, lse, do
     torch.cuda.empty_cache()
     return {
-        "flash_bwd": {"max_abs_err": max(k4 + vit), "ms": k4_ms, "plain_ms": plain_ms,
-                      **bounds["flash_bwd"], "library_ms": lib_ms},
-        "flash_bwd_dkv": {"max_abs_err": max(k5[1:]), "ms": dkv_ms, "plain_ms": plain_ms,
-                          **bounds["flash_bwd_dkv"], "library_ms": lib_ms},
-        "flash_bwd_dq": {"max_abs_err": k5[0], "ms": dq_ms, "plain_ms": plain_ms,
+        "flash_bwd": {"max_abs_err": max(k4 + vit + packed["K4"]), "ms": k4_ms,
+                      "plain_ms": plain_ms, **bounds["flash_bwd"], "library_ms": lib_ms},
+        "flash_bwd_dkv": {"max_abs_err": max(k5[1:] + packed["K5"][1:]), "ms": dkv_ms,
+                          "plain_ms": plain_ms, **bounds["flash_bwd_dkv"], "library_ms": lib_ms},
+        "flash_bwd_dq": {"max_abs_err": max(k5[0], packed["K5"][0]), "ms": dq_ms,
+                         "plain_ms": plain_ms,
                          **bounds["flash_bwd_dq"], "library_ms": lib_ms},
     }
 

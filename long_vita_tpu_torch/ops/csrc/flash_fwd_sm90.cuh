@@ -129,34 +129,6 @@ struct Block {
   const int2* kt_ranges;     // each kv tile's (min, max) id (with segments)
 };
 
-// The kv tiles a block needs, in order: every j < n_tiles, except, with
-// segments, a tile whose id range misses the block's (every logit in it is
-// masked). Each warp finds the tiles itself, 32 at a time, from the same
-// read-only ranges, so producer and consumers walk the same sequence of
-// tiles through the ring.
-template <bool kSeg>
-struct TileWalk {
-  int j0 = -32;
-  uint32_t mask = 0;
-
-  __device__ __forceinline__ int next(const Block& blk) {  // -> the next tile, or -1
-    while (mask == 0) {
-      j0 += 32;
-      if (j0 >= blk.n_tiles) return -1;
-      const int j = j0 + (int)(threadIdx.x & 31);
-      bool need = j < blk.n_tiles;
-      if (kSeg && need) {
-        const int2 r = blk.kt_ranges[j];
-        need = r.x <= blk.qs_max && r.y >= blk.qs_min;
-      }
-      mask = __ballot_sync(0xffffffffu, need);
-    }
-    const int j = j0 + __ffs(mask) - 1;
-    mask &= mask - 1;
-    return j;
-  }
-};
-
 template <int D, bool kSeg>
 __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsigned char* base,
                                         uint32_t base_u, const Bars& bars) {
@@ -169,7 +141,8 @@ __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsig
       tma_load_4d(base_u + L::q + c * L::kQBox, &p.tq, bars.q(), c * 64, blk.h, blk.q0, blk.b);
   }
   TileWalk<kSeg> walk;
-  for (int j = walk.next(blk), it = 0; j >= 0; j = walk.next(blk), ++it) {
+  auto next = [&] { return walk.next(blk.n_tiles, blk.kt_ranges, blk.qs_min, blk.qs_max); };
+  for (int j = next(), it = 0; j >= 0; j = next(), ++it) {
     const int s = it % L::kStages, k0 = j * kBN;
     if (it >= L::kStages) mbar_wait(bars.empty(s), ((it / L::kStages) + 1) & 1);
     const uint32_t k_dst = base_u + L::k + s * L::kTile;
@@ -188,26 +161,15 @@ __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsig
         for (int c = 0; c < D / 64; ++c)
           tma_load_4d(v_dst + c * kBox, &p.tv, bars.full_v(s), c * 64, blk.hk, k0, blk.b);
       }
-    } else {
-      // the last, partial tile: its rows from kv_len on are inside the
-      // tensor and may hold anything; zero them before releasing the tile
+    } else {  // the last, partial tile: V's rows from kv_len on zeroed
       if (lane == 0) {
         mbar_arrive_tx(bars.aux(), L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
           tma_load_4d(v_dst + c * kBox, &p.tv, bars.aux(), c * 64, blk.hk, k0, blk.b);
       }
-      mbar_wait(bars.aux(), 0);  // at most one such tile a block
-      unsigned char* vt = base + L::v + s * L::kTile;
-      const int r0 = blk.kv_len - k0;
-      for (int i = lane; i < (kBN - r0) * (D / 8); i += 32) {
-        const int r = r0 + i / (D / 8), c = i % (D / 8);  // c: 16-byte chunk of the row
-        *reinterpret_cast<uint4*>(vt + (c / 8) * kBox + r * 128 + (c % 8) * 16) =
-            make_uint4(0u, 0u, 0u, 0u);
-      }
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bars.full_v(s));
+      zero_then_release<D>(bars.aux(), bars.full_v(s), base + L::v + s * L::kTile, nullptr,
+                           kBox, blk.kv_len - k0, kBN);
     }
   }
 }
@@ -383,7 +345,8 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   uint32_t pf[kBN / 16][4];
   float alpha_lo, alpha_hi;
   TileWalk<kSeg> walk;
-  int it = 0, j = walk.next(blk);
+  auto next = [&] { return walk.next(blk.n_tiles, blk.kt_ranges, blk.qs_min, blk.qs_max); };
+  int it = 0, j = next();
   if (j >= 0) mbar_wait(bars.q(), 0);
   if (j >= 0 && end - j * kBN > kNarrow) {
     // the first tile: S and its softmax; P.V waits for the next iteration
@@ -395,7 +358,7 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
                                 alpha_hi);
     pack_p<kBN>(sc, pf);
     // the rest: S of tile it, then P.V of tile it - 1
-    for (j = walk.next(blk), ++it; j >= 0; j = walk.next(blk), ++it) {
+    for (j = next(), ++it; j >= 0; j = next(), ++it) {
       if (end - j * kBN <= kNarrow) break;
       mbar_wait(bars.full_k(it % L::kStages), parity(it));
       mbar_wait(bars.full_v((it - 1) % L::kStages), parity(it - 1));
@@ -525,66 +488,6 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 
 // ---- host side ---------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
-// query: the library links the CUDA runtime only
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// bf16 [B, S, H, D] with element strides (sb, ss) and packed [H, D], as the
-// 4-d map (D, H, S, B): boxes of 64 columns x `rows` rows of one head, the
-// 128-byte swizzle, zeros past S. A dim of extent 1 gets the packed stride.
-inline bool bshd_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
-                     long long sb, long long ss, int rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const long long ss_eff = s > 1 ? ss : (long long)h * d;
-  const long long sb_eff = b > 1 ? sb : (long long)s * ss_eff;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
-  cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)ss_eff * 2, (cuuint64_t)sb_eff * 2};
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// int32 [B, Skv] segment ids with row stride `sb` (a multiple of 4 when
-// B > 1), as the 2-d map (Skv, B) in boxes of kBN ids
-inline bool seg_map(CUtensorMap* map, const void* ptr, int b, int skv, long long sb) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const long long sb_eff = b > 1 ? sb : ((long long)skv + 3) / 4 * 4;
-  cuuint64_t dims[2] = {(cuuint64_t)skv, (cuuint64_t)b};
-  cuuint64_t strides[1] = {(cuuint64_t)sb_eff * 4};
-  cuuint32_t box[2] = {(cuuint32_t)kBN, 1};
-  cuuint32_t estr[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(ptr), dims, strides, box,
-                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Fill the tensor maps of q, k, v (and the kv segment ids when kseg is not
 // null) and the scalars; false if a map is refused. With segments,
 // seg_ranges holds the (min, max) ids of every block_q(d)-row q block and
@@ -599,7 +502,7 @@ inline bool make_params(Params* p, const void* q, const void* k, const void* v, 
   if (!bshd_map(&p->tq, q, batch, sq, hq, d, q_sb, q_ss, block_q(d))) return false;
   if (!bshd_map(&p->tk, k, batch, skv, hkv, d, k_sb, k_ss, kBN)) return false;
   if (!bshd_map(&p->tv, v, batch, skv, hkv, d, v_sb, v_ss, kBN)) return false;
-  if (kseg != nullptr && !seg_map(&p->tkseg, kseg, batch, skv, kseg_sb)) return false;
+  if (kseg != nullptr && !seg_map(&p->tkseg, kseg, batch, skv, kseg_sb, kBN)) return false;
   p->o = static_cast<__nv_bfloat16*>(o);
   p->lse = static_cast<float*>(lse);
   p->qseg = static_cast<const int*>(qseg);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the attention forward
-// (flash_fwd_sm90.cuh), as inline PTX in the style of mma_util.cuh:
-// mbarriers, TMA tile loads, the register hand-over between warpgroups
-// (setmaxnreg), and wgmma with its shared-memory matrix descriptors.
+// (flash_fwd_sm90.cuh) and backward (flash_bwd_sm90.cuh), as inline PTX in
+// the style of mma_util.cuh: mbarriers, TMA tile loads, named barriers, the
+// register hand-over between warpgroups (setmaxnreg), and wgmma with its
+// shared-memory matrix descriptors.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (one TMA box) is R rows of 128 bytes in which the
@@ -109,13 +110,110 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// add a box of shared memory into a 4-d tensor map's region of global
+// memory (f32 add, done by the TMA unit; elements out of bounds are
+// dropped), in the thread's bulk async-group
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's bulk async-groups still read their
+// shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until the thread's bulk async-groups are complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // order this thread's ordinary shared-memory writes before later reads by
 // the async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- rings of kv tiles -----------------------------------------------------
+
+// The tiles j in [begin, end) a block needs, in order: with segments, only
+// those whose (min, max) id range meets the block's [lo, hi] (every logit of
+// another tile is masked). Each warp finds them itself, 32 at a time, from
+// the same read-only ranges, so producer and consumers walk the same
+// sequence of tiles through the ring.
+template <bool kSeg>
+struct TileWalk {
+  int j0;
+  uint32_t mask = 0;
+
+  __device__ explicit TileWalk(int begin = 0) : j0(begin - 32) {}
+
+  __device__ __forceinline__ int next(int end, const int2* ranges, int lo, int hi) {  // or -1
+    while (mask == 0) {
+      j0 += 32;
+      if (j0 >= end) return -1;
+      const int j = j0 + (int)(threadIdx.x & 31);
+      bool need = j < end;
+      if (kSeg && need) {
+        const int2 r = ranges[j];
+        need = r.x <= hi && r.y >= lo;
+      }
+      mask = __ballot_sync(0xffffffffu, need);
+    }
+    const int j = j0 + __ffs(mask) - 1;
+    mask &= mask - 1;
+    return j;
+  }
+};
+
+// Zero rows [r_begin, r_end) of a swizzled bf16 tile of D columns (boxes of
+// 64 columns, `box_bytes` apart), thread t of n; the caller fences the
+// async proxy before wgmma reads it.
+template <int D>
+__device__ __forceinline__ void zero_tile_rows(unsigned char* tile, int box_bytes, int r_begin,
+                                               int r_end, int t, int n) {
+  for (int x = t; x < (r_end - r_begin) * (D / 8); x += n) {
+    const int r = r_begin + x / (D / 8), c = x % (D / 8);  // c: 16-byte chunk of the row
+    *reinterpret_cast<uint4*>(tile + (c / 8) * box_bytes + r * 128 + (c % 8) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A block's last, partial kv tile: its rows from r_begin on lie inside the
+// tensor and may hold anything, so the producer warp loads it onto the side
+// barrier `aux` (at most one such tile a block: phase 0), zeroes those rows
+// of `a` and of `b` (if not null) and only then releases the ring stage on
+// `full`.
+template <int D>
+__device__ __forceinline__ void zero_then_release(uint32_t aux, uint32_t full, unsigned char* a,
+                                                  unsigned char* b, int box_bytes, int r_begin,
+                                                  int rows) {
+  const int lane = threadIdx.x & 31;
+  mbar_wait(aux, 0);
+  zero_tile_rows<D>(a, box_bytes, r_begin, rows, lane, 32);
+  if (b != nullptr) zero_tile_rows<D>(b, box_bytes, r_begin, rows, lane, 32);
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(full);
+}
+
 // ---- warpgroups ------------------------------------------------------------
+
+// named barrier `id` (1-15; 0 is __syncthreads) over the first `threads`
+// threads of the block that reach it
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -181,6 +279,68 @@ __device__ __forceinline__ void wgmma_ss_m64n16(float (&d)[8], uint64_t da, uint
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory;
+// accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B MN-major in shared memory
+// (both transpose bits set: A's M and B's N are the contiguous dims);
+// accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64_mn(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], both MN-major as above; B's 32
+// columns may start half-way into a 128-byte swizzled row (the swizzle is a
+// function of the address); accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n32_mn(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A K-major and B MN-major (the
+// transpose bit of B set) in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n128_tb(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A K-major and B MN-major in shared
+// memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64_tb(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (the mma.sync A
 // fragment layout), B MN-major in shared memory (the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
@@ -203,6 +363,83 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- host side: TMA tensor maps ------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
+// query: the library links the CUDA runtime only
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// bf16 [B, S, H, D] with element strides (sb, ss) and packed [H, D], as the
+// 4-d map (D, H, S, B): boxes of 64 columns x `rows` rows of one head, the
+// 128-byte swizzle, zeros past S. A dim of extent 1 gets the packed stride.
+inline bool bshd_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
+                     long long sb, long long ss, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const long long ss_eff = s > 1 ? ss : (long long)h * d;
+  const long long sb_eff = b > 1 ? sb : (long long)s * ss_eff;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)ss_eff * 2, (cuuint64_t)sb_eff * 2};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32 [B, S, H, D], contiguous, as the 4-d map (D, H, S, B): boxes of 32
+// columns (128 bytes) x `rows` rows of one head, the 128-byte swizzle
+inline bool f32_bshd_map(CUtensorMap* map, void* ptr, int b, int s, int h, int d, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  cuuint64_t strides[3] = {(cuuint64_t)d * 4, (cuuint64_t)h * d * 4, (cuuint64_t)s * h * d * 4};
+  cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// int32 [B, Skv] segment ids with row stride `sb` (a multiple of 4 when
+// B > 1), as the 2-d map (Skv, B) in boxes of `rows` ids
+inline bool seg_map(CUtensorMap* map, const void* ptr, int b, int skv, long long sb, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const long long sb_eff = b > 1 ? sb : ((long long)skv + 3) / 4 * 4;
+  cuuint64_t dims[2] = {(cuuint64_t)skv, (cuuint64_t)b};
+  cuuint64_t strides[1] = {(cuuint64_t)sb_eff * 4};
+  cuuint32_t box[2] = {(cuuint32_t)rows, 1};
+  cuuint32_t estr[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(ptr), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace lvt

@@ -15,7 +15,9 @@ has its own launch counter on its wrapper:
     buffer;
   - ``flash_bwd_dkv`` and ``flash_bwd_dq`` (Pallas `_bwd_dkv_kernel` :454 and
     `_bwd_dq_kernel` :530 -> K5, ``csrc/flash_bwd_2pass.cu``): the two-pass
-    backward, no memory that grows with the number of kv blocks;
+    backward, no memory that grows with the number of kv blocks; the bf16
+    bodies of K4 and K5 are one Hopper backward, ``csrc/flash_bwd_sm90.cuh``,
+    whose tiles and skip rule ``bwd_dkv_plan`` / ``bwd_dq_plan`` spell out;
   - ``flash_attention_quant`` (:1360; Pallas `_fwd_quant_kernel` :261 -> K2,
     ``csrc/flash_fwd_quant.cu``): causal flash forward against an int8 KV
     cache with per-(token, kv head) f32 scales, forward only;
@@ -59,7 +61,7 @@ IntLike = Union[int, torch.Tensor]
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 _BWD_ARGS = (
-    [ctypes.c_void_p] * 12      # q k v do lse delta dq dk dv qseg kseg meta
+    [ctypes.c_void_p] * 14      # q k v do lse delta dq dk dv qseg kseg seg_ranges tile_order meta
     + [ctypes.c_longlong] * 10  # batch/seq strides of q k v do, segment batch strides
     + [ctypes.c_int] * 7        # batch sq skv hq hkv d causal
     + [ctypes.c_float, ctypes.c_int]  # scale dtype
@@ -370,6 +372,136 @@ def bwd_uses_fused(
     return n_kv_major * b * hq * sq_pad * d_pad * itemsize <= FUSED_BWD_DQ_BYTES_CAP
 
 
+# The Hopper backward (K4's and K5's bf16 bodies, csrc/flash_bwd_sm90.cuh):
+# kv-major blocks (K5's dkv pass, and K4) of SM90_BWD_BLOCK_KV kv rows, two
+# warpgroups of 64, walking q tiles of SM90_BWD_TILE_Q rows; q-major blocks
+# (K5's dq pass) of SM90_BWD_BLOCK_Q q rows, two warpgroups of 64, walking kv
+# tiles of SM90_BWD_BLOCK_KV rows. Grids (Hkv, B, kv tiles) and (Hq, B, q
+# blocks) under a causal mask, else (tiles, heads, B): at most 65535 batch
+# rows, heads and tiles; TMA coordinates are int32.
+SM90_BWD_TILE_Q = 64
+SM90_BWD_BLOCK_Q = 128
+SM90_BWD_BLOCK_KV = 128
+_WG_ROWS = 64
+
+
+def _check_bwd_sm90(b: int, sq: int, skv: int, hq: int, hkv: int) -> None:
+    n_kt, n_qb = -(-skv // SM90_BWD_BLOCK_KV), -(-sq // SM90_BWD_BLOCK_Q)
+    if max(b, hq, hkv, n_kt, n_qb) > _GRID_YZ_MAX:
+        raise ValueError(
+            f"at most {_GRID_YZ_MAX} batch rows, heads and tiles of "
+            f"{SM90_BWD_BLOCK_KV} rows a launch, got B={b}, Hq={hq}, Hkv={hkv}, "
+            f"Sq={sq}, Skv={skv}"
+        )
+    if max(sq, skv) >= 2**31:
+        raise ValueError(f"sequences must be shorter than 2^31 rows, got {sq}/{skv}")
+
+
+def bwd_seg_ranges(qseg: torch.Tensor, kseg: torch.Tensor) -> torch.Tensor:
+    """[B, Sq] and [B, Skv] int32 ids -> [B, n_qt + n_qb + n_kt, 2] int32:
+    the (min, max) id of each SM90_BWD_TILE_Q-row q tile, each
+    SM90_BWD_BLOCK_Q-row q block, then each SM90_BWD_BLOCK_KV-row kv tile
+    (a last, partial tile padded with its last id)."""
+    return torch.cat([
+        _tile_ranges(qseg, SM90_BWD_TILE_Q), _tile_ranges(qseg, SM90_BWD_BLOCK_Q),
+        _tile_ranges(kseg, SM90_BWD_BLOCK_KV),
+    ], 1).to(torch.int32).contiguous()
+
+
+def bwd_tile_order(seg_ranges: torch.Tensor, sq: int, meta: torch.Tensor) -> torch.Tensor:
+    """The kv tiles of each batch row, heaviest first: [B, n_kt] int32, a
+    permutation by the number of q tiles each kv-major block visits under a
+    causal mask (bwd_dkv_plan's count). Tensor ops on the ranges' device,
+    the offsets and kv_valid_len read from the kernels' int32 ``meta``
+    ([q_offset, kv_offset, kv_valid_len]), so no host sync. Packed rows make
+    blocks of very unequal work, and a grid that starts the heaviest ones
+    first leaves no long block to the end of the launch."""
+    dev = seg_ranges.device
+    n_qt, n_qb = -(-sq // SM90_BWD_TILE_Q), -(-sq // SM90_BWD_BLOCK_Q)
+    qr = seg_ranges[:, None, :n_qt]              # [B, 1, n_qt, 2]
+    kr = seg_ranges[:, n_qt + n_qb:, None]       # [B, n_kt, 1, 2]
+    meets = (qr[..., 0] <= kr[..., 1]) & (qr[..., 1] >= kr[..., 0])
+    meta = meta.long()
+    k0 = torch.arange(kr.shape[1], device=dev)[:, None] * SM90_BWD_BLOCK_KV
+    first = meta[1] + k0 - meta[0]
+    qt = torch.arange(n_qt, device=dev)[None]
+    seen = (qt >= torch.div(first, SM90_BWD_TILE_Q, rounding_mode="floor")) & (k0 < meta[2])
+    work = (meets & seen).sum(-1)
+    return torch.argsort(work, dim=1, descending=True, stable=True).to(torch.int32).contiguous()
+
+
+def _meets(r, lo: int, hi: int) -> bool:
+    return r[0] <= hi and r[1] >= lo
+
+
+def _one_segment(r, s) -> bool:
+    return r[0] == r[1] == s[0] == s[1]
+
+
+def bwd_dkv_plan(kt: int, *, sq: int, kv_len: int, causal: bool, q_offset: int = 0,
+                 kv_offset: int = 0, q_ranges=None, kv_range=None) -> list:
+    """The q tiles the kv-major block of kv tile ``kt`` visits (for each q
+    head of its GQA group), as the kernel walks them: from the tile of the
+    first q row that sees the kv tile's first key (causal), none if the kv
+    tile lies wholly past kv_len, and with segments only the q tiles whose
+    (min, max) id range (``q_ranges[qt]``) meets the kv tile's
+    (``kv_range``). -> [(qt, (interior of warpgroup 0, of warpgroup 1))]: a
+    warpgroup's 64 kv rows skip the mask on an interior pair, one whose
+    every key is below kv_len and the causal frontier and inside the one
+    segment of both tiles (rows past Sq have p = 0 without a mask)."""
+    k0 = kt * SM90_BWD_BLOCK_KV
+    n_qt = -(-sq // SM90_BWD_TILE_Q) if k0 < kv_len else 0
+    begin = 0
+    if causal:
+        first = kv_offset + k0 - q_offset
+        begin = 0 if first <= 0 else min(first // SM90_BWD_TILE_Q, n_qt)
+    out = []
+    for qt in range(begin, n_qt):
+        if q_ranges is not None and not _meets(q_ranges[qt], *kv_range):
+            continue
+        inner = []
+        for wg in range(2):
+            r0 = k0 + wg * _WG_ROWS
+            ok = r0 + _WG_ROWS <= kv_len
+            if causal:
+                ok = ok and kv_offset + r0 + _WG_ROWS - 1 <= q_offset + qt * SM90_BWD_TILE_Q
+            if q_ranges is not None:
+                ok = ok and _one_segment(q_ranges[qt], kv_range)
+            inner.append(ok)
+        out.append((qt, tuple(inner)))
+    return out
+
+
+def bwd_dq_plan(qb: int, *, sq: int, kv_len: int, causal: bool, q_offset: int = 0,
+                kv_offset: int = 0, q_range=None, kv_ranges=None) -> list:
+    """The kv tiles the q-major block ``qb`` of the dq pass visits, as the
+    kernel walks them: below kv_len and (causal) up to the tile of the last
+    key its last row sees; with segments only the kv tiles whose id range
+    (``kv_ranges[j]``) meets the block's (``q_range``). -> [(j, (interior of
+    warpgroup 0, of warpgroup 1))], interior as in bwd_dkv_plan."""
+    q0 = qb * SM90_BWD_BLOCK_Q
+    n = -(-kv_len // SM90_BWD_BLOCK_KV)
+    if causal:
+        diag = q_offset + min(q0 + SM90_BWD_BLOCK_Q, sq) - 1 - kv_offset
+        n = 0 if diag < 0 else min(n, diag // SM90_BWD_BLOCK_KV + 1)
+    out = []
+    for j in range(n):
+        if kv_ranges is not None and not _meets(kv_ranges[j], *q_range):
+            continue
+        k0 = j * SM90_BWD_BLOCK_KV
+        inner = []
+        for wg in range(2):
+            ok = k0 + SM90_BWD_BLOCK_KV <= kv_len
+            if causal:
+                ok = ok and (kv_offset + k0 + SM90_BWD_BLOCK_KV - 1
+                             <= q_offset + q0 + wg * _WG_ROWS)
+            if kv_ranges is not None:
+                ok = ok and _one_segment(kv_ranges[j], q_range)
+            inner.append(ok)
+        out.append((j, tuple(inner)))
+    return out
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -409,15 +541,22 @@ def flash_attention_bwd(
 def _bwd_launch(entry: str, a: dict) -> None:
     """One backward entry point; ``a`` holds the operands _flash_bwd_cuda
     prepared (every entry takes the same argument list)."""
+    _build.launch(entry, a["q"].device, *bwd_launch_args(a))
+
+
+def bwd_launch_args(a: dict) -> tuple:
+    """The arguments of lvt_flash_bwd, _dkv and _dq before the stream, from
+    the operands ``bwd_operands`` prepared."""
     q, k, v, do = a["q"], a["k"], a["v"], a["do"]
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    _build.launch(
-        entry, q.device, q, k, v, do, a["lse"], a["delta"], a["dq"], a["dk"],
-        a["dv"], a["qseg"], a["kseg"], a["meta"],
+    return (
+        q, k, v, do, a["lse"], a["delta"], a["dq"], a["dk"], a["dv"], a["qseg"],
+        a["kseg"], a["seg_ranges"], a["tile_order"], a["meta"],
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-        sq if a["qseg"] is not None else 0, skv if a["kseg"] is not None else 0,
+        sq if a["qseg"] is not None else 0,
+        a["kseg"].shape[1] if a["kseg"] is not None else 0,
         b, sq, skv, hq, hkv, d, int(a["causal"]), 1.0 / math.sqrt(d),
         _DTYPE_CODE[q.dtype],
     )
@@ -461,8 +600,12 @@ def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
                  qseg, kseg, fused) -> dict:
     """Check and prepare what the backward entry points take: delta =
     rowsum(do * o) in f32 [B, Hq, Sq] (the JAX _flash_core_bwd :874), the
-    mask scalars on the device, and the outputs (dq an f32 buffer of zeros
-    for K4, the input dtype for K5)."""
+    mask scalars on the device, with segments the tiles' id ranges
+    (bwd_seg_ranges), the kv-major grid's order (bwd_tile_order, causal) and
+    the kv ids padded to rows of a multiple of 4 (their TMA map), and the
+    outputs (dq an f32 buffer of zeros for K4, the input
+    dtype for K5). bf16 operands are held to what the tensor maps and grids
+    of the Hopper backward take (_check_bwd_sm90)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -484,18 +627,28 @@ def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
         do = do.contiguous()
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_operand(name, x, d)
+    if q.dtype == torch.bfloat16:
+        _check_bwd_sm90(b, sq, skv, hq, hkv)
+    dev = q.device
+    meta = _device_meta(dev, q_offset, kv_offset, kv_len)
+    seg_ranges = tile_order = None
     if qseg is not None:
         if qseg.shape != (b, sq) or kseg.shape != (b, skv):
             raise ValueError("segment ids must be [B, Sq] and [B, Skv]")
         qseg = qseg.to(torch.int32).contiguous()
-        kseg = kseg.to(torch.int32).contiguous()
+        kseg = kseg.to(torch.int32)
+        if sq and skv:
+            seg_ranges = bwd_seg_ranges(qseg, kseg)
+            if causal:
+                tile_order = bwd_tile_order(seg_ranges, sq, meta)
+        # rows of a multiple of 4 ids: TMA strides are multiples of 16 bytes
+        kseg = torch.nn.functional.pad(kseg, (0, _round_up(skv, 4) - skv)).contiguous()
 
-    dev = q.device
     return dict(
         q=q, k=k, v=v, do=do, lse=lse.float().contiguous(),
         delta=(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous(),
-        qseg=qseg, kseg=kseg, meta=_device_meta(dev, q_offset, kv_offset, kv_len),
-        causal=causal,
+        qseg=qseg, kseg=kseg, seg_ranges=seg_ranges, tile_order=tile_order,
+        meta=meta, causal=causal,
         dq=(torch.zeros((b, sq, hq, d), dtype=torch.float32, device=dev) if fused
             else torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)),
         dk=torch.empty((b, skv, hkv, d), dtype=q.dtype, device=dev),

@@ -247,6 +247,7 @@ def _check_bwd(q, k, v, fused, *, causal, q_offset=0, kv_valid_len=None, seg=Non
         assert g.dtype == q.dtype and g.shape == r.shape, name
         torch.testing.assert_close(g.float(), r.float(), rtol=tol,
                                    atol=tol * r.float().abs().max().item(), msg=name)
+    return got
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["K4", "K5"])
@@ -276,6 +277,112 @@ def test_backward_vit_noncausal(gen, fused):
     qkv = _rand(gen, (3, 1025, 3, 16, 64), torch.bfloat16)
     q, k, v = qkv.unbind(2)
     _check_bwd(q, k, v, fused, causal=False)
+
+
+# The Hopper backward (K4's and K5's bf16 bodies, csrc/flash_bwd_sm90.cuh):
+# kv-major blocks of 128 kv rows walking 64-row q tiles, q-major dq blocks of
+# 128 q rows walking 128-row kv tiles, tiles skipped by the causal frontier,
+# kv_valid_len and segment-id range.
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["K4", "K5"])
+@pytest.mark.parametrize("case", [
+    # (Sq, Skv, Hq, Hkv, q_offset, kv_valid_len, d)
+    (300, 700, 8, 8, 350, 600, 128),     # ragged Sq and kv_len, GQA 1
+    (200, 1024, 40, 8, 100, 129, 128),   # GQA 5; one key past a 128-row tile
+    (256, 640, 16, 2, 1000, 640, 128),   # GQA 8; q_offset past the keys' frontier
+    (333, 500, 10, 2, 170, 401, 64),     # D 64, GQA 5
+    (1, 2048, 8, 2, 2047, 2048, 128),    # one row at the end
+])
+def test_sm90_backward_shapes_nan_past_kv_valid_len(gen, fused, case):
+    """Ragged Sq and Skv, q offsets, GQA 1/5/8; the K and V rows past
+    kv_valid_len hold NaN (TMA loads rows inside the tensor as they are):
+    none may reach dq, and dk, dv are 0 there."""
+    sq, skv, hq, hkv, q_off, kv_len, d = case
+    q = _rand(gen, (2, sq, hq, d), torch.bfloat16)
+    k, v = _rand(gen, (2, skv, hkv, d), torch.bfloat16), _rand(gen, (2, skv, hkv, d), torch.bfloat16)
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    got = _check_bwd(q, k, v, fused, causal=True, q_offset=q_off, kv_valid_len=kv_len)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["K4", "K5"])
+@pytest.mark.parametrize("layout", ["packed", "interleaved"])
+@pytest.mark.parametrize("d", [128, 64])
+def test_sm90_backward_segments(gen, fused, layout, d):
+    """Segments, causal, GQA 5, odd Skv (kv ids padded to rows of 4 for
+    their TMA map): packed rows let whole tile pairs be skipped; interleaved
+    ids must skip none that holds a match."""
+    s = 1333
+    q = _rand(gen, (2, s, 10, d), torch.bfloat16)
+    k, v = _rand(gen, (2, s, 2, d), torch.bfloat16), _rand(gen, (2, s, 2, d), torch.bfloat16)
+    if layout == "packed":
+        seg = torch.zeros(2, s, dtype=torch.int32, device="cuda")
+        seg[0, 130:] = 1
+        seg[0, 700:] = 2
+        seg[1, 5:] = 1
+        seg[1, 1200:] = 2
+    else:
+        seg = ((torch.arange(s, device="cuda") // 50) % 3).to(torch.int32).expand(2, s).contiguous()
+    _check_bwd(q, k, v, fused, causal=True, seg=seg)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["K4", "K5"])
+def test_sm90_backward_vit_shape(gen, fused):
+    """The trainable tower's [16, 1025, 16, 64] non-causal backward, q/k/v
+    strided views of one qkv projection (never copied)."""
+    qkv = _rand(gen, (16, 1025, 3, 16, 64), torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    _check_bwd(q, k, v, fused, causal=False)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["K4", "K5"])
+def test_sm90_backward_empty_rows(gen, fused):
+    """Rows with no unmasked key (lse = -2^30): the first 100 q rows sit
+    before every key (q_offset - kv_offset < 0), and one segment's rows meet
+    only other segments' keys. Their dq is 0 and nothing turns non-finite."""
+    q = _rand(gen, (1, 300, 8, 128), torch.bfloat16)
+    k, v = _rand(gen, (1, 300, 2, 128), torch.bfloat16), _rand(gen, (1, 300, 2, 128), torch.bfloat16)
+    qseg = torch.zeros(1, 300, dtype=torch.int32, device="cuda")
+    qseg[:, 200:] = 7  # no key carries id 7
+    kseg = torch.zeros(1, 300, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, q_offset=0, kv_offset=100, q_segment_ids=qseg, kv_segment_ids=kseg)
+    o, lse = tfa.flash_attention_reference(q, k, v, **kw)
+    assert bool((lse[:, :, :100] == tfa.NEG_INF).all()) and bool((lse[:, :, 200:] == tfa.NEG_INF).all())
+    do = _rand(gen, q.shape, q.dtype)
+    got = tfa._flash_bwd_cuda(q, k, v, o, lse, do, True, 0, 100, 300, qseg, kseg, fused)
+    ref = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.float(), r.float(), rtol=1e-2,
+                                   atol=1e-2 * r.float().abs().max().item())
+    assert bool((got[0][:, :100] == 0).all()) and bool((got[0][:, 200:] == 0).all())
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["K4", "K5"])
+def test_sm90_backward_dk_dv_reproducible(gen, fused):
+    """dK and dV are bit-identical over two runs (each block owns its rows;
+    only K4's dQ sums with atomics)."""
+    q = _rand(gen, (1, 1000, 10, 128), torch.bfloat16)
+    k, v = _rand(gen, (1, 1000, 2, 128), torch.bfloat16), _rand(gen, (1, 1000, 2, 128), torch.bfloat16)
+    seg = torch.zeros(1, 1000, dtype=torch.int32, device="cuda")
+    seg[:, 400:] = 1
+    o, lse = tfa.flash_attention_reference(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    do = _rand(gen, q.shape, q.dtype)
+    runs = [tfa._flash_bwd_cuda(q, k, v, o, lse, do, True, 0, 0, 1000, seg, seg, fused)
+            for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+    if not fused:
+        assert torch.equal(runs[0][0], runs[1][0])
+
+
+def test_sm90_backward_rejects_what_the_tensor_maps_do_not_take(gen):
+    q = _rand(gen, (1, 64, 4, 64), torch.bfloat16)
+    x = q.expand(65536, 64, 4, 64)
+    lse = torch.zeros(65536, 4, 64, device="cuda")
+    with pytest.raises(ValueError, match="batch rows"):
+        tfa._flash_bwd_cuda(x, x, x, x, lse, x, False, 0, 0, 64, None, None, True)
 
 
 def test_autograd_through_the_kernels(gen):
