@@ -18,6 +18,8 @@ Phases (each raises on failure; the script then exits non-zero):
      points; both also timed at T2's and T1's packed segment layouts beside
      their bounds), K6 the w4a16 product (five 14B shapes, 1 to 512 rows; one 14B
      matrix quantised on the card against numpy's quantisation, bit for bit);
+     K2 is timed beside K1 over a bf16 cache of the same shape, K6 at 1 and
+     512 rows beside torch.matmul on its dequantised weight;
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
      bf16 weights from a seeded generator) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
@@ -236,17 +238,22 @@ def phase_build() -> None:
     for name in sources:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error", "warning",
-                                       "Performance Loss")):
+                                       "Performance Loss", "C75")):
                 print(f"[build] {name}: {line.strip()}")
     for d in (128, 64):
         print(f"[build] flash_fwd_sm90.cuh: the D={d} forward (K1 bf16, and K3 at D=64) takes "
               f"{_build.load('flash_fwd').lvt_flash_fwd_smem_bytes(d)} bytes of dynamic shared "
-              f"memory a block")
+              f"memory a block, its int8 instance (K2) "
+              f"{_build.load('flash_fwd_quant').lvt_flash_fwd_quant_smem_bytes(d)}")
         bwd, dq = _build.load("flash_bwd"), _build.load("flash_bwd_2pass")
         print(f"[build] flash_bwd_sm90.cuh: at D={d} a kv-major block takes "
               f"{bwd.lvt_flash_bwd_smem_bytes(d, 1)} bytes of dynamic shared memory in K4 and "
               f"{bwd.lvt_flash_bwd_smem_bytes(d, 0)} in K5's dkv pass, a dq block "
               f"{dq.lvt_flash_bwd_dq_smem_bytes(d)}")
+    w4 = _build.load("w4_matmul")
+    print("[build] w4_matmul.cu: a block takes " + ", ".join(
+        f"{w4.lvt_w4_matmul_smem_bytes(n)} bytes at N={n}" for n in (8, 16, 32, 64, 128))
+        + " of dynamic shared memory")
 
 
 def _kernel_case(name, q, k, v, *, f32=False, **kw) -> float:
@@ -423,7 +430,9 @@ def _pair_case(name, kernel, plain, n_counter, *, lse_atol=LSE_ATOL) -> float:
 def phase_kernels_quant() -> dict:
     """K2 at the serving shape: a 2048-row chunk at offset 14336 against an
     int8 cache [1, 32768, 8, 128] with 16384 valid slots, codes and scales
-    from quantize_kv of seeded bf16 values; and kv_valid_len = 0."""
+    from quantize_kv of seeded bf16 values; with NaN in the scale rows past
+    kv_valid_len; and kv_valid_len = 0. Timed beside K1 on the same shape
+    over a bf16 cache (the widening's cost; not the same function)."""
     import torch
 
     from long_vita_tpu_torch.models.qwen2 import quantize_kv
@@ -445,6 +454,20 @@ def phase_kernels_quant() -> dict:
         lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw),
         fa.flash_attention_quant,
     )
+    # NaN in every scale row past kv_valid_len: the kernel gives those rows
+    # scale 0, so none may reach o
+    ksn, vsn = ks[:, :20480].clone(), vs[:, :20480].clone()
+    ksn[:, 16300:] = float("nan")
+    vsn[:, 16300:] = float("nan")
+    kw_n = dict(q_offset=14336, kv_valid_len=16300)
+    err = max(err, _pair_case(
+        "K2 chunk 2048 @14336, scale rows past len 16300 hold NaN",
+        lambda: fa.flash_attention_quant(q, k[:, :20480], ksn, v[:, :20480], vsn, return_lse=True,
+                                         **kw_n),
+        lambda: fa.flash_attention_quant_reference(q, k[:, :20480], ksn, v[:, :20480], vsn, **kw_n),
+        fa.flash_attention_quant,
+    ))
+    del ksn, vsn
     before = fa.flash_attention_quant.launches
     o0, lse0 = fa.flash_attention_quant(
         q[:, :256], k, ks, v, vs, q_offset=14336, kv_valid_len=0, return_lse=True
@@ -455,18 +478,23 @@ def phase_kernels_quant() -> dict:
     if not (bool((o0 == 0).all()) and bool((lse0 == fa.NEG_INF).all())):
         raise AssertionError("[K2 kv_valid_len=0] must give o = 0, lse = -2^30")
     print("[kernel] K2 kv_valid_len=0: o == 0 and lse == -2^30 ok")
-    kern_ms = _cuda_ms(lambda: fa.flash_attention_quant(q, k, ks, v, vs, **kw), reps=20)
+    # device time, the calls queued behind a sleep (as K1's)
+    kern_ms = _queued_ms([lambda: fa.flash_attention_quant(q, k, ks, v, vs, **kw)], reps=20)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw), reps=5)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)  # the codes as a bf16 cache
+    k1_ms = _queued_ms([lambda: fa.flash_attention(q, kb, vb, causal=True, **kw)], reps=20)
+    del kb, vb
     pairs = 2048 * 14336 + 2048 * 2049 // 2  # unmasked (q, k) pairs
     tflops = 4 * 40 * 128 * pairs / (kern_ms * 1e-3) / 1e12
     # bytes: q and o, the 16384 valid rows of the int8 codes and their f32 scales, lse
     bound = _bound(2 * 2 * q.numel() + 2 * 16384 * 8 * (128 + 4) + 4 * 2048 * 40,
                    4 * 40 * 128 * pairs)
-    print(f"[kernel] K2 timing, median of CUDA events: kernel {kern_ms:.3f} ms "
-          f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); no PyTorch call attends over "
-          f"an int8 cache")
-    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    print(f"[kernel] K2 timing (queued): kernel {kern_ms:.3f} ms ({tflops:.1f} TFLOP/s on "
+          f"unmasked pairs), plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}); K1 on the same shape over a bf16 cache {k1_ms:.3f} ms (the "
+          f"widening's cost; not the same function); no PyTorch call attends over an int8 cache")
+    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "k1_bf16_cache_ms": k1_ms}
 
 
 def phase_kernels_short() -> dict:
@@ -735,7 +763,8 @@ def phase_kernels_w4() -> dict:
     bf16 weight (the nearest library call: JAX's route above 512 rows and
     what bf16 serving runs) and the bound. Before that, one 14B matrix
     quantised on the card must equal numpy's host quantisation bit for bit.
-    -> the report entry, timed at q_proj's shape and one row."""
+    -> the report entry, timed at q_proj's shape and one row, with the same
+    numbers at 512 rows under "at_512_rows"."""
     import numpy as np
     import torch
 
@@ -770,7 +799,7 @@ def phase_kernels_w4() -> dict:
         raise AssertionError("quantisation on the card differs from the host's")
     del w, packed, scales, q8, s8, host
 
-    errs, report = [], None
+    errs, report = [], {}
     for name, (n_in, n_out) in W4_SHAPES.items():
         out_dtype = torch.float32 if name == "lm_head" else bf
         tol = W4_F32_TOL if out_dtype == torch.float32 else W4_BF16_TOL
@@ -821,11 +850,11 @@ def phase_kernels_w4() -> dict:
                   f"({bound['bound_by']}; {bound['bound_ms'] / kern_ms:.1%} of it), torch.matmul "
                   f"on the dequantised bf16 weight {lib_ms * 1e3:.1f} us (a reference, not the "
                   f"same function), plain version {plain_ms:.3f} ms")
-            if name == "q_proj/o_proj" and rows == 1:
-                report = {"ms": kern_ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms}
+            if name == "q_proj/o_proj":
+                report[rows] = {"ms": kern_ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms}
         del packed, scales
     torch.cuda.empty_cache()
-    return {"max_abs_err": max(errs), **report}
+    return {"max_abs_err": max(errs), **report[1], "at_512_rows": report[512]}
 
 
 class _Tok:

@@ -1,6 +1,7 @@
-// The bf16 attention forward for Hopper (sm_90a): one template behind K1's
-// bf16 body (flash_fwd.cu, entry lvt_flash_fwd) and K3 (short_attn.cu,
-// entry lvt_short_attn).
+// The attention forward for Hopper (sm_90a): one template behind K1's bf16
+// body (flash_fwd.cu, entry lvt_flash_fwd), K3 (short_attn.cu, entry
+// lvt_short_attn) and, as its int8 instance (kQuant), K2 (flash_fwd_quant.cu,
+// entry lvt_flash_fwd_quant), whose differences are set out there.
 //
 // What it computes (the contract of both entry points): s = q.k^T / sqrt(D)
 // in f32; masked logits are the finite -2^30 (causal: kv_off + j <= q_off +
@@ -66,18 +67,23 @@ constexpr int kBox = 128 * 128;       // bytes of one 128-row x 64-column bf16 K
 // registers a thread), at D = 64 three (S 64 + O 32 + P 32), which raises
 // the rows that share each K/V tile and the warps that hide latency; the
 // producer warpgroup comes after them. 65,536 registers either way.
-template <int D>
+// The int8 instance keeps two consumer warpgroups at both D and gives its
+// producer warpgroup, which widens every K/V code, 56 registers. The
+// registers a block is launched with (384 threads at 168) bound the sum.
+template <int D, bool kQuant = false>
 struct Cfg {
-  static constexpr int kConsumers = D == 64 ? 3 : 2;
+  static constexpr int kConsumers = D == 64 && !kQuant ? 3 : 2;
   static constexpr int kBM = 64 * kConsumers;          // query rows a block
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kConsumerRegs = D == 64 ? 160 : 232;
-  static constexpr int kProducerRegs = D == 64 ? 24 : 40;
+  static constexpr int kConsumerRegs = kQuant ? 224 : D == 64 ? 160 : 232;
+  static constexpr int kProducerRegs = kQuant ? 56 : D == 64 ? 24 : 40;
   static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536, "registers");
 };
 
 // query rows a block of the head dim d (host side)
-inline int block_q(int d) { return d == 64 ? Cfg<64>::kBM : Cfg<128>::kBM; }
+inline int block_q(int d, bool quant = false) {
+  return quant ? Cfg<128, true>::kBM : d == 64 ? Cfg<64>::kBM : Cfg<128>::kBM;
+}
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
@@ -90,6 +96,10 @@ struct Params {
   const int* seg_ranges;
   const int* meta;      // device int32 [q_offset, kv_offset, kv_valid_len]; null: 0, 0, Skv
   long long o_sb, o_ss, qseg_sb;  // element strides
+  // the int8 instance: tk, tv map the int8 codes; f32 scales [B, Skv, Hkv, 1]
+  const float* ks;
+  const float* vs;
+  long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;
   int sq, skv, hq, hkv, n_qt, n_kt;
   float scale_log2;     // 1/sqrt(D) * log2(e)
 };
@@ -111,6 +121,45 @@ struct Smem {
   static constexpr int alloc = bytes + 1024;  // room to align the base
 };
 
+// The int8 instance's shared memory (D = 128: 216,168 bytes with the
+// alignment slack; D = 64: 151,696). K1's three bf16 stages of 64 KB and Q
+// leave no room for the scales, so it keeps two bf16 stages and frees K's
+// and V's halves of a stage separately (K once S has landed, V once P.V
+// has), which gives the producer a whole iteration per tile as three
+// stages do in K1. The raw int8 K and V tiles come in by TMA through a ring
+// of slots of one tile each (K of tile 0, V of tile 0, K of tile 1, ...),
+// so the codes are in flight without holding producer registers. The k
+// scales sit where K1 keeps the kv segment ids.
+template <int D>
+struct SmemQ {
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kRawSlots = D == 128 ? 3 : 4;
+  static constexpr int kTile = (D / 64) * kBox;           // a bf16 K or V tile
+  static constexpr int kRaw = D * kBN;                    // an int8 K or V tile
+  static constexpr int kQBox = Cfg<D, true>::kBM * 128;
+  static constexpr int kQTile = (D / 64) * kQBox;
+  static constexpr int q = 0;
+  static constexpr int k = q + kQTile;                    // + stage * kTile
+  static constexpr int v = k + kStages * kTile;           // + stage * kTile
+  static constexpr int raw = v + kStages * kTile;         // + slot * kRaw
+  static constexpr int kseg = raw + kRawSlots * kRaw;     // k scales: + stage * kBN * 4
+  static constexpr int vsc = kseg + kStages * kBN * 4;    // v scales: + stage * kBN * 4
+  static constexpr int bar = vsc + kStages * kBN * 4;
+  // barriers: q, aux, full_k, full_v, empty (K), empty_v [stages], raw_full [slots]
+  static constexpr int bytes = bar + (2 + 4 * kStages + kRawSlots) * 8;
+  static constexpr int alloc = bytes + 1024;  // room to align the base
+};
+
+template <int D, bool kQuant>
+struct Layout {
+  using type = Smem<D>;
+};
+template <int D>
+struct Layout<D, true> {
+  using type = SmemQ<D>;
+};
+
+// empty(s) frees a stage in K1 and K3, K's half of it in the int8 instance
 struct Bars {
   uint32_t base;
   int stages;
@@ -119,6 +168,8 @@ struct Bars {
   __device__ uint32_t full_k(int s) const { return base + 16 + 8 * s; }
   __device__ uint32_t full_v(int s) const { return base + 16 + 8 * (stages + s); }
   __device__ uint32_t empty(int s) const { return base + 16 + 8 * (2 * stages + s); }
+  __device__ uint32_t empty_v(int s) const { return base + 16 + 8 * (3 * stages + s); }
+  __device__ uint32_t raw_full(int r) const { return base + 16 + 8 * (4 * stages + r); }
 };
 
 // what producer and consumers agree on for one block
@@ -174,16 +225,67 @@ __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsig
   }
 }
 
+// The int8 instance's producer: the whole warpgroup. Thread 0 loads Q and
+// keeps the raw ring's TMA loads in flight; every thread widens its share of
+// each raw tile into the bf16 stage and stores one row's k or v scale (0
+// past kv_len, so p = 0 never meets a non-finite scale), fences the async
+// proxy and arrives on the stage's full barrier (128 arrivals). Codes past
+// kv_len are finite int8 and TMA fills rows past Skv with zeros, so no row
+// needs zeroing.
+template <int D>
+__device__ __forceinline__ void produce_quant(const Params& p, const Block& blk,
+                                              unsigned char* base, uint32_t base_u,
+                                              const Bars& bars) {
+  using L = SmemQ<D>;
+  const int t = threadIdx.x & 127;
+  const int items = 2 * blk.n_tiles;  // K, then V, of each tile
+  auto issue = [&](int item) {
+    const int slot = item % L::kRawSlots;
+    mbar_arrive_tx(bars.raw_full(slot), L::kRaw);
+    tma_load_4d(base_u + L::raw + slot * L::kRaw, (item & 1) ? &p.tv : &p.tk,
+                bars.raw_full(slot), 0, blk.hk, (item >> 1) * kBN, blk.b);
+  };
+  if (t == 0) {
+    mbar_arrive_tx(bars.q(), L::kQTile);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      tma_load_4d(base_u + L::q + c * L::kQBox, &p.tq, bars.q(), c * 64, blk.h, blk.q0, blk.b);
+    for (int i = 0; i < min(items, L::kRawSlots); ++i) issue(i);
+  }
+  const float* ksg = p.ks + blk.b * p.ks_sb + blk.hk * p.ks_sh;
+  const float* vsg = p.vs + blk.b * p.vs_sb + blk.hk * p.vs_sh;
+  for (int it = 0; it < blk.n_tiles; ++it) {
+    const int s = it % L::kStages, row = it * kBN + t;
+    const float ksc = row < blk.kv_len ? ksg[row * p.ks_ss] : 0.f;
+    const float vsc = row < blk.kv_len ? vsg[row * p.vs_ss] : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // K, then V
+      const int item = 2 * it + half, slot = item % L::kRawSlots;
+      mbar_wait(bars.raw_full(slot), (item / L::kRawSlots) & 1);
+      if (it >= L::kStages)
+        mbar_wait(half ? bars.empty_v(s) : bars.empty(s), ((it / L::kStages) + 1) & 1);
+      widen_i8_tile<D>(base + L::raw + slot * L::kRaw,
+                       base + (half ? L::v : L::k) + s * L::kTile, kBox, kBN, t, 128);
+      reinterpret_cast<float*>(base + (half ? L::vsc : L::kseg) + s * kBN * 4)[t] =
+          half ? vsc : ksc;
+      fence_proxy_async();
+      mbar_arrive(half ? bars.full_v(s) : bars.full_k(s));
+      bar_sync(1, 128);  // every producer thread is done with the raw slot
+      if (t == 0 && item + L::kRawSlots < items) issue(item + L::kRawSlots);
+    }
+  }
+}
+
 // S = Q.K^T over the N columns of a K tile (128, or 16 for a narrow tile),
 // issued and committed, not waited for; the first k16 slice overwrites sc
-template <int D, int N>
+template <int D, int N, int kQBox>
 __device__ __forceinline__ void issue_s(float (&sc)[N / 2], uint32_t q_base, uint32_t k_base) {
   fence_regs(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;  // the k16 slice inside a 64-column box
-    const uint64_t da = sw128_desc(q_base + (kk / 4) * Smem<D>::kQBox + off, 16, 1024);
+    const uint64_t da = sw128_desc(q_base + (kk / 4) * kQBox + off, 16, 1024);
     const uint64_t db = sw128_desc(k_base + (kk / 4) * kBox + off, 16, 1024);
     if constexpr (N == kBN) wgmma_ss_m64n128(sc, da, db, kk);
     else wgmma_ss_m64n16(sc, da, db, kk);
@@ -216,16 +318,24 @@ struct Rows {
 // The masked online softmax of one S tile, in place: sc becomes p =
 // exp2(s * scale * log2 e - m * scale * log2 e), one FFMA and one exp2 a
 // logit (0 where masked, and in a row that has seen no unmasked key); m and
-// l move on. -> the factors that rescale O.
-template <bool kCausal, bool kSeg, int N>
+// l move on. The int8 instance first multiplies each logit by its column's
+// k scale (ksc, the stage's scales). -> the factors that rescale O.
+template <bool kCausal, bool kSeg, bool kQuant, int N>
 __device__ __forceinline__ void softmax(const Params& p, const Block& blk, float (&sc)[N / 2],
-                                        Rows& r, const int* kseg, int k0, bool interior,
-                                        float& alpha_lo, float& alpha_hi) {
+                                        Rows& r, const int* kseg, const float* ksc, int k0,
+                                        bool interior, float& alpha_lo, float& alpha_hi) {
   const int i4 = threadIdx.x & 3;
   const float sl = p.scale_log2;
   float mx_lo = r.m_lo, mx_hi = r.m_hi;
 #pragma unroll
   for (int n = 0; n < N / 8; ++n) {
+    if constexpr (kQuant) {  // columns 8n + 2 i4 and 8n + 2 i4 + 1
+      const float2 s2 = reinterpret_cast<const float2*>(ksc)[n * 4 + i4];
+      sc[4 * n] *= s2.x;
+      sc[4 * n + 1] *= s2.y;
+      sc[4 * n + 2] *= s2.x;
+      sc[4 * n + 3] *= s2.y;
+    }
     if (!interior) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -264,13 +374,24 @@ __device__ __forceinline__ void softmax(const Params& p, const Block& blk, float
   r.l_hi = r.l_hi * alpha_hi + sum_hi;
 }
 
-// p (f32, in the S accumulator's layout) -> the bf16 A operand of P.V
-template <int N>
-__device__ __forceinline__ void pack_p(const float (&sc)[N / 2], uint32_t (&pf)[kBN / 16][4]) {
+// p (f32, in the S accumulator's layout) -> the bf16 A operand of P.V; the
+// int8 instance rounds p * v_scale of the column (vsc, the stage's scales)
+template <int N, bool kQuant>
+__device__ __forceinline__ void pack_p(const float (&sc)[N / 2], uint32_t (&pf)[kBN / 16][4],
+                                       const float* vsc) {
+  const int i4 = threadIdx.x & 3;
 #pragma unroll
   for (int n = 0; n < N / 8; ++n) {
-    pf[n / 2][(n & 1) * 2 + 0] = pack_f32(sc[4 * n], sc[4 * n + 1]);
-    pf[n / 2][(n & 1) * 2 + 1] = pack_f32(sc[4 * n + 2], sc[4 * n + 3]);
+    float a0 = sc[4 * n], a1 = sc[4 * n + 1], a2 = sc[4 * n + 2], a3 = sc[4 * n + 3];
+    if constexpr (kQuant) {
+      const float2 s2 = reinterpret_cast<const float2*>(vsc)[n * 4 + i4];
+      a0 *= s2.x;
+      a1 *= s2.y;
+      a2 *= s2.x;
+      a3 *= s2.y;
+    }
+    pf[n / 2][(n & 1) * 2 + 0] = pack_f32(a0, a1);
+    pf[n / 2][(n & 1) * 2 + 1] = pack_f32(a2, a3);
   }
 }
 
@@ -294,11 +415,13 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], float alpha_lo, float
 // start) runs on its own after the loop. It is the last tile the
 // warpgroup needs; a later one, which the block can hold at D = 64, lies
 // wholly past the warpgroup's columns, is left to the warpgroups of later
-// rows and is the block's last, so no producer waits for its release.
-template <int D, bool kCausal, bool kSeg>
+// rows and is the block's last, so no producer waits for its release. The
+// int8 instance releases K's half of a stage once S has landed and waits
+// for V's half (and its scales) before it packs P.
+template <int D, bool kCausal, bool kSeg, bool kQuant>
 __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsigned char* base,
                                         uint32_t base_u, const Bars& bars, int wg) {
-  using L = Smem<D>;
+  using L = typename Layout<D, kQuant>::type;
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, g = lane >> 2;
   const int row0 = blk.q0 + wg * 64;  // this warpgroup's first query row
   const int qi_lo = row0 + warp * 16 + g, qi_hi = qi_lo + 8;
@@ -323,6 +446,13 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   auto kseg_of = [&](int it) {
     return reinterpret_cast<const int*>(base + L::kseg + (it % L::kStages) * kBN * 4);
   };
+  auto ksc_of = [&](int it) { return reinterpret_cast<const float*>(kseg_of(it)); };
+  auto vsc_of = [&](int it) -> const float* {
+    if constexpr (kQuant)
+      return reinterpret_cast<const float*>(base + L::vsc + (it % L::kStages) * kBN * 4);
+    else
+      return nullptr;
+  };
   auto parity = [&](int it) { return (uint32_t)((it / L::kStages) & 1); };
   auto interior = [&](int j) {
     const int k0 = j * kBN;
@@ -335,7 +465,13 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
     return in;
   };
   auto release = [&](int it) {  // this warpgroup's products are complete
-    if (t == 0) mbar_arrive(bars.empty(it % L::kStages));
+    if (t == 0) mbar_arrive(kQuant ? bars.empty_v(it % L::kStages) : bars.empty(it % L::kStages));
+  };
+  auto release_k = [&](int it) {  // the int8 instance: S of tile it has landed
+    if (kQuant && t == 0) mbar_arrive(bars.empty(it % L::kStages));
+  };
+  auto wait_v = [&](int it) {  // the int8 instance: V's scales before P is packed
+    if (kQuant) mbar_wait(bars.full_v(it % L::kStages), parity(it));
   };
 
   float o[D / 2];
@@ -351,28 +487,32 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   if (j >= 0 && end - j * kBN > kNarrow) {
     // the first tile: S and its softmax; P.V waits for the next iteration
     mbar_wait(bars.full_k(0), 0);
-    issue_s<D, kBN>(sc, q_base, k_base(0));
+    issue_s<D, kBN, L::kQBox>(sc, q_base, k_base(0));
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax<kCausal, kSeg, kBN>(p, blk, sc, r, kseg_of(0), j * kBN, interior(j), alpha_lo,
-                                alpha_hi);
-    pack_p<kBN>(sc, pf);
+    release_k(0);
+    softmax<kCausal, kSeg, kQuant, kBN>(p, blk, sc, r, kseg_of(0), ksc_of(0), j * kBN,
+                                        interior(j), alpha_lo, alpha_hi);
+    wait_v(0);
+    pack_p<kBN, kQuant>(sc, pf, vsc_of(0));
     // the rest: S of tile it, then P.V of tile it - 1
     for (j = next(), ++it; j >= 0; j = next(), ++it) {
       if (end - j * kBN <= kNarrow) break;
       mbar_wait(bars.full_k(it % L::kStages), parity(it));
       mbar_wait(bars.full_v((it - 1) % L::kStages), parity(it - 1));
-      issue_s<D, kBN>(sc, q_base, k_base(it));
+      issue_s<D, kBN, L::kQBox>(sc, q_base, k_base(it));
       issue_pv<D, kBN>(o, pf, v_base(it - 1));
       wgmma_wait<1>();  // S has landed; P.V may still run
       fence_regs(sc);
-      softmax<kCausal, kSeg, kBN>(p, blk, sc, r, kseg_of(it), j * kBN, interior(j), alpha_lo,
-                                  alpha_hi);
+      release_k(it);
+      softmax<kCausal, kSeg, kQuant, kBN>(p, blk, sc, r, kseg_of(it), ksc_of(it),
+                                          j * kBN, interior(j), alpha_lo, alpha_hi);
       wgmma_wait<0>();
       fence_regs(o);
       release(it - 1);
       rescale<D>(o, alpha_lo, alpha_hi);
-      pack_p<kBN>(sc, pf);
+      wait_v(it);
+      pack_p<kBN, kQuant>(sc, pf, vsc_of(it));
     }
     // the last full tile's P.V
     mbar_wait(bars.full_v((it - 1) % L::kStages), parity(it - 1));
@@ -385,13 +525,15 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
     // a narrow tile (the warpgroup's last): 16 columns, 16 rows of V
     float sn[kNarrow / 2];
     mbar_wait(bars.full_k(it % L::kStages), parity(it));
-    issue_s<D, kNarrow>(sn, q_base, k_base(it));
+    issue_s<D, kNarrow, L::kQBox>(sn, q_base, k_base(it));
     wgmma_wait<0>();
     fence_regs(sn);
-    softmax<kCausal, kSeg, kNarrow>(p, blk, sn, r, kseg_of(it), j * kBN, false, alpha_lo,
-                                    alpha_hi);
+    release_k(it);
+    softmax<kCausal, kSeg, kQuant, kNarrow>(p, blk, sn, r, kseg_of(it), ksc_of(it),
+                                            j * kBN, false, alpha_lo, alpha_hi);
     rescale<D>(o, alpha_lo, alpha_hi);
-    pack_p<kNarrow>(sn, pf);
+    wait_v(it);
+    pack_p<kNarrow, kQuant>(sn, pf, vsc_of(it));
     mbar_wait(bars.full_v(it % L::kStages), parity(it));
     issue_pv<D, kNarrow>(o, pf, v_base(it));
     wgmma_wait<0>();
@@ -423,11 +565,11 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   }
 }
 
-template <int D, bool kCausal, bool kSeg>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+template <int D, bool kCausal, bool kSeg, bool kQuant = false>
+__global__ void __launch_bounds__(Cfg<D, kQuant>::kThreads, 1)
     fwd_kernel(const __grid_constant__ Params p) {
-  using L = Smem<D>;
-  using C = Cfg<D>;
+  using L = typename Layout<D, kQuant>::type;
+  using C = Cfg<D, kQuant>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_u = smem_u32(smem_raw);
   const uint32_t base_u = (raw_u + 1023u) & ~1023u;  // the 128-byte swizzle's atoms
@@ -464,13 +606,17 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   const int n_consumers = min(C::kConsumers, (p.sq - blk.q0 + 63) / 64);
 
   if (threadIdx.x == 0) {
+    const int fills = kQuant ? 128 : 1;  // the int8 producer's threads each arrive
     mbar_init(bars.q(), 1);
     mbar_init(bars.aux(), 1);
     for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(bars.full_k(s), 1);
-      mbar_init(bars.full_v(s), 1);
+      mbar_init(bars.full_k(s), fills);
+      mbar_init(bars.full_v(s), fills);
       mbar_init(bars.empty(s), n_consumers);
+      if (kQuant) mbar_init(bars.empty_v(s), n_consumers);
     }
+    if constexpr (kQuant)
+      for (int r = 0; r < SmemQ<D>::kRawSlots; ++r) mbar_init(bars.raw_full(r), 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -478,11 +624,14 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   const int wg = threadIdx.x / 128;
   if (wg == C::kConsumers) {
     setmaxnreg_dec<C::kProducerRegs>();
-    if ((threadIdx.x >> 5) == 4 * C::kConsumers && blk.n_tiles > 0)  // one warp loads
+    if constexpr (kQuant) {
+      if (blk.n_tiles > 0) produce_quant<D>(p, blk, base, base_u, bars);
+    } else if ((threadIdx.x >> 5) == 4 * C::kConsumers && blk.n_tiles > 0) {  // one warp loads
       produce<D, kSeg>(p, blk, base, base_u, bars);
+    }
   } else {
     setmaxnreg_inc<C::kConsumerRegs>();
-    if (wg < n_consumers) consume<D, kCausal, kSeg>(p, blk, base, base_u, bars, wg);
+    if (wg < n_consumers) consume<D, kCausal, kSeg, kQuant>(p, blk, base, base_u, bars, wg);
   }
 }
 
@@ -521,14 +670,14 @@ inline bool make_params(Params* p, const void* q, const void* k, const void* v, 
   return true;
 }
 
-template <int D, bool kCausal, bool kSeg>
+template <int D, bool kCausal, bool kSeg, bool kQuant = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::alloc;
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<D, kCausal, kSeg>,
+  constexpr int smem = Layout<D, kQuant>::type::alloc;
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<D, kCausal, kSeg, kQuant>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid = kCausal ? dim3(p.hq, batch, p.n_qt) : dim3(p.n_qt, p.hq, batch);
-  fwd_kernel<D, kCausal, kSeg><<<grid, Cfg<D>::kThreads, smem, stream>>>(p);
+  fwd_kernel<D, kCausal, kSeg, kQuant><<<grid, Cfg<D, kQuant>::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

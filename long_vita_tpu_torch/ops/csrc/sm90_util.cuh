@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the attention forward
-// (flash_fwd_sm90.cuh) and backward (flash_bwd_sm90.cuh), as inline PTX in
-// the style of mma_util.cuh: mbarriers, TMA tile loads, named barriers, the
-// register hand-over between warpgroups (setmaxnreg), and wgmma with its
-// shared-memory matrix descriptors.
+// (flash_fwd_sm90.cuh, with its int8 instance K2) and backward
+// (flash_bwd_sm90.cuh) and the w4a16 product (w4_matmul.cu), as inline
+// PTX: mbarriers, TMA tile loads, named barriers,
+// the register hand-over between warpgroups (setmaxnreg), wgmma with its
+// shared-memory matrix descriptors, and the widening of int8 codes into the
+// swizzled bf16 layout wgmma reads.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (one TMA box) is R rows of 128 bytes in which the
@@ -207,6 +209,49 @@ __device__ __forceinline__ void zero_then_release(uint32_t aux, uint32_t full, u
   if (lane == 0) mbar_arrive(full);
 }
 
+// ---- int8 codes widened to bf16 ----------------------------------------------
+
+// Four int8 codes (little endian) -> four bf16 in two registers, exactly and
+// without I2F: the sign bit of each code c is flipped (c + 128 as a byte),
+// a byte permute makes that byte the low mantissa byte of the f32 2^23 + c +
+// 128, one FADD subtracts 2^23 + 128, and each pair is rounded to bf16
+// (exact for every int8).
+__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1), b = __floats2bfloat162_rn(f2, f3);
+  lo = *reinterpret_cast<uint32_t*>(&a);
+  hi = *reinterpret_cast<uint32_t*>(&b);
+}
+
+// Widen a tile of `rows` x D int8 codes (row r at raw + r * D, as TMA
+// writes a box without swizzle) into the 128-byte-swizzled bf16 layout that
+// wgmma reads (boxes of 64 columns, `box_bytes` apart): thread t of n takes
+// 16 codes at a time, one 16-byte shared load and two 16-byte stores. The
+// caller fences the async proxy before wgmma reads the tile.
+template <int D>
+__device__ __forceinline__ void widen_i8_tile(const unsigned char* raw, unsigned char* dst,
+                                              int box_bytes, int rows, int t, int n) {
+  constexpr int kChunks = D / 16;  // 16-code chunks a row
+#pragma unroll 4
+  for (int x = t; x < rows * kChunks; x += n) {
+    const int r = x / kChunks, c = 2 * (x % kChunks);  // c: the first bf16 chunk
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + r * D + (x % kChunks) * 16);
+    uint32_t o[8];
+    i8x4_to_bf16x4(w.x, o[0], o[1]);
+    i8x4_to_bf16x4(w.y, o[2], o[3]);
+    i8x4_to_bf16x4(w.z, o[4], o[5]);
+    i8x4_to_bf16x4(w.w, o[6], o[7]);
+    unsigned char* row = dst + (c / 8) * box_bytes + r * 128;
+    *reinterpret_cast<uint4*>(row + (((c % 8)) ^ (r & 7)) * 16) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(row + (((c % 8) + 1) ^ (r & 7)) * 16) =
+        make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
 // ---- warpgroups ------------------------------------------------------------
 
 // named barrier `id` (1-15; 0 is __syncthreads) over the first `threads`
@@ -365,6 +410,126 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 8] (+)= A[64 x 16] . B[16 x 8], A MN-major (the transpose bit of A
+// set) and B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n8_ta(float (&d)[4], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 16] . B[16 x 16], A MN-major (the transpose bit of A
+// set) and B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n16_ta(float (&d)[8], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A MN-major (the transpose bit of A
+// set) and B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n32_ta(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A MN-major (the transpose bit of A
+// set) and B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64_ta(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A MN-major (the transpose bit of A
+// set) and B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n128_ta(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The swap-AB product of the w4a16 kernel: D[64 x N] (+)= A . B with A
+// MN-major and B K-major (N = 8, 16, 32, 64 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_ta(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 8) wgmma_ss_m64n8_ta(d, da, db, accumulate);
+  else if constexpr (N == 16) wgmma_ss_m64n16_ta(d, da, db, accumulate);
+  else if constexpr (N == 32) wgmma_ss_m64n32_ta(d, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_ss_m64n64_ta(d, da, db, accumulate);
+  else wgmma_ss_m64n128_ta(d, da, db, accumulate);
+}
+
+// D[64 x 8] (+)= A[64 x 16] . B[16 x 8], A in registers (the mma.sync A
+// fragment layout), B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n8_kb(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 16] . B[16 x 16], A in registers (the mma.sync A
+// fragment layout), B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n16_kb(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers (the mma.sync A
+// fragment layout), B K-major in shared memory; accumulate == 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n32_kb(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The w4a16 kernel's register-A product at its decode row tiles: D[64 x N]
+// (+)= A . B with A in registers and B K-major (N = 8, 16 or 32).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  static_assert(N == 8 || N == 16 || N == 32, "wgmma width");
+  if constexpr (N == 8) wgmma_rs_m64n8_kb(d, a, db, accumulate);
+  else if constexpr (N == 16) wgmma_rs_m64n16_kb(d, a, db, accumulate);
+  else wgmma_rs_m64n32_kb(d, a, db, accumulate);
+}
+
 // ---- host side: TMA tensor maps ------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -439,6 +604,42 @@ inline bool seg_map(CUtensorMap* map, const void* ptr, int b, int skv, long long
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(ptr), dims, strides, box,
                 estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// int8 [B, S, H, D] with byte strides (sb, ss) and packed [H, D], as the 4-d
+// map (D, H, S, B): boxes of D bytes x `rows` rows of one head, no swizzle,
+// zeros past S. A dim of extent 1 gets the packed stride.
+inline bool i8_bshd_map(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
+                        long long sb, long long ss, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const long long ss_eff = s > 1 ? ss : (long long)h * d;
+  const long long sb_eff = b > 1 ? sb : (long long)s * ss_eff;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  cuuint64_t strides[3] = {(cuuint64_t)d, (cuuint64_t)ss_eff, (cuuint64_t)sb_eff};
+  cuuint32_t box[4] = {(cuuint32_t)d, 1, (cuuint32_t)rows, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major matrix [outer, inner] with rows `row_bytes` apart, as the 2-d
+// map (inner, outer) in boxes of box_inner x box_outer; zeros past either
+// edge.
+inline bool matrix_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                       long long inner, long long outer, long long row_bytes, int box_inner,
+                       int box_outer, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  cuuint32_t estr[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

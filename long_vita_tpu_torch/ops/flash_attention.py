@@ -19,8 +19,9 @@ has its own launch counter on its wrapper:
     bodies of K4 and K5 are one Hopper backward, ``csrc/flash_bwd_sm90.cuh``,
     whose tiles and skip rule ``bwd_dkv_plan`` / ``bwd_dq_plan`` spell out;
   - ``flash_attention_quant`` (:1360; Pallas `_fwd_quant_kernel` :261 -> K2,
-    ``csrc/flash_fwd_quant.cu``): causal flash forward against an int8 KV
-    cache with per-(token, kv head) f32 scales, forward only;
+    ``csrc/flash_fwd_quant.cu``, the int8 instance of the Hopper forward):
+    causal flash forward against an int8 KV cache with per-(token, kv head)
+    f32 scales, forward only;
   - ``short_attention`` (:1227; Pallas `_short_nc_kernel` :1192 -> K3,
     ``csrc/short_attn.cu``): non-causal attention over a short sequence (the
     ViT's 1025 tokens); differentiable, its backward K4/K5 fed K3's own
@@ -207,11 +208,12 @@ def _tile_ranges(seg: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.stack([tiles.amin(-1), tiles.amax(-1)], -1)
 
 
-def _check_sm90(b: int, sq: int, skv: int, hq: int, d: int) -> None:
-    if max(b, hq, -(-sq // sm90_block_q(d))) > _GRID_YZ_MAX:
+def _check_sm90(b: int, sq: int, skv: int, hq: int, d: int, block_q: Optional[int] = None) -> None:
+    block_q = block_q or sm90_block_q(d)
+    if max(b, hq, -(-sq // block_q)) > _GRID_YZ_MAX:
         raise ValueError(
             f"at most {_GRID_YZ_MAX} batch rows, heads and tiles of "
-            f"{sm90_block_q(d)} query rows a launch, got B={b}, Hq={hq}, Sq={sq}"
+            f"{block_q} query rows a launch, got B={b}, Hq={hq}, Sq={sq}"
         )
     if max(sq, skv) >= 2**31:
         raise ValueError(f"sequences must be shorter than 2^31 rows, got {sq}/{skv}")
@@ -753,7 +755,25 @@ def flash_attention_quant(
 flash_attention_quant.launches = 0  # CUDA kernel launches
 
 
+# K2 is the int8 instance of the Hopper forward: blocks of 128 query rows at
+# both head dims, kv tiles of 128 rows, the causal grid (Hq, B, q tiles); its
+# tensor maps read the int8 K/V through their strides in boxes of D bytes x
+# 128 rows and its producer loads the scales through theirs.
+SM90_QUANT_BLOCK_Q = 128
+
+
 def _flash_quant_cuda(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
+    o, lse, args = flash_quant_args(q, k, ks, v, vs, q_offset, kv_offset, kv_len)
+    _build.launch("lvt_flash_fwd_quant", q.device, *args)
+    flash_attention_quant.launches += 1
+    return o, lse
+
+
+def flash_quant_args(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
+    """Check q, the int8 cache and its scales for K2 and prepare its launch:
+    -> (o, lse, the arguments of lvt_flash_fwd_quant before the stream). The
+    cache and the scales are passed with their own strides, never copied;
+    the codes' rows must be 16-byte aligned (the tensor maps' strides)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != torch.int8 or v.dtype != torch.int8:
@@ -774,21 +794,20 @@ def _flash_quant_cuda(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
         )
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, d)
+    _check_sm90(b, sq, skv, hq, d, SM90_QUANT_BLOCK_Q)
 
     dev = q.device
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     meta = _device_meta(dev, q_offset, kv_offset, kv_len)
-    _build.launch(
-        "lvt_flash_fwd_quant", dev, q, k, v, ks, vs, o, lse, meta,
+    return o, lse, (
+        q, k, v, ks, vs, o, lse, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         ks.stride(0), ks.stride(1), ks.stride(2),
         vs.stride(0), vs.stride(1), vs.stride(2),
         b, sq, skv, hq, hkv, d, 1.0 / math.sqrt(d),
     )
-    flash_attention_quant.launches += 1
-    return o, lse
 
 
 def flash_attention_quant_reference(

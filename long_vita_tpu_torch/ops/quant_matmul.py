@@ -20,12 +20,17 @@ nibble of byte p holds row p, the high nibble row in/2 + p) with f32 scales
     and an out dimension that JAX's block tiles, else the dequantise route.
     On CUDA the kernel launches or raises; on the CPU the kernel route takes
     ``w4_matmul_reference``. ``w4_matmul.launches`` counts kernel launches,
-    ``w4_matmul_dequant.calls`` the dequantise route's calls.
+    ``w4_matmul_dequant.calls`` the dequantise route's calls;
+  - ``w4_split_plan``: how the kernel cuts the work over its blocks (one
+    contiguous range of (row tile, column tile, group pair) units a block)
+    and in which order the partials of a tile that spans blocks are added;
+    ``w4_matmul_split_reference`` is the plain version in that order.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,10 +43,15 @@ MAX_KERNEL_ROWS = 512  # JAX's kernel route takes at most this many rows (:307)
 
 _build.register("lvt_w4_matmul", "w4_matmul", (
     [ctypes.c_void_p] * 5   # x packed scales out ws
-    + [ctypes.c_int] * 6    # rows n_in n_out ksplit x_f32 out_f32
+    + [ctypes.c_int] * 6    # rows n_in n_out blocks x_f32 out_f32
 ))
-_KERNEL_BN = 64  # output columns per block of the CUDA kernel
-_BLOCKS_PER_SM = 4  # the split over groups aims at this many blocks per SM
+KERNEL_COLS = 128  # output columns a block of the CUDA kernel
+KERNEL_ROW_TILES = (8, 16, 32, 64, 128)  # its row tiles (the wgmma N)
+_CONSUMERS = 2  # warpgroups of 64 output columns a block
+# units a block takes at least: each costs a block a few hundred cycles of
+# unpacking and products, so a short range would spend its life in the
+# ring's first DRAM round trip and the reduction of its partials
+MIN_UNITS_A_BLOCK = 4
 
 
 # ---- host-side pack/quantize (numpy) -------------------------------------
@@ -220,12 +230,133 @@ def w4_matmul(
 w4_matmul.launches = 0  # CUDA kernel launches (the wrapper counts them)
 
 
-def kernel_ksplit(rows: int, n_in: int, n_out: int, sm_count: int) -> int:
-    """Blocks the CUDA kernel splits the groups over: enough that the grid
-    holds _BLOCKS_PER_SM blocks per SM, at most one per top-half group."""
-    tiles = (n_out // _KERNEL_BN) * -(-rows // 64)
-    want = -(-_BLOCKS_PER_SM * sm_count // tiles)
-    return max(1, min(n_in // (2 * GROUP), want))
+class W4Shape(NamedTuple):
+    """How the CUDA kernel cuts one call: row tiles of ``n`` rows, column
+    tiles of KERNEL_COLS, ``pairs`` group pairs (a top-half group and its
+    bottom partner) along the input; ``units`` = tiles x pairs, numbered
+    tile-major (tile = row tile x col_tiles + column tile), cut into
+    ``blocks`` contiguous ranges."""
+    n: int
+    row_tiles: int
+    col_tiles: int
+    pairs: int
+    blocks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.pairs
+
+
+def w4_row_tile(rows: int) -> int:
+    """The kernel's row tile: the fewest of 8, 16, 32, 64 rows that hold
+    ``rows``, else tiles of 128."""
+    return next((n for n in KERNEL_ROW_TILES if rows <= n), KERNEL_ROW_TILES[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def w4_launch_shape(rows: int, n_in: int, n_out: int, sm_count: int) -> W4Shape:
+    """The kernel's cut of [rows, n_in] @ [n_in, n_out] on a card of
+    ``sm_count`` SMs: one block a SM (its shared memory holds one), or
+    fewer when the units would give a block fewer than MIN_UNITS_A_BLOCK."""
+    n = w4_row_tile(rows)
+    row_tiles, col_tiles = -(-rows // n), n_out // KERNEL_COLS
+    pairs = n_in // (2 * GROUP)
+    units = row_tiles * col_tiles * pairs
+    return W4Shape(n, row_tiles, col_tiles, pairs, max(1, min(sm_count, units // MIN_UNITS_A_BLOCK)))
+
+
+def w4_block_units(b: int, shape: W4Shape) -> tuple[int, int]:
+    """The units [begin, end) of block b: units x b / blocks, rounded down
+    (the kernel's ``unit_begin``)."""
+    return shape.units * b // shape.blocks, shape.units * (b + 1) // shape.blocks
+
+
+def w4_split_plan(rows: int, n_in: int, n_out: int, sm_count: int) -> tuple[W4Shape, list]:
+    """The kernel's cut and, for each tile, its segments in the order their
+    f32 partials are added: [(block, slot, first pair, end pair)]. A tile
+    within one block has one segment, written out directly; a tile that
+    spans blocks is summed by the last of them to arrive, in block order,
+    from the partials each wrote into its slot (0 for the block's first
+    tile, 1 for its last)."""
+    shape = w4_launch_shape(rows, n_in, n_out, sm_count)
+    segments = [[] for _ in range(shape.tiles)]
+    for b in range(shape.blocks):
+        u0, u1 = w4_block_units(b, shape)
+        first = u0 // shape.pairs
+        u = u0
+        while u < u1:
+            tile = u // shape.pairs
+            p1 = min(shape.pairs, u1 - tile * shape.pairs)
+            segments[tile].append((b, 0 if tile == first else 1, u - tile * shape.pairs, p1))
+            u = tile * shape.pairs + p1
+    return shape, segments
+
+
+def w4_workspace_bytes(shape: W4Shape) -> int:
+    """The kernel's workspace: an int32 counter a (tile, consumer warpgroup),
+    then, from a 256-byte boundary, a slot of f32 partials a (block, slot,
+    consumer warpgroup, thread)."""
+    counters = -(-shape.tiles * _CONSUMERS * 4 // 256) * 256
+    return counters + shape.blocks * 2 * _CONSUMERS * 128 * (shape.n // 2) * 4
+
+
+def w4_matmul_split_reference(
+    x: torch.Tensor,
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+    sm_count: int = 132,
+) -> torch.Tensor:
+    """The plain version in the CUDA kernel's order (w4_split_plan): each
+    segment of a tile sums its group pairs from zero as w4_matmul_reference
+    does (acc + pt * s_top + pb * s_bottom), the segments' f32 sums are
+    added in block order, and the result is cast once. x [rows, in]."""
+    rows, n_in = x.shape
+    n_out = packed.shape[1]
+    shape, segments = w4_split_plan(rows, n_in, n_out, sm_count)
+    half, c = n_in // 2, KERNEL_COLS
+    scales = scales.float()
+    out = torch.empty((rows, n_out), dtype=torch.float32, device=x.device)
+    for tile, segs in enumerate(segments):
+        rt, ct = divmod(tile, shape.col_tiles)
+        xr = x[rt * shape.n:(rt + 1) * shape.n]
+        cols = slice(ct * c, (ct + 1) * c)
+        total = None
+        for _, _, p0, p1 in segs:
+            acc = torch.zeros((xr.shape[0], c), dtype=torch.float32, device=x.device)
+            for g in range(p0, p1):
+                top, bot = _nibbles(packed[g * GROUP:(g + 1) * GROUP, cols])
+                pt = _product_f32(xr[:, g * GROUP:(g + 1) * GROUP], top.to(x.dtype))
+                pb = _product_f32(xr[:, half + g * GROUP:half + (g + 1) * GROUP], bot.to(x.dtype))
+                acc = acc + pt * scales[g, cols] + pb * scales[shape.pairs + g, cols]
+            total = acc if total is None else total + acc
+        out[rt * shape.n:(rt + 1) * shape.n, cols] = total
+    return out.to(out_dtype or x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_workspaces: dict = {}  # (device index, W4Shape) -> the kernel's workspace
+
+
+def _workspace(dev: torch.device, shape: W4Shape) -> torch.Tensor:
+    """The kernel's workspace for one cut on ``dev``, zeroed once and reused
+    by every call of that cut: the kernel leaves its counters at zero, and
+    the launches of one stream never overlap. (Another cut places its
+    counters elsewhere, so the key is the cut, not the size.)"""
+    key = (dev.index, shape)
+    ws = _workspaces.get(key)
+    if ws is None:
+        n = w4_workspace_bytes(shape) // 4
+        ws = _workspaces[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return ws
 
 
 def _w4_cuda(x, packed, scales, out_dtype):
@@ -241,7 +372,9 @@ def _w4_cuda(x, packed, scales, out_dtype):
         raise TypeError(
             f"w4 kernel takes int8 packed and f32 scales, got {packed.dtype}/{scales.dtype}"
         )
-    if n_in != 2 * half or n_out % _KERNEL_BN or scales.shape != (n_in // GROUP, n_out):
+    if n_in != 2 * half or n_in % (2 * GROUP) or n_out % KERNEL_COLS or scales.shape != (
+        n_in // GROUP, n_out
+    ):
         raise ValueError(
             f"shapes x {tuple(x.shape)} packed {tuple(packed.shape)} scales "
             f"{tuple(scales.shape)}"
@@ -254,16 +387,13 @@ def _w4_cuda(x, packed, scales, out_dtype):
     dev = x.device
     out = torch.empty((rows, n_out), dtype=out_dtype, device=dev)
     x_f32 = x.dtype == torch.float32
-    ksplit = 1
-    ws = None
+    blocks, ws = 1, None
     if not x_f32:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        ksplit = kernel_ksplit(rows, n_in, n_out, sms)
-        if ksplit > 1:
-            ws = torch.empty((ksplit, rows, n_out), dtype=torch.float32, device=dev)
+        shape = w4_launch_shape(rows, n_in, n_out, _sm_count(dev.index))
+        blocks, ws = shape.blocks, _workspace(dev, shape)
     _build.launch(
         "lvt_w4_matmul", dev, x, packed, scales, out, ws,
-        rows, n_in, n_out, ksplit, int(x_f32), int(out_dtype == torch.float32),
+        rows, n_in, n_out, blocks, int(x_f32), int(out_dtype == torch.float32),
     )
     w4_matmul.launches += 1
     return out

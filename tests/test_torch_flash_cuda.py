@@ -18,7 +18,8 @@ flip; each gradient sums up to Sq products), f32 within 1e-5 x max|ref| +
 1e-5 rel. K6: both sides take each int4 x bf16 product exactly and sum in
 f32 in different orders, then round once: bf16 out within 1e-2 x max|ref|,
 f32 out within 1e-4 x max|ref|; with f32 activations (products rounded in
-f32) 1e-5 x max|ref|.
+f32) 1e-5 x max|ref|. K2 (the int8 instance of the Hopper forward) takes the
+bf16 tolerances.
 """
 import pytest
 import torch
@@ -102,6 +103,34 @@ def test_flash_quant_chunk_against_strided_int8_cache(gen):
         v, vs = quantize_kv(_rand(gen, (2, 1024, 2, d), torch.bfloat16))
         _check_quant(q, k[:, :700], ks[:, :700], v[:, :700], vs[:, :700],
                      q_offset=350, kv_valid_len=600)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 127, 128, 333])
+@pytest.mark.parametrize("d,group,sq,q_offset", [
+    (128, 5, 300, 350),   # a chunk after the cache's written slots
+    (64, 8, 77, 0),       # the chunk at the frontier: the causal diagonal cuts its tiles
+    (128, 1, 129, 5000),  # far past the frontier: every written slot is seen
+    (64, 1, 1, 100),      # one decode-like row
+    (128, 8, 64, 20),     # one warpgroup's rows, GQA 8
+])
+def test_flash_quant_hopper_shapes(gen, kv_len, d, group, sq, q_offset):
+    """K2, the int8 instance of the Hopper forward: ragged Sq and kv_len,
+    offsets before, at and past the frontier, GQA 1/5/8, D 64 and 128,
+    against a slice of a longer int8 cache and its scales, with NaN in
+    every scale row past kv_valid_len (those rows' codes are finite int8,
+    their scales must never reach o)."""
+    hkv = 2
+    q = _rand(gen, (2, sq, hkv * group, d), torch.bfloat16)
+    k, ks = quantize_kv(_rand(gen, (2, 1024, hkv, d), torch.bfloat16))
+    v, vs = quantize_kv(_rand(gen, (2, 1024, hkv, d), torch.bfloat16))
+    ks[:, kv_len:] = float("nan")
+    vs[:, kv_len:] = float("nan")
+    skv = 400
+    o, lse = _check_quant(q, k[:, :skv], ks[:, :skv], v[:, :skv], vs[:, :skv],
+                          q_offset=q_offset, kv_valid_len=kv_len)
+    assert bool(torch.isfinite(o.float()).all())
+    if kv_len == 0:
+        assert bool((o == 0).all()) and bool((lse == tfa.NEG_INF).all())
 
 
 def test_flash_quant_empty_rows(gen):
@@ -460,15 +489,40 @@ def _w4_case(gen, rows, n_in, n_out, x_dtype, out_dtype):
     return got
 
 
+_W4_14B = {"q_proj": (5120, 5120), "k_proj": (5120, 1024), "gate_proj": (5120, 13824),
+           "down_proj": (13824, 5120), "head": (5120, 152064)}
+_w4_weights = {}
+
+
+def _w4_weights_of(gen, n_in, n_out):
+    """The quantised weight of one 14B shape, made once for the file."""
+    if (n_in, n_out) not in _w4_weights:
+        w = _rand(gen, (n_out, n_in), torch.bfloat16) * 0.02  # nn.Linear orientation
+        _w4_weights[(n_in, n_out)] = quantize_kernel_int4(w)
+    return _w4_weights[(n_in, n_out)]
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows", [1, 512])
-@pytest.mark.parametrize("n_in,n_out", [(5120, 1024), (5120, 152064)], ids=["k_proj", "head"])
-def test_w4_matmul_kernel(gen, rows, n_in, n_out, out_dtype):
-    """K6 at the 14B k_proj and head shapes, a decode row and the kernel
-    route's 512-row limit (k_proj at one row splits its groups over blocks
-    and adds the partials in a second pass)."""
+@pytest.mark.parametrize("rows", [1, 5, 8, 9, 32, 64, 255, 256, 257, 512])
+@pytest.mark.parametrize("shape", list(_W4_14B))
+def test_w4_matmul_kernel(gen, rows, shape, out_dtype):
+    """K6 at the five 14B shapes and the row counts around its row tiles (8,
+    16, 32 from registers; 64, 128 through shared memory) and the kernel
+    route's 512-row limit; tiles that span blocks are summed in the same
+    order on a second call (the same bits)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    _w4_case(gen, rows, n_in, n_out, torch.bfloat16, out_dtype)
+    n_in, n_out = _W4_14B[shape]
+    packed, scales = _w4_weights_of(gen, n_in, n_out)
+    x = _rand(gen, (rows, n_in), torch.bfloat16)
+    before = tqm.w4_matmul.launches
+    got = tqm.w4_matmul(x, packed, scales, out_dtype)
+    torch.cuda.synchronize()
+    assert tqm.w4_matmul.launches == before + 1 and got.dtype == out_dtype
+    ref = tqm.w4_matmul_reference(x, packed, scales, out_dtype)
+    tol = 1e-2 if out_dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=tol * ref.float().abs().max().item())
+    assert torch.equal(tqm.w4_matmul(x, packed, scales, out_dtype), got)
 
 
 def test_w4_matmul_f32_activations_and_rejects(gen):
@@ -482,6 +536,12 @@ def test_w4_matmul_f32_activations_and_rejects(gen):
         tqm._w4_cuda(x, packed, scales.half(), torch.bfloat16)
     with pytest.raises(ValueError, match="shapes"):
         tqm._w4_cuda(x, packed, scales[:2], torch.bfloat16)
+    with pytest.raises(ValueError, match="shapes"):  # out not a multiple of the block's 128
+        tqm._w4_cuda(x, packed[:, :192], scales[:, :192], torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm._w4_cuda(x, packed.t().contiguous().t(), scales, torch.bfloat16)
+    with pytest.raises(TypeError, match="writes"):
+        tqm._w4_cuda(x, packed, scales, torch.float16)
 
 
 def test_w4_dequant_route_on_the_card(gen):
