@@ -38,14 +38,25 @@ Phases (each raises on failure; the script then exits non-zero):
      counts of K1, K2 and K3 are checked against the layers and chunks the
      requests need; the video's last-row logits and its encoded features are
      held against the same flow on the plain versions;
-  6. T1, stage-1 alignment at 32K (configs/stage1_alignment.yaml's regime):
+  6. the port's serving entry points on a checkpoint it writes and reads:
+     the decoder with a random InternViT-300M and projector exported as a
+     *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
+     (load_long_vita_checkpoint) with every tensor's bits held to its
+     fingerprint; then the real MultimodalTokenizer (byte-level tokenizer)
+     and PUT /api in continuous mode on a thread: a 5000-token greedy
+     request equal to the in-process generate, three concurrent requests
+     equal to their solo answers, a stream whose deltas concatenate, a
+     beam request and a malformed one; and a 16-frame uint8 video in
+     process through the native feedworker, K3 and K1. The loaded decoder
+     serves the training phases;
+  7. T1, stage-1 alignment at 32K (configs/stage1_alignment.yaml's regime):
      the same decoder and a random tower and projector, text and vision
      frozen, the projector trained at lr 1e-3, full remat, through
      Trainer.train for 2 steps on one packed row of a 64-frame video, a
      16-frame video, a 7-tile image and text; the backward takes K5. The
      loss must fall, the projector move and the frozen weights stay
      bit-identical; launch counts are checked per step;
-  7. T2, a trainable tower at 16K: text frozen, the tower (lr x 0.1) and
+  8. T2, a trainable tower at 16K: text frozen, the tower (lr x 0.1) and
      projector trained, 2 steps on a 16-frame video, a 7-tile image and
      text; the backward takes K4 in the decoder and the tower. Then the
      trainable gradients of one step at 4096 tokens through the kernels are
@@ -1539,6 +1550,267 @@ def phase_multimodal(
     return counts
 
 
+def _put(url: str, payload: dict, timeout: float = 600.0) -> tuple:
+    """PUT a JSON payload. -> (status, body text, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="PUT",
+    )
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode(), time.perf_counter() - t
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(), time.perf_counter() - t
+
+
+def _stream(url: str, payload: dict, timeout: float = 600.0) -> tuple:
+    """A "stream": true PUT. -> (NDJSON events, seconds to the first delta,
+    seconds to the end)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps({**payload, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"}, method="PUT",
+    )
+    t = time.perf_counter()
+    events, first = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for line in resp:
+            events.append(json.loads(line))
+            if first is None and "delta" in events[-1]:
+                first = time.perf_counter() - t
+    return events, first, time.perf_counter() - t
+
+
+def _random_text(rng, n: int) -> str:
+    """n characters of lowercase words: n tokens of the byte-level tokenizer."""
+    return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz    "), n))
+
+
+def phase_server(
+    holder, cfg, dev, *, chunk=2048, max_seq=8192, prompt_chars=4990,
+    batch_chars=(700, 2100, 4000), new_tokens=32, tick=8, n_frames=16,
+    frame_hw=(360, 640), vision_chunk=64, ckpt_root=None,
+) -> tuple:
+    """The port's own serving entry points at full width, on a checkpoint it
+    writes and reads back: export the decoder in ``holder`` (which the phase
+    empties, so the card never holds two copies), a random InternViT-300M
+    and projector as a *_HF directory (save_hf_checkpoint), free them, load
+    the directory (load_long_vita_checkpoint) and hold every tensor's bits
+    to its fingerprint; build the real MultimodalTokenizer (a byte-level
+    tokenizer, no tokenizer files) and an InferenceEngine on the loaded
+    tree; serve PUT /api in continuous mode (4 slots, ticks of ``tick``
+    tokens, so a request stays in the pool for several ticks) on a thread and send
+    a 5000-token greedy request, three concurrent ones, a streamed one, a
+    beam request and a malformed one over urllib; then a 16-frame video
+    in process through MultimodalTokenizer.expand (the native feedworker,
+    K3, K1). -> (launch counts of the run, the loaded decoder)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.data.image_processor import ImageProcessor
+    from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
+    from long_vita_tpu_torch.inference.continuous import ContinuousEngine
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.inference.server import _validate, make_server
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.tokenizer import ByteTokenizer
+    from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
+    from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
+
+    vc, tc = cfg.vision, cfg.text
+    rng = np.random.default_rng(SEED + 8)
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"[server] {what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    # ---- export, free, load ------------------------------------------------
+    probe = rng.standard_normal((2, vc.image_size, vc.image_size, 3), dtype=np.float32)
+    lv, _ = _vlm_params(holder.pop(), cfg, dev, SEED + 7, probe)
+    dtype = lv.text.embed.dtype
+    prints = {name: _fingerprint(p) for name, p in lv.named_parameters()}
+    root = ckpt_root or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="server_ckpt_", dir=root)
+    try:
+        _, t_export = _timed(lambda: save_hf_checkpoint(lv, cfg, ckpt))
+        n_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        shards = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
+        print(f"[server] exported {len(prints)} tensors, {n_bytes / 1e9:.3f} GB in {len(shards)} "
+              f"shards ({shards[0]} .. {shards[-1]}) in {t_export:.2f} s "
+              f"({n_bytes / 1e9 / t_export:.2f} GB/s)")
+        held = torch.cuda.memory_allocated()
+        del lv
+        torch.cuda.empty_cache()
+        print(f"[server] freed the in-memory VLM: allocated {held / 1e9:.2f} -> "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        (loaded, loaded_cfg), t_load = _timed(
+            lambda: load_long_vita_checkpoint(ckpt, dtype=dtype, device=dev)
+        )
+        print(f"[server] loaded {ckpt} in {t_load:.2f} s ({n_bytes / 1e9 / t_load:.2f} GB/s)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    got = {name: _fingerprint(p) for name, p in loaded.named_parameters()}
+    differ = [n for n in prints if got.get(n) != prints[n]]
+    check(got.keys() == prints.keys() and not differ and loaded_cfg.text == tc
+          and loaded_cfg.vision == vc,
+          f"{len(got)} loaded tensors hold their exported bits ({len(differ)} differ), "
+          f"config.json gives the configuration")
+
+    # ---- the engine and the server ------------------------------------------
+    tok = ByteTokenizer()
+    mm = MultimodalTokenizer(tok, image_processor=ImageProcessor(image_size=vc.image_size),
+                             image_token_length=cfg.image_token_length)
+    engine = InferenceEngine(loaded, cfg, mm, max_seq_len=max_seq, chunk=chunk,
+                             vision_chunk=vision_chunk)
+    server = make_server(engine, "127.0.0.1", 0, continuous=True, max_batch=4, tick=tick)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/api"
+
+    def n_ids(text):
+        return len(mm.encode_chat([{"role": "user", "content": text}]))
+
+    prompt = _random_text(rng, prompt_chars)
+    others = [_random_text(rng, n) for n in batch_chars]
+    beam_prompt = _random_text(rng, 300)
+    frames = list(rng.integers(0, 256, (n_frames, *frame_hw, 3), dtype=np.uint8))
+    vid_ids = mm.encode_chat([{"role": "user", "content": "<video>\nDescribe the video."}])
+    greedy = {"tokens_to_generate": new_tokens, "logprobs": True}
+
+    # ---- the main path ------------------------------------------------------
+    prefills = []  # the length of every prefill the run makes (K1 chunks)
+    _reset_counts()
+    try:
+        code, body, t_http = _put(url, {"prompts": [prompt], **greedy})
+        prefills.append(n_ids(prompt))
+        check(code == 200, f"solo {n_ids(prompt)}-id request over HTTP answered {code}")
+        http = json.loads(body) if code == 200 else {"text": [""], "logprobs": [[]]}
+        sp = SamplingParams(max_new_tokens=new_tokens, return_logprobs=True)
+        prompt_ids = mm.encode_chat([{"role": "user", "content": prompt}])
+        ce = ContinuousEngine(engine, sp, max_slots=4, tick=tick)
+
+        def in_pool():
+            ce.add_request(prompt_ids)
+            return ce.run_to_completion()[0][1]
+
+        pool, t_pool = _timed(in_pool)
+        del ce
+        inproc, t_gen = _timed(lambda: engine.generate(input_ids=prompt_ids, sampling=sp))
+        prefills += [len(prompt_ids)] * 2
+        print(f"[server] solo request, {len(pool.token_ids)} tokens {pool.token_ids[:8]} ...: "
+              f"HTTP {t_http:.3f} s, the same request on an in-process ContinuousEngine of the "
+              f"server's geometry {t_pool:.3f} s (the server's overhead {t_http - t_pool:+.3f} s), "
+              f"in-process generate {t_gen:.3f} s")
+        check(http["text"] == [pool.text] and http["logprobs"] == [pool.logprobs],
+              "HTTP greedy answer equals the in-process ContinuousEngine of the server's "
+              "geometry (4 slots): the text and each token's logprob to the bit")
+        # generate decodes one row a step, the pool four: cuBLAS rounds the two
+        # GEMM shapes apart, and random weights leave near-ties that flip
+        div = next((i for i, (a, b) in enumerate(zip(pool.token_ids, inproc.token_ids))
+                    if a != b), None)
+        if div is None:
+            check(pool.token_ids == inproc.token_ids,
+                  "the pool's greedy tokens equal the in-process engine.generate's")
+        else:
+            _, hid, _ = engine.prefill(prompt_ids + pool.token_ids[:div])
+            prefills.append(len(prompt_ids) + div)
+            logits = qwen2.lm_head(engine.text, hid)[0]
+            a, b = inproc.token_ids[div], pool.token_ids[div]
+            gap = abs(logits[a] - logits[b]).item()
+            spread = (logits.max() - logits.min()).item()
+            check(gap <= LOGIT_SPREAD_FRAC * spread,
+                  f"the pool's greedy tokens equal engine.generate's up to token {div}, where "
+                  f"the two picks ({b} and {a}) lie {gap:.4f} apart in the logits of a one-row "
+                  f"pass (<= {LOGIT_SPREAD_FRAC} x spread {spread:.3f}): a rounding tie")
+
+        solos = [json.loads(_put(url, {"prompts": [p], **greedy})[1]) for p in others]
+        out = {}
+
+        def worker(i):
+            out[i] = _put(url, {"prompts": [others[i]], **greedy})
+
+        server.batcher.batch_sizes.clear()
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(others))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        t_batch = time.perf_counter() - t0
+        together = [json.loads(out[i][1]) for i in range(len(others))]
+        n_gen = sum(len(r["logprobs"][0]) for r in together)
+        print(f"[server] {len(others)} concurrent requests ({[n_ids(p) for p in others]} ids): "
+              f"{n_gen} tokens in {t_batch:.3f} s = {n_gen / t_batch:.1f} tokens/s; rows in flight "
+              f"a tick {server.batcher.batch_sizes}")
+        check(together == solos and max(server.batcher.batch_sizes) > 1,
+              "each concurrent request equals its solo answer, and they shared the pool")
+
+        events, t_first, t_stream = _stream(url, {"prompts": [prompt], **greedy})
+        deltas = [e["delta"] for e in events if "delta" in e]
+        print(f"[server] streamed the solo prompt: first delta after {t_first:.3f} s (TTFT over "
+              f"HTTP), {len(deltas)} deltas in {t_stream:.3f} s")
+        check(events[-1].get("done") is True and "".join(deltas) == events[-1]["text"][0]
+              == http["text"][0], "stream deltas concatenate to the non-streamed text")
+
+        code, body, t_beam = _put(url, {"prompts": [beam_prompt], "tokens_to_generate": 8,
+                                        "beam_width": 2})
+        beam = json.loads(body) if code == 200 else {}
+        check(code == 200 and len(beam["text"]) == 2 and len(beam["segments"]) == 2
+              and beam["scores"] == sorted(beam["scores"], reverse=True)
+              and all(len(s) <= 8 for s in beam["segments"]),
+              f"beam_width 2 gives two hypotheses best first (scores {beam.get('scores')}, "
+              f"{t_beam:.2f} s)")
+        bad = {"prompts": ["x"], "top_k": 5, "top_p": 0.5}
+        code, body, _ = _put(url, bad)
+        check(code == 400 and body == _validate(bad), f"malformed request: {code} {body!r}")
+
+        expanded, t_expand = _timed(lambda: mm.expand(vid_ids, videos=[frames]))
+        media, t_media = _timed(lambda: engine.generate(
+            input_ids=vid_ids, videos=[frames], sampling=SamplingParams(max_new_tokens=16)
+        ))
+        counts = _read_counts()
+    finally:
+        server.shutdown()
+        thread.join(timeout=600)
+        server.batcher.stop(timeout=600)
+        server.server_close()
+    n_vid = len(vid_ids) - 1 + n_frames * (cfg.image_token_length + 2)
+    print(f"[server] {n_frames} frames of {frame_hw[1]}x{frame_hw[0]} (uint8) through "
+          f"MultimodalTokenizer.expand (native feedworker) in {t_expand * 1e3:.1f} ms -> "
+          f"{len(expanded.input_ids)} ids, tiles {tuple(expanded.images.shape)}; in-process "
+          f"generate {t_media:.2f} s -> {media.token_ids[:8]} ...")
+    check(media.prompt_tokens == len(expanded.input_ids) == n_vid
+          and expanded.images.shape == (n_frames, vc.image_size, vc.image_size, 3)
+          and bool(media.token_ids) and all(0 <= t < tc.vocab_size for t in media.token_ids),
+          "the video request's prompt and tokens")
+
+    def chunks(n):
+        return -(-n // chunk)
+
+    prefills += [n_ids(prompt)] + [n_ids(p) for p in others] * 2 + [n_ids(beam_prompt), n_vid]
+    _check_launches(counts, {
+        "flash_fwd": tc.num_hidden_layers * sum(chunks(n) for n in prefills),
+        "short_attn": vc.num_hidden_layers * _encode_batches(n_frames, 256, vision_chunk),
+    })
+    if failures:
+        raise AssertionError(f"phase_server: {failures}")
+    return counts, loaded.text
+
+
 def _train_pack(cfg, seq_len, videos, images, rng, *, text_segments, answer=300,
                 text_sup=700):
     """One packed training row of seq_len tokens, as the data pipeline packs
@@ -1847,6 +2119,12 @@ def main() -> int:
     del bits
     add(phase_multimodal(params, cfg, dev))
     torch.cuda.empty_cache()  # the serving engines and their caches are gone
+    # the decoder is exported, freed and loaded back; the loaded one trains
+    holder = [params]
+    del params
+    counts, params = phase_server(holder, cfg, dev)
+    add(counts)
+    torch.cuda.empty_cache()
     log = logging.getLogger("long_vita_tpu_torch.training.trainer")  # a line per step
     log.setLevel(logging.INFO)
     handler = logging.StreamHandler(sys.stdout)

@@ -10,7 +10,11 @@ Quick API (image, video and text serving; training on one GPU):
     from long_vita_tpu_torch.models.long_vita import init_long_vita_params
     from long_vita_tpu_torch.inference.engine import InferenceEngine
     from long_vita_tpu_torch.training.trainer import Trainer, TrainerConfig
+    # weights from a released *_HF directory:
+    #   utils.checkpoint_io.load_long_vita_checkpoint (utils.export_hf writes one)
     # weights from the JAX package: utils.convert.long_vita_params_from_jax
+    # the front end: data.multimodal.MultimodalTokenizer(tokenizer.load_tokenizer(dir))
+    # the REST server and CLI: python -m long_vita_tpu_torch.inference.cli <dir> --serve
 """
 __version__ = "0.1.0"
 

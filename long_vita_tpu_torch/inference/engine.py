@@ -147,10 +147,10 @@ class InferenceEngine:
     ):
         """params: a ``LongVITAParams`` (models/long_vita.py), or the text
         decoder's ``Qwen2Params`` alone for text-only serving, already on the
-        serving device. mm_tokenizer: anything with ``expand(input_ids,
-        images=, videos=, max_num_frame=)`` returning an object with
-        ``input_ids``/``images``/``image_indices``, and ``tokenizer.decode``
-        (the JAX package's MultimodalTokenizer interface).
+        serving device. mm_tokenizer: a data/multimodal.MultimodalTokenizer,
+        or anything with ``expand(input_ids, images=, videos=,
+        max_num_frame=)`` returning an object with
+        ``input_ids``/``images``/``image_indices``, and ``tokenizer.decode``.
 
         kv_quant: an int8 KV cache with per-(token, kv head) f32 scales.
         vision_chunk: tiles per ViT batch; transfer_chunk: tiles per host ->

@@ -1,5 +1,7 @@
 """PyTorch port: it imports and serves text, media and int4 weights with JAX,
-the JAX package and PIL unavailable, and chip_smoke.py refuses to run
+the JAX package and PIL unavailable; its serving entry points (checkpoint
+I/O, front end, server, client, CLI) need none of JAX, PIL, OpenCV,
+transformers, safetensors or requests; and chip_smoke.py refuses to run
 without a GPU."""
 import os
 import re
@@ -82,6 +84,47 @@ print("OK", out.text, media.text)
 """
 
 
+_NO_JAX_SERVE = """
+import sys, tempfile, threading
+for name in ("jax", "long_vita_tpu", "PIL", "cv2", "transformers", "safetensors", "requests"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np, torch
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.data import image_processor, multimodal, native
+from long_vita_tpu_torch.inference import beam_search, cli, client, continuous, server
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+from long_vita_tpu_torch.tokenizer import ByteTokenizer
+from long_vita_tpu_torch.utils import checkpoint_io, export_hf, graft
+
+cfg = tiny_test_config()
+ckpt = tempfile.mkdtemp()
+export_hf.save_hf_checkpoint(init_long_vita_params(torch.Generator().manual_seed(0), cfg), cfg, ckpt)
+params, _ = checkpoint_io.load_long_vita_checkpoint(ckpt, cfg, dtype=torch.float32, device="cpu")
+mm = multimodal.MultimodalTokenizer(
+    ByteTokenizer(endoftext=256, im_start=257, im_end=258, first_added=259),
+    image_processor=image_processor.ImageProcessor(image_size=56), image_token_length=4)
+from long_vita_tpu_torch.inference.engine import InferenceEngine
+eng = InferenceEngine(params, cfg, mm, max_seq_len=256, chunk=32, cache_dtype=torch.float32)
+frames = np.zeros((2, 36, 64, 3), np.uint8)  # decoded video frames: the native path
+ids = mm.encode_chat([{"role": "user", "content": "<video> what?"}])
+from long_vita_tpu_torch.inference.sampler import SamplingParams
+media = eng.generate(input_ids=ids, videos=[frames], sampling=SamplingParams(max_new_tokens=3))
+assert media.prompt_tokens == len(ids) - 1 + 2 * 6, media
+srv = server.make_server(eng, "127.0.0.1", 0, continuous=True, max_batch=2, tick=4)
+t = threading.Thread(target=srv.serve_forever, daemon=True)
+t.start()
+url = f"http://127.0.0.1:{srv.server_address[1]}/api"
+text = client.generate("hello", url=url, tokens_to_generate=4, timeout=120)
+assert "".join(client.generate_stream("hello", url=url, tokens_to_generate=4, timeout=120)) == text
+hyps = beam_search.beam_search(eng, ids[:8], beam_size=2, max_new_tokens=3, num_return=2)
+assert len(hyps) == 2, hyps
+srv.shutdown(); t.join(120); srv.batcher.stop(120); srv.server_close()
+loaded = [m for m, v in sys.modules.items() if v is not None]
+for name in ("jax", "long_vita_tpu", "PIL", "cv2", "transformers", "safetensors", "requests"):
+    assert not any(m == name or m.startswith(name + ".") for m in loaded), name
+print("OK", repr(text))
+"""
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -92,6 +135,18 @@ def _env():
 def test_port_imports_and_generates_without_jax():
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX_GENERATE], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("OK ")
+
+
+def test_serving_entry_points_without_jax_pil_or_hf_packages():
+    """Checkpoint I/O, the front end on decoded frames, the server and its
+    client, beam search and the CLI module import and run with JAX, the JAX
+    package, PIL, OpenCV, transformers, safetensors and requests blocked."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SERVE], cwd=ROOT, env=_env(),
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
