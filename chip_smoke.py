@@ -48,7 +48,8 @@ Phases (each raises on failure; the script then exits non-zero):
      equal to their solo answers, a stream whose deltas concatenate, a
      beam request and a malformed one; and a 16-frame uint8 video in
      process through the native feedworker, K3 and K1. The loaded decoder
-     serves the training phases;
+     serves the training phases; the directory stays on disk (~31 GB) for
+     the recipe phase and is deleted at the end;
   7. T1, stage-1 alignment at 32K (configs/stage1_alignment.yaml's regime):
      the same decoder and a random tower and projector, text and vision
      frozen, the projector trained at lr 1e-3, full remat, through
@@ -61,7 +62,21 @@ Phases (each raises on failure; the script then exits non-zero):
      text; the backward takes K4 in the decoder and the tower. Then the
      trainable gradients of one step at 4096 tokens through the kernels are
      held against the same step on the plain attention, and the same gate
-     must reject the step with a fault planted in the decoder's K4.
+     must reject the step with a fault planted in the decoder's K4;
+  9. the training entry point, once T1's and T2's parameters are freed:
+     a corpus (text, 448-px PNG images, chats; three sources) and a YAML
+     recipe (the exported directory, LoRA r 16 on q/k/v/o with lora_only, a
+     frozen tower, 16K packs, logit budget 4096, remat "flash", an
+     output_dir with the profiler over step 1) through
+     train.build_from_recipe and Trainer.train for 3 steps, with
+     load_tokenizer bound to a ByteTokenizer at Qwen2.5's ids. The loss of
+     the first batch must fall, the base weights keep their bits, K1, K3
+     and K4/K5 launch exactly as counted, the output files and the trace
+     (naming K1's and K4's kernels) exist; then remat True vs "flash" and
+     "dots" vs True on that batch, "vit" vs True on T2's geometry (same
+     loss bits, gradients at cosine >= 0.999, K1 launches, peak memory),
+     merge_lora under the logit gate, and save_lora -> load_lora bit for
+     bit.
 
 The card's nvidia-smi line is the first line of stdout and is repeated
 before the last two, which are the kernel report and {"ok": true, "device":
@@ -69,11 +84,15 @@ before the last two, which are the kernel report and {"ok": true, "device":
 """
 from __future__ import annotations
 
+import gc
 import json
 import logging
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -116,6 +135,11 @@ GRAD_TOL = 1e-2
 # attention, so dS is small); the kernel phase's elementwise check is the
 # tower's guard.
 TRAIN_GRAD_COS, TRAIN_LOSS_REL = 0.99, 1e-2
+# phase_recipe: the trainable gradients of one step under two remat levels.
+# The forward is the same computation, so the loss keeps its bits; the
+# backward's K4 adds dQ by TMA reduce-adds in an order that varies between
+# runs, so the gradients agree to rounding only.
+REMAT_GRAD_COS = 0.999
 # K6 vs its plain version: both take each int4 x bf16 product exactly and sum
 # in f32 (in other orders), then round once: bf16 out within 1e-2 x max|ref|
 # (a bf16 rounding is 2^-8 relative), f32 out within 1e-4 x max|ref|.
@@ -1592,15 +1616,16 @@ def _random_text(rng, n: int) -> str:
 
 
 def phase_server(
-    holder, cfg, dev, *, chunk=2048, max_seq=8192, prompt_chars=4990,
+    holder, cfg, dev, ckpt, *, chunk=2048, max_seq=8192, prompt_chars=4990,
     batch_chars=(700, 2100, 4000), new_tokens=32, tick=8, n_frames=16,
-    frame_hw=(360, 640), vision_chunk=64, ckpt_root=None,
+    frame_hw=(360, 640), vision_chunk=64,
 ) -> tuple:
     """The port's own serving entry points at full width, on a checkpoint it
     writes and reads back: export the decoder in ``holder`` (which the phase
     empties, so the card never holds two copies), a random InternViT-300M
-    and projector as a *_HF directory (save_hf_checkpoint), free them, load
-    the directory (load_long_vita_checkpoint) and hold every tensor's bits
+    and projector as a *_HF directory into ``ckpt`` (save_hf_checkpoint; the
+    caller deletes it, after phase_recipe has trained from it), free them,
+    load the directory (load_long_vita_checkpoint) and hold every tensor's bits
     to its fingerprint; build the real MultimodalTokenizer (a byte-level
     tokenizer, no tokenizer files) and an InferenceEngine on the loaded
     tree; serve PUT /api in continuous mode (4 slots, ticks of ``tick``
@@ -1610,8 +1635,6 @@ def phase_server(
     in process through MultimodalTokenizer.expand (the native feedworker,
     K3, K1). -> (launch counts of the run, the loaded decoder)."""
     import os
-    import shutil
-    import tempfile
     import threading
 
     import numpy as np
@@ -1642,27 +1665,21 @@ def phase_server(
     lv, _ = _vlm_params(holder.pop(), cfg, dev, SEED + 7, probe)
     dtype = lv.text.embed.dtype
     prints = {name: _fingerprint(p) for name, p in lv.named_parameters()}
-    root = ckpt_root or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(root, exist_ok=True)
-    ckpt = tempfile.mkdtemp(prefix="server_ckpt_", dir=root)
-    try:
-        _, t_export = _timed(lambda: save_hf_checkpoint(lv, cfg, ckpt))
-        n_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
-        shards = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
-        print(f"[server] exported {len(prints)} tensors, {n_bytes / 1e9:.3f} GB in {len(shards)} "
-              f"shards ({shards[0]} .. {shards[-1]}) in {t_export:.2f} s "
-              f"({n_bytes / 1e9 / t_export:.2f} GB/s)")
-        held = torch.cuda.memory_allocated()
-        del lv
-        torch.cuda.empty_cache()
-        print(f"[server] freed the in-memory VLM: allocated {held / 1e9:.2f} -> "
-              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-        (loaded, loaded_cfg), t_load = _timed(
-            lambda: load_long_vita_checkpoint(ckpt, dtype=dtype, device=dev)
-        )
-        print(f"[server] loaded {ckpt} in {t_load:.2f} s ({n_bytes / 1e9 / t_load:.2f} GB/s)")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    _, t_export = _timed(lambda: save_hf_checkpoint(lv, cfg, ckpt))
+    n_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    shards = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
+    print(f"[server] exported {len(prints)} tensors, {n_bytes / 1e9:.3f} GB in {len(shards)} "
+          f"shards ({shards[0]} .. {shards[-1]}) in {t_export:.2f} s "
+          f"({n_bytes / 1e9 / t_export:.2f} GB/s)")
+    held = torch.cuda.memory_allocated()
+    del lv
+    torch.cuda.empty_cache()
+    print(f"[server] freed the in-memory VLM: allocated {held / 1e9:.2f} -> "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    (loaded, loaded_cfg), t_load = _timed(
+        lambda: load_long_vita_checkpoint(ckpt, dtype=dtype, device=dev)
+    )
+    print(f"[server] loaded {ckpt} in {t_load:.2f} s ({n_bytes / 1e9 / t_load:.2f} GB/s)")
     got = {name: _fingerprint(p) for name, p in loaded.named_parameters()}
     differ = [n for n in prints if got.get(n) != prints[n]]
     check(got.keys() == prints.keys() and not differ and loaded_cfg.text == tc
@@ -2077,6 +2094,334 @@ def phase_train_grads(lv, cfg, dev, *, seq_len=4096, grid=(2, 3), vision_chunk=6
         raise AssertionError("the T2 gate did not reject the planted fault")
 
 
+def _recipe_inputs(root, *, image_px, n_docs, doc_chars, n_captions, n_chat, chat_chars,
+                   seed) -> str:
+    """A corpus for the recipe phase under ``root``: "docs", long text
+    inputs with short answers (ratio 1); "captions", a 448-px PNG each
+    (ratio 0.5); "chat", short two-turn chats (ratio 1.5, a num cap).
+    Answers come from a few templates, so that every pack teaches the same
+    thing and one pack's loss falls with steps on the others. -> the
+    corpus YAML's path."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def words(n):
+        chars = rng.integers(97, 123, n).astype(np.uint8)
+        chars[rng.random(n) < 0.18] = 32
+        return chars.tobytes().decode()
+
+    def answer():
+        k = int(rng.integers(1, 9))
+        return ["The answer is %d." % k, "It shows %d things." % k, "I count %d of them." % k][k % 3]
+
+    images = []
+    for i in range(4):
+        path = os.path.join(root, f"img{i}.png")
+        Image.fromarray(rng.integers(0, 256, (image_px, image_px, 3), dtype=np.uint8)).save(path)
+        images.append(path)
+    docs = [{"messages": [{"role": "user", "content": words(doc_chars) + "\nHow many?"},
+                          {"role": "assistant", "content": answer()}]} for _ in range(n_docs)]
+    captions = [{"messages": [{"role": "user", "content": "<image>\nHow many things are there?"},
+                              {"role": "assistant", "content": answer()}],
+                 "images": [images[i % len(images)]]} for i in range(n_captions)]
+    chat = [{"conversations": [{"role": "human", "content": words(chat_chars) + "?"},
+                               {"role": "gpt", "content": answer()},
+                               {"role": "human", "content": words(chat_chars // 2) + "?"},
+                               {"role": "gpt", "content": answer()}]} for _ in range(n_chat)]
+    for name, rows in (("docs", docs), ("captions", captions), ("chat", chat)):
+        with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
+            f.write("\n".join(json.dumps(r) for r in rows))
+    path = os.path.join(root, "corpus.yaml")
+    with open(path, "w") as f:  # YAML's flow style is JSON
+        json.dump({"dataset": {
+            "docs": {"ratio": 1, "data_paths": [os.path.join(root, "docs.jsonl")]},
+            "captions": {"ratio": 0.5, "data_paths": [os.path.join(root, "captions.jsonl")]},
+            "chat": {"ratio": 1.5, "num": n_chat, "data_paths": [os.path.join(root, "chat.jsonl")]},
+        }}, f)
+    return path
+
+
+def _head_batch(batch, n):
+    """The first n tokens of a collated one-row batch: the supervised rows
+    whose target lies inside, the tiles whose rows all do."""
+    import numpy as np
+
+    from long_vita_tpu_torch.training.loss import IGNORE_INDEX
+
+    out = {k: batch[k][:, :n] for k in ("tokens", "positions", "segment_ids")}
+    keep = batch["logit_positions"] < n - 1
+    out["logit_positions"] = np.where(keep, batch["logit_positions"], 0).astype(np.int32)
+    out["labels"] = np.where(keep, batch["labels"], IGNORE_INDEX).astype(batch["labels"].dtype)
+    out["images"] = out["image_indices"] = None
+    if batch["images"] is not None:
+        inside = (batch["image_indices"][1] < n).all(-1)
+        if inside.any():
+            out["images"] = batch["images"][inside]
+            out["image_indices"] = batch["image_indices"][:, inside]
+    return out
+
+
+def _trace_kernels(path) -> set:
+    """The names of the device kernels in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=4096, steps=3,
+                 dots_len=4096, vit_len=4096, merge_len=2048, vision_chunk=64, n_docs=14,
+                 doc_chars=4000, n_captions=24, n_chat=12, chat_chars=300, answer=300,
+                 text_sup=700) -> dict:
+    """The training entry point as a user runs it, at full width: a corpus
+    and a recipe written into the new directory ``root`` (the model: the
+    *_HF directory ``ckpt`` that phase_server exported; LoRA r 16, alpha 32 on q/k/v/o, lora_only; a
+    frozen tower; seq_len tokens a pack, cross_dataset_joint, the logit
+    budget; remat "flash"; an output_dir with the profiler over step 1), then
+    train.build_from_recipe and Trainer.train as train.main runs them, with
+    load_tokenizer bound to a ByteTokenizer at Qwen2.5's ids (the repository
+    holds no tokenizer files). Gates: finite losses; the first batch's loss
+    (Trainer.evaluate) lower after the steps; every base weight keeps its
+    bits and every B adapter moved; K1, K3 and K4/K5 launched exactly as
+    the layers, steps and encode batches need; metrics.jsonl,
+    print_batch.log, data_report.json (counting every sample of the
+    corpus) and the trace, which names K1's and K4/K5's kernels. Then the
+    remat levels on the first batch through train_step._backward: True vs
+    "flash" at seq_len and "dots" vs True on its first dots_len tokens (the
+    same loss bits, B gradients at cosine >= REMAT_GRAD_COS, K1 launches),
+    "vit" vs True on T2's geometry at vit_len tokens (tower gradients);
+    merge_lora's last-row logits against the adapted model's under the
+    logit gate; save_lora -> load_lora bit for bit. -> the launch counts of
+    the Trainer.train run."""
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import long_vita_tpu_torch.tokenizer as port_tokenizer
+    from long_vita_tpu_torch.data.dataset import load_corpus
+    from long_vita_tpu_torch.models.long_vita import long_vita_forward
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.training import train as ttrain
+    from long_vita_tpu_torch.training.loss import collate_packs, to_device
+    from long_vita_tpu_torch.training.lora import (
+        LoraConfig,
+        load_lora,
+        lora_subtree,
+        merge_lora,
+        save_lora,
+    )
+    from long_vita_tpu_torch.training.train_step import _backward
+
+    vc, tc = cfg.vision, cfg.text
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"[recipe] {what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    os.makedirs(root)
+    out_dir = os.path.join(root, "out")
+    corpus = _recipe_inputs(root, image_px=vc.image_size, n_docs=n_docs, doc_chars=doc_chars,
+                            n_captions=n_captions, n_chat=n_chat, chat_chars=chat_chars,
+                            seed=SEED + 9)
+    lcfg = LoraConfig(r=16, alpha=32, targets=("q_proj", "k_proj", "v_proj", "o_proj"))
+    recipe = {
+        "model": {"checkpoint": ckpt, "dtype": "bfloat16",
+                  "lora": {"r": lcfg.r, "alpha": lcfg.alpha, "targets": list(lcfg.targets),
+                           "lora_only": True}},
+        "data": {"corpus": corpus, "seq_len": seq_len, "logit_budget": budget,
+                 "vision_chunk": vision_chunk, "cross_dataset_joint": True},
+        "optim": {"lr": 1.0e-3, "total_steps": 1000, "freeze_vision": True},
+        "run": {"steps": steps, "remat": "flash", "seed": SEED, "output_dir": out_dir,
+                "profile_steps": [1, 2]},
+    }
+    with open(os.path.join(root, "recipe.yaml"), "w") as f:  # YAML's flow style is JSON
+        json.dump(recipe, f)
+    tok = tokenizer or port_tokenizer.ByteTokenizer()
+    print(f"[recipe] load_tokenizer bound to ByteTokenizer (Qwen2.5's special ids "
+          f"{tok.pad_token_id}..; the repository holds no tokenizer files); corpus and recipe "
+          f"in {root}; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the load")
+
+    # ---- train.main's path: build_from_recipe, then Trainer.train -----------
+    load_tokenizer = port_tokenizer.load_tokenizer
+    port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+    t0 = time.perf_counter()
+    try:
+        trainer, batches, tokenizer = ttrain.build_from_recipe(
+            ttrain.load_recipe(os.path.join(root, "recipe.yaml")), device=dev)
+    finally:
+        port_tokenizer.load_tokenizer = load_tokenizer
+    lv, lcfg_text = trainer.state.params, trainer.cfg.text
+    adapters = {n for n, _ in lv.named_parameters() if ".lora." in n}
+    n_adapter = sum(p.numel() for n, p in lv.named_parameters() if n in adapters)
+    print(f"[recipe] build_from_recipe in {time.perf_counter() - t0:.2f} s: {len(adapters)} "
+          f"adapter tensors ({n_adapter / 1e6:.2f} M), lora_only "
+          f"{trainer.tcfg.optim.lora_only}, {len(trainer.tx.frozen)} mask-frozen tensors "
+          f"(folded into the norm), moments for {len(trainer.state.opt_state.mu)}")
+    before = _snapshot(lv, adapters)
+    first = next(batches)
+    loss_before = trainer.evaluate([first])["loss"]
+    seen, stamps = [], []
+
+    def stream():
+        for batch in itertools.chain([first], batches):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            seen.append(batch)
+            yield batch
+
+    # ---- the main path: Trainer.train
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = trainer.train(stream(), tokenizer=tokenizer)["losses"]
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    counts = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    rest = sum(1 for _ in batches)  # the pipeline's report is written when it ends
+    loss_after = trainer.evaluate([first])["loss"]
+    tiles = [0 if b["images"] is None else len(b["images"]) for b in seen]
+    sup = [int((b["labels"] != -100).sum()) for b in seen]
+    print(f"[recipe] {len(seen)} packs of {seq_len} tokens ({rest} more in the stream): tiles "
+          f"{tiles}, supervised rows {sup} (budget {budget}); losses {losses}; first batch "
+          f"{loss_before:.6f} -> {loss_after:.6f}; steps {[round(t, 3) for t in step_s]} s "
+          f"(step 1 under the profiler) = {[round(seq_len / t) for t in step_s]} tokens/s; "
+          f"peak allocated {peak_gb:.2f} GB")
+    check(len(losses) == steps and all(np.isfinite(losses)), "every step's loss is finite")
+    check(loss_after < loss_before, "the first batch's loss fell over the steps")
+    moved = _moved(lv, before)
+    del before
+    b_names = {n for n in adapters if n.endswith(".lora.b")}
+    check(not moved - adapters and b_names <= moved,
+          f"base weights keep their bits ({len(moved - adapters)} changed), the B adapters "
+          f"moved ({len(b_names & moved)} of {len(b_names)})")
+    n_layers, n_vit = tc.num_hidden_layers, vc.num_hidden_layers
+    fused = fa.bwd_uses_fused(1, seq_len, seq_len, tc.num_attention_heads, tc.head_dim, 2)
+    expected = {"flash_fwd": n_layers * steps,
+                "short_attn": n_vit * sum(-(-t // vision_chunk) for t in tiles)}
+    if fused:
+        expected["flash_bwd"] = n_layers * steps
+    else:
+        expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = n_layers * steps
+    _check_launches(counts, expected)
+
+    records = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    keys = {"step", "wall_s", "loss", "grad_norm", "supervised_tokens", "step_time_s"}
+    check(len(records) == steps and all(set(r) == keys for r in records),
+          f"metrics.jsonl: {len(records)} records with {sorted(keys)}")
+    print(f"[recipe] grad_norm {[r['grad_norm'] for r in records]}")
+    report = json.load(open(os.path.join(out_dir, "data_report.json")))
+    samples = load_corpus(corpus, seed=trainer.tcfg.seed)
+    check(os.path.getsize(os.path.join(out_dir, "print_batch.log")) > 0
+          and sum(s["samples"] for s in report.values()) == len(samples)
+          and sum(s["images"] for s in report.values()) == sum(len(s.get("images", []))
+                                                               for s in samples),
+          f"print_batch.log and data_report.json ({report}) count the corpus's "
+          f"{len(samples)} samples")
+    names = _trace_kernels(os.path.join(out_dir, "trace_1_2.json"))
+    k1 = sorted(n for n in names if "fwd90::fwd_kernel" in n)
+    bwd = sorted(n for n in names if "bwd90::dkv_kernel" in n or "bwd90::dq_kernel" in n)
+    check(bool(k1) and bool(bwd),
+          f"the profiler's trace of step 1 names K1 {k1[:1]} and K4/K5 {bwd[:1]} "
+          f"({len(names)} kernel names)")
+
+    # ---- the remat levels on the first batch ---------------------------------
+    def run_level(batch, level, freeze_vision, freeze_text, keep):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t = time.perf_counter()
+        grads, loss, _, _ = _backward(
+            lv, batch, trainer.cfg, level, vision_chunk, freeze_vision, freeze_text,
+            fold=trainer.tx.frozen if not freeze_text else frozenset(),
+        )
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        kept = torch.cat([g.float().flatten() for n, g in sorted(grads.items()) if keep(n)])
+        del grads
+        return loss, kept, _read_counts()["flash_fwd"], torch.cuda.max_memory_allocated() / 1e9, dt
+
+    def compare(tag, batch, levels, freeze_vision, freeze_text, keep, k1_want=None):
+        (la, ga, ka, pa, ta), (lb, gb, kb, pb, tb) = (
+            run_level(batch, lv_, freeze_vision, freeze_text, keep) for lv_ in levels)
+        cos = F.cosine_similarity(ga, gb, dim=0).item()
+        print(f"[recipe] remat {levels[0]!r} vs {levels[1]!r}, {tag}: loss {la.item():.6f} vs "
+              f"{lb.item():.6f}; gradient cosine {cos:.6f} (>= {REMAT_GRAD_COS}); K1 launches "
+              f"{ka} vs {kb}; peak allocated {pa:.2f} vs {pb:.2f} GB; {ta:.2f} vs {tb:.2f} s")
+        check(torch.equal(la, lb) and cos >= REMAT_GRAD_COS
+              and (k1_want is None or (ka, kb) == k1_want),
+              f"remat {levels[0]!r} vs {levels[1]!r} ({tag}): the same loss bits and gradients"
+              + (f", K1 launches {k1_want}" if k1_want else ""))
+
+    is_b = lambda n: n.endswith(".lora.b")  # noqa: E731
+    batch = to_device(first, dev)
+    compare(f"{seq_len} tokens, B adapters", batch, (True, "flash"), True, False, is_b,
+            (2 * n_layers, n_layers))
+    head = to_device(_head_batch(first, dots_len), dev)
+    compare(f"the first {dots_len} tokens, B adapters", head, ("dots", True), True, False, is_b,
+            (2 * n_layers, 2 * n_layers))
+    rng = np.random.default_rng(SEED + 7)
+    grid = (2, 3)
+    t2_tiles = rng.standard_normal((1 + grid[0] * grid[1], vc.image_size, vc.image_size, 3),
+                                   dtype=np.float32)
+    pack = _train_pack(cfg, vit_len, [], [(t2_tiles, grid)], rng, text_segments=2,
+                       answer=answer, text_sup=text_sup)
+    compare(f"T2's geometry at {vit_len} tokens (trainable tower), tower gradients",
+            to_device(collate_packs([pack], vit_len), dev), ("vit", True), False, True,
+            lambda n: n.startswith("vision."))
+    del batch, head
+
+    # ---- merge_lora and the adapters' files ----------------------------------
+    tail = to_device(_head_batch(first, merge_len), dev)
+    last = torch.full((1, 1), merge_len - 1, dtype=torch.int32, device=dev)
+
+    def last_row(params):
+        with torch.no_grad():
+            return long_vita_forward(
+                params, tail["tokens"], tail["positions"], trainer.cfg, images=tail["images"],
+                image_indices=tail["image_indices"], segment_ids=tail["segment_ids"],
+                logit_positions=last, vision_chunk=vision_chunk)[0][0, -1]
+
+    adapted = last_row(lv)
+    merged = merge_lora(lv, lcfg_text)
+    check(_logit_check("recipe", "merge_lora vs the adapted model", last_row(merged), adapted),
+          "merge_lora passes the logit gate")
+    del merged
+    saved = {t: {k: v.clone() for k, v in ab.items()} for t, ab in lora_subtree(lv).items()}
+    lora_dir = os.path.join(root, "lora")
+    save_lora(lora_dir, lv, lcfg_text, lcfg)
+    dtype = next(iter(saved.values()))["a"].dtype
+    load_lora(lora_dir, lv, lcfg_text, dtype=dtype)
+    back = lora_subtree(lv)
+    check(back.keys() == saved.keys() and all(
+        torch.equal(back[t][k], saved[t][k]) for t in saved for k in ("a", "b")),
+        f"save_lora -> load_lora round-trips {len(saved)} targets' adapters bit for bit "
+        f"({sorted(os.listdir(lora_dir))})")
+    del trainer, lv, saved, back
+    if failures:
+        raise AssertionError(f"phase_recipe: {failures}")
+    return counts
+
+
+def _collect(when: str) -> None:
+    """Free what the finished phases left: their engines, servers and
+    trainers sit in reference cycles that hold card memory (tens of GB)
+    until the garbage collector runs, which would otherwise come at a
+    different point in every run."""
+    import torch
+
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[main] {when}: allocated {held / 1e9:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after a garbage collection")
+
+
 def main() -> int:
     import torch
 
@@ -2119,27 +2464,40 @@ def main() -> int:
     del bits
     add(phase_multimodal(params, cfg, dev))
     torch.cuda.empty_cache()  # the serving engines and their caches are gone
-    # the decoder is exported, freed and loaded back; the loaded one trains
+    # the decoder is exported, freed and loaded back; the loaded one trains,
+    # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]
     del params
-    counts, params = phase_server(holder, cfg, dev)
-    add(counts)
-    torch.cuda.empty_cache()
-    log = logging.getLogger("long_vita_tpu_torch.training.trainer")  # a line per step
-    log.setLevel(logging.INFO)
-    handler = logging.StreamHandler(sys.stdout)
-    handler.setFormatter(logging.Formatter("[trainer] %(message)s"))
-    log.addHandler(handler)
-    counts, lv = phase_train(params, cfg, dev, tag="T1", seq_len=32768, videos=(64, 16),
-                             grid=(2, 3), freeze_vision=True, seed=SEED + 5)
-    del lv
-    add(counts)
-    torch.cuda.empty_cache()
-    counts, lv = phase_train(params, cfg, dev, tag="T2", seq_len=16384, videos=(16,),
-                             grid=(2, 3), freeze_vision=False, vit_lr_mult=0.1, seed=SEED + 6)
-    add(counts)
-    torch.cuda.empty_cache()
-    phase_train_grads(lv, cfg, dev)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
+    ckpt = os.path.join(work, "ckpt")
+    os.makedirs(ckpt)
+    try:
+        counts, params = phase_server(holder, cfg, dev, ckpt)
+        add(counts)
+        _collect("after the server phase")
+        log = logging.getLogger("long_vita_tpu_torch.training.trainer")  # a line per step
+        log.setLevel(logging.INFO)
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter("[trainer] %(message)s"))
+        log.addHandler(handler)
+        counts, lv = phase_train(params, cfg, dev, tag="T1", seq_len=32768, videos=(64, 16),
+                                 grid=(2, 3), freeze_vision=True, seed=SEED + 5)
+        del lv
+        add(counts)
+        torch.cuda.empty_cache()
+        counts, lv = phase_train(params, cfg, dev, tag="T2", seq_len=16384, videos=(16,),
+                                 grid=(2, 3), freeze_vision=False, vit_lr_mult=0.1,
+                                 seed=SEED + 6)
+        add(counts)
+        torch.cuda.empty_cache()
+        phase_train_grads(lv, cfg, dev)
+        del lv, params  # the loaded model: phase_recipe loads the directory again
+        _collect("before the recipe phase")
+        add(phase_recipe(ckpt, os.path.join(work, "recipe"), cfg, dev))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **kern[name]}

@@ -15,6 +15,7 @@ Quick API (image, video and text serving; training on one GPU):
     # weights from the JAX package: utils.convert.long_vita_params_from_jax
     # the front end: data.multimodal.MultimodalTokenizer(tokenizer.load_tokenizer(dir))
     # the REST server and CLI: python -m long_vita_tpu_torch.inference.cli <dir> --serve
+    # training from a YAML recipe: python -m long_vita_tpu_torch.training.train --config r.yaml
 """
 __version__ = "0.1.0"
 

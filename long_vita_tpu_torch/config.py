@@ -73,7 +73,8 @@ class TextConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_loss_coef: float = 0.01
-    # LoRA: lora_r == 0 means no adapters (the port raises on adapters)
+    # LoRA: lora_r == 0 means no adapters; else each projection that carries
+    # an adapter adds ((x @ a) @ b) * lora_alpha / lora_r (training/lora.py)
     lora_r: int = 0
     lora_alpha: int = 32
 

@@ -5,16 +5,19 @@ token stripped and the patches projected; the projected rows are scattered
 into the token embeddings at ``image_indices`` ([2, N_tiles, T] of (batch,
 seq) positions); the decoder then runs as plain Qwen2.
 
-Training takes the same forward with per-layer remat (decoder and tower),
-freeze_vision (the tower and its CLS strip under torch.no_grad, the
-projector differentiable) and return_aux (the dense model's MoE aux, 0).
-Not ported here: the mesh paths (tile-sharded encode, the chunked merge, the
-vocab-parallel embed) and the chunk-level tower remat "vit" (ROADMAP: port
-queue, multi-GPU and training).
+Training takes the same forward with the remat levels (the decoder's per
+qwen2.remat_ops; the tower recomputes each layer at any level, and "vit"
+with a trainable tower adds a chunk-level checkpoint around tower and
+projector), freeze_vision (the tower and its CLS strip under
+torch.no_grad, the projector differentiable) and return_aux (the dense
+model's MoE aux, 0). Not ported here: the mesh paths (tile-sharded encode,
+the chunked merge, the vocab-parallel embed; ROADMAP: port queue,
+multi-GPU).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Union
 
 import torch
@@ -46,7 +49,7 @@ def encode_images(
     *,
     chunk: int = 0,
     attn_impl: str = "auto",
-    remat: bool = False,
+    remat: Union[bool, str] = False,
     freeze_tower: bool = False,
 ) -> torch.Tensor:
     """[N_tiles, H, W, 3] -> [N_tiles, image_token_length, lm_hidden].
@@ -58,21 +61,28 @@ def encode_images(
     features are the same. attn_impl "short" selects the single-pass ViT
     attention kernel K3. freeze_tower runs the tower and its CLS strip under
     torch.no_grad (the JAX stop_gradient on the tower features, :81-88): no
-    tower backward, while the projector keeps its gradients. remat: per-layer
-    recompute in a trainable tower."""
+    tower backward, while the projector keeps its gradients. remat (a level
+    of qwen2.check_remat): a trainable tower recomputes each layer at any
+    level (JAX's tower takes nothing_saveable, intern_vit.py:113-114); "vit"
+    also recomputes tower and projector per chunk (:96-105), so that a chunk
+    keeps only its tiles' pixels for the backward."""
 
     def encode(tiles):
         with torch.no_grad() if freeze_tower else contextlib.nullcontext():
             feats = intern_vit(
                 params.vision, tiles, cfg.vision, attn_impl=attn_impl,
-                remat=remat and not freeze_tower,
+                remat=bool(remat) and not freeze_tower,
             )[:, 1:]  # strip CLS
         return project_features(params.projector, feats, cfg)
 
+    if remat == "vit" and not freeze_tower:
+        fn = functools.partial(qwen2.remat_checkpoint, encode, remat=True)
+    else:
+        fn = encode
     n = images.shape[0]
     if not chunk or n <= chunk:
-        return encode(images)
-    return torch.cat([encode(images[i : i + chunk]) for i in range(0, n, chunk)], 0)
+        return fn(images)
+    return torch.cat([fn(images[i : i + chunk]) for i in range(0, n, chunk)], 0)
 
 
 def merge_image_embeddings(
@@ -117,8 +127,8 @@ def long_vita_forward(
 
     logit_positions: optional [B, M] positions whose rows alone reach the
     vocabulary head (the logits-masked head). head=False returns those
-    (final-normed) hidden rows instead of logits. remat: per-layer recompute
-    of the decoder and the tower (qwen2.check_remat). freeze_vision: the
+    (final-normed) hidden rows instead of logits. remat: the decoder's and
+    the tower's recompute level (qwen2.check_remat, encode_images). freeze_vision: the
     tower runs without gradients and with the single-pass attention K3
     ("short"), as in the JAX package (:321-331). -> (logits [B, S or M,
     vocab] f32, or hidden rows; the cache at its new length, or None), and
@@ -129,7 +139,7 @@ def long_vita_forward(
         image_embeds = encode_images(
             params, images, cfg, chunk=vision_chunk,
             attn_impl="short" if freeze_vision else attn_impl,
-            remat=bool(remat), freeze_tower=freeze_vision,
+            remat=remat, freeze_tower=freeze_vision,
         )
         inputs_embeds = merge_image_embeddings(inputs_embeds, image_embeds, image_indices)
     hidden, new_cache = qwen2.qwen2_decoder(

@@ -1,8 +1,8 @@
 """Weight-only quantization for serving: int8 (w8a16) and int4 (w4a16).
 
 Counterpart of long_vita_tpu/models/quantize.py. The text decoder's seven
-projections and the head are quantized; the embedding, norms, biases and the
-vision tower and projector stay as they are. MoE trees are refused, as in
+projections and the head are quantized; the embedding, norms, biases, LoRA
+adapters and the vision tower and projector stay as they are. MoE trees are refused, as in
 the JAX package (its :74-75).
 
   - int8: per-output-channel symmetric codes, scale = max|w| / 127 over the
@@ -87,12 +87,12 @@ def quantize_kernel_int4(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _int8(entry: Dense) -> QuantDense8:
     q, scale = quantize_kernel(entry.weight)
-    return QuantDense8(q, scale, entry.bias)
+    return QuantDense8(q, scale, entry.bias, entry.lora)
 
 
 def _int4(entry: Dense) -> QuantDense4:
     packed, scales = quantize_kernel_int4(entry.weight)
-    return QuantDense4(packed, scales, entry.bias)
+    return QuantDense4(packed, scales, entry.bias, entry.lora)
 
 
 def _quantize(params: Params, entry_fn, head: bool) -> Params:

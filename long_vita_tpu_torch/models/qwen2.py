@@ -16,17 +16,24 @@ Differences from the JAX package, all of form rather than of numbers:
     reads;
   - the KV cache is a pair of preallocated ``[L, B, Smax, Hkv, D]`` buffers
     (int8 codes plus ``[L, B, Smax, Hkv, 1]`` f32 scales when quantized)
-    written in place, where JAX threads a donated scan carry.
+    written in place, where JAX threads a donated scan carry;
+  - a projection's LoRA adapter is a ``lora`` submodule (``LoraAdapter``, a
+    [in, r] and b [r, out] in the JAX layout) where JAX keeps a ``"lora"``
+    entry in the projection's pytree node;
+  - the remat levels are torch.utils.checkpoint around each layer, the
+    selective ones through create_selective_checkpoint_contexts
+    (``remat_ops``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from long_vita_tpu_torch.config import TextConfig
 from long_vita_tpu_torch.ops._target import on_cuda
@@ -45,13 +52,26 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Dense(nn.Module):
-    """One projection: ``weight`` [out, in] and an optional ``bias`` [out]."""
+class LoraAdapter(nn.Module):
+    """A projection's low-rank update in the JAX layout: ``a`` [in, r] and
+    ``b`` [r, out] (training/lora.py adds, merges, saves and loads them)."""
 
-    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
+    def __init__(self, a: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.a = _frozen(a)
+        self.b = _frozen(b)
+
+
+class Dense(nn.Module):
+    """One projection: ``weight`` [out, in], an optional ``bias`` [out] and
+    an optional ``lora`` adapter."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 lora: Optional[LoraAdapter] = None):
         super().__init__()
         self.weight = _frozen(weight)
         self.bias = _frozen(bias) if bias is not None else None
+        self.lora = lora
 
 
 class QuantDense8(nn.Module):
@@ -60,11 +80,12 @@ class QuantDense8(nn.Module):
     an optional ``bias`` [out] (the JAX entry {kernel_q, scale, bias})."""
 
     def __init__(self, weight_q: torch.Tensor, scale: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None):
+                 bias: Optional[torch.Tensor] = None, lora: Optional[LoraAdapter] = None):
         super().__init__()
         self.weight_q = _frozen(weight_q)
         self.scale = _frozen(scale)
         self.bias = _frozen(bias) if bias is not None else None
+        self.lora = lora
 
 
 class QuantDense4(nn.Module):
@@ -74,11 +95,12 @@ class QuantDense4(nn.Module):
     scale4, bias})."""
 
     def __init__(self, packed: torch.Tensor, scales: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None):
+                 bias: Optional[torch.Tensor] = None, lora: Optional[LoraAdapter] = None):
         super().__init__()
         self.packed = _frozen(packed)
         self.scales = _frozen(scales)
         self.bias = _frozen(bias) if bias is not None else None
+        self.lora = lora
 
 
 Projection = Union[Dense, QuantDense8, QuantDense4]
@@ -177,17 +199,32 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
 
 
-def _proj(entry: Projection, x: torch.Tensor) -> torch.Tensor:
+def _with_lora(entry: Projection, x: torch.Tensor, out: torch.Tensor,
+               cfg: TextConfig) -> torch.Tensor:
+    """Add a projection's low-rank update when it carries an adapter and
+    cfg.lora_r is set (JAX :146-157): out + ((x @ a) @ b) * alpha / r. The
+    adapters ride the layers, so training, serving, speculative decoding
+    and beam search all see them with no separate path."""
+    if entry.lora is None or cfg.lora_r == 0:
+        return out
+    scale = cfg.lora_alpha / cfg.lora_r
+    return out + ((x @ entry.lora.a) @ entry.lora.b) * scale
+
+
+def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
     """A projection without its bias (callers add it in the param dtype
-    after the product, as the JAX package does). Dispatches on the layout
-    as the JAX _proj (:174-181): int8 codes cast to x's dtype, the product,
-    then the scale in x's dtype; packed int4 through w4_matmul (K6 for
-    decode-sized row counts, the dequantise route for prefill chunks)."""
+    after the product, as the JAX package does), plus its LoRA update.
+    Dispatches on the layout as the JAX _proj (:174-184): int8 codes cast to
+    x's dtype, the product, then the scale in x's dtype; packed int4 through
+    w4_matmul (K6 for decode-sized row counts, the dequantise route for
+    prefill chunks)."""
     if isinstance(entry, QuantDense8):
-        return F.linear(x, entry.weight_q.to(x.dtype)) * entry.scale.to(x.dtype)
-    if isinstance(entry, QuantDense4):
-        return w4_matmul(x, entry.packed, entry.scales)
-    return F.linear(x, entry.weight)
+        out = F.linear(x, entry.weight_q.to(x.dtype)) * entry.scale.to(x.dtype)
+    elif isinstance(entry, QuantDense4):
+        out = w4_matmul(x, entry.packed, entry.scales)
+    else:
+        out = F.linear(x, entry.weight)
+    return _with_lora(entry, x, out, cfg)
 
 
 def _row_write(buf: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor) -> None:
@@ -218,9 +255,9 @@ def _attention_block(
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
-    q = _proj(layer.q_proj, x) + layer.q_proj.bias
-    k = _proj(layer.k_proj, x) + layer.k_proj.bias
-    v = _proj(layer.v_proj, x) + layer.v_proj.bias
+    q = _proj(layer.q_proj, x, cfg) + layer.q_proj.bias
+    k = _proj(layer.k_proj, x, cfg) + layer.k_proj.bias
+    v = _proj(layer.v_proj, x, cfg) + layer.v_proj.bias
     q = q.reshape(b, s, hq, d)
     k = k.reshape(b, s, hkv, d)
     v = v.reshape(b, s, hkv, d)
@@ -284,14 +321,14 @@ def _attention_block(
             kv_segment_ids=segment_ids,
             impl=attn_impl,
         )
-    return _proj(layer.o_proj, out.reshape(b, s, hq * d))
+    return _proj(layer.o_proj, out.reshape(b, s, hq * d), cfg)
 
 
-def _mlp_block(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
     """Dense SwiGLU."""
-    gate = _proj(layer.gate_proj, x)
-    up = _proj(layer.up_proj, x)
-    return _proj(layer.down_proj, F.silu(gate) * up)
+    gate = _proj(layer.gate_proj, x, cfg)
+    up = _proj(layer.up_proj, x, cfg)
+    return _proj(layer.down_proj, F.silu(gate) * up, cfg)
 
 
 def decoder_layer(
@@ -310,24 +347,55 @@ def decoder_layer(
         layer, rms_norm(x, layer.input_norm, cfg.rms_norm_eps), cos, sin, cfg,
         cache_kv, cache_len, position_ids, segment_ids, attn_impl,
     )
-    return x + _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps))
+    return x + _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg)
+
+
+REMAT_LEVELS = (True, "full", "dots", "flash", "vit", False, None)
 
 
 def check_remat(remat) -> bool:
-    """The JAX package's remat levels (qwen2._remat_policy :776): True or
-    "full" recompute each layer in the backward (jax.checkpoint with
-    nothing_saveable), False or None keep everything. -> whether to
-    recompute. The selective levels raise until they are ported."""
-    if remat in (True, "full"):
-        return True
-    if remat in (False, None):
-        return False
-    if remat in ("dots", "flash", "vit"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported; the port recomputes whole layers "
-            "(remat=True) (ROADMAP: port queue, training: selective remat)"
-        )
-    raise ValueError(f"unknown remat level {remat!r}")
+    """Validate a remat level of the JAX package (qwen2._remat_policy :776)
+    -> whether a layer recomputes in the backward. True, "full" and "vit"
+    save only each layer's input (jax.checkpoint with nothing_saveable;
+    "vit" adds the tower's chunk-level remat, models/long_vita.py);
+    "dots" and "flash" save what ``remat_ops`` names; False or None keep
+    everything."""
+    if not any(remat is level or (isinstance(level, str) and remat == level)
+               for level in REMAT_LEVELS):
+        raise ValueError(f"unknown remat level {remat!r}; one of {REMAT_LEVELS}")
+    return remat not in (False, None)
+
+
+def remat_ops(remat) -> Optional[list]:
+    """The ops whose outputs a recomputed layer keeps (JAX's checkpoint
+    policies, :776-794), or None to keep nothing but the layer's input:
+      - "dots": dots_with_no_batch_dims_saveable, i.e. the outputs of the
+        products without batch dims, aten.mm and aten.addmm here (every
+        projection and LoRA product; the attention's bmm recomputes);
+      - "flash": save_only_these_names("flash_out", "flash_lse"), i.e. the
+        flash forward's (o, lse) (ops.flash_attention's custom op
+        lvt::flash_fwd, K1 on the card), so the backward never runs it
+        again; the plain attention of the CPU has nothing to save there.
+    Everything else is recomputed."""
+    check_remat(remat)
+    if remat == "dots":
+        return [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+    if remat == "flash":
+        from long_vita_tpu_torch.ops import flash_attention  # noqa: F401 (registers lvt::flash_fwd)
+
+        return [torch.ops.lvt.flash_fwd.default]
+    return None
+
+
+def remat_checkpoint(fn, *args, remat=True):
+    """fn(*args) under torch.utils.checkpoint at the level ``remat``: the
+    whole call recomputes in the backward, except the outputs of
+    remat_ops(remat), which are kept."""
+    ops = remat_ops(remat)
+    kw = {}
+    if ops is not None:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, ops)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def qwen2_decoder(
@@ -343,9 +411,10 @@ def qwen2_decoder(
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder. inputs_embeds [B, S, H]; position_ids [B|1, S].
 
-    remat (True / "full"): without a cache, each layer keeps only its input
-    for the backward and runs again there (torch.utils.checkpoint, the
-    counterpart of jax.checkpoint with nothing_saveable).
+    remat: without a cache, each layer runs again in the backward
+    (remat_checkpoint): True / "full" / "vit" keep only its input (the
+    counterpart of jax.checkpoint with nothing_saveable), "dots" its
+    products' outputs too, "flash" the flash forward's (o, lse).
 
     -> (final_norm(hidden) [B, S, H], the cache at length + S, or None).
     The cache's buffers are written in place; the returned KVCache shares
@@ -361,8 +430,7 @@ def qwen2_decoder(
         args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
                 segment_ids, attn_impl)
         if recompute:
-            x = checkpoint(decoder_layer, *args, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = remat_checkpoint(decoder_layer, *args, remat=remat)
         else:
             x = decoder_layer(*args)
     new_cache = None
@@ -445,9 +513,9 @@ def init_qwen2_params(
     unit norms), drawn from ``generator`` on ``device`` (the generator's
     device when None). One layer at a time, so the f32 draws never hold
     more than one matrix beside the bf16 weights."""
-    if cfg.num_experts > 0 or cfg.lora_r > 0:
+    if cfg.num_experts > 0:
         raise NotImplementedError(
-            "MoE and LoRA layers are ported later (ROADMAP: port queue, the rest)"
+            "MoE layers are ported later (ROADMAP: port queue, multi-GPU)"
         )
     device = torch.device(device) if device is not None else generator.device
     h, i = cfg.hidden_size, cfg.intermediate_size

@@ -9,7 +9,10 @@ has its own launch counter on its wrapper:
     ``csrc/flash_fwd.cu``): flash forward, GQA, offsets, kv_valid_len,
     segment ids; differentiable (the counterpart of ``_flash_core``'s
     custom_vjp, :839-921), its backward K4 or K5 as the JAX package chooses
-    (``bwd_uses_fused``);
+    (``bwd_uses_fused``). The forward is the custom op ``lvt::flash_fwd``
+    (``flash_fwd_op``), so that selective checkpointing can keep its
+    (o, lse), as JAX's remat="flash" keeps the names "flash_out" and
+    "flash_lse" (models/qwen2.remat_ops);
   - ``flash_bwd_fused`` (Pallas `_bwd_fused_kernel` :588 -> K4,
     ``csrc/flash_bwd.cu``): the one-pass backward, dQ added into an f32
     buffer;
@@ -128,45 +131,57 @@ def flash_attention(
         kv_valid_len = k.shape[1]
     elif torch.is_tensor(kv_valid_len) and kv_valid_len.ndim:
         kv_valid_len = kv_valid_len.reshape(-1)[0]
-    o, lse = _FlashAttention.apply(
-        q, k, v, q_segment_ids, kv_segment_ids,
-        (causal, q_offset, kv_offset, kv_valid_len),
-    )
+    meta = _device_meta(q.device, q_offset, kv_offset, kv_valid_len)
+    o, lse = flash_fwd_op(q, k, v, q_segment_ids, kv_segment_ids, meta, causal)
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0  # CUDA kernel launches (the wrapper counts them)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1 forward saving (o, lse); K4 or K5 backward (``_flash_core`` with
-    its custom_vjp). On CPU tensors: the plain forward and backward."""
+@torch.library.custom_op("lvt::flash_fwd", mutates_args=())
+def flash_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+    meta: torch.Tensor, causal: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as an op of its own: -> (o, lse). ``meta`` holds
+    (q_offset, kv_offset, kv_valid_len) as int32 on q's device, which K1
+    reads there (no host sync). CUDA tensors launch K1, CPU tensors take
+    the plain version. Its autograd (below) saves (o, lse) and runs K4 or
+    K5, ``_flash_core``'s custom_vjp."""
+    if on_cuda(q, k, v, qseg, kseg):
+        return _flash_cuda(q, k, v, causal, None, None, None, qseg, kseg, meta=meta)
+    q_offset, kv_offset, kv_len = (int(x) for x in meta)
+    return flash_attention_reference(
+        q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+        q_segment_ids=qseg, kv_segment_ids=kseg, kv_valid_len=kv_len,
+    )
 
-    @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, mask):
-        causal, q_offset, kv_offset, kv_len = mask
-        if on_cuda(q, k, v, qseg, kseg):
-            o, lse = _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg)
-        else:
-            o, lse = flash_attention_reference(
-                q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
-                q_segment_ids=qseg, kv_segment_ids=kseg, kv_valid_len=kv_len,
-            )
-        ctx.mask = mask
-        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
-        causal, q_offset, kv_offset, kv_len = ctx.mask
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
-            kv_offset=kv_offset, kv_valid_len=kv_len, q_segment_ids=qseg,
-            kv_segment_ids=kseg,
-        )
-        return dq, dk, dv, None, None, None
+@flash_fwd_op.register_fake
+def _(q, k, v, qseg, kseg, meta, causal):
+    b, sq, hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, hq, sq), dtype=torch.float32)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, qseg, kseg, meta, causal = inputs
+    ctx.causal = causal
+    ctx.save_for_backward(q, k, v, *output, qseg, kseg, meta)
+    ctx.mark_non_differentiable(output[1])
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    q, k, v, o, lse, qseg, kseg, meta = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(
+        q, k, v, o, lse, do, causal=ctx.causal, q_offset=meta[0], kv_offset=meta[1],
+        kv_valid_len=meta[2], q_segment_ids=qseg, kv_segment_ids=kseg,
+    )
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
 
 
 def _check_operand(name: str, x: torch.Tensor, d: int) -> None:
@@ -219,16 +234,18 @@ def _check_sm90(b: int, sq: int, skv: int, hq: int, d: int, block_q: Optional[in
         raise ValueError(f"sequences must be shorter than 2^31 rows, got {sq}/{skv}")
 
 
-def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
-    o, lse, args = flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg)
+def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=None):
+    o, lse, args = flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg,
+                                  meta=meta)
     _build.launch("lvt_flash_fwd", q.device, *args)
     flash_attention.launches += 1
     return o, lse
 
 
-def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
+def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=None):
     """Check q/k/v for K1 and prepare its launch: -> (o, lse, the arguments
-    of lvt_flash_fwd before the stream)."""
+    of lvt_flash_fwd before the stream). ``meta``: the three mask scalars
+    already on the device, in place of q_offset, kv_offset and kv_len."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -263,7 +280,8 @@ def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg):
     dev = q.device
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    meta = _device_meta(dev, q_offset, kv_offset, kv_len)
+    if meta is None:
+        meta = _device_meta(dev, q_offset, kv_offset, kv_len)
     return o, lse, (
         q, k, v, o, lse, qseg, kseg, seg_ranges, meta,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),

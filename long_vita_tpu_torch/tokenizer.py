@@ -111,6 +111,7 @@ class ByteTokenizer:
         self._ids = {"<|endoftext|>": endoftext, "<|im_start|>": im_start,
                      "<|im_end|>": im_end}
         self._next = first_added
+        self.pad_token_id = endoftext  # Qwen2.5 pads with <|endoftext|>
 
     def add_tokens(self, tokens, special_tokens: bool = False) -> int:
         new = [t for t in tokens if t not in self._ids]

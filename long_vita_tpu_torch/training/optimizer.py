@@ -26,6 +26,14 @@ would stay zero and its Adam update is 0: it gets no state and is never
 touched. That differs from optax only for a leaf that is stop-gradient'd yet
 trainable in the mask with weight decay on, which the Trainer never builds
 (both come from the same freeze flags).
+
+A leaf frozen by the mask alone (``frozen``: lora_only's base weights,
+freeze_projector, freeze_embed) has a gradient that optax counts in the
+global norm of step 1, and an update of 0 whatever its moments: it gets no
+moments here, and its gradient counts in the norm only. The train step folds
+such a gradient into an f32 sum of squares as soon as autograd has
+accumulated it and drops it (``frozen_sq``), so a LoRA run over a 14B model
+never holds the base weights' gradients, nor moments for them.
 """
 from __future__ import annotations
 
@@ -145,33 +153,41 @@ class AdamW:
         mask = trainable_mask(params, cfg)
         scales = lr_scale_tree(params, cfg, num_vit_layers)
         self.scales = {n: (s if mask[n] else 0.0) for n, s in scales.items()}
+        self.frozen = frozenset(n for n, m in mask.items() if not m)
         self.schedule = warmup_cosine_schedule(cfg)
         self.mu_dtype = {"float32": None, "bfloat16": torch.bfloat16}[cfg.moment_dtype]
 
     def init(self, params: nn.Module) -> AdamState:
+        """Moments for every parameter that takes gradients and is not
+        frozen by the mask."""
         mu, nu = {}, {}
         for name, p in params.named_parameters():
-            if p.requires_grad:
+            if p.requires_grad and name not in self.frozen:
                 mu[name] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                 nu[name] = torch.zeros_like(p)
         return AdamState(mu, nu, 0)
 
     @torch.no_grad()
     def step(
-        self, params: nn.Module, grads: dict[str, Optional[torch.Tensor]], state: AdamState
-    ) -> AdamState:
+        self, params: nn.Module, grads: dict[str, Optional[torch.Tensor]], state: AdamState,
+        frozen_sq: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         """One update of ``params`` from ``grads`` (name -> gradient in the
         parameter's dtype, or None where there is none), in place; the
-        moments in ``state`` are updated in place too."""
+        moments in ``state`` are updated in place too. ``frozen_sq``: the f32
+        sum of squares of mask-frozen gradients that were folded away; it
+        and any mask-frozen gradient in ``grads`` count in the global norm
+        only. -> that global norm (the unclipped grad_norm)."""
         cfg = self.cfg
         b1, b2 = cfg.betas
         named = dict(params.named_parameters())
         live = {n: g for n, g in grads.items() if g is not None}
+        g_norm = global_norm(live.values(), frozen_sq)
+        live = {n: g for n, g in live.items() if n not in self.frozen}
         for n in live:
             if n not in state.mu:  # a leaf that started to take gradients
                 state.mu[n] = torch.zeros_like(named[n], dtype=self.mu_dtype or named[n].dtype)
                 state.nu[n] = torch.zeros_like(named[n])
-        g_norm = global_norm(live.values())
         clip = not bool(g_norm < cfg.grad_clip)
         count = state.count + 1
         lr = -self.schedule(state.count)
@@ -192,7 +208,7 @@ class AdamW:
             u = _weak(lr, u) * u
             p.copy_((p + u).to(p.dtype))
         state.count = count
-        return state
+        return g_norm
 
 
 def _weak(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -209,11 +225,19 @@ def make_optimizer(
     return AdamW(params, cfg, num_vit_layers)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32 (optax.global_norm)."""
-    total = None
+def square_sum(t: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of a tensor's elements: the square of its f32
+    2-norm, which reads a bf16 tensor without an f32 copy of it (the
+    embedding's and the head's gradients are 1.6 GB each at 14B)."""
+    return torch.linalg.vector_norm(t, dtype=torch.float32).square()
+
+
+def global_norm(tensors, extra_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32 (optax.global_norm),
+    plus ``extra_sq`` (squares summed already) when given."""
+    total = extra_sq
     for t in tensors:
-        sq = t.float().square().sum()
+        sq = square_sum(t)
         total = sq if total is None else total + sq
     if total is None:
         return torch.zeros(())

@@ -1,27 +1,176 @@
-"""Training from a YAML stage recipe (``configs/stage*.yaml``): not ported.
+"""Training entry point: ``python -m long_vita_tpu_torch.training.train --config recipe.yaml``.
 
-Counterpart of long_vita_tpu/training/train.py (``python -m
-long_vita_tpu.training.train --config recipe.yaml``). A recipe grafts stock
-checkpoints (``model.graft``), loads a tokenizer and builds the data pipeline
-from a corpus YAML; the repository holds neither weights nor tokenizer files,
-so this entry raises until they are in it. Train through
-``training.trainer.Trainer`` with parameters and packed batches meanwhile.
+Counterpart of long_vita_tpu/training/train.py (the reference's
+pretrain_long_vita.py __main__ and per-stage bash scripts): one YAML recipe
+names the model, the data, the optimizer and the run (configs/stage*.yaml
+for the released stages):
+
+    model: {checkpoint: <*_HF dir>} or {graft: {llm: <dir>, vit: <dir>}},
+           load_stage: <a previous stage's save_dir>, dtype: bfloat16,
+           lora: {r, alpha, targets, lora_only}
+    data:  {corpus: <corpus.yaml>, seq_len, logit_budget, max_patch_grid,
+            max_num_frame, max_fps, system_message, cross_dataset_joint, ...}
+    mesh:  {dp, cp, tp, ...}           # one device here; more raises
+    optim: {lr, warmup_steps, total_steps, freeze_vision, ...}
+    run:   {steps, global_batch, micro_batch, remat, save_dir, output_dir,
+            profile_steps, seed, ...}
+
+The model is built on the card (``device="cuda"``) unless the caller asks
+for another device; without a card the default raises. The JAX main also
+calls ``maybe_initialize`` (joins a multi-host TPU pod from its environment)
+and enables JAX's persistent compile cache. Neither has a counterpart on one
+GPU: the port trains one process on one card (multi-host is ROADMAP's port
+queue, multi-GPU) and compiles nothing at run time but its kernels, which
+ops/_build.py keeps built under build/kernels/.
 """
 from __future__ import annotations
 
-_WAITS = (
-    "the YAML recipe entry is not ported: it needs stock weights and a "
-    "tokenizer in the repository (ROADMAP: port queue, training: train.py's "
-    "recipe entry); build params and batches and use training.trainer.Trainer"
+import argparse
+import dataclasses
+import logging
+
+import torch
+
+from long_vita_tpu_torch.training.optimizer import OptimizerConfig
+from long_vita_tpu_torch.training.trainer import (
+    MeshConfig,
+    Trainer,
+    TrainerConfig,
+    make_data_pipeline,
 )
+from long_vita_tpu_torch.utils.convert import _target
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def build_from_recipe(recipe: dict):
-    raise NotImplementedError(_WAITS)
+def load_recipe(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
 
 
-def main(argv=None):
-    raise NotImplementedError(_WAITS)
+def trainer_config(recipe: dict) -> TrainerConfig:
+    """The recipe's data, mesh, optim and run sections as a TrainerConfig,
+    with the JAX package's defaults (run.cp_algo, cp_inner and
+    cp_window_size shape context parallelism, which a one-device mesh does
+    not have: they are not read)."""
+    data_cfg = recipe.get("data", {})
+    run = recipe.get("run", {})
+    optim_cfg = OptimizerConfig(**{
+        k: (tuple(v) if k == "betas" else v) for k, v in recipe.get("optim", {}).items()
+    })
+    return TrainerConfig(
+        seq_len=data_cfg.get("seq_len", 16384),
+        logit_budget=data_cfg.get("logit_budget", 4096),
+        global_batch=run.get("global_batch", 1),
+        micro_batch=run.get("micro_batch", 0),
+        steps=run.get("steps", 100),
+        log_interval=run.get("log_interval", 1),
+        save_interval=run.get("save_interval", 0),
+        save_dir=run.get("save_dir"),
+        mesh=MeshConfig(**recipe.get("mesh", {})),
+        optim=optim_cfg,
+        remat=run.get("remat", True),
+        vision_chunk=data_cfg.get("vision_chunk", 256),
+        seed=run.get("seed", 42),
+        virtual_pp=run.get("virtual_pp", 1),
+        output_dir=run.get("output_dir"),
+        fsdp=run.get("fsdp", False),
+        profile_steps=tuple(run["profile_steps"]) if run.get("profile_steps") else None,
+        allow_logit_drop=data_cfg.get("allow_logit_drop", False),
+    )
+
+
+def build_from_recipe(recipe: dict, *, device="cuda"):
+    """-> (Trainer, the batch stream, the tokenizer) for ``recipe``, the
+    model on ``device``: the weights from ``model.checkpoint`` (a *_HF
+    directory, utils/checkpoint_io) or grafted from stock checkpoints
+    (``model.graft``, utils/graft), a previous stage's parameters over them
+    (``model.load_stage``), LoRA adapters (``model.lora``, drawn from a
+    generator seeded with run.seed; lora_only unless it says otherwise),
+    the tokenizer of the model's directory and the data pipeline. The
+    tiles and their token runs take the tower's own sizes (its image_size,
+    and the tokens a tile leaves after the projector's pixel shuffle),
+    where the JAX function takes the 14B model's (448 px, 256 tokens)
+    whatever the checkpoint; the two agree on every released model."""
+    from long_vita_tpu_torch.data.image_processor import ImageProcessor
+    from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
+    from long_vita_tpu_torch.tokenizer import load_tokenizer
+
+    device = _target(device)
+    model_cfg = recipe.get("model", {})
+    data_cfg = recipe.get("data", {})
+    tcfg = trainer_config(recipe)
+    dtype = _DTYPES[model_cfg.get("dtype", "bfloat16")]
+    if model_cfg.get("graft"):
+        # stage-1 bootstrap: stock Qwen2 + stock InternViT (reference
+        # finetune_long_vita.py:480-530 grafting)
+        from long_vita_tpu_torch.utils.graft import graft_checkpoints
+
+        g = model_cfg["graft"]
+        params, cfg = graft_checkpoints(g["llm"], g["vit"], dtype=dtype, device=device)
+        tokenizer = load_tokenizer(g["llm"])
+    else:
+        from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
+
+        ckpt = model_cfg["checkpoint"]
+        params, cfg = load_long_vita_checkpoint(ckpt, dtype=dtype, device=device)
+        tokenizer = load_tokenizer(ckpt)
+
+    if model_cfg.get("load_stage"):  # stage handoff: the previous stage's parameters
+        from long_vita_tpu_torch.training.checkpoint import restore_params_only
+
+        params = restore_params_only(model_cfg["load_stage"], params)
+
+    if model_cfg.get("lora"):
+        # parameter-efficient finetuning (reference --lora-r/-alpha/
+        # -target-modules); the base weights freeze through optim.lora_only
+        from long_vita_tpu_torch.training.lora import LoraConfig, add_lora_params
+
+        lspec = model_cfg["lora"]
+        lcfg = LoraConfig(
+            r=lspec.get("r", 16),
+            alpha=lspec.get("alpha", 32),
+            targets=tuple(lspec.get("targets", ("q_proj", "k_proj", "v_proj", "o_proj"))),
+        )
+        gen = torch.Generator(device=device).manual_seed(tcfg.seed)
+        params, text_cfg = add_lora_params(params, cfg.text, lcfg, gen, dtype=dtype)
+        cfg = dataclasses.replace(cfg, text=text_cfg)
+        if lspec.get("lora_only", True):
+            tcfg = dataclasses.replace(tcfg, optim=dataclasses.replace(tcfg.optim, lora_only=True))
+
+    vision = cfg.vision
+    mm = MultimodalTokenizer(
+        tokenizer,
+        image_processor=ImageProcessor(
+            image_size=vision.image_size if vision else 448,
+            min_patch_grid=data_cfg.get("min_patch_grid", 1),
+            max_patch_grid=data_cfg.get("max_patch_grid", 12),
+        ),
+        image_token_length=(int((vision.grid * cfg.vision_downsample_ratio) ** 2) if vision
+                            else cfg.image_token_length),
+        max_num_frame=data_cfg.get("max_num_frame", 4096),
+        max_fps=data_cfg.get("max_fps", 1.0),
+    )
+
+    trainer = Trainer(params, cfg, tcfg)
+    batches = make_data_pipeline(
+        data_cfg["corpus"], mm, tcfg,
+        pad_token_id=tokenizer.pad_token_id or 151643,
+        default_system_message=data_cfg.get("system_message"),
+        cross_dataset_joint=data_cfg.get("cross_dataset_joint", False),
+    )
+    return trainer, batches, tokenizer
+
+
+def main(argv=None, *, device="cuda"):
+    logging.basicConfig(level=logging.INFO)
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    args = parser.parse_args(argv)
+    trainer, batches, tokenizer = build_from_recipe(load_recipe(args.config), device=device)
+    return trainer.train(batches, tokenizer=tokenizer)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ cp = 1): tokens, positions, segment_ids [B, S]; logit_positions, labels
 Freezing mirrors the JAX step: freeze_text stops the gradient at the text
 weights (requires_grad off: no dW is formed, activation gradients still flow
 through the decoder to the projector), freeze_vision runs the tower under
-no_grad; leaves frozen only by the optimizer's mask keep their gradients,
-which the global norm (clipping and the grad_norm metric) counts.
+no_grad; leaves frozen only by the optimizer's mask (lora_only's base
+weights, freeze_projector, freeze_embed) take their gradients, which the
+global norm (clipping and the grad_norm metric) counts: the step folds each
+into an f32 sum of squares as soon as autograd has accumulated it and drops
+it (``_backward``'s ``fold``), so that it is never held.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams, long_vita_forward
 from long_vita_tpu_torch.training.loss import cross_entropy
-from long_vita_tpu_torch.training.optimizer import AdamState, AdamW, global_norm
+from long_vita_tpu_torch.training.optimizer import AdamState, AdamW, global_norm, square_sum
 from long_vita_tpu_torch.utils.convert import set_requires_grad
 
 
@@ -72,24 +75,46 @@ def _single_device(mesh) -> None:
         )
 
 
-def gradients(params: LongVITAParams) -> dict[str, torch.Tensor]:
-    """The gradient of every parameter that takes one (requires_grad), zeros
-    where the loss did not reach it (JAX returns zeros there too)."""
+def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:
+    """The gradient of every parameter that takes one (requires_grad) and is
+    not in ``exclude``, zeros where the loss did not reach it (JAX returns
+    zeros there too)."""
     return {
         n: (p.grad if p.grad is not None else torch.zeros_like(p))
         for n, p in params.named_parameters()
-        if p.requires_grad
+        if p.requires_grad and n not in exclude
     }
 
 
-def _backward(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text):
+def _backward(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text, *,
+              fold=frozenset(), attn_impl="auto"):
+    """One forward and backward. -> (gradients of the parameters that take
+    them, loss, supervised count, folded): the parameters named in ``fold``
+    give no gradient; each of theirs is added into ``folded``, an f32 sum
+    of squares (None without ``fold``), once autograd has accumulated it,
+    and dropped at once."""
     set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
     params.zero_grad(set_to_none=True)
-    loss, count = loss_fn(params, batch, cfg, remat, vision_chunk, freeze_vision)
-    loss.backward()
-    grads = gradients(params)
+    folded, hooks = None, []
+    if fold:
+        folded = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+
+        def fold_grad(p):
+            folded.add_(square_sum(p.grad))
+            p.grad = None
+
+        hooks = [p.register_post_accumulate_grad_hook(fold_grad)
+                 for n, p in params.named_parameters() if n in fold and p.requires_grad]
+    try:
+        loss, count = loss_fn(params, batch, cfg, remat, vision_chunk, freeze_vision,
+                              attn_impl=attn_impl)
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    grads = gradients(params, exclude=fold)
     params.zero_grad(set_to_none=True)
-    return grads, loss.detach(), count
+    return grads, loss.detach(), count, folded
 
 
 def make_train_step(
@@ -104,15 +129,16 @@ def make_train_step(
 ):
     """-> train_step(state, batch) -> (state, metrics), updating the state's
     parameters and moments in place (train_step.py:144). metrics: loss,
-    tokens (the supervised count) and grad_norm (the unclipped global norm)."""
+    tokens (the supervised count) and grad_norm (the unclipped global norm,
+    the mask-frozen gradients' folded squares included)."""
     _single_device(mesh)
 
     def train_step(state: TrainState, batch: dict):
-        grads, loss, count = _backward(
-            state.params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text
+        grads, loss, count, folded = _backward(
+            state.params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text,
+            fold=tx.frozen,
         )
-        grad_norm = global_norm(grads.values())
-        tx.step(state.params, grads, state.opt_state)
+        grad_norm = tx.step(state.params, grads, state.opt_state, folded)
         state.step += 1
         return state, {"loss": loss, "tokens": count, "grad_norm": grad_norm}
 
@@ -134,11 +160,13 @@ def make_grad_accum_steps(
     accum_fn(acc, grads) adds in place; apply_fn(state, grads, loss_sum,
     count_sum, n_micro) applies the mean gradient cast to each parameter's
     dtype. The reported loss is the mean of the micro-batch mean losses and
-    grad_norm the norm of the f32 mean gradient."""
+    grad_norm the norm of the f32 mean gradient. Mask-frozen leaves keep their
+    f32 sums here: the norm of a mean cannot be folded micro-batch by
+    micro-batch."""
     _single_device(mesh)
 
     def grad_fn(params: LongVITAParams, batch: dict):
-        grads, loss, count = _backward(
+        grads, loss, count, _ = _backward(
             params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text
         )
         return {n: g.float() for n, g in grads.items()}, loss, count
@@ -165,7 +193,8 @@ def init_train_state(
     params: LongVITAParams, tx: AdamW, mesh=None
 ) -> TrainState:
     """The optimizer state for ``params`` at step 0 (train_step.py:267):
-    moments for every parameter that takes gradients (set requires_grad
-    first, utils/convert.set_requires_grad)."""
+    moments for every parameter that takes gradients and is not frozen by
+    the optimizer's mask (set requires_grad first,
+    utils/convert.set_requires_grad)."""
     _single_device(mesh)
     return TrainState(params, tx.init(params), 0)

@@ -14,6 +14,9 @@ caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
     with the codes transposed to ``[out, in]``, packed int4 entries
     ({kernel_p4, scale4}) as ``QuantDense4`` in the JAX layout; codes and
     scales keep their dtypes (``dtype`` casts only float weights);
+  - a projection's LoRA adapters ({"lora": {"a": [L, in, r], "b": [L, r,
+    out]}}) come across per layer as its ``LoraAdapter``, in the JAX layout
+    (the model applies them when its cfg's lora_r is set);
   - bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) travel as a
     ``uint16`` view and are reinterpreted as ``torch.bfloat16``, bit for bit.
 
@@ -42,6 +45,7 @@ from long_vita_tpu_torch.models.projector import ProjectorParams
 from long_vita_tpu_torch.models.qwen2 import (
     DecoderLayer,
     Dense,
+    LoraAdapter,
     QuantDense4,
     QuantDense8,
     Qwen2Params,
@@ -78,14 +82,8 @@ def params_from_jax(
     device = _target(device)
     tree = tree.get("text", tree)
     layers = tree["layers"]
-    for name, entry in layers.items():
-        if isinstance(entry, dict) and "lora" in entry:
-            raise NotImplementedError(
-                f"layers.{name} carries LoRA adapters; the port takes dense or "
-                "quantized kernels only (ROADMAP: port queue, training)"
-            )
     if "router" in layers:
-        raise NotImplementedError("MoE layers are ported later (ROADMAP: the rest)")
+        raise NotImplementedError("MoE layers are ported later (ROADMAP: multi-GPU)")
 
     def t(arr):
         return _tensor(arr, device, dtype)
@@ -98,11 +96,15 @@ def params_from_jax(
             return np.asarray(entry[key] if i is None else entry[key][i])
 
         b = t(at("bias")) if bias else None
+        lora = None
+        if "lora" in entry:  # a [in, r], b [r, out]: the layout the port keeps
+            ab = entry["lora"]
+            lora = LoraAdapter(t(ab["a"][i]), t(ab["b"][i]))
         if "kernel_q" in entry:  # codes [in, out] -> [out, in]
-            return QuantDense8(kept(at("kernel_q").T), kept(at("scale")), b)
+            return QuantDense8(kept(at("kernel_q").T), kept(at("scale")), b, lora)
         if "kernel_p4" in entry:
-            return QuantDense4(kept(at("kernel_p4")), kept(at("scale4")), b)
-        return Dense(t(at("kernel").T), b)  # [in, out] -> [out, in]
+            return QuantDense4(kept(at("kernel_p4")), kept(at("scale4")), b, lora)
+        return Dense(t(at("kernel").T), b, lora)  # [in, out] -> [out, in]
 
     n_layers = np.asarray(layers["input_norm"]).shape[0]
     out_layers = [

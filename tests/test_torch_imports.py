@@ -1,7 +1,9 @@
 """PyTorch port: it imports and serves text, media and int4 weights with JAX,
 the JAX package and PIL unavailable; its serving entry points (checkpoint
 I/O, front end, server, client, CLI) need none of JAX, PIL, OpenCV,
-transformers, safetensors or requests; and chip_smoke.py refuses to run
+transformers, safetensors or requests; its training entry point (the YAML
+recipe, the data modules, LoRA, metrics) needs none of JAX, optax, PIL,
+OpenCV, transformers or safetensors; and chip_smoke.py refuses to run
 without a GPU."""
 import os
 import re
@@ -125,6 +127,45 @@ for name in ("jax", "long_vita_tpu", "PIL", "cv2", "transformers", "safetensors"
 print("OK", repr(text))
 """
 
+_NO_JAX_RECIPE = """
+import json, sys, tempfile
+for name in ("jax", "long_vita_tpu", "PIL", "cv2", "transformers", "safetensors", "optax"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import torch, yaml
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.data import dataset, observability, prefetch, templates
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+from long_vita_tpu_torch.tokenizer import ByteTokenizer
+from long_vita_tpu_torch.training import lora, train
+from long_vita_tpu_torch.utils import export_hf, metrics
+import long_vita_tpu_torch.tokenizer as port_tokenizer
+
+tok = ByteTokenizer(endoftext=256, im_start=257, im_end=258, first_added=259)
+port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+root = tempfile.mkdtemp()
+cfg = tiny_test_config()
+export_hf.save_hf_checkpoint(init_long_vita_params(torch.Generator().manual_seed(0), cfg), cfg,
+                             root + "/ckpt")
+rows = [{"messages": [{"role": "user", "content": "q" * (5 + i)},
+                      {"role": "assistant", "content": "a" * (9 + i)}]} for i in range(12)]
+open(root + "/a.jsonl", "w").write("\\n".join(json.dumps(r) for r in rows))
+yaml.safe_dump({"dataset": {"A": {"data_paths": [root + "/a.jsonl"]}}}, open(root + "/c.yaml", "w"))
+yaml.safe_dump({
+    "model": {"checkpoint": root + "/ckpt", "dtype": "float32", "lora": {"r": 2, "alpha": 4}},
+    "data": {"corpus": root + "/c.yaml", "seq_len": 96, "logit_budget": 96},
+    "optim": {"lr": 1e-2, "freeze_vision": True},
+    "run": {"steps": 2, "remat": "flash", "output_dir": root + "/out"},
+}, open(root + "/r.yaml", "w"))
+out = train.main(["--config", root + "/r.yaml"], device="cpu")
+assert len(out["losses"]) == 2, out
+assert templates.render("chatml", [{"role": "user", "content": "x"}]).endswith("assistant\\n")
+loaded = [m for m, v in sys.modules.items() if v is not None]
+for name in ("jax", "long_vita_tpu", "PIL", "cv2", "transformers", "safetensors", "optax"):
+    assert not any(m == name or m.startswith(name + ".") for m in loaded), name
+print("OK", out["losses"])
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -147,6 +188,19 @@ def test_serving_entry_points_without_jax_pil_or_hf_packages():
     package, PIL, OpenCV, transformers, safetensors and requests blocked."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX_SERVE], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("OK ")
+
+
+def test_training_entry_point_without_jax_pil_or_hf_packages():
+    """The recipe entry (LoRA, remat "flash", output_dir) and the data,
+    templates, prefetch, observability and metrics modules import and run
+    with JAX, the JAX package, optax, PIL, OpenCV, transformers and
+    safetensors blocked."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_RECIPE], cwd=ROOT, env=_env(),
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr

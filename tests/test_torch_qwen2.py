@@ -70,13 +70,20 @@ def test_params_from_jax_layout_and_bf16_bits():
 
 def test_params_from_jax_refuses_quantized_entries():
     """Quantized serving trees now come across (tests/test_torch_quantize.py
-    holds them bit for bit); entries carrying LoRA adapters are still
-    refused, naming the queue item."""
+    holds them bit for bit), and so do entries carrying LoRA adapters: a
+    layer's slice of {"a": [L, in, r], "b": [L, r, out]} becomes the
+    projection's LoraAdapter in the same layout (tests/test_torch_lora.py
+    holds the adapted model to JAX's)."""
     cfg = tiny_test_config()
     p = _jax_params(cfg)
-    p["layers"]["q_proj"]["lora"] = {"a": np.zeros((2, 64, 4), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_from_jax(p, device="cpu")
+    rng = np.random.default_rng(0)
+    a, b = rng.standard_normal((2, 64, 4), np.float32), rng.standard_normal((2, 4, 64), np.float32)
+    p["layers"]["q_proj"]["lora"] = {"a": a, "b": b}
+    layers = params_from_jax(p, device="cpu").layers
+    for i in range(2):
+        assert torch.equal(layers[i].q_proj.lora.a, torch.from_numpy(a[i]))
+        assert torch.equal(layers[i].q_proj.lora.b, torch.from_numpy(b[i]))
+        assert layers[i].k_proj.lora is None
     p = _jax_params(cfg)
     entry = p["layers"]["q_proj"]
     kernel = np.asarray(entry.pop("kernel"))
