@@ -20,6 +20,18 @@ Phases (each raises on failure; the script then exits non-zero):
      matrix quantised on the card against numpy's quantisation, bit for bit);
      K2 is timed beside K1 over a bf16 cache of the same shape, K6 at 1 and
      512 rows beside torch.matmul on its dequantised weight;
+  2a. context parallelism's kernels (phase_cp_kernels): K1 on a ring's
+     diagonal and full chunk pairs and K4/K5 on the pair backward given the
+     lse and delta, at the decoder's 40/8 heads and C = 8192 (64K tokens
+     over cp 4), without and with T1's packed segments; K1 and K2 on the cp
+     cache's partials against 16384-slot shards, one valid to mid-shard and
+     one with no valid slot; each against its plain version;
+  2b. ring (plain and window 2), Ulysses and hybrid attention over 4
+     thread-ranks on the card (phase_cp_attention; parallel/comm.ThreadComm,
+     the ranks threads of this process sharing the card), forward and
+     backward at op level on 64K tokens, without and with T1's segments,
+     each against K1 and K4/K5 over the whole unpermuted sequence (o, lse,
+     dq, dk, dv);
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
      bf16 weights from a seeded generator) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
@@ -38,6 +50,14 @@ Phases (each raises on failure; the script then exits non-zero):
      counts of K1, K2 and K3 are checked against the layers and chunks the
      requests need; the video's last-row logits and its encoded features are
      held against the same flow on the plain versions;
+  5b. cp serving (phase_cp_serve): the same decoder in an InferenceEngine
+     over a cp mesh of 4 thread-ranks (a 65536-slot cache, 16384 a rank,
+     chunk 2048): a 60000-id prompt and 16 greedy tokens with a bf16 cache,
+     again with an int8 cache (K2), and a 16-frame video through the
+     tile-sharded encode (K3 on each rank's 4 tiles), each against a
+     one-device engine on the same weights fed the cp engine's tokens
+     (every step's logits; each cp pick the one-device argmax up to a
+     rounding tie);
   6. the port's serving entry points on a checkpoint it writes and reads:
      the decoder with a random InternViT-300M and projector exported as a
      *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
@@ -78,12 +98,29 @@ Phases (each raises on failure; the script then exits non-zero):
      merge_lora under the logit gate, and save_lora -> load_lora bit for
      bit.
 
+  10. cp over NCCL (phase_cp_nccl), only where torch.cuda.device_count() >=
+     2: two processes, a GPU each: ring attention forward and backward
+     through autograd at 64K tokens against K1 and K4/K5 on the whole
+     sequence, and two Trainer steps at cp 2 (full width, the decoder cut
+     to 4 layers) against cp 1. On one GPU it prints {"phase": "cp_nccl",
+     "ran": false, "devices": 1} and does nothing else. ``python3
+     chip_smoke.py --nccl-only`` builds the kernels and runs this phase
+     alone.
+
+Thread-ranks share one card: their times are no multi-GPU scaling, and
+autograd runs all CUDA backward work of a device on one thread, so the
+cp backward runs at op level there and training over cp runs only over
+NCCL processes. phase_autograd_probe, after the training phases, shows it:
+two thread-ranks whose backward passes meet complete on the CPU and time
+out on the card.
+
 The card's nvidia-smi line is the first line of stdout and is repeated
 before the last two, which are the kernel report and {"ok": true, "device":
 {...}}. Without a CUDA device the script exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -93,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SEED = 0
@@ -2408,6 +2446,761 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
     return counts
 
 
+# ---------------------------------------------------------------------------
+# context parallelism: thread-ranks on one card (parallel/comm.ThreadComm)
+# ---------------------------------------------------------------------------
+
+CP = 4  # thread-ranks of the cp phases (one card: they share it)
+CP_SEQ = 65536  # tokens of the cp attention phases: zigzag chunks of 8192
+CP_TIMEOUT = 900.0  # seconds any one wait of a thread-rank may take
+THREADS_NOTE = "4 thread-ranks on one card, not a multi-GPU time"
+# cp attention vs K1 over the whole sequence. With N(0, 1) q, k, v a row
+# that attends n keys has |o| ~ sqrt(e / n), about 0.01 over most of a 64K
+# causal sequence, where O_ATOL alone would pass an output that is wrong: o
+# is held to CP_O_RMS_FRAC x RMS(ref) absolute + O_RTOL x |ref|, and the
+# merged f32 lse to LSE_ATOL.
+CP_O_RMS_FRAC = 0.1
+
+
+def _cp_rand(dev, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    return rnd
+
+
+def _by_head(fn, q, kvs, hkv, **kw):
+    """A plain attention function one kv head's GQA group at a time (the f32
+    logits of an 8192 x 8192 pair would not fit for 40 heads at once): fn(q
+    of the group, *each of kvs at the kv head) -> (o, lse) of the whole."""
+    import torch
+
+    g = q.shape[2] // hkv
+    o = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
+    for h in range(hkv):
+        hq = slice(h * g, (h + 1) * g)
+        o[:, :, hq], lse[:, hq] = fn(q[:, :, hq], *(t[:, :, h:h + 1] for t in kvs), **kw)
+    return o, lse
+
+
+def _plain_pair_bwd(q, k, v, do, lse, delta, hkv, **kw):
+    """The plain backward given lse and delta, a kv head's group at a time."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    g = q.shape[2] // hkv
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for h in range(hkv):
+        hq, hk = slice(h * g, (h + 1) * g), slice(h, h + 1)
+        dq[:, :, hq], dk[:, :, hk], dv[:, :, hk] = fa.flash_attention_bwd_reference(
+            q[:, :, hq], k[:, :, hk], v[:, :, hk], None, lse[:, hq], do[:, :, hq],
+            delta=delta[:, hq], **kw)
+    return dq, dk, dv
+
+
+def phase_cp_kernels(*, c=CP_SEQ // (2 * CP), shard=16384, q_rows=2048, heads=(40, 8),
+                     d=128, dev=None, seg=None) -> dict:
+    """K1, K2, K4 and K5 at the shapes context parallelism gives them, each
+    against its plain version (a kv head's group at a time):
+      - a ring's pairs at C = 8192 (64K tokens over cp 4), the decoder's
+        40/8 heads: K1 on the causal diagonal pair and on a full pair
+        (ops/attention_pair.pair_attn_fwd), K4 on the pair backward given
+        the lse and delta (pair_attn_bwd: K4 by JAX's rule at this shape)
+        and K5 forced on the same; without segments and with T1's packed
+        segments at 64K zigzagged over cp 4 (rank 1's chunks 1 and 6: the
+        full pair's q chunk shares no segment with its kv chunk, so every
+        row is the merge identity, o = 0 and lse = -2^30, and no tile runs);
+      - the cp cache's partials (ops/cp_cache_attention.local_partial) of a
+        2048-row chunk at position 30000 against shards of 16384 slots: rank
+        1's (valid to 15664, mid-shard) and rank 2's (no valid slot: o = 0,
+        lse = -2^30, no NaN), K1 on a bf16 shard and K2 on an int8 shard.
+    Timed: K1 on the diagonal pair and K4 on its backward, and the host time
+    of the backward's tile plans (bwd_seg_ranges, bwd_tile_order) on a
+    segmented pair. -> {kernel: max |err|}."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.models.qwen2 import quantize_kv
+    from long_vita_tpu_torch.ops import attention_pair as ap
+    from long_vita_tpu_torch.ops import cp_cache_attention as cc
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.ops.flash_attention import NEG_INF
+    from long_vita_tpu_torch.parallel.zigzag import zigzag_permute
+
+    dev = dev or torch.device("cuda")
+    hq, hkv = heads
+    rnd = _cp_rand(dev, SEED + 20)
+    q, k, v, do = rnd(1, 2 * c, hq, d), rnd(1, 2 * c, hkv, d), rnd(1, 2 * c, hkv, d), rnd(1, 2 * c, hq, d)
+    if seg is None:  # T1's packed layout
+        seg = _train_segments(2 * CP * c, (64, 16), (2, 3), dev)
+    seg = zigzag_permute(seg, CP)[:, 2 * c:4 * c]  # rank 1: chunks 1 and 2cp - 2
+    errs = {"flash_fwd": [], "flash_fwd_quant": [], "flash_bwd": [], "flash_bwd_dkv": []}
+    q_a, q_b, k_a, v_a = q[:, :c], q[:, c:], k[:, :c], v[:, :c]
+    g_a, g_b = do[:, :c], do[:, c:]
+    for segs in (False, True):
+        s_a, s_b = (seg[:, :c], seg[:, c:]) if segs else (None, None)
+        tag = "T1 segments" if segs else "no segments"
+        for name, qx, gx, qs, causal in (("diagonal", q_a, g_a, s_a, True),
+                                         ("full", q_b, g_b, s_b, False)):
+            kw = dict(causal=causal, q_segment_ids=qs, kv_segment_ids=s_a)
+            holder = {}
+
+            def kernel():
+                holder["o"], holder["lse"] = ap.pair_attn_fwd(qx, k_a, v_a, **kw)
+                return holder["o"], holder["lse"]
+
+            errs["flash_fwd"].append(_pair_case(
+                f"cp pair K1 {name} C={c} {hq}/{hkv} heads, {tag}", kernel,
+                lambda: _by_head(fa.flash_attention_reference, qx, (k_a, v_a), hkv, **kw),
+                fa.flash_attention))
+            o, lse = holder["o"], holder["lse"]
+            empty = int((lse == NEG_INF).sum().item())
+            if segs and name == "full":
+                print(f"[cp-kernel] full pair with T1 segments: {empty} of {lse.numel()} "
+                      f"(row, head) entries see no key (the merge identity)")
+                if not bool((o == 0).all()):
+                    raise AssertionError("a pair whose segments do not meet must give o = 0")
+            delta = (gx.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            ref = _plain_pair_bwd(qx, k_a, v_a, gx, lse, delta, hkv, **kw)
+            for entry, fused in (("flash_bwd", True), ("flash_bwd_dkv", False)):
+                counter = fa.flash_bwd_fused if fused else fa.flash_bwd_dkv
+                before = counter.launches
+                if fused:
+                    got = ap.pair_attn_bwd(qx, k_a, v_a, gx, lse, delta, **kw)
+                    if not fa.bwd_uses_fused(1, c, c, hq, d, 2):
+                        raise AssertionError("JAX's rule was expected to pick K4 at this pair")
+                else:
+                    got = fa._flash_bwd_cuda(qx, k_a, v_a, None, lse, gx, causal, 0, 0, c,
+                                             qs, s_a, False, delta=delta)
+                torch.cuda.synchronize()
+                if counter.launches != before + 1:
+                    raise AssertionError(f"[{entry}] launch count did not rise by 1")
+                errs[entry].append(max(_grad_errs(
+                    f"cp pair {'K4 (pair_attn_bwd)' if fused else 'K5 (forced)'} {name} "
+                    f"given lse/delta, {tag}", got, ref)))
+            del ref
+    # timings: K1 on the diagonal pair, K4 on its backward, the tile plans
+    kw = dict(causal=True, q_segment_ids=seg[:, :c], kv_segment_ids=seg[:, :c])
+    o, lse = ap.pair_attn_fwd(q_a, k_a, v_a, **kw)
+    delta = (g_a.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    fwd_ms = _queued_ms([lambda: ap.pair_attn_fwd(q_a, k_a, v_a, causal=True)], reps=10)
+    bwd_ms = _cuda_ms(lambda: ap.pair_attn_bwd(q_a, k_a, v_a, g_a, lse, delta, causal=True), reps=5)
+    fa.bwd_operands(q_a, k_a, v_a, None, lse, g_a, True, 0, 0, c, kw["q_segment_ids"],
+                    kw["kv_segment_ids"], True, delta=delta)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(20):
+        t = time.perf_counter()
+        fa.bwd_operands(q_a, k_a, v_a, None, lse, g_a, True, 0, 0, c, kw["q_segment_ids"],
+                        kw["kv_segment_ids"], True, delta=delta)
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    plan_ms = statistics.median(host)
+    pairs = c * (c + 1) // 2  # the diagonal pair's unmasked (q, k) pairs
+    fwd_bound = _bound(2 * 2 * (2 * q_a.numel() + 2 * k_a.numel()) + 4 * c * hq,
+                       4 * hq * d * pairs)
+    bwd_bound = _bound(2 * 2 * (3 * q_a.numel() + 4 * k_a.numel()) + 8 * c * hq,
+                       10 * hq * d * pairs)
+    print(f"[cp-kernel] C={c} pair: K1 diagonal {fwd_ms:.3f} ms (queued; bound "
+          f"{fwd_bound['bound_ms']:.3f} ms, {fwd_bound['bound_by']}), K4 pair backward "
+          f"{bwd_ms:.3f} ms (CUDA events; bound {bwd_bound['bound_ms']:.3f} ms, "
+          f"{bwd_bound['bound_by']}); the backward's operands with segments (tile ranges, "
+          f"the heaviest-first kv tile order, the padded ids) take {plan_ms:.3f} ms of host time "
+          f"a pair call, and a ring of cp {CP} makes 2 x cp + 1 = {2 * CP + 1} pair calls a "
+          f"layer a rank in each direction")
+
+    # ---- cp-cache partials: a chunk of q_rows at position 30000 (at a
+    # small rehearsal size: the last shard's start minus half a chunk)
+    qo = 30000 if shard == 16384 else shard + shard // 2
+    qc = rnd(1, q_rows, hq, d)
+    ck, cv = rnd(1, shard, hkv, d), rnd(1, shard, hkv, d)
+    kq, ks = quantize_kv(ck)
+    vq, vs = quantize_kv(cv)
+    for rank in (1, 2):
+        start = rank * shard
+        valid = min(max(qo + q_rows - start, 0), shard)
+        kw = dict(q_offset=qo, kv_offset=start, kv_valid_len=valid)
+        name = f"rank {rank} shard [{start}, {start + shard}) valid {valid}"
+        errs["flash_fwd"].append(_pair_case(
+            f"cp cache K1 partial, chunk {q_rows} @{qo}, {name}",
+            lambda: cc.local_partial(qc, ck, cv, qo, start, valid),
+            lambda: _by_head(fa.flash_attention_reference, qc, (ck, cv), hkv, causal=True, **kw),
+            fa.flash_attention))
+        errs["flash_fwd_quant"].append(_pair_case(
+            f"cp cache K2 partial (int8 shard), chunk {q_rows} @{qo}, {name}",
+            lambda: cc.local_partial(qc, kq, vq, qo, start, valid, ks, vs),
+            lambda: _by_head(fa.flash_attention_quant_reference, qc, (kq, ks, vq, vs), hkv, **kw),
+            fa.flash_attention_quant))
+        if valid == 0:
+            for quant in (False, True):
+                o, lse = cc.local_partial(qc, kq if quant else ck, vq if quant else cv, qo,
+                                          start, 0, *((ks, vs) if quant else ()))
+                if not (bool((o == 0).all()) and bool((lse == NEG_INF).all())):
+                    raise AssertionError("a shard with no valid slot must give o = 0, lse = -2^30")
+            print(f"[cp-kernel] {name}: K1 and K2 give o == 0 and lse == -2^30 (no NaN) ok")
+    return {name: max(v) for name, v in errs.items()}
+
+
+def _cp_layout(algo: str, inner: int) -> int:
+    """The zigzag factor of a cp layout: cp (ring), 1 (Ulysses), the ring
+    groups (hybrid)."""
+    return {"ring": CP, "ulysses": 1, "hybrid": CP // inner}[algo]
+
+
+def _cp_global_lse(algo: str, inner: int, parts: list):
+    """The lse [B, Hq, S] of the whole unpermuted sequence from each rank's:
+    the ring's [B, Hq, S/cp] of its zigzag shard; Ulysses' [B, Hq/cp, S] of
+    its head group; hybrid's [B, Hq/inner, S/groups] of its lane's head
+    group over its ring group's zigzag shard."""
+    import torch
+
+    from long_vita_tpu_torch.parallel.zigzag import zigzag_unpermute
+
+    if algo == "ulysses":
+        return torch.cat(parts, 1)
+    if algo == "hybrid":
+        parts = [torch.cat(parts[g:g + inner], 1) for g in range(0, CP, inner)]
+    return zigzag_unpermute(torch.cat(parts, 2), _cp_layout(algo, inner), axis=2)
+
+
+def _cp_expected(algo, inner, s, hq, d) -> dict:
+    """Launches of one op-level forward and backward over CP ranks: a ring of
+    n ranks makes 2n + 1 pair calls a rank each way (K4 or K5 by JAX's rule
+    at the pair's shape); Ulysses one whole-sequence call a rank."""
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    if algo == "ulysses":
+        calls, sq, heads = 1, s, hq // CP
+    else:
+        ring = CP if algo == "ring" else CP // inner
+        calls, sq, heads = 2 * ring + 1, s // (2 * ring), hq // (CP // ring)
+    fused = fa.bwd_uses_fused(1, sq, sq, heads, d, 2)
+    n = CP * calls
+    return {"flash_fwd": n, "flash_bwd": n if fused else 0,
+            "flash_bwd_dkv": 0 if fused else n, "flash_bwd_dq": 0 if fused else n}
+
+
+def phase_cp_attention(*, s=CP_SEQ, heads=(40, 8), d=128, dev=None, seg=None) -> dict:
+    """Ring (plain, and the double ring at window 2), Ulysses and hybrid
+    (inner 2) attention over CP thread-ranks on the card, forward and
+    backward at op level (ring_fwd / ring_bwd, ulysses_fwd / _bwd,
+    hybrid_fwd / _bwd, called directly on each thread-rank: autograd's one
+    CUDA device thread would deadlock ranks whose backward passes wait for
+    each other), on a 64K-token sequence zigzagged for the layout, without
+    and with T1's packed segments. Each is held to K1 and K4/K5 over the
+    whole unpermuted sequence: o to CP_O_RMS_FRAC x RMS(ref) + O_RTOL x
+    |ref| (the ring merges o in bf16, as JAX merges in q's dtype), the lse
+    (the ring's merged one; Ulysses' and hybrid's of their head groups) to
+    LSE_ATOL, dq, dk, dv to GRAD_TOL.
+    -> launch counts of the cp runs (the whole-sequence references excluded)."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.ops.hybrid_cp import hybrid_bwd, hybrid_fwd
+    from long_vita_tpu_torch.ops.ring_attention import ring_bwd, ring_fwd
+    from long_vita_tpu_torch.ops.ulysses import ulysses_bwd, ulysses_fwd
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+    from long_vita_tpu_torch.parallel.zigzag import zigzag_permute, zigzag_unpermute
+
+    dev = dev or torch.device("cuda")
+    hq, hkv = heads
+    rnd = _cp_rand(dev, SEED + 21)
+    q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
+    if seg is None:  # T1's packed layout
+        seg = _train_segments(s, (64, 16), (2, 3), dev)
+    refs = {}
+    for segs in (False, True):
+        kw = dict(causal=True, q_segment_ids=seg if segs else None,
+                  kv_segment_ids=seg if segs else None)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        refs[segs] = (o, *fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), lse)
+    total = dict.fromkeys(SOURCES, 0)
+    n = s // CP
+    configs = (("ring", "ring", 0, 1), ("ring window 2", "ring", 2, 1),
+               ("ulysses", "ulysses", 0, 1), ("hybrid inner 2", "hybrid", 0, 2))
+    for name, algo, window, inner in configs:
+        z = _cp_layout(algo, inner)
+        for segs in (False, True):
+            qz, kz, vz, dz = (zigzag_permute(x, z) for x in (q, k, v, do))
+            sz = zigzag_permute(seg, z) if segs else None
+
+            def rank(comm):
+                sl = slice(comm.rank * n, (comm.rank + 1) * n)
+                ql, kl, vl, dl = qz[:, sl], kz[:, sl], vz[:, sl], dz[:, sl]
+                sg = sz[:, sl] if segs else None
+                comm.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if algo == "ring":
+                    o, lse = ring_fwd(ql, kl, vl, comm, sg, sg, window)
+                elif algo == "ulysses":
+                    o, res = ulysses_fwd(ql, kl, vl, comm, sg, sg)
+                    lse = res[4]
+                else:
+                    o, res = hybrid_fwd(ql, kl, vl, comm, inner, sg, sg, window)
+                    lse = res[4]
+                torch.cuda.synchronize()
+                comm.barrier()
+                t1 = time.perf_counter()
+                if algo == "ring":
+                    grads = ring_bwd(ql, kl, vl, o, lse, dl, comm, sg, sg, window)
+                elif algo == "ulysses":
+                    grads = ulysses_bwd(res, dl, comm)
+                else:
+                    grads = hybrid_bwd(res, dl, comm, inner, window)
+                torch.cuda.synchronize()
+                comm.barrier()
+                return (o, *grads, lse, t1 - t0, time.perf_counter() - t1)
+
+            _reset_counts()
+            res = run_thread_ranks(rank, CP, timeout=CP_TIMEOUT)
+            counts = _read_counts()
+            for key in total:
+                total[key] += counts[key]
+            got = [zigzag_unpermute(torch.cat([r[i] for r in res], 1), z) for i in range(4)]
+            got.append(_cp_global_lse(algo, inner, [r[4] for r in res]))
+            t_fwd, t_bwd = max(r[5] for r in res), max(r[6] for r in res)
+            del res[:]
+            ref = refs[segs]
+            tag = f"cp attention {name}, cp {CP}, {s} tokens, {'T1 segments' if segs else 'no segments'}"
+            ro = ref[0].float()
+            atol = CP_O_RMS_FRAC * ro.square().mean().sqrt().item()
+            err = (got[0].float() - ro).abs()
+            worst = (err / (atol + O_RTOL * ro.abs())).max().item()
+            lse_err = (got[4] - ref[4]).abs().max().item()
+            ok = worst <= 1 and lse_err <= LSE_ATOL and bool(torch.isfinite(got[0].float()).all())
+            print(f"[cp-attn] {tag}: max|o-ref| {err.max().item():.3e}, worst err / tol {worst:.3f} "
+                  f"(tol {atol:.3e} = {CP_O_RMS_FRAC} x RMS(ref) + {O_RTOL} x |ref|), max|lse-ref| "
+                  f"{lse_err:.3e} (tol {LSE_ATOL}), vs K1 over the whole sequence "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[{tag}] forward disagrees with K1 over the whole sequence")
+            _grad_errs(f"{tag} (vs K4/K5 over the whole sequence)", got[1:4], ref[1:4])
+            print(f"[cp-attn] {tag}: forward {t_fwd * 1e3:.1f} ms, backward {t_bwd * 1e3:.1f} ms "
+                  f"(wall, {THREADS_NOTE})")
+            _check_launches(counts, _cp_expected(algo, inner, s, hq, d))
+            del got
+    return total
+
+
+@contextlib.contextmanager
+def _sampling_tap(forced=None):
+    """Within the block, inference.engine's sample records each call's f32
+    logits (row 0) and the token it returns, in a list per thread; with
+    ``forced`` (a list of token tensors) the i-th call of a thread returns
+    forced[i] instead (teacher forcing). -> {thread id: [(logits, token)]}."""
+    import threading
+
+    from long_vita_tpu_torch.inference import engine as engine_mod
+
+    real, seen = engine_mod.sample, {}
+
+    def tap(logits, gen, sp):
+        steps = seen.setdefault(threading.get_ident(), [])
+        tok = real(logits, gen, sp)
+        if forced is not None:
+            if len(steps) >= len(forced):
+                raise AssertionError("the forced run samples more steps than the cp run")
+            tok = forced[len(steps)].clone()
+        steps.append((logits[0].float().clone(), tok.clone()))
+        return tok
+
+    engine_mod.sample = tap
+    try:
+        yield seen
+    finally:
+        engine_mod.sample = real
+
+
+def _forced_steps_check(tag, got, want) -> None:
+    """The cp engine's steps ``got`` against the one-device engine's ``want``
+    when it is fed the cp engine's tokens (each a list of (logits, token)).
+    Every step's f32 logits pass the logit gate (LOGIT_COS; max |diff| <=
+    LOGIT_SPREAD_FRAC x spread), and each cp pick is the one-device logits'
+    argmax or lies within LOGIT_SPREAD_FRAC x spread of it there (a rounding
+    tie: the two paths round their products apart, and random weights leave
+    near-ties)."""
+    import torch.nn.functional as F
+
+    if len(got) != len(want):
+        raise AssertionError(f"[{tag}] {len(got)} cp steps vs {len(want)} forced steps")
+    worst_cos, worst_diff, worst_gap, ties, ok = 1.0, 0.0, 0.0, [], True
+    for i, ((g, pick), (w, _)) in enumerate(zip(got, want)):
+        spread = (w.max() - w.min()).item()
+        cos = F.cosine_similarity(g, w, dim=-1).item()
+        diff = (g - w).abs().max().item() / spread
+        mine, pick = int(w.argmax()), int(pick[0])
+        gap = (w[mine] - w[pick]).item() / spread
+        if mine != pick:
+            ties.append((i, round(gap, 5)))
+        worst_cos, worst_diff, worst_gap = min(worst_cos, cos), max(worst_diff, diff), max(
+            worst_gap, gap)
+        ok = ok and cos >= LOGIT_COS and diff <= LOGIT_SPREAD_FRAC and gap <= LOGIT_SPREAD_FRAC
+    print(f"[{tag}] {len(got)} steps, the one-device engine fed the cp engine's tokens: worst "
+          f"cosine {worst_cos:.6f} (>= {LOGIT_COS}), worst max|diff| {worst_diff:.4f} x spread "
+          f"(<= {LOGIT_SPREAD_FRAC}); steps whose cp pick is not the one-device argmax (step, "
+          f"gap / spread): {ties} (<= {LOGIT_SPREAD_FRAC}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] a decode step of the cp engine disagrees with the "
+                             "one-device engine fed the same tokens")
+
+
+def phase_cp_serve(params, cfg, dev, *, max_seq=65536, chunk=2048, n_prompt=60000,
+                   new_tokens=16, short_tokens=4, n_frames=16, video_max_seq=16384,
+                   vision_chunk=64) -> dict:
+    """The 14B (full width and depth, the serving phases' random bf16
+    weights, shared by the thread-ranks) served by an InferenceEngine over a
+    cp mesh of CP thread-ranks, each rank holding max_seq // CP cache slots:
+    a 60000-id prompt (its last chunk partial) and 16 greedy tokens with a
+    bf16 cache, then with an int8 cache (K2), then a 16-frame video through
+    the tile-sharded encode (each rank's 4 tiles through K3); the last two
+    decode 4 tokens (short_tokens: every thread-rank runs the whole decode
+    step, 1.7-2.6 s a token on one card). Each against a one-device engine
+    on the same weights, run after it and fed the cp engine's tokens
+    (teacher forcing, so that a near-tie does not end the check): every
+    step's f32 logits (cosine and max |diff|, the prefill's last row and
+    each decode step's) and each cp pick against the one-device argmax (up
+    to a rounding tie). Launch counts of the cp runs are checked (K1 or K2: a
+    launch per rank, layer and chunk; K3 a launch per rank and tower layer).
+    TTFT and ms/token are 4 thread-ranks on one card.
+    -> launch counts of the cp generate calls."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    tc = cfg.text
+    rng = np.random.default_rng(SEED + 30)
+    vocab = min(tc.vocab_size, 151643)
+    total = dict.fromkeys(SOURCES, 0)
+
+    def generate(eng, prompt, videos, sp):
+        """eng.generate -> (result, TTFT s, decode ms/token); TTFT ends when
+        the engine has sampled the first token."""
+        head, seen = eng._head_sample, {}
+
+        def timed(hidden, gen, sampling):
+            out = head(hidden, gen, sampling)
+            if "t" not in seen:
+                torch.cuda.synchronize()
+                seen["t"] = time.perf_counter()
+            return out
+
+        eng._head_sample = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(input_ids=prompt, videos=videos, sampling=sp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = len(out.token_ids)
+        return out, seen["t"] - t0, (t1 - seen["t"]) / max(n - 1, 1) * 1e3
+
+    def serve(tag, model, prompt, *, kv_quant=False, seq=max_seq, videos=(), mm=None,
+              expected=None, tokens=new_tokens):
+        mm = mm or _StubMM()
+        sp = SamplingParams(max_new_tokens=tokens)
+        kw = dict(max_seq_len=seq, chunk=chunk, kv_quant=kv_quant, vision_chunk=vision_chunk)
+        one = InferenceEngine(model, cfg, mm, **kw)
+        n_ids = len(mm.expand(prompt, videos=videos).input_ids)
+
+        def rank(comm):
+            eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(cp=CP), comm), **kw)
+            if eng._make_cache(1, seq).k.shape[2] != seq // CP:
+                raise AssertionError("a rank must hold slots // cp cache slots")
+            comm.barrier()
+            if comm.rank == 0:
+                _reset_counts()
+            comm.barrier()
+            out, ttft, ms = generate(eng, prompt, videos, sp)
+            comm.barrier()
+            counts = _read_counts() if comm.rank == 0 else None
+            return seen[threading.get_ident()], out.token_ids, ttft, ms, counts
+
+        with _sampling_tap() as seen:
+            res = run_thread_ranks(rank, CP, timeout=CP_TIMEOUT)
+        steps, tokens, ttft, ms, counts = res[0]
+        if any(r[1] != tokens or len(r[0]) != len(steps) or not all(
+                torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r[0], steps))
+               for r in res):
+            raise AssertionError(f"[{tag}] the thread-ranks sampled different tokens or logits")
+        del res
+        # teacher forcing: the one-device engine fed the cp engine's picks
+        with _sampling_tap(forced=[t for _, t in steps]) as seen_one:
+            ref_out, ttft1, ms1 = generate(one, prompt, videos, sp)
+        ref_steps = next(iter(seen_one.values()))
+        ok = all(bool(torch.isfinite(g).all()) for g, _ in steps) and _logit_check(
+            tag, f"cp {CP} engine vs the one-device engine", steps[0][0], ref_steps[0][0])
+        if not ok or ref_out.token_ids != tokens:
+            raise AssertionError(f"[{tag}] cp engine logits disagree with the one-device engine")
+        _forced_steps_check(tag, steps, ref_steps)
+        print(f"[{tag}] {n_ids} prompt tokens, {len(tokens)} greedy tokens {tokens[:8]} ...: cp "
+              f"{CP} TTFT {ttft:.3f} s, decode {ms:.1f} ms/token ({THREADS_NOTE}); the "
+              f"one-device engine (fed the cp tokens, after the cp run) TTFT {ttft1:.3f} s, "
+              f"decode {ms1:.1f} ms/token")
+        _check_launches(counts, expected(n_ids))
+        for key in total:
+            total[key] += counts[key]
+        del one
+
+    chunks = lambda n: -(-n // chunk)  # noqa: E731
+    layers = tc.num_hidden_layers
+    prompt = rng.integers(0, vocab, n_prompt).tolist()
+    serve("cp-serve bf16 cache", params, prompt,
+          expected=lambda n: {"flash_fwd": CP * layers * chunks(n)})
+    _collect("after the bf16 cp engines")
+    serve("cp-serve int8 cache", params, prompt, kv_quant=True, tokens=short_tokens,
+          expected=lambda n: {"flash_fwd_quant": CP * layers * chunks(n)})
+    _collect("after the int8 cp engines")
+    vc = cfg.vision
+
+    def tiles(n):
+        return rng.standard_normal((n, vc.image_size, vc.image_size, 3), dtype=np.float32)
+
+    lv, _ = _vlm_params(params, cfg, dev, SEED + 1, tiles(2))
+    video = tiles(n_frames)
+    per_rank = -(-n_frames // CP)
+    serve("cp-serve video", lv, [*rng.integers(0, vocab, 20).tolist(), VID_TAG,
+                                 *rng.integers(0, vocab, 20).tolist()],
+          seq=video_max_seq, videos=[video], mm=_StubMM(cfg.image_token_length),
+          tokens=short_tokens,
+          expected=lambda n: {"flash_fwd": CP * layers * chunks(n),
+                              "short_attn": CP * vc.num_hidden_layers * -(-per_rank // vision_chunk)})
+    del lv
+    return total
+
+
+def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
+    """Whether two thread-ranks can run backward passes that wait for each
+    other on ``device``. Each thread builds a graph through a Function whose
+    backward meets the other rank in an all_reduce_sum, then calls
+    backward. On the CPU the engine runs a backward on the calling thread;
+    on CUDA it runs every device's backward work on one worker thread per
+    device, so the second rank's backward would queue behind the first
+    one's wait (until the wait's timeout breaks it).
+    -> {"completed": bool, "seconds": wall time, "error": str or None}."""
+    import torch
+
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+
+    class _Meet(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, comm):
+            ctx.comm = comm
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            return ctx.comm.all_reduce_sum(g), None
+
+    def rank_fn(comm):
+        x = torch.ones(4, device=device, requires_grad=True)
+        _Meet.apply(x, comm).sum().backward()
+        return x.grad.sum().item()
+
+    t0 = time.perf_counter()
+    try:
+        done, err = run_thread_ranks(rank_fn, 2, timeout=timeout,
+                                     join_timeout=3 * timeout) == [8.0, 8.0], None
+    except (TimeoutError, RuntimeError) as e:  # a broken wait, raised inside a backward
+        done, err = False, repr(e)
+    return {"completed": done, "seconds": time.perf_counter() - t0, "error": err}
+
+
+def phase_autograd_probe(timeout: float = 10.0) -> None:
+    """Why the cp backward runs at op level on thread-ranks: two thread-
+    ranks whose backward passes wait for each other (autograd_thread_probe)
+    on the CPU and on the card. Run last, after every training phase: on
+    the card the probe's waits time out inside autograd's device thread."""
+    for device in ("cpu", "cuda"):
+        res = autograd_thread_probe(device, timeout=timeout)
+        print(f"[autograd] two thread-ranks whose backward passes meet, on {device}: "
+              f"{'completed' if res['completed'] else 'did not complete'} in "
+              f"{res['seconds']:.2f} s (wait timeout {timeout} s; {res['error']})")
+
+
+def _cp_nccl_worker(rank, world, init, out, sizes):
+    """One NCCL process (a GPU each) of phase_cp_nccl; gloo on the CPU when
+    sizes["device"] is "cpu" (the rehearsal). Puts (rank, results or the
+    error) on ``out``."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    try:
+        from long_vita_tpu_torch.config import long_vita_14b, tiny_test_config
+        from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+        from long_vita_tpu_torch.ops import flash_attention as fa
+        from long_vita_tpu_torch.ops.ring_attention import ring_attention
+        from long_vita_tpu_torch.parallel.comm import init_process_group
+        from long_vita_tpu_torch.parallel.zigzag import zigzag_permute, zigzag_unpermute
+        from long_vita_tpu_torch.training.loss import collate_packs
+        from long_vita_tpu_torch.training.optimizer import OptimizerConfig
+        from long_vita_tpu_torch.training.trainer import MeshConfig, Trainer, TrainerConfig
+
+        cpu = sizes["device"] == "cpu"
+        comm = init_process_group(rank, world, init, backend="gloo" if cpu else "nccl",
+                                  timeout=CP_TIMEOUT)
+        dev = torch.device("cpu") if cpu else torch.device("cuda", rank)
+        res = {}
+        # ---- ring attention, forward and backward through autograd (each
+        # process has its own device thread) vs K1 + K4/K5 on the whole
+        s, (hq, hkv), d = sizes["seq"], sizes["heads"], sizes["d"]
+        rnd = _cp_rand(dev, SEED + 40)
+        q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
+        if cpu:
+            q, k, v, do = (x.float() for x in (q, k, v, do))
+        n = s // world
+        qz, kz, vz, dz = (zigzag_permute(x, world)[:, rank * n:(rank + 1) * n].clone()
+                          for x in (q, k, v, do))
+        leaves = [x.requires_grad_() for x in (qz, kz, vz)]
+        for _ in range(2):  # the first call also sets up the NCCL communicators
+            for x in leaves:
+                x.grad = None
+            comm.barrier()
+            t0 = time.perf_counter()
+            o = ring_attention(*leaves, comm)
+            o.backward(dz)
+            if not cpu:
+                torch.cuda.synchronize()
+            res["ring_s"] = time.perf_counter() - t0
+        got = [comm.all_gather(x.detach().contiguous(), 1) for x in (o, *(x.grad for x in leaves))]
+        got = [zigzag_unpermute(x, world) for x in got]
+        ro, rlse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ref = (ro, *fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=True))
+        res["ring_err"] = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+        res["ring_scale"] = [b.float().abs().max().item() for b in ref]
+        del q, k, v, do, got, ref, leaves, o
+        # ---- two Trainer steps at cp 2 vs cp 1, the decoder cut to
+        # sizes["layers"] layers at full width, a frozen random tower
+        cfg = long_vita_14b() if not cpu else tiny_test_config()
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, num_hidden_layers=sizes["layers"]))
+        dtype = torch.float32 if cpu else torch.bfloat16
+        base = init_long_vita_params(torch.Generator(device=dev).manual_seed(SEED + 41), cfg,
+                                     dtype, dev)
+        rng = np.random.default_rng(SEED + 42)
+        vc = cfg.vision
+        tiles = rng.standard_normal((7, vc.image_size, vc.image_size, 3)).astype(np.float32)
+        pack = _train_pack(cfg, sizes["train_seq"], [], [(tiles, (2, 3))], rng,
+                           text_segments=4, answer=sizes["answer"], text_sup=sizes["answer"])
+        optim = OptimizerConfig(lr=1e-5, warmup_steps=0, total_steps=10, freeze_vision=True)
+
+        def train(cp, comm_):
+            tr = Trainer(copy.deepcopy(base), cfg, TrainerConfig(
+                seq_len=sizes["train_seq"], logit_budget=sizes["budget"], steps=2,
+                remat=True, vision_chunk=64, optim=optim, mesh=MeshConfig(cp=cp)), comm=comm_)
+            norms, step_fn = [], tr.step_fn
+
+            def logged(state, batch):
+                state, m = step_fn(state, batch)
+                norms.append(float(m["grad_norm"]))
+                return state, m
+
+            tr.step_fn = logged
+            from long_vita_tpu_torch.training.trainer import batch_iterator
+
+            t = time.perf_counter()
+            losses = tr.train(batch_iterator(iter([pack, pack]), 1, sizes["budget"], cp))["losses"]
+            return losses, norms, time.perf_counter() - t
+
+        res["cp2"] = train(world, comm)
+        if rank == 0:
+            res["cp1"] = train(1, None)
+        comm.barrier()
+        out.put((rank, res))
+        torch.distributed.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2000:]}"))
+
+
+def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=128, layers=4,
+                  train_seq=16384, budget=4096, answer=300) -> None:
+    """cp 2 over NCCL, one process a GPU, where the machine has two or more
+    GPUs: ring attention forward and backward (through autograd) at 64K
+    tokens against K1 and K4/K5 over the whole sequence, and two Trainer
+    steps at cp 2 (full width, the decoder cut to 4 layers, a frozen random
+    tower; one packed row of 16384 tokens with a 7-tile image) against the
+    same steps at cp 1. On one GPU it prints that it did not run. force and
+    device="cpu": the rehearsal over gloo at the sizes given."""
+    import queue as queue_mod
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    n_dev = torch.cuda.device_count() if device == "cuda" else 0
+    if device == "cuda" and n_dev < 2 and not force:
+        print(json.dumps({"phase": "cp_nccl", "ran": False, "devices": n_dev}))
+        return
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    sizes = dict(device=device, seq=seq, heads=heads, d=d, layers=layers, train_seq=train_seq,
+                 budget=budget, answer=answer)
+    procs = [ctx.Process(target=_cp_nccl_worker,
+                         args=(r, 2, f"tcp://127.0.0.1:{port}", out, sizes)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + 2 * CP_TIMEOUT
+    try:
+        while len(results) < 2 and time.monotonic() < deadline:
+            try:
+                rank, res = out.get(timeout=10)
+                results[rank] = res
+            except queue_mod.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+        for p in procs:
+            p.join(30)
+    finally:
+        for p in procs:  # stop every process the phase started
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    bad = {r: res for r, res in results.items() if isinstance(res, str)}
+    if len(results) < 2 or bad:
+        raise AssertionError(f"[cp-nccl] workers failed or did not report: {bad or results}")
+    for rank, res in sorted(results.items()):
+        errs, scales = res["ring_err"], res["ring_scale"]
+        ok = errs[0] <= O_ATOL + O_RTOL * scales[0] and all(
+            e <= 2 * GRAD_TOL * sc for e, sc in zip(errs[1:], scales[1:]))
+        print(f"[cp-nccl] rank {rank}: ring cp 2 over NCCL at {seq} tokens, forward + backward "
+              f"{res['ring_s']:.3f} s (wall, second call); max|err| vs K1/K4-5 on the whole: "
+              f"o {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv {errs[3]:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[cp-nccl] ring attention over NCCL disagrees")
+    l2, n2, t2 = results[0]["cp2"]
+    l1, n1, t1 = results[0]["cp1"]
+    if results[1]["cp2"][0] != l2:
+        raise AssertionError("[cp-nccl] the two ranks report different losses")
+    ok = all(abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(l2, l1)) and all(
+        abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b) for a, b in zip(n2, n1))
+    print(f"[cp-nccl] Trainer, {layers} layers at full width, 2 steps: cp 2 losses {l2} "
+          f"grad_norm {n2} ({t2:.1f} s) vs cp 1 losses {l1} grad_norm {n1} ({t1:.1f} s) "
+          f"(loss within {TRAIN_LOSS_REL}, grad_norm within {3 * TRAIN_LOSS_REL}, relative) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[cp-nccl] cp 2 training disagrees with cp 1")
+    print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
+
+
 def _collect(when: str) -> None:
     """Free what the finished phases left: their engines, servers and
     trainers sit in reference cycles that hold card memory (tens of GB)
@@ -2437,6 +3230,9 @@ def main() -> int:
     from long_vita_tpu_torch.config import long_vita_14b
 
     phase_build()
+    if "--nccl-only" in sys.argv[1:]:
+        phase_cp_nccl()
+        return 0
     kern = {
         "flash_fwd": phase_kernels(),
         "flash_fwd_quant": phase_kernels_quant(),
@@ -2444,15 +3240,20 @@ def main() -> int:
         **phase_kernels_bwd(),
         "w4_matmul": phase_kernels_w4(),
     }
-    cfg, dev = long_vita_14b(), torch.device("cuda")
-    params = _text_params(cfg, dev)
     launches = dict.fromkeys(SOURCES, 0)
 
     def add(counts):
         for name in SOURCES:
             launches[name] += counts[name]
 
-    launches["flash_fwd"], bf16_logits = phase_serving(params)
+    phase_cp_kernels()
+    add(phase_cp_attention())
+    _collect("after the cp attention phases")
+    cfg, dev = long_vita_14b(), torch.device("cuda")
+    params = _text_params(cfg, dev)
+
+    k1, bf16_logits = phase_serving(params)
+    launches["flash_fwd"] += k1
     bits = _snapshot(params, set())
     add(phase_int4(params, cfg, dev, bf16_logits))
     add(phase_int8(params, cfg, dev, bf16_logits))
@@ -2463,7 +3264,9 @@ def main() -> int:
         raise AssertionError(f"quantisation changed the bf16 weights: {sorted(changed)[:5]}")
     del bits
     add(phase_multimodal(params, cfg, dev))
-    torch.cuda.empty_cache()  # the serving engines and their caches are gone
+    _collect("after the multimodal phase")  # the serving engines and their caches are gone
+    add(phase_cp_serve(params, cfg, dev))
+    _collect("after the cp serving phase")
     # the decoder is exported, freed and loaded back; the loaded one trains,
     # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]
@@ -2498,6 +3301,9 @@ def main() -> int:
         add(phase_recipe(ckpt, os.path.join(work, "recipe"), cfg, dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    _collect("before the cp NCCL phase")
+    phase_autograd_probe()
+    phase_cp_nccl()
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **kern[name]}

@@ -76,7 +76,7 @@ def beam_search(
         embeds = qwen2.embed_tokens(text, tokens)
         hidden, cache = qwen2.qwen2_decoder(
             text, embeds, torch.full((len(beams), 1), pos, device=dev), cfg.text,
-            kv_cache=cache,
+            kv_cache=cache, parallel=engine.parallel,
         )
         lp = torch.log_softmax(qwen2.lm_head(text, hidden[:, -1]), dim=-1)
         lp = lp.float().cpu().numpy()  # [beams, V]

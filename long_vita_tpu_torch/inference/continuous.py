@@ -69,6 +69,12 @@ class ContinuousEngine:
         slot's KEPT tokens as they are produced (first token at admission,
         then per decode tick; stop tokens and post-stop tails are never
         reported, so the stream concatenates to the final result)."""
+        if engine.parallel is not None:
+            from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE
+
+            raise NotImplementedError(
+                f"continuous batching over a cp-sharded cache {NEXT_SLICE} (the server "
+                "serves from one rank)")
         self.engine = engine
         self.sampling = sampling
         self.on_tokens = on_tokens

@@ -28,8 +28,18 @@ serving path is the JAX engine's:
 
 PyTorch runs eagerly, so there is no jit: a donated JAX buffer becomes a
 cache written in place. Randomness is one ``torch.Generator`` per request,
-seeded from ``seed``. Meshes are a later slice and raise
-NotImplementedError.
+seeded from ``seed``.
+
+With a ``mesh`` (parallel/mesh.Mesh) of cp > 1 the engine serves from a KV
+cache sharded over cp by slot (JAX :215-232): every rank builds the engine
+with the same mesh and weights and calls generate / generate_batch with the
+same inputs (JAX's multi-controller contract; the ranks are processes of an
+NCCL group, or thread-ranks sharing one card). Each rank holds slots // cp
+cache slots; a prefill chunk runs its projections on this rank's 1/cp of
+the rows and attends its shard (K1, K2 for an int8 cache), and the partials
+merge over cp (ops/cp_cache_attention.py); decode is replicated; tiles are
+encoded 1/cp a rank (K3) and their features all-gathered. Every rank
+samples the same tokens from the same logits and generator.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from long_vita_tpu_torch.models.quantize import (
     quantize_weights_int4,
     quantize_weights_int8,
 )
+from long_vita_tpu_torch.parallel.mesh import Mesh
 
 _OOB_SEQ = 2**30  # a feature row at this position lands in no chunk
 
@@ -162,9 +173,24 @@ class InferenceEngine:
         (>= 2), for greedy requests of generate.
         weight_quant: None, "int8" (w8a16) or "int4" (w4a16): the text
         decoder's projections and head are quantized into a new tree on the
-        parameters' device; ``params`` stays as it is."""
-        if mesh is not None:
-            raise _later("mesh (multi-device serving)", "multi-GPU")
+        parameters' device; ``params`` stays as it is.
+        mesh: a parallel.mesh.Mesh; with cp > 1, the cp-sharded cache (see
+        the module docstring)."""
+        self.mesh, self.parallel = mesh, None
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
+        if mesh is not None and mesh.shape["cp"] > 1:
+            cp = mesh.shape["cp"]
+            self.parallel = qwen2.ParallelConfig(mesh)
+            slots = _round_up(max_seq_len, chunk)
+            if chunk > slots // cp:
+                raise ValueError(
+                    f"prefill chunk {chunk} exceeds one cp rank's cache "
+                    f"shard ({slots}//{cp} = {slots // cp}); lower "
+                    "chunk or raise max_seq_len"
+                )
+            if slots % cp:
+                raise ValueError(f"cache slots {slots} do not divide over cp {cp}")
         if speculative_k < 0 or speculative_k == 1:
             raise ValueError("speculative_k must be 0 (off) or >= 2")
         self.speculative_k = speculative_k
@@ -197,6 +223,10 @@ class InferenceEngine:
     # ---- pieces (the JAX engine's jitted functions) ----------------------
 
     def _make_cache(self, batch: int, max_len: int) -> KVCache:
+        """A cache of max_len slots, this rank's max_len // cp of them when
+        cp-serving (slots [rank * C, (rank + 1) * C))."""
+        if self.parallel is not None:
+            max_len //= self.parallel.cp
         return KVCache.zeros(
             self.cfg.text, batch=batch, max_len=max_len,
             dtype=self.cache_dtype, device=self.device, quantize=self.kv_quant,
@@ -210,7 +240,8 @@ class InferenceEngine:
             )
         pixels = _host_cast_pixels(tiles, self.cache_dtype).to(self.device)
         return encode_images(
-            self.params, pixels, self.cfg, chunk=self.vision_chunk, attn_impl="short"
+            self.params, pixels, self.cfg, chunk=self.vision_chunk, attn_impl="short",
+            parallel=self.parallel,
         )
 
     def _encode_images_host(self, images: np.ndarray) -> torch.Tensor:
@@ -266,6 +297,7 @@ class InferenceEngine:
         positions = start + torch.arange(embeds.shape[1], device=self.device)[None]
         hidden, cache = qwen2.qwen2_decoder(
             self.text, embeds, positions, self.cfg.text, kv_cache=cache,
+            parallel=self.parallel,
         )
         return hidden[:, -1], cache
 
@@ -274,6 +306,7 @@ class InferenceEngine:
         embeds = qwen2.embed_tokens(self.text, token)
         hidden, cache = qwen2.qwen2_decoder(
             self.text, embeds, pos, self.cfg.text, kv_cache=cache,
+            parallel=self.parallel,
         )
         return hidden[:, -1], cache
 
@@ -285,6 +318,7 @@ class InferenceEngine:
         positions = pos0 + torch.arange(tokens.shape[1], device=self.device)[None]
         hidden, cache = qwen2.qwen2_decoder(
             self.text, embeds, positions, self.cfg.text, kv_cache=cache,
+            parallel=self.parallel,
         )
         logits = qwen2.lm_head(self.text, hidden)  # [B, k, V]
         out = torch.argmax(logits, dim=-1)
@@ -309,7 +343,7 @@ class InferenceEngine:
             embeds = qwen2.embed_tokens(self.text, token)
             hidden, cache = qwen2.qwen2_decoder(
                 self.text, embeds, (start_pos + i)[:, None], self.cfg.text,
-                kv_cache=cache,
+                kv_cache=cache, parallel=self.parallel,
             )
             logits = qwen2.lm_head(self.text, hidden[:, -1])
             next_token = sample(logits, generator, sp)

@@ -10,9 +10,17 @@ qwen2.remat_ops; the tower recomputes each layer at any level, and "vit"
 with a trainable tower adds a chunk-level checkpoint around tower and
 projector), freeze_vision (the tower and its CLS strip under
 torch.no_grad, the projector differentiable) and return_aux (the dense
-model's MoE aux, 0). Not ported here: the mesh paths (tile-sharded encode,
-the chunked merge, the vocab-parallel embed; ROADMAP: port queue,
-multi-GPU).
+model's MoE aux, 0).
+
+Under context parallelism (``parallel``, a qwen2.ParallelConfig with cp >
+1) every rank runs this forward on its own shard: the frozen tower encodes
+this rank's 1/cp of the tiles (K3 in serving) and the tower features are
+all-gathered (JAX's tile-sharded encode, :113-150); the projected rows are
+scattered into this rank's sequence shard in chunks of tiles
+(merge_image_embeddings_chunked, :178); the decoder runs ring, Ulysses or
+hybrid attention. A trainable tower encodes every tile on every rank (JAX
+takes its plain attention there; the port keeps the kernels). The
+vocab-parallel embed waits for tp (ROADMAP: port queue, item 7).
 """
 from __future__ import annotations
 
@@ -51,8 +59,15 @@ def encode_images(
     attn_impl: str = "auto",
     remat: Union[bool, str] = False,
     freeze_tower: bool = False,
+    parallel=None,
 ) -> torch.Tensor:
     """[N_tiles, H, W, 3] -> [N_tiles, image_token_length, lm_hidden].
+
+    parallel (cp > 1; the tower frozen, or serving): rank r encodes tiles
+    [r * n / cp, (r + 1) * n / cp) of the stack padded with zero tiles to a
+    multiple of cp, the tower features are all-gathered over cp, and the
+    projector runs on all of them (the JAX split: the tower in the
+    tile-sharded shard_map, the projector outside).
 
     ``chunk`` > 0 encodes the tiles in batches of ``chunk`` to bound the
     ViT's activation memory (the JAX package's lax.map over chunks). A last
@@ -75,14 +90,29 @@ def encode_images(
             )[:, 1:]  # strip CLS
         return project_features(params.projector, feats, cfg)
 
+    def chunked(fn, x):
+        n = x.shape[0]
+        if not chunk or n <= chunk:
+            return fn(x)
+        return torch.cat([fn(x[i : i + chunk]) for i in range(0, n, chunk)], 0)
+
+    if parallel is not None and parallel.cp > 1:
+        comm, n = parallel.comm, images.shape[0]
+        per = -(-n // comm.size)
+        if per * comm.size > n:
+            images = torch.cat([images, images.new_zeros((per * comm.size - n, *images.shape[1:]))])
+        mine = images[comm.rank * per : (comm.rank + 1) * per]
+        with torch.no_grad():
+            feats = chunked(
+                lambda t: intern_vit(params.vision, t, cfg.vision, attn_impl=attn_impl)[:, 1:], mine
+            )
+        feats = comm.all_gather(feats, 0)[:n]
+        return chunked(lambda f: project_features(params.projector, f, cfg), feats)
     if remat == "vit" and not freeze_tower:
         fn = functools.partial(qwen2.remat_checkpoint, encode, remat=True)
     else:
         fn = encode
-    n = images.shape[0]
-    if not chunk or n <= chunk:
-        return fn(images)
-    return torch.cat([fn(images[i : i + chunk]) for i in range(0, n, chunk)], 0)
+    return chunked(fn, images)
 
 
 def merge_image_embeddings(
@@ -105,6 +135,32 @@ def merge_image_embeddings(
     return out
 
 
+def merge_image_embeddings_chunked(
+    inputs_embeds: torch.Tensor,
+    image_embeds: torch.Tensor,
+    image_indices: torch.Tensor,
+    chunk: int,
+) -> torch.Tensor:
+    """merge_image_embeddings a chunk of ``chunk`` tiles at a time (JAX
+    :178): the same result (the indices are collision-free and rows outside
+    the embeddings are dropped), with the gathered rows of one chunk alive
+    at a time."""
+    n = image_embeds.shape[0]
+    for i in range(0, n, max(chunk, 1)):
+        inputs_embeds = merge_image_embeddings(
+            inputs_embeds, image_embeds[i : i + chunk], image_indices[:, i : i + chunk]
+        )
+    return inputs_embeds
+
+
+def cp_logit_rows(logit_positions: torch.Tensor, seq_local: int, rank: int):
+    """Which of the [B, M] logit rows (positions in the whole, permuted
+    sequence) lie in this rank's shard [rank * seq_local, (rank + 1) *
+    seq_local), and where: -> (mask [B, M], local positions [B, M])."""
+    local = logit_positions.long() - rank * seq_local
+    return (local >= 0) & (local < seq_local), local
+
+
 def long_vita_forward(
     params: LongVITAParams,
     input_ids: torch.Tensor,
@@ -122,8 +178,9 @@ def long_vita_forward(
     return_aux: bool = False,
     freeze_vision: bool = False,
     head: bool = True,
+    parallel=None,
 ):
-    """The full VLM forward on one device.
+    """The full VLM forward, on one device or on this rank's shard.
 
     logit_positions: optional [B, M] positions whose rows alone reach the
     vocabulary head (the logits-masked head). head=False returns those
@@ -132,22 +189,43 @@ def long_vita_forward(
     tower runs without gradients and with the single-pass attention K3
     ("short"), as in the JAX package (:321-331). -> (logits [B, S or M,
     vocab] f32, or hidden rows; the cache at its new length, or None), and
-    with return_aux the MoE aux loss, 0 for the dense model."""
+    with return_aux the MoE aux loss, 0 for the dense model.
+
+    parallel (cp > 1, no cache): input_ids, position_ids and segment_ids
+    are this rank's [B, S/cp] shard of the (permuted) sequence; images and
+    image_indices are the whole batch's, the indices into the whole
+    sequence; logit_positions [B, M] index the whole sequence too, and the
+    result holds the rows of those that lie in this rank's shard, flattened
+    to [1, N_local, ...] in (row, m) order (cp_logit_rows gives the mask):
+    the loss sums them over ranks (training/train_step.py)."""
     qwen2.check_remat(remat)
+    cp = parallel.cp if parallel is not None and kv_cache is None else 1
     inputs_embeds = qwen2.embed_tokens(params.text, input_ids)
     if images is not None:
         image_embeds = encode_images(
             params, images, cfg, chunk=vision_chunk,
             attn_impl="short" if freeze_vision else attn_impl,
             remat=remat, freeze_tower=freeze_vision,
+            parallel=parallel if freeze_vision and cp > 1 else None,
         )
-        inputs_embeds = merge_image_embeddings(inputs_embeds, image_embeds, image_indices)
+        if cp > 1:
+            idx = image_indices.clone()
+            idx[1] -= parallel.comm.rank * input_ids.shape[1]
+            inputs_embeds = merge_image_embeddings_chunked(
+                inputs_embeds, image_embeds, idx, vision_chunk or 256
+            )
+        else:
+            inputs_embeds = merge_image_embeddings(inputs_embeds, image_embeds, image_indices)
     hidden, new_cache = qwen2.qwen2_decoder(
         params.text, inputs_embeds, position_ids, cfg.text,
         kv_cache=kv_cache, segment_ids=segment_ids, attn_impl=attn_impl,
-        remat=remat,
+        remat=remat, parallel=parallel,
     )
-    if logit_positions is not None:
+    if logit_positions is not None and cp > 1:
+        mask, local = cp_logit_rows(logit_positions, hidden.shape[1], parallel.comm.rank)
+        rows = torch.arange(hidden.shape[0], device=hidden.device)[:, None].expand_as(mask)
+        hidden = hidden[rows[mask], local[mask]][None]
+    elif logit_positions is not None:
         hidden = torch.take_along_dim(hidden, logit_positions[:, :, None].long(), dim=1)
     out = qwen2.lm_head(params.text, hidden) if head else hidden
     if return_aux:

@@ -22,13 +22,21 @@ Differences from the JAX package, all of form rather than of numbers:
     entry in the projection's pytree node;
   - the remat levels are torch.utils.checkpoint around each layer, the
     selective ones through create_selective_checkpoint_contexts
-    (``remat_ops``).
+    (``remat_ops``);
+  - under context parallelism (``parallel``, a ``ParallelConfig`` over the
+    port's mesh of ranks) every rank runs this code on its own shard, as
+    inside JAX's shard_map: without a cache the inputs are this rank's
+    sequence shard and attention is ring, Ulysses or hybrid over the cp
+    communicator; with a cache (sharded over cp by slot) the inputs and
+    the result are the whole chunk on every rank, and a chunk whose length
+    divides by cp runs its projections on this rank's 1/cp of the rows
+    (JAX's q_sharded layout, :349-425).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,8 +52,93 @@ from long_vita_tpu_torch.ops.attention import (
 )
 from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE
 
 CacheLen = Union[int, torch.Tensor]
+
+
+CP_ALGOS = ("ring", "ulysses", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The mesh context of context-parallel attention (JAX :36-60).
+
+    mesh: a parallel.mesh.Mesh. cp_algo "ring" (zigzag ring attention, the
+    inputs zigzag-permuted over cp), "ulysses" (head all-to-all, contiguous
+    shards) or "hybrid" (Ulysses over cp_inner lanes inside ring groups, the
+    inputs zigzag-permuted over cp // cp_inner); cp_window: the double
+    ring's window (0 = the plain ring). The pipeline fields of the JAX
+    config come with pp (ROADMAP: port queue, item 7)."""
+
+    mesh: Any
+    cp_algo: str = "ring"
+    cp_inner: int = 1
+    cp_window: int = 0
+
+    def __post_init__(self):
+        if self.cp_algo not in CP_ALGOS:
+            raise ValueError(f"cp_algo {self.cp_algo!r} not one of {CP_ALGOS}")
+        if self.cp_algo == "hybrid" and self.cp % max(self.cp_inner, 1):
+            raise ValueError(f"cp {self.cp} % cp_inner {self.cp_inner} != 0")
+
+    @property
+    def cp(self) -> int:
+        return self.mesh.shape["cp"]
+
+    @property
+    def comm(self):
+        """The cp communicator."""
+        return self.mesh.cp_comm
+
+
+def _cp_attention_sharded(q, k, v, segment_ids, parallel: ParallelConfig) -> torch.Tensor:
+    """Context-parallel attention of this rank's shard (JAX :255-347):
+    ring (zigzag), ulysses (contiguous shards) or hybrid."""
+    from long_vita_tpu_torch.ops.hybrid_cp import hybrid_attention
+    from long_vita_tpu_torch.ops.ring_attention import ring_attention
+    from long_vita_tpu_torch.ops.ulysses import ulysses_attention
+
+    comm = parallel.comm
+    if parallel.cp_algo == "hybrid":
+        return hybrid_attention(q, k, v, comm, parallel.cp_inner, segment_ids, segment_ids,
+                                parallel.cp_window)
+    if parallel.cp_algo == "ulysses":
+        return ulysses_attention(q, k, v, comm, segment_ids, segment_ids)
+    return ring_attention(q, k, v, comm, segment_ids, segment_ids, parallel.cp_window)
+
+
+def _cp_cached_update_attend(q, k, v, cache_kv, cache_len, position_ids,
+                             parallel: ParallelConfig, q_sharded: bool) -> torch.Tensor:
+    """Shard-local cache write + cached attention over cp (JAX :349-425).
+    q_sharded: q, k and v are this rank's contiguous 1/cp of the chunk: the
+    chunk's q, k and v are gathered in one all_gather (an int8 cache
+    quantises the gathered rows, per token and head, as JAX quantises them
+    before its gather), every rank attends the whole chunk against its
+    shard, and keeps its own rows of the merged output (JAX's
+    psum_scatter)."""
+    from long_vita_tpu_torch.ops.cp_cache_attention import cp_cache_update_attend
+
+    comm = parallel.comm
+    ck_full, cv_full, ks_full, vs_full, layer_idx = cache_kv
+    s_local, hq, hkv = q.shape[1], q.shape[2], k.shape[2]
+    if torch.is_tensor(cache_len):
+        q_off = position_ids[:, 0]
+    else:  # the chunk's first global position
+        q_off = position_ids[0, 0] - (comm.rank * s_local if q_sharded else 0)
+    if q_sharded:
+        q, k, v = comm.all_gather(torch.cat([q, k, v], 2), 1).split([hq, hkv, hkv], 2)
+    if ks_full is not None:
+        k_w, k_sc = quantize_kv(k)
+        v_w, v_sc = quantize_kv(v)
+    else:
+        k_w, v_w = k.to(ck_full.dtype), v.to(cv_full.dtype)
+        k_sc = v_sc = None
+    out = cp_cache_update_attend(
+        q, ck_full, cv_full, k_w, v_w, ks_full, vs_full, k_sc, v_sc, layer_idx, cache_len,
+        q_off, comm,
+    )
+    return out[:, comm.rank * s_local:(comm.rank + 1) * s_local] if q_sharded else out
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -251,6 +344,8 @@ def _attention_block(
     position_ids: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
     attn_impl: str,
+    parallel: Optional[ParallelConfig] = None,
+    q_sharded: bool = False,
 ) -> torch.Tensor:
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -262,8 +357,14 @@ def _attention_block(
     k = k.reshape(b, s, hkv, d)
     v = v.reshape(b, s, hkv, d)
     q, k = apply_rope(q, k, cos, sin)
+    cp = parallel.cp if parallel is not None else 1
 
-    if cache_kv is not None:
+    if cache_kv is not None and cp > 1:
+        out = _cp_cached_update_attend(q, k, v, cache_kv, cache_len, position_ids, parallel,
+                                       q_sharded)
+    elif cp > 1:
+        out = _cp_attention_sharded(q, k, v, segment_ids, parallel)
+    elif cache_kv is not None:
         # views [B, Smax, Hkv, D] (scales [B, Smax, Hkv, 1]) of layer_idx
         ck_full, cv_full, ks_full, vs_full, layer_idx = cache_kv
         quant = ks_full is not None
@@ -342,10 +443,12 @@ def decoder_layer(
     position_ids: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
     attn_impl: str,
+    parallel: Optional[ParallelConfig] = None,
+    q_sharded: bool = False,
 ) -> torch.Tensor:
     x = x + _attention_block(
         layer, rms_norm(x, layer.input_norm, cfg.rms_norm_eps), cos, sin, cfg,
-        cache_kv, cache_len, position_ids, segment_ids, attn_impl,
+        cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded,
     )
     return x + _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg)
 
@@ -408,8 +511,14 @@ def qwen2_decoder(
     segment_ids: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
     remat: Union[bool, str] = False,
+    parallel: Optional[ParallelConfig] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder. inputs_embeds [B, S, H]; position_ids [B|1, S].
+
+    parallel (cp > 1): without a cache, inputs_embeds, position_ids and
+    segment_ids are this rank's sequence shard (zigzag-permuted for ring and
+    hybrid) and so is the result; with a cache (this rank's slot shard) they
+    are the whole chunk, the same on every rank, and so is the result.
 
     remat: without a cache, each layer runs again in the backward
     (remat_checkpoint): True / "full" / "vit" keep only its input (the
@@ -420,6 +529,14 @@ def qwen2_decoder(
     The cache's buffers are written in place; the returned KVCache shares
     them."""
     recompute = check_remat(remat) and kv_cache is None
+    seq = inputs_embeds.shape[1]
+    cp = parallel.cp if parallel is not None else 1
+    # a cached chunk that divides by cp runs on this rank's 1/cp of its rows
+    q_sharded = kv_cache is not None and cp > 1 and seq > 1 and seq % cp == 0
+    if q_sharded:
+        lo, hi = parallel.comm.rank * (seq // cp), (parallel.comm.rank + 1) * (seq // cp)
+        inputs_embeds = inputs_embeds[:, lo:hi]
+        position_ids = position_ids[:, lo:hi]
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     x = inputs_embeds
     cache_len = kv_cache.length if kv_cache is not None else None
@@ -428,17 +545,18 @@ def qwen2_decoder(
         if kv_cache is not None:
             cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
         args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-                segment_ids, attn_impl)
+                segment_ids, attn_impl, parallel, q_sharded)
         if recompute:
             x = remat_checkpoint(decoder_layer, *args, remat=remat)
         else:
             x = decoder_layer(*args)
     new_cache = None
     if kv_cache is not None:
-        new_cache = dataclasses.replace(
-            kv_cache, length=kv_cache.length + inputs_embeds.shape[1]
-        )
-    return rms_norm(x, params.final_norm, cfg.rms_norm_eps), new_cache
+        new_cache = dataclasses.replace(kv_cache, length=kv_cache.length + seq)
+    hidden = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
+    if q_sharded:
+        hidden = parallel.comm.all_gather(hidden, 1)
+    return hidden, new_cache
 
 
 def embed_tokens(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -514,9 +632,7 @@ def init_qwen2_params(
     device when None). One layer at a time, so the f32 draws never hold
     more than one matrix beside the bf16 weights."""
     if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are ported later (ROADMAP: port queue, multi-GPU)"
-        )
+        raise NotImplementedError(f"MoE layers (and expert parallelism) {NEXT_SLICE}")
     device = torch.device(device) if device is not None else generator.device
     h, i = cfg.hidden_size, cfg.intermediate_size
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim

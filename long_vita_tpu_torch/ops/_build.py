@@ -178,3 +178,14 @@ def launch(entry: str, dev, *args) -> None:
         )
     if err:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>``, a kernel wrapper's launch counter,
+    under a lock: thread-ranks (parallel/comm.ThreadComm) launch from
+    several threads, and a bare += between two of them can lose a count."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

@@ -238,7 +238,7 @@ def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=N
     o, lse, args = flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg,
                                   meta=meta)
     _build.launch("lvt_flash_fwd", q.device, *args)
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return o, lse
 
 
@@ -537,24 +537,31 @@ def flash_attention_bwd(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     short: bool = False,
+    delta: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of flash attention from the forward's (o, lse)
     and the output gradient do. On CUDA: K4 or K5, as the JAX package
     chooses (bwd_uses_fused; short: the rule of short_attention's backward).
-    On the CPU: the plain backward."""
+    On the CPU: the plain backward.
+
+    delta: rowsum(do * o) f32 [B, Hq, Sq] given instead of being computed
+    from o (o may then be None), with lse the softmax statistics of a wider
+    attention than this call's keys: the ring's pair backward (the JAX
+    ``_bwd_pair_pallas``, :1105), whose global lse and delta make (dq, dk,
+    dv) this key chunk's exact share of the gradient."""
     if kv_valid_len is None:
         kv_valid_len = k.shape[1]
-    if on_cuda(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids):
+    if on_cuda(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, delta):
         b, sq, hq, d = q.shape
         fused = bwd_uses_fused(b, sq, k.shape[1], hq, d, q.element_size(), short=short)
         return _flash_bwd_cuda(
             q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_valid_len,
-            q_segment_ids, kv_segment_ids, fused,
+            q_segment_ids, kv_segment_ids, fused, delta=delta,
         )
     return flash_attention_bwd_reference(
         q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
         kv_offset=kv_offset, kv_valid_len=kv_valid_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, delta=delta,
     )
 
 
@@ -585,29 +592,29 @@ def bwd_launch_args(a: dict) -> tuple:
 def flash_bwd_fused(a: dict) -> None:
     """K4: dk, dv and the f32 dq sums of the prepared operands ``a``."""
     _bwd_launch("lvt_flash_bwd", a)
-    flash_bwd_fused.launches += 1
+    _build.count(flash_bwd_fused)
 
 
 def flash_bwd_dkv(a: dict) -> None:
     """K5, first pass: dk and dv of the prepared operands ``a``."""
     _bwd_launch("lvt_flash_bwd_dkv", a)
-    flash_bwd_dkv.launches += 1
+    _build.count(flash_bwd_dkv)
 
 
 def flash_bwd_dq(a: dict) -> None:
     """K5, second pass: dq of the prepared operands ``a``."""
     _bwd_launch("lvt_flash_bwd_dq", a)
-    flash_bwd_dq.launches += 1
+    _build.count(flash_bwd_dq)
 
 
 flash_bwd_fused.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
-                    qseg, kseg, fused):
+                    qseg, kseg, fused, delta=None):
     """K4 (fused) or K5 on CUDA tensors. -> (dq, dk, dv) in q's dtype."""
     a = bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
-                     qseg, kseg, fused)
+                     qseg, kseg, fused, delta=delta)
     if fused:
         flash_bwd_fused(a)
         return a["dq"].to(q.dtype), a["dk"], a["dv"]
@@ -617,9 +624,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
 
 
 def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
-                 qseg, kseg, fused) -> dict:
+                 qseg, kseg, fused, delta=None) -> dict:
     """Check and prepare what the backward entry points take: delta =
-    rowsum(do * o) in f32 [B, Hq, Sq] (the JAX _flash_core_bwd :874), the
+    rowsum(do * o) in f32 [B, Hq, Sq] (the JAX _flash_core_bwd :874), or the
+    ``delta`` given (a ring pair's global one; o is then not read), the
     mask scalars on the device, with segments the tiles' id ranges
     (bwd_seg_ranges), the kv-major grid's order (bwd_tile_order, causal) and
     the kv ids padded to rows of a multiple of 4 (their TMA map), and the
@@ -637,10 +645,12 @@ def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
         raise ValueError(f"flash backward kernels take head dim 64 or 128, got {d}")
     if k.shape != v.shape or k.shape[0] != b or hq % hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq):
+    if ((o is not None and o.shape != q.shape) or do.shape != q.shape
+            or lse.shape != (b, hq, sq) or (delta is not None and delta.shape != (b, hq, sq))):
         raise ValueError(
-            f"o/do must be {tuple(q.shape)} and lse {(b, hq, sq)}, got "
-            f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}"
+            f"o/do must be {tuple(q.shape)} and lse/delta {(b, hq, sq)}, got "
+            f"{None if o is None else tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}, "
+            f"{None if delta is None else tuple(delta.shape)}"
         )
     do = do.to(q.dtype)
     if do.stride(3) != 1 or do.stride(2) != d:
@@ -664,9 +674,11 @@ def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
         # rows of a multiple of 4 ids: TMA strides are multiples of 16 bytes
         kseg = torch.nn.functional.pad(kseg, (0, _round_up(skv, 4) - skv)).contiguous()
 
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
     return dict(
         q=q, k=k, v=v, do=do, lse=lse.float().contiguous(),
-        delta=(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous(),
+        delta=delta.float().contiguous(),
         qseg=qseg, kseg=kseg, seg_ranges=seg_ranges, tile_order=tile_order,
         meta=meta, causal=causal,
         dq=(torch.zeros((b, sq, hq, d), dtype=torch.float32, device=dev) if fused
@@ -690,9 +702,11 @@ def flash_attention_bwd_reference(
     kv_valid_len: Optional[IntLike] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    delta: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4/K5, the FA-2 backward as the Pallas
-    kernels compute it (:454-693): delta = rowsum(do * o) in f32; p =
+    kernels compute it (:454-693): delta = rowsum(do * o) in f32 (or the
+    ``delta`` [B, Hq, Sq] given, as flash_attention_bwd takes it); p =
     exp(s * scale - lse) where unmasked, else 0 (the forward's masks); dv =
     p^T.do with p cast to do's dtype; ds = p * (do.v^T - delta) * scale; dk =
     ds^T.q and dq = ds.k with ds cast to the input dtype; f32 products, GQA
@@ -719,7 +733,10 @@ def flash_attention_bwd_reference(
     mask = mask[:, None, None]  # [B|1, 1, 1, Sq, Skv]
     lse5 = lse.float().reshape(b, hkv, g, sq)[..., None]
     p = torch.where(mask, torch.exp(s - lse5), 0.0)
-    delta = (do.float() * o.float()).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    else:
+        delta = delta.float().reshape(b, hkv, g, sq)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), dog.float())
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog.float(), vf)
     ds = p * (dp - delta[..., None]) * scale
@@ -783,7 +800,7 @@ SM90_QUANT_BLOCK_Q = 128
 def _flash_quant_cuda(q, k, ks, v, vs, q_offset, kv_offset, kv_len):
     o, lse, args = flash_quant_args(q, k, ks, v, vs, q_offset, kv_offset, kv_len)
     _build.launch("lvt_flash_fwd_quant", q.device, *args)
-    flash_attention_quant.launches += 1
+    _build.count(flash_attention_quant)
     return o, lse
 
 
@@ -914,7 +931,7 @@ class _ShortAttention(torch.autograd.Function):
 def _short_cuda(q, k, v):
     o, lse, args = short_attn_args(q, k, v)
     _build.launch("lvt_short_attn", q.device, *args)
-    short_attention.launches += 1
+    _build.count(short_attention)
     return o, lse
 
 

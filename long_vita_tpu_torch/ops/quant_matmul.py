@@ -164,7 +164,7 @@ def w4_matmul_dequant(
     multiplied by its group scale in f32 and cast to x's dtype (one
     transient [in, out] array), then one product with f32 accumulation,
     cast to out_dtype (x's dtype when None)."""
-    w4_matmul_dequant.calls += 1
+    _build.count(w4_matmul_dequant, "calls")
     out_dtype = out_dtype or x.dtype
     n_in, n_out = 2 * packed.shape[0], packed.shape[1]
     ngroups = scales.shape[-2]
@@ -395,5 +395,5 @@ def _w4_cuda(x, packed, scales, out_dtype):
         "lvt_w4_matmul", dev, x, packed, scales, out, ws,
         rows, n_in, n_out, blocks, int(x_f32), int(out_dtype == torch.float32),
     )
-    w4_matmul.launches += 1
+    _build.count(w4_matmul)
     return out

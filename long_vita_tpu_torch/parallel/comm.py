@@ -1,0 +1,364 @@
+"""Communicators: the collectives that shard_map gives the JAX package.
+
+Where the JAX package writes ``jax.lax.ppermute`` / ``all_to_all`` /
+``all_gather`` / ``psum`` inside a ``shard_map`` over a named mesh axis, the
+port's SPMD code (every rank runs the same program on its own shard) calls
+one small interface on the communicator of that axis:
+
+  - ``rank``, ``size``;
+  - ``ring_shift(x, shift)``: send x to rank + shift, receive from rank -
+    shift (a uniform ``ppermute``);
+  - ``all_to_all(x, split_dim, cat_dim)``: ``jax.lax.all_to_all(...,
+    tiled=True)``: x is cut into ``size`` pieces along split_dim, piece j
+    goes to rank j, and the pieces received are concatenated along cat_dim
+    in rank order;
+  - ``all_reduce_sum(x)``, ``all_gather(x, dim)`` (tiled), ``barrier()``;
+  - ``split(groups)``: the communicator of the group (a list of this
+    communicator's ranks) that holds this rank; every rank calls it with
+    the same partition.
+
+Three implementations:
+
+  - ``LocalComm``: one rank, every collective the identity;
+  - ``ThreadComm``: P ranks as threads of one process on one device,
+    exchanging tensors through shared slots behind a ``threading.Barrier``
+    (the counterpart of the 8 virtual CPU devices of the JAX tests, and the
+    way the cp paths run on a machine with one GPU: NCCL does not put two
+    ranks of a communicator on one device). ``run_thread_ranks`` runs a
+    function on such ranks;
+  - ``DistComm``: a ``torch.distributed`` process group, NCCL on the card
+    and gloo on the CPU. Gloo has no ``all_to_all`` (and no send/recv of
+    CUDA tensors), so on gloo ``all_to_all`` is built from
+    ``batch_isend_irecv``; ring_shift is ``batch_isend_irecv`` on both.
+
+Every wait has a timeout that raises (``TimeoutError``): a rank that hangs
+or dies fails the others instead of stalling them. ThreadComm ranks on one
+GPU share its current stream, so a tensor one rank deposits is complete, in
+stream order, before another rank's later kernels read it; a received
+tensor is a copy the receiver owns, as it would be across devices.
+"""
+from __future__ import annotations
+
+import datetime
+import threading
+from typing import Callable, Optional, Sequence
+
+import torch
+
+DEFAULT_TIMEOUT = 600.0  # seconds any one wait may take
+
+
+class Comm:
+    """The interface (see the module docstring)."""
+
+    rank: int
+    size: int
+
+    def ring_shift(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        raise NotImplementedError
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, cat_dim: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        raise NotImplementedError
+
+    def barrier(self) -> None:
+        raise NotImplementedError
+
+    def split(self, groups: Sequence[Sequence[int]]) -> "Comm":
+        raise NotImplementedError
+
+    def _my_group(self, groups: Sequence[Sequence[int]]) -> tuple[int, ...]:
+        flat = sorted(r for g in groups for r in g)
+        if flat != list(range(self.size)):
+            raise ValueError(f"groups {groups} must partition ranks 0..{self.size - 1}")
+        return next(tuple(g) for g in groups if self.rank in g)
+
+
+class LocalComm(Comm):
+    """One rank: every collective is the identity (a copy where the
+    others return a fresh tensor)."""
+
+    rank, size = 0, 1
+
+    def ring_shift(self, x, shift=1):
+        return x.clone()
+
+    def all_to_all(self, x, split_dim, cat_dim):
+        return x.clone()
+
+    def all_reduce_sum(self, x):
+        return x.clone()
+
+    def all_gather(self, x, dim=0):
+        return x.clone()
+
+    def barrier(self):
+        pass
+
+    def split(self, groups):
+        self._my_group(groups)
+        return self
+
+
+def _pieces(x: torch.Tensor, n: int, dim: int) -> list[torch.Tensor]:
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide into {n} pieces")
+    return list(torch.chunk(x, n, dim))
+
+
+class _Shared:
+    """The state the thread-ranks of one group share: one slot per rank, a
+    barrier, and the world's registry of groups, so that a failing rank can
+    break every barrier at once."""
+
+    def __init__(self, size: int, timeout: float, world: Optional["_Shared"] = None):
+        self.size = size
+        self.timeout = timeout
+        self.slots = [None] * size
+        self.barrier_ = threading.Barrier(size, timeout=timeout)
+        self.world = world or self
+        if world is None:
+            self.lock = threading.Lock()
+            self.groups: dict = {}
+            self.members: list[_Shared] = [self]
+
+    def exchange(self, rank: int, value, consume: Callable[[list], object]):
+        """Deposit value, wait for every rank, -> consume(every rank's value).
+        A second wait keeps each deposit alive and unchanged until every
+        rank has consumed it: the consumer's copies are issued (on the
+        shared stream) before any rank's later work."""
+        self.slots[rank] = value
+        self.wait(rank)
+        out = consume(list(self.slots))
+        self.wait(rank)
+        return out
+
+    def wait(self, rank: int) -> None:
+        try:
+            self.barrier_.wait()
+        except threading.BrokenBarrierError:
+            raise TimeoutError(
+                f"thread-rank {rank} of {self.size}: a rank did not arrive within "
+                f"{self.timeout} s, or another rank failed"
+            ) from None
+
+    def abort(self) -> None:
+        for g in self.world.members:
+            g.barrier_.abort()
+
+
+class ThreadComm(Comm):
+    """Rank ``rank`` of ``shared.size`` thread-ranks (build them with
+    ``ThreadComm.group(size)`` or ``run_thread_ranks``)."""
+
+    def __init__(self, rank: int, shared: _Shared):
+        self.rank, self.size = rank, shared.size
+        self._shared = shared
+        self._splits: dict = {}
+
+    @staticmethod
+    def group(size: int, timeout: float = DEFAULT_TIMEOUT) -> list["ThreadComm"]:
+        """The communicators of ``size`` thread-ranks, one for each thread."""
+        shared = _Shared(size, timeout)
+        return [ThreadComm(r, shared) for r in range(size)]
+
+    def _exchange(self, value, consume):
+        return self._shared.exchange(self.rank, value, consume)
+
+    def ring_shift(self, x, shift=1):
+        src = (self.rank - shift) % self.size
+        return self._exchange(x, lambda vals: vals[src].clone())
+
+    def all_to_all(self, x, split_dim, cat_dim):
+        return self._exchange(
+            _pieces(x, self.size, split_dim),
+            lambda vals: torch.cat([vals[j][self.rank] for j in range(self.size)], cat_dim),
+        )
+
+    def all_reduce_sum(self, x):
+        # one reduction of the same operands on every rank: the same bits everywhere
+        return self._exchange(x, lambda vals: torch.stack(vals).sum(0))
+
+    def all_gather(self, x, dim=0):
+        return self._exchange(x, lambda vals: torch.cat(vals, dim))
+
+    def barrier(self):
+        self._exchange(None, lambda vals: None)
+
+    def split(self, groups):
+        mine = self._my_group(groups)
+        key = tuple(tuple(g) for g in groups)
+        if key not in self._splits:
+            world = self._shared.world
+            with world.lock:
+                table = world.groups.setdefault(id(self._shared), {})
+                if key not in table:
+                    table[key] = {}
+                    for g in key:
+                        table[key][g] = _Shared(len(g), self._shared.timeout, world)
+                        world.members.append(table[key][g])
+            self._splits[key] = ThreadComm(mine.index(self.rank), table[key][mine])
+        return self._splits[key]
+
+    def abort(self) -> None:
+        """Break every barrier of this rank's world (a failing rank calls it,
+        so the others raise at once instead of at their timeout)."""
+        self._shared.abort()
+
+
+def run_thread_ranks(fn: Callable[[ThreadComm], object], size: int, *,
+                     timeout: float = DEFAULT_TIMEOUT,
+                     join_timeout: Optional[float] = None) -> list:
+    """Run ``fn(comm)`` on ``size`` thread-ranks of one process. -> the
+    results in rank order. A rank that raises breaks the others' waits; the
+    first exception (by rank) is re-raised here. A thread still running
+    after ``join_timeout`` seconds (default: 4 x timeout) raises
+    TimeoutError (the thread is a daemon and does not keep the process)."""
+    comms = ThreadComm.group(size, timeout)
+    results: list = [None] * size
+    errors: list = [None] * size
+    device = torch.cuda.current_device() if torch.cuda.is_available() else None
+
+    def body(r):
+        if device is not None:
+            torch.cuda.set_device(device)
+        try:
+            results[r] = fn(comms[r])
+        except BaseException as e:  # noqa: BLE001 (re-raised by the caller)
+            errors[r] = e
+            comms[r].abort()
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True, name=f"rank{r}")
+               for r in range(size)]
+    for t in threads:
+        t.start()
+    deadline = join_timeout if join_timeout is not None else 4 * timeout
+    t_end = _now() + deadline
+    for t in threads:
+        t.join(max(0.0, t_end - _now()))
+    if any(t.is_alive() for t in threads):
+        comms[0].abort()
+        raise TimeoutError(f"thread-ranks still running after {deadline} s")
+    first_real = next((e for e in errors if e is not None and not isinstance(e, TimeoutError)),
+                      None)
+    err = first_real or next((e for e in errors if e is not None), None)
+    if err is not None:
+        raise err
+    return results
+
+
+def _now() -> float:
+    import time
+
+    return time.monotonic()
+
+
+class DistComm(Comm):
+    """A torch.distributed process group (the default group when None).
+    Collectives on a gloo group take CPU tensors, on an NCCL group CUDA
+    tensors on the rank's current device."""
+
+    def __init__(self, group=None, timeout: float = DEFAULT_TIMEOUT):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = group if group is not None else dist.group.WORLD
+        self.rank = dist.get_rank(self.group)
+        self.size = dist.get_world_size(self.group)
+        self.gloo = dist.get_backend(self.group) == "gloo"
+        self.timeout = timeout
+        self._splits: dict = {}
+
+    def _peer(self, r: int) -> int:
+        return self._dist.get_global_rank(self.group, r)
+
+    def _wait(self, works) -> None:
+        for w in works:
+            if self.gloo:
+                # gloo's wait takes a deadline (and raises past it); NCCL's
+                # is enforced by the process group's own timeout
+                w.wait(datetime.timedelta(seconds=self.timeout))
+            else:
+                w.wait()
+
+    def _p2p(self, sends: list, recvs: list) -> None:
+        dist = self._dist
+        ops = [dist.P2POp(dist.isend, t, self._peer(r), self.group) for r, t in sends]
+        ops += [dist.P2POp(dist.irecv, t, self._peer(r), self.group) for r, t in recvs]
+        if ops:
+            self._wait(dist.batch_isend_irecv(ops))
+
+    def ring_shift(self, x, shift=1):
+        if shift % self.size == 0:
+            return x.clone()
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        self._p2p([((self.rank + shift) % self.size, x)],
+                  [((self.rank - shift) % self.size, out)])
+        return out
+
+    def all_to_all(self, x, split_dim, cat_dim):
+        send = [p.contiguous() for p in _pieces(x, self.size, split_dim)]
+        recv = [torch.empty_like(p) for p in send]
+        if self.gloo:
+            recv[self.rank] = send[self.rank]
+            others = [j for j in range(self.size) if j != self.rank]
+            self._p2p([(j, send[j]) for j in others], [(j, recv[j]) for j in others])
+        else:
+            self._dist.all_to_all(recv, send, group=self.group)
+        return torch.cat(recv, cat_dim)
+
+    def all_reduce_sum(self, x):
+        out = x.clone()
+        self._wait([self._dist.all_reduce(out, group=self.group, async_op=True)])
+        return out
+
+    def all_gather(self, x, dim=0):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        self._wait([self._dist.all_gather(parts, x, group=self.group, async_op=True)])
+        return torch.cat(parts, dim)
+
+    def barrier(self):
+        self.all_reduce_sum(torch.zeros(1, device=self._device()))
+
+    def _device(self):
+        if self.gloo:
+            return torch.device("cpu")
+        return torch.device("cuda", torch.cuda.current_device())
+
+    def split(self, groups):
+        mine = self._my_group(groups)
+        if mine not in self._splits:
+            # only the members create (and synchronise on) their group
+            pg = self._dist.new_group([self._peer(r) for r in mine],
+                                      use_local_synchronization=True)
+            self._splits[mine] = DistComm(pg, self.timeout) if len(mine) > 1 else LocalComm()
+        return self._splits[mine]
+
+
+def init_process_group(rank: int, world_size: int, init_method: str, *,
+                       backend: Optional[str] = None,
+                       timeout: float = DEFAULT_TIMEOUT) -> DistComm:
+    """torch.distributed.init_process_group with a timeout (NCCL when CUDA
+    is available, else gloo), -> the world's DistComm. On CUDA the rank
+    takes device ``rank % device_count``."""
+    import torch.distributed as dist
+
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    kw = {}
+    if backend == "nccl":
+        dev = rank % torch.cuda.device_count()
+        torch.cuda.set_device(dev)
+        kw["device_id"] = torch.device("cuda", dev)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout), **kw)
+    return DistComm(timeout=timeout)
+

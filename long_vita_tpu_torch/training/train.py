@@ -10,18 +10,20 @@ for the released stages):
            lora: {r, alpha, targets, lora_only}
     data:  {corpus: <corpus.yaml>, seq_len, logit_budget, max_patch_grid,
             max_num_frame, max_fps, system_message, cross_dataset_joint, ...}
-    mesh:  {dp, cp, tp, ...}           # one device here; more raises
+    mesh:  {dp, cp, tp, ...}           # dp x cp over processes; tp, pp raise
     optim: {lr, warmup_steps, total_steps, freeze_vision, ...}
     run:   {steps, global_batch, micro_batch, remat, save_dir, output_dir,
             profile_steps, seed, ...}
 
 The model is built on the card (``device="cuda"``) unless the caller asks
-for another device; without a card the default raises. The JAX main also
-calls ``maybe_initialize`` (joins a multi-host TPU pod from its environment)
-and enables JAX's persistent compile cache. Neither has a counterpart on one
-GPU: the port trains one process on one card (multi-host is ROADMAP's port
-queue, multi-GPU) and compiles nothing at run time but its kernels, which
-ops/_build.py keeps built under build/kernels/.
+for another device; without a card the default raises. As the JAX main,
+``main`` first calls ``maybe_initialize`` (training/distributed.py): under
+torchrun (or the LVT_* variables) every process joins one NCCL group, takes
+the GPU of its rank and trains its dp rows and cp shard of the mesh;
+run.cp_algo, cp_inner and cp_window_size shape the attention. The JAX main
+also enables JAX's persistent compile cache, which has no counterpart: the
+port compiles nothing at run time but its kernels, which ops/_build.py
+keeps built under build/kernels/.
 """
 from __future__ import annotations
 
@@ -53,8 +55,7 @@ def load_recipe(path: str) -> dict:
 def trainer_config(recipe: dict) -> TrainerConfig:
     """The recipe's data, mesh, optim and run sections as a TrainerConfig,
     with the JAX package's defaults (run.cp_algo, cp_inner and
-    cp_window_size shape context parallelism, which a one-device mesh does
-    not have: they are not read)."""
+    cp_window_size shape context parallelism)."""
     data_cfg = recipe.get("data", {})
     run = recipe.get("run", {})
     optim_cfg = OptimizerConfig(**{
@@ -74,6 +75,9 @@ def trainer_config(recipe: dict) -> TrainerConfig:
         remat=run.get("remat", True),
         vision_chunk=data_cfg.get("vision_chunk", 256),
         seed=run.get("seed", 42),
+        cp_algo=run.get("cp_algo", "ring"),
+        cp_inner=run.get("cp_inner", 1),
+        cp_window=run.get("cp_window_size", 0),
         virtual_pp=run.get("virtual_pp", 1),
         output_dir=run.get("output_dir"),
         fsdp=run.get("fsdp", False),
@@ -82,7 +86,7 @@ def trainer_config(recipe: dict) -> TrainerConfig:
     )
 
 
-def build_from_recipe(recipe: dict, *, device="cuda"):
+def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     """-> (Trainer, the batch stream, the tokenizer) for ``recipe``, the
     model on ``device``: the weights from ``model.checkpoint`` (a *_HF
     directory, utils/checkpoint_io) or grafted from stock checkpoints
@@ -93,7 +97,9 @@ def build_from_recipe(recipe: dict, *, device="cuda"):
     tiles and their token runs take the tower's own sizes (its image_size,
     and the tokens a tile leaves after the projector's pixel shuffle),
     where the JAX function takes the 14B model's (448 px, 256 tokens)
-    whatever the checkpoint; the two agree on every released model."""
+    whatever the checkpoint; the two agree on every released model.
+    comm: the world communicator of a mesh of more than one rank (default:
+    the initialized torch.distributed group)."""
     from long_vita_tpu_torch.data.image_processor import ImageProcessor
     from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
     from long_vita_tpu_torch.tokenizer import load_tokenizer
@@ -154,7 +160,7 @@ def build_from_recipe(recipe: dict, *, device="cuda"):
         max_fps=data_cfg.get("max_fps", 1.0),
     )
 
-    trainer = Trainer(params, cfg, tcfg)
+    trainer = Trainer(params, cfg, tcfg, comm=comm)
     batches = make_data_pipeline(
         data_cfg["corpus"], mm, tcfg,
         pad_token_id=tokenizer.pad_token_id or 151643,
@@ -169,7 +175,11 @@ def main(argv=None, *, device="cuda"):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     args = parser.parse_args(argv)
-    trainer, batches, tokenizer = build_from_recipe(load_recipe(args.config), device=device)
+    from long_vita_tpu_torch.training.distributed import maybe_initialize
+
+    comm = maybe_initialize()  # torchrun / LVT_* multi-process jobs
+    trainer, batches, tokenizer = build_from_recipe(load_recipe(args.config), device=device,
+                                                    comm=comm)
     return trainer.train(batches, tokenizer=tokenizer)
 
 

@@ -1,14 +1,30 @@
-"""The training step on one device.
+"""The training step, on one device or on a dp x cp mesh of ranks.
 
-Counterpart of long_vita_tpu/training/train_step.py without the mesh: the
-loss of the logits-masked head over the VLM forward, its gradients by
-autograd (through the flash kernels' backward on CUDA), and the optimizer's
-update, applied to the parameters in place (the JAX step returns new arrays
-and donates the old ones; one copy of a 14B model is what fits here).
+Counterpart of long_vita_tpu/training/train_step.py: the loss of the
+logits-masked head over the VLM forward, its gradients by autograd (through
+the flash kernels' backward on CUDA), and the optimizer's update, applied to
+the parameters in place (the JAX step returns new arrays and donates the old
+ones; one copy of a 14B model is what fits here).
 
-Batch contract (torch tensors on the parameters' device; the JAX step's,
-cp = 1): tokens, positions, segment_ids [B, S]; logit_positions, labels
-[B, M]; images [N, H, W, 3] and image_indices [2, N, T], or None.
+Batch contract (torch tensors on the parameters' device): tokens,
+positions, segment_ids [B, S]; logit_positions, labels [B, M]; images
+[N, H, W, 3] and image_indices [2, N, T], or None. On a mesh (``mesh``, a
+parallel.mesh.Mesh; each rank holds its own copy of the parameters) each
+rank passes its shard (training/distributed.make_global_batch): its dp rows,
+the sequence keys cut to its cp shard of the zigzag-permuted sequence, the
+rest whole. The loss is then the global sum over ranks of each rank's
+supervised rows over the global count (JAX :4-11: the arrays stay logically
+global there), each rank backpropagates its share, and the gradients are
+all-reduced over dp x cp before the clip, so grad_norm is the global one.
+A mask-frozen gradient is folded there once it is summed over the ranks (a
+square of a sum is not a sum of squares): a decoder layer's, in its hook
+during the backward; the rest after it, with the other gradients.
+
+On CUDA, thread-ranks (parallel/comm.ThreadComm) cannot train: autograd
+runs every backward on a CUDA device on one worker thread of that device,
+so a rank's ring backward that waits for another rank's blocks the other
+(chip_smoke.py's 2-rank probe times out there); such a step raises. Over NCCL
+processes, or on the CPU, it runs.
 
 Freezing mirrors the JAX step: freeze_text stops the gradient at the text
 weights (requires_grad off: no dW is formed, activation gradients still flow
@@ -22,15 +38,19 @@ it (``_backward``'s ``fold``), so that it is never held.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from long_vita_tpu_torch.config import LongVITAConfig
-from long_vita_tpu_torch.models.long_vita import LongVITAParams, long_vita_forward
+from long_vita_tpu_torch.models.long_vita import LongVITAParams, cp_logit_rows, long_vita_forward
+from long_vita_tpu_torch.models.qwen2 import ParallelConfig
+from long_vita_tpu_torch.parallel.comm import ThreadComm
 from long_vita_tpu_torch.training.loss import cross_entropy
 from long_vita_tpu_torch.training.optimizer import AdamState, AdamW, global_norm, square_sum
 from long_vita_tpu_torch.utils.convert import set_requires_grad
+
+GRAD_BUCKET_BYTES = 256 * 2**20  # gradients all-reduced in buckets of this size
 
 
 @dataclasses.dataclass
@@ -38,6 +58,35 @@ class TrainState:
     params: LongVITAParams
     opt_state: AdamState
     step: int = 0
+
+
+def loss_terms(
+    params: LongVITAParams,
+    batch: dict,
+    cfg: LongVITAConfig,
+    remat: Union[bool, str],
+    vision_chunk: int = 0,
+    freeze_vision: bool = False,
+    attn_impl: str = "auto",
+    parallel: Optional[ParallelConfig] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (summed loss over the supervised rows, their count, MoE aux). With
+    ``parallel`` (cp > 1): over the rows of this rank's shard."""
+    logits, _, aux = long_vita_forward(
+        params, batch["tokens"], batch["positions"], cfg,
+        images=batch.get("images"), image_indices=batch.get("image_indices"),
+        segment_ids=batch.get("segment_ids"),
+        logit_positions=batch["logit_positions"], vision_chunk=vision_chunk,
+        attn_impl=attn_impl, remat=remat, return_aux=True,
+        freeze_vision=freeze_vision, parallel=parallel,
+    )
+    labels = batch["labels"]
+    if parallel is not None and parallel.cp > 1:
+        mask, _ = cp_logit_rows(batch["logit_positions"], batch["tokens"].shape[1],
+                                parallel.comm.rank)
+        labels = labels[mask][None]
+    loss_sum, count = cross_entropy(logits, labels)
+    return loss_sum, count, aux
 
 
 def loss_fn(
@@ -52,27 +101,63 @@ def loss_fn(
     """-> (mean loss over the supervised rows, their count) (train_step.py:50).
     freeze_text acts through the text weights' requires_grad (set_requires_grad);
     attn_impl "xla" runs the same loss on the plain attention."""
-    logits, _, aux = long_vita_forward(
-        params, batch["tokens"], batch["positions"], cfg,
-        images=batch.get("images"), image_indices=batch.get("image_indices"),
-        segment_ids=batch.get("segment_ids"),
-        logit_positions=batch["logit_positions"], vision_chunk=vision_chunk,
-        attn_impl=attn_impl, remat=remat, return_aux=True,
-        freeze_vision=freeze_vision,
-    )
-    loss_sum, count = cross_entropy(logits, batch["labels"])
+    loss_sum, count, aux = loss_terms(params, batch, cfg, remat, vision_chunk, freeze_vision,
+                                      attn_impl)
     loss = loss_sum / count.clamp_min(1.0)
     if cfg.text.num_experts > 0:
         loss = loss + cfg.text.moe_aux_loss_coef * aux
     return loss, count
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported; the port trains on one GPU "
-            "(ROADMAP: port queue, multi-GPU)"
+def make_parallel_config(mesh, *, cp_algo: str = "ring", cp_inner: int = 1,
+                         cp_window: int = 0) -> Optional[ParallelConfig]:
+    """The model's mesh context (JAX :116), or None without a mesh."""
+    if mesh is None or mesh.size <= 1:
+        return None
+    return ParallelConfig(mesh, cp_algo=cp_algo, cp_inner=cp_inner, cp_window=cp_window)
+
+
+def _check_mesh(mesh, device=None) -> None:
+    """A mesh must be a parallel.mesh.Mesh; thread-ranks train only on the
+    CPU (see the module docstring)."""
+    if mesh is None:
+        return
+    from long_vita_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
+    if (isinstance(mesh.world, ThreadComm) and mesh.size > 1 and device is not None
+            and torch.device(device).type == "cuda"):
+        raise RuntimeError(
+            "training over thread-ranks (ThreadComm) on CUDA would hang: PyTorch's autograd "
+            "engine runs all backward work of a CUDA device on that device's one worker "
+            "thread, so one rank's ring backward waiting for another rank blocks the other "
+            "rank's backward. Train over NCCL processes (one GPU each) or on the CPU."
         )
+
+
+def _all_reduce_grads(grads: dict, comm) -> dict:
+    """Sum every gradient over ``comm`` (the dp x cp world) in place, in
+    buckets of GRAD_BUCKET_BYTES flattened per dtype (one bucket is the
+    only copy held). -> ``grads``."""
+    bucket, size = [], 0
+
+    def flush():
+        nonlocal bucket, size
+        if not bucket:
+            return
+        flat = comm.all_reduce_sum(torch.cat([g.reshape(-1) for g in bucket]))
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+        bucket, size = [], 0
+
+    for g in grads.values():
+        if bucket and (bucket[0].dtype != g.dtype or size + g.nbytes > GRAD_BUCKET_BYTES):
+            flush()
+        bucket.append(g)
+        size += g.nbytes
+    flush()
+    return grads
 
 
 def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:
@@ -87,12 +172,16 @@ def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Te
 
 
 def _backward(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text, *,
-              fold=frozenset(), attn_impl="auto"):
+              fold=frozenset(), attn_impl="auto", mesh=None, parallel=None):
     """One forward and backward. -> (gradients of the parameters that take
     them, loss, supervised count, folded): the parameters named in ``fold``
     give no gradient; each of theirs is added into ``folded``, an f32 sum
     of squares (None without ``fold``), once autograd has accumulated it,
-    and dropped at once."""
+    and dropped at once. On a mesh: the global loss and count, the
+    gradients summed over the ranks, ``folded`` from the summed ones."""
+    if mesh is not None and mesh.size > 1:
+        return _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision,
+                              freeze_text, attn_impl, mesh, parallel, fold)
     set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
     params.zero_grad(set_to_none=True)
     folded, hooks = None, []
@@ -117,6 +206,46 @@ def _backward(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_tex
     return grads, loss.detach(), count, folded
 
 
+def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text,
+                   attn_impl, mesh, parallel, fold):
+    """_backward over a mesh. A decoder layer's ``fold`` leaf is summed over
+    the ranks in its post-accumulate hook, folded and dropped, so that at
+    most one such gradient is held (lora_only's base weights are most of a
+    model); every rank runs the same decoder graph, so the hooks fire in the
+    same order on each. The rest (whose graph can differ between dp rows:
+    the tower and projector reach only a rank with images) are summed after
+    the backward, the ``fold`` ones among them folded then."""
+    set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
+    params.zero_grad(set_to_none=True)
+    world = mesh.world
+    folded, hooks, in_hook = None, [], set()
+    if fold:
+        folded = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+
+        def fold_grad(p):
+            folded.add_(square_sum(world.all_reduce_sum(p.grad)))
+            p.grad = None
+
+        in_hook = {n for n, p in params.named_parameters()
+                   if n in fold and p.requires_grad and n.startswith("text.layers.")}
+        hooks = [p.register_post_accumulate_grad_hook(fold_grad)
+                 for n, p in params.named_parameters() if n in in_hook]
+    try:
+        loss_sum, count, _ = loss_terms(params, batch, cfg, remat, vision_chunk, freeze_vision,
+                                        attn_impl, parallel)
+        total = world.all_reduce_sum(torch.stack([loss_sum.detach().float(), count.float()]))
+        n = total[1].clamp_min(1.0)
+        (loss_sum / n).backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    grads = _all_reduce_grads(gradients(params, exclude=in_hook), world)
+    params.zero_grad(set_to_none=True)
+    for name in [n for n in grads if n in fold]:  # the same order on every rank
+        folded.add_(square_sum(grads.pop(name)))
+    return grads, total[0] / n, total[1], folded
+
+
 def make_train_step(
     cfg: LongVITAConfig,
     tx: AdamW,
@@ -126,17 +255,24 @@ def make_train_step(
     vision_chunk: int = 0,
     freeze_vision: bool = False,
     freeze_text: bool = False,
+    cp_algo: str = "ring",
+    cp_inner: int = 1,
+    cp_window: int = 0,
 ):
     """-> train_step(state, batch) -> (state, metrics), updating the state's
     parameters and moments in place (train_step.py:144). metrics: loss,
     tokens (the supervised count) and grad_norm (the unclipped global norm,
-    the mask-frozen gradients' folded squares included)."""
-    _single_device(mesh)
+    the mask-frozen gradients' folded squares included). On a mesh: the
+    global ones, cp_algo / cp_inner / cp_window choosing the attention."""
+    _check_mesh(mesh)
+    parallel = make_parallel_config(mesh, cp_algo=cp_algo, cp_inner=cp_inner,
+                                    cp_window=cp_window)
 
     def train_step(state: TrainState, batch: dict):
+        _check_mesh(mesh, batch["tokens"].device)
         grads, loss, count, folded = _backward(
             state.params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text,
-            fold=tx.frozen,
+            fold=tx.frozen, mesh=mesh, parallel=parallel,
         )
         grad_norm = tx.step(state.params, grads, state.opt_state, folded)
         state.step += 1
@@ -154,6 +290,9 @@ def make_grad_accum_steps(
     vision_chunk: int = 0,
     freeze_vision: bool = False,
     freeze_text: bool = False,
+    cp_algo: str = "ring",
+    cp_inner: int = 1,
+    cp_window: int = 0,
 ):
     """Gradient accumulation (train_step.py:197): -> (grad_fn, accum_fn,
     apply_fn). grad_fn(params, batch) -> (f32 grads, loss, count);
@@ -162,12 +301,17 @@ def make_grad_accum_steps(
     dtype. The reported loss is the mean of the micro-batch mean losses and
     grad_norm the norm of the f32 mean gradient. Mask-frozen leaves keep their
     f32 sums here: the norm of a mean cannot be folded micro-batch by
-    micro-batch."""
-    _single_device(mesh)
+    micro-batch. On a mesh each micro-batch's loss and gradients are the
+    global ones."""
+    _check_mesh(mesh)
+    parallel = make_parallel_config(mesh, cp_algo=cp_algo, cp_inner=cp_inner,
+                                    cp_window=cp_window)
 
     def grad_fn(params: LongVITAParams, batch: dict):
+        _check_mesh(mesh, batch["tokens"].device)
         grads, loss, count, _ = _backward(
-            params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text
+            params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text,
+            mesh=mesh, parallel=parallel,
         )
         return {n: g.float() for n, g in grads.items()}, loss, count
 
@@ -195,6 +339,7 @@ def init_train_state(
     """The optimizer state for ``params`` at step 0 (train_step.py:267):
     moments for every parameter that takes gradients and is not frozen by
     the optimizer's mask (set requires_grad first,
-    utils/convert.set_requires_grad)."""
-    _single_device(mesh)
+    utils/convert.set_requires_grad). On a mesh every rank holds the whole
+    parameters (FSDP comes with the next slice)."""
+    _check_mesh(mesh)
     return TrainState(params, tx.init(params), 0)

@@ -1,7 +1,7 @@
-"""Training loop on one GPU: data pipeline -> train step -> checkpoints.
+"""Training loop: data pipeline -> train step -> checkpoints, on one GPU or
+over a dp x cp mesh of ranks.
 
-Counterpart of long_vita_tpu/training/trainer.py for a single device (cp = 1,
-no mesh). Kept from the JAX trainer: gradient accumulation over micro-batches,
+Counterpart of long_vita_tpu/training/trainer.py. Kept from the JAX trainer: gradient accumulation over micro-batches,
 the NaN tripwire (pretrain_long_vita.py:822-827), the straggler log, save
 intervals, the final save, auto-resume from save_dir, LoRA training
 (optim.lora_only: the base weights take gradients, which the global norm
@@ -12,12 +12,19 @@ make_data_pipeline, data_report.json / data_samples.json / data_error.log.
 make_data_pipeline is the JAX one: corpus YAML -> ChatML supervision ->
 greedy packs -> batches -> a prefetch thread.
 
-Raising, with their ROADMAP item (port queue, multi-GPU): a mesh of more
-than one device (context parallelism included: the JAX recipe's cp_algo,
-cp_inner and cp_window act only there, and the port does not take them),
-virtual pipeline stages and FSDP. The data modules, the metrics and
-the profiler are imported inside the functions that use them, so a run that
-is handed batches needs neither yaml nor PIL.
+A mesh (``tcfg.mesh`` of dp x cp ranks over ``comm``, a
+parallel.comm communicator, or the torch.distributed group that
+training/distributed.maybe_initialize starts): every rank builds the Trainer
+with its own copy of the parameters and trains on the same stream of whole
+batches, zigzag-permuted by batch_iterator for ring attention (over the ring
+groups for hybrid, unpermuted for Ulysses, JAX :83-116); each rank keeps its
+dp rows and cp sequence shard (training/distributed.py), the loss and the
+gradients are global (train_step.py), and world rank 0 writes the
+checkpoints. Raising, with their ROADMAP item (port queue, item 7): tp,
+pp, virtual pipeline stages and FSDP; thread-ranks on CUDA
+(train_step._check_mesh). The data modules, the metrics and the profiler
+are imported inside the functions that use them, so a run that is handed
+batches needs neither yaml nor PIL.
 """
 from __future__ import annotations
 
@@ -33,33 +40,23 @@ import torch
 from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams
 from long_vita_tpu_torch.models.qwen2 import check_remat
+from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig, make_mesh, validate_geometry
+from long_vita_tpu_torch.parallel.zigzag import inverse_zigzag_permutation, zigzag_permute
+from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
 from long_vita_tpu_torch.training.loss import collate_packs, to_device
 from long_vita_tpu_torch.training.optimizer import OptimizerConfig, make_optimizer
 from long_vita_tpu_torch.training.train_step import (
     init_train_state,
-    loss_fn,
+    loss_terms,
     make_grad_accum_steps,
+    make_parallel_config,
     make_train_step,
 )
 from long_vita_tpu_torch.utils.convert import set_requires_grad
 
 logger = logging.getLogger(__name__)
 
-
-@dataclasses.dataclass
-class MeshConfig:
-    """The JAX package's mesh geometry (parallel/mesh.py:41); the port runs
-    the one-device geometry only."""
-
-    dp: int = 1
-    pp: int = 1
-    cp: int = 1
-    tp: int = 1
-    tq: int = 1
-
-    @property
-    def size(self) -> int:
-        return self.dp * self.pp * self.cp * self.tp * self.tq
+__all__ = ["MeshConfig", "TrainerConfig", "Trainer", "batch_iterator", "make_data_pipeline"]
 
 
 @dataclasses.dataclass
@@ -77,8 +74,11 @@ class TrainerConfig:
     remat: Union[bool, str] = True  # True/"full" | "dots" | "flash" | "vit" | False
     vision_chunk: int = 64  # ViT tile batch
     seed: int = 42  # corpus shuffle (make_data_pipeline); LoRA init (train.py)
-    virtual_pp: int = 1  # interleaved-pipeline chunks per pp stage (multi-GPU)
-    fsdp: bool = False  # shard layer stacks over dp (multi-GPU)
+    cp_algo: str = "ring"  # "ring" | "ulysses" | "hybrid"
+    cp_inner: int = 1  # hybrid: ulysses lanes per ring group
+    cp_window: int = 0  # double-ring window size (reference --cp-window-size)
+    virtual_pp: int = 1  # interleaved-pipeline chunks per pp stage (next slice)
+    fsdp: bool = False  # shard layer stacks over dp (next slice)
     resume: bool = True  # auto-resume from save_dir's latest checkpoint
     straggler_threshold: float = 2.0  # warn when a step takes > thr x median
     output_dir: Optional[str] = None  # metrics.jsonl / print_batch.log / trace / data report
@@ -89,35 +89,69 @@ class TrainerConfig:
 
 def batch_iterator(
     packs: Iterator, batch_size: int, logit_budget: int, cp: int = 1,
-    on_drop: str = "error",
+    cp_algo: str = "ring", cp_inner: int = 1, on_drop: str = "error",
 ) -> Iterator[dict]:
-    """Group packs into collated numpy batches (trainer.py:83, cp = 1)."""
-    if cp > 1:
-        raise NotImplementedError(
-            "context parallelism (zigzag batches) is not ported "
-            "(ROADMAP: port queue, multi-GPU)"
-        )
+    """Group packs into collated numpy batches; zigzag-permute them for ring
+    context parallelism (trainer.py:83): tokens, positions and segment ids
+    permuted, logit positions and tile scatter rows mapped into the
+    permuted sequence. Ulysses keeps contiguous shards; hybrid zigzags over
+    the ring groups (cp // cp_inner)."""
+    if cp_algo == "ulysses":
+        cp = 1
+    elif cp_algo == "hybrid":
+        cp = cp // cp_inner
     buf = []
+    inv = None
     for pack in packs:
         buf.append(pack)
-        if len(buf) == batch_size:
-            yield collate_packs(buf, logit_budget, on_drop=on_drop)
-            buf = []
+        if len(buf) < batch_size:
+            continue
+        batch = collate_packs(buf, logit_budget, on_drop=on_drop)
+        buf = []
+        if cp > 1:
+            if inv is None:
+                inv = inverse_zigzag_permutation(batch["tokens"].shape[1], cp)
+            for key in ("tokens", "positions", "segment_ids"):
+                batch[key] = zigzag_permute(np.asarray(batch[key]), cp)
+            batch["logit_positions"] = inv[batch["logit_positions"]]
+            if batch.get("image_indices") is not None:
+                idx = np.array(batch["image_indices"], copy=True)
+                idx[1] = inv[idx[1]]
+                batch["image_indices"] = idx
+        yield batch
 
 
 class Trainer:
-    def __init__(self, params: LongVITAParams, cfg: LongVITAConfig, tcfg: TrainerConfig):
+    def __init__(self, params: LongVITAParams, cfg: LongVITAConfig, tcfg: TrainerConfig,
+                 comm=None):
+        """comm: the world communicator of a mesh of more than one rank
+        (default: the initialized torch.distributed group)."""
         unported = {
-            f"a {tcfg.mesh.size}-device mesh": tcfg.mesh.size > 1,
             f"{tcfg.virtual_pp} virtual pipeline stages": tcfg.virtual_pp > 1,
             "FSDP": tcfg.fsdp,
+            f"tp = {tcfg.mesh.tp}": tcfg.mesh.tp > 1,
+            f"pp = {tcfg.mesh.pp}": tcfg.mesh.pp > 1,
+            f"tq = {tcfg.mesh.tq}": tcfg.mesh.tq > 1,
         }
         for what, asked in unported.items():
             if asked:
-                raise NotImplementedError(
-                    f"{what}: the port trains on one GPU (ROADMAP: port queue, multi-GPU)"
-                )
+                raise NotImplementedError(f"{what} {NEXT_SLICE}")
         check_remat(tcfg.remat)
+        validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp)
+        self.mesh = None
+        if tcfg.mesh.size > 1:
+            if comm is None:
+                import torch.distributed as dist
+
+                from long_vita_tpu_torch.parallel.comm import DistComm
+
+                if not (dist.is_available() and dist.is_initialized()):
+                    raise ValueError(
+                        f"a mesh of {tcfg.mesh.size} ranks needs comm= or an initialized "
+                        "torch.distributed group (training/distributed.maybe_initialize)"
+                    )
+                comm = DistComm()
+            self.mesh = make_mesh(tcfg.mesh, comm)
         self.cfg, self.tcfg = cfg, tcfg
         self.tx = make_optimizer(
             params, tcfg.optim,
@@ -149,28 +183,49 @@ class Trainer:
                     f"global_batch {tcfg.global_batch} % micro_batch {tcfg.micro_batch} != 0"
                 )
             self.accum = tcfg.global_batch // tcfg.micro_batch
-        step_kw = dict(remat=tcfg.remat, vision_chunk=tcfg.vision_chunk, **self.freeze)
+        self.cp_kw = dict(cp_algo=tcfg.cp_algo, cp_inner=tcfg.cp_inner, cp_window=tcfg.cp_window)
+        step_kw = dict(remat=tcfg.remat, vision_chunk=tcfg.vision_chunk, **self.freeze,
+                       **self.cp_kw)
         if self.accum > 1:
             self.grad_fn, self.accum_fn, self.apply_fn = make_grad_accum_steps(
-                cfg, self.tx, **step_kw
+                cfg, self.tx, self.mesh, **step_kw
             )
             self.step_fn = None
         else:
-            self.step_fn = make_train_step(cfg, self.tx, **step_kw)
+            self.step_fn = make_train_step(cfg, self.tx, self.mesh, **step_kw)
+
+    def _device_batch(self, batch: dict) -> dict:
+        """A whole numpy batch -> this rank's tensors (its dp rows and cp
+        sequence shard on a mesh)."""
+        if self.mesh is None:
+            return to_device(batch, self.device)
+        rows = np.asarray(batch["tokens"]).shape[0]
+        return make_global_batch(local_rows(batch, self.mesh, rows), self.mesh, self.device)
+
+    def _save(self, save_checkpoint) -> None:
+        """World rank 0 writes (every rank holds the same parameters)."""
+        if self.mesh is None or self.mesh.world.rank == 0:
+            save_checkpoint(self.tcfg.save_dir, self.state)
+        if self.mesh is not None:
+            self.mesh.world.barrier()
 
     @torch.no_grad()
     def evaluate(self, batches: Iterator[dict], max_steps: int = 0) -> dict:
         """Mean loss over a validation stream, weighted by supervised rows
         (no remat, the tower's default attention, as the JAX evaluate)."""
+        parallel = make_parallel_config(self.mesh, **self.cp_kw)
         total, count = 0.0, 0.0
         for step, batch in enumerate(batches):
             if max_steps and step >= max_steps:
                 break
-            loss, tokens = loss_fn(
-                self.state.params, to_device(batch, self.device), self.cfg, False,
-                self.tcfg.vision_chunk,
+            loss_sum, tokens, _ = loss_terms(
+                self.state.params, self._device_batch(batch), self.cfg, False,
+                self.tcfg.vision_chunk, parallel=parallel,
             )
-            total += float(loss) * float(tokens)
+            if self.mesh is not None:
+                loss_sum, tokens = self.mesh.world.all_reduce_sum(
+                    torch.stack([loss_sum.float(), tokens.float()]))
+            total += float(loss_sum)
             count += float(tokens)
         return {"loss": total / max(count, 1.0), "tokens": count}
 
@@ -187,9 +242,11 @@ class Trainer:
         history: list[float] = []
         step_times: list[float] = []
         metrics_log = profiler = None
-        first_batch_dumped = False
+        # on a mesh, world rank 0 writes the run's output directory
+        writes = tcfg.output_dir and (self.mesh is None or self.mesh.world.rank == 0)
+        first_batch_dumped = not writes
         with contextlib.ExitStack() as closing:  # the metrics file and the trace, also on a raise
-            if tcfg.output_dir:
+            if writes:
                 from long_vita_tpu_torch.utils.metrics import MetricsLogger, Profiler
 
                 metrics_log = MetricsLogger(tcfg.output_dir)
@@ -216,15 +273,12 @@ class Trainer:
                     dump_first_batch(tcfg.output_dir, micros[0], tokenizer)
                     first_batch_dumped = True
                 if self.accum == 1:
-                    self.state, metrics = self.step_fn(
-                        self.state, to_device(micros[0], self.device)
-                    )
+                    self.state, metrics = self.step_fn(self.state, self._device_batch(micros[0]))
                 else:
                     grads = loss_sum = count_sum = None
                     for mb in micros:
-                        g, loss_mb, count_mb = self.grad_fn(
-                            self.state.params, to_device(mb, self.device)
-                        )
+                        g, loss_mb, count_mb = self.grad_fn(self.state.params,
+                                                            self._device_batch(mb))
                         if grads is None:
                             grads, loss_sum, count_sum = g, loss_mb, count_mb
                         else:
@@ -257,9 +311,9 @@ class Trainer:
                     )
                 history.append(loss)
                 if tcfg.save_interval and tcfg.save_dir and (step + 1) % tcfg.save_interval == 0:
-                    save_checkpoint(tcfg.save_dir, self.state)
+                    self._save(save_checkpoint)
             if tcfg.save_dir:
-                save_checkpoint(tcfg.save_dir, self.state)
+                self._save(save_checkpoint)
         return {"losses": history}
 
 
@@ -292,7 +346,7 @@ def make_data_pipeline(
     )
     rows = tcfg.micro_batch or tcfg.global_batch
     it = batch_iterator(
-        iter(packs), rows, tcfg.logit_budget, tcfg.mesh.cp,
+        iter(packs), rows, tcfg.logit_budget, tcfg.mesh.cp, tcfg.cp_algo, tcfg.cp_inner,
         on_drop="warn" if tcfg.allow_logit_drop else "error",
     )
     return prefetch(it, depth=2)

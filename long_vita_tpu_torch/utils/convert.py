@@ -83,7 +83,9 @@ def params_from_jax(
     tree = tree.get("text", tree)
     layers = tree["layers"]
     if "router" in layers:
-        raise NotImplementedError("MoE layers are ported later (ROADMAP: multi-GPU)")
+        raise NotImplementedError(
+            "MoE layers are ported later (ROADMAP: port queue, item 7, the multi-GPU slice "
+            "after context parallelism)")
 
     def t(arr):
         return _tensor(arr, device, dtype)

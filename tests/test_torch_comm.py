@@ -1,0 +1,252 @@
+"""The port's communicators (long_vita_tpu_torch/parallel/comm.py): ThreadComm
+(thread-ranks of one process) and DistComm over gloo in spawned processes,
+against the semantics of the JAX collectives they stand for (ppermute,
+tiled all_to_all / all_gather, psum). Every wait is bounded: a rank that
+hangs or raises must fail the others, within their timeout, and a worker
+process still alive at the join timeout fails the test."""
+import multiprocessing as mp
+import queue
+import socket
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from long_vita_tpu_torch.parallel.comm import (
+    DistComm,
+    LocalComm,
+    ThreadComm,
+    init_process_group,
+    run_thread_ranks,
+)
+
+JOIN_TIMEOUT = 90.0  # seconds a spawned worker may take, its start included
+
+
+def _rank_data(rank: int) -> torch.Tensor:
+    return torch.arange(24, dtype=torch.float32).reshape(2, 4, 3) + 100 * rank
+
+
+def _collectives(comm) -> dict:
+    """Every collective on rank-distinct data -> numpy results."""
+    x = _rank_data(comm.rank)
+    if comm.size % 2 == 0:  # the even and the odd ranks
+        sub = comm.split([list(range(0, comm.size, 2)), list(range(1, comm.size, 2))])
+    else:
+        sub = comm.split([list(range(comm.size))])
+    out = {
+        "shift1": comm.ring_shift(x, 1),
+        "shift_back": comm.ring_shift(x, -1),
+        "a2a": comm.all_to_all(x.repeat(1, comm.size, 1), 1, 0),
+        "sum": comm.all_reduce_sum(x),
+        "gather": comm.all_gather(x, 1),
+        "sub_sum": sub.all_reduce_sum(torch.tensor([float(comm.rank)])),
+        "sub_rank": torch.tensor([sub.rank, sub.size]),
+    }
+    comm.barrier()
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _expected(rank: int, size: int) -> dict:
+    data = [_rank_data(r).numpy() for r in range(size)]
+    rep = [np.tile(d, (1, size, 1)) for d in data]
+    piece = 4  # rows of dim 1 each rank sends to each rank
+    same = [r for r in range(size) if r % 2 == rank % 2] if size % 2 == 0 else list(range(size))
+    return {
+        "shift1": data[(rank - 1) % size],
+        "shift_back": data[(rank + 1) % size],
+        "a2a": np.concatenate([rep[j][:, rank * piece:(rank + 1) * piece] for j in range(size)], 0),
+        "sum": sum(data),
+        "gather": np.concatenate(data, 1),
+        "sub_sum": np.asarray([float(sum(same))]),
+        "sub_rank": np.asarray([same.index(rank), len(same)]),
+    }
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_thread_comm_collectives(size):
+    got = run_thread_ranks(_collectives, size, timeout=30)
+    for rank, res in enumerate(got):
+        want = _expected(rank, size)
+        for key in want:
+            np.testing.assert_array_equal(res[key], want[key], err_msg=f"rank {rank} {key}")
+
+
+def test_local_comm_is_the_identity():
+    x = _rank_data(0)
+    c = LocalComm()
+    for y in (c.ring_shift(x, 3), c.all_to_all(x, 1, 2), c.all_reduce_sum(x), c.all_gather(x, 1)):
+        assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+    assert c.split([[0]]) is c
+
+
+def test_thread_comm_rank_that_raises_fails_the_others_at_once():
+    def body(comm):
+        if comm.rank == 1:
+            raise ValueError("rank 1 failed")
+        comm.barrier()  # would wait 60 s for rank 1 without the abort
+
+    t0 = time.monotonic()
+    with pytest.raises(ValueError, match="rank 1 failed"):
+        run_thread_ranks(body, 3, timeout=60)
+    assert time.monotonic() - t0 < 10
+
+
+def test_thread_comm_hung_rank_times_out():
+    """A rank that never arrives: the others raise after their timeout; the
+    hung thread is abandoned at the join timeout."""
+    def body(comm):
+        if comm.rank == 0:
+            time.sleep(3.0)  # arrives after the others gave up
+            return None
+        return comm.all_reduce_sum(torch.ones(1))
+
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        run_thread_ranks(body, 2, timeout=0.5, join_timeout=10)
+    assert time.monotonic() - t0 < 10
+    with pytest.raises(TimeoutError, match="still running"):
+        run_thread_ranks(lambda c: time.sleep(2.0), 2, timeout=0.2, join_timeout=0.3)
+
+
+def test_thread_comm_split_groups_are_shared():
+    def body(comm):
+        a = comm.split([[0, 2], [1, 3]])
+        b = comm.split([[0, 2], [1, 3]])
+        assert a is b
+        return a.all_gather(torch.tensor([comm.rank]), 0).tolist()
+
+    assert run_thread_ranks(body, 4, timeout=30) == [[0, 2], [1, 3], [0, 2], [1, 3]]
+    with pytest.raises(ValueError, match="partition"):
+        ThreadComm.group(2)[0].split([[0]])
+
+
+def test_thread_ranks_stress_under_a_short_switch_interval():
+    """More thread-ranks than cores, the interpreter switching threads every
+    microsecond: every exchange delivers, and the kernel wrappers' launch
+    counters (ops/_build.count, under a lock) lose no count."""
+    from long_vita_tpu_torch.ops import _build
+
+    def counter():
+        pass
+
+    counter.launches = 0
+    n, steps = 12, 40
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def body(comm):
+            total = 0.0
+            for i in range(steps):
+                total += comm.all_reduce_sum(torch.tensor([float(comm.rank + i)])).item()
+                for _ in range(25):
+                    _build.count(counter)
+            return total
+
+        got = run_thread_ranks(body, n, timeout=60, join_timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    want = float(sum(sum(r + i for r in range(n)) for i in range(steps)))
+    assert got == [want] * n
+    assert counter.launches == n * steps * 25
+
+
+def test_autograd_probe_completes_on_the_cpu():
+    """chip_smoke.py's probe: two thread-ranks whose backward passes meet at
+    a barrier complete on the CPU (the engine runs a CPU backward on the
+    calling thread). On CUDA the same probe times out (one device thread),
+    which is why training over thread-ranks raises there."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    res = chip_smoke.autograd_thread_probe("cpu", timeout=20)
+    assert res["completed"], res
+
+
+# ---------------------------------------------------------------------------
+# DistComm over gloo, two spawned processes
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gloo_worker(rank, world, init, mode, out):
+    torch.set_num_threads(1)
+    try:
+        comm = init_process_group(rank, world, init, backend="gloo",
+                                  timeout=3.0 if mode == "hang" else 30.0)
+        if mode == "ops":
+            out.put((rank, _collectives(comm)))
+        elif mode == "hang":
+            if rank == 1:
+                time.sleep(6.0)  # never joins the collective in time
+                out.put((rank, "slept"))
+            else:
+                comm.all_reduce_sum(torch.ones(1))
+                out.put((rank, "returned"))
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        out.put((rank, f"raised {type(e).__name__}: {e}"))
+
+
+def run_gloo(target, world: int, *args, join_timeout: float = JOIN_TIMEOUT) -> dict:
+    """Spawn ``world`` processes target(rank, world, init, *args, queue) on a
+    fresh localhost port; -> {rank: what it put}. A process alive at the
+    join timeout is killed and fails the test."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=target, args=(r, world, init, *args, q)) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + join_timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            try:
+                rank, res = q.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[rank] = res
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(5)
+    assert not alive, f"workers still running after {join_timeout} s"
+    return results
+
+
+def test_dist_comm_gloo_collectives():
+    got = run_gloo(_gloo_worker, 2, "ops")
+    assert sorted(got) == [0, 1], got
+    for rank, res in got.items():
+        assert isinstance(res, dict), res
+        want = _expected(rank, 2)
+        for key in want:
+            np.testing.assert_array_equal(res[key], want[key], err_msg=f"rank {rank} {key}")
+
+
+def test_dist_comm_gloo_hung_rank_fails():
+    got = run_gloo(_gloo_worker, 2, "hang")
+    assert got[0].startswith("raised"), got
+
+
+def test_dist_comm_needs_an_initialized_group():
+    with pytest.raises((RuntimeError, ValueError)):
+        DistComm()

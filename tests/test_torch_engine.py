@@ -31,6 +31,8 @@ from long_vita_tpu.models.long_vita import init_long_vita_params, long_vita_forw
 from long_vita_tpu.models.qwen2 import init_qwen2_params
 from long_vita_tpu_torch.inference.engine import InferenceEngine
 from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.parallel.comm import LocalComm
+from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from long_vita_tpu_torch.utils.convert import long_vita_params_from_jax, params_from_jax
 from test_torch_quantize import one_torch_thread  # noqa: F401
 
@@ -188,11 +190,13 @@ def test_sampled_generate_is_seeded(engines):
     assert all(0 <= t < cfg.text.vocab_size for t in a.token_ids)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "multi-GPU")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh_cfg=MeshConfig(tp=2)), "multi-GPU")])
 def test_later_slices_raise(engines, kw, item):
+    """A cp mesh serves (tests/test_torch_cp_engine.py); a tensor-parallel
+    one waits for the next multi-GPU slice."""
     _, port, cfg = engines
     with pytest.raises(NotImplementedError, match=item):
-        InferenceEngine(port.params, cfg, _MM(), **kw)
+        InferenceEngine(port.params, cfg, _MM(), mesh=make_mesh(kw["mesh_cfg"], LocalComm()))
 
 
 @pytest.mark.parametrize(

@@ -207,6 +207,72 @@ def test_training_entry_point_without_jax_pil_or_hf_packages():
     assert res.stdout.startswith("OK ")
 
 
+_NO_JAX_CP = """
+import copy, sys
+sys.modules["jax"] = None
+sys.modules["long_vita_tpu"] = None
+import numpy as np, torch
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.inference.engine import InferenceEngine
+from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+from long_vita_tpu_torch.ops import attention_pair, cp_cache_attention, hybrid_cp, ring_attention, ulysses
+from long_vita_tpu_torch.parallel import comm, mesh, sharding, zigzag
+from long_vita_tpu_torch.training import distributed
+from long_vita_tpu_torch.training.loss import Pack
+from long_vita_tpu_torch.training.optimizer import OptimizerConfig
+from long_vita_tpu_torch.training.trainer import MeshConfig, Trainer, TrainerConfig, batch_iterator
+
+class MM:
+    class tokenizer:
+        @staticmethod
+        def decode(ids, skip_special_tokens=True):
+            return ",".join(map(str, ids))
+    def expand(self, input_ids, images=(), videos=(), max_num_frame=None):
+        class E:
+            pass
+        e = E()
+        e.input_ids, e.images, e.image_indices = list(input_ids), None, None
+        return e
+
+torch.set_num_threads(1)
+cfg = tiny_test_config()
+vlm = init_long_vita_params(torch.Generator().manual_seed(1), cfg)
+sp = SamplingParams(max_new_tokens=4)
+want = InferenceEngine(vlm, cfg, MM(), max_seq_len=128, chunk=32).generate(
+    input_ids=list(range(45)), sampling=sp).token_ids
+got = comm.run_thread_ranks(lambda c: InferenceEngine(
+    vlm, cfg, MM(), max_seq_len=128, chunk=32, mesh=mesh.make_mesh(MeshConfig(cp=2), c)
+).generate(input_ids=list(range(45)), sampling=sp).token_ids, 2, timeout=60)
+assert got == [want, want], (got, want)
+
+rng = np.random.default_rng(0)
+packs = [Pack(tokens=rng.integers(0, 400, 32).astype(np.int32),
+              labels=rng.integers(0, 400, 32).astype(np.int32),
+              position_ids=np.arange(32, dtype=np.int32), segment_ids=np.zeros(32, np.int32),
+              images=None, image_indices=None, actual_seq_len=[]) for _ in range(2)]
+def train(c, cp):
+    tcfg = TrainerConfig(seq_len=32, logit_budget=32, global_batch=1, steps=2, remat=False,
+                         mesh=MeshConfig(cp=cp), optim=OptimizerConfig(lr=1e-3, warmup_steps=1))
+    tr = Trainer(copy.deepcopy(vlm), cfg, tcfg, comm=c)
+    return tr.train(batch_iterator(iter(packs), 1, 32, cp))["losses"]
+one = train(None, 1)
+two = comm.run_thread_ranks(lambda c: train(c, 2), 2, timeout=60)
+assert np.allclose(two, [one, one], rtol=1e-5), (two, one)
+print("ok")
+"""
+
+
+def test_context_parallel_without_jax():
+    """The cp modules import, serve over two thread-ranks and train over
+    two thread-ranks with neither JAX nor the JAX package loadable."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_CP], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
 def test_no_jax_import_in_the_port():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -48,12 +48,7 @@ from long_vita_tpu_torch.training import optimizer as topt
 from long_vita_tpu_torch.training import train as ttrain
 from long_vita_tpu_torch.training import train_step as tts
 from long_vita_tpu_torch.training.checkpoint import restore_params_only
-from long_vita_tpu_torch.training.trainer import (
-    MeshConfig,
-    Trainer,
-    TrainerConfig,
-    batch_iterator,
-)
+from long_vita_tpu_torch.training.trainer import MeshConfig, Trainer, TrainerConfig
 from long_vita_tpu_torch.utils.convert import long_vita_params_from_jax, set_requires_grad
 from test_torch_quantize import one_torch_thread  # noqa: F401
 
@@ -418,21 +413,23 @@ def test_trainer_accumulates_micro_batches():
 
 
 def test_unported_options_raise():
-    """What still waits for multi-GPU (ROADMAP's port queue) raises: a mesh
-    (context parallelism included), virtual pipeline stages, FSDP, zigzag
-    batches and MoE layers."""
+    """What still waits for the next multi-GPU slice (ROADMAP's port queue)
+    raises: tensor and pipeline parallel meshes, virtual pipeline stages,
+    FSDP and MoE layers. (dp x cp meshes and zigzag batches train since the
+    context-parallel slice: tests/test_torch_cp_training.py.)"""
+    from long_vita_tpu_torch.parallel.comm import LocalComm
+    from long_vita_tpu_torch.parallel.mesh import make_mesh
+
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _trainer(None, 1, mesh=MeshConfig(dp=2))
+        _trainer(None, 1, mesh=MeshConfig(dp=2, tp=2))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _trainer(None, 1, mesh=MeshConfig(cp=4))
+        _trainer(None, 1, mesh=MeshConfig(pp=4))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _trainer(None, 1, virtual_pp=2)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _trainer(None, 1, fsdp=True)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tts.make_train_step(CFG, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        next(batch_iterator(iter([_pack(1)]), 1, S, cp=2))
+        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tp=2), LocalComm()))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tq.init_qwen2_params(torch.Generator(), port_tiny_config(num_experts=4).text)
     # the stage recipes' meshes (configs/stage*.yaml) are multi-device
