@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (each raises on failure; the script then exits non-zero):
-  1. build the six CUDA sources from this checkout (one nvcc each, in
+  1. build the seven CUDA sources from this checkout (one nvcc each, in
      parallel) and print nvcc's register/spill lines, ptxas's performance
      notes and the Hopper forward's and backward's shared memory;
   2. hold each kernel against its plain PyTorch version on the card at the
@@ -98,11 +98,27 @@ Phases (each raises on failure; the script then exits non-zero):
      merge_lora under the logit gate, and save_lora -> load_lora bit for
      bit.
 
+  2c. the eleventh slice, after the cp attention phases: K7 (phase_fwd_lab:
+     every variant of the forward-kernel lab against its plain version at
+     [1, 4096, 40/8, 128], then the lab's main path at 16K, K1 and each
+     variant held to the plain version there and timed beside the library
+     call and the bound, with K4 and K5 forward + backward, one backward of
+     each held to the plain backward); the generic towers (phase_generic_vit:
+     CLIP ViT-L/14 at 448 and SigLIP so400m at 384 written as HF
+     safetensors and loaded with the port's loaders, EVA-4B at 448 from
+     init_generic_vit_params, 8 tiles through K1 at D 64 and at D 72 and
+     112 padded to 128 against the plain attention (EVA: its first 24
+     layers so, all 63 against an f32 tower), and SigLIP's backward
+     through K4/K5 against the plain one); MoE (phase_moe: the 14B's widths
+     with 8 experts, top-2, cut to 4 layers: a 2048-id prompt and 8 greedy
+     tokens through the engine under the logit gate, then two Trainer steps
+     with the aux loss on 2 of the layers);
   10. cp over NCCL (phase_cp_nccl), only where torch.cuda.device_count() >=
      2: two processes, a GPU each: ring attention forward and backward
      through autograd at 64K tokens against K1 and K4/K5 on the whole
-     sequence, and two Trainer steps at cp 2 (full width, the decoder cut
-     to 4 layers) against cp 1. On one GPU it prints {"phase": "cp_nccl",
+     sequence (each rank's o and merged lse through cp_forward_check, as
+     phase_cp_attention holds them), and two Trainer steps at cp 2 (full
+     width, the decoder cut to 4 layers) against cp 1. On one GPU it prints {"phase": "cp_nccl",
      "ran": false, "devices": 1} and does nothing else. ``python3
      chip_smoke.py --nccl-only`` builds the kernels and runs this phase
      alone.
@@ -133,6 +149,8 @@ import tempfile
 import threading
 import time
 
+from long_vita_tpu_torch.benchmarks.timing import cuda_ms, queued
+
 SEED = 0
 # bf16 kernel vs the plain version: both compute logits and softmax
 # statistics in f32; they differ in where p is rounded to bf16 (the kernel
@@ -155,6 +173,17 @@ LOGIT_COS, LOGIT_SPREAD_FRAC = 0.995, 0.05
 # bound on the relative Frobenius error and the worst row's cosine leaves
 # room for that and catches a kernel that is wrong.
 FEAT_REL_ERR, FEAT_ROW_COS = 0.05, 0.99
+# EVA-4B's 63 post-norm layers carry that rounding further: on an H100 the
+# plain bf16 path itself lands 6.3e-2 from an f32 tower (1.9e-2 at 24
+# layers, 3.5e-2 at 40), and K1's path as far (6.2e-2), so the two bf16
+# paths differ by 7.6e-2. EVA is held to the f32 tower: the kernel path's
+# relative error at most EVA_F32_RATIO x the plain path's, worst-row cosine
+# FEAT_ROW_COS (measured ratios 0.98-0.99 at 24, 40 and 63 layers).
+EVA_F32_RATIO = 1.1
+# EVA's widths are also held to §2's gate itself (K1 vs plain, the padded
+# D 112), on the tower's first EVA_GATE_LAYERS layers, where the two bf16
+# paths land 1.8e-2 from the f32 tower each on the H100.
+EVA_GATE_LAYERS = 24
 # bf16 backward kernel vs the plain backward: both round p and dS to bf16 at
 # the same points but from f32 logits summed in another order, so a rounding
 # can flip; each gradient sums thousands of such products. Held elementwise
@@ -206,6 +235,8 @@ SOURCES = {
                      "long_vita_tpu/ops/flash_attention.py:530"),
     "w4_matmul": ("long_vita_tpu_torch/ops/csrc/w4_matmul.cu",
                   "long_vita_tpu/ops/quant_matmul.py:132"),
+    "fwd_lab": ("long_vita_tpu_torch/ops/csrc/fwd_kernel_lab.cu",
+                "benchmarks/fwd_kernel_lab.py:44"),
 }
 
 
@@ -217,46 +248,6 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median time of fn() in ms from CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _queued_ms(fns, reps: int) -> float:
-    """Device time per call of ``fns`` (taken in turn), from CUDA events
-    around ``reps`` calls queued behind a 20M-cycle sleep kernel, so that the
-    host's launch overhead (tens of microseconds a call, more than a decode-
-    sized kernel takes) does not show. Give several copies of the operands
-    to keep a working set over the 50 MB L2 cold, as decode finds it."""
-    import torch
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for i in range(reps):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _bound(n_bytes: float, flops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     HBM_BYTES_PER_S and the operations over BF16_FLOPS."""
@@ -266,6 +257,7 @@ def _bound(n_bytes: float, flops: float) -> dict:
 
 def _counters():
     """The kernels' wrappers, whose ``launches`` count kernel launches."""
+    from long_vita_tpu_torch.benchmarks import fwd_kernel_lab as lab
     from long_vita_tpu_torch.ops import flash_attention as fa
     from long_vita_tpu_torch.ops import quant_matmul as qm
 
@@ -277,6 +269,7 @@ def _counters():
         "flash_bwd_dkv": fa.flash_bwd_dkv,
         "flash_bwd_dq": fa.flash_bwd_dq,
         "w4_matmul": qm.w4_matmul,
+        "fwd_lab": lab.variant_flash,
     }
 
 
@@ -299,6 +292,7 @@ def _read_counts() -> dict:
 
 
 def phase_build() -> None:
+    from long_vita_tpu_torch.benchmarks import fwd_kernel_lab  # noqa: F401  (registers K7)
     from long_vita_tpu_torch.ops import _build
     from long_vita_tpu_torch.ops import flash_attention  # noqa: F401  (registers K1-K5)
     from long_vita_tpu_torch.ops import quant_matmul  # noqa: F401  (registers K6)
@@ -323,6 +317,11 @@ def phase_build() -> None:
               f"{bwd.lvt_flash_bwd_smem_bytes(d, 1)} bytes of dynamic shared memory in K4 and "
               f"{bwd.lvt_flash_bwd_smem_bytes(d, 0)} in K5's dkv pass, a dq block "
               f"{dq.lvt_flash_bwd_dq_smem_bytes(d)}")
+    lab = _build.load("fwd_kernel_lab")
+    print("[build] fwd_kernel_lab.cu (K7, LabPolicy of flash_fwd_sm90.cuh): a block takes " +
+          ", ".join(f"{lab.lvt_fwd_lab_smem_bytes(d, bk)} bytes at D={d}, kv tile {bk}"
+                    for d, bk in ((128, 128), (128, 64), (64, 128))) +
+          " of dynamic shared memory")
     w4 = _build.load("w4_matmul")
     print("[build] w4_matmul.cu: a block takes " + ", ".join(
         f"{w4.lvt_w4_matmul_smem_bytes(n)} bytes at N={n}" for n in (8, 16, 32, 64, 128))
@@ -426,8 +425,8 @@ def phase_kernels() -> dict:
     # device time, the calls queued behind a sleep: at a sub-millisecond
     # kernel the wrapper's host work (checks, tensor maps, the meta scalars)
     # would show in events around each call
-    kern_ms = _queued_ms([lambda: fa.flash_attention(qa, ka, va, **kw_a)], reps=20)
-    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(qa, ka, va, **kw_a), reps=5)
+    kern_ms, host_ms = queued([lambda: fa.flash_attention(qa, ka, va, **kw_a)], reps=20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(qa, ka, va, **kw_a), reps=5)
     pairs = sum(i + 1 for i in range(4096, 4096 + 2048))  # unmasked (q, k) pairs
     tflops = 4 * 40 * 128 * pairs / (kern_ms * 1e-3) / 1e12
     # bytes: q and o, the 6144 valid rows of k and v, lse
@@ -436,7 +435,8 @@ def phase_kernels() -> dict:
     lib_ms = _sdpa_ms(qa, ka[:, :6144], va[:, :6144], lower_right=True)
     print(
         f"[kernel] (a) timing: kernel {kern_ms:.3f} ms (queued) "
-        f"({tflops:.1f} TFLOP/s on unmasked pairs), plain {plain_ms:.3f} ms, bound "
+        f"({tflops:.1f} TFLOP/s on unmasked pairs), the wrapper's host time "
+        f"{host_ms * 1e3:.1f} us a call, plain {plain_ms:.3f} ms, bound "
         f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), F.scaled_dot_product_attention "
         f"(lower-right causal, kv repeated to 40 heads) {lib_ms:.3f} ms"
     )
@@ -465,8 +465,8 @@ def _sdpa_ms(q, k, v, *, lower_right=False, mask=None, do=None, reps=20) -> floa
 
         mask = causal_lower_right(q.shape[1], k.shape[1])
     if do is None:
-        return _queued_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)],
-                          reps=reps)
+        return queued([lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)],
+                          reps=reps)[0]
     leaves = [x.requires_grad_() for x in (qt, kt, vt)]
     dot = heads_first(do)
 
@@ -474,7 +474,7 @@ def _sdpa_ms(q, k, v, *, lower_right=False, mask=None, do=None, reps=20) -> floa
         out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         torch.autograd.grad(out, leaves, dot)
 
-    return _cuda_ms(fwd_bwd, reps=reps)
+    return cuda_ms(fwd_bwd, reps=reps)
 
 
 def _pair_case(name, kernel, plain, n_counter, *, lse_atol=LSE_ATOL) -> float:
@@ -552,10 +552,10 @@ def phase_kernels_quant() -> dict:
         raise AssertionError("[K2 kv_valid_len=0] must give o = 0, lse = -2^30")
     print("[kernel] K2 kv_valid_len=0: o == 0 and lse == -2^30 ok")
     # device time, the calls queued behind a sleep (as K1's)
-    kern_ms = _queued_ms([lambda: fa.flash_attention_quant(q, k, ks, v, vs, **kw)], reps=20)
-    plain_ms = _cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw), reps=5)
+    kern_ms = queued([lambda: fa.flash_attention_quant(q, k, ks, v, vs, **kw)], reps=20)[0]
+    plain_ms = cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw), reps=5)
     kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)  # the codes as a bf16 cache
-    k1_ms = _queued_ms([lambda: fa.flash_attention(q, kb, vb, causal=True, **kw)], reps=20)
+    k1_ms = queued([lambda: fa.flash_attention(q, kb, vb, causal=True, **kw)], reps=20)[0]
     del kb, vb
     pairs = 2048 * 14336 + 2048 * 2049 // 2  # unmasked (q, k) pairs
     tflops = 4 * 40 * 128 * pairs / (kern_ms * 1e-3) / 1e12
@@ -591,8 +591,8 @@ def phase_kernels_short() -> dict:
             fa.short_attention,
         ))
         if n == 64:
-            kern_ms = _queued_ms([lambda: fa.short_attention(q, k, v)], reps=20)
-            plain_ms = _cuda_ms(lambda: fa.short_attention_reference(q, k, v), reps=5)
+            kern_ms = queued([lambda: fa.short_attention(q, k, v)], reps=20)[0]
+            plain_ms = cuda_ms(lambda: fa.short_attention_reference(q, k, v), reps=5)
             lib_ms = _sdpa_ms(q, k, v)
             bound = _bound(4 * 2 * q.numel() + 4 * 64 * 16 * 1025, 4 * 64 * 16 * 1025 * 1025 * 64)
     tflops = 4 * 64 * 16 * 1025 * 1025 * 64 / (kern_ms * 1e-3) / 1e12
@@ -660,17 +660,12 @@ def _plain_bwd_by_segment(q, k, v, o, lse, do, seg) -> tuple:
     ids, lens = torch.unique_consecutive(seg[0], return_counts=True)
     if q.shape[0] != 1 or len(torch.unique(ids)) != len(ids):
         raise ValueError("one batch row of contiguous segments")
-    hkv = k.shape[2]
-    g = q.shape[2] // hkv
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     a = 0
     for n in lens.tolist():
         r = slice(a, a + n)
-        for h in range(hkv):
-            hq, hk = slice(h * g, (h + 1) * g), slice(h, h + 1)
-            dq[:, r, hq], dk[:, r, hk], dv[:, r, hk] = fa.flash_attention_bwd_reference(
-                q[:, r, hq], k[:, r, hk], v[:, r, hk], o[:, r, hq], lse[:, hq, r],
-                do[:, r, hq], causal=True)
+        dq[:, r], dk[:, r], dv[:, r] = fa.flash_attention_bwd_reference_by_group(
+            q[:, r], k[:, r], v[:, r], o[:, r], lse[:, :, r], do[:, r])
         a += n
     return dq, dk, dv
 
@@ -747,10 +742,10 @@ def phase_kernels_bwd() -> dict:
                          kw["kv_segment_ids"], True)
     a5 = fa.bwd_operands(q, k, v, o, lse, do, True, 0, 0, 4096, kw["q_segment_ids"],
                          kw["kv_segment_ids"], False)
-    k4_ms = _cuda_ms(lambda: fa.flash_bwd_fused(a4), reps=10)
-    dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(a5), reps=10)
-    dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(a5), reps=10)
-    plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw), reps=3)
+    k4_ms = cuda_ms(lambda: fa.flash_bwd_fused(a4), reps=10)
+    dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(a5), reps=10)
+    dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(a5), reps=10)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw), reps=3)
     flops = 2.5 * 4 * 40 * 128 * 4096 * 4096 / 2  # fwd-equivalent x 2.5, causal half
     # the bounds count the (q, k) pairs inside the 3 segments
     seg = kw["q_segment_ids"][0]
@@ -797,12 +792,12 @@ def phase_kernels_bwd() -> dict:
                                           _plain_bwd_by_segment(q, k, v, o, lse, do, seg))
                 del got
                 meta = fa._device_meta(dev, 0, 0, s)
-                prep_ms = _cuda_ms(lambda: fa.bwd_tile_order(fa.bwd_seg_ranges(seg, seg), s, meta),
+                prep_ms = cuda_ms(lambda: fa.bwd_tile_order(fa.bwd_seg_ranges(seg, seg), s, meta),
                                    reps=10)
                 print(f"[kernel] {layout}: the tile ranges and grid order (bwd_seg_ranges, "
                       f"bwd_tile_order) {prep_ms:.3f} ms a backward call")
-            ms = _cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=3)
-            fwd_ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
+            ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps=3)
+            fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
             pairs_s, bnd = _bwd_bounds(q, k, kw["q_segment_ids"])
             bound_ms = sum(bnd[e]["bound_ms"] for e in entries)
             by = "/".join(sorted({bnd[e]["bound_by"] for e in entries}))
@@ -903,18 +898,18 @@ def phase_kernels_w4() -> dict:
             copies = [(packed, scales)] + [
                 (packed.clone(), scales.clone()) for _ in range(-(-120_000_000 // n_bytes) - 1)
             ]
-            kern_ms = _queued_ms([lambda p=p, s=s: qm.w4_matmul(x, p, s, out_dtype)
-                                  for p, s in copies], reps=60)
+            kern_ms = queued([lambda p=p, s=s: qm.w4_matmul(x, p, s, out_dtype)
+                                  for p, s in copies], reps=60)[0]
             del copies
-            plain_ms = _cuda_ms(lambda: qm.w4_matmul_reference(x, packed, scales, out_dtype), reps=3)
+            plain_ms = cuda_ms(lambda: qm.w4_matmul_reference(x, packed, scales, out_dtype), reps=3)
             w_deq = (qm.unpack_int4_torch(packed).reshape(n_in // 128, 128, n_out).float()
                      * scales[:, None]).reshape(n_in, n_out).to(bf)
             deqs = [w_deq] + [w_deq.clone() for _ in range(-(-120_000_000 // w_deq.nbytes) - 1)]
             if out_dtype == torch.float32:
-                lib_ms = _queued_ms([lambda w=w: torch.mm(x, w, out_dtype=torch.float32)
-                                     for w in deqs], reps=60)
+                lib_ms = queued([lambda w=w: torch.mm(x, w, out_dtype=torch.float32)
+                                     for w in deqs], reps=60)[0]
             else:
-                lib_ms = _queued_ms([lambda w=w: torch.matmul(x, w) for w in deqs], reps=60)
+                lib_ms = queued([lambda w=w: torch.matmul(x, w) for w in deqs], reps=60)[0]
             del deqs, w_deq
             bound = _bound(2 * x.numel() + n_bytes + got.element_size() * got.numel(),
                            2 * rows * n_in * n_out)
@@ -1001,8 +996,9 @@ class _StubMM:
 
 def _plain_chunked_last_row(text, tc, ids, chunk, max_seq, *, feats=None,
                             indices=None, quantize=False):
-    """engine.prefill's flow (chunks against a cache, then the last row
-    decode-style) with attention forced to the plain versions. With feats,
+    """engine.prefill's flow (chunks against a cache, then, unless the
+    prompt fills its last chunk, the last row decode-style) with attention
+    forced to the plain versions. With feats,
     the tile features are merged into the embeddings first, where the
     engine's per-chunk scatter puts them; quantize: an int8 cache."""
     import dataclasses
@@ -1025,9 +1021,11 @@ def _plain_chunked_last_row(text, tc, ids, chunk, max_seq, *, feats=None,
     )
     for start in range(0, padded, chunk):
         pos = start + torch.arange(chunk, device=dev)[None]
-        _, cache = qwen2.qwen2_decoder(
+        hidden, cache = qwen2.qwen2_decoder(
             text, embeds[:, start : start + chunk], pos, tc, kv_cache=cache, attn_impl="xla"
         )
+    if padded == n:
+        return hidden[:, -1]
     hidden, _ = qwen2.qwen2_decoder(
         text, qwen2.embed_tokens(text, ids_t[:, n - 1 : n]),
         torch.full((1, 1), n - 1, device=dev), tc,
@@ -2447,6 +2445,448 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
 
 
 # ---------------------------------------------------------------------------
+# the eleventh slice: the forward-kernel lab (K7), the generic towers, MoE
+# ---------------------------------------------------------------------------
+
+LAB_REPS = 10  # timed calls of each lab contender
+
+
+def phase_fwd_lab(*, s_check=4096, s_lab=16384, heads=(40, 8), d=128, dev=None) -> tuple:
+    """K7, the forward-kernel lab's variants of the Hopper forward. First
+    each variant against variant_flash_reference at [1, s_check, heads, d]
+    (the plain version a kv head's group at a time), o to O_ATOL + O_RTOL x
+    |ref| and the lse to LSE_ATOL; these launches are not counted. Then the
+    lab's main path (benchmarks/fwd_kernel_lab.run_lab at s_lab, the lab's
+    16K 40/8 shape): K1, every variant and the library call timed, K1 and
+    each variant held to the plain version's 16K output at the same
+    tolerances, K4 and K5 forward + backward timed beside the library's and
+    one backward of each held to the plain backward (GRAD_TOL); the launch
+    counts of that run exact. -> (the kernels report's K7 entry, the run's
+    launch counts)."""
+    import torch
+
+    from long_vita_tpu_torch.benchmarks import fwd_kernel_lab as lab
+
+    dev = dev or torch.device("cuda")
+    hq, hkv = heads
+    rnd = _cp_rand(dev, SEED + 60)
+    q, k, v = rnd(1, hq, s_check, d), rnd(1, hkv, s_check, d), rnd(1, hkv, s_check, d)
+    ro, rlse = lab.variant_flash_reference(q, k, v)
+    errs = []
+    for kw in lab.variants():
+        before = lab.variant_flash.launches
+        o, lse = lab.variant_flash(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs()
+        lse_err = (lse - rlse).abs().max().item()
+        ok = (lab.variant_flash.launches == before + 1
+              and bool((err <= O_ATOL + O_RTOL * ro.float().abs()).all())
+              and lse_err <= LSE_ATOL and bool(torch.isfinite(o.float()).all()))
+        errs.append(err.max().item())
+        print(f"[lab] {lab.variant_name(kw)} at [1, {s_check}, {hq}/{hkv}, {d}] vs the plain "
+              f"version: max|o-ref| {errs[-1]:.3e}, max|lse-ref| {lse_err:.3e} (tol o "
+              f"{O_ATOL}+{O_RTOL}*|ref|, lse {LSE_ATOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[{lab.variant_name(kw)}] K7 disagrees with its plain version")
+    del q, k, v, ro, rlse, o, lse
+
+    _reset_counts()
+    res = lab.run_lab(s=s_lab, heads=heads, d=d, reps=LAB_REPS, seed=SEED + 61,
+                      log=lambda line: print(line), device=dev)
+    counts = _read_counts()
+    if not res["ok"]:
+        raise AssertionError(f"at {s_lab} these kernels disagree with their plain versions: "
+                             f"{res['failed']}")
+    n_var, rb = len(lab.variants()), max(LAB_REPS // 2, 3)
+    _check_launches(counts, {
+        "fwd_lab": n_var * (LAB_REPS + 3), "flash_fwd": LAB_REPS + 25 + 2 * (2 + rb),
+        "flash_bwd": 3 + rb, "flash_bwd_dkv": 3 + rb, "flash_bwd_dq": 3 + rb,
+    })
+    # the variant with K1's own switches stands for K7 in the report
+    own = res["forward"][lab.variant_name(dict(block_kv=128, fastpath=True, cheap_mask=True,
+                                               wide_ml=False))]
+    sdpa = res["forward"]["SDPA (library, kv repeated)"]
+    print(f"[lab] {json.dumps(res)}")
+    errs += [r["plain_err"] for n, r in res["forward"].items() if n.startswith("K7")]
+    return {"max_abs_err": max(errs), "ms": own["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": "operations",
+            "library_ms": sdpa["ms"]}, counts
+
+
+def _hf_vit_checkpoint(path, cfg, family, gen, dev):
+    """Random weights of a CLIP or SigLIP vision tower under HF's names (bf16,
+    normal x 0.02, norms near 1, small biases), written as one safetensors
+    file with its config.json."""
+    import torch
+
+    from long_vita_tpu_torch.utils.checkpoint_io import save_safetensors
+
+    h, i, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
+
+    def r(*shape, scale=0.02, mean=0.0):
+        return (mean + scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    pre = "vision_model."
+    sd = {pre + "embeddings.patch_embedding.weight": r(h, 3, p, p),
+          pre + "embeddings.position_embedding.weight": r(cfg.seq_len, h)}
+    if family == "clip":
+        sd[pre + "embeddings.class_embedding"] = r(h)
+        sd[pre + "pre_layrnorm.weight"], sd[pre + "pre_layrnorm.bias"] = r(h, mean=1.0), r(h)
+    else:
+        sd[pre + "embeddings.patch_embedding.bias"] = r(h)
+    for layer in range(cfg.num_hidden_layers):
+        q = f"{pre}encoder.layers.{layer}."
+        for name, shape in (("self_attn.q_proj", (h, h)), ("self_attn.k_proj", (h, h)),
+                            ("self_attn.v_proj", (h, h)), ("self_attn.out_proj", (h, h)),
+                            ("mlp.fc1", (i, h)), ("mlp.fc2", (h, i))):
+            sd[q + name + ".weight"], sd[q + name + ".bias"] = r(*shape), r(shape[0])
+        for name in ("layer_norm1", "layer_norm2"):
+            sd[q + name + ".weight"], sd[q + name + ".bias"] = r(h, mean=1.0), r(h)
+    os.makedirs(path, exist_ok=True)
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    act = "quick_gelu" if family == "clip" else "gelu_pytorch_tanh"
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"hidden_size": h, "intermediate_size": i, "num_hidden_layers":
+                   cfg.num_hidden_layers, "num_attention_heads": cfg.num_attention_heads,
+                   "image_size": cfg.image_size, "patch_size": p, "hidden_act": act,
+                   "layer_norm_eps": cfg.layer_norm_eps}, f)
+    return sum(t.numel() * 2 for t in sd.values())
+
+
+def _feature_gate(tag, feats, ref) -> None:
+    """§2's ViT-feature gate: relative Frobenius error and the worst row's
+    cosine, kernels against the plain attention."""
+    rel, row_cos = _rel_err(feats, ref)
+    ok = rel <= FEAT_REL_ERR and row_cos >= FEAT_ROW_COS
+    print(f"[vit] {tag}: relative error {rel:.3e} (<= {FEAT_REL_ERR}), worst row cosine "
+          f"{row_cos:.6f} (>= {FEAT_ROW_COS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the tower's features through the kernels disagree")
+
+
+def _rel_err(a, b) -> tuple:
+    """(relative Frobenius error, worst row's cosine) of a against b."""
+    import torch.nn.functional as F
+
+    a = a.float().reshape(-1, a.shape[-1])
+    b = b.float().reshape(-1, b.shape[-1])
+    return ((a - b).norm() / b.norm()).item(), F.cosine_similarity(a, b, dim=-1).min().item()
+
+
+def phase_generic_vit(work, *, n_tiles=8, configs=None, dev=None) -> dict:
+    """The alternative vision towers at their published widths, random
+    weights from the seed: CLIP ViT-L/14 at 448 (1025 tokens, D 64) and
+    SigLIP so400m at 384 (729 tokens, D 72, padded to 128 for the kernels)
+    written as HF safetensors under ``work`` and loaded with the port's
+    loaders, EVA-4B at 448 (D 112) from init_generic_vit_params; n_tiles
+    tiles through K1 ("auto") against the plain attention under §2's
+    ViT-feature gate (EVA: its first EVA_GATE_LAYERS layers so, then all 63
+    with both paths against an f32 tower, EVA_F32_RATIO). Then SigLIP
+    trainable: one backward through K4 or K5
+    (JAX's rule) at the padded D against the plain attention's, the tower's
+    gradients at cosine >= TRAIN_GRAD_COS. Launches exact. configs: {"clip",
+    "siglip", "eva"} -> GenericViTConfig in place of the published ones (the
+    CPU rehearsal's tiny towers). -> the counts."""
+    import copy
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from long_vita_tpu_torch.models import generic_vit as gv
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.utils import vision_loaders as vl
+
+    dev = dev or torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    total = dict.fromkeys(SOURCES, 0)
+    configs = configs or {"clip": gv.clip_vit_300m(448), "siglip": gv.siglip_so400m(384),
+                          "eva": gv.eva_4b(448)}
+
+    def run(tag, params, cfg, f32_anchor=False):
+        side = cfg.grid * cfg.patch_size  # SigLIP's 384 px: its conv drops the last 6
+        px = torch.randn(n_tiles, side, side, 3, generator=gen, device=dev).to(torch.bfloat16)
+        _reset_counts()
+        feats, t = _timed(lambda: gv.generic_vit(params, px, cfg))
+        counts = _read_counts()
+        _check_launches(counts, {"flash_fwd": cfg.num_hidden_layers})
+        for key in total:
+            total[key] += counts[key]
+        fps = n_tiles / t
+        _, t2 = _timed(lambda: gv.generic_vit(params, px, cfg))
+        _reset_counts()
+        ref = gv.generic_vit(params, px, cfg, attn_impl="xla")
+        print(f"[vit] {tag}: {cfg.num_hidden_layers} layers, {cfg.hidden_size} wide, "
+              f"{cfg.num_attention_heads} heads of {cfg.head_dim}, {cfg.seq_len} tokens a tile; "
+              f"{n_tiles} tiles through K1 in {t2 * 1e3:.1f} ms = {n_tiles / t2:.1f} frames/s "
+              f"(first call {fps:.1f})")
+        if not f32_anchor:
+            _feature_gate(f"{tag}, K1 vs the plain attention", feats, ref)
+            return px
+        with torch.no_grad():
+            truth = gv.generic_vit(copy.deepcopy(params).float(), px.float(), cfg,
+                                   attn_impl="xla")
+        (k_rel, k_cos), (p_rel, _) = _rel_err(feats, truth), _rel_err(ref, truth)
+        gap, gap_cos = _rel_err(feats, ref)
+        ok = k_rel <= EVA_F32_RATIO * p_rel and k_cos >= FEAT_ROW_COS
+        print(f"[vit] {tag} vs an f32 tower: K1's path relative error {k_rel:.3e}, the plain "
+              f"path's {p_rel:.3e} (K1 <= {EVA_F32_RATIO} x plain), K1's worst row cosine "
+              f"{k_cos:.6f} (>= {FEAT_ROW_COS}); K1 vs plain {gap:.3e} / {gap_cos:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[{tag}] K1's path is farther from an f32 tower than the plain")
+        return px
+
+    for family, load in (("clip", vl.load_clip_vit_params),
+                         ("siglip", vl.load_siglip_vit_params)):
+        cfg = configs[family]
+        path = os.path.join(work, family)
+        (n_bytes, t_w) = _timed(lambda: _hf_vit_checkpoint(path, cfg, family, gen, dev))
+        hf_cfg = vl.vit_config_from_hf(path, family)
+        if dataclasses.asdict(hf_cfg) != dataclasses.asdict(cfg):
+            raise AssertionError(f"vit_config_from_hf({family}) gave {hf_cfg}, not {cfg}")
+        params, t_l = _timed(lambda: load(path, cfg, dtype=torch.bfloat16, device=dev))
+        print(f"[vit] {family}: wrote {n_bytes / 1e9:.3f} GB of HF safetensors in {t_w:.2f} s, "
+              f"loaded in {t_l:.2f} s")
+        px = run(f"{family} ({'CLIP ViT-L/14 @448' if family == 'clip' else 'SigLIP so400m @384'})",
+                 params, cfg)
+        if family == "siglip":
+            siglip, siglip_px = params, px
+        else:
+            del params, px
+        shutil.rmtree(path, ignore_errors=True)
+
+    cfg = configs["eva"]
+    eva, t_i = _timed(lambda: gv.init_generic_vit_params(gen, cfg, torch.bfloat16, dev))
+    n = sum(p.numel() for p in eva.parameters())
+    print(f"[vit] eva_4b: {n / 1e9:.3f} B random bf16 params ({2 * n / 1e9:.2f} GB) built in "
+          f"{t_i:.1f} s")
+    del px
+    cut = min(EVA_GATE_LAYERS, cfg.num_hidden_layers)
+    eva_cut = gv.GenericViTParams(
+        patch_embed=eva.patch_embed, pos_embed=eva.pos_embed, layers=list(eva.layers)[:cut],
+        cls_token=eva.cls_token, pre_norm=eva.pre_norm, final_norm=eva.final_norm)
+    run(f"EVA-4B @448, its first {cut} layers", eva_cut,
+        dataclasses.replace(cfg, num_hidden_layers=cut))
+    del eva_cut
+    run("EVA-4B @448", eva, cfg, f32_anchor=True)
+    del eva
+    torch.cuda.empty_cache()
+
+    # SigLIP trainable: one backward through K4/K5 at the padded head dim
+    cfg = configs["siglip"]
+    fused = fa.bwd_uses_fused(n_tiles, cfg.seq_len, cfg.seq_len, cfg.num_attention_heads, 128, 2)
+    g = torch.randn(n_tiles, cfg.seq_len, cfg.hidden_size, generator=gen, device=dev)
+    g = g.to(torch.bfloat16)
+    leaves = list(siglip.parameters())
+
+    def grads(impl):
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        out = gv.generic_vit(siglip, siglip_px, cfg, attn_impl=impl)
+        (out.float() * g.float()).sum().backward()
+        flat = torch.cat([p.grad.float().reshape(-1) for p in leaves])
+        for p in leaves:
+            p.grad = None
+        return flat
+
+    _reset_counts()
+    got, t_b = _timed(lambda: grads("auto"))
+    counts = _read_counts()
+    layers = cfg.num_hidden_layers
+    _check_launches(counts, {"flash_fwd": layers,
+                             **({"flash_bwd": layers} if fused else
+                                {"flash_bwd_dkv": layers, "flash_bwd_dq": layers})})
+    for key in total:
+        total[key] += counts[key]
+    _reset_counts()
+    ref = grads("xla")
+    cos = F.cosine_similarity(got, ref, dim=0).item()
+    ok = cos >= TRAIN_GRAD_COS and bool(torch.isfinite(got).all())
+    print(f"[vit] SigLIP so400m trainable, {n_tiles} tiles: forward + backward through K1 and "
+          f"{'K4' if fused else 'K5'} at the padded D 128 in {t_b * 1e3:.1f} ms; the tower's "
+          f"{got.numel() / 1e6:.1f} M gradients vs the plain attention's: cosine {cos:.6f} "
+          f"(>= {TRAIN_GRAD_COS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("SigLIP's gradients through K4/K5 disagree with the plain attention")
+    del siglip, leaves, got, ref
+    return total
+
+
+@contextlib.contextmanager
+def _routing_tap(forced=None):
+    """Within the block, ops.moe.route records the expert ids of each call
+    (in order); with ``forced`` (a list of id tensors) the i-th call routes
+    to forced[i] instead, its gates the call's own probabilities at those
+    ids (teacher forcing of the routes). -> the list of recorded ids."""
+    from long_vita_tpu_torch.ops import moe
+
+    orig, seen = moe.route, []
+
+    def tap(router, xe, top_k):
+        probs, gates, ids = orig(router, xe, top_k)
+        if forced is not None:
+            if forced[len(seen)].shape != ids.shape:
+                raise AssertionError("the forced routes do not match the calls' tokens")
+            ids = forced[len(seen)]
+            gates = probs.gather(-1, ids)
+        seen.append(ids)
+        return probs, gates, ids
+
+    moe.route = tap
+    try:
+        yield seen
+    finally:
+        moe.route = orig
+
+
+def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, chunk=2048,
+              train_seq=4096, base=None, dev=None) -> dict:
+    """A MoE decoder at the 14B's widths (h 5120, ffn 13824 an expert, 40/8
+    heads) with ``experts`` experts, top-2, capacity 1.25, cut to ``layers``
+    layers (~3.4 GB of experts a layer), random bf16 weights. Serving: an
+    n_prompt-id prompt and n_new greedy tokens through InferenceEngine
+    (chunked prefill, each chunk and decode step routed with its own
+    capacity), K1 launches exact, the last-row logits against the plain
+    attention's chunked flow under §2's logit gate, that flow routed as the
+    kernel path routed (_routing_tap): with random routers a token's top-2
+    margin is of the order of bf16 rounding, a few tokens a layer change
+    experts between the two paths, and each such token's hidden state (and
+    the capacity's token-major slots after it) changes wholesale. Training: the first
+    ``train_layers`` layers (Adam's f32 moments for all four would not fit
+    on the card beside the weights), a frozen tower, two Trainer steps with
+    moe_aux_loss_coef on one packed row: the second step's loss below the
+    first's, the aux finite and > 0, the routers moved. base: the config
+    whose widths are taken (long_vita_14b(); the CPU rehearsal's tiny one).
+    -> launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_14b
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.models.intern_vit import init_vit_params
+    from long_vita_tpu_torch.models.long_vita import LongVITAParams
+    from long_vita_tpu_torch.models.projector import init_projector_params
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.training import train_step as ts
+    from long_vita_tpu_torch.training.optimizer import OptimizerConfig
+    from long_vita_tpu_torch.training.trainer import Trainer, TrainerConfig, batch_iterator
+
+    dev = dev or torch.device("cuda")
+    base = base or long_vita_14b()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, num_hidden_layers=layers, num_experts=experts))
+    tc = cfg.text
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    text, t_i = _timed(lambda: qwen2.init_qwen2_params(gen, tc, torch.bfloat16, dev))
+    n = sum(p.numel() for p in text.parameters())
+    print(f"[moe] decoder: {layers} layers at the 14B's widths, {experts} experts of ffn "
+          f"{tc.intermediate_size}, top-{tc.moe_top_k}, capacity {tc.moe_capacity_factor}; "
+          f"{n / 1e9:.3f} B random bf16 params built in {t_i:.1f} s")
+    total = dict.fromkeys(SOURCES, 0)
+
+    engine = InferenceEngine(text, cfg, _StubMM(), max_seq_len=2 * chunk, chunk=chunk,
+                             cache_dtype=torch.bfloat16)
+    prompt = np.random.default_rng(SEED + 81).integers(0, tc.vocab_size, n_prompt).tolist()
+    sp = SamplingParams(max_new_tokens=n_new)
+    _reset_counts()
+    first, t_first = _timed(lambda: engine.generate(input_ids=prompt, sampling=sp))
+    again, t_again = _timed(lambda: engine.generate(input_ids=prompt, sampling=sp))
+    counts = _read_counts()
+    chunks = -(-n_prompt // chunk)
+    _check_launches(counts, {"flash_fwd": 2 * layers * chunks})
+    for key in total:
+        total[key] += counts[key]
+    if first.token_ids != again.token_ids or len(first.token_ids) != n_new:
+        raise AssertionError(f"MoE greedy generate: {first.token_ids} vs {again.token_ids}")
+    with _routing_tap() as routes:
+        ttft, _, logits, decode_ms = _ttft_decode(engine, prompt, t_again, n_new)
+    print(f"[moe] {n_prompt}-id prompt, {n_new} greedy tokens x2 identical {first.token_ids}; "
+          f"TTFT {ttft * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token (first generate "
+          f"{t_first:.2f} s)")
+    _reset_counts()
+    with _routing_tap() as free:
+        _plain_chunked_last_row(text, tc, prompt, chunk, 2 * chunk)
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(routes, free))
+    with _routing_tap(forced=routes):
+        plain = qwen2.lm_head(text, _plain_chunked_last_row(text, tc, prompt, chunk, 2 * chunk))
+    print(f"[moe] the plain flow left to route itself sends {moved} of "
+          f"{sum(r.shape[0] for r in routes)} token-layers to other experts than the kernel "
+          f"path; the gate below routes it as the kernel path did")
+    if not _logit_check("moe", "kernel path vs plain chunked prefill", logits, plain):
+        raise AssertionError("the MoE decoder's logits disagree with the plain attention's")
+    del engine, logits, plain
+
+    # training: the first train_layers layers, a frozen random tower
+    tcfg_text = dataclasses.replace(tc, num_hidden_layers=train_layers)
+    cfg_t = dataclasses.replace(cfg, text=tcfg_text)
+    text_t = qwen2.Qwen2Params(embed=text.embed, layers=list(text.layers[:train_layers]),
+                               final_norm=text.final_norm, lm_head=text.lm_head)
+    del text
+    torch.cuda.empty_cache()
+    lv = LongVITAParams(
+        text=text_t,
+        vision=init_vit_params(gen, cfg_t.vision, torch.bfloat16, dev),
+        projector=init_projector_params(gen, cfg_t, torch.bfloat16, dev))
+    router0 = lv.text.layers[0].router.weight.detach().clone()
+    rng = np.random.default_rng(SEED + 82)
+    vc = cfg_t.vision
+    tiles = rng.standard_normal((7, vc.image_size, vc.image_size, 3)).astype(np.float32)
+    pack = _train_pack(cfg_t, train_seq, [], [(tiles, (2, 3))], rng, text_segments=4,
+                       answer=200, text_sup=100)
+    aux_seen = []
+    loss_terms = ts.loss_terms
+
+    def tap(*a, **kw):  # the aux term of each step's loss
+        out = loss_terms(*a, **kw)
+        aux_seen.append(out[2].item())
+        return out
+
+    ts.loss_terms = tap
+    try:
+        trainer = Trainer(lv, cfg_t, TrainerConfig(
+            seq_len=train_seq, logit_budget=train_seq, steps=2, remat=True, vision_chunk=64,
+            optim=OptimizerConfig(lr=1e-5, warmup_steps=0, total_steps=10, freeze_vision=True,
+                                  moment_dtype="bfloat16")))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        out, t_train = _timed(lambda: trainer.train(
+            batch_iterator(iter([pack, pack]), 1, train_seq)))
+        counts = _read_counts()
+    finally:
+        ts.loss_terms = loss_terms
+    for key in total:
+        total[key] += counts[key]
+    losses = out["losses"]
+    moved = not torch.equal(trainer.state.params.text.layers[0].router.weight, router0)
+    ok = (len(losses) == 2 and losses[1] < losses[0] and all(np.isfinite(aux_seen))
+          and min(aux_seen) > 0 and moved)
+    print(f"[moe] Trainer, {train_layers} MoE layers at full width, 2 steps on a {train_seq}-token "
+          f"row (moe_aux_loss_coef {tc.moe_aux_loss_coef}): losses {losses}, aux {aux_seen}, "
+          f"the routers moved: {moved}; {t_train:.2f} s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MoE training: the loss did not fall, or the aux is not finite")
+    # each step: K1 in the forward and in the recompute of every layer, K4 or
+    # K5 in its backward; the frozen tower's 7 tiles in one batch through K3
+    steps = 2
+    fused = fa.bwd_uses_fused(1, train_seq, train_seq, tc.num_attention_heads, tc.head_dim, 2)
+    _check_launches(counts, {
+        "flash_fwd": 2 * train_layers * steps, "short_attn": vc.num_hidden_layers * steps,
+        **({"flash_bwd": train_layers * steps} if fused else
+           {"flash_bwd_dkv": train_layers * steps, "flash_bwd_dq": train_layers * steps})})
+    del trainer, lv, text_t, out
+    return total
+
+
+# ---------------------------------------------------------------------------
 # context parallelism: thread-ranks on one card (parallel/comm.ThreadComm)
 # ---------------------------------------------------------------------------
 
@@ -2460,6 +2900,26 @@ THREADS_NOTE = "4 thread-ranks on one card, not a multi-GPU time"
 # is held to CP_O_RMS_FRAC x RMS(ref) absolute + O_RTOL x |ref|, and the
 # merged f32 lse to LSE_ATOL.
 CP_O_RMS_FRAC = 0.1
+
+
+def cp_forward_check(o, ref_o, lse, ref_lse, rms=None) -> dict:
+    """A cp attention's forward against K1 over the whole sequence: o held
+    elementwise to CP_O_RMS_FRAC x RMS(ref) absolute + O_RTOL x |ref| (rms:
+    RMS(ref) of the whole reference, when o and ref_o are one rank's shard
+    of it), the merged f32 lse to LSE_ATOL. -> {"err": max|o - ref|,
+    "worst": the largest err / tol (<= 1 passes), "atol", "lse_err",
+    "ok"}."""
+    import torch
+
+    ro = ref_o.float()
+    if rms is None:
+        rms = ro.square().mean().sqrt().item()
+    atol = CP_O_RMS_FRAC * rms
+    err = (o.float() - ro).abs()
+    worst = (err / (atol + O_RTOL * ro.abs())).max().item()
+    lse_err = (lse.float() - ref_lse.float()).abs().max().item()
+    ok = worst <= 1 and lse_err <= LSE_ATOL and bool(torch.isfinite(o.float()).all())
+    return {"err": err.max().item(), "worst": worst, "atol": atol, "lse_err": lse_err, "ok": ok}
 
 
 def _cp_rand(dev, seed):
@@ -2589,8 +3049,8 @@ def phase_cp_kernels(*, c=CP_SEQ // (2 * CP), shard=16384, q_rows=2048, heads=(4
     kw = dict(causal=True, q_segment_ids=seg[:, :c], kv_segment_ids=seg[:, :c])
     o, lse = ap.pair_attn_fwd(q_a, k_a, v_a, **kw)
     delta = (g_a.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    fwd_ms = _queued_ms([lambda: ap.pair_attn_fwd(q_a, k_a, v_a, causal=True)], reps=10)
-    bwd_ms = _cuda_ms(lambda: ap.pair_attn_bwd(q_a, k_a, v_a, g_a, lse, delta, causal=True), reps=5)
+    fwd_ms = queued([lambda: ap.pair_attn_fwd(q_a, k_a, v_a, causal=True)], reps=10)[0]
+    bwd_ms = cuda_ms(lambda: ap.pair_attn_bwd(q_a, k_a, v_a, g_a, lse, delta, causal=True), reps=5)
     fa.bwd_operands(q_a, k_a, v_a, None, lse, g_a, True, 0, 0, c, kw["q_segment_ids"],
                     kw["kv_segment_ids"], True, delta=delta)
     torch.cuda.synchronize()
@@ -2769,16 +3229,12 @@ def phase_cp_attention(*, s=CP_SEQ, heads=(40, 8), d=128, dev=None, seg=None) ->
             del res[:]
             ref = refs[segs]
             tag = f"cp attention {name}, cp {CP}, {s} tokens, {'T1 segments' if segs else 'no segments'}"
-            ro = ref[0].float()
-            atol = CP_O_RMS_FRAC * ro.square().mean().sqrt().item()
-            err = (got[0].float() - ro).abs()
-            worst = (err / (atol + O_RTOL * ro.abs())).max().item()
-            lse_err = (got[4] - ref[4]).abs().max().item()
-            ok = worst <= 1 and lse_err <= LSE_ATOL and bool(torch.isfinite(got[0].float()).all())
-            print(f"[cp-attn] {tag}: max|o-ref| {err.max().item():.3e}, worst err / tol {worst:.3f} "
-                  f"(tol {atol:.3e} = {CP_O_RMS_FRAC} x RMS(ref) + {O_RTOL} x |ref|), max|lse-ref| "
-                  f"{lse_err:.3e} (tol {LSE_ATOL}), vs K1 over the whole sequence "
-                  f"{'ok' if ok else 'FAIL'}")
+            c = cp_forward_check(got[0], ref[0], got[4], ref[4])
+            ok = c["ok"]
+            print(f"[cp-attn] {tag}: max|o-ref| {c['err']:.3e}, worst err / tol {c['worst']:.3f} "
+                  f"(tol {c['atol']:.3e} = {CP_O_RMS_FRAC} x RMS(ref) + {O_RTOL} x |ref|), "
+                  f"max|lse-ref| {c['lse_err']:.3e} (tol {LSE_ATOL}), vs K1 over the whole "
+                  f"sequence {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"[{tag}] forward disagrees with K1 over the whole sequence")
             _grad_errs(f"{tag} (vs K4/K5 over the whole sequence)", got[1:4], ref[1:4])
@@ -3042,7 +3498,7 @@ def _cp_nccl_worker(rank, world, init, out, sizes):
         from long_vita_tpu_torch.config import long_vita_14b, tiny_test_config
         from long_vita_tpu_torch.models.long_vita import init_long_vita_params
         from long_vita_tpu_torch.ops import flash_attention as fa
-        from long_vita_tpu_torch.ops.ring_attention import ring_attention
+        from long_vita_tpu_torch.ops.ring_attention import ring_attention, ring_fwd
         from long_vita_tpu_torch.parallel.comm import init_process_group
         from long_vita_tpu_torch.parallel.zigzag import zigzag_permute, zigzag_unpermute
         from long_vita_tpu_torch.training.loss import collate_packs
@@ -3079,9 +3535,17 @@ def _cp_nccl_worker(rank, world, init, out, sizes):
         got = [zigzag_unpermute(x, world) for x in got]
         ro, rlse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
         ref = (ro, *fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=True))
+        # the forward on this rank's shard: o and the ring's merged lse
+        # against the reference's rows of the shard (the lse permuted as the
+        # sequence is), o's tolerance from the whole reference's RMS
+        o_s, lse_s = ring_fwd(*(x.detach() for x in leaves), comm)
+        shard = slice(rank * n, (rank + 1) * n)
+        ref_lse = zigzag_permute(rlse, world, axis=2)[:, :, shard]
+        res["ring_fwd"] = cp_forward_check(o_s, zigzag_permute(ro, world)[:, shard], lse_s,
+                                           ref_lse, rms=ro.float().square().mean().sqrt().item())
         res["ring_err"] = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
         res["ring_scale"] = [b.float().abs().max().item() for b in ref]
-        del q, k, v, do, got, ref, leaves, o
+        del q, k, v, do, got, ref, leaves, o, o_s, lse_s
         # ---- two Trainer steps at cp 2 vs cp 1, the decoder cut to
         # sizes["layers"] layers at full width, a frozen random tower
         cfg = long_vita_14b() if not cpu else tiny_test_config()
@@ -3177,13 +3641,14 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
     if len(results) < 2 or bad:
         raise AssertionError(f"[cp-nccl] workers failed or did not report: {bad or results}")
     for rank, res in sorted(results.items()):
-        errs, scales = res["ring_err"], res["ring_scale"]
-        ok = errs[0] <= O_ATOL + O_RTOL * scales[0] and all(
-            e <= 2 * GRAD_TOL * sc for e, sc in zip(errs[1:], scales[1:]))
+        errs, scales, f = res["ring_err"], res["ring_scale"], res["ring_fwd"]
+        ok = f["ok"] and all(e <= 2 * GRAD_TOL * sc for e, sc in zip(errs[1:], scales[1:]))
         print(f"[cp-nccl] rank {rank}: ring cp 2 over NCCL at {seq} tokens, forward + backward "
-              f"{res['ring_s']:.3f} s (wall, second call); max|err| vs K1/K4-5 on the whole: "
-              f"o {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv {errs[3]:.3e} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{res['ring_s']:.3f} s (wall, second call); vs K1/K4-5 on the whole: this rank's "
+              f"o max|err| {f['err']:.3e}, worst err / tol {f['worst']:.3f} (tol {f['atol']:.3e} = "
+              f"{CP_O_RMS_FRAC} x RMS(ref) + {O_RTOL} x |ref|), merged lse max|err| "
+              f"{f['lse_err']:.3e} (tol {LSE_ATOL}); max|err| dq {errs[1]:.3e}, dk {errs[2]:.3e}, "
+              f"dv {errs[3]:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("[cp-nccl] ring attention over NCCL disagrees")
     l2, n2, t2 = results[0]["cp2"]
@@ -3246,9 +3711,21 @@ def main() -> int:
         for name in SOURCES:
             launches[name] += counts[name]
 
+    kern["fwd_lab"], counts = phase_fwd_lab()
+    add(counts)
     phase_cp_kernels()
     add(phase_cp_attention())
     _collect("after the cp attention phases")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    vit_work = tempfile.mkdtemp(prefix="chip_smoke_vit_", dir=build)
+    try:
+        add(phase_generic_vit(vit_work))
+    finally:
+        shutil.rmtree(vit_work, ignore_errors=True)
+    _collect("after the generic towers")
+    add(phase_moe())
+    _collect("after the MoE phase")
     cfg, dev = long_vita_14b(), torch.device("cuda")
     params = _text_params(cfg, dev)
 
@@ -3271,8 +3748,6 @@ def main() -> int:
     # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]
     del params
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
     ckpt = os.path.join(work, "ckpt")
     os.makedirs(ckpt)

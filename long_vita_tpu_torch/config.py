@@ -67,8 +67,9 @@ class TextConfig:
     hidden_act: str = "silu"
     bos_token_id: int = 151643
     eos_token_id: int = 151645
-    # Mixture-of-experts; num_experts == 0 keeps the dense SwiGLU MLP (the
-    # port raises on MoE until multi-GPU, ROADMAP item 7)
+    # Mixture-of-experts; num_experts == 0 keeps the dense SwiGLU MLP. Local
+    # mode (ops/moe.py): expert parallelism over dp, and MoE over cp, raise
+    # (ROADMAP §1 item 8)
     num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25

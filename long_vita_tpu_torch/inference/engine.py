@@ -179,6 +179,8 @@ class InferenceEngine:
         self.mesh, self.parallel = mesh, None
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
+        if mesh is not None:
+            qwen2.check_moe_mesh(cfg.text, dp=mesh.shape.get("dp", 1), cp=mesh.shape["cp"])
         if mesh is not None and mesh.shape["cp"] > 1:
             cp = mesh.shape["cp"]
             self.parallel = qwen2.ParallelConfig(mesh)

@@ -91,19 +91,50 @@ def patch_embed(entry: Dense, pixels: torch.Tensor, cfg: VisionConfig):
     return _dense(entry, x), (gh, gw)
 
 
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5 (jax.image's CUBIC)."""
+    x = x.abs()
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def cubic_resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """[n_in, n_out] f32: the weights jax.image.resize(method="cubic",
+    antialias=True) gives one axis (jax.image.scale_and_translate's
+    compute_weight_mat, translation 0): half-pixel centres; when the axis
+    shrinks the kernel widens by the inverse scale (antialias); each output
+    sample's weights are divided by their sum (so taps past the edge drop
+    out), and a sample that lies outside the input gets none."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = _keys_cubic((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
 def _interp_pos_embed(pos: torch.Tensor, src_grid: int, dst: tuple[int, int]):
-    """The learned patch position embedding for a dst patch grid. Serving
-    tiles are always ``image_size``, so the grid is the source grid and this
-    is the identity. Another grid would need the JAX package's
-    jax.image.resize(method="cubic") (Keys a = -0.5, antialiased when it
-    shrinks), which F.interpolate(mode="bicubic", a = -0.75) is not: it
-    raises until that resize is ported."""
-    if tuple(dst) != (src_grid, src_grid):
-        raise NotImplementedError(
-            f"position-embedding resize from grid {src_grid} to {tuple(dst)} is "
-            "not ported (ROADMAP: port queue, the rest: _interp_pos_embed)"
-        )
-    return pos
+    """Resample the learned [src*src, H] patch position embedding to the
+    (gh, gw) patch grid of a tile of another size, as the JAX package does
+    with jax.image.resize(method="cubic") in f32: Keys' cubic (a = -0.5,
+    half-pixel centres), antialiased when the grid shrinks, one separable
+    weight matrix per axis that changes size (cubic_resize_weights).
+    F.interpolate(mode="bicubic") is another function (a = -0.75, clamped
+    edges, no antialias)."""
+    gh, gw = dst
+    if (gh, gw) == (src_grid, src_grid):
+        return pos
+    grid = pos.float().reshape(src_grid, src_grid, pos.shape[-1])
+    if gh != src_grid:
+        grid = torch.einsum("ijh,ia->ajh", grid, cubic_resize_weights(src_grid, gh, pos.device))
+    if gw != src_grid:
+        grid = torch.einsum("ajh,jb->abh", grid, cubic_resize_weights(src_grid, gw, pos.device))
+    return grid.reshape(gh * gw, -1).to(pos.dtype)
 
 
 def vit_embeddings(emb: VitEmbeddings, pixels: torch.Tensor, cfg: VisionConfig):

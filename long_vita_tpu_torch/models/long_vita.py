@@ -9,8 +9,8 @@ Training takes the same forward with the remat levels (the decoder's per
 qwen2.remat_ops; the tower recomputes each layer at any level, and "vit"
 with a trainable tower adds a chunk-level checkpoint around tower and
 projector), freeze_vision (the tower and its CLS strip under
-torch.no_grad, the projector differentiable) and return_aux (the dense
-model's MoE aux, 0).
+torch.no_grad, the projector differentiable) and return_aux (the MoE aux
+loss summed over the decoder's layers, 0 for a dense decoder).
 
 Under context parallelism (``parallel``, a qwen2.ParallelConfig with cp >
 1) every rank runs this forward on its own shard: the frozen tower encodes
@@ -189,7 +189,7 @@ def long_vita_forward(
     tower runs without gradients and with the single-pass attention K3
     ("short"), as in the JAX package (:321-331). -> (logits [B, S or M,
     vocab] f32, or hidden rows; the cache at its new length, or None), and
-    with return_aux the MoE aux loss, 0 for the dense model.
+    with return_aux the MoE aux loss (qwen2_decoder's), 0 for a dense decoder.
 
     parallel (cp > 1, no cache): input_ids, position_ids and segment_ids
     are this rank's [B, S/cp] shard of the (permuted) sequence; images and
@@ -216,10 +216,10 @@ def long_vita_forward(
             )
         else:
             inputs_embeds = merge_image_embeddings(inputs_embeds, image_embeds, image_indices)
-    hidden, new_cache = qwen2.qwen2_decoder(
+    hidden, new_cache, aux = qwen2.qwen2_decoder(
         params.text, inputs_embeds, position_ids, cfg.text,
         kv_cache=kv_cache, segment_ids=segment_ids, attn_impl=attn_impl,
-        remat=remat, parallel=parallel,
+        remat=remat, parallel=parallel, return_aux=True,
     )
     if logit_positions is not None and cp > 1:
         mask, local = cp_logit_rows(logit_positions, hidden.shape[1], parallel.comm.rank)
@@ -229,7 +229,7 @@ def long_vita_forward(
         hidden = torch.take_along_dim(hidden, logit_positions[:, :, None].long(), dim=1)
     out = qwen2.lm_head(params.text, hidden) if head else hidden
     if return_aux:
-        return out, new_cache, torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return out, new_cache, aux
     return out, new_cache
 
 

@@ -1,8 +1,9 @@
 """Qwen2.5 decoder: parameters as nn.Modules, the forward as plain functions.
 
-Counterpart of long_vita_tpu/models/qwen2.py (text path, dense, one device).
-Architecture: RMSNorm (eps 1e-6), GQA attention with q/k/v bias and
-rotate-half RoPE, SwiGLU MLP, untied lm_head.
+Counterpart of long_vita_tpu/models/qwen2.py (text path). Architecture:
+RMSNorm (eps 1e-6), GQA attention with q/k/v bias and rotate-half RoPE, a
+SwiGLU MLP or, in a layer that carries a router, the local mixture of
+experts of ops/moe.py (its aux loss summed over the layers), untied lm_head.
 
 Differences from the JAX package, all of form rather than of numbers:
   - the stacked ``[L, ...]`` parameter pytree scanned by ``lax.scan`` becomes
@@ -52,7 +53,6 @@ from long_vita_tpu_torch.ops.attention import (
 )
 from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE
 
 CacheLen = Union[int, torch.Tensor]
 
@@ -200,16 +200,24 @@ Projection = Union[Dense, QuantDense8, QuantDense4]
 
 
 class DecoderLayer(nn.Module):
+    """One layer: the dense MLP's gate_proj, up_proj and down_proj, or (a MoE
+    layer) ``router`` (weight [E, H]) and ``experts`` (ops/moe.Experts) in
+    their place; a dense layer has no ``router`` attribute."""
+
     def __init__(
         self, *, input_norm, post_attn_norm, q_proj: Projection, k_proj: Projection,
-        v_proj: Projection, o_proj: Projection, gate_proj: Projection,
-        up_proj: Projection, down_proj: Projection,
+        v_proj: Projection, o_proj: Projection, gate_proj: Optional[Projection] = None,
+        up_proj: Optional[Projection] = None, down_proj: Optional[Projection] = None,
+        router: Optional[Dense] = None, experts: Optional[nn.Module] = None,
     ):
         super().__init__()
         self.input_norm = _frozen(input_norm)
         self.post_attn_norm = _frozen(post_attn_norm)
         self.q_proj, self.k_proj, self.v_proj, self.o_proj = q_proj, k_proj, v_proj, o_proj
-        self.gate_proj, self.up_proj, self.down_proj = gate_proj, up_proj, down_proj
+        if router is not None:
+            self.router, self.experts = router, experts
+        else:
+            self.gate_proj, self.up_proj, self.down_proj = gate_proj, up_proj, down_proj
 
 
 class Qwen2Params(nn.Module):
@@ -425,11 +433,27 @@ def _attention_block(
     return _proj(layer.o_proj, out.reshape(b, s, hq * d), cfg)
 
 
-def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
-    """Dense SwiGLU."""
+def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig):
+    """Dense SwiGLU, or the MoE MLP when the layer carries a router (JAX
+    :602-667, local mode). -> (out, the layer's aux loss or None)."""
+    if hasattr(layer, "router"):
+        from long_vita_tpu_torch.ops.moe import moe_mlp
+
+        return moe_mlp(layer, x, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
     gate = _proj(layer.gate_proj, x, cfg)
     up = _proj(layer.up_proj, x, cfg)
-    return _proj(layer.down_proj, F.silu(gate) * up, cfg)
+    return _proj(layer.down_proj, F.silu(gate) * up, cfg), None
+
+
+def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1) -> None:
+    """MoE runs on one device (or on replicas of one). The JAX package shards
+    the experts over dp (expert parallelism, two all_to_alls a layer) and
+    routes cp's tokens as one global batch with one capacity; neither is
+    ported (ROADMAP §1 item 8), so a MoE model over dp or cp > 1 raises."""
+    if cfg.num_experts > 0 and (dp > 1 or cp > 1):
+        raise NotImplementedError(
+            f"MoE layers over a multi-GPU mesh (dp {dp}, cp {cp}): expert parallelism and "
+            "cp's global routing are not ported (ROADMAP §1 item 8)")
 
 
 def decoder_layer(
@@ -445,12 +469,14 @@ def decoder_layer(
     attn_impl: str,
     parallel: Optional[ParallelConfig] = None,
     q_sharded: bool = False,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """-> (x, the MoE aux loss of the layer, None for a dense one)."""
     x = x + _attention_block(
         layer, rms_norm(x, layer.input_norm, cfg.rms_norm_eps), cos, sin, cfg,
         cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded,
     )
-    return x + _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg)
+    out, aux = _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg)
+    return x + out, aux
 
 
 REMAT_LEVELS = (True, "full", "dots", "flash", "vit", False, None)
@@ -512,7 +538,8 @@ def qwen2_decoder(
     attn_impl: str = "auto",
     remat: Union[bool, str] = False,
     parallel: Optional[ParallelConfig] = None,
-) -> tuple[torch.Tensor, Optional[KVCache]]:
+    return_aux: bool = False,
+):
     """Run the decoder. inputs_embeds [B, S, H]; position_ids [B|1, S].
 
     parallel (cp > 1): without a cache, inputs_embeds, position_ids and
@@ -525,12 +552,14 @@ def qwen2_decoder(
     counterpart of jax.checkpoint with nothing_saveable), "dots" its
     products' outputs too, "flash" the flash forward's (o, lse).
 
-    -> (final_norm(hidden) [B, S, H], the cache at length + S, or None).
-    The cache's buffers are written in place; the returned KVCache shares
-    them."""
+    -> (final_norm(hidden) [B, S, H], the cache at length + S, or None),
+    and with return_aux the MoE aux loss summed over the layers (f32, 0 for
+    a dense decoder). The cache's buffers are written in place; the
+    returned KVCache shares them."""
     recompute = check_remat(remat) and kv_cache is None
     seq = inputs_embeds.shape[1]
     cp = parallel.cp if parallel is not None else 1
+    check_moe_mesh(cfg, cp=cp)
     # a cached chunk that divides by cp runs on this rank's 1/cp of its rows
     q_sharded = kv_cache is not None and cp > 1 and seq > 1 and seq % cp == 0
     if q_sharded:
@@ -540,6 +569,7 @@ def qwen2_decoder(
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     x = inputs_embeds
     cache_len = kv_cache.length if kv_cache is not None else None
+    aux = None  # a dense decoder adds no work for it
     for i, layer in enumerate(params.layers):
         cache_kv = None
         if kv_cache is not None:
@@ -547,15 +577,21 @@ def qwen2_decoder(
         args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
                 segment_ids, attn_impl, parallel, q_sharded)
         if recompute:
-            x = remat_checkpoint(decoder_layer, *args, remat=remat)
+            x, aux_l = remat_checkpoint(decoder_layer, *args, remat=remat)
         else:
-            x = decoder_layer(*args)
+            x, aux_l = decoder_layer(*args)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
     new_cache = None
     if kv_cache is not None:
         new_cache = dataclasses.replace(kv_cache, length=kv_cache.length + seq)
     hidden = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
     if q_sharded:
         hidden = parallel.comm.all_gather(hidden, 1)
+    if return_aux:
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return hidden, new_cache, aux
     return hidden, new_cache
 
 
@@ -630,9 +666,8 @@ def init_qwen2_params(
     """Random init as the JAX package's (normal * 0.02 weights, zero biases,
     unit norms), drawn from ``generator`` on ``device`` (the generator's
     device when None). One layer at a time, so the f32 draws never hold
-    more than one matrix beside the bf16 weights."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(f"MoE layers (and expert parallelism) {NEXT_SLICE}")
+    more than one matrix beside the bf16 weights. With cfg.num_experts,
+    each layer's MLP is a router and its experts (ops/moe.Experts)."""
     device = torch.device(device) if device is not None else generator.device
     h, i = cfg.hidden_size, cfg.intermediate_size
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -645,6 +680,14 @@ def init_qwen2_params(
     def ones():
         return torch.ones(h, dtype=dtype, device=device)
 
+    def mlp():
+        if cfg.num_experts == 0:
+            return dict(gate_proj=dense(i, h), up_proj=dense(i, h), down_proj=dense(h, i))
+        from long_vita_tpu_torch.ops.moe import init_moe_params
+
+        moe = init_moe_params(generator, cfg.num_experts, h, i, dtype, device)
+        return dict(router=moe.router, experts=moe.experts)
+
     layers = [
         DecoderLayer(
             input_norm=ones(),
@@ -653,9 +696,7 @@ def init_qwen2_params(
             k_proj=dense(hkv * d, h, bias=True),
             v_proj=dense(hkv * d, h, bias=True),
             o_proj=dense(h, hq * d),
-            gate_proj=dense(i, h),
-            up_proj=dense(i, h),
-            down_proj=dense(h, i),
+            **mlp(),
         )
         for _ in range(cfg.num_hidden_layers)
     ]

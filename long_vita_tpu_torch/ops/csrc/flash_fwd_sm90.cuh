@@ -1,7 +1,11 @@
 // The attention forward for Hopper (sm_90a): one template behind K1's bf16
 // body (flash_fwd.cu, entry lvt_flash_fwd), K3 (short_attn.cu, entry
 // lvt_short_attn) and, as its int8 instance (kQuant), K2 (flash_fwd_quant.cu,
-// entry lvt_flash_fwd_quant), whose differences are set out there.
+// entry lvt_flash_fwd_quant), whose differences are set out there. The
+// forward-kernel lab K7 (fwd_kernel_lab.cu) builds it with other policies
+// (Policy: the kv tile's rows, the mask's fast path, how the mask and the
+// row sums are computed, a head-major output); K1, K2 and K3 take the
+// default.
 //
 // What it computes (the contract of both entry points): s = q.k^T / sqrt(D)
 // in f32; masked logits are the finite -2^30 (causal: kv_off + j <= q_off +
@@ -62,6 +66,21 @@ constexpr int kBN = 128;              // kv rows a tile
 constexpr int kNarrow = 16;           // the width of a narrow tile's product
 constexpr int kBox = 128 * 128;       // bytes of one 128-row x 64-column bf16 K or V box
 
+// The kv tile and the softmax's switches. K1, K2 and K3 are built with this
+// policy; the forward-kernel lab (K7, fwd_kernel_lab.cu) instantiates others
+// to time each switch on its own.
+struct Policy {
+  static constexpr int kBN = fwd90::kBN;     // kv rows a tile
+  static constexpr bool kFastpath = true;    // a tile inside kv_len, below the diagonal and in
+                                             // one segment skips the mask
+  static constexpr bool kCheapMask = true;   // each row's position kept in registers and
+                                             // compared with the column
+  static constexpr bool kWideMl = false;     // l as per-thread partial sums, summed across the
+                                             // quad once at the end
+  static constexpr bool kHeadMajor = false;  // o [B, Sq, Hq, D]; true: [B, Hq, Sq, D] (o_sh)
+  static constexpr int stages(int d) { return d == 128 ? 3 : 4; }  // the ring's depth
+};
+
 // Consumer warpgroups of 64 query rows a block, and the registers
 // setmaxnreg gives each thread: at D = 128 two (S 64 + O 64 + P 32
 // registers a thread), at D = 64 three (S 64 + O 32 + P 32), which raises
@@ -102,20 +121,22 @@ struct Params {
   long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;
   int sq, skv, hq, hkv, n_qt, n_kt;
   float scale_log2;     // 1/sqrt(D) * log2(e)
+  long long o_sh;       // o's head stride under Policy::kHeadMajor
 };
 
 // shared memory, in bytes from a 1024-aligned base
-template <int D>
+template <int D, class Pol = Policy>
 struct Smem {
-  static constexpr int kStages = D == 128 ? 3 : 4;  // 231,000 and 157,808 bytes with Q
-  static constexpr int kTile = (D / 64) * kBox;  // a K or V tile
+  static constexpr int kStages = Pol::stages(D);  // K1: 231,000 and 157,808 bytes with Q
+  static constexpr int kBoxBytes = Pol::kBN * 128;  // a 64-column box of a K or V tile
+  static constexpr int kTile = (D / 64) * kBoxBytes;  // a K or V tile
   static constexpr int kQBox = Cfg<D>::kBM * 128;  // bytes of a 64-column box of Q
   static constexpr int kQTile = (D / 64) * kQBox;
   static constexpr int q = 0;
   static constexpr int k = q + kQTile;                // + stage * kTile
   static constexpr int v = k + kStages * kTile;       // + stage * kTile
   static constexpr int kseg = v + kStages * kTile;    // + stage * kBN * 4
-  static constexpr int bar = kseg + kStages * kBN * 4;
+  static constexpr int bar = kseg + kStages * Pol::kBN * 4;
   // barriers: q, aux, full_k[stages], full_v[stages], empty[stages]
   static constexpr int bytes = bar + (2 + 3 * kStages) * 8;
   static constexpr int alloc = bytes + 1024;  // room to align the base
@@ -135,6 +156,7 @@ struct SmemQ {
   static constexpr int kStages = D == 128 ? 2 : 3;
   static constexpr int kRawSlots = D == 128 ? 3 : 4;
   static constexpr int kTile = (D / 64) * kBox;           // a bf16 K or V tile
+  static constexpr int kBoxBytes = kBox;
   static constexpr int kRaw = D * kBN;                    // an int8 K or V tile
   static constexpr int kQBox = Cfg<D, true>::kBM * 128;
   static constexpr int kQTile = (D / 64) * kQBox;
@@ -150,12 +172,12 @@ struct SmemQ {
   static constexpr int alloc = bytes + 1024;  // room to align the base
 };
 
-template <int D, bool kQuant>
+template <int D, bool kQuant, class Pol>
 struct Layout {
-  using type = Smem<D>;
+  using type = Smem<D, Pol>;
 };
-template <int D>
-struct Layout<D, true> {
+template <int D, class Pol>
+struct Layout<D, true, Pol> {
   using type = SmemQ<D>;
 };
 
@@ -180,16 +202,22 @@ struct Block {
   const int2* kt_ranges;     // each kv tile's (min, max) id (with segments)
 };
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, class Pol>
 __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsigned char* base,
                                         uint32_t base_u, const Bars& bars) {
-  using L = Smem<D>;
+  using L = Smem<D, Pol>;
+  constexpr int kBN = Pol::kBN, kBox = L::kBoxBytes;
   const int lane = threadIdx.x & 31;
+  // a box of 64 columns of `row`s of head h: a head-major map is (D, S, H, B)
+  auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int c, int h, int row) {
+    if constexpr (Pol::kHeadMajor) tma_load_4d(dst, map, bar, c, row, h, blk.b);
+    else tma_load_4d(dst, map, bar, c, h, row, blk.b);
+  };
   if (lane == 0) {
     mbar_arrive_tx(bars.q(), L::kQTile);
 #pragma unroll
     for (int c = 0; c < D / 64; ++c)
-      tma_load_4d(base_u + L::q + c * L::kQBox, &p.tq, bars.q(), c * 64, blk.h, blk.q0, blk.b);
+      load(base_u + L::q + c * L::kQBox, &p.tq, bars.q(), c * 64, blk.h, blk.q0);
   }
   TileWalk<kSeg> walk;
   auto next = [&] { return walk.next(blk.n_tiles, blk.kt_ranges, blk.qs_min, blk.qs_max); };
@@ -202,7 +230,7 @@ __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsig
       mbar_arrive_tx(bars.full_k(s), L::kTile + (kSeg ? kBN * 4 : 0));
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(k_dst + c * kBox, &p.tk, bars.full_k(s), c * 64, blk.hk, k0, blk.b);
+        load(k_dst + c * kBox, &p.tk, bars.full_k(s), c * 64, blk.hk, k0);
       if (kSeg) tma_load_2d(base_u + L::kseg + s * kBN * 4, &p.tkseg, bars.full_k(s), k0, blk.b);
     }
     if (k0 + kBN <= blk.kv_len || blk.kv_len == p.skv) {
@@ -210,14 +238,14 @@ __device__ __forceinline__ void produce(const Params& p, const Block& blk, unsig
         mbar_arrive_tx(bars.full_v(s), L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(v_dst + c * kBox, &p.tv, bars.full_v(s), c * 64, blk.hk, k0, blk.b);
+          load(v_dst + c * kBox, &p.tv, bars.full_v(s), c * 64, blk.hk, k0);
       }
     } else {  // the last, partial tile: V's rows from kv_len on zeroed
       if (lane == 0) {
         mbar_arrive_tx(bars.aux(), L::kTile);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(v_dst + c * kBox, &p.tv, bars.aux(), c * 64, blk.hk, k0, blk.b);
+          load(v_dst + c * kBox, &p.tv, bars.aux(), c * 64, blk.hk, k0);
       }
       zero_then_release<D>(bars.aux(), bars.full_v(s), base + L::v + s * L::kTile, nullptr,
                            kBox, blk.kv_len - k0, kBN);
@@ -278,7 +306,7 @@ __device__ __forceinline__ void produce_quant(const Params& p, const Block& blk,
 
 // S = Q.K^T over the N columns of a K tile (128, or 16 for a narrow tile),
 // issued and committed, not waited for; the first k16 slice overwrites sc
-template <int D, int N, int kQBox>
+template <int D, int N, int kQBox, int kBox>
 __device__ __forceinline__ void issue_s(float (&sc)[N / 2], uint32_t q_base, uint32_t k_base) {
   fence_regs(sc);
   wgmma_fence();
@@ -287,15 +315,16 @@ __device__ __forceinline__ void issue_s(float (&sc)[N / 2], uint32_t q_base, uin
     const uint32_t off = (kk % 4) * 32;  // the k16 slice inside a 64-column box
     const uint64_t da = sw128_desc(q_base + (kk / 4) * kQBox + off, 16, 1024);
     const uint64_t db = sw128_desc(k_base + (kk / 4) * kBox + off, 16, 1024);
-    if constexpr (N == kBN) wgmma_ss_m64n128(sc, da, db, kk);
+    if constexpr (N == 128) wgmma_ss_m64n128(sc, da, db, kk);
+    else if constexpr (N == 64) wgmma_ss_m64n64(sc, da, db, kk);
     else wgmma_ss_m64n16(sc, da, db, kk);
   }
   wgmma_commit();
 }
 
 // O += P.V over the first N rows of a V tile, issued and committed
-template <int D, int N>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[kBN / 16][4],
+template <int D, int N, int kBox, int NP>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[NP][4],
                                          uint32_t v_base) {
   fence_regs(o);
   wgmma_fence();
@@ -320,7 +349,7 @@ struct Rows {
 // logit (0 where masked, and in a row that has seen no unmasked key); m and
 // l move on. The int8 instance first multiplies each logit by its column's
 // k scale (ksc, the stage's scales). -> the factors that rescale O.
-template <bool kCausal, bool kSeg, bool kQuant, int N>
+template <bool kCausal, bool kSeg, bool kQuant, int N, class Pol>
 __device__ __forceinline__ void softmax(const Params& p, const Block& blk, float (&sc)[N / 2],
                                         Rows& r, const int* kseg, const float* ksc, int k0,
                                         bool interior, float& alpha_lo, float& alpha_hi) {
@@ -341,7 +370,14 @@ __device__ __forceinline__ void softmax(const Params& p, const Block& blk, float
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * i4 + (e & 1);
         bool ok = col < blk.kv_len;
-        if (kCausal) ok = ok && blk.k_off + col <= (e < 2 ? r.qpos_lo : r.qpos_hi);
+        if constexpr (Pol::kCheapMask) {
+          if (kCausal) ok = ok && blk.k_off + col <= (e < 2 ? r.qpos_lo : r.qpos_hi);
+        } else if (kCausal) {  // both positions again, from the fragment layout
+          const int t = threadIdx.x;
+          const long long qpos = blk.q_off + blk.q0 + (t >> 7) * 64 + ((t & 127) >> 5) * 16 +
+                                 ((t & 31) >> 2) + (e < 2 ? 0 : 8);
+          ok = ok && blk.k_off + k0 + n * 8 + 2 * (t & 3) + (e & 1) <= qpos;
+        }
         if (kSeg) ok = ok && kseg[col - k0] == (e < 2 ? r.qs_lo : r.qs_hi);
         if (!ok) sc[4 * n + e] = kNegInf;
       }
@@ -369,6 +405,10 @@ __device__ __forceinline__ void softmax(const Params& p, const Block& blk, float
     sum_lo += sc[4 * n] + sc[4 * n + 1];
     sum_hi += sc[4 * n + 2] + sc[4 * n + 3];
   }
+  if constexpr (Pol::kWideMl) {  // l summed across the quad every tile, kept replicated
+    sum_lo = quad_sum(sum_lo);
+    sum_hi = quad_sum(sum_hi);
+  }
   // per-thread partial sums; the quad reduction happens once at the end
   r.l_lo = r.l_lo * alpha_lo + sum_lo;
   r.l_hi = r.l_hi * alpha_hi + sum_hi;
@@ -376,8 +416,8 @@ __device__ __forceinline__ void softmax(const Params& p, const Block& blk, float
 
 // p (f32, in the S accumulator's layout) -> the bf16 A operand of P.V; the
 // int8 instance rounds p * v_scale of the column (vsc, the stage's scales)
-template <int N, bool kQuant>
-__device__ __forceinline__ void pack_p(const float (&sc)[N / 2], uint32_t (&pf)[kBN / 16][4],
+template <int N, bool kQuant, int NP>
+__device__ __forceinline__ void pack_p(const float (&sc)[N / 2], uint32_t (&pf)[NP][4],
                                        const float* vsc) {
   const int i4 = threadIdx.x & 3;
 #pragma unroll
@@ -418,10 +458,11 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], float alpha_lo, float
 // rows and is the block's last, so no producer waits for its release. The
 // int8 instance releases K's half of a stage once S has landed and waits
 // for V's half (and its scales) before it packs P.
-template <int D, bool kCausal, bool kSeg, bool kQuant>
+template <int D, bool kCausal, bool kSeg, bool kQuant, class Pol>
 __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsigned char* base,
                                         uint32_t base_u, const Bars& bars, int wg) {
-  using L = typename Layout<D, kQuant>::type;
+  using L = typename Layout<D, kQuant, Pol>::type;
+  constexpr int kBN = Pol::kBN, kBox = L::kBoxBytes;
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, g = lane >> 2;
   const int row0 = blk.q0 + wg * 64;  // this warpgroup's first query row
   const int qi_lo = row0 + warp * 16 + g, qi_hi = qi_lo + 8;
@@ -455,6 +496,7 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   };
   auto parity = [&](int it) { return (uint32_t)((it / L::kStages) & 1); };
   auto interior = [&](int j) {
+    if (!Pol::kFastpath) return false;
     const int k0 = j * kBN;
     bool in = k0 + kBN <= blk.kv_len &&
               (!kCausal || blk.k_off + k0 + kBN - 1 <= blk.q_off + row0);
@@ -487,36 +529,36 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   if (j >= 0 && end - j * kBN > kNarrow) {
     // the first tile: S and its softmax; P.V waits for the next iteration
     mbar_wait(bars.full_k(0), 0);
-    issue_s<D, kBN, L::kQBox>(sc, q_base, k_base(0));
+    issue_s<D, kBN, L::kQBox, kBox>(sc, q_base, k_base(0));
     wgmma_wait<0>();
     fence_regs(sc);
     release_k(0);
-    softmax<kCausal, kSeg, kQuant, kBN>(p, blk, sc, r, kseg_of(0), ksc_of(0), j * kBN,
+    softmax<kCausal, kSeg, kQuant, kBN, Pol>(p, blk, sc, r, kseg_of(0), ksc_of(0), j * kBN,
                                         interior(j), alpha_lo, alpha_hi);
     wait_v(0);
-    pack_p<kBN, kQuant>(sc, pf, vsc_of(0));
+    pack_p<kBN, kQuant, kBN / 16>(sc, pf, vsc_of(0));
     // the rest: S of tile it, then P.V of tile it - 1
     for (j = next(), ++it; j >= 0; j = next(), ++it) {
       if (end - j * kBN <= kNarrow) break;
       mbar_wait(bars.full_k(it % L::kStages), parity(it));
       mbar_wait(bars.full_v((it - 1) % L::kStages), parity(it - 1));
-      issue_s<D, kBN, L::kQBox>(sc, q_base, k_base(it));
-      issue_pv<D, kBN>(o, pf, v_base(it - 1));
+      issue_s<D, kBN, L::kQBox, kBox>(sc, q_base, k_base(it));
+      issue_pv<D, kBN, kBox, kBN / 16>(o, pf, v_base(it - 1));
       wgmma_wait<1>();  // S has landed; P.V may still run
       fence_regs(sc);
       release_k(it);
-      softmax<kCausal, kSeg, kQuant, kBN>(p, blk, sc, r, kseg_of(it), ksc_of(it),
+      softmax<kCausal, kSeg, kQuant, kBN, Pol>(p, blk, sc, r, kseg_of(it), ksc_of(it),
                                           j * kBN, interior(j), alpha_lo, alpha_hi);
       wgmma_wait<0>();
       fence_regs(o);
       release(it - 1);
       rescale<D>(o, alpha_lo, alpha_hi);
       wait_v(it);
-      pack_p<kBN, kQuant>(sc, pf, vsc_of(it));
+      pack_p<kBN, kQuant, kBN / 16>(sc, pf, vsc_of(it));
     }
     // the last full tile's P.V
     mbar_wait(bars.full_v((it - 1) % L::kStages), parity(it - 1));
-    issue_pv<D, kBN>(o, pf, v_base(it - 1));
+    issue_pv<D, kBN, kBox, kBN / 16>(o, pf, v_base(it - 1));
     wgmma_wait<0>();
     fence_regs(o);
     release(it - 1);
@@ -525,27 +567,29 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
     // a narrow tile (the warpgroup's last): 16 columns, 16 rows of V
     float sn[kNarrow / 2];
     mbar_wait(bars.full_k(it % L::kStages), parity(it));
-    issue_s<D, kNarrow, L::kQBox>(sn, q_base, k_base(it));
+    issue_s<D, kNarrow, L::kQBox, kBox>(sn, q_base, k_base(it));
     wgmma_wait<0>();
     fence_regs(sn);
     release_k(it);
-    softmax<kCausal, kSeg, kQuant, kNarrow>(p, blk, sn, r, kseg_of(it), ksc_of(it),
+    softmax<kCausal, kSeg, kQuant, kNarrow, Pol>(p, blk, sn, r, kseg_of(it), ksc_of(it),
                                             j * kBN, false, alpha_lo, alpha_hi);
     rescale<D>(o, alpha_lo, alpha_hi);
     wait_v(it);
-    pack_p<kNarrow, kQuant>(sn, pf, vsc_of(it));
+    pack_p<kNarrow, kQuant, kBN / 16>(sn, pf, vsc_of(it));
     mbar_wait(bars.full_v(it % L::kStages), parity(it));
-    issue_pv<D, kNarrow>(o, pf, v_base(it));
+    issue_pv<D, kNarrow, kBox, kBN / 16>(o, pf, v_base(it));
     wgmma_wait<0>();
     fence_regs(o);
     release(it);
   }
 
-  r.l_lo = quad_sum(r.l_lo);
-  r.l_hi = quad_sum(r.l_hi);
+  if constexpr (!Pol::kWideMl) {
+    r.l_lo = quad_sum(r.l_lo);
+    r.l_hi = quad_sum(r.l_hi);
+  }
   const float div_lo = r.l_lo == 0.f ? 1.f : r.l_lo;
   const float div_hi = r.l_hi == 0.f ? 1.f : r.l_hi;
-  __nv_bfloat16* og = p.o + blk.b * p.o_sb + (long long)blk.h * D;
+  __nv_bfloat16* og = p.o + blk.b * p.o_sb + (long long)blk.h * (Pol::kHeadMajor ? p.o_sh : D);
   const int c0 = 2 * (lane & 3);
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
@@ -565,10 +609,12 @@ __device__ __forceinline__ void consume(const Params& p, const Block& blk, unsig
   }
 }
 
-template <int D, bool kCausal, bool kSeg, bool kQuant = false>
+template <int D, bool kCausal, bool kSeg, bool kQuant = false, class Pol = Policy>
 __global__ void __launch_bounds__(Cfg<D, kQuant>::kThreads, 1)
     fwd_kernel(const __grid_constant__ Params p) {
-  using L = typename Layout<D, kQuant>::type;
+  using L = typename Layout<D, kQuant, Pol>::type;
+  constexpr int kBN = Pol::kBN;
+  static_assert(!kQuant || kBN == fwd90::kBN, "the int8 instance takes the default tiles");
   using C = Cfg<D, kQuant>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_u = smem_u32(smem_raw);
@@ -627,11 +673,11 @@ __global__ void __launch_bounds__(Cfg<D, kQuant>::kThreads, 1)
     if constexpr (kQuant) {
       if (blk.n_tiles > 0) produce_quant<D>(p, blk, base, base_u, bars);
     } else if ((threadIdx.x >> 5) == 4 * C::kConsumers && blk.n_tiles > 0) {  // one warp loads
-      produce<D, kSeg>(p, blk, base, base_u, bars);
+      produce<D, kSeg, Pol>(p, blk, base, base_u, bars);
     }
   } else {
     setmaxnreg_inc<C::kConsumerRegs>();
-    if (wg < n_consumers) consume<D, kCausal, kSeg, kQuant>(p, blk, base, base_u, bars, wg);
+    if (wg < n_consumers) consume<D, kCausal, kSeg, kQuant, Pol>(p, blk, base, base_u, bars, wg);
   }
 }
 
@@ -670,14 +716,14 @@ inline bool make_params(Params* p, const void* q, const void* k, const void* v, 
   return true;
 }
 
-template <int D, bool kCausal, bool kSeg, bool kQuant = false>
+template <int D, bool kCausal, bool kSeg, bool kQuant = false, class Pol = Policy>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Layout<D, kQuant>::type::alloc;
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<D, kCausal, kSeg, kQuant>,
+  constexpr int smem = Layout<D, kQuant, Pol>::type::alloc;
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<D, kCausal, kSeg, kQuant, Pol>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid = kCausal ? dim3(p.hq, batch, p.n_qt) : dim3(p.n_qt, p.hq, batch);
-  fwd_kernel<D, kCausal, kSeg, kQuant><<<grid, Cfg<D, kQuant>::kThreads, smem, stream>>>(p);
+  fwd_kernel<D, kCausal, kSeg, kQuant, Pol><<<grid, Cfg<D, kQuant>::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -34,7 +34,11 @@ Public contract, as in the JAX package: model layout ``[B, S, H, D]``; the
 q/kv position offsets are taken from element ``[0, 0]`` of the positions when
 given; ``kv_valid_len`` is batch-uniform (element 0 of a ``[B]`` vector);
 returns ``o`` or ``(o, lse)`` with lse f32 ``[B, Hq, Sq]`` (lse is not
-differentiable).
+differentiable). A head dim that is not a multiple of 64 (SigLIP's 72,
+EVA's 112) is zero-padded to a multiple of 128 with the scale of the true
+one, and o sliced back, as the JAX ``_prepare`` (:1165-1183) pads it for the
+Pallas kernels; the padding is part of the autograd graph, so dq, dk and dv
+come back at the true head dim.
 
 Dispatch is by device (ops/_target.py): a CUDA tensor launches the kernel or
 raises; a CPU tensor takes the kernel's plain PyTorch version
@@ -95,12 +99,16 @@ _build.register("lvt_flash_bwd_dq", "flash_bwd_2pass", _BWD_ARGS)
 
 def _device_meta(dev, *values: IntLike) -> torch.Tensor:
     """int32 scalars on the device, read by a kernel as the Pallas kernels
-    read their scalar-prefetch operands: no host sync when a value is
-    already a device tensor."""
-    meta = torch.empty(len(values), dtype=torch.int32, device=dev)
-    for i, x in enumerate(values):
-        meta[i] = x
-    return meta
+    read their scalar-prefetch operands. A Python int becomes a fill kernel
+    and a device tensor is cast in place: neither waits for the card (an
+    element assignment from the host, ``meta[i] = x``, is a copy from
+    pageable memory, which synchronises the stream first: ~10 ms of host
+    time a call behind queued work, measured on an H100)."""
+    return torch.stack([
+        x.to(device=dev, dtype=torch.int32).reshape(()) if torch.is_tensor(x)
+        else torch.full((), int(x), dtype=torch.int32, device=dev)
+        for x in values
+    ])
 
 
 def flash_attention(
@@ -132,8 +140,20 @@ def flash_attention(
     elif torch.is_tensor(kv_valid_len) and kv_valid_len.ndim:
         kv_valid_len = kv_valid_len.reshape(-1)[0]
     meta = _device_meta(q.device, q_offset, kv_offset, kv_valid_len)
-    o, lse = flash_fwd_op(q, k, v, q_segment_ids, kv_segment_ids, meta, causal)
+    d = q.shape[-1]
+    if d % 64:
+        q, k, v = (pad_head_dim(x) for x in (q, k, v))
+    o, lse = flash_fwd_op(q, k, v, q_segment_ids, kv_segment_ids, meta, causal,
+                          1.0 / math.sqrt(d))
+    o = o[..., :d]
     return (o, lse) if return_lse else o
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """[..., D] -> [..., D rounded up to 128], zeros in the new columns (a
+    zero column adds nothing to q.k and gives o a zero column)."""
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, _round_up(d, 128) - d))
 
 
 flash_attention.launches = 0  # CUDA kernel launches (the wrapper counts them)
@@ -143,31 +163,33 @@ flash_attention.launches = 0  # CUDA kernel launches (the wrapper counts them)
 def flash_fwd_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
-    meta: torch.Tensor, causal: bool,
+    meta: torch.Tensor, causal: bool, scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The flash forward as an op of its own: -> (o, lse). ``meta`` holds
     (q_offset, kv_offset, kv_valid_len) as int32 on q's device, which K1
-    reads there (no host sync). CUDA tensors launch K1, CPU tensors take
-    the plain version. Its autograd (below) saves (o, lse) and runs K4 or
-    K5, ``_flash_core``'s custom_vjp."""
+    reads there (no host sync); ``scale`` the logits' scale when the head
+    dim is padded (1/sqrt(D) when None). CUDA tensors launch K1, CPU tensors
+    take the plain version. Its autograd (below) saves (o, lse) and runs K4
+    or K5, ``_flash_core``'s custom_vjp."""
     if on_cuda(q, k, v, qseg, kseg):
-        return _flash_cuda(q, k, v, causal, None, None, None, qseg, kseg, meta=meta)
+        return _flash_cuda(q, k, v, causal, None, None, None, qseg, kseg, meta=meta,
+                           scale=scale)
     q_offset, kv_offset, kv_len = (int(x) for x in meta)
     return flash_attention_reference(
         q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
-        q_segment_ids=qseg, kv_segment_ids=kseg, kv_valid_len=kv_len,
+        q_segment_ids=qseg, kv_segment_ids=kseg, kv_valid_len=kv_len, scale=scale,
     )
 
 
 @flash_fwd_op.register_fake
-def _(q, k, v, qseg, kseg, meta, causal):
+def _(q, k, v, qseg, kseg, meta, causal, scale=None):
     b, sq, hq, _ = q.shape
     return torch.empty_like(q), q.new_empty((b, hq, sq), dtype=torch.float32)
 
 
 def _flash_fwd_setup(ctx, inputs, output):
-    q, k, v, qseg, kseg, meta, causal = inputs
-    ctx.causal = causal
+    q, k, v, qseg, kseg, meta, causal, scale = inputs
+    ctx.causal, ctx.scale = causal, scale
     ctx.save_for_backward(q, k, v, *output, qseg, kseg, meta)
     ctx.mark_non_differentiable(output[1])
 
@@ -176,9 +198,9 @@ def _flash_fwd_backward(ctx, do, _dlse):
     q, k, v, o, lse, qseg, kseg, meta = ctx.saved_tensors
     dq, dk, dv = flash_attention_bwd(
         q, k, v, o, lse, do, causal=ctx.causal, q_offset=meta[0], kv_offset=meta[1],
-        kv_valid_len=meta[2], q_segment_ids=qseg, kv_segment_ids=kseg,
+        kv_valid_len=meta[2], q_segment_ids=qseg, kv_segment_ids=kseg, scale=ctx.scale,
     )
-    return dq, dk, dv, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None
 
 
 flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
@@ -234,18 +256,21 @@ def _check_sm90(b: int, sq: int, skv: int, hq: int, d: int, block_q: Optional[in
         raise ValueError(f"sequences must be shorter than 2^31 rows, got {sq}/{skv}")
 
 
-def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=None):
+def _flash_cuda(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=None,
+                scale=None):
     o, lse, args = flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg,
-                                  meta=meta)
+                                  meta=meta, scale=scale)
     _build.launch("lvt_flash_fwd", q.device, *args)
     _build.count(flash_attention)
     return o, lse
 
 
-def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=None):
+def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, meta=None,
+                   scale=None):
     """Check q/k/v for K1 and prepare its launch: -> (o, lse, the arguments
     of lvt_flash_fwd before the stream). ``meta``: the three mask scalars
-    already on the device, in place of q_offset, kv_offset and kv_len."""
+    already on the device, in place of q_offset, kv_offset and kv_len;
+    ``scale``: the logits' scale (1/sqrt(D) when None)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -254,7 +279,8 @@ def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, met
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if d not in (64, 128):
-        raise ValueError(f"flash kernel takes head dim 64 or 128, got {d}")
+        raise ValueError(f"flash kernel takes head dim 64 or 128 (a ragged one padded to a "
+                         f"multiple of 128 by flash_attention), got {d}")
     if k.shape != v.shape or k.shape[0] != b or hq % hkv:
         raise ValueError(
             f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
@@ -287,7 +313,7 @@ def flash_fwd_args(q, k, v, causal, q_offset, kv_offset, kv_len, qseg, kseg, met
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1),
         sq if qseg is not None else 0, kseg_sb,
-        b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
+        b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d) if scale is None else scale,
         _DTYPE_CODE[q.dtype],
     )
 
@@ -303,13 +329,14 @@ def flash_attention_reference(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     kv_valid_len: Optional[IntLike] = None,
+    scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: -> (o [B,Sq,Hq,D], lse [B,Hq,Sq]).
 
-    f32 logits and softmax statistics, p cast to v's dtype before P.V, GQA
-    grouped (K/V never repeated). Keys past kv_valid_len are sliced off
-    rather than masked; masked keys get p = 0, so an empty row gives o = 0
-    and lse = -2^30."""
+    f32 logits (scaled by ``scale``, 1/sqrt(D) when None) and softmax
+    statistics, p cast to v's dtype before P.V, GQA grouped (K/V never
+    repeated). Keys past kv_valid_len are sliced off rather than masked;
+    masked keys get p = 0, so an empty row gives o = 0 and lse = -2^30."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -318,7 +345,8 @@ def flash_attention_reference(
     dev = q.device
 
     qg = q.reshape(b, sq, hkv, g, d).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (
+        1.0 / math.sqrt(d) if scale is None else scale)
     mask = torch.ones((1, sq, kv_len), dtype=torch.bool, device=dev)
     if causal:
         qpos = int(q_offset) + torch.arange(sq, device=dev)
@@ -538,9 +566,11 @@ def flash_attention_bwd(
     kv_segment_ids: Optional[torch.Tensor] = None,
     short: bool = False,
     delta: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of flash attention from the forward's (o, lse)
-    and the output gradient do. On CUDA: K4 or K5, as the JAX package
+    and the output gradient do (``scale``: the forward's, 1/sqrt(D) when
+    None; flash_attention passes the true head dim's at a padded one). On CUDA: K4 or K5, as the JAX package
     chooses (bwd_uses_fused; short: the rule of short_attention's backward).
     On the CPU: the plain backward.
 
@@ -556,12 +586,12 @@ def flash_attention_bwd(
         fused = bwd_uses_fused(b, sq, k.shape[1], hq, d, q.element_size(), short=short)
         return _flash_bwd_cuda(
             q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_valid_len,
-            q_segment_ids, kv_segment_ids, fused, delta=delta,
+            q_segment_ids, kv_segment_ids, fused, delta=delta, scale=scale,
         )
     return flash_attention_bwd_reference(
         q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
         kv_offset=kv_offset, kv_valid_len=kv_valid_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, delta=delta,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, delta=delta, scale=scale,
     )
 
 
@@ -584,8 +614,8 @@ def bwd_launch_args(a: dict) -> tuple:
         v.stride(0), v.stride(1), do.stride(0), do.stride(1),
         sq if a["qseg"] is not None else 0,
         a["kseg"].shape[1] if a["kseg"] is not None else 0,
-        b, sq, skv, hq, hkv, d, int(a["causal"]), 1.0 / math.sqrt(d),
-        _DTYPE_CODE[q.dtype],
+        b, sq, skv, hq, hkv, d, int(a["causal"]),
+        1.0 / math.sqrt(d) if a.get("scale") is None else a["scale"], _DTYPE_CODE[q.dtype],
     )
 
 
@@ -611,10 +641,11 @@ flash_bwd_fused.launches = flash_bwd_dkv.launches = flash_bwd_dq.launches = 0
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
-                    qseg, kseg, fused, delta=None):
+                    qseg, kseg, fused, delta=None, scale=None):
     """K4 (fused) or K5 on CUDA tensors. -> (dq, dk, dv) in q's dtype."""
     a = bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
                      qseg, kseg, fused, delta=delta)
+    a["scale"] = scale
     if fused:
         flash_bwd_fused(a)
         return a["dq"].to(q.dtype), a["dk"], a["dv"]
@@ -642,7 +673,8 @@ def bwd_operands(q, k, v, o, lse, do, causal, q_offset, kv_offset, kv_len,
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if d not in (64, 128):
-        raise ValueError(f"flash backward kernels take head dim 64 or 128, got {d}")
+        raise ValueError(f"flash backward kernels take head dim 64 or 128 (a ragged one "
+                         f"padded to a multiple of 128 by flash_attention), got {d}")
     if k.shape != v.shape or k.shape[0] != b or hq % hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if ((o is not None and o.shape != q.shape) or do.shape != q.shape
@@ -703,9 +735,11 @@ def flash_attention_bwd_reference(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     delta: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4/K5, the FA-2 backward as the Pallas
-    kernels compute it (:454-693): delta = rowsum(do * o) in f32 (or the
+    """Plain PyTorch version of K4/K5 (``scale``: the forward's, 1/sqrt(D)
+    when None), the FA-2 backward as the Pallas kernels compute it
+    (:454-693): delta = rowsum(do * o) in f32 (or the
     ``delta`` [B, Hq, Sq] given, as flash_attention_bwd takes it); p =
     exp(s * scale - lse) where unmasked, else 0 (the forward's masks); dv =
     p^T.do with p cast to do's dtype; ds = p * (do.v^T - delta) * scale; dk =
@@ -717,7 +751,7 @@ def flash_attention_bwd_reference(
     g = hq // hkv
     kv_len = skv if kv_valid_len is None else min(max(int(kv_valid_len), 0), skv)
     dev = q.device
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
 
     qg = q.reshape(b, sq, hkv, g, d).float()
     dog = do.reshape(b, sq, hkv, g, d)
@@ -748,6 +782,22 @@ def flash_attention_bwd_reference(
 
     return (dq.reshape(b, sq, hq, d).to(q.dtype), full(dk).to(k.dtype),
             full(dv).to(v.dtype))
+
+
+def flash_attention_bwd_reference_by_group(q, k, v, o, lse, do, *, causal: bool = True):
+    """flash_attention_bwd_reference one kv head's GQA group at a time (no
+    offsets, no segments): the f32 logits of a group's q heads alone, which
+    fit on the card at a 16K row where all heads' would not. -> (dq, dk,
+    dv) as flash_attention_bwd_reference."""
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for h in range(hkv):
+        hq, hk = slice(h * g, (h + 1) * g), slice(h, h + 1)
+        dq[:, :, hq], dk[:, :, hk], dv[:, :, hk] = flash_attention_bwd_reference(
+            q[:, :, hq], k[:, :, hk], v[:, :, hk], o[:, :, hq], lse[:, hq], do[:, :, hq],
+            causal=causal)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

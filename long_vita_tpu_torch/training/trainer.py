@@ -39,7 +39,7 @@ import torch
 
 from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams
-from long_vita_tpu_torch.models.qwen2 import check_remat
+from long_vita_tpu_torch.models.qwen2 import check_moe_mesh, check_remat
 from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig, make_mesh, validate_geometry
 from long_vita_tpu_torch.parallel.zigzag import inverse_zigzag_permutation, zigzag_permute
 from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
@@ -137,6 +137,7 @@ class Trainer:
             if asked:
                 raise NotImplementedError(f"{what} {NEXT_SLICE}")
         check_remat(tcfg.remat)
+        check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp)
         validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp)
         self.mesh = None
         if tcfg.mesh.size > 1:

@@ -4,7 +4,9 @@
 already on the host as numpy (``jax.tree.map(np.asarray, params)`` on the
 caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
 ``long_vita_params_from_jax`` does the same for the whole VLM tree
-({"text", "vision", "projector"}) and builds a ``LongVITAParams``:
+({"text", "vision", "projector"}) and builds a ``LongVITAParams``;
+``generic_vit_from_jax`` takes a generic tower's tree
+(models/generic_vit.py: CLIP, SigLIP, EVA):
 
   - the stacked ``[L, ...]`` layer arrays are split per layer;
   - each dense kernel ``[in, out]`` is transposed to ``nn.Linear``'s
@@ -17,6 +19,9 @@ caller's side; this module imports no JAX) and builds a ``Qwen2Params``;
   - a projection's LoRA adapters ({"lora": {"a": [L, in, r], "b": [L, r,
     out]}}) come across per layer as its ``LoraAdapter``, in the JAX layout
     (the model applies them when its cfg's lora_r is set);
+  - a MoE layer's router kernel [H, E] comes across as a ``Dense`` [E, H]
+    and its experts (gate, up [E, H, I], down [E, I, H]) in the JAX layout
+    as ``ops.moe.Experts``;
   - bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) travel as a
     ``uint16`` view and are reinterpreted as ``torch.bfloat16``, bit for bit.
 
@@ -34,6 +39,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from long_vita_tpu_torch.models.generic_vit import (
+    GenericViTConfig,
+    GenericViTLayer,
+    GenericViTParams,
+)
 from long_vita_tpu_torch.models.intern_vit import (
     LayerNormParams,
     VisionParams,
@@ -50,6 +60,7 @@ from long_vita_tpu_torch.models.qwen2 import (
     QuantDense8,
     Qwen2Params,
 )
+from long_vita_tpu_torch.ops.moe import Experts
 
 
 def _target(device) -> torch.device:
@@ -82,10 +93,6 @@ def params_from_jax(
     device = _target(device)
     tree = tree.get("text", tree)
     layers = tree["layers"]
-    if "router" in layers:
-        raise NotImplementedError(
-            "MoE layers are ported later (ROADMAP: port queue, item 7, the multi-GPU slice "
-            "after context parallelism)")
 
     def t(arr):
         return _tensor(arr, device, dtype)
@@ -108,6 +115,15 @@ def params_from_jax(
             return QuantDense4(kept(at("kernel_p4")), kept(at("scale4")), b, lora)
         return Dense(t(at("kernel").T), b, lora)  # [in, out] -> [out, in]
 
+    def mlp(i):
+        if "router" not in layers:
+            return dict(gate_proj=projection(layers["gate_proj"], i),
+                        up_proj=projection(layers["up_proj"], i),
+                        down_proj=projection(layers["down_proj"], i))
+        ex = layers["experts"]
+        return dict(router=projection(layers["router"], i),
+                    experts=Experts(t(ex["gate"][i]), t(ex["up"][i]), t(ex["down"][i])))
+
     n_layers = np.asarray(layers["input_norm"]).shape[0]
     out_layers = [
         DecoderLayer(
@@ -117,9 +133,7 @@ def params_from_jax(
             k_proj=projection(layers["k_proj"], i, bias=True),
             v_proj=projection(layers["v_proj"], i, bias=True),
             o_proj=projection(layers["o_proj"], i),
-            gate_proj=projection(layers["gate_proj"], i),
-            up_proj=projection(layers["up_proj"], i),
-            down_proj=projection(layers["down_proj"], i),
+            **mlp(i),
         )
         for i in range(n_layers)
     ]
@@ -183,6 +197,48 @@ def projector_params_from_jax(
         pre_norm=LayerNormParams(t(tree["pre_norm"]["scale"]), t(tree["pre_norm"]["bias"])),
         fc1=Dense(t(np.asarray(tree["fc1"]["kernel"]).T)),
         fc2=Dense(t(np.asarray(tree["fc2"]["kernel"]).T)),
+    )
+
+
+def generic_vit_from_jax(
+    tree: dict[str, Any], cfg: GenericViTConfig, device="cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> GenericViTParams:
+    """JAX generic-tower tree (models/generic_vit.py's pytree) ->
+    GenericViTParams on ``device``, cast to ``dtype`` when given."""
+    device = _target(device)
+
+    def t(arr):
+        return _tensor(arr, device, dtype)
+
+    def dense(entry, i=None):
+        kernel, bias = entry["kernel"], entry["bias"]
+        if i is not None:
+            kernel, bias = kernel[i], bias[i]
+        return Dense(t(np.asarray(kernel).T), t(bias))  # [in, out] -> [out, in]
+
+    def norm(entry, i=None):
+        scale, bias = entry["scale"], entry["bias"]
+        return LayerNormParams(t(scale if i is None else scale[i]),
+                               t(bias if i is None else bias[i]))
+
+    layers = tree["layers"]
+    return GenericViTParams(
+        patch_embed=dense(tree["patch_embed"]),
+        pos_embed=t(tree["pos_embed"]),
+        cls_token=t(tree["cls_token"]) if cfg.add_class_token else None,
+        pre_norm=norm(tree["pre_norm"]) if cfg.pre_layernorm else None,
+        final_norm=norm(tree["final_norm"]) if cfg.final_layernorm else None,
+        layers=[
+            GenericViTLayer(
+                norm1=norm(layers["norm1"], i), qkv=dense(layers["qkv"], i),
+                proj=dense(layers["proj"], i), norm2=norm(layers["norm2"], i),
+                fc1=dense(layers["fc1"], i), fc2=dense(layers["fc2"], i),
+                ls1=t(layers["ls1"][i]) if cfg.use_layer_scale else None,
+                ls2=t(layers["ls2"][i]) if cfg.use_layer_scale else None,
+            )
+            for i in range(cfg.num_hidden_layers)
+        ],
     )
 
 

@@ -75,8 +75,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     q = _rand(gen, (1, 128, 4, 128), torch.bfloat16)
     with pytest.raises(TypeError):
         tfa.flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="head dim"):
-        x = _rand(gen, (1, 128, 4, 96), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):  # a ragged D pads to 128; 256 is refused
+        x = _rand(gen, (1, 128, 4, 256), torch.bfloat16)
         tfa.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="packed"):
         t = q.transpose(1, 2).contiguous().transpose(1, 2)  # [B, S, H, D] view of head-major
@@ -560,3 +560,23 @@ def test_w4_dequant_route_on_the_card(gen):
     ref = tqm.w4_matmul_reference(x, packed, scales, torch.float32)
     # the dequantised weight is rounded to bf16 once after its f32 scale
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * ref.abs().max().item())
+
+
+def test_wrapper_does_not_wait_for_the_card(gen):
+    """K1's wrapper queues its mask scalars without a host sync: behind a
+    ~0.2 s sleep kernel, ten wrapper calls return to the host long before the
+    sleep ends (an element assignment from the host, which synchronises the
+    stream, made every call wait for all queued work)."""
+    import time
+
+    q = _rand(gen, (1, 256, 8, 128), torch.bfloat16)
+    k, v = _rand(gen, (1, 256, 2, 128), torch.bfloat16), _rand(gen, (1, 256, 2, 128), torch.bfloat16)
+    tfa.flash_attention(q, k, v, causal=True, q_offset=3, kv_valid_len=200)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tfa.flash_attention(q, k, v, causal=True, q_offset=3, kv_valid_len=200)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert host < 0.05, f"10 calls took {host * 1e3:.1f} ms of host time behind the sleep"

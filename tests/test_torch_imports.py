@@ -3,7 +3,9 @@ the JAX package and PIL unavailable; its serving entry points (checkpoint
 I/O, front end, server, client, CLI) need none of JAX, PIL, OpenCV,
 transformers, safetensors or requests; its training entry point (the YAML
 recipe, the data modules, LoRA, metrics) needs none of JAX, optax, PIL,
-OpenCV, transformers or safetensors; and chip_smoke.py refuses to run
+OpenCV, transformers or safetensors; the generic towers and their loaders,
+local MoE, the forward-kernel lab and eval/ need none of JAX, PIL,
+transformers, safetensors or requests; and chip_smoke.py refuses to run
 without a GPU."""
 import os
 import re
@@ -273,11 +275,102 @@ def test_context_parallel_without_jax():
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 
+_NO_JAX_SLICE11 = """
+import json, sys, tempfile
+for name in ("jax", "long_vita_tpu", "PIL", "transformers", "safetensors", "requests", "vlmeval"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import numpy as np, torch
+from long_vita_tpu_torch.benchmarks import fwd_kernel_lab
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.eval import simple_eval, vlmeval_adapter
+from long_vita_tpu_torch.inference.engine import InferenceEngine
+from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.models import generic_vit, intern_vit
+from long_vita_tpu_torch.models.qwen2 import init_qwen2_params
+from long_vita_tpu_torch.ops import moe
+from long_vita_tpu_torch.utils import checkpoint_io, vision_loaders
+
+torch.manual_seed(0)
+# a SigLIP-like tower with a ragged head dim (2 heads of 24), written as HF
+# safetensors and loaded back
+cfg = generic_vit.GenericViTConfig(48, 96, 2, 2, 28, add_class_token=False,
+                                   hidden_act="gelu_tanh")
+root = tempfile.mkdtemp()
+h, p = 48, "vision_model."
+sd = {p + "embeddings.patch_embedding.weight": torch.randn(h, 3, 14, 14),
+      p + "embeddings.patch_embedding.bias": torch.randn(h),
+      p + "embeddings.position_embedding.weight": torch.randn(4, h)}
+for i in range(2):
+    q = f"{p}encoder.layers.{i}."
+    for n, shape in (("self_attn.q_proj", (h, h)), ("self_attn.k_proj", (h, h)),
+                     ("self_attn.v_proj", (h, h)), ("self_attn.out_proj", (h, h)),
+                     ("mlp.fc1", (96, h)), ("mlp.fc2", (h, 96))):
+        sd[q + n + ".weight"] = torch.randn(shape) * 0.1
+        sd[q + n + ".bias"] = torch.randn(shape[0]) * 0.1
+    for n in ("layer_norm1", "layer_norm2"):
+        sd[q + n + ".weight"], sd[q + n + ".bias"] = torch.ones(h), torch.zeros(h)
+checkpoint_io.save_safetensors(sd, root + "/model.safetensors")
+json.dump({"hidden_size": 48, "intermediate_size": 96, "num_hidden_layers": 2,
+           "num_attention_heads": 2, "image_size": 28, "patch_size": 14}, open(root + "/config.json", "w"))
+vcfg = vision_loaders.vit_config_from_hf(root, "siglip")
+tower = vision_loaders.load_siglip_vit_params(root, vcfg, dtype=torch.float32, device="cpu")
+feats = generic_vit.generic_vit(tower, torch.randn(2, 28, 28, 3), vcfg)
+assert feats.shape == (2, 4, 48) and torch.isfinite(feats).all()
+assert intern_vit._interp_pos_embed(torch.randn(16, 8), 4, (3, 5)).shape == (15, 8)
+# a MoE decoder through the engine
+class MM:
+    class tokenizer:
+        @staticmethod
+        def decode(ids, skip_special_tokens=True):
+            return ",".join(map(str, ids))
+    def expand(self, input_ids, images=(), videos=(), max_num_frame=None):
+        class E:
+            pass
+        e = E()
+        e.input_ids, e.images, e.image_indices = list(input_ids), None, None
+        return e
+
+tc = tiny_test_config(num_experts=4)
+eng = InferenceEngine(init_qwen2_params(torch.Generator().manual_seed(0), tc.text), tc, MM(),
+                      max_seq_len=128, chunk=32)
+out = eng.generate(input_ids=list(range(40)), sampling=SamplingParams(max_new_tokens=3))
+assert len(out.token_ids) == 3, out
+x = torch.randn(1, 5, 8)
+y, aux = moe.moe_mlp(moe.init_moe_params(torch.Generator(), 2, 8, 16), x)
+assert y.shape == x.shape and aux.item() > 0
+o = fwd_kernel_lab.variant_flash(torch.randn(1, 4, 64, 64), torch.randn(1, 2, 64, 64),
+                                 torch.randn(1, 2, 64, 64))
+assert o.shape == (1, 4, 64, 64)
+assert simple_eval.score("Answer: Paris", "paris") == {"exact": True, "contains": True}
+assert vlmeval_adapter.LongVITAAPI is vlmeval_adapter._ServerModel
+loaded = [m for m, v in sys.modules.items() if v is not None]
+for name in ("jax", "long_vita_tpu", "PIL", "transformers", "safetensors", "requests"):
+    assert not any(m == name or m.startswith(name + ".") for m in loaded), name
+print("OK")
+"""
+
+
+def test_eleventh_slice_without_jax_or_hf_packages():
+    """The generic towers and their loaders, the position-embedding resize,
+    local MoE through the engine, the forward-kernel lab's plain version and
+    eval/ import and run with JAX, the JAX package, PIL, transformers,
+    safetensors, requests and VLMEvalKit blocked."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SLICE11], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.startswith("OK"), res.stderr[-3000:]
+
+
 def test_no_jax_import_in_the_port():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert len(files) > 10 and not offenders, offenders
+    covered = {f.relative_to(PKG).as_posix() for f in files if f.is_relative_to(PKG)}
+    assert {"models/generic_vit.py", "utils/vision_loaders.py", "ops/moe.py",
+            "eval/simple_eval.py", "eval/vlmeval_adapter.py",
+            "benchmarks/fwd_kernel_lab.py"} <= covered
 
 
 def test_no_jax_package_import_in_the_port():

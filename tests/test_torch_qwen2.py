@@ -264,5 +264,11 @@ def test_init_qwen2_params_is_seeded():
     assert not any(x.requires_grad for x in a.parameters())
     assert torch.count_nonzero(a.layers[0].v_proj.bias) == 0
     assert torch.all(a.final_norm == 1)
-    with pytest.raises(NotImplementedError):
-        tq.init_qwen2_params(torch.Generator(), tiny_test_config(num_experts=4).text)
+    # a MoE layer carries a router and its experts in place of the dense MLP
+    moe = tq.init_qwen2_params(torch.Generator().manual_seed(0),
+                               tiny_test_config(num_experts=4).text)
+    i = cfg.text.intermediate_size
+    assert moe.layers[0].router.weight.shape == (4, h)
+    assert moe.layers[1].experts.gate.shape == (4, h, i)
+    assert moe.layers[1].experts.down.shape == (4, i, h)
+    assert not hasattr(moe.layers[0], "gate_proj")

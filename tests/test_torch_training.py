@@ -415,7 +415,7 @@ def test_trainer_accumulates_micro_batches():
 def test_unported_options_raise():
     """What still waits for the next multi-GPU slice (ROADMAP's port queue)
     raises: tensor and pipeline parallel meshes, virtual pipeline stages,
-    FSDP and MoE layers. (dp x cp meshes and zigzag batches train since the
+    FSDP and MoE layers over a mesh (expert parallelism). (dp x cp meshes and zigzag batches train since the
     context-parallel slice: tests/test_torch_cp_training.py.)"""
     from long_vita_tpu_torch.parallel.comm import LocalComm
     from long_vita_tpu_torch.parallel.mesh import make_mesh
@@ -430,8 +430,12 @@ def test_unported_options_raise():
         _trainer(None, 1, fsdp=True)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tp=2), LocalComm()))
+    from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+
+    moe_cfg = port_tiny_config(num_experts=4)  # MoE trains on one device only
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tq.init_qwen2_params(torch.Generator(), port_tiny_config(num_experts=4).text)
+        Trainer(init_long_vita_params(torch.Generator(), moe_cfg), moe_cfg,
+                TrainerConfig(seq_len=S, logit_budget=S, steps=1, mesh=MeshConfig(dp=2)))
     # the stage recipes' meshes (configs/stage*.yaml) are multi-device
     recipe = yaml.safe_load((ROOT / "configs" / "stage1_alignment.yaml").read_text())
     with pytest.raises(NotImplementedError, match="multi-GPU"):

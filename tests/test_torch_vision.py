@@ -84,13 +84,17 @@ def test_patch_embed_and_embeddings(model):
 
 
 def test_pos_embed_resize_is_not_ported(model):
-    """Serving tiles always have the configured grid; another grid raises
-    (jax.image.resize's cubic is not F.interpolate's bicubic)."""
-    cfg, _, tp = model
+    """(Named when the resize raised.) Serving tiles have the configured
+    grid, where the embedding is returned as it is; another grid is now
+    resized as JAX's jax.image.resize(cubic) does (tests/
+    test_torch_pos_embed.py holds the resize itself)."""
+    cfg, p, tp = model
     pos = tp.vision.embeddings.pos_embed[1:]
     assert tvit._interp_pos_embed(pos, cfg.vision.grid, (cfg.vision.grid,) * 2) is pos
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvit.vit_embeddings(tp.vision.embeddings, torch.zeros(1, 42, 42, 3), cfg.vision)
+    px = np.random.default_rng(6).standard_normal((1, 42, 42, 3)).astype(np.float32)
+    want = jvit.vit_embeddings(p["vision"]["embeddings"], jnp.asarray(px), cfg.vision)
+    got = tvit.vit_embeddings(tp.vision.embeddings, torch.from_numpy(px), cfg.vision)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **OP)
 
 
 def test_vit_layer_matches(model):

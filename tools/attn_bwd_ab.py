@@ -108,7 +108,7 @@ def case(name, kernel, new, old, q, k, v, do, kw, bound, *, plain=True, library=
             res[f"max_rel_err_{tag}"] = max(
                 (g - r).abs().max().item() / r.abs().max().item() for g, r in zip(outs[tag], ref))
         del ref
-        res["plain_ms"] = cs._cuda_ms(
+        res["plain_ms"] = cs.cuda_ms(
             lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw), reps=3, warmup=1)
     else:
         res["max_rel_err_new_vs_old"] = max(
@@ -116,7 +116,7 @@ def case(name, kernel, new, old, q, k, v, do, kw, bound, *, plain=True, library=
             for g, r in zip(outs["new"], outs["old"]))
         res["plain_ms"] = None
     res["finite"] = all(bool(torch.isfinite(x).all()) for x in outs["new"])
-    times = [cs._cuda_ms(run(fns, argv), reps=reps)
+    times = [cs.cuda_ms(run(fns, argv), reps=reps)
              for fns, argv in ((old, old_args(args)), (new, args), (new, args),
                                (old, old_args(args)))]
     res["old_ms"], res["new_ms"] = [times[0], times[3]], [times[1], times[2]]

@@ -210,13 +210,13 @@ def main() -> int:
             order = names + names[::-1]
             t = {n: [] for n in names}
             for n in order:
-                t[n].append(cs._cuda_ms(runner(n), reps=5 if s > 4096 else 10))
+                t[n].append(cs.cuda_ms(runner(n), reps=5 if s > 4096 else 10))
             line = ", ".join(f"{n} {min(x):.3f}/{max(x):.3f}" for n, x in t.items())
             print(f"[time] s={s} {'K4' if fused else 'K5 dkv+dq'}: {line}", flush=True)
             if not fused:
                 t = {n: [] for n in names}
                 for n in order:
-                    t[n].append(cs._cuda_ms(dkv_only(n), reps=5 if s > 4096 else 10))
+                    t[n].append(cs.cuda_ms(dkv_only(n), reps=5 if s > 4096 else 10))
                 line = ", ".join(f"{n} {min(x):.3f}/{max(x):.3f}" for n, x in t.items())
                 print(f"[time] s={s} K5 dkv alone: {line}", flush=True)
         del q, k, v, do, o, lse, ref

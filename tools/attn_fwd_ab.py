@@ -10,7 +10,7 @@ The older sources keep the C entry points' names and, but for the
 so both builds take the same prepared arguments (``flash_fwd_args``,
 ``short_attn_args``). For each case: the older and the current kernel in
 turns (old, new, new, old; each the device time of ``--reps`` calls queued
-behind a sleep, chip_smoke._queued_ms), both held against
+behind a sleep, chip_smoke.queued), both held against
 the plain PyTorch version where it fits in memory (else against each other),
 the plain version's time, one PyTorch call that computes the same function
 (``F.scaled_dot_product_attention``, as chip_smoke.py times it), and the
@@ -116,14 +116,14 @@ def case(name, entry, new_fn, old_fn, args, o, q, kv_rows, n_pairs, *, plain=Non
         res["max_abs_err_new"] = (o_new.float() - ro).abs().max().item()
         res["max_abs_err_old"] = (o_old.float() - ro).abs().max().item()
         del ro
-        res["plain_ms"] = cs._cuda_ms(plain, reps=3, warmup=1)
+        res["plain_ms"] = cs.cuda_ms(plain, reps=3, warmup=1)
     else:
         res["max_abs_err_new_vs_old"] = (o_new.float() - o_old.float()).abs().max().item()
         res["plain_ms"] = None
     res["finite"] = bool(torch.isfinite(o_new.float()).all())
     times = []
     for fn, a in ((old_fn, args_old), (new_fn, args), (new_fn, args), (old_fn, args_old)):
-        times.append(cs._queued_ms([lambda: call(fn, a)], reps=reps))
+        times.append(cs.queued([lambda: call(fn, a)], reps=reps)[0])
     res["old_ms"] = [times[0], times[3]]
     res["new_ms"] = [times[1], times[2]]
     flops = 4 * hq * d * n_pairs

@@ -13,7 +13,7 @@ one takes a block count and ``w4_split_plan``'s workspace: ``old_w4_cuda``
 is the older wrapper, so each build is called as its own wrapper called it.
 For each case: the older and the current kernel in turns (old, new, new,
 old; each the device time of ``--reps`` calls queued behind a sleep,
-chip_smoke._queued_ms, over enough weight copies to keep K6's working set
+chip_smoke.queued, over enough weight copies to keep K6's working set
 out of L2 as decode finds it; the current K6 also on one copy, warm in L2
 where it fits), both held against the plain PyTorch version,
 the plain version's time, the nearest PyTorch call (K2: none computes the
@@ -114,7 +114,7 @@ def old_w4_cuda(fn, x, packed, scales, out_dtype):
 
 def turns(old, new, reps) -> tuple:
     """(old, new, new, old) queued device times of two lists of calls."""
-    times = [cs._queued_ms(fns, reps=reps) for fns in (old, new, new, old)]
+    times = [cs.queued(fns, reps=reps)[0] for fns in (old, new, new, old)]
     return [times[0], times[3]], [times[1], times[2]]
 
 
@@ -137,14 +137,14 @@ def k2_case(name, old_fn, q, k, ks, v, vs, q_offset, kv_len, reps) -> dict:
     for tag in ("new", "old"):
         res[f"max_abs_err_{tag}"] = (outs[tag][0].float() - ro.float()).abs().max().item()
     res["finite"] = bool(torch.isfinite(outs["new"][0].float()).all())
-    res["plain_ms"] = cs._cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw),
+    res["plain_ms"] = cs.cuda_ms(lambda: fa.flash_attention_quant_reference(q, k, ks, v, vs, **kw),
                                   reps=3, warmup=1)
     args = outs["new"][1]
     res["old_ms"], res["new_ms"] = turns([lambda: call(old_fn, args)], [lambda: call(new_fn, args)],
                                          reps)
     kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
-    res["k1_bf16_cache_ms"] = cs._queued_ms(
-        [lambda: fa.flash_attention(q, kb, vb, causal=True, **kw)], reps=reps)
+    res["k1_bf16_cache_ms"] = cs.queued(
+        [lambda: fa.flash_attention(q, kb, vb, causal=True, **kw)], reps=reps)[0]
     sq, hq, d = q.shape[1], q.shape[2], q.shape[3]
     hkv = k.shape[2]
     pairs = sum(min(kv_len, q_offset + i + 1) for i in range(sq))  # unmasked (q, k) pairs
@@ -178,7 +178,7 @@ def k6_case(name, old_fn, x, packed, scales, out_dtype, reps) -> dict:
            "max_abs_err_new": (new.float() - ref).abs().max().item(),
            "max_abs_err_old": (old.float() - ref).abs().max().item(),
            "same_bits_again": torch.equal(new, qm._w4_cuda(x, packed, scales, out_dtype))}
-    res["plain_ms"] = cs._cuda_ms(lambda: qm.w4_matmul_reference(x, packed, scales, out_dtype),
+    res["plain_ms"] = cs.cuda_ms(lambda: qm.w4_matmul_reference(x, packed, scales, out_dtype),
                                   reps=3, warmup=1)
     n_bytes = packed.numel() + 4 * scales.numel()
     copies = [(packed, scales)] + [(packed.clone(), scales.clone())
@@ -189,15 +189,15 @@ def k6_case(name, old_fn, x, packed, scales, out_dtype, reps) -> dict:
     del copies
     # the same calls on one copy of the weight, left in L2 when it fits (50
     # MB): against the cold time, what device memory's access pattern costs
-    res["new_warm_ms"] = cs._queued_ms([lambda: qm._w4_cuda(x, packed, scales, out_dtype)], reps)
+    res["new_warm_ms"] = cs.queued([lambda: qm._w4_cuda(x, packed, scales, out_dtype)], reps)[0]
     w = (qm.unpack_int4_torch(packed).reshape(n_in // 128, 128, n_out).float()
          * scales[:, None]).reshape(n_in, n_out).to(torch.bfloat16)
     deqs = [w] + [w.clone() for _ in range(-(-120_000_000 // w.nbytes) - 1)]
     if out_dtype == torch.float32:
-        res["library_ms"] = cs._queued_ms(
-            [lambda w=w: torch.mm(x, w, out_dtype=torch.float32) for w in deqs], reps=reps)
+        res["library_ms"] = cs.queued(
+            [lambda w=w: torch.mm(x, w, out_dtype=torch.float32) for w in deqs], reps=reps)[0]
     else:
-        res["library_ms"] = cs._queued_ms([lambda w=w: torch.matmul(x, w) for w in deqs], reps=reps)
+        res["library_ms"] = cs.queued([lambda w=w: torch.matmul(x, w) for w in deqs], reps=reps)[0]
     del deqs, w
     res["library_call"] = "torch.matmul on the dequantised bf16 weight (not the same function)"
     res.update(cs._bound(2 * x.numel() + n_bytes + new.element_size() * new.numel(),

@@ -11,7 +11,7 @@ units: the launch alone), "noload" (no TMA of the packed codes), "nomma"
 loads after the first unit), "nofinish" (a tile that spans blocks is
 written by each of them instead of being summed). Each is timed twice
 (device time of 40 calls queued behind a sleep over enough weight copies
-to keep L2 cold, chip_smoke._queued_ms) at q_proj, k_proj, gate_proj and
+to keep L2 cold, chip_smoke.queued) at q_proj, k_proj, gate_proj and
 lm_head, one row, with the current wrapper's cut and workspace. An edit
 that no longer matches the source stops the script: keep EDITS in step
 with w4_matmul.cu. The nvidia-smi line comes first and the last line is
@@ -103,7 +103,7 @@ def main():
                 err = fn(x.data_ptr(), p.data_ptr(), s.data_ptr(), o.data_ptr(), ws.data_ptr(), 1, n_in, n_out,
                          shape.blocks, 0, int(od == torch.float32), torch.cuda.current_stream().cuda_stream)
                 assert err == 0, err
-            row[v] = [cs._queued_ms([lambda p=p, s=s: call(p, s) for p, s in copies], reps=40) * 1e3 for _ in range(2)]
+            row[v] = [cs.queued([lambda p=p, s=s: call(p, s) for p, s in copies], reps=40)[0] * 1e3 for _ in range(2)]
         ws.zero_()
         out[name] = row
         print(name, shape, {k: [round(t, 2) for t in v] for k, v in row.items()})
