@@ -50,7 +50,8 @@ Phases (each raises on failure; the script then exits non-zero):
      counts of K1, K2 and K3 are checked against the layers and chunks the
      requests need; the video's last-row logits and its encoded features are
      held against the same flow on the plain versions;
-  5b. cp serving (phase_cp_serve): the same decoder in an InferenceEngine
+  5b. cp serving (phase_cp_serve): the same decoder, cut to its first 24
+     layers (the full depth runs in 5c), in an InferenceEngine
      over a cp mesh of 4 thread-ranks (a 65536-slot cache, 16384 a rank,
      chunk 2048): a 60000-id prompt and 16 greedy tokens with a bf16 cache,
      again with an int8 cache (K2), and a 16-frame video through the
@@ -58,6 +59,18 @@ Phases (each raises on failure; the script then exits non-zero):
      one-device engine on the same weights fed the cp engine's tokens
      (every step's logits; each cp pick the one-device argmax up to a
      rounding tie);
+  5c. the cp server (phase_cp_server): the same decoder with a random tower
+     behind the port's server on cp rank 0 of 4 thread-ranks, ranks 1-3 in
+     follower_serve replaying its actions (the lockstep channel,
+     inference/multihost.py), a 32768-slot cache (8192 a rank), chunk 2048:
+     in continuous mode (4 slots, tick 4) text prompts of ~7000, 3000 and
+     1500 ids, a 4-tile image and a streamed request, then a sampled one; in
+     window mode a 2-row batch and a beam request. Gates: every follower's
+     replay equals rank 0's results bit for bit; the HTTP answers equal an
+     in-process cp pool fed the server's admissions (text and logprob
+     bits); the longest prompt against the one-device engine (as 5b); K1
+     and K3 launch counts exact. TTFT over HTTP, ms a decode step and the
+     peak memory are printed (4 thread-ranks on one card);
   6. the port's serving entry points on a checkpoint it writes and reads:
      the decoder with a random InternViT-300M and projector exported as a
      *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
@@ -3307,106 +3320,136 @@ def _forced_steps_check(tag, got, want) -> None:
                              "one-device engine fed the same tokens")
 
 
+def _timed_generate(eng, prompt, videos, sp):
+    """eng.generate -> (result, TTFT s, decode ms/token); TTFT ends when the
+    engine has sampled the first token."""
+    import torch
+
+    head, seen = eng._head_sample, {}
+
+    def timed(hidden, gen, sampling):
+        out = head(hidden, gen, sampling)
+        if "t" not in seen:
+            torch.cuda.synchronize()
+            seen["t"] = time.perf_counter()
+        return out
+
+    eng._head_sample = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(input_ids=prompt, videos=videos, sampling=sp)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n = len(out.token_ids)
+    return out, seen["t"] - t0, (t1 - seen["t"]) / max(n - 1, 1) * 1e3
+
+
+def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk, expected,
+                           tokens, kv_quant=False, videos=(), mm=None) -> dict:
+    """``prompt`` (token ids) served by an InferenceEngine over a cp mesh of
+    CP thread-ranks (each holding seq // CP slots) and greedy-decoded for
+    ``tokens`` tokens, then by a one-device engine on the same weights, run
+    after it and fed the cp engine's tokens (teacher forcing, so that a
+    near-tie does not end the check): every step's f32 logits under the
+    logit gate and each cp pick against the one-device argmax (up to a
+    rounding tie). The cp run's launches must equal expected(prompt ids).
+    -> those launch counts."""
+    import torch
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    mm = mm or _StubMM()
+    sp = SamplingParams(max_new_tokens=tokens)
+    kw = dict(max_seq_len=seq, chunk=chunk, kv_quant=kv_quant, vision_chunk=vision_chunk)
+    one = InferenceEngine(model, cfg, mm, **kw)
+    n_ids = len(mm.expand(prompt, videos=videos).input_ids)
+
+    def rank(comm):
+        eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(cp=CP), comm), **kw)
+        if eng._make_cache(1, seq).k.shape[2] != seq // CP:
+            raise AssertionError("a rank must hold slots // cp cache slots")
+        comm.barrier()
+        if comm.rank == 0:
+            _reset_counts()
+        comm.barrier()
+        out, ttft, ms = _timed_generate(eng, prompt, videos, sp)
+        comm.barrier()
+        counts = _read_counts() if comm.rank == 0 else None
+        return seen[threading.get_ident()], out.token_ids, ttft, ms, counts
+
+    with _sampling_tap() as seen:
+        res = run_thread_ranks(rank, CP, timeout=CP_TIMEOUT)
+    steps, got, ttft, ms, counts = res[0]
+    if any(r[1] != got or len(r[0]) != len(steps) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r[0], steps))
+           for r in res):
+        raise AssertionError(f"[{tag}] the thread-ranks sampled different tokens or logits")
+    del res
+    # teacher forcing: the one-device engine fed the cp engine's picks
+    with _sampling_tap(forced=[t for _, t in steps]) as seen_one:
+        ref_out, ttft1, ms1 = _timed_generate(one, prompt, videos, sp)
+    ref_steps = next(iter(seen_one.values()))
+    ok = all(bool(torch.isfinite(g).all()) for g, _ in steps) and _logit_check(
+        tag, f"cp {CP} engine vs the one-device engine", steps[0][0], ref_steps[0][0])
+    if not ok or ref_out.token_ids != got:
+        raise AssertionError(f"[{tag}] cp engine logits disagree with the one-device engine")
+    _forced_steps_check(tag, steps, ref_steps)
+    print(f"[{tag}] {n_ids} prompt tokens, {len(got)} greedy tokens {got[:8]} ...: cp "
+          f"{CP} TTFT {ttft:.3f} s, decode {ms:.1f} ms/token ({THREADS_NOTE}); the "
+          f"one-device engine (fed the cp tokens, after the cp run) TTFT {ttft1:.3f} s, "
+          f"decode {ms1:.1f} ms/token")
+    _check_launches(counts, expected(n_ids))
+    return counts
+
+
+def _decoder_prefix(params, cfg, layers: int) -> tuple:
+    """The decoder cut to its first ``layers`` layers (the same tensors, no
+    copy) and the configuration cut to match."""
+    import dataclasses
+
+    from long_vita_tpu_torch.models import qwen2
+
+    text = qwen2.Qwen2Params(embed=params.embed, layers=list(params.layers[:layers]),
+                             final_norm=params.final_norm, lm_head=params.lm_head)
+    return text, dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=layers))
+
+
 def phase_cp_serve(params, cfg, dev, *, max_seq=65536, chunk=2048, n_prompt=60000,
                    new_tokens=16, short_tokens=4, n_frames=16, video_max_seq=16384,
-                   vision_chunk=64) -> dict:
-    """The 14B (full width and depth, the serving phases' random bf16
-    weights, shared by the thread-ranks) served by an InferenceEngine over a
-    cp mesh of CP thread-ranks, each rank holding max_seq // CP cache slots:
+                   vision_chunk=64, layers=24) -> dict:
+    """The 14B at full width (the serving phases' random bf16 weights,
+    shared by the thread-ranks; the decoder cut to its first ``layers``
+    layers, since phase_cp_server runs the full depth over cp, to keep
+    the run inside its time limit) served by an
+    InferenceEngine over a cp mesh of CP thread-ranks, each rank holding
+    max_seq // CP cache slots:
     a 60000-id prompt (its last chunk partial) and 16 greedy tokens with a
     bf16 cache, then with an int8 cache (K2), then a 16-frame video through
     the tile-sharded encode (each rank's 4 tiles through K3); the last two
     decode 4 tokens (short_tokens: every thread-rank runs the whole decode
     step, 1.7-2.6 s a token on one card). Each against a one-device engine
-    on the same weights, run after it and fed the cp engine's tokens
-    (teacher forcing, so that a near-tie does not end the check): every
-    step's f32 logits (cosine and max |diff|, the prefill's last row and
-    each decode step's) and each cp pick against the one-device argmax (up
-    to a rounding tie). Launch counts of the cp runs are checked (K1 or K2: a
-    launch per rank, layer and chunk; K3 a launch per rank and tower layer).
-    TTFT and ms/token are 4 thread-ranks on one card.
-    -> launch counts of the cp generate calls."""
+    on the same weights (_cp_against_one_device). Launch counts of the cp
+    runs are checked (K1 or K2: a launch per rank, layer and chunk; K3 a
+    launch per rank and tower layer). TTFT and ms/token are 4 thread-ranks
+    on one card. -> launch counts of the cp generate calls."""
     import numpy as np
-    import torch
 
-    from long_vita_tpu_torch.inference.engine import InferenceEngine
-    from long_vita_tpu_torch.inference.sampler import SamplingParams
-    from long_vita_tpu_torch.models import qwen2
-    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
-    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
-
+    params, cfg = _decoder_prefix(params, cfg, layers)
+    print(f"[cp-serve] the decoder's first {layers} layers at full width")
     tc = cfg.text
     rng = np.random.default_rng(SEED + 30)
     vocab = min(tc.vocab_size, 151643)
     total = dict.fromkeys(SOURCES, 0)
 
-    def generate(eng, prompt, videos, sp):
-        """eng.generate -> (result, TTFT s, decode ms/token); TTFT ends when
-        the engine has sampled the first token."""
-        head, seen = eng._head_sample, {}
-
-        def timed(hidden, gen, sampling):
-            out = head(hidden, gen, sampling)
-            if "t" not in seen:
-                torch.cuda.synchronize()
-                seen["t"] = time.perf_counter()
-            return out
-
-        eng._head_sample = timed
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.generate(input_ids=prompt, videos=videos, sampling=sp)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        n = len(out.token_ids)
-        return out, seen["t"] - t0, (t1 - seen["t"]) / max(n - 1, 1) * 1e3
-
-    def serve(tag, model, prompt, *, kv_quant=False, seq=max_seq, videos=(), mm=None,
-              expected=None, tokens=new_tokens):
-        mm = mm or _StubMM()
-        sp = SamplingParams(max_new_tokens=tokens)
-        kw = dict(max_seq_len=seq, chunk=chunk, kv_quant=kv_quant, vision_chunk=vision_chunk)
-        one = InferenceEngine(model, cfg, mm, **kw)
-        n_ids = len(mm.expand(prompt, videos=videos).input_ids)
-
-        def rank(comm):
-            eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(cp=CP), comm), **kw)
-            if eng._make_cache(1, seq).k.shape[2] != seq // CP:
-                raise AssertionError("a rank must hold slots // cp cache slots")
-            comm.barrier()
-            if comm.rank == 0:
-                _reset_counts()
-            comm.barrier()
-            out, ttft, ms = generate(eng, prompt, videos, sp)
-            comm.barrier()
-            counts = _read_counts() if comm.rank == 0 else None
-            return seen[threading.get_ident()], out.token_ids, ttft, ms, counts
-
-        with _sampling_tap() as seen:
-            res = run_thread_ranks(rank, CP, timeout=CP_TIMEOUT)
-        steps, tokens, ttft, ms, counts = res[0]
-        if any(r[1] != tokens or len(r[0]) != len(steps) or not all(
-                torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r[0], steps))
-               for r in res):
-            raise AssertionError(f"[{tag}] the thread-ranks sampled different tokens or logits")
-        del res
-        # teacher forcing: the one-device engine fed the cp engine's picks
-        with _sampling_tap(forced=[t for _, t in steps]) as seen_one:
-            ref_out, ttft1, ms1 = generate(one, prompt, videos, sp)
-        ref_steps = next(iter(seen_one.values()))
-        ok = all(bool(torch.isfinite(g).all()) for g, _ in steps) and _logit_check(
-            tag, f"cp {CP} engine vs the one-device engine", steps[0][0], ref_steps[0][0])
-        if not ok or ref_out.token_ids != tokens:
-            raise AssertionError(f"[{tag}] cp engine logits disagree with the one-device engine")
-        _forced_steps_check(tag, steps, ref_steps)
-        print(f"[{tag}] {n_ids} prompt tokens, {len(tokens)} greedy tokens {tokens[:8]} ...: cp "
-              f"{CP} TTFT {ttft:.3f} s, decode {ms:.1f} ms/token ({THREADS_NOTE}); the "
-              f"one-device engine (fed the cp tokens, after the cp run) TTFT {ttft1:.3f} s, "
-              f"decode {ms1:.1f} ms/token")
-        _check_launches(counts, expected(n_ids))
+    def serve(tag, model, prompt, *, seq=max_seq, tokens=new_tokens, **kw):
+        counts = _cp_against_one_device(tag, model, cfg, prompt, seq=seq, chunk=chunk,
+                                        vision_chunk=vision_chunk, tokens=tokens, **kw)
         for key in total:
             total[key] += counts[key]
-        del one
 
     chunks = lambda n: -(-n // chunk)  # noqa: E731
     layers = tc.num_hidden_layers
@@ -3432,6 +3475,347 @@ def phase_cp_serve(params, cfg, dev, *, max_seq=65536, chunk=2048, n_prompt=6000
           expected=lambda n: {"flash_fwd": CP * layers * chunks(n),
                               "short_attn": CP * vc.num_hidden_layers * -(-per_rank // vision_chunk)})
     del lv
+    return total
+
+
+def _png_b64(rng, width: int, height: int) -> str:
+    """A random RGB PNG, base64 (an image_list entry of PUT /api)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (height, width, 3), dtype="uint8")).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _lockstep_http(eng, *, continuous, slots, tick, first=(), together=(), last=(),
+                   window_s=0.05) -> dict:
+    """cp rank 0's side of a lockstep server (inference/server.make_server on
+    an engine over a cp mesh; the other ranks run follower_serve): send
+    ``first`` one at a time, then ``together`` concurrently (``first``'s
+    admissions come before theirs), then ``last`` one at a time, over
+    HTTP; a request with "stream": true is streamed. Then shut the server
+    down (close_server: SHUTDOWN is the channel's last message). In
+    continuous mode every admission is recorded (rid, prompt, sampling, the
+    ids and the cast tiles it admitted) for the in-process replay.
+    -> {"answers": payload dicts in request order, "codes", "seconds",
+    "stream": (TTFT over HTTP, seconds), "finished": rank 0's pool results,
+    "admitted", "trace", "seconds_all"}."""
+    from long_vita_tpu_torch.inference.server import close_server, make_server
+
+    server = make_server(eng, "127.0.0.1", 0, continuous=continuous, max_batch=slots,
+                         tick=tick, batch_window_s=window_s)
+    admitted, pending = [], []
+    if continuous:
+        b = server.batcher
+        real_start, real_admit = b._start_next_locked, b.ce.start_admission
+
+        def start_admission(ids, images=None, image_indices=None):
+            pending.append((list(ids), images, image_indices, b.ce.sampling))
+            return real_admit(ids, images, image_indices)
+
+        def start_next():
+            before = set(b._inflight)
+            did = real_start()
+            for rid in set(b._inflight) - before:
+                box, row = b._inflight[rid]
+                ids, imgs, idx, sp = pending[-1]
+                admitted.append(dict(rid=rid, prompt=box["req"]["prompts"][row], ids=ids,
+                                     images=imgs, indices=idx, sampling=sp))
+            pending.clear()
+            return did
+
+        b.ce.start_admission = start_admission
+        b._start_next_locked = start_next
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/api"
+    reqs = [*first, *together, *last]
+    out: dict = {}
+
+    def send(i):
+        req = dict(reqs[i])
+        if req.pop("stream", False):
+            events, t_first, t_all = _stream(url, req)
+            payload = dict(events[-1])
+            deltas = "".join(e["delta"] for e in events if "delta" in e)
+            ok = payload.pop("done", False) is True and deltas == payload["text"][0]
+            out[i] = (200 if ok else 500, payload, t_all)
+            out["stream"] = (t_first, t_all)
+        else:
+            code, body, t = _put(url, req)
+            out[i] = (code, json.loads(body) if code == 200 else body, t)
+
+    t0 = time.perf_counter()
+    try:
+        for i in range(len(first)):
+            send(i)
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(first), len(first) + len(together))]
+        for t in threads:
+            t.start()
+            time.sleep(0.05)  # the order of the queue: the order of the list
+        for t in threads:
+            t.join(timeout=CP_TIMEOUT)
+        for i in range(len(first) + len(together), len(reqs)):
+            send(i)
+    finally:
+        server.shutdown()
+        thread.join(timeout=CP_TIMEOUT)
+        close_server(server, timeout=CP_TIMEOUT)
+    seconds_all = time.perf_counter() - t0
+    return {
+        "answers": [out[i][1] for i in range(len(reqs))],
+        "codes": [out[i][0] for i in range(len(reqs))],
+        "seconds": [out[i][2] for i in range(len(reqs))],
+        "stream": out.get("stream"), "seconds_all": seconds_all,
+        "finished": dict(getattr(server.batcher, "finished", {})), "admitted": admitted,
+        "trace": list(getattr(server.batcher, "trace", [])),
+    }
+
+
+def _follower(eng, *, continuous, slots, tick) -> dict:
+    """A follower rank's side: follower_serve until SHUTDOWN; -> what it
+    replayed (its pool freed)."""
+    from long_vita_tpu_torch.inference.server import follower_serve
+
+    fol = follower_serve(eng, continuous=continuous, max_batch=slots, tick=tick)
+    out = {"finished": dict(fol.finished), "payloads": list(fol.payloads), "trace": fol.trace}
+    fol.ce = None
+    return out
+
+
+def _replay_admissions(eng, admitted, *, slots, tick) -> tuple:
+    """The admissions rank 0's pool made, in its order, through an in-process
+    ContinuousEngine of the server's geometry on the same ranks (a row
+    joins as soon as a slot is free; a change of sampling waits until the
+    pool is drained, as the server's scheduler does). -> ({rid: result},
+    seconds of each decode tick)."""
+    import torch
+
+    from long_vita_tpu_torch.inference.continuous import ContinuousEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+
+    ce = ContinuousEngine(eng, SamplingParams(), max_slots=slots, tick=tick)
+    out, ticks = {}, []
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+
+    def step():
+        sync()
+        t = time.perf_counter()
+        out.update(ce.step())
+        sync()
+        ticks.append(time.perf_counter() - t)
+
+    for a in admitted:
+        if a["sampling"] != ce.sampling:
+            while ce.active:
+                step()
+            ce.set_sampling(a["sampling"])
+        while ce.free_slots <= 0:
+            step()
+        rid = ce.add_request(a["ids"], a["images"], a["indices"])
+        if rid != a["rid"]:
+            raise AssertionError(f"replayed admission {rid} != the server's {a['rid']}")
+    while ce.active:
+        step()
+    return out, ticks
+
+
+def _lockstep_gates(tag, http, followers, replay, check) -> None:
+    """(a) every follower's replay equals rank 0's results (token ids and
+    logprob bits; in window mode the payloads it answered); (b) in
+    continuous mode, each HTTP answer equals the in-process pool's row of
+    the same admission (text and logprob bits)."""
+    def bits(res):
+        return res.token_ids, res.logprobs
+
+    ok_codes = all(c == 200 for c in http["codes"])
+    check(ok_codes, f"[{tag}] every request answered 200 ({http['codes']})")
+    if http["admitted"]:
+        fin = {rid: bits(r) for rid, r in http["finished"].items()}
+        check(bool(fin) and all({rid: bits(r) for rid, r in f["finished"].items()} == fin
+                                for f in followers),
+              f"[{tag}] (a) lockstep: each of {len(followers)} followers replayed rank 0's "
+              f"{len(fin)} pool rows, token ids and logprob bits, through "
+              f"{followers[0]['trace'].count('tick') if followers else 0} ticks")
+        by_prompt = {}
+        for req, ans in zip(http["requests"], http["answers"]):
+            by_prompt[req["prompts"][0]] = ans
+        same = []
+        for a in http["admitted"]:
+            ans, res = by_prompt[a["prompt"]], replay[a["rid"]]
+            same.append(isinstance(ans, dict) and ans["text"] == [res.text]
+                        and ans.get("logprobs", [None])[0] == res.logprobs)
+        check(all(same) and len(same) == len(http["answers"]),
+              f"[{tag}] (b) each HTTP answer equals the in-process pool's row of the same "
+              f"admission (text and logprob bits): {sum(same)} of {len(same)}")
+    else:
+        check(all(f["payloads"] == http["answers"] for f in followers),
+              f"[{tag}] (a) lockstep: each follower answered rank 0's "
+              f"{len(http['answers'])} payloads ({followers[0]['trace'] if followers else []})")
+
+
+def phase_cp_server(params, cfg, dev, *, max_seq=32768, chunk=2048, slots=4, tick=4,
+                    text_chars=(7000, 3000, 1500), new_tokens=8, image_wh=(1344, 448),
+                    stream_chars=600, sampled_chars=400, batch_chars=(900, 500),
+                    beam_chars=300, beam_tokens=4, vision_chunk=64, tokenizer=None) -> dict:
+    """Serving a cp group from its entry points: the 14B (full width and
+    depth, the serving phases' random bf16 weights with a random tower and
+    projector, shared by the thread-ranks) behind the port's server on cp
+    rank 0 of CP thread-ranks, ranks 1.. in follower_serve (the lockstep,
+    inference/multihost.py over ThreadComm), the ByteTokenizer in the real
+    MultimodalTokenizer. A 32768-slot cache, 8192 a rank, chunk 2048.
+    Continuous mode (4 slots, tick 4): the longest text prompt, then
+    concurrently two more, a 4-tile image and a streamed request, then a
+    sampled request (its own sampling key: a drained pool, then the
+    switch); window mode: a 2-row batch, then a beam request. Gates: (a)
+    each follower's replay equals rank 0's results bit for bit; (b) the
+    HTTP answers equal an in-process cp pool of the server's geometry on the
+    same ranks, fed the server's admissions in order (run after the
+    server's pool is freed); (c) the longest prompt on the cp engine
+    against the one-device engine, teacher-forced, under the logit gate;
+    (d) exact launch counts: K1 CP x 48 x the chunks of every prefill, K3
+    CP x 24 x a rank's encode batches. Times are THREADS_NOTE. Its sizes
+    (and ``tokenizer``: a ByteTokenizer at Qwen2.5's ids by default) are
+    arguments, so that it rehearses on the CPU at a tiny size.
+    -> the launch counts of the phase."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.data.image_processor import ImageProcessor
+    from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from long_vita_tpu_torch.tokenizer import ByteTokenizer
+
+    vc, tc = cfg.vision, cfg.text
+    layers = tc.num_hidden_layers
+    rng = np.random.default_rng(SEED + 50)
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"{what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    probe = rng.standard_normal((2, vc.image_size, vc.image_size, 3), dtype=np.float32)
+    lv, _ = _vlm_params(params, cfg, dev, SEED + 51, probe)
+    mm = MultimodalTokenizer(tokenizer or ByteTokenizer(), image_processor=ImageProcessor(
+        image_size=vc.image_size), image_token_length=cfg.image_token_length)
+    greedy = {"tokens_to_generate": new_tokens, "logprobs": True}
+    texts = [_random_text(rng, n) for n in text_chars]
+    first = [{"prompts": [texts[0]], **greedy}]
+    together = [{"prompts": [texts[1]], **greedy}, {"prompts": [texts[2]], **greedy},
+                {"prompts": ["<image>\n" + _random_text(rng, 100)],
+                 "image_list": [_png_b64(rng, *image_wh)], **greedy},
+                {"prompts": [_random_text(rng, stream_chars)], "stream": True, **greedy}]
+    last = [{"prompts": [_random_text(rng, sampled_chars)], "tokens_to_generate": new_tokens,
+             "logprobs": True, "top_k": 20, "temperature": 0.8, "random_seed": 11}]
+    window = [{"prompts": [_random_text(rng, n) for n in batch_chars], **greedy},
+              {"prompts": [_random_text(rng, beam_chars)], "tokens_to_generate": beam_tokens,
+               "beam_width": 2}]
+    kw = dict(max_seq_len=max_seq, chunk=chunk, vision_chunk=vision_chunk)
+    chunks = lambda n: -(-n // chunk)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve(comm):
+        eng = InferenceEngine(lv, cfg, mm, mesh=make_mesh(MeshConfig(cp=CP), comm), **kw)
+        if eng._make_cache(1, max_seq).k.shape[2] != max_seq // CP:
+            raise AssertionError("a rank must hold slots // cp cache slots")
+        out = {}
+        for mode, plan in (("continuous", dict(first=first, together=together, last=last)),
+                           ("window", dict(last=window))):
+            comm.barrier()
+            if comm.rank == 0:
+                if mode == "continuous":
+                    _reset_counts()
+                out[mode] = _lockstep_http(eng, continuous=mode == "continuous", slots=slots,
+                                           tick=tick, **plan)
+                out[mode]["requests"] = [*plan.get("first", ()), *plan.get("together", ()),
+                                         *plan["last"]]
+                out[mode]["peak"] = torch.cuda.max_memory_allocated()
+            else:
+                out[mode] = _follower(eng, continuous=mode == "continuous", slots=slots,
+                                      tick=tick)
+            comm.barrier()
+            if comm.rank == 0:
+                gc.collect()
+                torch.cuda.empty_cache()
+            comm.barrier()
+        return out
+
+    res = run_thread_ranks(serve, CP, timeout=CP_TIMEOUT)
+    http, fols = res[0], res[1:]
+    cont, win = http["continuous"], http["window"]
+    n_ids = [len(a["ids"]) for a in cont["admitted"]]
+    t_first, t_stream = cont["stream"]
+    gen = sum(len(a["logprobs"][0]) for a in cont["answers"] if isinstance(a, dict))
+    print(f"[cp-server] continuous mode over {CP} thread-ranks ({THREADS_NOTE}): admissions "
+          f"of {n_ids} ids ({slots} slots, tick {tick}, a {max_seq}-slot cache, "
+          f"{max_seq // CP} a rank); {gen} tokens in {cont['seconds_all']:.3f} s; request "
+          f"times {[round(t, 3) for t in cont['seconds']]} s; the streamed request's TTFT over "
+          f"HTTP {t_first:.3f} s (all {t_stream:.3f} s); peak memory "
+          f"{cont['peak'] / 1e9:.2f} GB (max_memory_allocated)")
+    print(f"[cp-server] window mode: the 2-row batch and the beam request in "
+          f"{[round(t, 3) for t in win['seconds']]} s; peak memory {win['peak'] / 1e9:.2f} GB")
+    beam = win["answers"][1] if isinstance(win["answers"][1], dict) else {}
+    check(len(beam.get("text", [])) == 2 and beam["scores"] == sorted(beam["scores"],
+                                                                      reverse=True),
+          f"[cp-server] beam_width 2 gives two hypotheses best first ({beam.get('scores')})")
+    del res
+
+    # ---- (b): the in-process pool on the same ranks, the server's pool freed
+    admitted = cont["admitted"]
+
+    def replay(comm):
+        eng = InferenceEngine(lv, cfg, mm, mesh=make_mesh(MeshConfig(cp=CP), comm), **kw)
+        got, ticks = _replay_admissions(eng, admitted, slots=slots, tick=tick)
+        comm.barrier()
+        return got, ticks, (_read_counts() if comm.rank == 0 else None)
+
+    rep = run_thread_ranks(replay, CP, timeout=CP_TIMEOUT)
+    replayed, ticks, counts = rep[0]
+    check(all({r: (x.token_ids, x.logprobs) for r, x in g.items()}
+              == {r: (x.token_ids, x.logprobs) for r, x in replayed.items()} for g, _, _ in rep),
+          "[cp-server] the in-process pool: every rank the same rows")
+    print(f"[cp-server] the in-process pool ({THREADS_NOTE}): {len(ticks)} ticks, "
+          f"{statistics.median(ticks) / tick * 1e3:.1f} ms a decode step (median tick / {tick})")
+    _lockstep_gates("cp-server continuous", cont, [f["continuous"] for f in fols], replayed,
+                    check)
+    _lockstep_gates("cp-server window", win, [f["window"] for f in fols], None, check)
+    del rep
+
+    # ---- (d): launches of the server, its followers and the replay
+    n_batch = max(len(mm.encode_chat([{"role": "user", "content": p}]))
+                  for p in window[0]["prompts"])
+    n_beam = len(mm.encode_chat([{"role": "user", "content": window[1]["prompts"][0]}]))
+    tiles = [a["images"].shape[0] for a in admitted if a["images"] is not None]
+    per_rank = [-(-n // CP) for n in tiles]
+    _check_launches(counts, {
+        "flash_fwd": CP * layers * (2 * sum(chunks(n) for n in n_ids) + chunks(n_batch)
+                                    + chunks(n_beam)),
+        "short_attn": 2 * CP * vc.num_hidden_layers * sum(-(-n // vision_chunk) for n in per_rank),
+    })
+    total = dict(counts)
+    _collect("after the cp server and its replay")
+
+    # ---- (c): the longest prompt on the cp engine vs one device
+    longest = max(admitted, key=lambda a: len(a["ids"]))["ids"]
+    c = _cp_against_one_device(
+        "cp-server longest prompt", lv, cfg, longest, seq=max_seq, chunk=chunk,
+        vision_chunk=vision_chunk, tokens=new_tokens, mm=mm,
+        expected=lambda n: {"flash_fwd": CP * layers * chunks(n)})
+    for key in total:
+        total[key] += c[key]
+    print(f"[cp-server] peak memory of the phase {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({THREADS_NOTE})")
+    del lv
+    if failures:
+        raise AssertionError(f"phase_cp_server: {failures}")
     return total
 
 
@@ -3583,6 +3967,8 @@ def _cp_nccl_worker(rank, world, init, out, sizes):
         if rank == 0:
             res["cp1"] = train(1, None)
         comm.barrier()
+        res["server"] = _nccl_server(comm, base, cfg, sizes)
+        comm.barrier()
         out.put((rank, res))
         torch.distributed.destroy_process_group()
     except Exception as e:  # noqa: BLE001 (reported to the parent)
@@ -3591,15 +3977,80 @@ def _cp_nccl_worker(rank, world, init, out, sizes):
         out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2000:]}"))
 
 
+def _nccl_server(comm, model, cfg, sizes) -> dict:
+    """The lockstep server over a process group (phase_cp_nccl's last part):
+    cp rank 0 serves sizes' requests over HTTP on localhost (continuous
+    mode, 2 slots, tick 4: text prompts and a 4-tile image, concurrently),
+    rank 1 follows; then every rank replays rank 0's admissions, broadcast
+    to it over the lockstep channel, in an in-process pool (gate (b)).
+    -> rank 0: {"http", "replay"}; rank 1: {"follower", "replay"}."""
+    import numpy as np
+
+    from long_vita_tpu_torch.data.image_processor import ImageProcessor
+    from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
+    from long_vita_tpu_torch.inference import multihost
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from long_vita_tpu_torch.tokenizer import ByteTokenizer
+
+    rng = np.random.default_rng(SEED + 43)
+    vc = cfg.vision
+    mm = MultimodalTokenizer(ByteTokenizer(**sizes["server_tok"]), image_processor=ImageProcessor(
+        image_size=vc.image_size), image_token_length=cfg.image_token_length)
+    eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(cp=comm.size), comm),
+                          max_seq_len=sizes["server_seq"], chunk=sizes["server_chunk"])
+    greedy = {"tokens_to_generate": sizes["server_tokens"], "logprobs": True}
+    reqs = [{"prompts": [_random_text(rng, n)], **greedy} for n in sizes["server_chars"]]
+    reqs.append({"prompts": ["<image>\n" + _random_text(rng, 50)],
+                 "image_list": [_png_b64(rng, *sizes["server_image"])], **greedy})
+    slots, tick = 2, 4
+    out = {}
+    if comm.rank == 0:
+        out["http"] = _lockstep_http(eng, continuous=True, slots=slots, tick=tick, together=reqs)
+        out["http"]["requests"] = reqs
+        admitted = out["http"]["admitted"]
+    else:
+        out["follower"] = _follower(eng, continuous=True, slots=slots, tick=tick)
+        admitted = None
+    # rank 0's admissions to every rank, over the lockstep channel itself
+    chan = comm.host_comm()
+    n = multihost.publish(chan, len(admitted) if comm.rank == 0 else None)
+    got = []
+    for i in range(n):
+        a = admitted[i] if comm.rank == 0 else None
+        meta = None if a is None else {
+            "rid": a["rid"], "prompt": a["prompt"], "has_images": a["images"] is not None,
+            "sampling": {k: getattr(a["sampling"], k) for k in a["sampling"].__dataclass_fields__}}
+        arrays = () if a is None else [np.asarray(a["ids"], np.int32)] + (
+            [a["images"], np.asarray(a["indices"])] if a["images"] is not None else [])
+        meta, arrays = multihost.publish_blob(chan, meta, arrays)
+        sp = meta["sampling"]
+        got.append(dict(rid=meta["rid"], prompt=meta["prompt"], ids=arrays[0].tolist(),
+                        images=arrays[1] if meta["has_images"] else None,
+                        indices=arrays[2].numpy() if meta["has_images"] else None,
+                        sampling=SamplingParams(**{**sp, "stop_token_ids": tuple(
+                            sp["stop_token_ids"])})))
+    out["replay"], _ = _replay_admissions(eng, got, slots=slots, tick=tick)
+    for a in out.get("http", {}).get("admitted", ()):
+        a["images"] = a["indices"] = None  # no tensors through the result queue
+    return out
+
+
 def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=128, layers=4,
-                  train_seq=16384, budget=4096, answer=300) -> None:
+                  train_seq=16384, budget=4096, answer=300, server_seq=16384,
+                  server_chunk=2048, server_chars=(3000, 1500), server_image=(1344, 448),
+                  server_tokens=8, server_tok=None) -> None:
     """cp 2 over NCCL, one process a GPU, where the machine has two or more
     GPUs: ring attention forward and backward (through autograd) at 64K
-    tokens against K1 and K4/K5 over the whole sequence, and two Trainer
+    tokens against K1 and K4/K5 over the whole sequence, two Trainer
     steps at cp 2 (full width, the decoder cut to 4 layers, a frozen random
     tower; one packed row of 16384 tokens with a 7-tile image) against the
-    same steps at cp 1. On one GPU it prints that it did not run. force and
-    device="cpu": the rehearsal over gloo at the sizes given."""
+    same steps at cp 1, and the lockstep server at cp 2 on that model (rank
+    0 answers HTTP, rank 1 follows: gates (a) and (b) of phase_cp_server).
+    On one GPU it prints that it did not run. force and device="cpu": the
+    rehearsal over gloo at the sizes given (server_tok: the ByteTokenizer's
+    ids, Qwen2.5's by default)."""
     import queue as queue_mod
     import socket
 
@@ -3616,7 +4067,9 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     sizes = dict(device=device, seq=seq, heads=heads, d=d, layers=layers, train_seq=train_seq,
-                 budget=budget, answer=answer)
+                 budget=budget, answer=answer, server_seq=server_seq, server_chunk=server_chunk,
+                 server_chars=server_chars, server_image=server_image,
+                 server_tokens=server_tokens, server_tok=server_tok or {})
     procs = [ctx.Process(target=_cp_nccl_worker,
                          args=(r, 2, f"tcp://127.0.0.1:{port}", out, sizes)) for r in range(2)]
     for p in procs:
@@ -3663,6 +4116,22 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("[cp-nccl] cp 2 training disagrees with cp 1")
+    srv0, srv1 = results[0]["server"], results[1]["server"]
+    http, failures = srv0["http"], []
+
+    def check(good: bool, what: str) -> None:
+        print(f"{what}: {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(what)
+
+    print(f"[cp-nccl server] {len(http['requests'])} concurrent requests (admissions of "
+          f"{[len(a['ids']) for a in http['admitted']]} ids) over HTTP from rank 0, rank 1 "
+          f"following: {[round(t, 3) for t in http['seconds']]} s")
+    _lockstep_gates("cp-nccl server", http, [srv1["follower"]], srv0["replay"], check)
+    check(srv1["replay"] == srv0["replay"], "[cp-nccl server] both ranks' in-process pools "
+          "give the same rows")
+    if failures:
+        raise AssertionError(f"[cp-nccl] the lockstep server: {failures}")
     print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
 
 
@@ -3744,6 +4213,8 @@ def main() -> int:
     _collect("after the multimodal phase")  # the serving engines and their caches are gone
     add(phase_cp_serve(params, cfg, dev))
     _collect("after the cp serving phase")
+    add(phase_cp_server(params, cfg, dev))
+    _collect("after the cp server phase")
     # the decoder is exported, freed and loaded back; the loaded one trains,
     # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]

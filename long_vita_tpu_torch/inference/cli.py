@@ -7,9 +7,19 @@ Counterpart of long_vita_tpu/inference/cli.py, with the same flags:
 
 The checkpoint dir is a released Long-VITA-*_HF directory (config.json +
 safetensors + tokenizer assets); see utils/checkpoint_io.py. The model goes
-to the card unless ``build_engine`` is given another device. One device:
-``--tp``/``--cp`` above 1 raise until the multi-GPU slice, and there is no
+to the card unless ``build_engine`` is given another device. There is no
 counterpart of the JAX package's compile cache (PyTorch runs eagerly).
+
+``--cp N`` serves from a KV cache sharded over N ranks, one process a GPU:
+
+    torchrun --nproc-per-node 4 -m long_vita_tpu_torch.inference.cli \
+        <checkpoint_dir> --serve --continuous --cp 4
+
+Each rank loads the checkpoint onto its own card (rank % device_count).
+With ``--serve`` rank 0 answers HTTP and the other ranks replay its actions
+(inference/server.py, inference/multihost.py); ``--prompt`` runs the same
+generate on every rank and prints on rank 0. ``--chat`` over more than one
+rank raises (the REPL has no lockstep), as does ``--tp`` above 1.
 """
 from __future__ import annotations
 
@@ -39,18 +49,42 @@ def build_engine(
     from long_vita_tpu_torch.tokenizer import load_tokenizer
     from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
 
-    if tp > 1 or cp > 1:
-        raise _later("mesh (multi-device serving)", "multi-GPU")
+    if tp > 1:
+        raise _later("tensor-parallel serving (--tp)", "multi-GPU, Tensor parallelism")
+    mesh = None
+    if cp > 1:
+        mesh = _cp_mesh(cp)
+        if torch.device(device).type == "cuda":
+            # init_process_group gave this rank its card
+            device = torch.device("cuda", torch.cuda.current_device())
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype_name]
     params, cfg = load_long_vita_checkpoint(model_path, dtype=dtype, device=device)
     tokenizer = load_tokenizer(model_path)
     mm = MultimodalTokenizer(tokenizer, max_num_frame=max_num_frame)
     return InferenceEngine(
         params, cfg, mm, max_seq_len=max_seq_len, chunk=chunk,
-        cache_dtype=dtype, kv_quant=kv_quant,
+        cache_dtype=dtype, kv_quant=kv_quant, mesh=mesh,
         prefix_cache_entries=prefix_cache, speculative_k=speculative,
         weight_quant=weight_quant,
     )
+
+
+def _cp_mesh(cp: int):
+    """The cp mesh of this job's ranks: torch.distributed from torchrun's
+    variables (or LVT_COORDINATOR / LVT_NUM_PROCESSES / LVT_PROCESS_ID),
+    which must name exactly cp processes."""
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from long_vita_tpu_torch.training.distributed import maybe_initialize
+
+    comm = maybe_initialize()
+    world = comm.size if comm is not None else 1
+    if world != cp:
+        raise ValueError(
+            f"--cp {cp} serves from {cp} processes, one a GPU, and this job has {world}: "
+            f"launch it with torchrun --nproc-per-node {cp} -m "
+            f"long_vita_tpu_torch.inference.cli <checkpoint_dir> ... --cp {cp}"
+        )
+    return make_mesh(MeshConfig(cp=cp), comm)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -71,11 +105,12 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel ways (multi-GPU serving: not "
-                             "ported yet, raises above 1)")
-    parser.add_argument("--cp", type=int, default=1,
-                        help="context-parallel ways (not ported yet, raises "
+                        help="tensor-parallel ways (not ported yet: raises "
                              "above 1)")
+    parser.add_argument("--cp", type=int, default=1,
+                        help="context-parallel ways: a KV cache sharded over "
+                             "N ranks, one process a GPU (launch with "
+                             "torchrun --nproc-per-node N); rank 0 serves")
     parser.add_argument("--weight-quant", default=None,
                         choices=["int8", "int4"],
                         help="weight-only quantized serving: int8 (w8a16) or "
@@ -114,6 +149,8 @@ def _sampling(args):
 def main(argv=None):
     parser = make_parser()
     args = parser.parse_args(argv)
+    if args.chat and args.cp > 1:
+        parser.error("--chat runs on one rank: the REPL has no lockstep for --cp")
 
     engine = build_engine(
         args.model_path, max_seq_len=args.max_seq_len, chunk=args.chunk,
@@ -122,6 +159,18 @@ def main(argv=None):
         speculative=args.speculative, weight_quant=args.weight_quant,
     )
 
+    try:
+        _run(args, parser, engine)
+    finally:
+        if engine.parallel is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, parser, engine) -> None:
+    # every rank makes the same engine calls; rank 0 prints
+    primary = engine.parallel is None or engine.parallel.comm.rank == 0
     if args.serve:
         from long_vita_tpu_torch.inference.server import run_server
 
@@ -165,13 +214,15 @@ def main(argv=None):
             images=expanded.images, image_indices=expanded.image_indices,
             beam_size=args.beam_size, max_new_tokens=args.max_new_tokens,
         )
-        print(engine.mm.tokenizer.decode(hyps[0].token_ids, skip_special_tokens=True))
+        if primary:
+            print(engine.mm.tokenizer.decode(hyps[0].token_ids, skip_special_tokens=True))
         return
 
     result = engine.generate(
         messages, images=args.image, videos=args.video, sampling=_sampling(args),
     )
-    print(result.text)
+    if primary:
+        print(result.text)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,12 @@ at any segment boundary, on the engine's ragged per-row cache frontier:
     requests by sampling key, as the window batcher does);
   - a tick is ``engine._decode_scan_masked`` over the whole pool, run
     eagerly (the JAX tick is one compiled scan); with the engine's
-    ``speculative_k`` and greedy sampling it is one batched verify step.
+    ``speculative_k`` and greedy sampling it is one batched verify step;
+  - over a cp mesh (the engine's ``parallel``) every rank builds the pool
+    with the same geometry and makes the same calls (the server's lockstep,
+    inference/multihost.py): the pool and the staging row are this rank's
+    slot shards, and an admission copies only the staged rows that lie in
+    this rank's shard.
 
 Randomness is one ``torch.Generator`` seeded with ``seed`` and drawn from
 in order, where the JAX engine splits a PRNG key per admission and tick:
@@ -53,7 +58,8 @@ class _Slot:
 
 
 class ContinuousEngine:
-    """Slot-pool wrapper over an InferenceEngine (one device)."""
+    """Slot-pool wrapper over an InferenceEngine (one device, or each rank
+    of a cp group)."""
 
     def __init__(
         self,
@@ -69,12 +75,6 @@ class ContinuousEngine:
         slot's KEPT tokens as they are produced (first token at admission,
         then per decode tick; stop tokens and post-stop tails are never
         reported, so the stream concatenates to the final result)."""
-        if engine.parallel is not None:
-            from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE
-
-            raise NotImplementedError(
-                f"continuous batching over a cp-sharded cache {NEXT_SLICE} (the server "
-                "serves from one rank)")
         self.engine = engine
         self.sampling = sampling
         self.on_tokens = on_tokens
@@ -93,12 +93,19 @@ class ContinuousEngine:
 
     def _insert(self, staged: KVCache, slot: int, true_len: int) -> None:
         """Copy the staged row's first true_len positions into the slot's
-        row of the pool (the rest of the row lies past the frontier)."""
+        row of the pool (the rest of the row lies past the frontier). On a
+        cp rank both rows are the rank's shard, global slots [rank * C,
+        (rank + 1) * C): its valid prefix is true_len - rank * C, clamped
+        to [0, C]."""
+        n = true_len
+        if self.engine.parallel is not None:
+            c = self.cache.k.shape[2]
+            n = min(max(true_len - self.engine.parallel.comm.rank * c, 0), c)
         for big, small in ((self.cache.k, staged.k), (self.cache.v, staged.v),
                            (self.cache.k_scale, staged.k_scale),
                            (self.cache.v_scale, staged.v_scale)):
-            if big is not None:
-                big[:, slot, :true_len].copy_(small[:, 0, :true_len])
+            if big is not None and n:
+                big[:, slot, :n].copy_(small[:, 0, :n])
 
     def _pool_cache(self) -> KVCache:
         """The pool's buffers at the slots' frontiers (a [B] length)."""
@@ -229,7 +236,7 @@ class ContinuousEngine:
         # near the SEQUENCE cap a verify could emit tokens past where the
         # plain tick masks to eos: the plain tick runs there instead, so the
         # two paths stay identical at the boundary
-        spec_cap = min(self.cache.k.shape[2], self.engine.max_seq_len - 1)
+        spec_cap = min(self.engine.cache_slots(self.cache), self.engine.max_seq_len - 1)
         if k > 0 and self.sampling.greedy and all(
             int(self.lengths[i]) + k <= spec_cap
             for i, s in enumerate(self.slots) if s is not None

@@ -69,16 +69,31 @@ def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
-def _host_cast_pixels(images: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-    """Pixels as a host tensor of the cache dtype: an f32 stack is cast to
-    bf16 on the host, so the copy to the card moves half the bytes."""
+def _host_cast_pixels(images, dtype: torch.dtype) -> torch.Tensor:
+    """Pixels (a numpy stack, or a host tensor) as a host tensor of the cache
+    dtype: an f32 stack is cast to bf16 on the host, so the copy to the card
+    moves half the bytes. A stack already in that dtype keeps its bits (the
+    serving lockstep admits the cast stack it published)."""
+    if torch.is_tensor(images):
+        return images.to(dtype)
     return torch.from_numpy(np.ascontiguousarray(images)).to(dtype)
 
 
-def _pad_tiles(arr: np.ndarray, n: int) -> np.ndarray:
-    """Append zero tiles up to n."""
+def _tile_stack(images):
+    """A tile stack as given (a host tensor) or as a numpy array; None, or
+    a stack of no tiles, -> None."""
+    if images is None:
+        return None
+    arr = images if torch.is_tensor(images) else np.asarray(images)
+    return arr if arr.shape[0] > 0 else None
+
+
+def _pad_tiles(arr, n: int):
+    """Append zero tiles up to n (numpy or a tensor, as given)."""
     if arr.shape[0] == n:
         return arr
+    if torch.is_tensor(arr):
+        return torch.cat([arr, arr.new_zeros((n - arr.shape[0], *arr.shape[1:]))], 0)
     pad = np.zeros((n - arr.shape[0], *arr.shape[1:]), arr.dtype)
     return np.concatenate([arr, pad], 0)
 
@@ -234,6 +249,10 @@ class InferenceEngine:
             dtype=self.cache_dtype, device=self.device, quantize=self.kv_quant,
         )
 
+    def cache_slots(self, cache: KVCache) -> int:
+        """A cache's global slots (a cp rank holds 1/cp of them)."""
+        return cache.k.shape[2] * (self.parallel.cp if self.parallel is not None else 1)
+
     def _encode(self, tiles: np.ndarray) -> torch.Tensor:
         if not isinstance(self.params, LongVITAParams):
             raise ValueError(
@@ -252,7 +271,7 @@ class InferenceEngine:
         once). The buffer is padded to a transfer_chunk multiple with the
         encodings of zero tiles; _pad_scatter_indices sends those rows
         nowhere."""
-        arr = np.asarray(images)
+        arr = _tile_stack(images)
         n, tc = arr.shape[0], self.transfer_chunk
         if not tc or n <= tc:
             return self._encode(arr)
@@ -268,7 +287,7 @@ class InferenceEngine:
 
     def _media(self, images, image_indices):
         """-> (feature buffer, host scatter indices padded to it), or Nones."""
-        if images is None or np.asarray(images).shape[0] == 0:
+        if _tile_stack(images) is None:
             return None, None
         feats = self._encode_images_host(images)
         return feats, _pad_scatter_indices(image_indices, feats.shape[0])
@@ -415,8 +434,8 @@ class InferenceEngine:
         ids = np.zeros((1, padded), np.int64)
         ids[0, :true_len] = input_ids
         feats = indices = pixels = tile_first_row = None
-        if images is not None and np.asarray(images).shape[0] > 0:
-            arr = np.asarray(images)
+        arr = _tile_stack(images)
+        if arr is not None:
             n, tc = arr.shape[0], self.transfer_chunk
             if self.interleave_encode and tc and n > tc:
                 pixels = arr

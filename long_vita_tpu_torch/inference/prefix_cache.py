@@ -24,6 +24,7 @@ import hashlib
 from typing import Optional
 
 import numpy as np
+import torch
 
 from long_vita_tpu_torch.models.qwen2 import KVCache
 
@@ -39,18 +40,25 @@ def copy_cache(cache: KVCache) -> KVCache:
                    v_scale=cp(cache.v_scale))
 
 
-def media_fingerprint(images: Optional[np.ndarray]) -> str:
-    """Fingerprint of a tile stack: its shape, dtype and a hash of a sample
-    of about 16 tiles (every k-th, the first and the last)."""
+def media_fingerprint(images) -> str:
+    """Fingerprint of a tile stack (numpy, or a host tensor, hashed through
+    its bytes): its shape, dtype and a hash of a sample of about 16 tiles
+    (every k-th, the first and the last)."""
     if images is None or getattr(images, "shape", (0,))[0] == 0:
         return ""
-    arr = np.asarray(images)
+    if torch.is_tensor(images):
+        t = images.detach().cpu().contiguous()
+        shape, dtype = tuple(t.shape), str(t.dtype)
+        arr = t.reshape(shape[0], -1).view(torch.uint8).numpy()  # a row of bytes a tile
+    else:
+        arr = np.asarray(images)
+        shape, dtype = arr.shape, str(arr.dtype)
     n = arr.shape[0]
     step = max(1, n // 14)
     idx = sorted({0, n - 1, *range(0, n, step)})
     h = hashlib.blake2b(digest_size=16)
-    h.update(str(arr.shape).encode())
-    h.update(str(arr.dtype).encode())
+    h.update(str(shape).encode())
+    h.update(dtype.encode())
     for i in idx:
         h.update(np.ascontiguousarray(arr[i]).tobytes())
     return h.hexdigest()

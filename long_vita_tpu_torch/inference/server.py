@@ -24,14 +24,28 @@ inference_long_vita.py:27-65), on the standard library's http.server:
 Concurrent requests with the same sampling settings decode together: in
 window mode (RequestBatcher) as one engine.generate_batch, in continuous
 mode (ContinuousBatcher) as rows of one slot pool that requests join at any
-tick. One process serves one device: the JAX package's multi-host lockstep
-(FollowerReplayer, follower_serve) is not ported.
+tick.
+
+An engine over a cp mesh (every rank of the cp group builds it) serves in
+lockstep (inference/multihost.py): cp rank 0 runs this server and
+publishes every action it takes against the engine BEFORE the engine call
+— a whole request ({"op": "request"}: beam requests, and every request
+without a batcher), a window batch ({"op": "batch"}), or a pool action
+({"op": "admit"} with the expanded ids and the tiles cast to the cache
+dtype, the sampling switch riding on it; {"op": "chunk"}; {"op": "tick"})
+— and the other ranks run ``follower_serve``, whose ``FollowerReplayer``
+issues the same call, so every rank reaches the same collectives with the
+same operands. ``run_server`` sends each rank to its side; a server made
+with ``make_server`` is stopped with ``close_server``, which publishes
+SHUTDOWN last.
 """
 from __future__ import annotations
 
 import base64
+import collections
 import io
 import json
+import logging
 import queue
 import threading
 import time
@@ -40,8 +54,33 @@ from typing import Optional
 
 import numpy as np
 
-from long_vita_tpu_torch.inference.engine import InferenceEngine
+from long_vita_tpu_torch.inference import multihost
+from long_vita_tpu_torch.inference.engine import (
+    InferenceEngine,
+    _host_cast_pixels,
+    _tile_stack,
+)
 from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.parallel.comm import Comm
+
+logger = logging.getLogger(__name__)
+_KEEP = 256  # results a batcher or a follower keeps for inspection
+
+
+def _keep(log: dict, key, value) -> None:
+    """log[key] = value, dropping the oldest entries past _KEEP."""
+    log[key] = value
+    while len(log) > _KEEP:
+        log.pop(next(iter(log)))
+
+
+def lockstep_comm(engine: InferenceEngine) -> Optional[Comm]:
+    """The lockstep channel of an engine over a cp group: the host side of
+    its cp communicator (a gloo group beside NCCL, made on the first call:
+    every rank calls this at the same point); None for one rank."""
+    if engine.parallel is None:
+        return None
+    return engine.parallel.comm.host_comm()
 
 
 def _validate(req: dict) -> Optional[str]:
@@ -132,6 +171,10 @@ class LongVITARequestHandler(BaseHTTPRequestHandler):
                 payload = batcher.submit(req)
             else:
                 with self.server.generate_lock:
+                    if self.server.channel is not None:
+                        # every rank runs the same generate (reference
+                        # text_generation_server.py:25-32)
+                        self.server.channel.publish({"op": "request", "req": req})
                     payload = execute_request(self.engine, req)
         except Exception as e:  # noqa: BLE001 — surface as 400 like reference
             self._reply(400, str(e), "text/plain")
@@ -270,6 +313,18 @@ def _execute_beam(engine, req, images, videos, max_num_frame, sampling) -> dict:
     }
 
 
+_SAMPLING_FIELDS = (
+    "tokens_to_generate", "temperature", "top_k", "top_p", "random_seed",
+    "logprobs", "stop_on_eol", "stop_on_double_eol",
+)
+
+
+def _sampling_fields(req: dict) -> dict:
+    """The sampling-relevant subset of a request: what a follower needs to
+    rebuild SamplingParams with _parse_sampling (media fields dropped)."""
+    return {k: req[k] for k in _SAMPLING_FIELDS if k in req}
+
+
 def _sampling_key(req: dict) -> tuple:
     """Requests agreeing on this key may decode as one batch."""
     return (
@@ -312,10 +367,14 @@ class RequestBatcher:
     def __init__(
         self, engine: InferenceEngine, max_batch: int = 8,
         window_s: float = 0.02, generate_lock: Optional[threading.Lock] = None,
+        publish=None,
     ):
         self.engine = engine
         self.max_batch = max_batch
         self.window_s = window_s
+        # the lockstep channel to the follower ranks (publish(msg)); None on
+        # one rank
+        self._publish = publish
         # shared with the beam path: device work stays one generation at a
         # time (two concurrent full-size KV caches would not fit under load)
         self.generate_lock = generate_lock or threading.Lock()
@@ -366,6 +425,9 @@ class RequestBatcher:
                     self._queue.remove(entry)
             try:
                 with self.generate_lock:
+                    if self._publish is not None:
+                        # the followers run the same execute_batch
+                        self._publish({"op": "batch", "reqs": [e[1] for e in group]})
                     payloads = execute_batch(self.engine, [e[1] for e in group])
                 self.batch_sizes.append(n_rows)
                 for (_, _, box), payload in zip(group, payloads):
@@ -376,6 +438,8 @@ class RequestBatcher:
                 for _, req, box in group:
                     try:
                         with self.generate_lock:
+                            if self._publish is not None:
+                                self._publish({"op": "request", "req": req})
                             box["payload"] = execute_request(self.engine, req)
                     except Exception as exc:  # noqa: BLE001
                         box["error"] = exc
@@ -397,11 +461,16 @@ class ContinuousBatcher:
     def __init__(
         self, engine: InferenceEngine, max_slots: int = 8, tick: int = 16,
         generate_lock: Optional[threading.Lock] = None,
-        start_thread: bool = True,
+        start_thread: bool = True, publish=None,
     ):
         from long_vita_tpu_torch.inference.continuous import ContinuousEngine
 
         self.engine = engine
+        # the lockstep channel to the follower ranks (publish(msg, arrays)):
+        # every scheduler action that touches the engine (admit, prefill
+        # chunk, decode tick, the sampling switch) is published BEFORE the
+        # engine call, and the followers replay it (FollowerReplayer)
+        self._publish = publish
         self.generate_lock = generate_lock or threading.Lock()
         self._cv = threading.Condition()
         # one entry per ROW: (key, box, row_index, prompt, req)
@@ -414,6 +483,7 @@ class ContinuousBatcher:
         self._key = None
         self.batch_sizes: list[int] = []  # rows in flight per tick
         self.trace: list[str] = []  # scheduler actions: admit/chunk/tick
+        self.finished: dict = {}  # rid -> GenerationResult, the last _KEEP
         self._stop = False
         self._thread = None
         if start_thread:
@@ -520,13 +590,29 @@ class ContinuousBatcher:
                 exp = self.engine.mm.expand(
                     ids, images=images, videos=videos, max_num_frame=_max_num_frame(req),
                 )
-                imgs = exp.images
-                if imgs is None or np.asarray(imgs).shape[0] == 0:
-                    imgs = idx = None
-                else:
-                    idx = np.asarray(exp.image_indices, np.int64)
+                imgs = _tile_stack(exp.images)
+                idx = None
+                if imgs is not None:
+                    # cast the tiles to the cache dtype ONCE on the host: the
+                    # bytes published and the bytes admitted are the same, so
+                    # every rank's operands agree bit for bit
+                    imgs = _host_cast_pixels(imgs, self.engine.cache_dtype)
+                    idx = np.asarray(exp.image_indices, np.int32)
+                if self._publish is not None:
+                    # the EXPANDED arrays, not the request: followers skip
+                    # the file IO and the video decode
+                    arrs = [np.asarray(exp.input_ids, np.int32)]
+                    if imgs is not None:
+                        arrs += [imgs, idx]
+                    self._publish({
+                        "op": "admit",
+                        "sampling": (_sampling_fields(req)
+                                     if switch_req is not None else None),
+                        "has_images": imgs is not None,
+                    }, arrs)
                 if switch_req is not None:
-                    # the sampling switch rides a successful expand
+                    # the sampling switch rides a successful expand (a failed
+                    # one leaves every rank's pool as it was)
                     sampling, _ = _parse_sampling(switch_req, self.engine)
                     self.ce.set_sampling(sampling)
                     self._key = key
@@ -549,12 +635,16 @@ class ContinuousBatcher:
         with self.generate_lock:
             did = False
             if self.ce.admission_pending:
+                if self._publish is not None:
+                    self._publish({"op": "chunk"})
                 self.ce.admission_step()  # ONE chunk
                 self.trace.append("chunk")
                 did = True
             elif self._start_next_locked():
                 did = True
             if self.ce.active:
+                if self._publish is not None:
+                    self._publish({"op": "tick"})
                 finished = self.ce.step()
                 self.trace.append("tick")
                 self.batch_sizes.append(self.ce.active + len(finished))
@@ -562,6 +652,7 @@ class ContinuousBatcher:
             else:
                 finished = []
         for rid, result in finished:
+            _keep(self.finished, rid, result)
             entry = self._inflight.pop(rid, None)
             if entry is None:
                 continue
@@ -587,30 +678,189 @@ class ContinuousBatcher:
             self.iteration()
 
 
+class FollowerReplayer:
+    """Replays cp rank 0's published actions on a follower rank.
+
+    Every action the primary's batcher or handler takes against the engine
+    is published before the engine call; this issues the same call here, so
+    every rank runs the same collectives in the same order. The scheduler
+    state (queues, slots, generator) is deterministic and built alike on
+    every rank, so replaying the actions reproduces it. ``finished`` (rid
+    -> result of the pool) and ``payloads`` (what each replayed request or
+    batch answered) keep the last _KEEP results, for inspection."""
+
+    def __init__(
+        self, engine: InferenceEngine, *, continuous: bool = False,
+        max_slots: int = 8, tick: int = 16,
+    ):
+        self.engine = engine
+        self.ce = None
+        if continuous:
+            from long_vita_tpu_torch.inference.continuous import ContinuousEngine
+
+            # the primary's ContinuousBatcher's geometry and seed: the same
+            # pool, the same generator
+            self.ce = ContinuousEngine(engine, SamplingParams(), max_slots=max_slots, tick=tick)
+        self.finished: dict = {}
+        self.payloads: collections.deque = collections.deque(maxlen=_KEEP)
+        self.trace: list[str] = []
+
+    def handle(self, msg: dict, arrays=()) -> None:
+        op = msg.get("op") if isinstance(msg, dict) else None
+        if op in ("admit", "chunk", "tick") and self.ce is None:
+            raise ValueError(f"lockstep op {op!r} from a continuous server; this follower "
+                             "replays a window server")
+        if op == "request":
+            self.payloads.append(execute_request(self.engine, msg["req"]))
+        elif op == "batch":
+            self.payloads.extend(execute_batch(self.engine, msg["reqs"]))
+        elif op == "admit":
+            if msg.get("sampling") is not None:
+                sp, _ = _parse_sampling(msg["sampling"], self.engine)
+                self.ce.set_sampling(sp)
+            ids = [int(t) for t in arrays[0].tolist()]
+            images = indices = None
+            if msg.get("has_images"):
+                images, indices = arrays[1], arrays[2].numpy()
+            self.ce.start_admission(ids, images, indices)
+        elif op == "chunk":
+            self.ce.admission_step()
+        elif op == "tick":
+            for rid, res in self.ce.step():
+                _keep(self.finished, rid, res)
+        else:
+            raise ValueError(f"unknown lockstep op: {msg!r}")
+        self.trace.append(op)
+
+
+def follower_serve(
+    engine: InferenceEngine, *, continuous: bool = False,
+    max_batch: int = 8, tick: int = 16,
+) -> FollowerReplayer:
+    """Run on every cp rank but 0: replay the primary's actions until it
+    publishes SHUTDOWN (IDLE beats are skipped). An action that fails is
+    logged and the loop goes on (the primary fails the same request alone
+    and serves on; a follower that left would stall the next collective).
+    A channel that fails (a rank died, or the primary stopped beating)
+    raises. -> the replayer, with what it answered."""
+    comm = lockstep_comm(engine)
+    if comm is None or multihost.is_primary(comm):
+        raise ValueError("follower_serve runs on cp ranks 1.. of an engine over a cp mesh")
+    replayer = FollowerReplayer(engine, continuous=continuous, max_slots=max_batch, tick=tick)
+    while True:
+        msg, arrays = multihost.publish_blob(comm)
+        if msg == multihost.SHUTDOWN:
+            return replayer
+        if msg == multihost.IDLE:
+            continue
+        try:
+            replayer.handle(msg, arrays)
+        except Exception:
+            logger.exception("follower action replay failed; staying in lockstep")
+
+
+class _Channel:
+    """The primary's end of the lockstep channel: publish_blob over ``comm``
+    under the server's generate_lock, an idle heartbeat (a quarter of the
+    comm's timeout), and the SHUTDOWN that ends it. A publish that fails
+    (a follower died) shuts the HTTP server down through ``on_error``."""
+
+    def __init__(self, comm: Comm, lock: threading.Lock, on_error):
+        self.comm, self.lock = comm, lock
+        self.error: Optional[BaseException] = None
+        self._on_error = on_error
+        self.heartbeat = multihost.Heartbeat(self.publish, lock, comm.timeout / 4,
+                                             on_error=self._failed)
+
+    def _failed(self, exc: BaseException) -> None:
+        if self.error is None:
+            self.error = exc
+            self._on_error(exc)
+
+    def publish(self, msg, arrays=()):
+        if self.error is not None:
+            raise RuntimeError("the lockstep channel failed") from self.error
+        try:
+            out = multihost.publish_blob(self.comm, msg, arrays)
+        except multihost.PayloadTooLarge:
+            raise  # refused before any collective: the request fails alone
+        except BaseException as exc:
+            self._failed(exc)
+            raise
+        self.heartbeat.touch()
+        return out
+
+    def close(self) -> None:
+        """Publish SHUTDOWN, the channel's last message (the batcher is
+        stopped first). Raises if the channel had failed."""
+        self.heartbeat.stop()
+        with self.lock:
+            if self.error is not None:
+                raise RuntimeError("the lockstep channel failed") from self.error
+            multihost.shutdown(self.comm)
+
+
 def make_server(
     engine: InferenceEngine, host: str = "0.0.0.0", port: int = 5001,
     *, max_batch: int = 8, batch_window_s: float = 0.02,
     continuous: bool = False, tick: int = 16,
 ) -> ThreadingHTTPServer:
+    """The HTTP server (not started: serve_forever). On an engine over a
+    cp mesh this is cp rank 0's side, and it publishes to the followers;
+    stop it with close_server once serve_forever has returned."""
+    comm = lockstep_comm(engine)
+    if comm is not None and not multihost.is_primary(comm):
+        raise ValueError(f"cp rank {comm.rank} follows the primary: run follower_serve on it "
+                         "(cp rank 0 serves)")
     handler = type("BoundHandler", (LongVITARequestHandler,), {"engine": engine})
     server = ThreadingHTTPServer((host, port), handler)
     server.generate_lock = threading.Lock()  # the beam / serial path
     server.batcher = None
+    server.channel = None
+    publish = None
+    if comm is not None:
+        server.channel = _Channel(
+            comm, server.generate_lock,
+            on_error=lambda exc: threading.Thread(target=server.shutdown, daemon=True).start())
+        publish = server.channel.publish
     if max_batch > 1:
         if continuous:
             server.batcher = ContinuousBatcher(
                 engine, max_slots=max_batch, tick=tick, generate_lock=server.generate_lock,
+                publish=publish,
             )
         else:
             server.batcher = RequestBatcher(
                 engine, max_batch=max_batch, window_s=batch_window_s,
-                generate_lock=server.generate_lock,
+                generate_lock=server.generate_lock, publish=publish,
             )
     return server
 
 
+def close_server(server: ThreadingHTTPServer, timeout: float = 60.0) -> None:
+    """Stop a server made by make_server after serve_forever has returned.
+    The order matters on the lockstep channel: stop (and join) the batcher
+    first, then publish SHUTDOWN under generate_lock, so that no admit,
+    chunk or tick can follow it."""
+    try:
+        if server.batcher is not None:
+            server.batcher.stop(timeout=timeout)
+        if server.channel is not None:
+            server.channel.close()
+    finally:
+        server.server_close()
+
+
 def run_server(engine: InferenceEngine, host="0.0.0.0", port=5001,
                continuous: bool = False, max_batch: int = 8, tick: int = 16):
+    """Serve PUT /api until interrupted; on an engine over a cp mesh, cp
+    rank 0 serves and every other rank replays (follower_serve) until rank
+    0 stops."""
+    comm = lockstep_comm(engine)
+    if comm is not None and not multihost.is_primary(comm):
+        print(f"cp rank {comm.rank}: replaying rank 0's actions")
+        follower_serve(engine, continuous=continuous, max_batch=max_batch, tick=tick)
+        return
     server = make_server(
         engine, host, port, continuous=continuous, max_batch=max_batch, tick=tick,
     )
@@ -618,6 +868,4 @@ def run_server(engine: InferenceEngine, host="0.0.0.0", port=5001,
     try:
         server.serve_forever()
     finally:
-        if server.batcher is not None:
-            server.batcher.stop()
-        server.server_close()
+        close_server(server)

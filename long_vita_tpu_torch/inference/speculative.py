@@ -49,7 +49,7 @@ def speculative_decode(engine, history, token: int, pos: int, cache, budget: int
     emitted token, not yet fed; pos: its position (the cache length). ->
     (tokens, logprobs, cache), as the plain decode path: the tokens may end
     with a stop token, which the caller cuts."""
-    slots = cache.k.shape[2]
+    slots = engine.cache_slots(cache)
     hist = np.asarray(history, np.int32).reshape(-1)
     out: list[int] = []
     lps: list[float] = []

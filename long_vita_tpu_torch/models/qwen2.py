@@ -69,7 +69,7 @@ class ParallelConfig:
     shards) or "hybrid" (Ulysses over cp_inner lanes inside ring groups, the
     inputs zigzag-permuted over cp // cp_inner); cp_window: the double
     ring's window (0 = the plain ring). The pipeline fields of the JAX
-    config come with pp (ROADMAP: port queue, item 7)."""
+    config come with pp (ROADMAP §1, pipeline stages)."""
 
     mesh: Any
     cp_algo: str = "ring"
@@ -122,11 +122,11 @@ def _cp_cached_update_attend(q, k, v, cache_kv, cache_len, position_ids,
     comm = parallel.comm
     ck_full, cv_full, ks_full, vs_full, layer_idx = cache_kv
     s_local, hq, hkv = q.shape[1], q.shape[2], k.shape[2]
-    if torch.is_tensor(cache_len):
-        q_off = position_ids[:, 0]
-    else:  # the chunk's first global position
-        q_off = position_ids[0, 0] - (comm.rank * s_local if q_sharded else 0)
+    # the chunk's first global position (each row's, with a [B] frontier); a
+    # sharded chunk's position_ids are this rank's rows
+    q_off = position_ids[:, 0] if torch.is_tensor(cache_len) else position_ids[0, 0]
     if q_sharded:
+        q_off = q_off - comm.rank * s_local
         q, k, v = comm.all_gather(torch.cat([q, k, v], 2), 1).split([hq, hkv, hkv], 2)
     if ks_full is not None:
         k_w, k_sc = quantize_kv(k)
@@ -449,11 +449,12 @@ def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1) -> None:
     """MoE runs on one device (or on replicas of one). The JAX package shards
     the experts over dp (expert parallelism, two all_to_alls a layer) and
     routes cp's tokens as one global batch with one capacity; neither is
-    ported (ROADMAP §1 item 8), so a MoE model over dp or cp > 1 raises."""
+    ported (ROADMAP §1, pipeline stages and expert parallelism), so a MoE model
+    over dp or cp > 1 raises."""
     if cfg.num_experts > 0 and (dp > 1 or cp > 1):
         raise NotImplementedError(
             f"MoE layers over a multi-GPU mesh (dp {dp}, cp {cp}): expert parallelism and "
-            "cp's global routing are not ported (ROADMAP §1 item 8)")
+            "cp's global routing are not ported (ROADMAP §1, expert parallelism)")
 
 
 def decoder_layer(

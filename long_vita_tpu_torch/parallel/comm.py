@@ -13,6 +13,12 @@ one small interface on the communicator of that axis:
     goes to rank j, and the pieces received are concatenated along cat_dim
     in rank order;
   - ``all_reduce_sum(x)``, ``all_gather(x, dim)`` (tiled), ``barrier()``;
+  - ``broadcast(x, src)``: every rank gets src's x
+    (``multihost_utils.broadcast_one_to_all``, which the JAX package's
+    serving lockstep uses);
+  - ``host_comm()``: the communicator of the same ranks whose collectives
+    take CPU tensors (the serving lockstep's channel carries host bytes,
+    inference/multihost.py);
   - ``split(groups)``: the communicator of the group (a list of this
     communicator's ranks) that holds this rank; every rank calls it with
     the same partition.
@@ -30,6 +36,10 @@ Three implementations:
     and gloo on the CPU. Gloo has no ``all_to_all`` (and no send/recv of
     CUDA tensors), so on gloo ``all_to_all`` is built from
     ``batch_isend_irecv``; ring_shift is ``batch_isend_irecv`` on both.
+    ``host_comm()`` of an NCCL group is a gloo group of the same ranks,
+    made once beside it: the lockstep channel broadcasts host bytes (a
+    request's tile stack can be several GB), which over NCCL would take a
+    copy to the card and back on every rank.
 
 Every wait has a timeout that raises (``TimeoutError``): a rank that hangs
 or dies fails the others instead of stalling them. ThreadComm ranks on one
@@ -53,6 +63,7 @@ class Comm:
 
     rank: int
     size: int
+    timeout: float = DEFAULT_TIMEOUT
 
     def ring_shift(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
         raise NotImplementedError
@@ -68,6 +79,12 @@ class Comm:
 
     def barrier(self) -> None:
         raise NotImplementedError
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        raise NotImplementedError
+
+    def host_comm(self) -> "Comm":
+        return self
 
     def split(self, groups: Sequence[Sequence[int]]) -> "Comm":
         raise NotImplementedError
@@ -99,6 +116,11 @@ class LocalComm(Comm):
 
     def barrier(self):
         pass
+
+    def broadcast(self, x, src=0):
+        if src != 0:
+            raise ValueError(f"src {src} is not a rank of a one-rank communicator")
+        return x
 
     def split(self, groups):
         self._my_group(groups)
@@ -158,6 +180,7 @@ class ThreadComm(Comm):
 
     def __init__(self, rank: int, shared: _Shared):
         self.rank, self.size = rank, shared.size
+        self.timeout = shared.timeout
         self._shared = shared
         self._splits: dict = {}
 
@@ -189,6 +212,11 @@ class ThreadComm(Comm):
 
     def barrier(self):
         self._exchange(None, lambda vals: None)
+
+    def broadcast(self, x, src=0):
+        # only src's deposit is read; every rank takes its own copy
+        return self._exchange(x if self.rank == src else None,
+                              lambda vals: vals[src].clone())
 
     def split(self, groups):
         mine = self._my_group(groups)
@@ -273,6 +301,7 @@ class DistComm(Comm):
         self.gloo = dist.get_backend(self.group) == "gloo"
         self.timeout = timeout
         self._splits: dict = {}
+        self._host: Optional[DistComm] = None
 
     def _peer(self, r: int) -> int:
         return self._dist.get_global_rank(self.group, r)
@@ -326,6 +355,28 @@ class DistComm(Comm):
 
     def barrier(self):
         self.all_reduce_sum(torch.zeros(1, device=self._device()))
+
+    def broadcast(self, x, src=0):
+        """src's x on every rank: a CPU tensor on gloo, a CUDA tensor on
+        NCCL (``host_comm()`` broadcasts host bytes beside an NCCL group)."""
+        out = x.contiguous().clone()
+        self._wait([self._dist.broadcast(out, self._peer(src), group=self.group,
+                                         async_op=True)])
+        return out
+
+    def host_comm(self):
+        """This group on gloo: itself when it is gloo, else a gloo group of
+        the same ranks with the same timeout, made on the first call (every
+        rank of the group calls it at the same point)."""
+        if self.gloo:
+            return self
+        if self._host is None:
+            pg = self._dist.new_group([self._peer(r) for r in range(self.size)],
+                                      backend="gloo",
+                                      timeout=datetime.timedelta(seconds=self.timeout),
+                                      use_local_synchronization=True)
+            self._host = DistComm(pg, self.timeout)
+        return self._host
 
     def _device(self):
         if self.gloo:

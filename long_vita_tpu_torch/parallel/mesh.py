@@ -5,8 +5,8 @@ Counterpart of long_vita_tpu/parallel/mesh.py: ``MeshConfig`` (:41),
 axes of one device array and shard_map hands a body its axis, the port's
 mesh is a grid of ranks over a world communicator with one communicator per
 axis: rank = ((d * pp + p) * cp + c) * tp * tq + ..., dp outermost, as JAX
-reshapes its device list. This slice runs the dp and cp axes; tp > 1, pp > 1
-and tq > 1 raise, naming the ROADMAP item that ports them.
+reshapes its device list. The dp and cp axes run; tp > 1, pp > 1 and tq > 1
+raise, naming the ROADMAP items that port them.
 """
 from __future__ import annotations
 
@@ -18,8 +18,9 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP: port queue, item 7, the multi-GPU slice "
-              "after context parallelism)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1: tensor parallelism, FSDP, and pipeline "
+              "stages with expert parallelism, the multi-GPU items after context "
+              "parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)

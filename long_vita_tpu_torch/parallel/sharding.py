@@ -5,8 +5,8 @@ P(dp, cp): batch rows over dp, sequence over cp) and ``activation_spec``
 (:170, P(dp, cp, None)). JAX lays a global array out by such a spec; the
 port's SPMD ranks each hold their piece, which these slices cut
 (training/distributed.py feeds a rank's step with them). The
-tensor-parallel parameter specs (:33-152) come with tp (ROADMAP: port
-queue, item 7).
+tensor-parallel parameter specs (:33-152) come with tp (ROADMAP §1, Tensor
+parallelism).
 """
 from __future__ import annotations
 

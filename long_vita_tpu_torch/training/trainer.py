@@ -20,9 +20,9 @@ batches, zigzag-permuted by batch_iterator for ring attention (over the ring
 groups for hybrid, unpermuted for Ulysses, JAX :83-116); each rank keeps its
 dp rows and cp sequence shard (training/distributed.py), the loss and the
 gradients are global (train_step.py), and world rank 0 writes the
-checkpoints. Raising, with their ROADMAP item (port queue, item 7): tp,
-pp, virtual pipeline stages and FSDP; thread-ranks on CUDA
-(train_step._check_mesh). The data modules, the metrics and the profiler
+checkpoints. Raising, with their ROADMAP items (§1: Tensor parallelism,
+FSDP, pipeline stages): tp, pp, virtual pipeline stages and FSDP;
+thread-ranks on CUDA (train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
 """

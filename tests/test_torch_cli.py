@@ -140,9 +140,114 @@ def test_serve_starts_the_port_server(checkpoint, stub_tokenizer, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(tp=2), dict(cp=2)])
-def test_mesh_flags_raise_until_multi_gpu(checkpoint, stub_tokenizer, kw):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_cli.build_engine(checkpoint, device="cpu", **kw)
+def test_mesh_flags_raise_until_multi_gpu(checkpoint, stub_tokenizer, kw, monkeypatch):
+    """tp waits for the multi-GPU items; cp serves from a job of cp
+    processes, so one process asking for cp 2 is told to use torchrun."""
+    for var in ("RANK", "WORLD_SIZE", "LVT_COORDINATOR"):
+        monkeypatch.delenv(var, raising=False)
+    if "tp" in kw:
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            port_cli.build_engine(checkpoint, device="cpu", **kw)
+    else:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            port_cli.build_engine(checkpoint, device="cpu", **kw)
+
+
+def test_chat_over_cp_raises(checkpoint):
+    with pytest.raises(SystemExit):
+        port_cli.main([checkpoint, "--chat", "--cp", "2"])
+
+
+CP_PAYLOADS = [
+    {"prompts": ["served from two ranks"], "tokens_to_generate": 8},
+    {"prompts": ["with logprobs"], "tokens_to_generate": 6, "logprobs": True},
+    {"prompts": ["two rows", "in one request"], "tokens_to_generate": 5},
+]
+
+
+def _cli_serve_worker(rank, world, init, ckpt, http_port, out):
+    """One gloo process of `cli.main([ckpt, "--serve", "--continuous",
+    "--cp", "2", ...])`, started as torchrun's would be but through the
+    LVT_* variables: the stub tokenizer, the CPU, rank 0's client on a
+    thread of its own process (it PUTs CP_PAYLOADS, then shuts the server
+    down)."""
+    import os
+    import threading
+    import time as time_mod
+
+    torch.set_num_threads(1)
+    try:
+        from test_torch_serving import _put
+
+        import long_vita_tpu_torch.inference.server as port_server
+
+        os.environ.update(LVT_COORDINATOR=init.removeprefix("tcp://"),
+                          LVT_NUM_PROCESSES=str(world), LVT_PROCESS_ID=str(rank))
+        tok = tiny_tokenizer()
+        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+        port_cli.build_engine = functools.partial(port_cli.build_engine, device="cpu")
+        got = {}
+        if rank == 0:
+            servers, make = [], port_server.make_server
+
+            def recording_make(*a, **k):
+                servers.append(make(*a, **k))
+                return servers[-1]
+
+            port_server.make_server = recording_make
+
+            def client():
+                deadline = time_mod.monotonic() + 120
+                while not servers and time_mod.monotonic() < deadline:
+                    time_mod.sleep(0.05)
+                try:
+                    url = f"http://127.0.0.1:{http_port}/api"
+                    got["answers"] = [_put(url, p) for p in CP_PAYLOADS]
+                finally:
+                    servers[0].shutdown()
+
+            threading.Thread(target=client, daemon=True).start()
+        port_cli.main([ckpt, "--dtype", "float32", "--max-seq-len", "512", "--chunk", "64",
+                       "--serve", "--continuous", "--cp", str(world), "--host", "127.0.0.1",
+                       "--port", str(http_port)])
+        out.put((rank, got.get("answers", "followed until shutdown")))
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-1500:]}"))
+
+
+def test_cli_serves_cp_2_from_two_gloo_processes(checkpoint, stub_tokenizer, one_torch_thread):
+    """torchrun's launch, rehearsed: two gloo processes run cli.main with
+    --serve --continuous --cp 2; rank 0 answers HTTP, rank 1 replays it and
+    exits after rank 0's shutdown, both with code 0; the answers equal the
+    one-process port server's on the same checkpoint (text identical,
+    logprobs within 1e-4)."""
+    import json
+
+    import long_vita_tpu_torch.inference.server as port_server
+    from test_torch_comm import free_port, run_gloo
+    from test_torch_serving import _put, _serve, _stop
+
+    codes = {}
+    got = run_gloo(_cli_serve_worker, 2, checkpoint, free_port(), join_timeout=240,
+                   exitcodes=codes)
+    assert isinstance(got.get(0), list) and got.get(1) == "followed until shutdown", got
+    assert codes == {0: 0, 1: 0}, codes
+    engine = port_cli.build_engine(checkpoint, device="cpu", max_seq_len=512, chunk=64,
+                                   dtype_name="float32")
+    server, thread, url = _serve(port_server, engine, continuous=True, max_batch=8, tick=16)
+    try:
+        want = [_put(url, p) for p in CP_PAYLOADS]
+    finally:
+        _stop(server, thread)
+    for (code, body), (wcode, wbody) in zip(got[0], want):
+        assert code == wcode == 200, body
+        g, w = json.loads(body), json.loads(wbody)
+        if "logprobs" in w:
+            np.testing.assert_allclose(g.pop("logprobs")[0], w.pop("logprobs")[0], rtol=0,
+                                       atol=1e-4)
+        assert g == w and all(g["text"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")

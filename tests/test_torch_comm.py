@@ -198,10 +198,12 @@ def _gloo_worker(rank, world, init, mode, out):
         out.put((rank, f"raised {type(e).__name__}: {e}"))
 
 
-def run_gloo(target, world: int, *args, join_timeout: float = JOIN_TIMEOUT) -> dict:
+def run_gloo(target, world: int, *args, join_timeout: float = JOIN_TIMEOUT,
+             exitcodes: dict = None) -> dict:
     """Spawn ``world`` processes target(rank, world, init, *args, queue) on a
     fresh localhost port; -> {rank: what it put}. A process alive at the
-    join timeout is killed and fails the test."""
+    join timeout is killed and fails the test. ``exitcodes``, when given,
+    receives each rank's exit code."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     init = f"tcp://127.0.0.1:{free_port()}"
@@ -229,6 +231,8 @@ def run_gloo(target, world: int, *args, join_timeout: float = JOIN_TIMEOUT) -> d
             p.kill()
             p.join(5)
     assert not alive, f"workers still running after {join_timeout} s"
+    if exitcodes is not None:
+        exitcodes.update({r: p.exitcode for r, p in enumerate(procs)})
     return results
 
 

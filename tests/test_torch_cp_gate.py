@@ -9,8 +9,10 @@ output that is off by half its own RMS: the test builds such an output and
 shows the old bound passing it and the gate rejecting it. Then
 phase_cp_nccl(force=True, device="cpu") runs its two workers over gloo at a
 tiny size (ring attention forward and backward against the whole-sequence
-attention, with each rank's shard of o and merged lse through the gate, and
-two Trainer steps at cp 2 against cp 1).
+attention, with each rank's shard of o and merged lse through the gate, two
+Trainer steps at cp 2 against cp 1, and the lockstep server: rank 0 answers
+HTTP, rank 1 replays it, and both ranks' in-process pools give the HTTP
+answers' bits).
 """
 import importlib.util
 import sys
@@ -69,7 +71,13 @@ def test_gate_passes_rounding_and_holds_the_lse(chip_smoke):
 
 def test_nccl_phase_rehearsal_over_gloo(chip_smoke, capsys):
     chip_smoke.phase_cp_nccl(force=True, device="cpu", seq=512, heads=(4, 2), d=16, layers=1,
-                             train_seq=256, budget=256, answer=20)
+                             train_seq=256, budget=256, answer=20, server_seq=512,
+                             server_chunk=64, server_chars=(150, 90), server_image=(168, 56),
+                             server_tokens=5, server_tok=dict(endoftext=256, im_start=257,
+                                                              im_end=258, first_added=259))
     out = capsys.readouterr().out
     assert out.count("merged lse max|err|") == 2 and "FAIL" not in out
+    # the lockstep server at cp 2 over the two processes: gates (a) and (b)
+    assert "[cp-nccl server] (a) lockstep: each of 1 followers replayed rank 0's 3 pool" in out
+    assert "(b) each HTTP answer equals the in-process pool's row" in out
     assert '"phase": "cp_nccl", "ran": true' in out
