@@ -71,6 +71,19 @@ Phases (each raises on failure; the script then exits non-zero):
      bits); the longest prompt against the one-device engine (as 5b); K1
      and K3 launch counts exact. TTFT over HTTP, ms a decode step and the
      peak memory are printed (4 thread-ranks on one card);
+  5d. tp serving (phase_tp_serve): K6 on one row into the tp-4 column
+     shards (out 1280, 256, 3456, 38016) and K1 / K2 on a 2048-row chunk
+     at 10/2 heads against their plain versions; then the same decoder at
+     full depth over tp 4 thread-ranks (each rank's shard a view of the
+     weights, parallel/sharding.shard_params): a 5000-id prompt and 8
+     greedy tokens, int8 weights (quantised once, whole) into an int8 cache
+     and int4 weights, 4 tokens each, and a 4-tile image, each held step
+     by step to the one-device engine fed the tp tokens (§2's gate; every
+     rank the same bits); the lockstep server on the 4 ranks (3 concurrent
+     requests; gates (a) and (b) as 5c); cp 2 x tp 2 on the decoder's
+     first 24 layers with a 7000-id prompt. K1, K2, K3, K6 and K6's
+     dequantise route counted exactly; the phase's seconds and peak memory
+     printed;
   6. the port's serving entry points on a checkpoint it writes and reads:
      the decoder with a random InternViT-300M and projector exported as a
      *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
@@ -131,7 +144,9 @@ Phases (each raises on failure; the script then exits non-zero):
      through autograd at 64K tokens against K1 and K4/K5 on the whole
      sequence (each rank's o and merged lse through cp_forward_check, as
      phase_cp_attention holds them), and two Trainer steps at cp 2 (full
-     width, the decoder cut to 4 layers) against cp 1. On one GPU it prints {"phase": "cp_nccl",
+     width, the decoder cut to 4 layers) against cp 1, the lockstep server
+     at cp 2 and at tp 2 on that model (gates (a), (b)), and a 16000-id
+     TTFT at tp 2 over the two cards against one card. On one GPU it prints {"phase": "cp_nccl",
      "ran": false, "devices": 1} and does nothing else. ``python3
      chip_smoke.py --nccl-only`` builds the kernels and runs this phase
      alone.
@@ -3275,7 +3290,7 @@ def _sampling_tap(forced=None):
         tok = real(logits, gen, sp)
         if forced is not None:
             if len(steps) >= len(forced):
-                raise AssertionError("the forced run samples more steps than the cp run")
+                raise AssertionError("the forced run samples more steps than the mesh run")
             tok = forced[len(steps)].clone()
         steps.append((logits[0].float().clone(), tok.clone()))
         return tok
@@ -3288,17 +3303,17 @@ def _sampling_tap(forced=None):
 
 
 def _forced_steps_check(tag, got, want) -> None:
-    """The cp engine's steps ``got`` against the one-device engine's ``want``
-    when it is fed the cp engine's tokens (each a list of (logits, token)).
+    """A mesh engine's steps ``got`` against the one-device engine's ``want``
+    when it is fed the mesh engine's tokens (each a list of (logits, token)).
     Every step's f32 logits pass the logit gate (LOGIT_COS; max |diff| <=
-    LOGIT_SPREAD_FRAC x spread), and each cp pick is the one-device logits'
+    LOGIT_SPREAD_FRAC x spread), and each mesh pick is the one-device logits'
     argmax or lies within LOGIT_SPREAD_FRAC x spread of it there (a rounding
     tie: the two paths round their products apart, and random weights leave
     near-ties)."""
     import torch.nn.functional as F
 
     if len(got) != len(want):
-        raise AssertionError(f"[{tag}] {len(got)} cp steps vs {len(want)} forced steps")
+        raise AssertionError(f"[{tag}] {len(got)} mesh steps vs {len(want)} forced steps")
     worst_cos, worst_diff, worst_gap, ties, ok = 1.0, 0.0, 0.0, [], True
     for i, ((g, pick), (w, _)) in enumerate(zip(got, want)):
         spread = (w.max() - w.min()).item()
@@ -3311,16 +3326,16 @@ def _forced_steps_check(tag, got, want) -> None:
         worst_cos, worst_diff, worst_gap = min(worst_cos, cos), max(worst_diff, diff), max(
             worst_gap, gap)
         ok = ok and cos >= LOGIT_COS and diff <= LOGIT_SPREAD_FRAC and gap <= LOGIT_SPREAD_FRAC
-    print(f"[{tag}] {len(got)} steps, the one-device engine fed the cp engine's tokens: worst "
+    print(f"[{tag}] {len(got)} steps, the one-device engine fed the mesh engine's tokens: worst "
           f"cosine {worst_cos:.6f} (>= {LOGIT_COS}), worst max|diff| {worst_diff:.4f} x spread "
-          f"(<= {LOGIT_SPREAD_FRAC}); steps whose cp pick is not the one-device argmax (step, "
+          f"(<= {LOGIT_SPREAD_FRAC}); steps whose mesh pick is not the one-device argmax (step, "
           f"gap / spread): {ties} (<= {LOGIT_SPREAD_FRAC}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"[{tag}] a decode step of the cp engine disagrees with the "
+        raise AssertionError(f"[{tag}] a decode step of the mesh engine disagrees with the "
                              "one-device engine fed the same tokens")
 
 
-def _timed_generate(eng, prompt, videos, sp):
+def _timed_generate(eng, prompt, videos, sp, images=()):
     """eng.generate -> (result, TTFT s, decode ms/token); TTFT ends when the
     engine has sampled the first token."""
     import torch
@@ -3337,7 +3352,7 @@ def _timed_generate(eng, prompt, videos, sp):
     eng._head_sample = timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = eng.generate(input_ids=prompt, videos=videos, sampling=sp)
+    out = eng.generate(input_ids=prompt, videos=videos, images=images, sampling=sp)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     n = len(out.token_ids)
@@ -3345,14 +3360,16 @@ def _timed_generate(eng, prompt, videos, sp):
 
 
 def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk, expected,
-                           tokens, kv_quant=False, videos=(), mm=None) -> dict:
-    """``prompt`` (token ids) served by an InferenceEngine over a cp mesh of
-    CP thread-ranks (each holding seq // CP slots) and greedy-decoded for
+                           tokens, kv_quant=False, videos=(), images=(), mm=None,
+                           mesh_cfg=None) -> dict:
+    """``prompt`` (token ids) served by an InferenceEngine over a mesh of
+    thread-ranks (``mesh_cfg``, a cp mesh of CP by default: each rank holds
+    seq // cp slots and Hkv // tp kv heads) and greedy-decoded for
     ``tokens`` tokens, then by a one-device engine on the same weights, run
-    after it and fed the cp engine's tokens (teacher forcing, so that a
+    after it and fed the mesh engine's tokens (teacher forcing, so that a
     near-tie does not end the check): every step's f32 logits under the
-    logit gate and each cp pick against the one-device argmax (up to a
-    rounding tie). The cp run's launches must equal expected(prompt ids).
+    logit gate and each mesh pick against the one-device argmax (up to a
+    rounding tie). The mesh run's launches must equal expected(prompt ids).
     -> those launch counts."""
     import torch
 
@@ -3362,45 +3379,50 @@ def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk,
     from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     mm = mm or _StubMM()
+    mesh_cfg = mesh_cfg or MeshConfig(cp=CP)
+    label = " x ".join(f"{a} {n}" for a, n in (("cp", mesh_cfg.cp), ("tp", mesh_cfg.tp)) if n > 1)
     sp = SamplingParams(max_new_tokens=tokens)
     kw = dict(max_seq_len=seq, chunk=chunk, kv_quant=kv_quant, vision_chunk=vision_chunk)
     one = InferenceEngine(model, cfg, mm, **kw)
-    n_ids = len(mm.expand(prompt, videos=videos).input_ids)
+    n_ids = len(mm.expand(prompt, videos=videos, images=images).input_ids)
+    hkv = cfg.text.num_key_value_heads // min(mesh_cfg.tp, cfg.text.num_key_value_heads)
 
     def rank(comm):
-        eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(cp=CP), comm), **kw)
-        if eng._make_cache(1, seq).k.shape[2] != seq // CP:
-            raise AssertionError("a rank must hold slots // cp cache slots")
+        eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(mesh_cfg, comm), **kw)
+        shape = eng._make_cache(1, seq).k.shape
+        if shape[2] != seq // mesh_cfg.cp or shape[3] != hkv:
+            raise AssertionError(f"a rank must hold slots // cp cache slots of its Hkv // tp "
+                                 f"kv heads, not {tuple(shape)}")
         comm.barrier()
         if comm.rank == 0:
             _reset_counts()
         comm.barrier()
-        out, ttft, ms = _timed_generate(eng, prompt, videos, sp)
+        out, ttft, ms = _timed_generate(eng, prompt, videos, sp, images)
         comm.barrier()
         counts = _read_counts() if comm.rank == 0 else None
         return seen[threading.get_ident()], out.token_ids, ttft, ms, counts
 
     with _sampling_tap() as seen:
-        res = run_thread_ranks(rank, CP, timeout=CP_TIMEOUT)
+        res = run_thread_ranks(rank, mesh_cfg.size, timeout=CP_TIMEOUT)
     steps, got, ttft, ms, counts = res[0]
     if any(r[1] != got or len(r[0]) != len(steps) or not all(
             torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r[0], steps))
            for r in res):
         raise AssertionError(f"[{tag}] the thread-ranks sampled different tokens or logits")
     del res
-    # teacher forcing: the one-device engine fed the cp engine's picks
+    # teacher forcing: the one-device engine fed the mesh engine's picks
     with _sampling_tap(forced=[t for _, t in steps]) as seen_one:
-        ref_out, ttft1, ms1 = _timed_generate(one, prompt, videos, sp)
+        ref_out, ttft1, ms1 = _timed_generate(one, prompt, videos, sp, images)
     ref_steps = next(iter(seen_one.values()))
     ok = all(bool(torch.isfinite(g).all()) for g, _ in steps) and _logit_check(
-        tag, f"cp {CP} engine vs the one-device engine", steps[0][0], ref_steps[0][0])
+        tag, f"{label} engine vs the one-device engine", steps[0][0], ref_steps[0][0])
     if not ok or ref_out.token_ids != got:
-        raise AssertionError(f"[{tag}] cp engine logits disagree with the one-device engine")
+        raise AssertionError(f"[{tag}] {label} engine logits disagree with the one-device engine")
     _forced_steps_check(tag, steps, ref_steps)
-    print(f"[{tag}] {n_ids} prompt tokens, {len(got)} greedy tokens {got[:8]} ...: cp "
-          f"{CP} TTFT {ttft:.3f} s, decode {ms:.1f} ms/token ({THREADS_NOTE}); the "
-          f"one-device engine (fed the cp tokens, after the cp run) TTFT {ttft1:.3f} s, "
-          f"decode {ms1:.1f} ms/token")
+    print(f"[{tag}] {n_ids} prompt tokens, {len(got)} greedy tokens {got[:8]} ...: {label} "
+          f"TTFT {ttft:.3f} s, decode {ms:.1f} ms/token ({mesh_cfg.size} thread-ranks on one "
+          f"card, not a multi-GPU time); the one-device engine (fed the mesh tokens, after the "
+          f"mesh run) TTFT {ttft1:.3f} s, decode {ms1:.1f} ms/token")
     _check_launches(counts, expected(n_ids))
     return counts
 
@@ -3492,8 +3514,8 @@ def _png_b64(rng, width: int, height: int) -> str:
 
 def _lockstep_http(eng, *, continuous, slots, tick, first=(), together=(), last=(),
                    window_s=0.05) -> dict:
-    """cp rank 0's side of a lockstep server (inference/server.make_server on
-    an engine over a cp mesh; the other ranks run follower_serve): send
+    """Rank 0's side of a lockstep server (inference/server.make_server on
+    an engine over a mesh; the other ranks run follower_serve): send
     ``first`` one at a time, then ``together`` concurrently (``first``'s
     admissions come before theirs), then ``last`` one at a time, over
     HTTP; a request with "stream": true is streamed. Then shut the server
@@ -3819,6 +3841,252 @@ def phase_cp_server(params, cfg, dev, *, max_seq=32768, chunk=2048, slots=4, tic
     return total
 
 
+TP = 4  # thread-ranks of the tp phase (one card: they share it)
+# K6's column shards at tp 4 of the 14B: q_proj, k_proj / v_proj,
+# gate_proj / up_proj and the vocab-sharded head (in 5120, one row, f32 out)
+TP_W4_OUTS = {"q_proj": 1280, "k_proj/v_proj": 256, "gate_proj/up_proj": 3456,
+              "lm_head": 38016}
+
+
+def phase_tp_kernels(*, hq=40 // TP, hkv=8 // TP, rows=2048, q_offset=4096, valid=6144,
+                     slots=8192) -> float:
+    """The kernels of tensor-parallel serving at a tp-4 rank's shapes, each
+    against its plain version at the tolerances of phase_kernels*: K6 on one
+    row into the column shards (TP_W4_OUTS, f32 out: W4_F32_TOL), K1 and K2
+    on a 2048-row chunk at offset 4096 against a cache of 6144 valid slots
+    with a rank's 10 q / 2 kv heads (o O_ATOL + O_RTOL |ref|, lse
+    LSE_ATOL). -> the largest error (these launches are not the main
+    path's)."""
+    import torch
+
+    from long_vita_tpu_torch.models.qwen2 import quantize_kv
+    from long_vita_tpu_torch.models.quantize import quantize_kernel_int4
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    errs = []
+    x = rnd(1, 5120)
+    for name, n_out in TP_W4_OUTS.items():
+        packed, scales = quantize_kernel_int4(rnd(n_out, 5120, scale=0.02))
+        before = qm.w4_matmul.launches
+        got = qm.w4_matmul(x, packed, scales, torch.float32)
+        torch.cuda.synchronize()
+        if qm.w4_matmul.launches != before + 1:
+            raise AssertionError(f"[tp kernels] K6 {name} shard did not launch once")
+        ref = qm.w4_matmul_reference(x, packed, scales, torch.float32)
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        ok = err <= W4_F32_TOL * scale and bool(torch.isfinite(got).all())
+        errs.append(err)
+        print(f"[tp kernels] K6 {name} tp-{TP} column shard [1, 5120] x [5120, {n_out}] -> f32: "
+              f"max|k-ref| {err:.3e} (<= {W4_F32_TOL} x max|ref| {scale:.3f}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[tp kernels] K6 at the {name} shard disagrees")
+    q = rnd(1, rows, hq, 128)
+    k, v = rnd(1, slots, hkv, 128), rnd(1, slots, hkv, 128)
+    kw = dict(causal=True, q_offset=q_offset, kv_valid_len=valid)
+    errs.append(_kernel_case(f"tp-{TP} rank: K1 chunk {rows} @{q_offset} vs cache {slots} len "
+                             f"{valid}, {hq}/{hkv} heads", q, k, v, **kw))
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    kw8 = dict(q_offset=q_offset, kv_valid_len=valid)
+    errs.append(_pair_case(
+        f"tp-{TP} rank: K2 chunk {rows} @{q_offset} vs int8 cache {slots} len {valid}, "
+        f"{hq}/{hkv} heads",
+        lambda: fa.flash_attention_quant(q, k8, ks, v8, vs, return_lse=True, **kw8),
+        lambda: fa.flash_attention_quant_reference(q, k8, ks, v8, vs, **kw8),
+        fa.flash_attention_quant,
+    ))
+    return max(errs)
+
+
+def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new_tokens=8,
+                   short_tokens=4, image_grid=(1, 3), vision_chunk=64, server_chars=(3000, 1500),
+                   server_image=(1344, 448), server_tokens=8, slots=4, tick=4,
+                   cpxtp_layers=24, cpxtp_prompt=7000, cpxtp_seq=16384, tokenizer=None) -> dict:
+    """Tensor-parallel serving of the 14B at full width (the serving phases'
+    random bf16 weights, shared by the thread-ranks; each rank's shard is a
+    view of them, K6's int4 column shards copies): phase_tp_kernels first,
+    then the main path over TP thread-ranks (parallel/comm.ThreadComm, one
+    card) at full depth, each against the one-device engine on the same
+    weights (_cp_against_one_device: teacher-forced, §2's logit gate at
+    every step, each pick the one-device argmax up to a tie; every rank's
+    tokens and logit bits equal): a 5000-id prompt and 8 greedy tokens;
+    int8 weights (quantised once, whole, then sharded by each rank) into an
+    int8 cache (K2), and int4 weights (K6 on the column shards and on the
+    gathered input of the replicated row projections, the dequantise route
+    for the prefill chunks), 4 tokens each; a 4-tile image (K3: the tiles
+    1/TP a rank). Then the lockstep server on the TP ranks (make_server on
+    rank 0, follower_serve on the others; 3 continuous requests, a 4-tile
+    image among them): gate (a) each follower's replay equals rank 0's
+    bits, gate (b) each HTTP answer equals an in-process pool fed the same
+    admissions. Last, cp 2 x tp 2 (the decoder's first ``cpxtp_layers``
+    layers) on a ~7000-id prompt. Launch counts exact: K1 = ranks x layers
+    x chunks, K2 likewise, K3 = TP x 24 x a rank's encode batches, K6 and
+    its dequantise route per pass. Times are thread-ranks on one card. Its
+    sizes are arguments, so that it rehearses on the CPU at a tiny size.
+    -> the launch counts of the phase."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.data.image_processor import ImageProcessor
+    from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.models.quantize import quantize_weights_int4, quantize_weights_int8
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from long_vita_tpu_torch.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        phase_tp_kernels()
+    tc, vc = cfg.text, cfg.vision
+    layers = tc.num_hidden_layers
+    rng = np.random.default_rng(SEED + 61)
+    vocab = min(tc.vocab_size, 151643)
+    chunks = lambda n: -(-n // chunk)  # noqa: E731
+    tp_cfg = MeshConfig(tp=TP)
+    total = dict.fromkeys(SOURCES, 0)
+    total["w4_dequant"] = 0
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"{what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    def serve(tag, model, prompt, *, mesh_cfg=tp_cfg, tokens=new_tokens, **kw):
+        kw = {"seq": seq, "chunk": chunk, "vision_chunk": vision_chunk, **kw}
+        counts = _cp_against_one_device(tag, model, cfg, prompt, tokens=tokens,
+                                        mesh_cfg=mesh_cfg, **kw)
+        for key in total:
+            total[key] += counts[key]
+
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[tp-serve] the decoder's {layers} layers at full width over tp {TP} thread-ranks "
+          f"({TP} x {tc.num_attention_heads // TP}/{max(tc.num_key_value_heads // TP, 1)} heads "
+          f"a rank)")
+    prompt = rng.integers(0, vocab, n_prompt).tolist()
+    serve("tp-serve bf16", params, prompt,
+          expected=lambda n: {"flash_fwd": TP * layers * chunks(n)})
+    q8 = quantize_weights_int8(params)  # the whole tree, once; each rank shards it
+    serve("tp-serve int8 weights, int8 cache", q8, prompt, kv_quant=True, tokens=short_tokens,
+          expected=lambda n: {"flash_fwd_quant": TP * layers * chunks(n)})
+    del q8
+    _collect("after the tp int8 engines")
+    q4 = quantize_weights_int4(params)
+    per_pass = 7 * layers  # int4 projections a decoder pass (the row ones replicated)
+    # a run of short_tokens greedy tokens (no stop: random weights)
+    steps = _decode_steps([types.SimpleNamespace(token_ids=[0] * short_tokens)], short_tokens,
+                          short_tokens - 1)
+    serve("tp-serve int4 weights", q4, prompt, tokens=short_tokens,
+          expected=lambda n: {"flash_fwd": TP * layers * chunks(n),
+                              "w4_dequant": TP * per_pass * chunks(n),
+                              "w4_matmul": TP * (per_pass + 1) * (1 + steps)})
+    del q4
+    _collect("after the tp int4 engines")
+
+    # ---- a 4-tile image through the tile-sharded encode (K3)
+    rows_, cols_ = image_grid
+    n_tiles = 1 + rows_ * cols_
+
+    def tiles(n):
+        return rng.standard_normal((n, vc.image_size, vc.image_size, 3), dtype=np.float32)
+
+    lv, _ = _vlm_params(params, cfg, dev, SEED + 62, tiles(2))
+    per_rank = -(-n_tiles // TP)
+    serve("tp-serve image", lv, [*rng.integers(0, vocab, 20).tolist(), IMG_TAG,
+                                 *rng.integers(0, vocab, 20).tolist()],
+          images=[(tiles(n_tiles), image_grid)], mm=_StubMM(cfg.image_token_length),
+          tokens=short_tokens,
+          expected=lambda n: {"flash_fwd": TP * layers * chunks(n),
+                              "short_attn": TP * vc.num_hidden_layers
+                              * -(-per_rank // vision_chunk)})
+
+    # ---- the lockstep server on the TP ranks, then gate (b)'s replay
+    mm = MultimodalTokenizer(tokenizer or ByteTokenizer(), image_processor=ImageProcessor(
+        image_size=vc.image_size), image_token_length=cfg.image_token_length)
+    greedy = {"tokens_to_generate": server_tokens, "logprobs": True}
+    reqs = [{"prompts": [_random_text(rng, n)], **greedy} for n in server_chars]
+    reqs.append({"prompts": ["<image>\n" + _random_text(rng, 100)],
+                 "image_list": [_png_b64(rng, *server_image)], **greedy})
+    kw = dict(max_seq_len=seq, chunk=chunk, vision_chunk=vision_chunk)
+
+    def server(comm):
+        eng = InferenceEngine(lv, cfg, mm, mesh=make_mesh(tp_cfg, comm), **kw)
+        comm.barrier()
+        if comm.rank == 0:
+            _reset_counts()
+            out = _lockstep_http(eng, continuous=True, slots=slots, tick=tick, together=reqs)
+            out["requests"] = reqs
+        else:
+            out = _follower(eng, continuous=True, slots=slots, tick=tick)
+        comm.barrier()
+        return out
+
+    res = run_thread_ranks(server, TP, timeout=CP_TIMEOUT)
+    http, fols = res[0], res[1:]
+    admitted = http["admitted"]
+    print(f"[tp-server] {len(reqs)} concurrent requests over HTTP from rank 0 of {TP} "
+          f"thread-ranks (admissions of {[len(a['ids']) for a in admitted]} ids, {slots} slots, "
+          f"tick {tick}): {[round(t, 3) for t in http['seconds']]} s, all in "
+          f"{http['seconds_all']:.3f} s ({TP} thread-ranks on one card, not a multi-GPU time)")
+    del res
+
+    def replay(comm):
+        eng = InferenceEngine(lv, cfg, mm, mesh=make_mesh(tp_cfg, comm), **kw)
+        got, ticks = _replay_admissions(eng, admitted, slots=slots, tick=tick)
+        comm.barrier()
+        return got, ticks, (_read_counts() if comm.rank == 0 else None)
+
+    rep = run_thread_ranks(replay, TP, timeout=CP_TIMEOUT)
+    replayed, ticks, counts = rep[0]
+    check(all({r: (x.token_ids, x.logprobs) for r, x in g.items()}
+              == {r: (x.token_ids, x.logprobs) for r, x in replayed.items()} for g, _, _ in rep),
+          "[tp-server] the in-process pool: every rank the same rows")
+    print(f"[tp-server] the in-process pool: {len(ticks)} ticks, "
+          f"{statistics.median(ticks) / tick * 1e3:.1f} ms a decode step (median tick / {tick}; "
+          f"{TP} thread-ranks on one card)")
+    _lockstep_gates("tp-server", http, fols, replayed, check)
+    del rep
+    rank_tiles = [-(-a["images"].shape[0] // TP) for a in admitted if a["images"] is not None]
+    _check_launches(counts, {  # the server's pool and the replay's
+        "flash_fwd": 2 * TP * layers * sum(chunks(len(a["ids"])) for a in admitted),
+        "short_attn": 2 * TP * vc.num_hidden_layers * sum(
+            -(-n // vision_chunk) for n in rank_tiles),
+    })
+    for key in total:
+        total[key] += counts[key]
+    del lv
+    _collect("after the tp server")
+
+    # ---- cp 2 x tp 2: the cp-sharded cache on each rank's kv heads
+    text, cut = _decoder_prefix(params, cfg, cpxtp_layers)
+    print(f"[tp-serve cp x tp] cp 2 x tp 2 thread-ranks on the decoder's first {cpxtp_layers} "
+          f"layers at full width")
+    counts = _cp_against_one_device(
+        "tp-serve cp 2 x tp 2", text, cut, rng.integers(0, vocab, cpxtp_prompt).tolist(),
+        seq=cpxtp_seq, chunk=chunk, vision_chunk=vision_chunk, tokens=new_tokens,
+        mesh_cfg=MeshConfig(cp=2, tp=2),
+        expected=lambda n: {"flash_fwd": 4 * cpxtp_layers * chunks(n)})
+    for key in total:
+        total[key] += counts[key]
+    print(f"[tp-serve] peak memory of the phase {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated; the one-device weights and every rank's shard views); the "
+          f"phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase_tp_serve: {failures}")
+    return total
+
+
 def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
     """Whether two thread-ranks can run backward passes that wait for each
     other on ``device``. Each thread builds a graph through a Function whose
@@ -3969,6 +4237,10 @@ def _cp_nccl_worker(rank, world, init, out, sizes):
         comm.barrier()
         res["server"] = _nccl_server(comm, base, cfg, sizes)
         comm.barrier()
+        res["tp_server"] = _nccl_server(comm, base, cfg, sizes, axis="tp")
+        comm.barrier()
+        res["tp_ttft"] = _nccl_tp_ttft(comm, base, cfg, sizes, dev)
+        comm.barrier()
         out.put((rank, res))
         torch.distributed.destroy_process_group()
     except Exception as e:  # noqa: BLE001 (reported to the parent)
@@ -3977,12 +4249,14 @@ def _cp_nccl_worker(rank, world, init, out, sizes):
         out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2000:]}"))
 
 
-def _nccl_server(comm, model, cfg, sizes) -> dict:
-    """The lockstep server over a process group (phase_cp_nccl's last part):
-    cp rank 0 serves sizes' requests over HTTP on localhost (continuous
-    mode, 2 slots, tick 4: text prompts and a 4-tile image, concurrently),
-    rank 1 follows; then every rank replays rank 0's admissions, broadcast
-    to it over the lockstep channel, in an in-process pool (gate (b)).
+def _nccl_server(comm, model, cfg, sizes, axis: str = "cp") -> dict:
+    """The lockstep server over a process group (phase_cp_nccl's last parts),
+    the engine over a mesh of the group's ranks on ``axis`` (cp, or tp: the
+    weights and the cache's kv heads sharded): rank 0 serves sizes' requests
+    over HTTP on localhost (continuous mode, 2 slots, tick 4: text prompts
+    and a 4-tile image, concurrently), rank 1 follows; then every rank
+    replays rank 0's admissions, broadcast to it over the lockstep channel,
+    in an in-process pool (gate (b)).
     -> rank 0: {"http", "replay"}; rank 1: {"follower", "replay"}."""
     import numpy as np
 
@@ -3998,7 +4272,7 @@ def _nccl_server(comm, model, cfg, sizes) -> dict:
     vc = cfg.vision
     mm = MultimodalTokenizer(ByteTokenizer(**sizes["server_tok"]), image_processor=ImageProcessor(
         image_size=vc.image_size), image_token_length=cfg.image_token_length)
-    eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(cp=comm.size), comm),
+    eng = InferenceEngine(model, cfg, mm, mesh=make_mesh(MeshConfig(**{axis: comm.size}), comm),
                           max_seq_len=sizes["server_seq"], chunk=sizes["server_chunk"])
     greedy = {"tokens_to_generate": sizes["server_tokens"], "logprobs": True}
     reqs = [{"prompts": [_random_text(rng, n)], **greedy} for n in sizes["server_chars"]]
@@ -4037,17 +4311,69 @@ def _nccl_server(comm, model, cfg, sizes) -> dict:
     return out
 
 
+def _nccl_tp_ttft(comm, model, cfg, sizes, dev) -> dict:
+    """tp over the process group: a prompt of sizes["ttft_prompt"] ids and
+    2 greedy tokens through an engine over MeshConfig(tp=ranks), timed
+    twice (the second call's TTFT counts), then on rank 0 the same through
+    a one-device engine, whose first step's logits hold the tp engine's
+    under §2's gate. -> {"ttft", "ttft_one", "tokens", "logits_ok"}."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.inference.sampler import SamplingParams
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng(SEED + 44)
+    vocab = min(cfg.text.vocab_size, 151643)
+    prompt = rng.integers(0, vocab, sizes["ttft_prompt"]).tolist()
+    sp = SamplingParams(max_new_tokens=2)
+    kw = dict(max_seq_len=sizes["ttft_seq"], chunk=sizes["server_chunk"])
+
+    def ttft(eng, meet=True):
+        seen = {}
+        with _sampling_tap() as taps:
+            for _ in range(2):  # the first call warms the communicators up
+                if meet:
+                    comm.barrier()
+                sync()
+                t0 = time.perf_counter()
+                cache, hidden, _ = eng.prefill(prompt)
+                eng._head_sample(hidden, torch.Generator(device=dev).manual_seed(0), sp)
+                sync()
+                seen["t"] = time.perf_counter() - t0
+                del cache
+            out = eng.generate(input_ids=prompt, sampling=sp)
+        steps = next(iter(taps.values()))
+        return seen["t"], out.token_ids, steps[0][0].cpu()
+
+    eng = InferenceEngine(model, cfg, _StubMM(), mesh=make_mesh(MeshConfig(tp=comm.size), comm),
+                          **kw)
+    t_tp, tokens, logits = ttft(eng)
+    del eng
+    res = {"ttft": t_tp, "tokens": tokens}
+    if comm.rank == 0:
+        one = InferenceEngine(model, cfg, _StubMM(), **kw)
+        res["ttft_one"], _, ref = ttft(one, meet=False)
+        res["logits_ok"] = _logit_check("tp-nccl", f"tp {comm.size} over the process group vs "
+                                        "one device, the first step", logits, ref)
+        del one
+    return res
+
+
 def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=128, layers=4,
                   train_seq=16384, budget=4096, answer=300, server_seq=16384,
                   server_chunk=2048, server_chars=(3000, 1500), server_image=(1344, 448),
-                  server_tokens=8, server_tok=None) -> None:
+                  server_tokens=8, server_tok=None, ttft_prompt=16000, ttft_seq=16384) -> None:
     """cp 2 over NCCL, one process a GPU, where the machine has two or more
     GPUs: ring attention forward and backward (through autograd) at 64K
     tokens against K1 and K4/K5 over the whole sequence, two Trainer
     steps at cp 2 (full width, the decoder cut to 4 layers, a frozen random
     tower; one packed row of 16384 tokens with a 7-tile image) against the
-    same steps at cp 1, and the lockstep server at cp 2 on that model (rank
-    0 answers HTTP, rank 1 follows: gates (a) and (b) of phase_cp_server).
+    same steps at cp 1, the lockstep server at cp 2 and then at tp 2 on that
+    model (rank 0 answers HTTP, rank 1 follows: gates (a) and (b) of
+    phase_cp_server), and a ttft_prompt-id TTFT at tp 2 against one card.
     On one GPU it prints that it did not run. force and device="cpu": the
     rehearsal over gloo at the sizes given (server_tok: the ByteTokenizer's
     ids, Qwen2.5's by default)."""
@@ -4069,7 +4395,8 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
     sizes = dict(device=device, seq=seq, heads=heads, d=d, layers=layers, train_seq=train_seq,
                  budget=budget, answer=answer, server_seq=server_seq, server_chunk=server_chunk,
                  server_chars=server_chars, server_image=server_image,
-                 server_tokens=server_tokens, server_tok=server_tok or {})
+                 server_tokens=server_tokens, server_tok=server_tok or {},
+                 ttft_prompt=ttft_prompt, ttft_seq=ttft_seq)
     procs = [ctx.Process(target=_cp_nccl_worker,
                          args=(r, 2, f"tcp://127.0.0.1:{port}", out, sizes)) for r in range(2)]
     for p in procs:
@@ -4130,6 +4457,21 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
     _lockstep_gates("cp-nccl server", http, [srv1["follower"]], srv0["replay"], check)
     check(srv1["replay"] == srv0["replay"], "[cp-nccl server] both ranks' in-process pools "
           "give the same rows")
+    # the same server with the engine over tp 2: the weights and the cache's
+    # kv heads sharded over the two cards, the collectives over NCCL
+    srv0, srv1 = results[0]["tp_server"], results[1]["tp_server"]
+    http = srv0["http"]
+    print(f"[tp-nccl server] {len(http['requests'])} concurrent requests (admissions of "
+          f"{[len(a['ids']) for a in http['admitted']]} ids) over HTTP from rank 0 of tp 2, rank "
+          f"1 following: {[round(t, 3) for t in http['seconds']]} s")
+    _lockstep_gates("tp-nccl server", http, [srv1["follower"]], srv0["replay"], check)
+    check(srv1["replay"] == srv0["replay"], "[tp-nccl server] both ranks' in-process pools "
+          "give the same rows")
+    t0, t1 = results[0]["tp_ttft"], results[1]["tp_ttft"]
+    check(t0["tokens"] == t1["tokens"] and t0["logits_ok"],
+          f"[tp-nccl] {ttft_prompt}-id prompt on the {layers}-layer model at full width: TTFT tp "
+          f"2 over two cards {t0['ttft']:.3f} s (rank 1 {t1['ttft']:.3f} s) against one card "
+          f"{t0['ttft_one']:.3f} s; both ranks the same tokens {t0['tokens']}")
     if failures:
         raise AssertionError(f"[cp-nccl] the lockstep server: {failures}")
     print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
@@ -4215,6 +4557,8 @@ def main() -> int:
     _collect("after the cp serving phase")
     add(phase_cp_server(params, cfg, dev))
     _collect("after the cp server phase")
+    add(phase_tp_serve(params, cfg, dev))
+    _collect("after the tp serving phase")
     # the decoder is exported, freed and loaded back; the loaded one trains,
     # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]

@@ -10,16 +10,21 @@ safetensors + tokenizer assets); see utils/checkpoint_io.py. The model goes
 to the card unless ``build_engine`` is given another device. There is no
 counterpart of the JAX package's compile cache (PyTorch runs eagerly).
 
-``--cp N`` serves from a KV cache sharded over N ranks, one process a GPU:
+``--tp N`` serves the model sharded over N ranks (Megatron-style tensor
+parallelism, parallel/sharding.py), ``--cp M`` from a KV cache sharded over
+M ranks by slot, and both together over tp x cp ranks, one process a GPU:
 
     torchrun --nproc-per-node 4 -m long_vita_tpu_torch.inference.cli \
-        <checkpoint_dir> --serve --continuous --cp 4
+        <checkpoint_dir> --serve --continuous --tp 4
+    torchrun --nproc-per-node 4 -m long_vita_tpu_torch.inference.cli \
+        <checkpoint_dir> --serve --continuous --tp 2 --cp 2
 
-Each rank loads the checkpoint onto its own card (rank % device_count).
-With ``--serve`` rank 0 answers HTTP and the other ranks replay its actions
-(inference/server.py, inference/multihost.py); ``--prompt`` runs the same
-generate on every rank and prints on rank 0. ``--chat`` over more than one
-rank raises (the REPL has no lockstep), as does ``--tp`` above 1.
+Each rank loads the whole checkpoint onto its own card (rank %
+device_count) and keeps its shard. With ``--serve`` rank 0 answers HTTP
+and the other ranks replay its actions (inference/server.py,
+inference/multihost.py); ``--prompt`` runs the same generate on every rank
+and prints on rank 0. ``--chat`` over more than one rank raises (the REPL
+has no lockstep).
 """
 from __future__ import annotations
 
@@ -45,15 +50,13 @@ def build_engine(
     import torch
 
     from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
-    from long_vita_tpu_torch.inference.engine import InferenceEngine, _later
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
     from long_vita_tpu_torch.tokenizer import load_tokenizer
     from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
 
-    if tp > 1:
-        raise _later("tensor-parallel serving (--tp)", "multi-GPU, Tensor parallelism")
     mesh = None
-    if cp > 1:
-        mesh = _cp_mesh(cp)
+    if cp * tp > 1:
+        mesh = _mesh(cp, tp)
         if torch.device(device).type == "cuda":
             # init_process_group gave this rank its card
             device = torch.device("cuda", torch.cuda.current_device())
@@ -69,22 +72,23 @@ def build_engine(
     )
 
 
-def _cp_mesh(cp: int):
-    """The cp mesh of this job's ranks: torch.distributed from torchrun's
-    variables (or LVT_COORDINATOR / LVT_NUM_PROCESSES / LVT_PROCESS_ID),
-    which must name exactly cp processes."""
+def _mesh(cp: int, tp: int):
+    """The (cp, tp) mesh of this job's ranks: torch.distributed from
+    torchrun's variables (or LVT_COORDINATOR / LVT_NUM_PROCESSES /
+    LVT_PROCESS_ID), which must name exactly cp x tp processes."""
     from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from long_vita_tpu_torch.training.distributed import maybe_initialize
 
     comm = maybe_initialize()
-    world = comm.size if comm is not None else 1
-    if world != cp:
+    world, n = (comm.size if comm is not None else 1), cp * tp
+    flags = " ".join(f"--{name} {k}" for name, k in (("tp", tp), ("cp", cp)) if k > 1)
+    if world != n:
         raise ValueError(
-            f"--cp {cp} serves from {cp} processes, one a GPU, and this job has {world}: "
-            f"launch it with torchrun --nproc-per-node {cp} -m "
-            f"long_vita_tpu_torch.inference.cli <checkpoint_dir> ... --cp {cp}"
+            f"{flags} serves from {n} processes, one a GPU, and this job has {world}: "
+            f"launch it with torchrun --nproc-per-node {n} -m "
+            f"long_vita_tpu_torch.inference.cli <checkpoint_dir> ... {flags}"
         )
-    return make_mesh(MeshConfig(cp=cp), comm)
+    return make_mesh(MeshConfig(cp=cp, tp=tp), comm)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -105,12 +109,14 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel ways (not ported yet: raises "
-                             "above 1)")
+                        help="tensor-parallel ways: the weights and the KV "
+                             "cache's heads sharded over N ranks, one process "
+                             "a GPU (launch with torchrun --nproc-per-node "
+                             "N x cp); rank 0 serves")
     parser.add_argument("--cp", type=int, default=1,
                         help="context-parallel ways: a KV cache sharded over "
                              "N ranks, one process a GPU (launch with "
-                             "torchrun --nproc-per-node N); rank 0 serves")
+                             "torchrun --nproc-per-node N x tp); rank 0 serves")
     parser.add_argument("--weight-quant", default=None,
                         choices=["int8", "int4"],
                         help="weight-only quantized serving: int8 (w8a16) or "
@@ -149,8 +155,8 @@ def _sampling(args):
 def main(argv=None):
     parser = make_parser()
     args = parser.parse_args(argv)
-    if args.chat and args.cp > 1:
-        parser.error("--chat runs on one rank: the REPL has no lockstep for --cp")
+    if args.chat and args.cp * args.tp > 1:
+        parser.error("--chat runs on one rank: the REPL has no lockstep for --cp or --tp")
 
     engine = build_engine(
         args.model_path, max_seq_len=args.max_seq_len, chunk=args.chunk,
@@ -170,7 +176,7 @@ def main(argv=None):
 
 def _run(args, parser, engine) -> None:
     # every rank makes the same engine calls; rank 0 prints
-    primary = engine.parallel is None or engine.parallel.comm.rank == 0
+    primary = engine.parallel is None or engine.parallel.mesh.world.rank == 0
     if args.serve:
         from long_vita_tpu_torch.inference.server import run_server
 

@@ -17,11 +17,12 @@ at any segment boundary, on the engine's ragged per-row cache frontier:
   - a tick is ``engine._decode_scan_masked`` over the whole pool, run
     eagerly (the JAX tick is one compiled scan); with the engine's
     ``speculative_k`` and greedy sampling it is one batched verify step;
-  - over a cp mesh (the engine's ``parallel``) every rank builds the pool
-    with the same geometry and makes the same calls (the server's lockstep,
-    inference/multihost.py): the pool and the staging row are this rank's
-    slot shards, and an admission copies only the staged rows that lie in
-    this rank's shard.
+  - over a mesh (the engine's ``parallel``; cp, tp or cp x tp) every rank
+    builds the pool with the same geometry and makes the same calls (the
+    server's lockstep, inference/multihost.py): the pool and the staging
+    row are this rank's shards (its slots over cp, its kv heads over tp),
+    and an admission copies only the staged rows that lie in this rank's
+    slot shard.
 
 Randomness is one ``torch.Generator`` seeded with ``seed`` and drawn from
 in order, where the JAX engine splits a PRNG key per admission and tick:
@@ -59,7 +60,7 @@ class _Slot:
 
 class ContinuousEngine:
     """Slot-pool wrapper over an InferenceEngine (one device, or each rank
-    of a cp group)."""
+    of a mesh)."""
 
     def __init__(
         self,

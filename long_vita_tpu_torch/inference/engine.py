@@ -40,6 +40,16 @@ the rows and attends its shard (K1, K2 for an int8 cache), and the partials
 merge over cp (ops/cp_cache_attention.py); decode is replicated; tiles are
 encoded 1/cp a rank (K3) and their features all-gathered. Every rank
 samples the same tokens from the same logits and generator.
+
+With a mesh of tp > 1 (JAX :197-220 and ``shard_cache`` :278-300) every rank
+validates the geometry, quantises the WHOLE tree (``weight_quant``), then
+cuts its shard of it (parallel/sharding.shard_params): Megatron's column
+and row projections with an all-reduce over tp after o_proj and
+down_proj, a vocab-parallel embedding and head (the logits all-gathered,
+so every rank samples the same token with the same generator), and a
+cache of the rank's kv heads. K1 and K2 run at the local head counts; K6
+on the int4 column shards. Tiles are encoded 1/(cp x tp) a rank. cp and tp
+compose: the cache is then sharded by slot over cp and by kv head over tp.
 """
 from __future__ import annotations
 
@@ -60,7 +70,8 @@ from long_vita_tpu_torch.models.quantize import (
     quantize_weights_int4,
     quantize_weights_int8,
 )
-from long_vita_tpu_torch.parallel.mesh import Mesh
+from long_vita_tpu_torch.parallel.mesh import Mesh, validate_geometry
+from long_vita_tpu_torch.parallel.sharding import shard_params
 
 _OOB_SEQ = 2**30  # a feature row at this position lands in no chunk
 
@@ -109,13 +120,6 @@ def _pad_scatter_indices(indices, n_feat_rows: int) -> np.ndarray:
     pad = np.zeros((2, short, idx.shape[2]), idx.dtype)
     pad[1] = _OOB_SEQ
     return np.concatenate([idx, pad], 1)
-
-
-def _later(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to long_vita_tpu_torch yet (ROADMAP: port "
-        f"queue, {item})"
-    )
 
 
 @dataclasses.dataclass
@@ -189,16 +193,20 @@ class InferenceEngine:
         weight_quant: None, "int8" (w8a16) or "int4" (w4a16): the text
         decoder's projections and head are quantized into a new tree on the
         parameters' device; ``params`` stays as it is.
-        mesh: a parallel.mesh.Mesh; with cp > 1, the cp-sharded cache (see
-        the module docstring)."""
+        mesh: a parallel.mesh.Mesh; with cp > 1, the cp-sharded cache, with
+        tp > 1 the tp-sharded weights and cache (see the module docstring);
+        ``params`` is the whole tree on every rank."""
         self.mesh, self.parallel = mesh, None
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
         if mesh is not None:
-            qwen2.check_moe_mesh(cfg.text, dp=mesh.shape.get("dp", 1), cp=mesh.shape["cp"])
+            validate_geometry(cfg.text, mesh.cfg)
+            qwen2.check_moe_mesh(cfg.text, dp=mesh.shape["dp"], cp=mesh.shape["cp"],
+                                 tp=mesh.shape["tp"])
+        if mesh is not None and mesh.size > 1:
+            self.parallel = qwen2.ParallelConfig(mesh)
         if mesh is not None and mesh.shape["cp"] > 1:
             cp = mesh.shape["cp"]
-            self.parallel = qwen2.ParallelConfig(mesh)
             slots = _round_up(max_seq_len, chunk)
             if chunk > slots // cp:
                 raise ValueError(
@@ -223,6 +231,8 @@ class InferenceEngine:
             params = quantize_weights_int4(params)
         elif weight_quant is not None:
             raise ValueError(f"unknown weight_quant {weight_quant!r}")
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg)  # after quantising the whole tree
         self.params = params
         self.text: Qwen2Params = params.text if isinstance(params, LongVITAParams) else params
         self.cfg = cfg
@@ -241,12 +251,14 @@ class InferenceEngine:
 
     def _make_cache(self, batch: int, max_len: int) -> KVCache:
         """A cache of max_len slots, this rank's max_len // cp of them when
-        cp-serving (slots [rank * C, (rank + 1) * C))."""
+        cp-serving (slots [rank * C, (rank + 1) * C)), of this rank's kv
+        heads when tp-serving."""
         if self.parallel is not None:
             max_len //= self.parallel.cp
         return KVCache.zeros(
             self.cfg.text, batch=batch, max_len=max_len,
             dtype=self.cache_dtype, device=self.device, quantize=self.kv_quant,
+            kv_heads=qwen2.kv_heads(self.text, self.cfg.text),
         )
 
     def cache_slots(self, cache: KVCache) -> int:

@@ -1,11 +1,12 @@
-"""The serving lockstep: rank 0 publishes, the other ranks of a cp group replay.
+"""The serving lockstep: rank 0 publishes, the other ranks of a mesh replay.
 
 Counterpart of long_vita_tpu/inference/multihost.py (reference
 run_text_generation_server.py:114-153, text_generation_server.py:25-32).
 The JAX package needs this channel only on a pod spanning hosts: one process
 drives every device of a host. The port runs one process per GPU
-(torchrun), or thread-ranks on one card, so EVERY cp group of more than one
-rank serves through it: cp rank 0 answers HTTP and publishes each scheduler
+(torchrun), or thread-ranks on one card, so EVERY serving mesh (cp, tp or
+cp x tp) of more than one rank serves through it: world rank 0 answers HTTP
+and publishes each scheduler
 action (admit / prefill chunk / decode tick, or a whole request or batch)
 over one ordered broadcast, and the other ranks decode the same payload
 and issue the same engine call, so every rank reaches the same collectives
@@ -13,7 +14,7 @@ with the same operands (inference/server.py: ``FollowerReplayer``,
 ``follower_serve``).
 
 The channel is a communicator of parallel/comm.py (``Comm.broadcast``): a
-``ThreadComm`` for thread-ranks, or ``host_comm()`` of the cp group's
+``ThreadComm`` for thread-ranks, or ``host_comm()`` of the mesh's world
 ``DistComm`` (a gloo group beside NCCL, so the bytes stay on the host).
 Every function takes it explicitly; the role comes from its rank (rank 0
 is the primary), where the JAX package asks ``jax.process_index()``.

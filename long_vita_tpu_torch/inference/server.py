@@ -26,8 +26,9 @@ window mode (RequestBatcher) as one engine.generate_batch, in continuous
 mode (ContinuousBatcher) as rows of one slot pool that requests join at any
 tick.
 
-An engine over a cp mesh (every rank of the cp group builds it) serves in
-lockstep (inference/multihost.py): cp rank 0 runs this server and
+An engine over a mesh of more than one rank (cp, tp or cp x tp; every rank
+builds it) serves in lockstep (inference/multihost.py): world rank 0 runs
+this server and
 publishes every action it takes against the engine BEFORE the engine call
 — a whole request ({"op": "request"}: beam requests, and every request
 without a batcher), a window batch ({"op": "batch"}), or a pool action
@@ -75,12 +76,13 @@ def _keep(log: dict, key, value) -> None:
 
 
 def lockstep_comm(engine: InferenceEngine) -> Optional[Comm]:
-    """The lockstep channel of an engine over a cp group: the host side of
-    its cp communicator (a gloo group beside NCCL, made on the first call:
-    every rank calls this at the same point); None for one rank."""
+    """The lockstep channel of an engine over a mesh of more than one rank:
+    the host side of the mesh's world communicator (a gloo group beside
+    NCCL, made on the first call: every rank calls this at the same point);
+    None for one rank."""
     if engine.parallel is None:
         return None
-    return engine.parallel.comm.host_comm()
+    return engine.parallel.mesh.world.host_comm()
 
 
 def _validate(req: dict) -> Optional[str]:
@@ -679,7 +681,7 @@ class ContinuousBatcher:
 
 
 class FollowerReplayer:
-    """Replays cp rank 0's published actions on a follower rank.
+    """Replays rank 0's published actions on a follower rank.
 
     Every action the primary's batcher or handler takes against the engine
     is published before the engine call; this issues the same call here, so
@@ -737,7 +739,7 @@ def follower_serve(
     engine: InferenceEngine, *, continuous: bool = False,
     max_batch: int = 8, tick: int = 16,
 ) -> FollowerReplayer:
-    """Run on every cp rank but 0: replay the primary's actions until it
+    """Run on every rank of the mesh but 0: replay the primary's actions until it
     publishes SHUTDOWN (IDLE beats are skipped). An action that fails is
     logged and the loop goes on (the primary fails the same request alone
     and serves on; a follower that left would stall the next collective).
@@ -745,7 +747,8 @@ def follower_serve(
     raises. -> the replayer, with what it answered."""
     comm = lockstep_comm(engine)
     if comm is None or multihost.is_primary(comm):
-        raise ValueError("follower_serve runs on cp ranks 1.. of an engine over a cp mesh")
+        raise ValueError("follower_serve runs on ranks 1.. of an engine over a mesh of more "
+                         "than one rank")
     replayer = FollowerReplayer(engine, continuous=continuous, max_slots=max_batch, tick=tick)
     while True:
         msg, arrays = multihost.publish_blob(comm)
@@ -806,12 +809,13 @@ def make_server(
     continuous: bool = False, tick: int = 16,
 ) -> ThreadingHTTPServer:
     """The HTTP server (not started: serve_forever). On an engine over a
-    cp mesh this is cp rank 0's side, and it publishes to the followers;
+    mesh of more than one rank this is rank 0's side, and it publishes to
+    the followers;
     stop it with close_server once serve_forever has returned."""
     comm = lockstep_comm(engine)
     if comm is not None and not multihost.is_primary(comm):
-        raise ValueError(f"cp rank {comm.rank} follows the primary: run follower_serve on it "
-                         "(cp rank 0 serves)")
+        raise ValueError(f"rank {comm.rank} follows the primary: run follower_serve on it "
+                         "(rank 0 serves)")
     handler = type("BoundHandler", (LongVITARequestHandler,), {"engine": engine})
     server = ThreadingHTTPServer((host, port), handler)
     server.generate_lock = threading.Lock()  # the beam / serial path
@@ -853,12 +857,12 @@ def close_server(server: ThreadingHTTPServer, timeout: float = 60.0) -> None:
 
 def run_server(engine: InferenceEngine, host="0.0.0.0", port=5001,
                continuous: bool = False, max_batch: int = 8, tick: int = 16):
-    """Serve PUT /api until interrupted; on an engine over a cp mesh, cp
-    rank 0 serves and every other rank replays (follower_serve) until rank
-    0 stops."""
+    """Serve PUT /api until interrupted; on an engine over a mesh of more
+    than one rank, rank 0 serves and every other rank replays
+    (follower_serve) until rank 0 stops."""
     comm = lockstep_comm(engine)
     if comm is not None and not multihost.is_primary(comm):
-        print(f"cp rank {comm.rank}: replaying rank 0's actions")
+        print(f"rank {comm.rank}: replaying rank 0's actions")
         follower_serve(engine, continuous=continuous, max_batch=max_batch, tick=tick)
         return
     server = make_server(

@@ -15,12 +15,14 @@ loss summed over the decoder's layers, 0 for a dense decoder).
 Under context parallelism (``parallel``, a qwen2.ParallelConfig with cp >
 1) every rank runs this forward on its own shard: the frozen tower encodes
 this rank's 1/cp of the tiles (K3 in serving) and the tower features are
-all-gathered (JAX's tile-sharded encode, :113-150); the projected rows are
+all-gathered (JAX's tile-sharded encode, :113-150; a serving mesh shards the
+tiles over its cp x tp ranks, ``encode_images``); the projected rows are
 scattered into this rank's sequence shard in chunks of tiles
 (merge_image_embeddings_chunked, :178); the decoder runs ring, Ulysses or
 hybrid attention. A trainable tower encodes every tile on every rank (JAX
-takes its plain attention there; the port keeps the kernels). The
-vocab-parallel embed waits for tp (ROADMAP: port queue, item 7).
+takes its plain attention there; the port keeps the kernels). On a tp
+shard of the decoder (parallel/sharding.shard_params) the embedding and
+the head are vocab-parallel (models/qwen2.py) and the tower is replicated.
 """
 from __future__ import annotations
 
@@ -63,11 +65,13 @@ def encode_images(
 ) -> torch.Tensor:
     """[N_tiles, H, W, 3] -> [N_tiles, image_token_length, lm_hidden].
 
-    parallel (cp > 1; the tower frozen, or serving): rank r encodes tiles
-    [r * n / cp, (r + 1) * n / cp) of the stack padded with zero tiles to a
-    multiple of cp, the tower features are all-gathered over cp, and the
-    projector runs on all of them (the JAX split: the tower in the
-    tile-sharded shard_map, the projector outside).
+    parallel (a mesh whose cp x tp ranks of a replica number P > 1; the
+    tower frozen, or serving): rank r of ``parallel.tile_comm`` encodes
+    tiles [r * n / P, (r + 1) * n / P) of the stack padded with zero tiles
+    to a multiple of P, the tower features are all-gathered over those
+    ranks, and the projector runs on all of them (the JAX split, :112-150:
+    the tower in the shard_map over every axis of size > 1, the projector
+    outside), so every rank scatters the whole set.
 
     ``chunk`` > 0 encodes the tiles in batches of ``chunk`` to bound the
     ViT's activation memory (the JAX package's lax.map over chunks). A last
@@ -96,8 +100,8 @@ def encode_images(
             return fn(x)
         return torch.cat([fn(x[i : i + chunk]) for i in range(0, n, chunk)], 0)
 
-    if parallel is not None and parallel.cp > 1:
-        comm, n = parallel.comm, images.shape[0]
+    if parallel is not None and parallel.tile_comm.size > 1:
+        comm, n = parallel.tile_comm, images.shape[0]
         per = -(-n // comm.size)
         if per * comm.size > n:
             images = torch.cat([images, images.new_zeros((per * comm.size - n, *images.shape[1:]))])

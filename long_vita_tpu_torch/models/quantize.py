@@ -21,8 +21,8 @@ and scales equal numpy's bit for bit: f32 division (by a tensor: PyTorch's
 CUDA division by a Python scalar multiplies by its reciprocal, which can
 differ in the last bit), round half to even as ``np.rint``, the same clips. Each function returns a new tree that shares
 every unquantized tensor with the input and leaves the input untouched.
-``quantized_param_specs`` is mesh-only and comes with multi-GPU (ROADMAP
-item 7).
+``quantized_param_specs`` adapts the tensor-parallel specs of
+parallel/sharding.py to a quantised tree (JAX :159-193).
 """
 from __future__ import annotations
 
@@ -130,3 +130,28 @@ def quantize_weights_int4(params: Params, head: bool = True) -> Params:
     """w4a16 serving tree: the seven projections (and the head unless
     head=False) as packed int4 with 128-row group scales, read by K6."""
     return _quantize(params, _int4, head)
+
+
+def quantized_param_specs(text: Qwen2Params, specs: dict) -> dict:
+    """Adapt the dense layout's tp specs (parallel/sharding.text_param_specs,
+    by parameter name) to a quantised decoder (JAX :159-193). int8:
+    ``weight_q`` keeps the weight's split, and its per-output-column
+    ``scale`` follows the output split (column-parallel) or is replicated
+    (row-parallel). int4: ``packed`` [in/2, out] and ``scales`` [in/128,
+    out] shard the output dim only (torch dim 1), so a row-parallel int4
+    projection is replicated, its LoRA ``a`` too: split-half packing puts
+    inputs i and i + in/2 in one byte, so packed rows are no contiguous
+    input range. Every other entry is left as it is."""
+    specs = dict(specs)
+    for path, entry in text.named_modules():
+        if not isinstance(entry, (QuantDense8, QuantDense4)):
+            continue
+        col = specs.pop(f"{path}.weight") == 0
+        if isinstance(entry, QuantDense8):
+            specs[f"{path}.weight_q"] = 0 if col else 1
+            specs[f"{path}.scale"] = 0 if col else None
+        else:
+            specs[f"{path}.packed"] = specs[f"{path}.scales"] = 1 if col else None
+            if entry.lora is not None and not col:
+                specs[f"{path}.lora.a"] = None
+    return specs

@@ -31,7 +31,14 @@ Differences from the JAX package, all of form rather than of numbers:
     communicator; with a cache (sharded over cp by slot) the inputs and
     the result are the whole chunk on every rank, and a chunk whose length
     divides by cp runs its projections on this rank's 1/cp of the rows
-    (JAX's q_sharded layout, :349-425).
+    (JAX's q_sharded layout, :349-425);
+  - under tensor parallelism the tree itself is this rank's shard
+    (parallel/sharding.shard_params) and carries its ``tp_comm``: the
+    projections' local widths give the local head counts, o_proj and
+    down_proj are followed by an all_reduce_sum over tp (an int4 one is
+    replicated: its input is all-gathered instead), the embedding lookup
+    is summed over tp and the head's logits are all-gathered over tp,
+    where JAX's GSPMD inserts the same collectives.
 """
 from __future__ import annotations
 
@@ -62,7 +69,8 @@ CP_ALGOS = ("ring", "ulysses", "hybrid")
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The mesh context of context-parallel attention (JAX :36-60).
+    """The mesh context of context-parallel attention (JAX :36-60), and of
+    the tile-sharded encode (``tile_comm``).
 
     mesh: a parallel.mesh.Mesh. cp_algo "ring" (zigzag ring attention, the
     inputs zigzag-permuted over cp), "ulysses" (head all-to-all, contiguous
@@ -90,6 +98,12 @@ class ParallelConfig:
     def comm(self):
         """The cp communicator."""
         return self.mesh.cp_comm
+
+    @property
+    def tile_comm(self):
+        """The ranks that encode one tile stack between them (JAX's
+        tile_axes, long_vita.py:112-150): the cp x tp ranks of a replica."""
+        return self.mesh.replica_comm
 
 
 def _cp_attention_sharded(q, k, v, segment_ids, parallel: ParallelConfig) -> torch.Tensor:
@@ -221,7 +235,12 @@ class DecoderLayer(nn.Module):
 
 
 class Qwen2Params(nn.Module):
-    """The text decoder's weights (the JAX package's ``params["text"]``)."""
+    """The text decoder's weights (the JAX package's ``params["text"]``).
+    ``tp_comm``: None for the whole tree; on a rank's tensor-parallel shard
+    (parallel/sharding.shard_params) the tp communicator its collectives
+    run on."""
+
+    tp_comm = None
 
     def __init__(
         self, *, embed: torch.Tensor, layers: list[DecoderLayer],
@@ -232,6 +251,18 @@ class Qwen2Params(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.final_norm = _frozen(final_norm)
         self.lm_head = lm_head  # weight [V, H]
+
+
+def out_features(entry: Projection) -> int:
+    """A projection's output width (its local width on a tp shard)."""
+    if isinstance(entry, QuantDense4):
+        return entry.packed.shape[1]
+    return (entry.weight_q if isinstance(entry, QuantDense8) else entry.weight).shape[0]
+
+
+def kv_heads(params: Qwen2Params, cfg: TextConfig) -> int:
+    """The kv heads the tree's layers compute: cfg's, or a tp shard's."""
+    return out_features(params.layers[0].k_proj) // cfg.head_dim
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -270,11 +301,12 @@ class KVCache:
     def zeros(
         cls, cfg: TextConfig, batch: int, max_len: int,
         dtype: torch.dtype = torch.bfloat16, device=None,
-        quantize: bool = False,
+        quantize: bool = False, kv_heads: Optional[int] = None,
     ) -> "KVCache":
+        """kv_heads: the heads a rank holds (a tp shard's); cfg's by default."""
         shape = (
             cfg.num_hidden_layers, batch, max_len,
-            cfg.num_key_value_heads, cfg.head_dim,
+            kv_heads or cfg.num_key_value_heads, cfg.head_dim,
         )
         if quantize:
             return cls(
@@ -328,6 +360,18 @@ def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
     return _with_lora(entry, x, out, cfg)
 
 
+def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp) -> torch.Tensor:
+    """A row-parallel projection (o_proj, down_proj) on a tp shard: this
+    rank's slice of the input dim, then one all_reduce_sum over tp; an int4
+    one is replicated (quantize.quantized_param_specs), so its input is
+    all-gathered over tp and the whole product computed. tp None: _proj."""
+    if tp is None:
+        return _proj(entry, x, cfg)
+    if isinstance(entry, QuantDense4):
+        return _proj(entry, tp.all_gather(x, -1), cfg)
+    return tp.all_reduce_sum(_proj(entry, x, cfg))
+
+
 def _row_write(buf: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor) -> None:
     """buf [B, Smax, ...] <- new [B, s, ...] at per-row offsets cache_len [B].
 
@@ -354,13 +398,16 @@ def _attention_block(
     attn_impl: str,
     parallel: Optional[ParallelConfig] = None,
     q_sharded: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     b, s, _ = x.shape
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    d = cfg.head_dim
 
     q = _proj(layer.q_proj, x, cfg) + layer.q_proj.bias
     k = _proj(layer.k_proj, x, cfg) + layer.k_proj.bias
     v = _proj(layer.v_proj, x, cfg) + layer.v_proj.bias
+    # the heads this rank computes: cfg's, or a tp shard's local ones
+    hq, hkv = q.shape[-1] // d, k.shape[-1] // d
     q = q.reshape(b, s, hq, d)
     k = k.reshape(b, s, hkv, d)
     v = v.reshape(b, s, hkv, d)
@@ -430,31 +477,34 @@ def _attention_block(
             kv_segment_ids=segment_ids,
             impl=attn_impl,
         )
-    return _proj(layer.o_proj, out.reshape(b, s, hq * d), cfg)
+    return _row_proj(layer.o_proj, out.reshape(b, s, hq * d), cfg, tp)
 
 
-def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig):
-    """Dense SwiGLU, or the MoE MLP when the layer carries a router (JAX
-    :602-667, local mode). -> (out, the layer's aux loss or None)."""
+def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None):
+    """Dense SwiGLU (on a tp shard, this rank's slice of the intermediate
+    dim, then down_proj's all-reduce), or the MoE MLP when the layer carries
+    a router (JAX :602-667, local mode). -> (out, the layer's aux loss or
+    None)."""
     if hasattr(layer, "router"):
         from long_vita_tpu_torch.ops.moe import moe_mlp
 
         return moe_mlp(layer, x, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
     gate = _proj(layer.gate_proj, x, cfg)
     up = _proj(layer.up_proj, x, cfg)
-    return _proj(layer.down_proj, F.silu(gate) * up, cfg), None
+    return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp), None
 
 
-def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1) -> None:
+def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1) -> None:
     """MoE runs on one device (or on replicas of one). The JAX package shards
-    the experts over dp (expert parallelism, two all_to_alls a layer) and
-    routes cp's tokens as one global batch with one capacity; neither is
-    ported (ROADMAP §1, pipeline stages and expert parallelism), so a MoE model
-    over dp or cp > 1 raises."""
-    if cfg.num_experts > 0 and (dp > 1 or cp > 1):
+    the experts over dp (expert parallelism, two all_to_alls a layer), their
+    intermediate dim over tp, and routes cp's tokens as one global batch
+    with one capacity; none of it is ported (ROADMAP §1, expert
+    parallelism), so a MoE model over dp, cp or tp > 1 raises."""
+    if cfg.num_experts > 0 and (dp > 1 or cp > 1 or tp > 1):
         raise NotImplementedError(
-            f"MoE layers over a multi-GPU mesh (dp {dp}, cp {cp}): expert parallelism and "
-            "cp's global routing are not ported (ROADMAP §1, expert parallelism)")
+            f"MoE layers over a multi-GPU mesh (dp {dp}, cp {cp}, tp {tp}): expert "
+            "parallelism, MoE over tp and cp's global routing are not ported (ROADMAP §1, "
+            "expert parallelism)")
 
 
 def decoder_layer(
@@ -470,13 +520,15 @@ def decoder_layer(
     attn_impl: str,
     parallel: Optional[ParallelConfig] = None,
     q_sharded: bool = False,
+    tp=None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """-> (x, the MoE aux loss of the layer, None for a dense one)."""
+    """-> (x, the MoE aux loss of the layer, None for a dense one). tp: the
+    tree's tp communicator (row-parallel all-reduces), or None."""
     x = x + _attention_block(
         layer, rms_norm(x, layer.input_norm, cfg.rms_norm_eps), cos, sin, cfg,
-        cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded,
+        cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded, tp,
     )
-    out, aux = _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg)
+    out, aux = _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg, tp)
     return x + out, aux
 
 
@@ -561,6 +613,7 @@ def qwen2_decoder(
     seq = inputs_embeds.shape[1]
     cp = parallel.cp if parallel is not None else 1
     check_moe_mesh(cfg, cp=cp)
+    tp = params.tp_comm
     # a cached chunk that divides by cp runs on this rank's 1/cp of its rows
     q_sharded = kv_cache is not None and cp > 1 and seq > 1 and seq % cp == 0
     if q_sharded:
@@ -576,7 +629,7 @@ def qwen2_decoder(
         if kv_cache is not None:
             cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
         args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-                segment_ids, attn_impl, parallel, q_sharded)
+                segment_ids, attn_impl, parallel, q_sharded, tp)
         if recompute:
             x, aux_l = remat_checkpoint(decoder_layer, *args, remat=remat)
         else:
@@ -599,8 +652,20 @@ def qwen2_decoder(
 def embed_tokens(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tensor:
     """Row lookup. Ids past the table clamp to its last row, as the JAX
     gather does (a finished row of a ragged batch feeds back eos, which
-    lies past the vocabulary of the tiny test configuration)."""
-    return F.embedding(input_ids.clamp(max=params.embed.shape[0] - 1), params.embed)
+    lies past the vocabulary of the tiny test configuration).
+
+    On a tp shard (vocab-parallel, JAX's embed_tokens_vp :918 as GSPMD
+    serves it): the id is clamped to the whole table first, each rank looks
+    up the rows its slice holds with zeros elsewhere, and the rows are
+    summed over tp, which is exact (one real row plus zeros)."""
+    tp = params.tp_comm
+    n = params.embed.shape[0]
+    if tp is None:
+        return F.embedding(input_ids.clamp(max=n - 1), params.embed)
+    local = input_ids.clamp(max=n * tp.size - 1) - tp.rank * n
+    hit = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), params.embed)
+    return tp.all_reduce_sum(torch.where(hit[..., None], rows, torch.zeros_like(rows)))
 
 
 def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -612,13 +677,18 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     backward); elsewhere the operands are widened to f32 first, which is
     exact for bf16. A quantized head (JAX :969-982): int4 through
     w4_matmul with f32 out; int8 codes cast to the hidden dtype, the f32
-    product, then the f32 scale."""
+    product, then the f32 scale. On a tp shard (vocab-parallel) each rank
+    computes its [..., V / tp] logits and they are all-gathered over tp:
+    the whole row, exactly."""
     entry = params.lm_head
     if isinstance(entry, QuantDense4):
-        return w4_matmul(hidden, entry.packed, entry.scales, out_dtype=torch.float32)
-    if isinstance(entry, QuantDense8):
-        return _f32_logits(hidden, entry.weight_q.to(hidden.dtype)) * entry.scale
-    return _f32_logits(hidden, entry.weight)
+        logits = w4_matmul(hidden, entry.packed, entry.scales, out_dtype=torch.float32)
+    elif isinstance(entry, QuantDense8):
+        logits = _f32_logits(hidden, entry.weight_q.to(hidden.dtype)) * entry.scale
+    else:
+        logits = _f32_logits(hidden, entry.weight)
+    tp = params.tp_comm
+    return logits if tp is None else tp.all_gather(logits, -1)
 
 
 def _f32_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

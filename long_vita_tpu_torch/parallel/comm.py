@@ -239,6 +239,38 @@ class ThreadComm(Comm):
         self._shared.abort()
 
 
+_MATH_PRIMED = False
+
+
+def _prime_cpu_math() -> None:
+    """Call PyTorch's vectorised CPU math kernels once on this thread.
+
+    Their vector bodies (SLEEF on x86) are bound at the first call, and two
+    threads making that first call together can be handed a less accurate
+    variant: torch.cos came out 1.5e-4 off in about 2 of 100 fresh
+    processes whose two threads called it at once (a [1, 32, 16] f32 rope
+    table, AVX512 build), never once a thread had called it before. Thread-
+    ranks leave a barrier together, so the first ranks to reach a rope
+    table or a softmax would race; once per process, before any of them
+    starts, every such kernel is bound here."""
+    global _MATH_PRIMED
+    if _MATH_PRIMED:
+        return
+    for dtype in (torch.float32, torch.float64):
+        x = torch.linspace(0.1, 0.9, 64, dtype=dtype)
+        for fn in (torch.cos, torch.sin, torch.tan, torch.exp, torch.exp2, torch.expm1,
+                   torch.log, torch.log2, torch.log10, torch.log1p, torch.tanh, torch.sigmoid,
+                   torch.erf, torch.acos, torch.asin, torch.atan, torch.sinh, torch.cosh,
+                   torch.nn.functional.silu, torch.nn.functional.gelu):
+            fn(x)
+        torch.pow(x, x)
+        torch.pow(2.0, x)
+        torch.atan2(x, x)
+        torch.softmax(x, 0)
+        torch.log_softmax(x, 0)
+    _MATH_PRIMED = True
+
+
 def run_thread_ranks(fn: Callable[[ThreadComm], object], size: int, *,
                      timeout: float = DEFAULT_TIMEOUT,
                      join_timeout: Optional[float] = None) -> list:
@@ -247,6 +279,7 @@ def run_thread_ranks(fn: Callable[[ThreadComm], object], size: int, *,
     first exception (by rank) is re-raised here. A thread still running
     after ``join_timeout`` seconds (default: 4 x timeout) raises
     TimeoutError (the thread is a daemon and does not keep the process)."""
+    _prime_cpu_math()
     comms = ThreadComm.group(size, timeout)
     results: list = [None] * size
     errors: list = [None] * size

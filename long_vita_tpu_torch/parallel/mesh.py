@@ -2,11 +2,12 @@
 
 Counterpart of long_vita_tpu/parallel/mesh.py: ``MeshConfig`` (:41),
 ``make_mesh`` (:60) and ``validate_geometry`` (:84). Where JAX names the
-axes of one device array and shard_map hands a body its axis, the port's
-mesh is a grid of ranks over a world communicator with one communicator per
-axis: rank = ((d * pp + p) * cp + c) * tp * tq + ..., dp outermost, as JAX
-reshapes its device list. The dp and cp axes run; tp > 1, pp > 1 and tq > 1
-raise, naming the ROADMAP items that port them.
+axes of one device array and shard_map (or GSPMD) hands a body its axis,
+the port's mesh is a grid of ranks over a world communicator with one
+communicator per axis. A rank's coordinates follow JAX's ``np.reshape(
+devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = (d * cp + c) * tp + t,
+dp outermost and tp innermost. The dp, cp and tp axes run; pp > 1 and
+tq > 1 raise, naming the ROADMAP items that port them.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1: tensor parallelism, FSDP, and pipeline "
-              "stages with expert parallelism, the multi-GPU items after context "
+NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after tensor-parallel "
+              "serving: training over tp with 2-D tp, FSDP, pipeline stages and expert "
               "parallelism)")
 
 
@@ -37,25 +38,44 @@ class MeshConfig:
 
 
 class Mesh:
-    """Ranks of ``comm`` (the world) as a dp x cp grid: ``dp_comm`` joins the
-    ranks of one cp index across replicas, ``cp_comm`` the ranks of one
-    replica (dp index). ``shape`` maps each axis name to its size, as a JAX
-    mesh's does."""
+    """Ranks of ``comm`` (the world) as a dp x cp x tp grid, with one
+    communicator per axis: ``tp_comm`` joins the ranks of one (dp, cp)
+    index, ``cp_comm`` those of one (dp, tp) index, ``dp_comm`` those of
+    one (cp, tp) index, and ``replica_comm`` the cp x tp ranks of one dp
+    index (the ranks that hold the same requests or batch rows). An axis of
+    size 1 gets a LocalComm, and a group of every rank the world itself.
+    ``shape`` maps each axis name to its size, as a JAX mesh's does."""
 
     def __init__(self, cfg: MeshConfig, comm: Comm):
-        for name, n in (("tp", cfg.tp), ("pp", cfg.pp), ("tq", cfg.tq)):
+        for name, n in (("pp", cfg.pp), ("tq", cfg.tq)):
             if n > 1:
                 raise NotImplementedError(f"mesh axis {name} = {n} {NEXT_SLICE}")
         if cfg.size != comm.size:
             raise ValueError(f"mesh {cfg} needs {cfg.size} ranks, the communicator has {comm.size}")
         self.cfg, self.world = cfg, comm
-        dp, cp = cfg.dp, cfg.cp
-        self.dp_index, self.cp_index = divmod(comm.rank, cp)
-        self.cp_comm = (comm.split([[d * cp + c for c in range(cp)] for d in range(dp)])
-                        if cp > 1 else LocalComm())
-        self.dp_comm = (comm.split([[d * cp + c for d in range(dp)] for c in range(cp)])
-                        if dp > 1 else LocalComm())
-        self.shape = {AXIS_DP: dp, AXIS_PP: 1, AXIS_CP: cp, AXIS_TP: 1, AXIS_TQ: 1}
+        dp, cp, tp = cfg.dp, cfg.cp, cfg.tp
+
+        def rank(d, c, t):
+            return (d * cp + c) * tp + t
+
+        self.dp_index, rest = divmod(comm.rank, cp * tp)
+        self.cp_index, self.tp_index = divmod(rest, tp)
+        self.tp_comm = self._axis([[rank(d, c, t) for t in range(tp)]
+                                   for d in range(dp) for c in range(cp)])
+        self.cp_comm = self._axis([[rank(d, c, t) for c in range(cp)]
+                                   for d in range(dp) for t in range(tp)])
+        self.dp_comm = self._axis([[rank(d, c, t) for d in range(dp)]
+                                   for c in range(cp) for t in range(tp)])
+        self.replica_comm = self._axis([[d * cp * tp + j for j in range(cp * tp)]
+                                        for d in range(dp)])
+        self.shape = {AXIS_DP: dp, AXIS_PP: 1, AXIS_CP: cp, AXIS_TP: tp, AXIS_TQ: 1}
+
+    def _axis(self, groups: list) -> Comm:
+        if len(groups[0]) == 1:
+            return LocalComm()
+        if len(groups) == 1:
+            return self.world
+        return self.world.split(groups)
 
     @property
     def size(self) -> int:

@@ -118,14 +118,17 @@ def make_parallel_config(mesh, *, cp_algo: str = "ring", cp_inner: int = 1,
 
 
 def _check_mesh(mesh, device=None) -> None:
-    """A mesh must be a parallel.mesh.Mesh; thread-ranks train only on the
-    CPU (see the module docstring)."""
+    """A mesh must be a parallel.mesh.Mesh of dp x cp (tp serves, and trains
+    in a later slice); thread-ranks train only on the CPU (see the module
+    docstring)."""
     if mesh is None:
         return
-    from long_vita_tpu_torch.parallel.mesh import Mesh
+    from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
+    if mesh.shape["tp"] > 1:
+        raise NotImplementedError(f"training over tp = {mesh.shape['tp']} {NEXT_SLICE}")
     if (isinstance(mesh.world, ThreadComm) and mesh.size > 1 and device is not None
             and torch.device(device).type == "cuda"):
         raise RuntimeError(

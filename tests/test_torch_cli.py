@@ -141,21 +141,19 @@ def test_serve_starts_the_port_server(checkpoint, stub_tokenizer, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(tp=2), dict(cp=2)])
 def test_mesh_flags_raise_until_multi_gpu(checkpoint, stub_tokenizer, kw, monkeypatch):
-    """tp waits for the multi-GPU items; cp serves from a job of cp
-    processes, so one process asking for cp 2 is told to use torchrun."""
+    """tp and cp serve from a job of tp x cp processes, so one process
+    asking for tp 2 or cp 2 is told to use torchrun."""
     for var in ("RANK", "WORLD_SIZE", "LVT_COORDINATOR"):
         monkeypatch.delenv(var, raising=False)
-    if "tp" in kw:
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            port_cli.build_engine(checkpoint, device="cpu", **kw)
-    else:
-        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
-            port_cli.build_engine(checkpoint, device="cpu", **kw)
+    flag = "--tp 2" if "tp" in kw else "--cp 2"
+    with pytest.raises(ValueError, match=f"torchrun --nproc-per-node 2 .* {flag}"):
+        port_cli.build_engine(checkpoint, device="cpu", **kw)
 
 
 def test_chat_over_cp_raises(checkpoint):
-    with pytest.raises(SystemExit):
-        port_cli.main([checkpoint, "--chat", "--cp", "2"])
+    for flag in ("--cp", "--tp"):
+        with pytest.raises(SystemExit):
+            port_cli.main([checkpoint, "--chat", flag, "2"])
 
 
 CP_PAYLOADS = [
@@ -165,9 +163,9 @@ CP_PAYLOADS = [
 ]
 
 
-def _cli_serve_worker(rank, world, init, ckpt, http_port, out):
+def _cli_serve_worker(rank, world, init, ckpt, http_port, flag, out):
     """One gloo process of `cli.main([ckpt, "--serve", "--continuous",
-    "--cp", "2", ...])`, started as torchrun's would be but through the
+    flag, "2", ...])` (flag "--cp" or "--tp"), started as torchrun's would be but through the
     LVT_* variables: the stub tokenizer, the CPU, rank 0's client on a
     thread of its own process (it PUTs CP_PAYLOADS, then shuts the server
     down)."""
@@ -208,7 +206,7 @@ def _cli_serve_worker(rank, world, init, ckpt, http_port, out):
 
             threading.Thread(target=client, daemon=True).start()
         port_cli.main([ckpt, "--dtype", "float32", "--max-seq-len", "512", "--chunk", "64",
-                       "--serve", "--continuous", "--cp", str(world), "--host", "127.0.0.1",
+                       "--serve", "--continuous", flag, str(world), "--host", "127.0.0.1",
                        "--port", str(http_port)])
         out.put((rank, got.get("answers", "followed until shutdown")))
     except Exception as e:  # noqa: BLE001 (reported to the parent)
@@ -223,6 +221,17 @@ def test_cli_serves_cp_2_from_two_gloo_processes(checkpoint, stub_tokenizer, one
     exits after rank 0's shutdown, both with code 0; the answers equal the
     one-process port server's on the same checkpoint (text identical,
     logprobs within 1e-4)."""
+    _cli_against_one_process(checkpoint, "--cp")
+
+
+def test_cli_serves_tp_2_from_two_gloo_processes(checkpoint, stub_tokenizer, one_torch_thread):
+    """The same launch with --tp 2: each process keeps its shard of the
+    weights and of the cache's kv heads; rank 0 answers HTTP, rank 1
+    replays it; the answers equal the one-process port server's."""
+    _cli_against_one_process(checkpoint, "--tp")
+
+
+def _cli_against_one_process(checkpoint, flag):
     import json
 
     import long_vita_tpu_torch.inference.server as port_server
@@ -230,7 +239,7 @@ def test_cli_serves_cp_2_from_two_gloo_processes(checkpoint, stub_tokenizer, one
     from test_torch_serving import _put, _serve, _stop
 
     codes = {}
-    got = run_gloo(_cli_serve_worker, 2, checkpoint, free_port(), join_timeout=240,
+    got = run_gloo(_cli_serve_worker, 2, checkpoint, free_port(), flag, join_timeout=240,
                    exitcodes=codes)
     assert isinstance(got.get(0), list) and got.get(1) == "followed until shutdown", got
     assert codes == {0: 0, 1: 0}, codes

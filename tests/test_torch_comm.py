@@ -153,6 +153,37 @@ def test_thread_ranks_stress_under_a_short_switch_interval():
     assert counter.launches == n * steps * 25
 
 
+_FIRST_CALLS = """
+import torch
+torch.set_num_threads(1)
+from long_vita_tpu_torch.parallel import comm
+assert not comm._MATH_PRIMED
+x = torch.arange(512, dtype=torch.float32).reshape(1, 32, 16) * 0.37
+def rank(c):
+    c.barrier()  # the ranks reach their first torch.cos together
+    return torch.cos(x), torch.exp(-x)
+got = comm.run_thread_ranks(rank, 2, timeout=30)
+assert comm._MATH_PRIMED
+want = (torch.cos(x), torch.exp(-x))
+assert all(torch.equal(a, b) for r in got for a, b in zip(r, want)), "a rank's math kernel differs"
+print("ok")
+"""
+
+
+def test_thread_ranks_bind_the_math_kernels_before_they_start():
+    """run_thread_ranks calls the vectorised CPU math kernels once before its
+    threads start (comm._prime_cpu_math: two threads making the first call
+    of torch.cos together were handed a less accurate kernel in ~2% of
+    fresh processes); in a fresh process, two ranks that call torch.cos and
+    torch.exp together right after a barrier get the main thread's bits."""
+    import subprocess
+    from pathlib import Path
+
+    res = subprocess.run([sys.executable, "-c", _FIRST_CALLS], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
 def test_autograd_probe_completes_on_the_cpu():
     """chip_smoke.py's probe: two thread-ranks whose backward passes meet at
     a barrier complete on the CPU (the engine runs a CPU backward on the

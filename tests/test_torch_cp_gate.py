@@ -74,10 +74,14 @@ def test_nccl_phase_rehearsal_over_gloo(chip_smoke, capsys):
                              train_seq=256, budget=256, answer=20, server_seq=512,
                              server_chunk=64, server_chars=(150, 90), server_image=(168, 56),
                              server_tokens=5, server_tok=dict(endoftext=256, im_start=257,
-                                                              im_end=258, first_added=259))
+                                                              im_end=258, first_added=259),
+                             ttft_prompt=300, ttft_seq=512)
     out = capsys.readouterr().out
     assert out.count("merged lse max|err|") == 2 and "FAIL" not in out
     # the lockstep server at cp 2 over the two processes: gates (a) and (b)
     assert "[cp-nccl server] (a) lockstep: each of 1 followers replayed rank 0's 3 pool" in out
     assert "(b) each HTTP answer equals the in-process pool's row" in out
+    # and with the engine over tp 2, then the tp TTFT against one process
+    assert "[tp-nccl server] (a) lockstep: each of 1 followers replayed rank 0's 3 pool" in out
+    assert "[tp-nccl] 300-id prompt on the 1-layer model at full width: TTFT tp 2" in out
     assert '"phase": "cp_nccl", "ran": true' in out

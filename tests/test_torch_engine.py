@@ -190,10 +190,11 @@ def test_sampled_generate_is_seeded(engines):
     assert all(0 <= t < cfg.text.vocab_size for t in a.token_ids)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh_cfg=MeshConfig(tp=2)), "multi-GPU")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh_cfg=MeshConfig(pp=2)), "multi-GPU")])
 def test_later_slices_raise(engines, kw, item):
-    """A cp mesh serves (tests/test_torch_cp_engine.py); a tensor-parallel
-    one waits for the next multi-GPU slice."""
+    """cp and tp meshes serve (tests/test_torch_cp_engine.py,
+    test_torch_tp_engine.py); a pipeline one waits for a later multi-GPU
+    slice."""
     _, port, cfg = engines
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine(port.params, cfg, _MM(), mesh=make_mesh(kw["mesh_cfg"], LocalComm()))

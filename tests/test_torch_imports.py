@@ -275,6 +275,60 @@ def test_context_parallel_without_jax():
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 
+_NO_JAX_TP = """
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["long_vita_tpu"] = None
+import torch
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.inference import cli, server
+from long_vita_tpu_torch.inference.engine import InferenceEngine
+from long_vita_tpu_torch.inference.sampler import SamplingParams
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+from long_vita_tpu_torch.models.quantize import quantized_param_specs
+from long_vita_tpu_torch.parallel import comm, mesh, sharding
+
+class MM:
+    class tokenizer:
+        @staticmethod
+        def decode(ids, skip_special_tokens=True):
+            return ",".join(map(str, ids))
+    def expand(self, input_ids, images=(), videos=(), max_num_frame=None):
+        class E:
+            pass
+        e = E()
+        e.input_ids, e.images, e.image_indices = list(input_ids), None, None
+        return e
+
+torch.set_num_threads(1)
+cfg = tiny_test_config()
+vlm = init_long_vita_params(torch.Generator().manual_seed(1), cfg)
+sp = SamplingParams(max_new_tokens=4)
+for quant in (None, "int4"):
+    want = InferenceEngine(vlm, cfg, MM(), max_seq_len=128, chunk=32, weight_quant=quant).generate(
+        input_ids=list(range(45)), sampling=sp).token_ids
+    for dims, n in ((dict(tp=2), 2), (dict(cp=2, tp=2), 4)):
+        got = comm.run_thread_ranks(lambda c: InferenceEngine(
+            vlm, cfg, MM(), max_seq_len=128, chunk=32, weight_quant=quant,
+            mesh=mesh.make_mesh(mesh.MeshConfig(**dims), c)
+        ).generate(input_ids=list(range(45)), sampling=sp).token_ids, n, timeout=60)
+        assert got == [want] * n, (dims, quant, got, want)
+print("ok")
+"""
+
+
+def test_tensor_parallel_without_jax():
+    """The tp modules (parallel/sharding, quantized_param_specs, the tp
+    decoder) import and serve over tp 2 and cp 2 x tp 2 thread-ranks, bf16
+    layout and int4 weights, with neither JAX nor the JAX package
+    loadable."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_TP], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
 _NO_JAX_SLICE11 = """
 import json, sys, tempfile
 for name in ("jax", "long_vita_tpu", "PIL", "transformers", "safetensors", "requests", "vlmeval"):

@@ -290,6 +290,8 @@ def test_moe_over_a_mesh_and_quantized_moe_raise():
     cfg = port_tiny_config(num_experts=4)
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         tq.check_moe_mesh(cfg.text, dp=2)
+    with pytest.raises(NotImplementedError, match="MoE over tp"):
+        tq.check_moe_mesh(cfg.text, tp=2)
     tq.check_moe_mesh(cfg.text)  # one device: fine
     tq.check_moe_mesh(port_tiny_config().text, dp=2, cp=2)  # dense: fine
     text = tq.init_qwen2_params(torch.Generator().manual_seed(0), cfg.text)

@@ -414,10 +414,12 @@ def test_trainer_accumulates_micro_batches():
 
 def test_unported_options_raise():
     """What still waits for the next multi-GPU slice (ROADMAP's port queue)
-    raises: tensor and pipeline parallel meshes, virtual pipeline stages,
-    FSDP and MoE layers over a mesh (expert parallelism). (dp x cp meshes and zigzag batches train since the
-    context-parallel slice: tests/test_torch_cp_training.py.)"""
-    from long_vita_tpu_torch.parallel.comm import LocalComm
+    raises: training over tensor and pipeline parallel meshes (tp serves
+    since the tensor-parallel serving slice), virtual pipeline stages,
+    FSDP and MoE layers over a mesh (expert parallelism). (dp x cp meshes
+    and zigzag batches train since the context-parallel slice:
+    tests/test_torch_cp_training.py.)"""
+    from long_vita_tpu_torch.parallel.comm import ThreadComm
     from long_vita_tpu_torch.parallel.mesh import make_mesh
 
     with pytest.raises(NotImplementedError, match="multi-GPU"):
@@ -429,7 +431,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _trainer(None, 1, fsdp=True)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tp=2), LocalComm()))
+        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tp=2), ThreadComm.group(2)[0]))
     from long_vita_tpu_torch.models.long_vita import init_long_vita_params
 
     moe_cfg = port_tiny_config(num_experts=4)  # MoE trains on one device only
