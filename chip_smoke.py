@@ -59,7 +59,8 @@ Phases (each raises on failure; the script then exits non-zero):
      one-device engine on the same weights fed the cp engine's tokens
      (every step's logits; each cp pick the one-device argmax up to a
      rounding tie);
-  5c. the cp server (phase_cp_server): the same decoder with a random tower
+  5c. the cp server (phase_cp_server): the same decoder, cut to its first
+     24 layers since the tp training phase joined, with a random tower
      behind the port's server on cp rank 0 of 4 thread-ranks, ranks 1-3 in
      follower_serve replaying its actions (the lockstep channel,
      inference/multihost.py), a 32768-slot cache (8192 a rank), chunk 2048:
@@ -84,6 +85,24 @@ Phases (each raises on failure; the script then exits non-zero):
      first 24 layers with a 7000-id prompt. K1, K2, K3, K6 and K6's
      dequantise route counted exactly; the phase's seconds and peak memory
      printed;
+  5e. training over tp (phase_tp_train): K1 forward and K4 and K5 backward
+     at a tp-8 rank's heads ([1, 16384, 5/1, 128], T2's packed row) against
+     their plain versions; then the 14B VLM at full width, the decoder cut
+     to 4 layers, the 24-layer tower, written as a *_HF checkpoint
+     directory, and configs/stage2_16k.yaml's settings (everything
+     trainable, the tower at lr x 0.1, remat, 16384 tokens; logit budget
+     cut to 4096) on one packed row with a 7-tile image, through
+     train.build_from_recipe and Trainer.train: 2 steps at tp 1 in a
+     process of its own, then at tp 2 in two gloo processes sharing this
+     card (parallel/comm.init_process_group(..., staged_device="cuda"):
+     each collective's operands staged through pinned host memory), each
+     rank reading only its slices of the checkpoint. Gates: losses and
+     grad_norm against tp 1, both ranks' loss bits, the first step's
+     gradients gathered from the shards against tp 1's by leaf group, a
+     planted fault (the norms' tp sum removed) that must fail that gate,
+     the warm-up's lr-0 step leaving every bit, K1/K3/K4/K5 launches exact;
+     bytes read, step times, the staged copies' share and each rank's peak
+     memory printed;
   6. the port's serving entry points on a checkpoint it writes and reads:
      the decoder with a random InternViT-300M and projector exported as a
      *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
@@ -145,8 +164,9 @@ Phases (each raises on failure; the script then exits non-zero):
      sequence (each rank's o and merged lse through cp_forward_check, as
      phase_cp_attention holds them), and two Trainer steps at cp 2 (full
      width, the decoder cut to 4 layers) against cp 1, the lockstep server
-     at cp 2 and at tp 2 on that model (gates (a), (b)), and a 16000-id
-     TTFT at tp 2 over the two cards against one card. On one GPU it prints {"phase": "cp_nccl",
+     at cp 2 and at tp 2 on that model (gates (a), (b)), a 16000-id
+     TTFT at tp 2 over the two cards against one card, and phase_tp_train
+     at tp 2 over NCCL (a card a rank) against tp 1 under its gates. On one GPU it prints {"phase": "cp_nccl",
      "ran": false, "devices": 1} and does nothing else. ``python3
      chip_smoke.py --nccl-only`` builds the kernels and runs this phase
      alone.
@@ -3684,9 +3704,10 @@ def phase_cp_server(params, cfg, dev, *, max_seq=32768, chunk=2048, slots=4, tic
                     text_chars=(7000, 3000, 1500), new_tokens=8, image_wh=(1344, 448),
                     stream_chars=600, sampled_chars=400, batch_chars=(900, 500),
                     beam_chars=300, beam_tokens=4, vision_chunk=64, tokenizer=None) -> dict:
-    """Serving a cp group from its entry points: the 14B (full width and
-    depth, the serving phases' random bf16 weights with a random tower and
-    projector, shared by the thread-ranks) behind the port's server on cp
+    """Serving a cp group from its entry points: the 14B (full width, the
+    decoder at the depth given: main passes its first 24 layers; the serving
+    phases' random bf16 weights with a random tower and projector, shared by
+    the thread-ranks) behind the port's server on cp
     rank 0 of CP thread-ranks, ranks 1.. in follower_serve (the lockstep,
     inference/multihost.py over ThreadComm), the ByteTokenizer in the real
     MultimodalTokenizer. A 32768-slot cache, 8192 a rank, chunk 2048.
@@ -3699,7 +3720,7 @@ def phase_cp_server(params, cfg, dev, *, max_seq=32768, chunk=2048, slots=4, tic
     same ranks, fed the server's admissions in order (run after the
     server's pool is freed); (c) the longest prompt on the cp engine
     against the one-device engine, teacher-forced, under the logit gate;
-    (d) exact launch counts: K1 CP x 48 x the chunks of every prefill, K3
+    (d) exact launch counts: K1 CP x layers x the chunks of every prefill, K3
     CP x 24 x a rank's encode batches. Times are THREADS_NOTE. Its sizes
     (and ``tokenizer``: a ByteTokenizer at Qwen2.5's ids by default) are
     arguments, so that it rehearses on the CPU at a tiny size.
@@ -4085,6 +4106,459 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
     if failures:
         raise AssertionError(f"phase_tp_serve: {failures}")
     return total
+
+
+# ---- training over tp (phase_tp_train) -------------------------------------------
+
+TP_TRAIN_LAYERS = 4  # the decoder's depth in phase_tp_train (full width)
+TP_TRAIN_TIMEOUT = 600.0  # seconds any one wait of a phase_tp_train process may take
+STAGED_NOTE = ("two processes sharing one card, their collectives staged through host "
+               "memory over gloo: no multi-GPU time")
+# the gradient gate's leaf groups: each norm, each projection, the embedding,
+# the head, the tower and the projector
+GRAD_GROUPS = ("input_norm", "post_attn_norm", "final_norm", "q_proj", "k_proj", "v_proj",
+               "o_proj", "gate_proj", "up_proj", "down_proj", "embed", "lm_head")
+
+
+def _grad_group(name: str) -> str:
+    if name.startswith(("vision.", "projector.")):
+        return name.split(".")[0]
+    return next(g for g in GRAD_GROUPS if f".{g}" in name)
+
+
+def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None) -> float:
+    """K1 forward and K4 and K5 backward at a tp-8 rank's heads of the 14B
+    ([1, s, 5/1, 128]) on T2's packed row (a 16-frame video, a 7-tile image,
+    4 text samples), each against its plain version: the forward at O_ATOL
+    + O_RTOL |ref| and LSE_ATOL, the backward by segment
+    (_plain_bwd_by_segment) at GRAD_TOL. -> the largest error (these
+    launches are not the main path's)."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    dev = dev or torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    hq, hkv = heads
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
+    seg = _train_segments(s, (16,), (2, 3), dev)
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    errs = [_kernel_case(f"tp-8 rank: K1 [1, {s}, {hq}/{hkv}, {d}] causal, T2's packed row",
+                         q, k, v, **kw)]
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ref = _plain_bwd_by_segment(q, k, v, o, lse, do, seg)
+    for fused, name, wrappers in ((True, "K4", [fa.flash_bwd_fused]),
+                                  (False, "K5", [fa.flash_bwd_dkv, fa.flash_bwd_dq])):
+        before = [w.launches for w in wrappers]
+        got = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, 0, 0, s, seg, seg, fused)
+        torch.cuda.synchronize()
+        if [w.launches for w in wrappers] != [n + 1 for n in before]:
+            raise AssertionError(f"[tp train kernels] {name} did not launch once")
+        errs += _grad_errs(f"tp-8 rank: {name} [1, {s}, {hq}/{hkv}, {d}] causal, T2's packed "
+                           "row", got, ref)
+    return max(errs)
+
+
+def _tp_train_recipe(work, ckpt, sizes, tp) -> dict:
+    """The recipe of phase_tp_train: configs/stage2_16k.yaml's settings (lr
+    1e-5 after 100 warmup steps of 7000, the tower at lr x 0.1, everything
+    trainable, remat) at ``tp``, the logit budget cut to sizes["budget"]."""
+    return {
+        "model": {"checkpoint": ckpt, "dtype": "bfloat16"},
+        "data": {"corpus": os.path.join(work, "corpus.yaml"), "seq_len": sizes["seq"],
+                 "logit_budget": sizes["budget"], "vision_chunk": 64},
+        "mesh": {"tp": tp} if tp > 1 else {},
+        "optim": {"lr": 1.0e-5, "warmup_steps": 100, "total_steps": 7000, "vit_lr_mult": 0.1},
+        "run": {"steps": sizes["steps"], "global_batch": 1, "remat": True, "seed": SEED},
+    }
+
+
+def _tp_train_worker(rank, world, init, out, sizes):
+    """One process of phase_tp_train: ``world`` 1 is the tp-1 reference (a
+    process of its own), else tp rank ``rank`` over gloo with CUDA operands
+    staged through host memory (sizes["backend"] "staged"; both ranks on
+    card 0), NCCL (one card a rank) or plain gloo on the CPU (the
+    rehearsal). Builds the Trainer through train.build_from_recipe (each tp
+    rank reads its slices of the checkpoint), takes the first step's
+    gradients through train_step._backward (and again with the norms' tp sum
+    removed: the planted fault), then trains sizes["steps"] steps through
+    Trainer.train on the one packed row. Puts (rank, results or the error)
+    on ``out``; the tp-1 process writes its gradients to the work
+    directory, tp rank 0 reads them for the gate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    try:
+        import long_vita_tpu_torch.tokenizer as port_tokenizer
+        from long_vita_tpu_torch.models import qwen2
+        from long_vita_tpu_torch.parallel.comm import init_process_group
+        from long_vita_tpu_torch.parallel.sharding import leaf_layout
+        from long_vita_tpu_torch.training import train as ttrain
+        from long_vita_tpu_torch.training import train_step as tts
+        from long_vita_tpu_torch.training.loss import collate_packs
+
+        cpu = sizes["device"] == "cpu"
+        if cpu:
+            torch.set_num_threads(1)
+        backend = sizes["backend"]
+        comm = None
+        if world > 1:
+            comm = init_process_group(
+                rank, world, init, backend="nccl" if backend == "nccl" else "gloo",
+                timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
+        dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
+        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+        res = {"rank": rank}
+        t0 = time.perf_counter()
+        trainer, stream, _ = ttrain.build_from_recipe(
+            _tp_train_recipe(sizes["work"], sizes["ckpt"], sizes, world), device=dev, comm=comm)
+        del stream  # the phase trains on its own packed row
+        sync()
+        res["build_s"] = time.perf_counter() - t0
+        res["bytes_read"] = trainer.checkpoint_bytes
+        cfg, params = trainer.cfg, trainer.state.params
+        rng = np.random.default_rng(SEED + 71)
+        vc = cfg.vision
+        tiles = rng.standard_normal((7, vc.image_size, vc.image_size, 3)).astype(np.float32)
+        # a tile's token run as the tower and projector make it (build_from_recipe's rule)
+        per_tile = int((vc.grid * cfg.vision_downsample_ratio) ** 2)
+
+        def row(seq, budget):
+            # the text samples' supervised tails scale with the row
+            pack = _train_pack(dataclasses.replace(cfg, image_token_length=per_tile), seq, [],
+                               [(tiles, (2, 3))], np.random.default_rng(SEED + 74),
+                               text_segments=4, answer=sizes["answer"],
+                               text_sup=sizes["text_sup"] * seq // sizes["seq"])
+            b = collate_packs([pack], budget)
+            # the media markers are Qwen2.5's ids, inside the 14B's
+            # vocabulary; past a smaller one (the rehearsal's) the
+            # vocab-parallel lookup gives zeros where the plain one clamps
+            # (JAX's two paths), so the rehearsal clamps them first
+            b["tokens"] = np.minimum(b["tokens"], cfg.text.vocab_size - 1)
+            return b
+
+        batch = row(sizes["seq"], sizes["budget"])
+        res["supervised"] = int((batch["labels"] != -100).sum())
+        mesh = trainer.mesh
+        layout = leaf_layout(params, cfg, mesh.tp_index, world) if world > 1 else None
+
+        # ---- the planted fault, before the steps, on a shorter row: the
+        # norms' gradients with their tp sum removed (tp 2) against the
+        # same row's summed ones (tp 1)
+        fault_path = os.path.join(sizes["work"], "norm_grads_tp1.pt")
+        fault_len = sizes["fault_seq"]
+        if world > 1:
+            tts._UNSUMMED_OVER_TP = ("norm",)
+        try:
+            g, _, _, _ = tts._backward(
+                params, trainer._device_batch(row(fault_len, fault_len)), cfg,
+                trainer.tcfg.remat, trainer.tcfg.vision_chunk, trainer.freeze["freeze_vision"],
+                trainer.freeze["freeze_text"], mesh=mesh, parallel=tts.make_parallel_config(mesh))
+        finally:
+            tts._UNSUMMED_OVER_TP = ()
+        norms = {n: t for n, t in g.items() if _grad_group(n).endswith("norm")}
+        del g
+        if world == 1:
+            torch.save({n: t.cpu() for n, t in norms.items()}, fault_path)
+        else:
+            res["cos_fault"] = _group_cosines(norms, fault_path, layout, mesh.tp_comm, dev)
+        del norms
+        if not cpu:
+            torch.cuda.empty_cache()
+
+        # ---- the main path: Trainer.train, 2 steps on the packed row; the
+        # first step's gradients are kept for the gradient gate
+        first = {}
+        backward = tts._backward
+
+        def keep_first(*a, **k):
+            out = backward(*a, **k)
+            first.setdefault("grads", out[0])
+            return out
+
+        tts._backward = keep_first
+        before = {n: _fingerprint(p) for n, p in params.named_parameters()}
+        step_fn, kept = trainer.step_fn, []
+        norms_log = []
+
+        def logged(state, b):
+            state, m = step_fn(state, b)
+            norms_log.append(float(m["grad_norm"]))
+            if not kept:  # the warm-up's first step runs at lr 0
+                kept.append(sorted(n for n, p in state.params.named_parameters()
+                                   if _fingerprint(p) != before[n]))
+            return state, m
+
+        trainer.step_fn = logged
+        stamps, staged = [], []
+        stats = getattr(comm, "stats", None)
+
+        def batches():
+            for _ in range(sizes["steps"]):
+                sync()
+                stamps.append(time.perf_counter())
+                staged.append(stats["seconds"] if stats else 0.0)
+                yield batch
+
+        _reset_counts()
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            res["losses"] = trainer.train(batches())["losses"]
+        finally:
+            tts._backward = backward
+        sync()
+        stamps.append(time.perf_counter())
+        staged.append(stats["seconds"] if stats else 0.0)
+        res["peak_gb"] = 0.0 if cpu else torch.cuda.max_memory_allocated() / 1e9
+        path = os.path.join(sizes["work"], "grads_tp1.pt")
+        if world == 1:
+            torch.save({n: t.cpu() for n, t in first.pop("grads").items()}, path)
+        else:
+            res["cos"] = _group_cosines(first.pop("grads"), path, layout, mesh.tp_comm, dev)
+        res["counts"] = _read_counts()
+        res["norms"] = norms_log
+        res["step_s"] = [b - a for a, b in zip(stamps, stamps[1:])]
+        res["staged_s"] = [b - a for a, b in zip(staged, staged[1:])]
+        res["staged_gb"] = stats["bytes"] / 1e9 if stats else 0.0
+        res["moved_at_lr0"] = kept[0] if kept else None
+        res["heads"] = (qwen2.out_features(params.text.layers[0].q_proj) // cfg.text.head_dim,
+                        qwen2.kv_heads(params.text, cfg.text))
+        out.put((rank, res))
+        if comm is not None:
+            comm.barrier()
+            torch.distributed.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2500:]}"))
+
+
+def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev) -> dict:
+    """Cosine of each leaf group's whole gradient (GRAD_GROUPS, the tower,
+    the projector) against the tp-1 process's, from this rank's shards:
+    each rank takes the dot products of its slices with the same slices of
+    tp 1's gradients (read from the memory-mapped file), a slice several
+    ranks hold and a replicated leaf counted once, and the sums are added
+    over tp, which gives the gathered vectors' cosines without moving them.
+    Every tp rank calls it. -> {group: cosine}."""
+    import torch
+
+    from long_vita_tpu_torch.parallel.sharding import slice_leaf
+
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True, mmap=True)
+    groups = sorted({_grad_group(n) for n in grads})
+    acc = torch.zeros(len(groups), 3, dtype=torch.float64, device=dev)
+    for n, g in grads.items():
+        leaf = layout[n]
+        if tp_comm.rank % leaf.share if leaf.sharded else tp_comm.rank:
+            continue
+        a = g.float().flatten()
+        b = slice_leaf(ref[n], leaf).to(dev).float().flatten()
+        acc[groups.index(_grad_group(n))] += torch.stack([a @ b, a @ a, b @ b]).double()
+    acc = tp_comm.all_reduce_sum(acc).tolist()
+    return {k: dot / max((aa * bb) ** 0.5, 1e-30) for k, (dot, aa, bb) in zip(groups, acc)}
+
+
+def _spawn(target, world, sizes, timeout) -> dict:
+    """Run target(rank, world, init, queue, sizes) in ``world`` spawned
+    processes on a free localhost port; -> {rank: what it put}. Every
+    process is stopped before this returns."""
+    import queue as queue_mod
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, world, f"tcp://127.0.0.1:{port}", out, sizes))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world and time.monotonic() < deadline:
+            try:
+                rank, res = out.get(timeout=5)
+                results[rank] = res
+            except queue_mod.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+        for p in procs:
+            p.join(max(1.0, min(60.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    bad = {r: res for r, res in results.items() if isinstance(res, str)}
+    if len(results) < world or bad:
+        raise AssertionError(f"processes failed or did not report: {bad or sorted(results)}")
+    return results
+
+
+def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN_LAYERS,
+                   seq=16384, budget=4096, fault_seq=4096, steps=2, answer=300, text_sup=900,
+                   tok=None, kernels=True) -> dict:
+    """Training over tp from the recipe entry: the 14B VLM at full width, the
+    decoder cut to ``layers`` layers, the InternViT-300M tower at 24,
+    written as a *_HF checkpoint directory; configs/stage2_16k.yaml's
+    settings (the tower trainable at lr x 0.1, remat, 16384 tokens), the
+    logit budget cut to 4096; one packed row with a 7-tile image. First the
+    tp-1 reference in a process of its own, then tp 2 in two processes
+    (backend "staged": gloo sharing this card with host-staged collectives;
+    "nccl": a card each, from phase_cp_nccl; "gloo" with device "cpu": the
+    rehearsal), each rank loading only its slices. Gates: each step's loss
+    within TRAIN_LOSS_REL of tp 1's and grad_norm within 3x that; both ranks
+    the same loss bits; the first step's gradients against tp 1's at cosine
+    >= TRAIN_GRAD_COS for every leaf group (the whole vectors' cosines,
+    from each rank's shards: _group_cosines), and the same gate failing
+    with the norms' tp sum removed (on a fault_seq-token row of the same
+    layout, before the steps); the warm-up's lr-0
+    first step leaving every leaf's bits (stage 2 freezes none); K1, K3, K4
+    and K5 launches exact for the layers, steps and remat. kernels: first
+    K1, K4 and K5 at a tp-8 rank's heads. -> {"counts": both tp ranks'
+    launches summed, "err": the kernels' largest error}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_14b
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
+
+    t_phase = time.perf_counter()
+    cpu = device == "cpu"
+    dev = torch.device(device)
+    err = phase_tp_train_kernels(dev=dev) if kernels else 0.0
+    base = cfg or long_vita_14b()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, num_hidden_layers=layers))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_train_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 72)
+        rng = np.random.default_rng(SEED + 73)
+        probe = rng.standard_normal((2, cfg.vision.image_size, cfg.vision.image_size, 3),
+                                    dtype=np.float32)
+        lv, _ = _vlm_params(qwen2.init_qwen2_params(gen, cfg.text, torch.bfloat16, dev), cfg,
+                            dev, SEED + 72, probe)
+        ckpt = os.path.join(work, "ckpt")
+        save_hf_checkpoint(lv, cfg, ckpt)
+        whole_gb = sum(p.nbytes for p in lv.parameters()) / 1e9
+        text_gb = sum(p.nbytes for p in lv.text.parameters()) / 1e9
+        del lv
+        if not cpu:
+            torch.cuda.empty_cache()
+        with open(os.path.join(work, "corpus.yaml"), "w") as f:  # the recipe names one
+            json.dump({"dataset": {"chat": {"ratio": 1, "data_paths": [
+                os.path.join(work, "chat.jsonl")]}}}, f)
+        with open(os.path.join(work, "chat.jsonl"), "w") as f:
+            f.write(json.dumps({"messages": [{"role": "user", "content": "hi"},
+                                             {"role": "assistant", "content": "hello"}]}))
+        print(f"[tp train] the {layers}-layer VLM at full width ({whole_gb:.2f} GB, the decoder "
+              f"{text_gb:.2f} GB) written as a checkpoint directory in "
+              f"{time.perf_counter() - t0:.1f} s")
+        sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq,
+                     budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
+                     text_sup=text_sup, tok=tok or {})
+        t0 = time.perf_counter()
+        one = _spawn(_tp_train_worker, 1, {**sizes, "backend": "gloo"}, 2 * TP_TRAIN_TIMEOUT)[0]
+        t1 = time.perf_counter()
+        two = _spawn(_tp_train_worker, 2, sizes, 2 * TP_TRAIN_TIMEOUT)
+        print(f"[tp train] the tp-1 process {t1 - t0:.1f} s, the tp-2 processes "
+              f"{time.perf_counter() - t1:.1f} s (start-up, loading, the gradient gate's passes, "
+              "the steps)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0, r1 = two[0], two[1]
+    failures = []
+
+    def check(good: bool, what: str) -> None:
+        print(f"[tp train] {what}: {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(what)
+
+    where = {"staged": STAGED_NOTE, "nccl": "two cards over NCCL",
+             "gloo": "two gloo processes on the CPU"}[backend]
+    for r in (r0, r1):
+        print(f"[tp train] tp rank {r['rank']} ({r['heads'][0]}/{r['heads'][1]} heads): built "
+              f"through train.build_from_recipe in {r['build_s']:.1f} s, read "
+              f"{r['bytes_read'] / 1e6:.3f} MB of the checkpoint's {whole_gb * 1e3:.3f} MB; steps "
+              f"{[round(t, 3) for t in r['step_s']]} s ({where}), staged copies "
+              f"{[round(t, 3) for t in r['staged_s']]} s of them "
+              f"({r['staged_gb']:.2f} GB copied in the run); peak allocated "
+              f"{r['peak_gb']:.2f} GB; losses {r['losses']} grad_norm {r['norms']}")
+    print(f"[tp train] tp 1 (a process of its own): read {one['bytes_read'] / 1e6:.3f} MB; "
+          f"steps {[round(t, 3) for t in one['step_s']]} s; peak allocated {one['peak_gb']:.2f} "
+          f"GB; losses {one['losses']} grad_norm {one['norms']}; {one['supervised']} "
+          f"supervised rows")
+    check(r0["losses"] == r1["losses"], "both tp ranks report the same loss bits")
+    check(len(r0["losses"]) == steps and all(
+        abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], one["losses"])),
+        f"tp 2 losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of tp 1's "
+        f"{one['losses']}")
+    check(all(abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["norms"], one["norms"])),
+          f"tp 2 grad_norm {r0['norms']} within {3 * TRAIN_LOSS_REL} of tp 1's {one['norms']}")
+    cos, fault = r0["cos"], r0["cos_fault"]
+    check(min(cos.values()) >= TRAIN_GRAD_COS and set(cos) == set(GRAD_GROUPS) | {
+        "vision", "projector"},
+        "the first step's gradients of the tp-2 shards vs tp 1's, cosine by group "
+        f"(>= {TRAIN_GRAD_COS}): " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    check(min(fault.values()) < TRAIN_GRAD_COS,
+          f"the same gate with the norms' tp sum removed (a planted fault; a {fault_seq}-token "
+          "row) must fail: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in fault.items()))
+    check(all(r["moved_at_lr0"] == [] for r in (r0, r1, one)),
+          "the warm-up's first step (lr 0) leaves every leaf's bits on every rank "
+          "(stage 2 freezes no leaf)")
+    # the launches of the main path on each rank: the decoder's K1 twice a
+    # layer a step (remat's recompute), the tower's on every rank (it
+    # encodes every tile, trainable); the backward by JAX's rule at the
+    # rank's heads
+    tc, vc = cfg.text, cfg.vision
+    for r in (r0, r1, one):
+        hq, hkv = r["heads"]
+        fused = fa.bwd_uses_fused(1, seq, seq, hq, tc.head_dim, 2)
+        vit_fused = fa.bwd_uses_fused(7, vc.seq_len, vc.seq_len, vc.num_attention_heads,
+                                      vc.head_dim, 2)
+        want = dict.fromkeys(r["counts"], 0)
+        want["flash_fwd"] = 2 * (tc.num_hidden_layers + vc.num_hidden_layers) * steps
+        for n_layers, uses in ((tc.num_hidden_layers, fused), (vc.num_hidden_layers, vit_fused)):
+            if uses:
+                want["flash_bwd"] += n_layers * steps
+            else:
+                want["flash_bwd_dkv"] += n_layers * steps
+                want["flash_bwd_dq"] += n_layers * steps
+        if not cpu:
+            ok = r["counts"] == want
+            check(ok, f"launches of {'tp 1' if r is one else f'tp rank {r['rank']}'}: "
+                      f"{r['counts']} (expected {want})")
+        else:
+            print(f"[tp train] launches (the CPU runs the plain versions): {r['counts']}")
+    tp2_step = min(r0["step_s"])
+    share = [s / t for s, t in zip(r0["staged_s"], r0["step_s"])]
+    print(f"[tp train] a tp-2 step {tp2_step:.3f} s against a tp-1 step {min(one['step_s']):.3f} "
+          f"s ({where}); the staged copies' share of a tp-2 step {[round(x, 3) for x in share]}")
+    print(f"[tp train] phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"[tp train] {failures}")
+    counts = {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+    return {"counts": counts, "err": err}
 
 
 def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
@@ -4474,6 +4948,10 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
           f"{t0['ttft_one']:.3f} s; both ranks the same tokens {t0['tokens']}")
     if failures:
         raise AssertionError(f"[cp-nccl] the lockstep server: {failures}")
+    # the Trainer at tp 2 over NCCL, a card a rank, against tp 1, under
+    # phase_tp_train's gates (the planted fault included)
+    if device == "cuda":
+        phase_tp_train(backend="nccl", kernels=False)
     print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
 
 
@@ -4555,10 +5033,15 @@ def main() -> int:
     _collect("after the multimodal phase")  # the serving engines and their caches are gone
     add(phase_cp_serve(params, cfg, dev))
     _collect("after the cp serving phase")
-    add(phase_cp_server(params, cfg, dev))
+    # the decoder's first 24 layers, so that the run keeps inside its time
+    # with phase_tp_train
+    add(phase_cp_server(*_decoder_prefix(params, cfg, 24), dev))
     _collect("after the cp server phase")
     add(phase_tp_serve(params, cfg, dev))
     _collect("after the tp serving phase")
+    tp_train = phase_tp_train()
+    add(tp_train["counts"])
+    _collect("after the tp training phase")
     # the decoder is exported, freed and loaded back; the loaded one trains,
     # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]

@@ -23,6 +23,19 @@ hybrid attention. A trainable tower encodes every tile on every rank (JAX
 takes its plain attention there; the port keeps the kernels). On a tp
 shard of the decoder (parallel/sharding.shard_params) the embedding and
 the head are vocab-parallel (models/qwen2.py) and the tower is replicated.
+
+Training over tp (``parallel`` with tp > 1, no cache) pins JAX's training
+layout [B@dp, S@(cp, tp), H] for the whole forward (:268-310): the
+vocab-parallel lookup lands in this rank's 1/tp slice of its cp shard
+(qwen2.embed_tokens_vp), each projected image row is scattered into the
+rank whose slice holds its position, and the decoder runs sequence
+parallel. A trainable tower encodes every tile on every rank (JAX's XLA
+path, :323-330), a frozen one its share of the cp x tp ranks' tiles.
+``head=False`` returns the budget rows of this rank's cp shard, the same
+rows on every tp rank (JAX's in_specs P(dp, cp, None) for the
+vocab-parallel CE): each tp rank contributes the rows of its slice and the
+rows are summed over tp (``reduce_from_tp``: exact, one real row and zeros;
+the gradient passes through, the CE having summed it over tp).
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ from long_vita_tpu_torch.models.projector import (
     project_features,
 )
 from long_vita_tpu_torch.models.qwen2 import KVCache, Qwen2Params
+from long_vita_tpu_torch.parallel.comm import reduce_from_tp
 
 
 class LongVITAParams(nn.Module):
@@ -160,9 +174,29 @@ def merge_image_embeddings_chunked(
 def cp_logit_rows(logit_positions: torch.Tensor, seq_local: int, rank: int):
     """Which of the [B, M] logit rows (positions in the whole, permuted
     sequence) lie in this rank's shard [rank * seq_local, (rank + 1) *
-    seq_local), and where: -> (mask [B, M], local positions [B, M])."""
+    seq_local), and where: -> (mask [B, M], local positions [B, M]). Under
+    sequence parallelism the shard is the cp shard (every tp rank of it
+    takes the same rows; ``sp_logit_rows`` gathers them)."""
     local = logit_positions.long() - rank * seq_local
     return (local >= 0) & (local < seq_local), local
+
+
+def sp_logit_rows(hidden: torch.Tensor, logit_positions: torch.Tensor, cp_rank: int,
+                  tp) -> torch.Tensor:
+    """The budget rows of this rank's cp shard from the sequence-parallel
+    hidden slice [B, S_cp / tp, H]: -> [1, N, H], the rows of
+    cp_logit_rows(logit_positions, S_cp, cp_rank)'s mask in (row, m) order,
+    the same on every tp rank. Each tp rank fills the rows that lie in its
+    slice, zeros elsewhere, and the rows are summed over tp
+    (reduce_from_tp)."""
+    b, s_sp, _ = hidden.shape
+    mask, local = cp_logit_rows(logit_positions, s_sp * tp.size, cp_rank)
+    rows = torch.arange(b, device=hidden.device)[:, None].expand_as(mask)[mask]
+    local = local[mask] - tp.rank * s_sp
+    mine = (local >= 0) & (local < s_sp)
+    picked = hidden[rows, local.clamp(0, s_sp - 1)]
+    picked = torch.where(mine[:, None], picked, torch.zeros_like(picked))
+    return reduce_from_tp(picked, tp)[None]
 
 
 def long_vita_forward(
@@ -201,20 +235,35 @@ def long_vita_forward(
     sequence; logit_positions [B, M] index the whole sequence too, and the
     result holds the rows of those that lie in this rank's shard, flattened
     to [1, N_local, ...] in (row, m) order (cp_logit_rows gives the mask):
-    the loss sums them over ranks (training/train_step.py)."""
+    the loss sums them over ranks (training/train_step.py). With tp > 1 too
+    (a tp shard of the tree, training): the sequence-parallel forward of
+    the module docstring, the same rows on every tp rank of a cp shard."""
     qwen2.check_remat(remat)
     cp = parallel.cp if parallel is not None and kv_cache is None else 1
-    inputs_embeds = qwen2.embed_tokens(params.text, input_ids)
+    sp = (parallel is not None and kv_cache is None and parallel.mesh.shape["tp"] > 1
+          and params.text.tp_comm is not None)
+    if sp:
+        tp = params.text.tp_comm
+        s_cp = input_ids.shape[1]
+        if s_cp % tp.size:
+            raise ValueError(f"a cp shard of {s_cp} tokens % tp {tp.size} != 0 (the "
+                             "sequence-parallel layout, parallel/mesh.validate_geometry)")
+        inputs_embeds = qwen2.embed_tokens_vp(params.text, input_ids)
+        # the first position of this rank's slice in the whole sequence
+        offset = parallel.comm.rank * s_cp + tp.rank * (s_cp // tp.size)
+    else:
+        inputs_embeds = qwen2.embed_tokens(params.text, input_ids)
+        offset = parallel.comm.rank * input_ids.shape[1] if cp > 1 else 0
     if images is not None:
         image_embeds = encode_images(
             params, images, cfg, chunk=vision_chunk,
             attn_impl="short" if freeze_vision else attn_impl,
             remat=remat, freeze_tower=freeze_vision,
-            parallel=parallel if freeze_vision and cp > 1 else None,
+            parallel=parallel if freeze_vision and (cp > 1 or sp) else None,
         )
-        if cp > 1:
+        if cp > 1 or sp:
             idx = image_indices.clone()
-            idx[1] -= parallel.comm.rank * input_ids.shape[1]
+            idx[1] -= offset
             inputs_embeds = merge_image_embeddings_chunked(
                 inputs_embeds, image_embeds, idx, vision_chunk or 256
             )
@@ -225,7 +274,10 @@ def long_vita_forward(
         kv_cache=kv_cache, segment_ids=segment_ids, attn_impl=attn_impl,
         remat=remat, parallel=parallel, return_aux=True,
     )
-    if logit_positions is not None and cp > 1:
+    if logit_positions is not None and sp:
+        hidden = sp_logit_rows(hidden, logit_positions, parallel.comm.rank if cp > 1 else 0,
+                               params.text.tp_comm)
+    elif logit_positions is not None and cp > 1:
         mask, local = cp_logit_rows(logit_positions, hidden.shape[1], parallel.comm.rank)
         rows = torch.arange(hidden.shape[0], device=hidden.device)[:, None].expand_as(mask)
         hidden = hidden[rows[mask], local[mask]][None]

@@ -38,7 +38,16 @@ Differences from the JAX package, all of form rather than of numbers:
     down_proj are followed by an all_reduce_sum over tp (an int4 one is
     replicated: its input is all-gathered instead), the embedding lookup
     is summed over tp and the head's logits are all-gathered over tp,
-    where JAX's GSPMD inserts the same collectives.
+    where JAX's GSPMD inserts the same collectives;
+  - training over tp (sequence parallelism, JAX's training layout
+    [B@dp, S@(cp, tp), H], long_vita.py:268-310) is Megatron's sequence
+    parallelism written out: x is this rank's 1/tp slice of its cp shard's
+    sequence, RMSNorm runs on the slice, ``gather_seq`` (all-gather, its
+    backward a reduce-scatter) precedes q/k/v and gate/up, ``scatter_seq``
+    (reduce-scatter, its backward an all-gather) follows o_proj and
+    down_proj, and the lookup is vocab-parallel straight into the slice
+    (``embed_tokens_vp``, JAX :918). Attention runs on the rank's q and kv
+    heads over the whole cp shard (the ring over cp as before).
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ from long_vita_tpu_torch.ops.attention import (
 )
 from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from long_vita_tpu_torch.parallel.comm import gather_seq, scatter_seq
 
 CacheLen = Union[int, torch.Tensor]
 
@@ -360,13 +370,18 @@ def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
     return _with_lora(entry, x, out, cfg)
 
 
-def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp) -> torch.Tensor:
+def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp,
+              sp: bool = False) -> torch.Tensor:
     """A row-parallel projection (o_proj, down_proj) on a tp shard: this
-    rank's slice of the input dim, then one all_reduce_sum over tp; an int4
-    one is replicated (quantize.quantized_param_specs), so its input is
-    all-gathered over tp and the whole product computed. tp None: _proj."""
+    rank's slice of the input dim, then one all_reduce_sum over tp (sp: a
+    reduce-scatter along the sequence into this rank's slice, through
+    autograd); an int4 one is replicated (quantize.quantized_param_specs),
+    so its input is all-gathered over tp and the whole product computed.
+    tp None: _proj."""
     if tp is None:
         return _proj(entry, x, cfg)
+    if sp:
+        return scatter_seq(_proj(entry, x, cfg), tp, 1)
     if isinstance(entry, QuantDense4):
         return _proj(entry, tp.all_gather(x, -1), cfg)
     return tp.all_reduce_sum(_proj(entry, x, cfg))
@@ -399,6 +414,7 @@ def _attention_block(
     parallel: Optional[ParallelConfig] = None,
     q_sharded: bool = False,
     tp=None,
+    sp: bool = False,
 ) -> torch.Tensor:
     b, s, _ = x.shape
     d = cfg.head_dim
@@ -477,21 +493,21 @@ def _attention_block(
             kv_segment_ids=segment_ids,
             impl=attn_impl,
         )
-    return _row_proj(layer.o_proj, out.reshape(b, s, hq * d), cfg, tp)
+    return _row_proj(layer.o_proj, out.reshape(b, s, hq * d), cfg, tp, sp)
 
 
-def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None):
+def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None, sp=False):
     """Dense SwiGLU (on a tp shard, this rank's slice of the intermediate
     dim, then down_proj's all-reduce), or the MoE MLP when the layer carries
     a router (JAX :602-667, local mode). -> (out, the layer's aux loss or
-    None)."""
+    None). sp: x is the gathered sequence and out this rank's slice."""
     if hasattr(layer, "router"):
         from long_vita_tpu_torch.ops.moe import moe_mlp
 
         return moe_mlp(layer, x, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
     gate = _proj(layer.gate_proj, x, cfg)
     up = _proj(layer.up_proj, x, cfg)
-    return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp), None
+    return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp, sp), None
 
 
 def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1) -> None:
@@ -503,8 +519,8 @@ def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1) -> No
     if cfg.num_experts > 0 and (dp > 1 or cp > 1 or tp > 1):
         raise NotImplementedError(
             f"MoE layers over a multi-GPU mesh (dp {dp}, cp {cp}, tp {tp}): expert "
-            "parallelism, MoE over tp and cp's global routing are not ported (ROADMAP §1, "
-            "expert parallelism)")
+            "parallelism, MoE over tp and cp's global routing are not ported (ROADMAP §1 "
+            "item 8, expert parallelism)")
 
 
 def decoder_layer(
@@ -521,14 +537,23 @@ def decoder_layer(
     parallel: Optional[ParallelConfig] = None,
     q_sharded: bool = False,
     tp=None,
+    sp: bool = False,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """-> (x, the MoE aux loss of the layer, None for a dense one). tp: the
-    tree's tp communicator (row-parallel all-reduces), or None."""
+    tree's tp communicator (row-parallel all-reduces), or None. sp
+    (sequence parallelism): x is this rank's slice of the sequence; each
+    normed input is gathered over tp before its column projections and
+    each row projection reduce-scattered back into the slice."""
+
+    def gathered(h):
+        return gather_seq(h, tp, 1) if sp else h
+
     x = x + _attention_block(
-        layer, rms_norm(x, layer.input_norm, cfg.rms_norm_eps), cos, sin, cfg,
-        cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded, tp,
+        layer, gathered(rms_norm(x, layer.input_norm, cfg.rms_norm_eps)), cos, sin, cfg,
+        cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded, tp, sp,
     )
-    out, aux = _mlp_block(layer, rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps), cfg, tp)
+    out, aux = _mlp_block(layer, gathered(rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)),
+                          cfg, tp, sp)
     return x + out, aux
 
 
@@ -595,6 +620,12 @@ def qwen2_decoder(
 ):
     """Run the decoder. inputs_embeds [B, S, H]; position_ids [B|1, S].
 
+    Sequence parallel (a tp shard of the tree under a ``parallel`` mesh of
+    tp > 1, no cache: training): inputs_embeds and the result are this
+    rank's 1/tp slice [B, S/tp, H] of the sequence whose position_ids and
+    segment_ids [B, S] are given whole (this rank's cp shard under cp); see
+    the module docstring.
+
     parallel (cp > 1): without a cache, inputs_embeds, position_ids and
     segment_ids are this rank's sequence shard (zigzag-permuted for ring and
     hybrid) and so is the result; with a cache (this rank's slot shard) they
@@ -614,6 +645,8 @@ def qwen2_decoder(
     cp = parallel.cp if parallel is not None else 1
     check_moe_mesh(cfg, cp=cp)
     tp = params.tp_comm
+    sp = (tp is not None and kv_cache is None and parallel is not None
+          and parallel.mesh.shape["tp"] > 1)
     # a cached chunk that divides by cp runs on this rank's 1/cp of its rows
     q_sharded = kv_cache is not None and cp > 1 and seq > 1 and seq % cp == 0
     if q_sharded:
@@ -629,7 +662,7 @@ def qwen2_decoder(
         if kv_cache is not None:
             cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
         args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-                segment_ids, attn_impl, parallel, q_sharded, tp)
+                segment_ids, attn_impl, parallel, q_sharded, tp, sp)
         if recompute:
             x, aux_l = remat_checkpoint(decoder_layer, *args, remat=remat)
         else:
@@ -666,6 +699,23 @@ def embed_tokens(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tensor:
     hit = (local >= 0) & (local < n)
     rows = F.embedding(local.clamp(0, n - 1), params.embed)
     return tp.all_reduce_sum(torch.where(hit[..., None], rows, torch.zeros_like(rows)))
+
+
+def embed_tokens_vp(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tensor:
+    """The training lookup on a tp shard (JAX :918, VocabParallelEmbedding
+    with sequence parallelism): each rank looks up the ids that fall in its
+    vocab slice, zeros elsewhere (an id past the whole table is zeros on
+    every rank, as JAX's vp path gives, where the plain lookup clamps), and
+    the partial rows are reduce-scattered over tp along the sequence
+    (``scatter_seq``): -> this rank's slice [B, S/tp, H], bit for bit the
+    plain rows (one real row plus zeros). The embedding's gradient is the
+    all-gathered rows' gradient at the rank's own ids."""
+    tp = params.tp_comm
+    n = params.embed.shape[0]
+    local = input_ids.long() - tp.rank * n
+    hit = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), params.embed)
+    return scatter_seq(torch.where(hit[..., None], rows, torch.zeros_like(rows)), tp, 1)
 
 
 def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@ one small interface on the communicator of that axis:
     goes to rank j, and the pieces received are concatenated along cat_dim
     in rank order;
   - ``all_reduce_sum(x)``, ``all_gather(x, dim)`` (tiled), ``barrier()``;
+  - ``reduce_scatter(x, dim)``: ``jax.lax.psum_scatter(..., tiled=True)``:
+    the sum over ranks, cut into ``size`` pieces along dim, piece j kept
+    by rank j (one reduction of the same operands, in rank order, so it
+    equals a slice of all_reduce_sum bit for bit);
   - ``broadcast(x, src)``: every rank gets src's x
     (``multihost_utils.broadcast_one_to_all``, which the JAX package's
     serving lockstep uses);
@@ -39,7 +43,24 @@ Three implementations:
     ``host_comm()`` of an NCCL group is a gloo group of the same ranks,
     made once beside it: the lockstep channel broadcasts host bytes (a
     request's tile stack can be several GB), which over NCCL would take a
-    copy to the card and back on every rank.
+    copy to the card and back on every rank. A gloo group made with
+    ``staged_device="cuda"`` (``init_process_group``) takes CUDA operands:
+    each is copied to pinned host memory, exchanged by gloo, and copied
+    back, and the copies' seconds and bytes are counted (``staged_seconds``,
+    ``staged_bytes``); the sums and concatenations run on the card (a
+    reduce-scatter exchanges the pieces point to point and sums each rank's
+    piece in rank order; an all-gather exchanges them point to point; an
+    all-reduce is the two), so that the host only copies and sends. It exists so that processes
+    sharing one card can train (NCCL puts no two ranks on one GPU) and is
+    never chosen implicitly.
+
+Megatron's conjugate collectives, as autograd Functions over a
+communicator (the tensor-parallel training path, models/qwen2.py):
+``copy_to_tp`` (identity forward, all-reduce backward), ``reduce_from_tp``
+(all-reduce forward, identity backward), ``gather_seq`` (all-gather along
+the sequence forward, reduce-scatter backward) and ``scatter_seq``
+(reduce-scatter forward, all-gather backward). On one rank each is the
+identity.
 
 Every wait has a timeout that raises (``TimeoutError``): a rank that hangs
 or dies fails the others instead of stalling them. ThreadComm ranks on one
@@ -77,6 +98,9 @@ class Comm:
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         raise NotImplementedError
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        raise NotImplementedError
+
     def barrier(self) -> None:
         raise NotImplementedError
 
@@ -112,6 +136,9 @@ class LocalComm(Comm):
         return x.clone()
 
     def all_gather(self, x, dim=0):
+        return x.clone()
+
+    def reduce_scatter(self, x, dim=0):
         return x.clone()
 
     def barrier(self):
@@ -209,6 +236,13 @@ class ThreadComm(Comm):
 
     def all_gather(self, x, dim=0):
         return self._exchange(x, lambda vals: torch.cat(vals, dim))
+
+    def reduce_scatter(self, x, dim=0):
+        # this rank's piece of every rank's operand, summed in rank order
+        return self._exchange(
+            _pieces(x, self.size, dim),
+            lambda vals: torch.stack([vals[j][self.rank] for j in range(self.size)]).sum(0),
+        )
 
     def barrier(self):
         self._exchange(None, lambda vals: None)
@@ -322,9 +356,13 @@ def _now() -> float:
 class DistComm(Comm):
     """A torch.distributed process group (the default group when None).
     Collectives on a gloo group take CPU tensors, on an NCCL group CUDA
-    tensors on the rank's current device."""
+    tensors on the rank's current device. ``staged``: a gloo group whose
+    CUDA operands are staged through pinned host memory (see the module
+    docstring); ``stats`` counts the staged copies (shared with the
+    group's splits)."""
 
-    def __init__(self, group=None, timeout: float = DEFAULT_TIMEOUT):
+    def __init__(self, group=None, timeout: float = DEFAULT_TIMEOUT, *, staged: bool = False,
+                 stats: Optional[dict] = None):
         import torch.distributed as dist
 
         self._dist = dist
@@ -332,9 +370,47 @@ class DistComm(Comm):
         self.rank = dist.get_rank(self.group)
         self.size = dist.get_world_size(self.group)
         self.gloo = dist.get_backend(self.group) == "gloo"
+        if staged and not self.gloo:
+            raise ValueError("staging through host memory is for gloo groups")
+        self.staged = staged
+        self.stats = stats if stats is not None else {"seconds": 0.0, "bytes": 0, "copies": 0}
         self.timeout = timeout
         self._splits: dict = {}
         self._host: Optional[DistComm] = None
+
+    @property
+    def staged_seconds(self) -> float:
+        return self.stats["seconds"]
+
+    @property
+    def staged_bytes(self) -> int:
+        return self.stats["bytes"]
+
+    def _copy(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        """dst <- src, timed and counted; the device's queued work is waited
+        for first, so that the time is the copy's own."""
+        torch.cuda.synchronize()
+        t0 = _now()
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        self.stats["seconds"] += _now() - t0
+        self.stats["bytes"] += src.nbytes
+        self.stats["copies"] += 1
+        return dst
+
+    def _in(self, x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.device]]:
+        """An operand as the group takes it: a staged group's CUDA tensor
+        copied into pinned host memory. -> (the operand, the device to
+        return the result to, or None)."""
+        if not (self.staged and x.is_cuda):
+            return x, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return self._copy(x, host), x.device
+
+    def _out(self, y: torch.Tensor, device: Optional[torch.device]) -> torch.Tensor:
+        if device is None:
+            return y
+        return self._copy(y, torch.empty(y.shape, dtype=y.dtype, device=device))
 
     def _peer(self, r: int) -> int:
         return self._dist.get_global_rank(self.group, r)
@@ -358,13 +434,15 @@ class DistComm(Comm):
     def ring_shift(self, x, shift=1):
         if shift % self.size == 0:
             return x.clone()
-        x = x.contiguous()
+        x, dev = self._in(x.contiguous())
         out = torch.empty_like(x)
         self._p2p([((self.rank + shift) % self.size, x)],
                   [((self.rank - shift) % self.size, out)])
-        return out
+        return self._out(out, dev)
 
-    def all_to_all(self, x, split_dim, cat_dim):
+    def _exchange_pieces(self, x, split_dim) -> list:
+        """Piece j of x (cut along split_dim) to rank j: -> the pieces
+        received, in rank order (this rank's own piece among them)."""
         send = [p.contiguous() for p in _pieces(x, self.size, split_dim)]
         recv = [torch.empty_like(p) for p in send]
         if self.gloo:
@@ -373,18 +451,67 @@ class DistComm(Comm):
             self._p2p([(j, send[j]) for j in others], [(j, recv[j]) for j in others])
         else:
             self._dist.all_to_all(recv, send, group=self.group)
-        return torch.cat(recv, cat_dim)
+        return recv
+
+    def all_to_all(self, x, split_dim, cat_dim):
+        x, dev = self._in(x)
+        return self._out(torch.cat(self._exchange_pieces(x, split_dim), cat_dim), dev)
 
     def all_reduce_sum(self, x):
-        out = x.clone()
+        if self.staged and x.is_cuda and self.size > 1:
+            # a reduce-scatter (summed on the card) and an all-gather: every
+            # element is summed once, in rank order, and sent to every rank
+            flat = x.reshape(-1)
+            pad = -flat.numel() % self.size
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad)])
+            return self.all_gather(self.reduce_scatter(flat, 0), 0)[:x.numel()].view_as(x)
+        x, dev = self._in(x)
+        out = x.clone() if dev is None else x
         self._wait([self._dist.all_reduce(out, group=self.group, async_op=True)])
-        return out
+        return self._out(out, dev)
 
     def all_gather(self, x, dim=0):
-        x = x.contiguous()
+        if self.staged and x.is_cuda:
+            # point to point (gloo's all_gather took ~2x as long for 84 MB
+            # pieces between two processes on one host), concatenated on the card
+            x = x.contiguous()
+            others = [j for j in range(self.size) if j != self.rank]
+            recv = {j: torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for j in others}
+            mine = self._in(x)[0]
+            self._p2p([(j, mine) for j in others], [(j, recv[j]) for j in others])
+            return torch.cat([x if j == self.rank else self._out(recv[j], x.device)
+                              for j in range(self.size)], dim)
+        x, dev = self._in(x.contiguous())
         parts = [torch.empty_like(x) for _ in range(self.size)]
         self._wait([self._dist.all_gather(parts, x, group=self.group, async_op=True)])
-        return torch.cat(parts, dim)
+        return self._out(torch.cat(parts, dim), dev)
+
+    def reduce_scatter(self, x, dim=0):
+        """NCCL's reduce_scatter_tensor; on gloo (which has none) the
+        pieces are exchanged point to point and summed in rank order (a
+        staged group copies only the pieces that travel, and sums on the
+        card)."""
+        if self.staged and x.is_cuda:
+            pieces = [p.contiguous() for p in _pieces(x, self.size, dim)]
+            others = [j for j in range(self.size) if j != self.rank]
+            mine = pieces[self.rank]
+            recv = {j: torch.empty(mine.shape, dtype=x.dtype, pin_memory=True) for j in others}
+            self._p2p([(j, self._in(pieces[j])[0]) for j in others],
+                      [(j, recv[j]) for j in others])
+            parts = [mine if j == self.rank else self._out(recv[j], x.device)
+                     for j in range(self.size)]
+            return torch.stack(parts).sum(0)
+        x, dev = self._in(x)
+        if self.gloo:
+            return self._out(torch.stack(self._exchange_pieces(x, dim)).sum(0), dev)
+        whole = x.movedim(dim, 0).contiguous()
+        if whole.shape[0] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide into {self.size} pieces")
+        out = whole.new_empty((whole.shape[0] // self.size, *whole.shape[1:]))
+        self._wait([self._dist.reduce_scatter_tensor(out, whole, group=self.group,
+                                                     async_op=True)])
+        return out.movedim(0, dim)
 
     def barrier(self):
         self.all_reduce_sum(torch.zeros(1, device=self._device()))
@@ -392,15 +519,17 @@ class DistComm(Comm):
     def broadcast(self, x, src=0):
         """src's x on every rank: a CPU tensor on gloo, a CUDA tensor on
         NCCL (``host_comm()`` broadcasts host bytes beside an NCCL group)."""
-        out = x.contiguous().clone()
+        x, dev = self._in(x.contiguous())
+        out = x.clone() if dev is None else x
         self._wait([self._dist.broadcast(out, self._peer(src), group=self.group,
                                          async_op=True)])
-        return out
+        return self._out(out, dev)
 
     def host_comm(self):
-        """This group on gloo: itself when it is gloo, else a gloo group of
-        the same ranks with the same timeout, made on the first call (every
-        rank of the group calls it at the same point)."""
+        """This group on gloo: itself when it is gloo (a staged group passes
+        host tensors through as they are), else a gloo group of the same
+        ranks with the same timeout, made on the first call (every rank of
+        the group calls it at the same point)."""
         if self.gloo:
             return self
         if self._host is None:
@@ -422,27 +551,103 @@ class DistComm(Comm):
             # only the members create (and synchronise on) their group
             pg = self._dist.new_group([self._peer(r) for r in mine],
                                       use_local_synchronization=True)
-            self._splits[mine] = DistComm(pg, self.timeout) if len(mine) > 1 else LocalComm()
+            self._splits[mine] = (DistComm(pg, self.timeout, staged=self.staged,
+                                           stats=self.stats)
+                                  if len(mine) > 1 else LocalComm())
         return self._splits[mine]
 
 
 def init_process_group(rank: int, world_size: int, init_method: str, *,
                        backend: Optional[str] = None,
-                       timeout: float = DEFAULT_TIMEOUT) -> DistComm:
+                       timeout: float = DEFAULT_TIMEOUT,
+                       staged_device: Optional[str] = None) -> DistComm:
     """torch.distributed.init_process_group with a timeout (NCCL when CUDA
     is available, else gloo), -> the world's DistComm. On CUDA the rank
-    takes device ``rank % device_count``."""
+    takes device ``rank % device_count``. ``staged_device="cuda"`` (with
+    backend "gloo" only): the group takes CUDA operands through pinned host
+    memory, so that several processes can share one card (DistComm)."""
     import torch.distributed as dist
 
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if staged_device is not None and (staged_device != "cuda" or backend != "gloo"):
+        raise ValueError(f"staged_device {staged_device!r} needs backend 'gloo' and 'cuda', "
+                         f"got backend {backend!r}")
     kw = {}
-    if backend == "nccl":
+    if backend == "nccl" or staged_device is not None:
         dev = rank % torch.cuda.device_count()
         torch.cuda.set_device(dev)
-        kw["device_id"] = torch.device("cuda", dev)
+        if backend == "nccl":
+            kw["device_id"] = torch.device("cuda", dev)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout), **kw)
-    return DistComm(timeout=timeout)
+    return DistComm(timeout=timeout, staged=staged_device is not None)
 
+
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_sum(g), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g.contiguous(), ctx.dim), None, None
+
+
+def copy_to_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``comm`` (Megatron's f:
+    a replicated input to a sharded computation)."""
+    return x if comm.size == 1 else _CopyToTP.apply(x, comm)
+
+
+def reduce_from_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Sum over ``comm`` forward; the gradient passed through (Megatron's g)."""
+    return x if comm.size == 1 else _ReduceFromTP.apply(x, comm)
+
+
+def gather_seq(x: torch.Tensor, comm: Comm, dim: int = 1) -> torch.Tensor:
+    """All-gather along ``dim`` forward, reduce-scatter backward (sequence
+    parallelism: the rank's slice of the sequence -> the whole)."""
+    return x if comm.size == 1 else _GatherSeq.apply(x, comm, dim)
+
+
+def scatter_seq(x: torch.Tensor, comm: Comm, dim: int = 1) -> torch.Tensor:
+    """Reduce-scatter along ``dim`` forward, all-gather backward (partial
+    sums of the whole sequence -> the rank's summed slice)."""
+    return x if comm.size == 1 else _ScatterSeq.apply(x, comm, dim)

@@ -6,8 +6,9 @@ axes of one device array and shard_map (or GSPMD) hands a body its axis,
 the port's mesh is a grid of ranks over a world communicator with one
 communicator per axis. A rank's coordinates follow JAX's ``np.reshape(
 devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = (d * cp + c) * tp + t,
-dp outermost and tp innermost. The dp, cp and tp axes run; pp > 1 and
-tq > 1 raise, naming the ROADMAP items that port them.
+dp outermost and tp innermost. The dp, cp and tp axes run, for serving
+and for training; pp > 1 and tq > 1 raise, naming the ROADMAP items that
+port them.
 """
 from __future__ import annotations
 
@@ -19,9 +20,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after tensor-parallel "
-              "serving: training over tp with 2-D tp, FSDP, pipeline stages and expert "
-              "parallelism)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after training over tp: "
+              "2-D tp (tq), FSDP, pipeline stages and expert parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +41,13 @@ class Mesh:
     """Ranks of ``comm`` (the world) as a dp x cp x tp grid, with one
     communicator per axis: ``tp_comm`` joins the ranks of one (dp, cp)
     index, ``cp_comm`` those of one (dp, tp) index, ``dp_comm`` those of
-    one (cp, tp) index, and ``replica_comm`` the cp x tp ranks of one dp
-    index (the ranks that hold the same requests or batch rows). An axis of
-    size 1 gets a LocalComm, and a group of every rank the world itself.
-    ``shape`` maps each axis name to its size, as a JAX mesh's does."""
+    one (cp, tp) index, ``replica_comm`` the cp x tp ranks of one dp
+    index (the ranks that hold the same requests or batch rows), and
+    ``dp_cp_comm`` the dp x cp ranks of one tp index (the ranks that hold
+    the same tp shard: a sharded leaf's gradient is summed over them). An
+    axis of size 1 gets a LocalComm, and a group of every rank the world
+    itself. ``shape`` maps each axis name to its size, as a JAX mesh's
+    does."""
 
     def __init__(self, cfg: MeshConfig, comm: Comm):
         for name, n in (("pp", cfg.pp), ("tq", cfg.tq)):
@@ -68,7 +71,25 @@ class Mesh:
                                    for c in range(cp) for t in range(tp)])
         self.replica_comm = self._axis([[d * cp * tp + j for j in range(cp * tp)]
                                         for d in range(dp)])
+        self.dp_cp_comm = self._axis([[rank(d, c, t) for d in range(dp) for c in range(cp)]
+                                      for t in range(tp)])
         self.shape = {AXIS_DP: dp, AXIS_PP: 1, AXIS_CP: cp, AXIS_TP: tp, AXIS_TQ: 1}
+        self._rank = rank
+        self._shared: dict = {}
+
+    def shared_comm(self, share: int) -> Comm:
+        """The ranks that hold the same slice when ``share`` consecutive tp
+        ranks share it (a kv head replicated over tp // Hkv ranks): tp
+        indices t with the same t // share, over every dp and cp index. A
+        gradient of such a slice is summed over them. Made on the first
+        call (every rank calls it at the same point)."""
+        if share not in self._shared:
+            dp, cp, tp = self.cfg.dp, self.cfg.cp, self.cfg.tp
+            self._shared[share] = self._axis([
+                [self._rank(d, c, t) for d in range(dp) for c in range(cp)
+                 for t in range(j * share, (j + 1) * share)]
+                for j in range(tp // share)])
+        return self._shared[share]
 
     def _axis(self, groups: list) -> Comm:
         if len(groups[0]) == 1:
@@ -92,9 +113,14 @@ def make_mesh(cfg: Optional[MeshConfig] = None, comm: Optional[Comm] = None) -> 
 
 
 def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
-                      virtual_pp: int = 1) -> None:
+                      virtual_pp: int = 1, logit_budget: int = 0) -> None:
     """Fail fast when a model geometry cannot shard over a mesh (JAX :84,
-    the same checks and messages)."""
+    the same checks and messages), and, for training over tp, the two rules
+    under which the JAX step takes its tp path (train_step.py:75-84,
+    long_vita.py:283-292): the sequence divides into cp x tp slices (the
+    sequence-parallel layout and the vocab-parallel lookup) and the logit
+    budget into cp blocks (the vocab-parallel CE). Where JAX would fall
+    back to GSPMD's plain layout, the port has no such path and raises."""
     errs = []
     tp, pp, cp = mesh_cfg.tp, mesh_cfg.pp, mesh_cfg.cp
     if text_cfg.num_attention_heads % tp:
@@ -116,6 +142,12 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
         errs.append("pp and cp are mutually exclusive (pipeline runs cp=1)")
     if seq_len and cp > 1 and seq_len % (2 * cp):
         errs.append(f"seq_len {seq_len} % 2*cp {2 * cp} != 0 (zigzag needs 2cp equal chunks)")
+    if seq_len and tp > 1 and seq_len % (cp * tp):
+        errs.append(f"seq_len {seq_len} % cp*tp {cp * tp} != 0 (the sequence-parallel layout "
+                    "needs cp x tp equal slices)")
+    if logit_budget and tp > 1 and min(logit_budget, seq_len or logit_budget) % cp:
+        errs.append(f"logit budget {logit_budget} % cp {cp} != 0 (the vocab-parallel CE "
+                    "splits the budget rows over cp)")
     if mesh_cfg.tq > 1:
         if text_cfg.hidden_size % mesh_cfg.tq:
             errs.append(f"hidden {text_cfg.hidden_size} % tq {mesh_cfg.tq} != 0")

@@ -23,11 +23,25 @@ Hq / tp, (t + 1) * Hq / tp) and the one kv head that group reads, so a kv
 head is replicated over tp / Hkv ranks (GSPMD would cut it into parts of a
 head). Quantised trees take models/quantize.quantized_param_specs on top.
 
+Training (JAX shards the train state with the same specs,
+train_step.py:267-297) takes ``shard_params(..., own=True)``: each shard a
+leaf tensor with its own storage, so that the whole tree can be dropped
+(serving keeps views). ``leaf_layout`` is the per-leaf table the gradient
+reduction and the global norm read: a leaf is replicated (its gradient is
+partial on each rank under sequence parallelism and summed over the world),
+sharded over tp (summed over dp x cp), or a kv slice shared by tp // Hkv
+ranks (summed over those and dp x cp). ``gather_params`` / ``gather_named``
+put shards back together (checkpoints, LoRA files, tests);
+``shard_named`` cuts a whole name -> tensor dict (a checkpoint) the same
+way, and ``slice_leaf`` cuts one tensor (the per-rank checkpoint loader,
+utils/checkpoint_io.py).
+
 The batch slices (JAX ``batch_spec`` :165, P(dp, cp), and
 ``activation_spec`` :170) are ``rank_rows`` and ``rank_seq``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -95,7 +109,67 @@ def _piece(t: torch.Tensor, dim: int, index: int, pieces: int) -> torch.Tensor:
     return t.narrow(dim, index * (n // pieces), n // pieces)
 
 
-def shard_params(params, mesh: Mesh, cfg):
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """Where one parameter lies over tp: ``dim`` the torch dim cut into
+    ``pieces`` equal slices (None: replicated), ``index`` the slice this
+    rank holds, and ``share`` the tp ranks that hold that same slice (tp //
+    Hkv for a kv projection at tp > Hkv, else 1)."""
+
+    dim: Optional[int]
+    pieces: int = 1
+    index: int = 0
+    share: int = 1
+
+    @property
+    def sharded(self) -> bool:
+        return self.dim is not None
+
+
+def leaf_rule(name: str, dim: Optional[int], tp_index: int, tp: int, hkv: int) -> Leaf:
+    """The Leaf of parameter ``name`` whose spec is ``dim``, on tp rank
+    ``tp_index`` of ``tp``: whole kv heads, so with tp > Hkv a k/v
+    projection splits into Hkv pieces and rank t takes the piece of its q
+    heads' kv head."""
+    if dim is None:
+        return Leaf(None)
+    if tp > hkv and (".k_proj." in name or ".v_proj." in name):
+        share = tp // hkv
+        return Leaf(dim, hkv, tp_index // share, share)
+    return Leaf(dim, tp, tp_index)
+
+
+def dense_spec(name: str) -> Optional[int]:
+    """The spec of a dense parameter of the decoder by its name in the tree
+    (``text.layers.3.o_proj.weight``; no LoRA, no quantisation): what
+    text_param_specs gives such a tree, for a loader that has no tree yet."""
+    if name.endswith(("embed", "lm_head.weight", "lm_head.bias")):
+        return 0
+    for proj in COLUMN:
+        if f".{proj}." in name:
+            return 0
+    for proj in ROW:
+        if f".{proj}.weight" in name:
+            return 1
+    return None
+
+
+def leaf_layout(params, cfg, tp_index: int, tp: int) -> dict[str, Leaf]:
+    """name -> Leaf for every parameter of ``params`` (a whole tree or a
+    shard: the names and specs are the same) on tp rank ``tp_index``.
+    ``cfg``: a LongVITAConfig or TextConfig (the kv heads)."""
+    hkv = getattr(cfg, "text", cfg).num_key_value_heads
+    return {name: leaf_rule(name, dim, tp_index, tp, hkv)
+            for name, dim in long_vita_param_specs(params).items()}
+
+
+def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
+    """This rank's slice of a whole tensor (a view; t itself when
+    replicated)."""
+    return t if leaf.dim is None else _piece(t, leaf.dim, leaf.index, leaf.pieces)
+
+
+def shard_params(params, mesh: Mesh, cfg, *, own: bool = False):
     """This rank's tree over ``mesh``'s tp axis (JAX :153): a new
     LongVITAParams or Qwen2Params of the same classes whose tensors are the
     rank's slices of ``params`` (views where the slice is a view; K6's int4
@@ -104,7 +178,9 @@ def shard_params(params, mesh: Mesh, cfg):
     Quantise the whole tree before sharding it: int8's per-column scale is
     a max over the whole input dim. ``cfg`` (a LongVITAConfig or
     TextConfig) gives the kv heads, and validate_geometry runs on it
-    first. tp 1 returns ``params``."""
+    first. own (training): every tensor, replicated ones too, is a
+    contiguous copy with its own storage, so that nothing of ``params`` is
+    kept alive by the shard. tp 1 returns ``params``."""
     from long_vita_tpu_torch.models.long_vita import LongVITAParams
     from long_vita_tpu_torch.models.qwen2 import check_moe_mesh
 
@@ -114,25 +190,63 @@ def shard_params(params, mesh: Mesh, cfg):
     text_cfg = getattr(cfg, "text", cfg)
     validate_geometry(text_cfg, MeshConfig(tp=tp))
     check_moe_mesh(text_cfg, tp=tp)
-    specs = long_vita_param_specs(params)
-    t_rank, hkv = mesh.tp_index, text_cfg.num_key_value_heads
-    # whole kv heads: with tp > Hkv, the k/v projections split into Hkv
-    # pieces and rank t takes the piece of its q heads' kv head
-    kv_pieces, kv_index = (hkv, t_rank // (tp // hkv)) if tp > hkv else (tp, t_rank)
+    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp)
     tensors = {}
     for name, t in params.named_parameters():
-        dim = specs[name]
-        if dim is None:
-            tensors[name] = t
-            continue
-        kv = ".k_proj." in name or ".v_proj." in name
-        piece = _piece(t, dim, kv_index if kv else t_rank, kv_pieces if kv else tp)
-        if name.endswith((".packed", ".scales")):
+        piece = slice_leaf(t.detach(), layout[name])
+        if own:
+            piece = piece.clone(memory_format=torch.contiguous_format)
+        elif name.endswith((".packed", ".scales")) and layout[name].sharded:
             piece = piece.contiguous()  # K6 reads contiguous codes and scales
         tensors[name] = piece
     local = _rebuild(params, tensors)
     (local.text if isinstance(local, LongVITAParams) else local).tp_comm = mesh.tp_comm
     return local
+
+
+def shard_named(tensors: dict, layout: dict[str, Leaf]) -> dict:
+    """A whole name -> tensor dict (a checkpoint's) -> this rank's slices
+    (views) of the names in ``layout``; other names pass whole."""
+    return {n: slice_leaf(t, layout[n]) if n in layout else t for n, t in tensors.items()}
+
+
+def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None,
+                 keep: bool = True) -> Optional[dict]:
+    """Shards (name -> this rank's slice) -> the whole tensors, leaf by leaf
+    in ``tensors``' order (every tp rank calls it with the same names): a
+    sharded leaf is all-gathered over ``tp_comm`` along its dim, and of a
+    slice that ``share`` ranks hold one copy is kept. Each whole tensor is
+    moved to ``device`` (default: where it was gathered) before the next
+    leaf is gathered. keep False: the gathers run, nothing is kept, and
+    None is returned (the ranks other than a checkpoint's writer)."""
+    out = {} if keep else None
+    for name, t in tensors.items():
+        leaf = layout.get(name, Leaf(None))
+        whole = t.detach()
+        if leaf.sharded and tp_comm.size > 1:
+            whole = tp_comm.all_gather(whole.contiguous(), leaf.dim)
+            if leaf.share > 1:
+                parts = torch.chunk(whole, tp_comm.size, leaf.dim)[::leaf.share]
+                whole = torch.cat(parts, leaf.dim)
+        if keep:
+            out[name] = whole.to(device) if device is not None else whole.clone()
+    return out
+
+
+def gather_params(local, mesh: Mesh, cfg, *, device=None):
+    """A rank's shard (shard_params) -> the whole tree, every tp rank the
+    same one, on ``device`` (default: the shard's), not bound to a tp
+    communicator (checkpoints, export). tp 1 returns ``local``."""
+    from long_vita_tpu_torch.models.long_vita import LongVITAParams
+
+    tp = mesh.shape["tp"]
+    if tp == 1:
+        return local
+    layout = leaf_layout(local, cfg, mesh.tp_index, tp)
+    named = dict(local.named_parameters())
+    whole = _rebuild(local, gather_named(named, layout, mesh.tp_comm, device=device))
+    (whole.text if isinstance(whole, LongVITAParams) else whole).tp_comm = None
+    return whole
 
 
 def _rebuild(module, tensors: dict, prefix: str = ""):

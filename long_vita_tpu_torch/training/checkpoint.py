@@ -10,6 +10,13 @@ waits (ROADMAP: port queue, training: orbax interop).
 Stage handoff: ``load_checkpoint(..., load_optim=False)`` and
 ``restore_params_only`` take the parameters and keep the fresh optimizer
 state, as the reference's --no-load-optim --finetune.
+
+The format knows no mesh geometry: over tensor parallelism (``layout``,
+parallel/sharding.leaf_layout of a rank's shard) ``save_checkpoint``
+gathers the parameters and the moments leaf by leaf over tp and world rank
+0 writes the whole tree, the tp-1 format (JAX's orbax stores hold global
+arrays too); loading cuts each rank's slices from the whole tensors. A
+checkpoint written at tp 2 resumes at tp 1, and the other way round.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from long_vita_tpu_torch.parallel.sharding import gather_named, shard_named
 from long_vita_tpu_torch.training.optimizer import AdamState
 from long_vita_tpu_torch.training.train_step import TrainState
 
@@ -38,16 +46,27 @@ def _steps(directory: str) -> list[int]:
     )
 
 
-def save_checkpoint(directory: str, state: TrainState, step: Optional[int] = None) -> None:
+def save_checkpoint(directory: str, state: TrainState, step: Optional[int] = None, *,
+                    layout: Optional[dict] = None, tp_comm=None, write: bool = True) -> None:
     """Write ``state`` as step ``step`` (default: state.step); drop all but
-    the newest MAX_TO_KEEP steps. The file appears atomically."""
+    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp
+    (``layout`` of the state's shards and their ``tp_comm``): every tp rank
+    calls it, the parameters and moments are gathered to the host leaf by
+    leaf, and only the rank given ``write`` writes."""
     step = state.step if step is None else int(step)
+    params = {n: p.detach() for n, p in state.params.named_parameters()}
+    mu, nu = state.opt_state.mu, state.opt_state.nu
+    if layout is not None:
+        params, mu, nu = (gather_named(t, layout, tp_comm, device="cpu", keep=write)
+                          for t in (params, mu, nu))
+    if not write:
+        return
     out = Path(directory) / str(step)
     out.mkdir(parents=True, exist_ok=True)
     payload = {
-        "params": {n: p.detach() for n, p in state.params.named_parameters()},
-        "mu": state.opt_state.mu,
-        "nu": state.opt_state.nu,
+        "params": params,
+        "mu": mu,
+        "nu": nu,
         "count": state.opt_state.count,
         "step": step,
     }
@@ -67,8 +86,9 @@ def _read(directory: str, step: Optional[int]) -> dict:
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
+    # memory-mapped: a tp rank that takes its slices reads only their pages
     return torch.load(Path(directory) / str(step) / _FILE, map_location="cpu",
-                      weights_only=True)
+                      weights_only=True, mmap=True)
 
 
 @torch.no_grad()
@@ -87,17 +107,19 @@ def _copy_params(params: nn.Module, saved: dict) -> None:
 
 def load_checkpoint(
     directory: str, state: TrainState, *, load_optim: bool = True,
-    step: Optional[int] = None,
+    step: Optional[int] = None, layout: Optional[dict] = None,
 ) -> TrainState:
     """Restore the newest (or ``step``'s) checkpoint into ``state``: the
-    parameters in place and, with load_optim, the moments, counts and step."""
+    parameters in place and, with load_optim, the moments, counts and step.
+    ``layout`` (state's parameters a tp shard): each tensor's slice."""
     saved = _read(directory, step)
-    _copy_params(state.params, saved["params"])
+    cut = (lambda t: t) if layout is None else (lambda t: shard_named(t, layout))
+    _copy_params(state.params, cut(saved["params"]))
     if load_optim:
         dev = {n: p.device for n, p in state.params.named_parameters()}
         state.opt_state = AdamState(
-            {n: t.to(dev[n]) for n, t in saved["mu"].items()},
-            {n: t.to(dev[n]) for n, t in saved["nu"].items()},
+            {n: t.to(dev[n]).contiguous() for n, t in cut(saved["mu"]).items()},
+            {n: t.to(dev[n]).contiguous() for n, t in cut(saved["nu"]).items()},
             int(saved["count"]),
         )
         state.step = int(saved["step"])
@@ -105,8 +127,11 @@ def load_checkpoint(
 
 
 def restore_params_only(directory: str, params_template: nn.Module,
-                        step: Optional[int] = None) -> nn.Module:
+                        step: Optional[int] = None,
+                        layout: Optional[dict] = None) -> nn.Module:
     """Stage handoff: the parameters of a previous stage, copied into
-    ``params_template`` in place; everything else starts fresh."""
-    _copy_params(params_template, _read(directory, step)["params"])
+    ``params_template`` in place (``layout``: the template is a tp shard,
+    each tensor's slice); everything else starts fresh."""
+    saved = _read(directory, step)["params"]
+    _copy_params(params_template, saved if layout is None else shard_named(saved, layout))
     return params_template

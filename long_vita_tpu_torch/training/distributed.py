@@ -6,14 +6,16 @@ Counterpart of long_vita_tpu/training/distributed.py: ``maybe_initialize``
 port has no global arrays: every rank walks the same stream of whole
 (zigzag-permuted) batches, keeps the rows of its dp index (``local_rows``)
 and the sequence shard of its cp index (``make_global_batch``), and the
-step sums the loss over ranks.
+step sums the loss over ranks. The tp ranks of one (dp, cp) index take
+the same rows and the same cp shard: the sequence-parallel split into tp
+slices happens inside the model (models/long_vita.py).
 
 Launch with torchrun (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) or the
 JAX package's variables (LVT_COORDINATOR=host:port, LVT_NUM_PROCESSES,
 LVT_PROCESS_ID), e.g. on one host with two GPUs:
 
     torchrun --nproc-per-node 2 -m long_vita_tpu_torch.training.train \\
-        --config recipe.yaml      # mesh: {dp: 1, cp: 2}
+        --config recipe.yaml      # mesh: {dp: 1, cp: 2} or {dp: 1, cp: 1, tp: 2}
 """
 from __future__ import annotations
 

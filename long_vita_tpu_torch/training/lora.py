@@ -19,6 +19,14 @@ untouched tensors (merge_lora). save_lora writes the JAX package's files
 out], and lora_config.json); bfloat16 adapters are written as float32 (numpy
 has no bfloat16; the widening is exact) and load_lora casts to ``dtype``, as
 JAX's does.
+
+On a tp shard (parallel/sharding.shard_params; the decoder's tp_comm set)
+the adapters follow sharding.py's LoRA specs: ``b`` splits its out dim in
+a column projection, ``a`` its in dim in a row one, the other factor
+replicated. add_lora_params draws each ``a`` whole and keeps the rank's
+slice, so every geometry draws the same adapters; merge_lora folds per
+shard (the slice of the whole merge); save_lora gathers them over tp and
+tp rank 0 writes; load_lora cuts the rank's slices.
 """
 from __future__ import annotations
 
@@ -56,6 +64,16 @@ def _text(params: Params) -> Qwen2Params:
     return params.text if isinstance(params, LongVITAParams) else params
 
 
+def _row_piece(name: str, t: torch.Tensor, tp) -> torch.Tensor:
+    """Of a whole adapter factor, the slice a tp rank holds: ``a`` [in, r]
+    of a row projection split on its in dim; everything else as it is
+    (``b`` is handled by its local shape)."""
+    if tp is None or name not in ("o_proj", "down_proj"):
+        return t
+    n = t.shape[0] // tp.size
+    return t[tp.rank * n:(tp.rank + 1) * n]
+
+
 def _in_out(entry) -> tuple[int, int]:
     """A projection's (in, out) features, whatever its layout."""
     if isinstance(entry, Dense):
@@ -79,8 +97,10 @@ def add_lora_params(
     adapted model is exactly the base model at step 0 (standard LoRA init);
     A ~ N(0, 1) / r, drawn in f32 from ``generator`` (on its device) and
     cast to ``dtype``, target by target and layer by layer. The adapters lie
-    on the layer's device. -> (params, cfg with the lora fields)."""
+    on the layer's device. On a tp shard each ``a`` is drawn whole and the
+    rank keeps its slice. -> (params, cfg with the lora fields)."""
     layers = _text(params).layers
+    tp = _text(params).tp_comm
     for t in lcfg.targets:
         if t not in ALL_TARGETS:
             raise ValueError(f"lora target {t!r} not in decoder layers (dense targets: {ALL_TARGETS})")
@@ -88,9 +108,12 @@ def add_lora_params(
         for layer in layers:
             entry = getattr(layer, t)
             d_in, d_out = _in_out(entry)
+            if tp is not None and t in ("o_proj", "down_proj"):
+                d_in *= tp.size  # the whole input dim of a row projection
             dev = layer.input_norm.device
             a = torch.randn((d_in, lcfg.r), generator=generator, device=generator.device,
                             dtype=torch.float32) / lcfg.r
+            a = _row_piece(t, a, tp)
             entry.lora = LoraAdapter(a.to(dev, dtype),
                                      torch.zeros((lcfg.r, d_out), dtype=dtype, device=dev))
     return params, dataclasses.replace(cfg, lora_r=lcfg.r, lora_alpha=lcfg.alpha)
@@ -100,7 +123,9 @@ def add_lora_params(
 def merge_lora(params: Params, cfg: TextConfig) -> Params:
     """Fold every adapter into its base weight: W + (A B)^T * alpha / r in
     f32, cast back to W's dtype. -> a new params tree without adapters that
-    shares every other tensor with ``params`` (export, merged serving)."""
+    shares every other tensor with ``params`` (export, merged serving). On
+    a tp shard the rank's slice of the whole merge, a shard of the same
+    tp_comm."""
     if cfg.lora_r == 0:
         return params
     scale = cfg.lora_alpha / cfg.lora_r
@@ -122,6 +147,7 @@ def merge_lora(params: Params, cfg: TextConfig) -> Params:
                                    post_attn_norm=layer.post_attn_norm, **projs))
     new_text = Qwen2Params(embed=text.embed, layers=layers, final_norm=text.final_norm,
                            lm_head=text.lm_head)
+    new_text.tp_comm = text.tp_comm
     if isinstance(params, LongVITAParams):
         return LongVITAParams(text=new_text, vision=params.vision, projector=params.projector)
     return new_text
@@ -145,11 +171,37 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _adapters(params: Params, cfg: TextConfig) -> dict[str, dict[str, torch.Tensor]]:
+    """lora_subtree of the whole tree; of a tp shard, the adapters gathered
+    over tp first (every tp rank calls it)."""
+    from long_vita_tpu_torch.parallel.sharding import gather_named, leaf_layout
+
+    text = _text(params)
+    tp = text.tp_comm
+    if tp is None:
+        return lora_subtree(params)
+    layout = leaf_layout(text, cfg, tp.rank, tp.size)
+    whole = gather_named({n: p for n, p in text.named_parameters() if ".lora." in n},
+                         layout, tp)
+    out = {}
+    for t in ALL_TARGETS:
+        keys = [f"layers.{i}.{t}.lora." for i in range(len(text.layers))]
+        if keys and keys[0] + "a" in whole:
+            out[t] = {f: torch.stack([whole[k + f] for k in keys]) for f in ("a", "b")}
+    return out
+
+
 def save_lora(path: str, params: Params, cfg: TextConfig, lcfg: LoraConfig) -> None:
-    """Write the adapters as lora_weights.npz + lora_config.json."""
+    """Write the adapters as lora_weights.npz + lora_config.json. On a tp
+    shard every tp rank calls it: the adapters are gathered over tp and tp
+    rank 0 writes."""
+    tp = _text(params).tp_comm
+    adapters = _adapters(params, cfg)
+    if tp is not None and tp.rank != 0:
+        return
     os.makedirs(path, exist_ok=True)
     flat = {}
-    for t, ab in lora_subtree(params).items():
+    for t, ab in adapters.items():
         flat[f"{t}.a"] = _host(ab["a"])
         flat[f"{t}.b"] = _host(ab["b"])
     np.savez(os.path.join(path, "lora_weights.npz"), **flat)
@@ -168,14 +220,25 @@ def load_lora(path: str, params: Params, cfg: TextConfig,
     with np.load(os.path.join(path, "lora_weights.npz")) as data:
         arrays = {k: data[k] for k in data.files}
     layers = _text(params).layers
+    tp = _text(params).tp_comm
     for t in meta["targets"]:
         a, b = arrays[f"{t}.a"], arrays[f"{t}.b"]
         if a.shape[0] != len(layers):
             raise ValueError(f"{t}: adapters for {a.shape[0]} layers, the model has {len(layers)}")
         for i, layer in enumerate(layers):
             dev = layer.input_norm.device
+            b_i = torch.from_numpy(np.array(b[i]))
+            if tp is not None and t not in ("o_proj", "down_proj"):
+                # a column projection's b: the rank's slice of its out dim
+                # (the local projection's width; whole kv heads at tp > Hkv)
+                from long_vita_tpu_torch.parallel.sharding import leaf_rule
+
+                leaf = leaf_rule(f"layers.{i}.{t}.lora.b", 1, tp.rank, tp.size,
+                                 cfg.num_key_value_heads)
+                n = b_i.shape[1] // leaf.pieces
+                b_i = b_i[:, leaf.index * n:(leaf.index + 1) * n]
             getattr(layer, t).lora = LoraAdapter(
-                torch.from_numpy(np.array(a[i])).to(dev, dtype),
-                torch.from_numpy(np.array(b[i])).to(dev, dtype),
+                _row_piece(t, torch.from_numpy(np.array(a[i])), tp).to(dev, dtype),
+                b_i.to(dev, dtype),
             )
     return params, dataclasses.replace(cfg, lora_r=meta["r"], lora_alpha=meta["alpha"])

@@ -1,7 +1,7 @@
 """Language-model loss with the logits-masked head, and batch collation.
 
 Counterpart of long_vita_tpu/training/loss.py (``cross_entropy``,
-``make_logit_positions``) and of long_vita_tpu/data/dataset.py's ``Pack`` and
+``vocab_parallel_ce``, ``make_logit_positions``) and of long_vita_tpu/data/dataset.py's ``Pack`` and
 ``collate_packs``. The JAX collation imports the JAX loss module, and
 ``long_vita_tpu.data`` needs yaml and PIL, none of which the GPU machine has:
 the port carries its own copy here, numpy in and numpy out, and imports
@@ -38,6 +38,90 @@ def cross_entropy(
     gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * mask
     return nll.sum(), mask.sum().float()
+
+
+def _f32_logits_local(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[N, H] x [V, H] -> f32 [N, V]: one bf16 GEMM writing f32 on CUDA
+    (f32 accumulation, as the head's _F32Logits), the widened operands
+    elsewhere."""
+    if w.dtype != torch.float32 and hidden.is_cuda:
+        return torch.mm(hidden, w.t(), out_dtype=torch.float32)
+    return hidden.float() @ w.float().t()
+
+
+def _f32_product(g: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 g [N, K] x b [K, M] -> [N, M] in ``dtype``: on CUDA with a bf16
+    b, g split into bf16 halves hi + lo (16 of its 24 mantissa bits) and
+    each half one bf16 GEMM summed in f32, as the head's backward
+    (models/qwen2._F32Logits); elsewhere in f32."""
+    if b.dtype != torch.float32 and b.is_cuda:
+        hi = g.to(b.dtype)
+        lo = (g - hi.float()).to(b.dtype)
+        return (torch.mm(hi, b, out_dtype=torch.float32)
+                + torch.mm(lo, b, out_dtype=torch.float32)).to(dtype)
+    return (g @ b.float()).to(dtype)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The per-row loss of vocab_parallel_ce: -> nll [N] (f32, 0 on masked
+    rows), the same on every tp rank. Saves the rank's f32 logits; the
+    backward is local (softmax minus one-hot, times the upstream gradient)
+    but for the hidden rows' gradient, summed over tp."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, tp):
+        logits = _f32_logits_local(hidden, weight)  # [N, V/tp]
+        vloc = logits.shape[1]
+        # the max offset cancels, so it is taken without a gradient: the
+        # rank's row max, then the max over tp (an exact all-gather)
+        m = tp.all_gather(logits.amax(-1)[None], 0).amax(0)
+        sumexp = tp.all_reduce_sum(torch.exp(logits - m[:, None]).sum(-1))
+        logz = m + torch.log(sumexp)
+        mask = labels != IGNORE_INDEX
+        loc = torch.where(mask, labels, 0).long() - tp.rank * vloc
+        mine = (loc >= 0) & (loc < vloc)
+        gold_local = torch.take_along_dim(logits, loc.clamp(0, vloc - 1)[:, None], 1)[:, 0]
+        gold = tp.all_reduce_sum(torch.where(mine, gold_local, torch.zeros_like(gold_local)))
+        nll = (logz - gold) * mask
+        ctx.tp = tp
+        ctx.save_for_backward(hidden, weight, logits, logz, loc, mine & mask, mask)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, weight, logits, logz, loc, hit, mask = ctx.saved_tensors
+        scale = (g * mask).float()
+        # softmax minus one-hot, times the upstream gradient, in place
+        dlogits = logits.sub_(logz[:, None]).exp_()
+        rows = torch.nonzero(hit)[:, 0]
+        dlogits[rows, loc[rows]] -= 1.0
+        dlogits.mul_(scale[:, None])
+        d_hidden = d_weight = None
+        if ctx.needs_input_grad[0]:
+            d_hidden = ctx.tp.all_reduce_sum(_f32_product(dlogits, weight, hidden.dtype))
+        if ctx.needs_input_grad[1]:
+            d_weight = _f32_product(dlogits.t(), hidden, weight.dtype)
+        return d_hidden, d_weight, None, None
+
+
+def vocab_parallel_ce(
+    weight: torch.Tensor, hidden: torch.Tensor, labels: torch.Tensor, tp
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The budget rows' head GEMM and CE against the vocab-sharded head
+    (loss.py:40, the reference's vocab-parallel CE): weight [V/tp, H], this
+    rank's slice of lm_head (rank t holds ids [t V/tp, (t + 1) V/tp));
+    hidden [..., H] and labels [...] the same rows on every rank of ``tp``
+    (a Comm). Each rank forms its f32 logits [N, V/tp], the row max is the
+    max over tp (held without a gradient), the sum of exponentials is
+    summed over tp, and the gold logit comes from the one rank whose range
+    holds the label (IGNORE_INDEX rows masked). -> (summed loss, count) of
+    these rows, f32, the same on every tp rank: the caller sums them over
+    dp x cp (disjoint rows). The rows' gradient is summed over tp in the
+    backward, the weight's stays the rank's own."""
+    flat = hidden.reshape(-1, hidden.shape[-1])
+    labels = labels.reshape(-1)
+    nll = _VocabParallelCE.apply(flat, weight, labels, tp)
+    return nll.sum(), (labels != IGNORE_INDEX).sum().float()
 
 
 def make_logit_positions(

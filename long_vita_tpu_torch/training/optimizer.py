@@ -34,6 +34,13 @@ moments here, and its gradient counts in the norm only. The train step folds
 such a gradient into an f32 sum of squares as soon as autograd has
 accumulated it and drops it (``frozen_sq``), so a LoRA run over a 14B model
 never holds the base weights' gradients, nor moments for them.
+
+Over tensor parallelism the parameters are a rank's shards (parallel/
+sharding.py) and AdamW stays elementwise on them; the global norm that
+clipping and the grad_norm metric read is ``tp_global_norm``: a sharded
+leaf's squares summed over tp (a slice that several ranks share counted
+once), a replicated leaf's counted once, as optax.global_norm counts the
+global arrays.
 """
 from __future__ import annotations
 
@@ -170,19 +177,22 @@ class AdamW:
     @torch.no_grad()
     def step(
         self, params: nn.Module, grads: dict[str, Optional[torch.Tensor]], state: AdamState,
-        frozen_sq: Optional[torch.Tensor] = None,
+        frozen_sq: Optional[torch.Tensor] = None, g_norm: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """One update of ``params`` from ``grads`` (name -> gradient in the
         parameter's dtype, or None where there is none), in place; the
         moments in ``state`` are updated in place too. ``frozen_sq``: the f32
         sum of squares of mask-frozen gradients that were folded away; it
         and any mask-frozen gradient in ``grads`` count in the global norm
-        only. -> that global norm (the unclipped grad_norm)."""
+        only. ``g_norm``: that global norm when the caller has it (over tp
+        shards, tp_global_norm), else it is computed here. -> the global
+        norm (the unclipped grad_norm)."""
         cfg = self.cfg
         b1, b2 = cfg.betas
         named = dict(params.named_parameters())
         live = {n: g for n, g in grads.items() if g is not None}
-        g_norm = global_norm(live.values(), frozen_sq)
+        if g_norm is None:
+            g_norm = global_norm(live.values(), frozen_sq)
         live = {n: g for n, g in live.items() if n not in self.frozen}
         for n in live:
             if n not in state.mu:  # a leaf that started to take gradients
@@ -242,3 +252,30 @@ def global_norm(tensors, extra_sq: Optional[torch.Tensor] = None) -> torch.Tenso
     if total is None:
         return torch.zeros(())
     return total.sqrt()
+
+
+def tp_global_norm(grads: dict, layout: dict, tp_comm,
+                   folded: Optional[tuple] = None) -> torch.Tensor:
+    """The global norm over a rank's shards (optax.global_norm of the whole
+    arrays): ``layout`` (parallel/sharding.leaf_layout) tells a sharded
+    leaf, whose squares are summed over ``tp_comm`` (of a slice that
+    ``share`` ranks hold, only the first rank's), from a replicated one,
+    counted once (its summed gradient is the same on every rank).
+    ``folded``: (sharded, replicated) f32 sums of squares of gradients
+    folded away already, the sharded one this rank's share. -> f32 scalar,
+    the same bits on every tp rank."""
+    sharded, replicated = folded if folded is not None else (None, None)
+    for name, g in grads.items():
+        leaf = layout[name]
+        if leaf.sharded and tp_comm.rank % leaf.share:
+            continue
+        sq = square_sum(g)
+        if leaf.sharded:
+            sharded = sq if sharded is None else sharded + sq
+        else:
+            replicated = sq if replicated is None else replicated + sq
+    like = next(iter(grads.values()), None)
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=like.device if like is not None else None)
+    total = tp_comm.all_reduce_sum(sharded if sharded is not None else zero)
+    return (total + (replicated if replicated is not None else zero)).sqrt()

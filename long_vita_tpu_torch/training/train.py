@@ -10,7 +10,7 @@ for the released stages):
            lora: {r, alpha, targets, lora_only}
     data:  {corpus: <corpus.yaml>, seq_len, logit_budget, max_patch_grid,
             max_num_frame, max_fps, system_message, cross_dataset_joint, ...}
-    mesh:  {dp, cp, tp, ...}           # dp x cp over processes; tp, pp raise
+    mesh:  {dp, cp, tp, ...}           # dp x cp x tp over processes; pp, tq raise
     optim: {lr, warmup_steps, total_steps, freeze_vision, ...}
     run:   {steps, global_batch, micro_batch, remat, save_dir, output_dir,
             profile_steps, seed, ...}
@@ -19,8 +19,16 @@ The model is built on the card (``device="cuda"``) unless the caller asks
 for another device; without a card the default raises. As the JAX main,
 ``main`` first calls ``maybe_initialize`` (training/distributed.py): under
 torchrun (or the LVT_* variables) every process joins one NCCL group, takes
-the GPU of its rank and trains its dp rows and cp shard of the mesh;
-run.cp_algo, cp_inner and cp_window_size shape the attention. The JAX main
+the GPU of its rank and trains its dp rows and cp shard of the mesh, and
+over tp its shard of the weights (Megatron's tensor and sequence
+parallelism, models/qwen2.py): each rank reads only its slices of the
+checkpoint's tensors (utils/checkpoint_io.py), and a checkpoint the run
+writes is gathered into the tp-1 format (training/checkpoint.py);
+run.cp_algo, cp_inner and cp_window_size shape the attention:
+
+    torchrun --nproc-per-node 8 -m long_vita_tpu_torch.training.train \
+        --config recipe.yaml      # mesh: {dp: 1, cp: 1, tp: 8}
+ The JAX main
 also enables JAX's persistent compile cache, which has no counterpart: the
 port compiles nothing at run time but its kernels, which ops/_build.py
 keeps built under build/kernels/.
@@ -99,7 +107,13 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     where the JAX function takes the 14B model's (448 px, 256 tokens)
     whatever the checkpoint; the two agree on every released model.
     comm: the world communicator of a mesh of more than one rank (default:
-    the initialized torch.distributed group)."""
+    the initialized torch.distributed group). Over tp > 1 the mesh is made
+    here and each rank loads only its slices of the decoder (from
+    ``model.checkpoint`` or ``model.graft``; a ``load_stage`` checkpoint is
+    cut the same way), and LoRA's adapters are drawn whole and cut, so
+    that every geometry starts from the same model. The Trainer's
+    ``checkpoint_bytes``: the bytes this rank copied out of the checkpoint's
+    files (None for a graft)."""
     from long_vita_tpu_torch.data.image_processor import ImageProcessor
     from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
     from long_vita_tpu_torch.tokenizer import load_tokenizer
@@ -109,25 +123,35 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     data_cfg = recipe.get("data", {})
     tcfg = trainer_config(recipe)
     dtype = _DTYPES[model_cfg.get("dtype", "bfloat16")]
+    mesh, stats = None, {}
+    if tcfg.mesh.tp > 1:
+        mesh = _tp_mesh(tcfg, comm)
     if model_cfg.get("graft"):
         # stage-1 bootstrap: stock Qwen2 + stock InternViT (reference
         # finetune_long_vita.py:480-530 grafting)
         from long_vita_tpu_torch.utils.graft import graft_checkpoints
 
         g = model_cfg["graft"]
-        params, cfg = graft_checkpoints(g["llm"], g["vit"], dtype=dtype, device=device)
+        params, cfg = graft_checkpoints(g["llm"], g["vit"], dtype=dtype, device=device,
+                                        mesh=mesh)
         tokenizer = load_tokenizer(g["llm"])
     else:
         from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
 
         ckpt = model_cfg["checkpoint"]
-        params, cfg = load_long_vita_checkpoint(ckpt, dtype=dtype, device=device)
+        params, cfg = load_long_vita_checkpoint(ckpt, dtype=dtype, device=device, mesh=mesh,
+                                                stats=stats)
         tokenizer = load_tokenizer(ckpt)
 
     if model_cfg.get("load_stage"):  # stage handoff: the previous stage's parameters
         from long_vita_tpu_torch.training.checkpoint import restore_params_only
 
-        params = restore_params_only(model_cfg["load_stage"], params)
+        layout = None
+        if mesh is not None:
+            from long_vita_tpu_torch.parallel.sharding import leaf_layout
+
+            layout = leaf_layout(params, cfg, mesh.tp_index, mesh.shape["tp"])
+        params = restore_params_only(model_cfg["load_stage"], params, layout=layout)
 
     if model_cfg.get("lora"):
         # parameter-efficient finetuning (reference --lora-r/-alpha/
@@ -160,7 +184,8 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
         max_fps=data_cfg.get("max_fps", 1.0),
     )
 
-    trainer = Trainer(params, cfg, tcfg, comm=comm)
+    trainer = Trainer(params, cfg, tcfg, comm=mesh if mesh is not None else comm)
+    trainer.checkpoint_bytes = stats.get("bytes_read")
     batches = make_data_pipeline(
         data_cfg["corpus"], mm, tcfg,
         pad_token_id=tokenizer.pad_token_id or 151643,
@@ -168,6 +193,23 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
         cross_dataset_joint=data_cfg.get("cross_dataset_joint", False),
     )
     return trainer, batches, tokenizer
+
+
+def _tp_mesh(tcfg, comm):
+    """The recipe's mesh over ``comm`` or the initialized torch.distributed
+    group (the ranks load their slices before the Trainer is made)."""
+    from long_vita_tpu_torch.parallel.mesh import make_mesh
+
+    if comm is None:
+        import torch.distributed as dist
+
+        from long_vita_tpu_torch.parallel.comm import DistComm
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(f"a mesh of {tcfg.mesh.size} ranks needs comm= or an initialized "
+                             "torch.distributed group (training/distributed.maybe_initialize)")
+        comm = DistComm()
+    return make_mesh(tcfg.mesh, comm)
 
 
 def main(argv=None, *, device="cuda"):

@@ -1,4 +1,4 @@
-"""The training step, on one device or on a dp x cp mesh of ranks.
+"""The training step, on one device or on a dp x cp x tp mesh of ranks.
 
 Counterpart of long_vita_tpu/training/train_step.py: the loss of the
 logits-masked head over the VLM forward, its gradients by autograd (through
@@ -9,22 +9,36 @@ ones; one copy of a 14B model is what fits here).
 Batch contract (torch tensors on the parameters' device): tokens,
 positions, segment_ids [B, S]; logit_positions, labels [B, M]; images
 [N, H, W, 3] and image_indices [2, N, T], or None. On a mesh (``mesh``, a
-parallel.mesh.Mesh; each rank holds its own copy of the parameters) each
-rank passes its shard (training/distributed.make_global_batch): its dp rows,
+parallel.mesh.Mesh; each rank holds its own copy of the parameters, over
+tp its shard of them, parallel/sharding.shard_params) each rank passes its
+shard of the batch (training/distributed.make_global_batch): its dp rows,
 the sequence keys cut to its cp shard of the zigzag-permuted sequence, the
-rest whole. The loss is then the global sum over ranks of each rank's
-supervised rows over the global count (JAX :4-11: the arrays stay logically
-global there), each rank backpropagates its share, and the gradients are
-all-reduced over dp x cp before the clip, so grad_norm is the global one.
-A mask-frozen gradient is folded there once it is summed over the ranks (a
-square of a sum is not a sum of squares): a decoder layer's, in its hook
-during the backward; the rest after it, with the other gradients.
+rest whole; every tp rank of a (dp, cp) index the same. The loss is then
+the global sum over the dp x cp ranks of each one's supervised rows over
+the global count (JAX :4-11: the arrays stay logically global there; the
+tp ranks of a cp shard agree on its rows' loss), each rank backpropagates
+its share, and the gradients are all-reduced before the clip, so grad_norm
+is the global one. Over tp (JAX :75-84 picks the vocab-parallel CE there)
+the forward runs sequence parallel and the loss is training/loss.
+vocab_parallel_ce; the reduction reads parallel/sharding.leaf_layout: a
+tp-sharded leaf is summed over dp x cp (``Mesh.dp_cp_comm``), a kv slice
+shared by tp // Hkv ranks over those ranks too (``Mesh.shared_comm``), and
+a replicated leaf over the whole world: under sequence parallelism every
+replicated leaf (the norms, final_norm, the tower, the projector) has a
+partial gradient on each rank, covering its slice of the sequence. No
+replicated leaf's gradient is the same on every tp rank, so none is summed
+over tp twice. grad_norm is optimizer.tp_global_norm. A mask-frozen
+gradient is folded once it is summed over its ranks (a square of a sum is
+not a sum of squares): a decoder layer's, in its hook during the backward;
+the rest after it, with the other gradients.
 
 On CUDA, thread-ranks (parallel/comm.ThreadComm) cannot train: autograd
 runs every backward on a CUDA device on one worker thread of that device,
 so a rank's ring backward that waits for another rank's blocks the other
 (chip_smoke.py's 2-rank probe times out there); such a step raises. Over NCCL
-processes, or on the CPU, it runs.
+processes, over gloo processes sharing a card through host-staged
+collectives (parallel/comm.init_process_group(..., staged_device="cuda")),
+or on the CPU, it runs.
 
 Freezing mirrors the JAX step: freeze_text stops the gradient at the text
 weights (requires_grad off: no dW is formed, activation gradients still flow
@@ -46,11 +60,24 @@ from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams, cp_logit_rows, long_vita_forward
 from long_vita_tpu_torch.models.qwen2 import ParallelConfig
 from long_vita_tpu_torch.parallel.comm import ThreadComm
-from long_vita_tpu_torch.training.loss import cross_entropy
-from long_vita_tpu_torch.training.optimizer import AdamState, AdamW, global_norm, square_sum
+from long_vita_tpu_torch.parallel.sharding import leaf_layout
+from long_vita_tpu_torch.training.loss import cross_entropy, vocab_parallel_ce
+from long_vita_tpu_torch.training.optimizer import (
+    AdamState,
+    AdamW,
+    global_norm,
+    square_sum,
+    tp_global_norm,
+)
 from long_vita_tpu_torch.utils.convert import set_requires_grad
 
 GRAD_BUCKET_BYTES = 256 * 2**20  # gradients all-reduced in buckets of this size
+
+# A fault for the gates that must catch it (tests, chip_smoke.py), never set
+# in training: parameter names ending in one of these suffixes have their
+# replicated gradient summed over dp x cp only, not over tp, as if the
+# sequence-parallel norms' tp sum were missing.
+_UNSUMMED_OVER_TP: tuple = ()
 
 
 @dataclasses.dataclass
@@ -71,21 +98,30 @@ def loss_terms(
     parallel: Optional[ParallelConfig] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (summed loss over the supervised rows, their count, MoE aux). With
-    ``parallel`` (cp > 1): over the rows of this rank's shard."""
-    logits, _, aux = long_vita_forward(
+    ``parallel`` (cp > 1): over the rows of this rank's shard. With tp > 1
+    (the parameters a tp shard): the vocab-parallel CE of those rows (JAX
+    :75-84's rule: tp > 1 without pp or tq, the budget dividing over cp,
+    which the Trainer's validate_geometry holds), the same on every tp
+    rank."""
+    vp = parallel is not None and parallel.mesh.shape["tp"] > 1
+    out, _, aux = long_vita_forward(
         params, batch["tokens"], batch["positions"], cfg,
         images=batch.get("images"), image_indices=batch.get("image_indices"),
         segment_ids=batch.get("segment_ids"),
         logit_positions=batch["logit_positions"], vision_chunk=vision_chunk,
         attn_impl=attn_impl, remat=remat, return_aux=True,
-        freeze_vision=freeze_vision, parallel=parallel,
+        freeze_vision=freeze_vision, parallel=parallel, head=not vp,
     )
     labels = batch["labels"]
-    if parallel is not None and parallel.cp > 1:
+    if parallel is not None and (parallel.cp > 1 or vp):
         mask, _ = cp_logit_rows(batch["logit_positions"], batch["tokens"].shape[1],
                                 parallel.comm.rank)
         labels = labels[mask][None]
-    loss_sum, count = cross_entropy(logits, labels)
+    if vp:
+        loss_sum, count = vocab_parallel_ce(params.text.lm_head.weight, out, labels,
+                                            params.text.tp_comm)
+    else:
+        loss_sum, count = cross_entropy(out, labels)
     return loss_sum, count, aux
 
 
@@ -118,17 +154,15 @@ def make_parallel_config(mesh, *, cp_algo: str = "ring", cp_inner: int = 1,
 
 
 def _check_mesh(mesh, device=None) -> None:
-    """A mesh must be a parallel.mesh.Mesh of dp x cp (tp serves, and trains
-    in a later slice); thread-ranks train only on the CPU (see the module
-    docstring)."""
+    """A mesh must be a parallel.mesh.Mesh (dp x cp x tp; pp and tq raise
+    where the Mesh is made); thread-ranks train only on the CPU (see the
+    module docstring)."""
     if mesh is None:
         return
-    from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, Mesh
+    from long_vita_tpu_torch.parallel.mesh import Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
-    if mesh.shape["tp"] > 1:
-        raise NotImplementedError(f"training over tp = {mesh.shape['tp']} {NEXT_SLICE}")
     if (isinstance(mesh.world, ThreadComm) and mesh.size > 1 and device is not None
             and torch.device(device).type == "cuda"):
         raise RuntimeError(
@@ -139,11 +173,11 @@ def _check_mesh(mesh, device=None) -> None:
         )
 
 
-def _all_reduce_grads(grads: dict, comm) -> dict:
-    """Sum every gradient over ``comm`` (the dp x cp world) in place, in
-    buckets of GRAD_BUCKET_BYTES flattened per dtype (one bucket is the
-    only copy held). -> ``grads``."""
-    bucket, size = [], 0
+def _all_reduce_grads(grads: dict, comm_of) -> dict:
+    """Sum every gradient over its communicator (``comm_of(name)``) in
+    place, in buckets of GRAD_BUCKET_BYTES flattened per dtype and
+    communicator (one bucket is the only copy held). -> ``grads``."""
+    bucket, size, comm = [], 0, None
 
     def flush():
         nonlocal bucket, size
@@ -154,13 +188,54 @@ def _all_reduce_grads(grads: dict, comm) -> dict:
             g.copy_(part.view_as(g))
         bucket, size = [], 0
 
-    for g in grads.values():
-        if bucket and (bucket[0].dtype != g.dtype or size + g.nbytes > GRAD_BUCKET_BYTES):
+    for name, g in grads.items():
+        c = comm_of(name)
+        if bucket and (bucket[0].dtype != g.dtype or c is not comm
+                       or size + g.nbytes > GRAD_BUCKET_BYTES):
             flush()
+        comm = c
         bucket.append(g)
         size += g.nbytes
     flush()
     return grads
+
+
+class _Reduction:
+    """Which ranks a leaf's gradient is summed over, and how it counts in
+    the global norm (see the module docstring): without tp, every leaf over
+    the world; over tp, by parallel/sharding.leaf_layout."""
+
+    def __init__(self, params, cfg, mesh):
+        self.mesh, self.world = mesh, mesh.world
+        self.tp = mesh.shape["tp"]
+        self.layout = leaf_layout(params, cfg, mesh.tp_index, self.tp) if self.tp > 1 else None
+
+    def comm(self, name: str):
+        if self.layout is None:
+            return self.world
+        leaf = self.layout[name]
+        if not leaf.sharded:
+            return self.mesh.dp_cp_comm if name.endswith(_UNSUMMED_OVER_TP) else self.world
+        return self.mesh.shared_comm(leaf.share) if leaf.share > 1 else self.mesh.dp_cp_comm
+
+    def counts(self, name: str) -> bool:
+        """Whether this rank counts the leaf's squares in the norm (of a
+        slice several tp ranks share, only the first)."""
+        if self.layout is None:
+            return True
+        leaf = self.layout[name]
+        return not leaf.sharded or self.mesh.tp_comm.rank % leaf.share == 0
+
+    def sharded(self, name: str) -> bool:
+        return self.layout is not None and self.layout[name].sharded
+
+    def norm(self, grads: dict, folded=None) -> torch.Tensor:
+        """The global norm of the summed ``grads`` (and of ``folded``:
+        (sharded, replicated) squares folded already)."""
+        if self.layout is None:
+            extra = None if folded is None else folded[1]
+            return global_norm(grads.values(), extra)
+        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded)
 
 
 def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:
@@ -212,40 +287,51 @@ def _backward(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_tex
 def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text,
                    attn_impl, mesh, parallel, fold):
     """_backward over a mesh. A decoder layer's ``fold`` leaf is summed over
-    the ranks in its post-accumulate hook, folded and dropped, so that at
+    its ranks in its post-accumulate hook, folded and dropped, so that at
     most one such gradient is held (lora_only's base weights are most of a
     model); every rank runs the same decoder graph, so the hooks fire in the
     same order on each. The rest (whose graph can differ between dp rows:
     the tower and projector reach only a rank with images) are summed after
-    the backward, the ``fold`` ones among them folded then."""
+    the backward, the ``fold`` ones among them folded then. -> folded as
+    (sharded, replicated) sums of squares (this rank's share of the
+    sharded one), or None without ``fold``; the loss and count summed over
+    dp x cp (the tp ranks of a cp shard hold the same rows)."""
     set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
     params.zero_grad(set_to_none=True)
-    world = mesh.world
+    red = _Reduction(params, cfg, mesh)
     folded, hooks, in_hook = None, [], set()
-    if fold:
-        folded = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
 
-        def fold_grad(p):
-            folded.add_(square_sum(world.all_reduce_sum(p.grad)))
+    def fold_in(name, g):
+        if red.counts(name):
+            folded[0 if red.sharded(name) else 1].add_(square_sum(g))
+
+    if fold:
+        dev = batch["tokens"].device
+        folded = (torch.zeros((), dtype=torch.float32, device=dev),
+                  torch.zeros((), dtype=torch.float32, device=dev))
+
+        def fold_grad(name, p):
+            fold_in(name, red.comm(name).all_reduce_sum(p.grad))
             p.grad = None
 
         in_hook = {n for n, p in params.named_parameters()
                    if n in fold and p.requires_grad and n.startswith("text.layers.")}
-        hooks = [p.register_post_accumulate_grad_hook(fold_grad)
+        hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n: fold_grad(n, p))
                  for n, p in params.named_parameters() if n in in_hook]
     try:
         loss_sum, count, _ = loss_terms(params, batch, cfg, remat, vision_chunk, freeze_vision,
                                         attn_impl, parallel)
-        total = world.all_reduce_sum(torch.stack([loss_sum.detach().float(), count.float()]))
+        total = mesh.dp_cp_comm.all_reduce_sum(
+            torch.stack([loss_sum.detach().float(), count.float()]))
         n = total[1].clamp_min(1.0)
         (loss_sum / n).backward()
     finally:
         for h in hooks:
             h.remove()
-    grads = _all_reduce_grads(gradients(params, exclude=in_hook), world)
+    grads = _all_reduce_grads(gradients(params, exclude=in_hook), red.comm)
     params.zero_grad(set_to_none=True)
     for name in [n for n in grads if n in fold]:  # the same order on every rank
-        folded.add_(square_sum(grads.pop(name)))
+        fold_in(name, grads.pop(name))
     return grads, total[0] / n, total[1], folded
 
 
@@ -277,7 +363,11 @@ def make_train_step(
             state.params, batch, cfg, remat, vision_chunk, freeze_vision, freeze_text,
             fold=tx.frozen, mesh=mesh, parallel=parallel,
         )
-        grad_norm = tx.step(state.params, grads, state.opt_state, folded)
+        if mesh is not None and mesh.size > 1:
+            g_norm = _Reduction(state.params, cfg, mesh).norm(grads, folded)
+            grad_norm = tx.step(state.params, grads, state.opt_state, g_norm=g_norm)
+        else:
+            grad_norm = tx.step(state.params, grads, state.opt_state, folded)
         state.step += 1
         return state, {"loss": loss, "tokens": count, "grad_norm": grad_norm}
 
@@ -325,10 +415,15 @@ def make_grad_accum_steps(
 
     def apply_fn(state: TrainState, grads: dict, loss_sum, count_sum, n_micro):
         grads = {n: g / n_micro for n, g in grads.items()}
-        grad_norm = global_norm(grads.values())
         named = dict(state.params.named_parameters())
-        tx.step(state.params, {n: g.to(named[n].dtype) for n, g in grads.items()},
-                state.opt_state)
+        cast = {n: g.to(named[n].dtype) for n, g in grads.items()}
+        if mesh is not None and mesh.shape["tp"] > 1:
+            red = _Reduction(state.params, cfg, mesh)
+            grad_norm = red.norm(grads)
+            tx.step(state.params, cast, state.opt_state, g_norm=red.norm(cast))
+        else:
+            grad_norm = global_norm(grads.values())
+            tx.step(state.params, cast, state.opt_state)
         state.step += 1
         return state, {"loss": loss_sum / n_micro, "tokens": count_sum,
                        "grad_norm": grad_norm}
@@ -343,6 +438,7 @@ def init_train_state(
     moments for every parameter that takes gradients and is not frozen by
     the optimizer's mask (set requires_grad first,
     utils/convert.set_requires_grad). On a mesh every rank holds the whole
-    parameters (FSDP comes with the next slice)."""
+    parameters, or over tp its shard of them (FSDP comes with a later
+    slice)."""
     _check_mesh(mesh)
     return TrainState(params, tx.init(params), 0)

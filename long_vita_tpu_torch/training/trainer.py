@@ -1,5 +1,5 @@
 """Training loop: data pipeline -> train step -> checkpoints, on one GPU or
-over a dp x cp mesh of ranks.
+over a dp x cp x tp mesh of ranks.
 
 Counterpart of long_vita_tpu/training/trainer.py. Kept from the JAX trainer: gradient accumulation over micro-batches,
 the NaN tripwire (pretrain_long_vita.py:822-827), the straggler log, save
@@ -12,17 +12,22 @@ make_data_pipeline, data_report.json / data_samples.json / data_error.log.
 make_data_pipeline is the JAX one: corpus YAML -> ChatML supervision ->
 greedy packs -> batches -> a prefetch thread.
 
-A mesh (``tcfg.mesh`` of dp x cp ranks over ``comm``, a
+A mesh (``tcfg.mesh`` of dp x cp x tp ranks over ``comm``, a
 parallel.comm communicator, or the torch.distributed group that
 training/distributed.maybe_initialize starts): every rank builds the Trainer
-with its own copy of the parameters and trains on the same stream of whole
-batches, zigzag-permuted by batch_iterator for ring attention (over the ring
-groups for hybrid, unpermuted for Ulysses, JAX :83-116); each rank keeps its
-dp rows and cp sequence shard (training/distributed.py), the loss and the
-gradients are global (train_step.py), and world rank 0 writes the
-checkpoints. Raising, with their ROADMAP items (§1: Tensor parallelism,
-FSDP, pipeline stages): tp, pp, virtual pipeline stages and FSDP;
-thread-ranks on CUDA (train_step._check_mesh). The data modules, the metrics and the profiler
+with its own copy of the parameters (over tp > 1 the Trainer cuts its
+shard, parallel/sharding.shard_params(own=True), unless it is handed one
+already: train.build_from_recipe loads each rank's slices) and trains on
+the same stream of whole batches, zigzag-permuted by batch_iterator for
+ring attention (over the ring groups for hybrid, unpermuted for Ulysses,
+JAX :83-116); each rank keeps its dp rows and cp sequence shard
+(training/distributed.py; the tp ranks of one the same, the sequence-
+parallel split happens inside the model), the loss and the gradients are
+global (train_step.py), and world rank 0 writes the checkpoints (over tp
+the gathered tree, in the tp-1 format: a checkpoint resumes at any tp) and
+metrics.jsonl. Raising, with their ROADMAP items (§1 items 6-8): 2-D tp
+(tq), FSDP, pp and virtual pipeline stages; thread-ranks on CUDA
+(train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
 """
@@ -40,7 +45,14 @@ import torch
 from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams
 from long_vita_tpu_torch.models.qwen2 import check_moe_mesh, check_remat
-from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, MeshConfig, make_mesh, validate_geometry
+from long_vita_tpu_torch.parallel.mesh import (
+    NEXT_SLICE,
+    Mesh,
+    MeshConfig,
+    make_mesh,
+    validate_geometry,
+)
+from long_vita_tpu_torch.parallel.sharding import shard_params
 from long_vita_tpu_torch.parallel.zigzag import inverse_zigzag_permutation, zigzag_permute
 from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
 from long_vita_tpu_torch.training.loss import collate_packs, to_device
@@ -125,22 +137,29 @@ class Trainer:
     def __init__(self, params: LongVITAParams, cfg: LongVITAConfig, tcfg: TrainerConfig,
                  comm=None):
         """comm: the world communicator of a mesh of more than one rank
-        (default: the initialized torch.distributed group)."""
+        (default: the initialized torch.distributed group), or the
+        parallel.mesh.Mesh of tcfg.mesh over it. Over tp, ``params`` is the
+        whole tree (this rank's shard is cut from it and the caller may
+        drop it) or this rank's shard (its tp_comm set)."""
         unported = {
             f"{tcfg.virtual_pp} virtual pipeline stages": tcfg.virtual_pp > 1,
             "FSDP": tcfg.fsdp,
-            f"tp = {tcfg.mesh.tp}": tcfg.mesh.tp > 1,
             f"pp = {tcfg.mesh.pp}": tcfg.mesh.pp > 1,
-            f"tq = {tcfg.mesh.tq}": tcfg.mesh.tq > 1,
+            f"tq = {tcfg.mesh.tq} (2-D tp)": tcfg.mesh.tq > 1,
         }
         for what, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"{what} {NEXT_SLICE}")
         check_remat(tcfg.remat)
-        check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp)
-        validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp)
+        check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp)
+        validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp,
+                          logit_budget=tcfg.logit_budget)
         self.mesh = None
-        if tcfg.mesh.size > 1:
+        if isinstance(comm, Mesh):
+            if comm.cfg != tcfg.mesh:
+                raise ValueError(f"the mesh {comm.cfg} is not the recipe's {tcfg.mesh}")
+            self.mesh = comm
+        elif tcfg.mesh.size > 1:
             if comm is None:
                 import torch.distributed as dist
 
@@ -153,7 +172,10 @@ class Trainer:
                     )
                 comm = DistComm()
             self.mesh = make_mesh(tcfg.mesh, comm)
+        if tcfg.mesh.tp > 1 and params.text.tp_comm is None:
+            params = shard_params(params, self.mesh, cfg, own=True)
         self.cfg, self.tcfg = cfg, tcfg
+        self.checkpoint_bytes: Optional[int] = None  # train.build_from_recipe's loader count
         self.tx = make_optimizer(
             params, tcfg.optim,
             num_vit_layers=cfg.vision.num_hidden_layers if cfg.vision else 0,
@@ -175,7 +197,8 @@ class Trainer:
             step = latest_step(tcfg.save_dir)
             if step is not None:
                 logger.info("resuming from %s step %d", tcfg.save_dir, step)
-                self.state = load_checkpoint(tcfg.save_dir, self.state)
+                self.state = load_checkpoint(tcfg.save_dir, self.state,
+                                             layout=self._layout())
                 self.start_step = step
         self.accum = 1
         if tcfg.micro_batch and tcfg.micro_batch < tcfg.global_batch:
@@ -203,12 +226,27 @@ class Trainer:
         rows = np.asarray(batch["tokens"]).shape[0]
         return make_global_batch(local_rows(batch, self.mesh, rows), self.mesh, self.device)
 
+    def _layout(self):
+        """The tp layout of this rank's parameters, or None without tp."""
+        if self.mesh is None or self.mesh.shape["tp"] == 1:
+            return None
+        from long_vita_tpu_torch.parallel.sharding import leaf_layout
+
+        return leaf_layout(self.state.params, self.cfg, self.mesh.tp_index,
+                           self.mesh.shape["tp"])
+
     def _save(self, save_checkpoint) -> None:
-        """World rank 0 writes (every rank holds the same parameters)."""
-        if self.mesh is None or self.mesh.world.rank == 0:
+        """World rank 0 writes (every rank holds the same parameters; over
+        tp the tp ranks gather the tree and its moments for it first)."""
+        if self.mesh is None:
             save_checkpoint(self.tcfg.save_dir, self.state)
-        if self.mesh is not None:
-            self.mesh.world.barrier()
+            return
+        layout = self._layout()
+        # over tp, the tp group of world rank 0 (dp and cp index 0) gathers
+        if self.mesh.world.rank == 0 or (layout is not None and self.mesh.dp_cp_comm.rank == 0):
+            save_checkpoint(self.tcfg.save_dir, self.state, layout=layout,
+                            tp_comm=self.mesh.tp_comm, write=self.mesh.world.rank == 0)
+        self.mesh.world.barrier()
 
     @torch.no_grad()
     def evaluate(self, batches: Iterator[dict], max_steps: int = 0) -> dict:
@@ -223,8 +261,8 @@ class Trainer:
                 self.state.params, self._device_batch(batch), self.cfg, False,
                 self.tcfg.vision_chunk, parallel=parallel,
             )
-            if self.mesh is not None:
-                loss_sum, tokens = self.mesh.world.all_reduce_sum(
+            if self.mesh is not None:  # the tp ranks of a cp shard agree on its rows
+                loss_sum, tokens = self.mesh.dp_cp_comm.all_reduce_sum(
                     torch.stack([loss_sum.float(), tokens.float()]))
             total += float(loss_sum)
             count += float(tokens)

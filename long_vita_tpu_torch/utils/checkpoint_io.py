@@ -30,6 +30,14 @@ for utils/export_hf.py, one tensor at a time from the device.
 
 Weights land on the card (``device="cuda"``) unless the caller passes
 another device; without a card the default raises.
+
+Over a tensor-parallel mesh (``mesh=``, training) a rank reads only its
+slices of each sharded tensor from the memory-mapped file (a column slice
+is a row range of bytes, a row-parallel slice a strided range), and the
+tree it returns is bit for bit ``parallel/sharding.shard_params(whole,
+mesh, cfg, own=True)`` of the whole load, bound to the mesh's tp_comm; the
+whole tree is never built. ``SafetensorsIndex.bytes_read`` counts the bytes
+copied out of the files.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ import glob
 import json
 import os
 import struct
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -97,6 +105,7 @@ class SafetensorsIndex:
                 for name in read_header(fname)[0]:
                     self.name_to_file[name] = fname
         self._open_files: dict[str, tuple] = {}  # file -> (map, header, data offset)
+        self.bytes_read = 0  # bytes copied out of the files by tensor()
 
     def __contains__(self, name: str) -> bool:
         return name in self.name_to_file
@@ -119,9 +128,15 @@ class SafetensorsIndex:
         arr = np.asarray(mm[start + b : start + e]).view(np_dtype).reshape(info["shape"])
         return torch.from_numpy(arr).view(t_dtype)
 
-    def tensor(self, name: str, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
-        """The tensor on ``device`` (a copy), cast to ``dtype`` when given."""
-        return self.get(name).to(device=device, dtype=dtype, copy=True)
+    def tensor(self, name: str, device, dtype: Optional[torch.dtype],
+               cut: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+        """The tensor on ``device`` (a contiguous copy), cast to ``dtype``
+        when given; ``cut`` takes the part to read (a view of the map)."""
+        host = self.get(name)
+        if cut is not None:
+            host = cut(host)
+        self.bytes_read += host.nbytes
+        return host.to(device=device, dtype=dtype, copy=True).contiguous()
 
     def close(self):
         self._open_files.clear()
@@ -158,12 +173,25 @@ def save_safetensors(tensors: dict[str, torch.Tensor], path: str) -> None:
 
 def load_text_params(
     idx: SafetensorsIndex, cfg: LongVITAConfig, dtype=torch.bfloat16,
-    prefix: str = "model.", device="cuda",
+    prefix: str = "model.", device="cuda", mesh=None,
 ) -> Qwen2Params:
+    """The decoder; over ``mesh``'s tp axis this rank's slices of it, read
+    from the files, and bound to mesh.tp_comm."""
     device = _target(device)
+    tp = mesh.shape["tp"] if mesh is not None else 1
+    if tp > 1:
+        from long_vita_tpu_torch.parallel.mesh import MeshConfig, validate_geometry
+        from long_vita_tpu_torch.parallel.sharding import dense_spec, leaf_rule, slice_leaf
 
-    def t(name):
-        return idx.tensor(name, device, dtype)
+        validate_geometry(cfg.text, MeshConfig(tp=tp))
+
+    def t(name, tree=None):
+        """The file's tensor ``name``; over tp this rank's slice of the
+        tree's parameter ``tree`` (replicated when None)."""
+        if tp == 1 or tree is None:
+            return idx.tensor(name, device, dtype)
+        leaf = leaf_rule(tree, dense_spec(tree), mesh.tp_index, tp, cfg.text.num_key_value_heads)
+        return idx.tensor(name, device, dtype, lambda view: slice_leaf(view, leaf))
 
     lm_head_key = "lm_head.weight"
     if lm_head_key not in idx:  # tied embeddings fallback
@@ -173,7 +201,9 @@ def load_text_params(
         p = f"{prefix}layers.{i}."
 
         def proj(name, bias=False):
-            return Dense(t(p + name + ".weight"), t(p + name + ".bias") if bias else None)
+            tree = f"text.layers.{i}.{name.split('.')[-1]}."
+            return Dense(t(p + name + ".weight", tree + "weight"),
+                         t(p + name + ".bias", tree + "bias") if bias else None)
 
         layers.append(DecoderLayer(
             input_norm=t(p + "input_layernorm.weight"),
@@ -186,12 +216,15 @@ def load_text_params(
             up_proj=proj("mlp.up_proj"),
             down_proj=proj("mlp.down_proj"),
         ))
-    return Qwen2Params(
-        embed=t(prefix + "embed_tokens.weight"),
+    text = Qwen2Params(
+        embed=t(prefix + "embed_tokens.weight", "text.embed"),
         layers=layers,
         final_norm=t(prefix + "norm.weight"),
-        lm_head=Dense(t(lm_head_key)),
+        lm_head=Dense(t(lm_head_key, "text.lm_head.weight")),
     )
+    if tp > 1:
+        text.tp_comm = mesh.tp_comm
+    return text
 
 
 def load_vision_params(
@@ -253,15 +286,20 @@ def load_long_vita_checkpoint(
     cfg: Optional[LongVITAConfig] = None,
     dtype=torch.bfloat16,
     device="cuda",
+    mesh=None,
+    stats: Optional[dict] = None,
 ) -> tuple[Union[LongVITAParams, Qwen2Params], LongVITAConfig]:
     """Load a released Long-VITA-*_HF checkpoint directory. -> (a
     LongVITAParams, or the decoder's Qwen2Params alone when the directory
-    holds no vision tower, and the configuration)."""
+    holds no vision tower, and the configuration). mesh (a
+    parallel.mesh.Mesh with tp > 1): this rank's shard, read slice by slice
+    (see the module docstring). stats: a dict that receives "bytes_read",
+    the bytes copied out of the files."""
     device = _target(device)
     if cfg is None:
         cfg = LongVITAConfig.from_json(os.path.join(path, "config.json"))
     idx = SafetensorsIndex(path)
-    text = load_text_params(idx, cfg, dtype, device=device)
+    text = load_text_params(idx, cfg, dtype, device=device, mesh=mesh)
     params: Union[LongVITAParams, Qwen2Params] = text
     if cfg.vision is not None and any(k.startswith("model.vision_model.") for k in idx.keys()):
         params = LongVITAParams(
@@ -269,5 +307,7 @@ def load_long_vita_checkpoint(
             vision=load_vision_params(idx, cfg, dtype, device=device),
             projector=load_projector_params(idx, cfg, dtype, device=device),
         )
+    if stats is not None:
+        stats["bytes_read"] = idx.bytes_read
     idx.close()
     return params, cfg

@@ -42,6 +42,7 @@ def graft_checkpoints(
     seed: int = 0,
     device="cuda",
     out_dir: Optional[str] = None,
+    mesh=None,
 ) -> tuple[LongVITAParams, LongVITAConfig]:
     """-> (params, cfg) for a fresh Long-VITA from stock checkpoints.
 
@@ -50,6 +51,9 @@ def graft_checkpoints(
              like `embeddings.*` / `encoder.layers.*` without the grafted
              `model.vision_model.` prefix).
     out_dir: when given, the grafted model is saved there as well.
+    mesh: a parallel.mesh.Mesh with tp > 1: the decoder is this rank's
+          shard, read slice by slice (utils/checkpoint_io.load_text_params);
+          out_dir is then refused (export writes whole trees).
     """
     device = _target(device)
     with open(os.path.join(llm_dir, "config.json")) as f:
@@ -68,8 +72,11 @@ def graft_checkpoints(
         image_token_length=int((vision.grid * downsample) ** 2),
     )
 
+    if mesh is not None and out_dir is not None and mesh.shape["tp"] > 1:
+        raise ValueError("graft_checkpoints(out_dir=...) writes a whole tree; load it without "
+                         "a tp mesh")
     llm_idx = SafetensorsIndex(llm_dir)
-    text = load_text_params(llm_idx, cfg, dtype, device=device)
+    text = load_text_params(llm_idx, cfg, dtype, device=device, mesh=mesh)
     llm_idx.close()
 
     vit_idx = SafetensorsIndex(vit_dir)

@@ -285,3 +285,132 @@ def test_dist_comm_gloo_hung_rank_fails():
 def test_dist_comm_needs_an_initialized_group():
     with pytest.raises((RuntimeError, ValueError)):
         DistComm()
+
+
+# ---------------------------------------------------------------------------
+# reduce_scatter and Megatron's conjugate collectives (copy_to_tp,
+# reduce_from_tp, gather_seq, scatter_seq) against the unsharded op
+# ---------------------------------------------------------------------------
+
+
+def _conjugates(comm, device="cpu") -> dict:
+    """Each conjugate Function on rank-distinct f32 data, forward and
+    gradient, and reduce_scatter against a slice of all_reduce_sum. ->
+    numpy results: every rank's forward, its input's gradient under an
+    upstream gradient that differs by rank, and the reduce_scatter bits."""
+    from long_vita_tpu_torch.parallel.comm import (
+        copy_to_tp,
+        gather_seq,
+        reduce_from_tp,
+        scatter_seq,
+    )
+
+    gen = torch.Generator().manual_seed(comm.rank)
+    out = {}
+    whole = torch.randn(2, 4 * comm.size, 3, generator=gen).to(device)
+    rs = comm.reduce_scatter(whole, 1)
+    n = whole.shape[1] // comm.size
+    out["rs_exact"] = np.asarray(torch.equal(
+        rs, comm.all_reduce_sum(whole)[:, comm.rank * n:(comm.rank + 1) * n]))
+    out["rs"] = rs.cpu().numpy()
+    for name, fn, shape in (("copy", copy_to_tp, (2, 4, 3)), ("reduce", reduce_from_tp, (2, 4, 3)),
+                            ("gather", gather_seq, (2, 4, 3)),
+                            ("scatter", scatter_seq, (2, 4 * comm.size, 3))):
+        x = torch.randn(*shape, generator=gen).to(device).requires_grad_()
+        y = fn(x, comm)
+        g = torch.randn(*y.shape, generator=gen).to(device)
+        y.backward(g)
+        out[name] = tuple(t.detach().cpu().numpy() for t in (x, y, g, x.grad))
+    comm.barrier()
+    return out
+
+
+def _check_conjugates(results: list) -> None:
+    """Every rank's forward and gradient against the unsharded op: the
+    whole computation is sum_r f(x_r) with each rank's upstream gradient
+    g_r on its own output (exact for gathers and slices, 1e-6 for sums)."""
+    for r, res in enumerate(results):
+        assert res["rs_exact"], r
+    xs = {k: [res[k][0] for res in results] for k in ("copy", "reduce", "gather", "scatter")}
+    gs = {k: [res[k][2] for res in results] for k in xs}
+    for r, res in enumerate(results):
+        # copy_to_tp: identity forward, the upstream gradients summed
+        np.testing.assert_array_equal(res["copy"][1], xs["copy"][r])
+        np.testing.assert_allclose(res["copy"][3], sum(gs["copy"]), rtol=1e-6, atol=1e-6)
+        # reduce_from_tp: the sum forward, the gradient passed through
+        np.testing.assert_allclose(res["reduce"][1], sum(xs["reduce"]), rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(res["reduce"][3], gs["reduce"][r])
+        # gather_seq: every rank's slice, in rank order; the gradient is the
+        # sum of every rank's upstream gradient at this rank's slice
+        np.testing.assert_array_equal(res["gather"][1], np.concatenate(xs["gather"], 1))
+        sl = slice(r * 4, (r + 1) * 4)
+        np.testing.assert_allclose(res["gather"][3], sum(g[:, sl] for g in gs["gather"]),
+                                   rtol=1e-6, atol=1e-6)
+        # scatter_seq: this rank's slice of the sum; the gradient is every
+        # rank's upstream gradient, gathered
+        np.testing.assert_allclose(res["scatter"][1], sum(xs["scatter"])[:, sl], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(res["scatter"][3], np.concatenate(gs["scatter"], 1))
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_conjugate_collectives_on_thread_ranks(size):
+    _check_conjugates(run_thread_ranks(_conjugates, size, timeout=30))
+
+
+def test_conjugate_collectives_on_local_comm():
+    _check_conjugates([_conjugates(LocalComm())])
+
+
+def _gloo_conjugate_worker(rank, world, init, out):
+    torch.set_num_threads(1)
+    try:
+        comm = init_process_group(rank, world, init, backend="gloo", timeout=30.0)
+        out.put((rank, _conjugates(comm)))
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        out.put((rank, f"raised {type(e).__name__}: {e}"))
+
+
+def test_conjugate_collectives_over_gloo():
+    got = run_gloo(_gloo_conjugate_worker, 2)
+    assert sorted(got) == [0, 1], got
+    assert not any(isinstance(v, str) for v in got.values()), got
+    _check_conjugates([got[0], got[1]])
+
+
+def test_staging_is_never_implicit():
+    """The host-staged mode is asked for by name, on gloo only."""
+    with pytest.raises(ValueError, match="staged_device"):
+        init_process_group(0, 1, "tcp://127.0.0.1:1", backend="nccl", staged_device="cuda")
+    with pytest.raises(ValueError, match="staged_device"):
+        init_process_group(0, 1, "tcp://127.0.0.1:1", backend="gloo", staged_device="cpu")
+
+
+def _staged_worker(rank, world, init, out):
+    try:
+        comm = init_process_group(rank, world, init, backend="gloo", timeout=30.0,
+                                  staged_device="cuda")
+        res = _conjugates(comm, "cuda")
+        big = torch.full((3, 1001), float(rank + 1), device="cuda")  # pads to the ranks
+        res["sum_big"] = comm.all_reduce_sum(big).cpu().numpy()
+        res["stats"] = dict(comm.stats)
+        out.put((rank, res))
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        out.put((rank, f"raised {type(e).__name__}: {e}"))
+
+
+@pytest.mark.cuda
+def test_staged_gloo_collectives_on_one_card():
+    """Two gloo processes sharing one card with CUDA operands staged through
+    pinned host memory (the sums on the card): the conjugate collectives
+    against the unsharded op, an all-reduce whose size does not divide by
+    the ranks, and the copies counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the staged mode copies CUDA operands")
+    got = run_gloo(_staged_worker, 2)
+    assert sorted(got) == [0, 1], got
+    assert not any(isinstance(v, str) for v in got.values()), got
+    _check_conjugates([got[0], got[1]])
+    for res in got.values():
+        np.testing.assert_array_equal(res["sum_big"], np.full((3, 1001), 3.0, np.float32))
+        assert res["stats"]["copies"] > 0 and res["stats"]["bytes"] > 0

@@ -67,3 +67,30 @@ def test_tp_serve_phase_rehearsal(chip_smoke, no_cuda_calls, one_torch_thread, c
     assert "(b) each HTTP answer equals the in-process pool's row of the same admission" in out
     assert counts["w4_dequant"] == c4["w4_dequant"]
     assert all(counts[k] == 0 for k in chip_smoke.SOURCES)
+
+
+def test_tp_train_phase_rehearsal(chip_smoke, capsys):
+    """chip_smoke.phase_tp_train rehearsed on the CPU (bf16 weights, the
+    tiny configuration's two layers, 512 tokens): the tp-1 reference in a
+    process of its own, then tp 2 in two gloo processes through
+    train.build_from_recipe and Trainer.train, each rank reading its slices
+    of the checkpoint directory the phase writes. Every gate must hold,
+    the planted fault (the norms' tp sum removed) must fail the gradient
+    gate, and the tp-2 ranks must read less than the whole checkpoint."""
+    out = chip_smoke.phase_tp_train(
+        backend="gloo", device="cpu", cfg=tiny_test_config(), layers=2, seq=512, budget=128,
+        fault_seq=256,
+        steps=2, answer=8, text_sup=8, kernels=False,
+        tok=dict(endoftext=256, im_start=257, im_end=258, first_added=259))
+    text = capsys.readouterr().out
+    assert "FAIL" not in text
+    for gate in ("both tp ranks report the same loss bits: ok",
+                 "must fail: final_norm", "leaves every leaf's bits on every rank (stage 2 "
+                 "freezes no leaf): ok"):
+        assert gate in text, gate
+    assert re.search(r"tp 2 losses .* of tp 1's .*: ok", text)
+    assert re.search(r"cosine by group \(>= 0.99\): .*: ok", text)
+    read = [float(x) for x in re.findall(r"read (\d+\.\d+) MB of the checkpoint", text)]
+    whole = float(re.search(r"the checkpoint's (\d+\.\d+) MB", text)[1])
+    assert len(read) == 2 and all(0 < r < whole for r in read)
+    assert all(v == 0 for v in out["counts"].values())

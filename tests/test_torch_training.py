@@ -413,16 +413,19 @@ def test_trainer_accumulates_micro_batches():
 
 
 def test_unported_options_raise():
-    """What still waits for the next multi-GPU slice (ROADMAP's port queue)
-    raises: training over tensor and pipeline parallel meshes (tp serves
-    since the tensor-parallel serving slice), virtual pipeline stages,
-    FSDP and MoE layers over a mesh (expert parallelism). (dp x cp meshes
-    and zigzag batches train since the context-parallel slice:
-    tests/test_torch_cp_training.py.)"""
+    """What still waits for the later multi-GPU slices (ROADMAP's port
+    queue) raises: training over 2-D tp (tq) and pipeline parallel meshes,
+    virtual pipeline stages, FSDP and MoE layers over a mesh (expert
+    parallelism). (dp x cp meshes and zigzag batches train since the
+    context-parallel slice, tests/test_torch_cp_training.py; tp since the
+    tp training slice, tests/test_torch_tp_training.py: a tp mesh now gets
+    as far as asking for its communicator.)"""
     from long_vita_tpu_torch.parallel.comm import ThreadComm
     from long_vita_tpu_torch.parallel.mesh import make_mesh
 
     with pytest.raises(NotImplementedError, match="multi-GPU"):
+        _trainer(None, 1, mesh=MeshConfig(dp=2, tp=2, tq=2))
+    with pytest.raises(ValueError, match="needs comm="):
         _trainer(None, 1, mesh=MeshConfig(dp=2, tp=2))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _trainer(None, 1, mesh=MeshConfig(pp=4))
@@ -431,15 +434,25 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _trainer(None, 1, fsdp=True)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tp=2), ThreadComm.group(2)[0]))
+        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0]))
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(pp=2), ThreadComm.group(2)[0]))
     from long_vita_tpu_torch.models.long_vita import init_long_vita_params
 
     moe_cfg = port_tiny_config(num_experts=4)  # MoE trains on one device only
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Trainer(init_long_vita_params(torch.Generator(), moe_cfg), moe_cfg,
                 TrainerConfig(seq_len=S, logit_budget=S, steps=1, mesh=MeshConfig(dp=2)))
-    # the stage recipes' meshes (configs/stage*.yaml) are multi-device
+    # the stage recipes' meshes (configs/stage*.yaml) are multi-device: dp
+    # x cp x tp at the 14B's widths passes the port's checks and asks for
+    # its ranks, and the same recipe over 2-D tp raises
+    from long_vita_tpu_torch.config import long_vita_14b
+
     recipe = yaml.safe_load((ROOT / "configs" / "stage1_alignment.yaml").read_text())
+    with pytest.raises(ValueError, match="needs comm="):
+        Trainer(long_vita_params_from_jax(_jax_params(0), device="cpu"), long_vita_14b(),
+                ttrain.trainer_config(recipe))
+    recipe["mesh"] = {**recipe["mesh"], "tp": 4, "tq": 2}
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Trainer(long_vita_params_from_jax(_jax_params(0), device="cpu"), CFG,
                 ttrain.trainer_config(recipe))
