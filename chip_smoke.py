@@ -74,8 +74,9 @@ Phases (each raises on failure; the script then exits non-zero):
      peak memory are printed (4 thread-ranks on one card);
   5d. tp serving (phase_tp_serve): K6 on one row into the tp-4 column
      shards (out 1280, 256, 3456, 38016) and K1 / K2 on a 2048-row chunk
-     at 10/2 heads against their plain versions; then the same decoder at
-     full depth over tp 4 thread-ranks (each rank's shard a view of the
+     at 10/2 heads against their plain versions; then the same decoder,
+     cut to its first 24 layers since the FSDP phase joined, over tp 4
+     thread-ranks (each rank's shard a view of the
      weights, parallel/sharding.shard_params): a 5000-id prompt and 8
      greedy tokens, int8 weights (quantised once, whole) into an int8 cache
      and int4 weights, 4 tokens each, and a 4-tile image, each held step
@@ -142,6 +143,23 @@ Phases (each raises on failure; the script then exits non-zero):
      loss bits, gradients at cosine >= 0.999, K1 launches, peak memory),
      merge_lora under the logit gate, and save_lora -> load_lora bit for
      bit.
+  9b. FSDP from the recipe entry (phase_fsdp_train), once the card is
+     free: K1, K4 and K5 at the 72B's 64/8 heads on T2's packed row against
+     their plain versions; then the 72B VLM (long_vita_72b()) at full width,
+     the decoder cut to 2 layers, the 24-layer tower, written as a *_HF
+     directory, and configs/stage2_72b_tp8fsdp8.yaml's settings (all
+     trainable, the tower at lr x 0.1 with layer decay 0.9, remat, 16384
+     tokens; logit budget cut to 4096) on two packed rows with a 7-tile
+     image each: 2 steps without FSDP in a process of its own, then dp 2
+     with FSDP in two gloo processes sharing this card (host-staged
+     collectives), a row a rank, each reading only its pieces. Gates:
+     losses and grad_norm against the reference, every rank's loss bits,
+     the first step's gradients by leaf group from the shards, two planted
+     faults that must fail (grad_norm without its dp sum; the
+     reduce-scatter replaced by the rank's own slice), the lr-0 step, the
+     resident parameter / gradient / moment bytes and the bytes read
+     against the shard arithmetic, K1/K3/K4/K5 launches exact; peak memory,
+     step time and the staged bytes and seconds a step printed.
 
   2c. the eleventh slice, after the cp attention phases: K7 (phase_fwd_lab:
      every variant of the forward-kernel lab against its plain version at
@@ -165,8 +183,10 @@ Phases (each raises on failure; the script then exits non-zero):
      phase_cp_attention holds them), and two Trainer steps at cp 2 (full
      width, the decoder cut to 4 layers) against cp 1, the lockstep server
      at cp 2 and at tp 2 on that model (gates (a), (b)), a 16000-id
-     TTFT at tp 2 over the two cards against one card, and phase_tp_train
-     at tp 2 over NCCL (a card a rank) against tp 1 under its gates. On one GPU it prints {"phase": "cp_nccl",
+     TTFT at tp 2 over the two cards against one card, phase_tp_train
+     at tp 2 over NCCL (a card a rank) against tp 1 under its gates, and
+     phase_fsdp_train at dp 2 over NCCL (and, on four cards, at dp 2 x tp
+     2). On one GPU it prints {"phase": "cp_nccl",
      "ran": false, "devices": 1} and does nothing else. ``python3
      chip_smoke.py --nccl-only`` builds the kernels and runs this phase
      alone.
@@ -376,8 +396,9 @@ def phase_build() -> None:
         + " of dynamic shared memory")
 
 
-def _kernel_case(name, q, k, v, *, f32=False, **kw) -> float:
-    """Run the kernel and the plain version on the same inputs; -> max |o err|."""
+def _kernel_case(name, q, k, v, *, f32=False, ref=None, **kw) -> float:
+    """Run the kernel and the plain version on the same inputs (``ref``: the
+    plain version's (o, lse), computed by the caller); -> max |o err|."""
     import torch
 
     from long_vita_tpu_torch.ops import flash_attention as fa
@@ -388,7 +409,7 @@ def _kernel_case(name, q, k, v, *, f32=False, **kw) -> float:
     if fa.flash_attention.launches != before + 1:
         raise AssertionError(f"[{name}] kernel launch count did not rise by 1")
     ref_kw = {x: kw[x] for x in kw if x not in ("q_positions", "kv_positions")}
-    ro, rlse = fa.flash_attention_reference(q, k, v, **ref_kw)
+    ro, rlse = ref if ref is not None else fa.flash_attention_reference(q, k, v, **ref_kw)
     err_o = (o.float() - ro.float()).abs()
     err_lse = (lse - rlse).abs().max().item()
     atol, rtol, latol = (F32_ATOL, F32_ATOL, F32_ATOL) if f32 else (O_ATOL, O_RTOL, LSE_ATOL)
@@ -716,6 +737,34 @@ def _plain_bwd_by_segment(q, k, v, o, lse, do, seg) -> tuple:
             q[:, r], k[:, r], v[:, r], o[:, r], lse[:, :, r], do[:, r])
         a += n
     return dq, dk, dv
+
+
+def _plain_fwd_by_segment(q, k, v, seg) -> tuple:
+    """The plain forward of one causal row [1, S] of contiguous segments, a
+    segment and a kv head's GQA group at a time (as _plain_bwd_by_segment:
+    the whole row's logits at the 72B's 64 heads would take 64 GiB). ->
+    (o [1, S, Hq, D] f32, lse [1, Hq, S]) as flash_attention_reference."""
+    import torch
+
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    ids, lens = torch.unique_consecutive(seg[0], return_counts=True)
+    if q.shape[0] != 1 or len(torch.unique(ids)) != len(ids):
+        raise ValueError("one batch row of contiguous segments")
+    hq, hkv = q.shape[2], k.shape[2]
+    grp = hq // hkv
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((1, hq, q.shape[1]), dtype=torch.float32, device=q.device)
+    a = 0
+    for n in lens.tolist():
+        r = slice(a, a + n)
+        for g in range(hkv):
+            hs = slice(g * grp, (g + 1) * grp)
+            ro, rl = fa.flash_attention_reference(q[:, r, hs], k[:, r, g:g + 1],
+                                                  v[:, r, g:g + 1], causal=True)
+            o[:, r, hs], lse[:, hs, r] = ro.float(), rl
+        a += n
+    return o, lse
 
 
 def _bwd_bounds(q, k, seg) -> dict:
@@ -3465,8 +3514,7 @@ def phase_cp_serve(params, cfg, dev, *, max_seq=65536, chunk=2048, n_prompt=6000
                    vision_chunk=64, layers=24) -> dict:
     """The 14B at full width (the serving phases' random bf16 weights,
     shared by the thread-ranks; the decoder cut to its first ``layers``
-    layers, since phase_cp_server runs the full depth over cp, to keep
-    the run inside its time limit) served by an
+    layers, to keep the run inside its time limit) served by an
     InferenceEngine over a cp mesh of CP thread-ranks, each rank holding
     max_seq // CP cache slots:
     a 60000-id prompt (its last chunk partial) and 16 greedy tokens with a
@@ -3935,7 +3983,8 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
     random bf16 weights, shared by the thread-ranks; each rank's shard is a
     view of them, K6's int4 column shards copies): phase_tp_kernels first,
     then the main path over TP thread-ranks (parallel/comm.ThreadComm, one
-    card) at full depth, each against the one-device engine on the same
+    card) at the depth of ``params`` (main(): the first 24 layers), each
+    against the one-device engine on the same
     weights (_cp_against_one_device: teacher-forced, §2's logit gate at
     every step, each pick the one-device argmax up to a tie; every rank's
     tokens and logit bits equal): a 5000-id prompt and 8 greedy tokens;
@@ -4126,13 +4175,14 @@ def _grad_group(name: str) -> str:
     return next(g for g in GRAD_GROUPS if f".{g}" in name)
 
 
-def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None) -> float:
+def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None,
+                           label="tp-8 rank", tag="tp train kernels") -> float:
     """K1 forward and K4 and K5 backward at a tp-8 rank's heads of the 14B
-    ([1, s, 5/1, 128]) on T2's packed row (a 16-frame video, a 7-tile image,
-    4 text samples), each against its plain version: the forward at O_ATOL
-    + O_RTOL |ref| and LSE_ATOL, the backward by segment
-    (_plain_bwd_by_segment) at GRAD_TOL. -> the largest error (these
-    launches are not the main path's)."""
+    ([1, s, 5/1, 128]; or ``heads`` named by ``label``) on T2's packed row
+    (a 16-frame video, a 7-tile image, 4 text samples), each against its
+    plain version: the forward at O_ATOL + O_RTOL |ref| and LSE_ATOL, the
+    backward by segment (_plain_bwd_by_segment) at GRAD_TOL. -> the largest
+    error (these launches are not the main path's)."""
     import torch
 
     from long_vita_tpu_torch.ops import flash_attention as fa
@@ -4147,8 +4197,8 @@ def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None)
     q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
     seg = _train_segments(s, (16,), (2, 3), dev)
     kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
-    errs = [_kernel_case(f"tp-8 rank: K1 [1, {s}, {hq}/{hkv}, {d}] causal, T2's packed row",
-                         q, k, v, **kw)]
+    errs = [_kernel_case(f"{label}: K1 [1, {s}, {hq}/{hkv}, {d}] causal, T2's packed row",
+                         q, k, v, ref=_plain_fwd_by_segment(q, k, v, seg), **kw)]
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     ref = _plain_bwd_by_segment(q, k, v, o, lse, do, seg)
     for fused, name, wrappers in ((True, "K4", [fa.flash_bwd_fused]),
@@ -4157,8 +4207,8 @@ def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None)
         got = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, 0, 0, s, seg, seg, fused)
         torch.cuda.synchronize()
         if [w.launches for w in wrappers] != [n + 1 for n in before]:
-            raise AssertionError(f"[tp train kernels] {name} did not launch once")
-        errs += _grad_errs(f"tp-8 rank: {name} [1, {s}, {hq}/{hkv}, {d}] causal, T2's packed "
+            raise AssertionError(f"[{tag}] {name} did not launch once")
+        errs += _grad_errs(f"{label}: {name} [1, {s}, {hq}/{hkv}, {d}] causal, T2's packed "
                            "row", got, ref)
     return max(errs)
 
@@ -4342,30 +4392,40 @@ def _tp_train_worker(rank, world, init, out, sizes):
         out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2500:]}"))
 
 
-def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev) -> dict:
+def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=None) -> dict:
     """Cosine of each leaf group's whole gradient (GRAD_GROUPS, the tower,
-    the projector) against the tp-1 process's, from this rank's shards:
-    each rank takes the dot products of its slices with the same slices of
-    tp 1's gradients (read from the memory-mapped file), a slice several
-    ranks hold and a replicated leaf counted once, and the sums are added
-    over tp, which gives the gathered vectors' cosines without moving them.
-    Every tp rank calls it. -> {group: cosine}."""
+    the projector) against the reference process's, from this rank's
+    shards: each rank takes the dot products of its slices with the same
+    slices of the reference's gradients (read from the memory-mapped file),
+    a slice several ranks hold and a replicated leaf counted once, and the
+    sums are added over tp (and under FSDP over ``dp_comm``: an FSDP piece
+    on every dp rank, any other leaf on dp rank 0), which gives the gathered
+    vectors' cosines without moving them. Every rank of those groups calls
+    it; only the groups of ``grads`` that the file holds are compared. ->
+    {group: cosine}."""
     import torch
 
     from long_vita_tpu_torch.parallel.sharding import slice_leaf
 
     ref = torch.load(ref_path, map_location="cpu", weights_only=True, mmap=True)
+    grads = {n: g for n, g in grads.items() if n in ref}
     groups = sorted({_grad_group(n) for n in grads})
     acc = torch.zeros(len(groups), 3, dtype=torch.float64, device=dev)
+    dp_rank = dp_comm.rank if dp_comm is not None else 0
     for n, g in grads.items():
         leaf = layout[n]
         if tp_comm.rank % leaf.share if leaf.sharded else tp_comm.rank:
             continue
-        a = g.float().flatten()
+        if dp_rank and not leaf.fsdp:
+            continue
+        a = g.to(dev).float().flatten()
         b = slice_leaf(ref[n], leaf).to(dev).float().flatten()
         acc[groups.index(_grad_group(n))] += torch.stack([a @ b, a @ a, b @ b]).double()
-    acc = tp_comm.all_reduce_sum(acc).tolist()
-    return {k: dot / max((aa * bb) ** 0.5, 1e-30) for k, (dot, aa, bb) in zip(groups, acc)}
+    acc = tp_comm.all_reduce_sum(acc)
+    if dp_comm is not None:
+        acc = dp_comm.all_reduce_sum(acc)
+    return {k: dot / max((aa * bb) ** 0.5, 1e-30)
+            for k, (dot, aa, bb) in zip(groups, acc.tolist())}
 
 
 def _spawn(target, world, sizes, timeout) -> dict:
@@ -4558,6 +4618,459 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     if failures:
         raise AssertionError(f"[tp train] {failures}")
     counts = {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+    return {"counts": counts, "err": err}
+
+
+# ---- FSDP: ZeRO-3 weight streaming over dp (phase_fsdp_train) --------------------
+
+FSDP_TRAIN_LAYERS = 2  # the 72B decoder's depth in phase_fsdp_train (full width)
+# the planted reduce-scatter fault's gradient groups (final_norm, no FSDP leaf, a control)
+FSDP_FAULT_GROUPS = ("input_norm", "post_attn_norm", "final_norm", "q_proj", "k_proj", "v_proj",
+                     "o_proj")
+
+
+def _fsdp_train_recipe(work, ckpt, sizes, dp, tp) -> dict:
+    """The recipe of phase_fsdp_train: configs/stage2_72b_tp8fsdp8.yaml's
+    settings (lr 1e-5 after 210 warmup steps of 7000, min lr 1e-7, the
+    tower at lr x 0.1 with layer decay 0.9, everything trainable, remat,
+    FSDP) at dp x tp, two packed rows a step (global_batch 2), the logit
+    budget cut to sizes["budget"]; dp 1: the reference, without FSDP."""
+    mesh = {"dp": dp, "tp": tp} if dp * tp > 1 else {}
+    return {
+        "model": {"checkpoint": ckpt, "dtype": "bfloat16"},
+        "data": {"corpus": os.path.join(work, "corpus.yaml"), "seq_len": sizes["seq"],
+                 "logit_budget": sizes["budget"], "vision_chunk": 64},
+        "mesh": mesh,
+        "optim": {"lr": 1.0e-5, "min_lr_ratio": 0.01, "warmup_steps": 210, "total_steps": 7000,
+                  "vit_lr_mult": 0.1, "vit_layer_decay": 0.9},
+        "run": {"steps": sizes["steps"], "global_batch": 2, "remat": True, "seed": SEED,
+                "fsdp": dp > 1},
+    }
+
+
+def _fsdp_train_worker(rank, world, init, out, sizes):
+    """One process of phase_fsdp_train: ``world`` 1 is the reference (FSDP
+    off, both rows, a process of its own), else rank ``rank`` of dp 2 x
+    sizes["tp"] with FSDP, over gloo with CUDA operands staged through host
+    memory (sizes["backend"] "staged"; every rank on card 0), NCCL (a card
+    a rank) or plain gloo on the CPU (the rehearsal). Builds the Trainer
+    through train.build_from_recipe (an FSDP rank reads its pieces of the
+    checkpoint), takes two 4096-token passes for the planted faults (the
+    norm without its dp sum of squares; the reduce-scatter replaced by the
+    rank's own slice), then trains sizes["steps"] steps through
+    Trainer.train on two packed rows (one a dp rank). Puts (rank, results
+    or the error) on ``out``; the reference writes its gradients to the
+    work directory, the FSDP ranks read them for the gates."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    # two ranks share the card: the allocator grows its segments in place
+    # rather than keeping freed blocks of one size (read at the card's first use)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        import long_vita_tpu_torch.tokenizer as port_tokenizer
+        from long_vita_tpu_torch.models import qwen2
+        from long_vita_tpu_torch.parallel import fsdp as fsdp_mod
+        from long_vita_tpu_torch.parallel.comm import init_process_group
+        from long_vita_tpu_torch.training import train as ttrain
+        from long_vita_tpu_torch.training import train_step as tts
+        from long_vita_tpu_torch.training.loss import collate_packs
+        from long_vita_tpu_torch.training.optimizer import global_norm
+
+        cpu = sizes["device"] == "cpu"
+        if cpu:
+            torch.set_num_threads(1)
+        backend = sizes["backend"]
+        comm = None
+        if world > 1:
+            comm = init_process_group(
+                rank, world, init, backend="nccl" if backend == "nccl" else "gloo",
+                timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
+        dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
+        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+        res = {"rank": rank}
+        dp, tp = (2, sizes["tp"]) if world > 1 else (1, 1)
+        t0 = time.perf_counter()
+        trainer, stream, _ = ttrain.build_from_recipe(
+            _fsdp_train_recipe(sizes["work"], sizes["ckpt"], sizes, dp, tp), device=dev,
+            comm=comm)
+        del stream  # the phase trains on its own packed rows
+        sync()
+        res["build_s"] = time.perf_counter() - t0
+        res["bytes_read"] = trainer.checkpoint_bytes
+        cfg, params, mesh = trainer.cfg, trainer.state.params, trainer.mesh
+        fs = params.text.fsdp
+        res["coords"] = (mesh.dp_index, mesh.tp_index) if mesh is not None else (0, 0)
+        res["param_bytes"] = sum(p.nbytes for p in params.parameters())
+        opt = trainer.state.opt_state
+        res["moment_bytes"] = sum(t.nbytes for t in list(opt.mu.values()) + list(opt.nu.values()))
+        layout = trainer._layout()
+        vc = cfg.vision
+        per_tile = int((vc.grid * cfg.vision_downsample_ratio) ** 2)
+        tiles = [np.random.default_rng(SEED + 81 + i).standard_normal(
+            (7, vc.image_size, vc.image_size, 3)).astype(np.float32) for i in range(2)]
+
+        def rows(seq, budget):
+            # two packed rows, each with a 7-tile image; a dp rank keeps its own
+            packs = [_train_pack(dataclasses.replace(cfg, image_token_length=per_tile), seq, [],
+                                 [(tiles[i], (2, 3))], np.random.default_rng(SEED + 84 + i),
+                                 text_segments=4, answer=sizes["answer"],
+                                 text_sup=sizes["text_sup"] * seq // sizes["seq"])
+                     for i in range(2)]
+            b = collate_packs(packs, budget)
+            b["tokens"] = np.minimum(b["tokens"], cfg.text.vocab_size - 1)  # see _tp_train_worker
+            return b
+
+        batch = rows(sizes["seq"], sizes["budget"])
+        res["supervised"] = int((batch["labels"] != -100).sum())
+        flags = (trainer.tcfg.remat, trainer.tcfg.vision_chunk, trainer.freeze["freeze_vision"],
+                 trainer.freeze["freeze_text"])
+        parallel = tts.make_parallel_config(mesh)
+
+        def backward(b):
+            return tts._backward(params, b, cfg, *flags, mesh=mesh, parallel=parallel)[0]
+
+        # ---- the planted faults, before the steps, on 4096-token rows
+        fault_path = os.path.join(sizes["work"], "fault_grads_ref.pt")
+        fault_batch = trainer._device_batch(rows(sizes["fault_seq"], sizes["fault_seq"]))
+        g = backward(fault_batch)
+        # grad_norm, and the decoder's part of it (the tower's random
+        # gradients outweigh the decoder's, which FSDP cuts)
+        text = {n: t for n, t in g.items() if n.startswith("text.")}
+        if world == 1:
+            res["fault_norm"] = [float(global_norm(x.values())) for x in (g, text)]
+            torch.save({n: t.cpu() for n, t in g.items()
+                        if _grad_group(n) in FSDP_FAULT_GROUPS}, fault_path)
+        else:
+            red = tts._Reduction(params, cfg, mesh)
+            res["fault_norm"] = [float(red.norm(x)) for x in (g, text)]
+            tts._NORM_UNSUMMED_OVER_DP = True
+            try:
+                res["fault_norm_unsummed"] = [float(red.norm(x)) for x in (g, text)]
+            finally:
+                tts._NORM_UNSUMMED_OVER_DP = False
+        del g, text
+        if world > 1:
+            fsdp_mod._LOCAL_SLICE_NOT_SCATTERED = True
+            try:
+                g = backward(fault_batch)
+            finally:
+                fsdp_mod._LOCAL_SLICE_NOT_SCATTERED = False
+            res["cos_fault"] = _group_cosines(g, fault_path, layout, mesh.tp_comm, dev,
+                                              mesh.dp_comm)
+            del g
+        del fault_batch
+        if not cpu:
+            torch.cuda.empty_cache()
+
+        # ---- the main path: Trainer.train, the steps on the two rows; the
+        # first step's gradients kept on the host for the gradient gate
+        first = {}
+        step_backward = tts._backward
+
+        def keep_first(*a, **k):
+            out = step_backward(*a, **k)
+            if "grads" not in first:
+                first["grads"] = {n: t.to("cpu") for n, t in out[0].items()}
+            return out
+
+        tts._backward = keep_first
+        before = {n: _fingerprint(p) for n, p in params.named_parameters()}
+        step_fn, kept, norms_log = trainer.step_fn, [], []
+
+        def logged(state, b):
+            state, m = step_fn(state, b)
+            norms_log.append(float(m["grad_norm"]))
+            if not kept:  # the warm-up's first step runs at lr 0
+                kept.append(sorted(n for n, p in state.params.named_parameters()
+                                   if _fingerprint(p) != before[n]))
+            return state, m
+
+        trainer.step_fn = logged
+        stamps, staged, moved = [], [], []
+        stats = getattr(comm, "stats", None)
+
+        def batches():
+            for _ in range(sizes["steps"]):
+                sync()
+                stamps.append(time.perf_counter())
+                staged.append(stats["seconds"] if stats else 0.0)
+                moved.append(stats["bytes"] if stats else 0)
+                yield batch
+
+        _reset_counts()
+        if fs is not None:
+            fs.reset_stats()
+        if not cpu:
+            res["peak_before_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            res["losses"] = trainer.train(batches())["losses"]
+        finally:
+            tts._backward = step_backward
+        sync()
+        stamps.append(time.perf_counter())
+        staged.append(stats["seconds"] if stats else 0.0)
+        moved.append(stats["bytes"] if stats else 0)
+        res["peak_gb"] = 0.0 if cpu else torch.cuda.max_memory_allocated() / 1e9
+        res["counts"] = _read_counts()
+        res["fsdp_stats"] = dict(fs.stats) if fs is not None else None
+        grads = first.pop("grads")
+        res["grad_bytes"] = sum(t.nbytes for t in grads.values())
+        path = os.path.join(sizes["work"], "grads_ref.pt")
+        if world == 1:
+            torch.save(grads, path)
+        else:
+            res["cos"] = _group_cosines(grads, path, layout, mesh.tp_comm, dev, mesh.dp_comm)
+        del grads
+        res["norms"] = norms_log
+        res["step_s"] = [b - a for a, b in zip(stamps, stamps[1:])]
+        res["staged_s"] = [b - a for a, b in zip(staged, staged[1:])]
+        res["staged_gb"] = [(b - a) / 1e9 for a, b in zip(moved, moved[1:])]
+        res["moved_at_lr0"] = kept[0] if kept else None
+        res["heads"] = (qwen2.out_features(params.text.layers[0].q_proj) // cfg.text.head_dim,
+                        qwen2.kv_heads(params.text, cfg.text))
+        out.put((rank, res))
+        if comm is not None:
+            comm.barrier()
+            torch.distributed.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2500:]}"))
+
+
+def _shard_bytes(shapes: dict, specs: dict, hkv: int, d: int, dp: int, t: int, tp: int,
+                 text_only: bool = False) -> int:
+    """The bytes of the tensors rank (d, t) holds of a tree of ``shapes``
+    (name -> (shape, dtype)) cut over tp and, with dp > 1, by FSDP: the
+    shard arithmetic, on meta tensors."""
+    import torch
+
+    from long_vita_tpu_torch.parallel.sharding import fsdp_dim, leaf_rule, slice_leaf
+
+    total = 0
+    for n, (shape, dtype) in shapes.items():
+        if text_only and not n.startswith("text."):
+            continue
+        leaf = leaf_rule(n, specs[n], t, tp, hkv, fsdp_dim(n), d, dp)
+        total += slice_leaf(torch.empty(shape, dtype=dtype, device="meta"), leaf).nbytes
+    return total
+
+
+def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_TRAIN_LAYERS,
+                     tp=1, seq=16384, budget=4096, fault_seq=4096, steps=2, answer=300,
+                     text_sup=900, tok=None, kernels=True) -> dict:
+    """FSDP from the recipe entry: the 72B VLM (long_vita_72b(): h 8192, ffn
+    29568, 64/8 heads, vocab 152064) at full width, the decoder cut to
+    ``layers`` layers, the InternViT-300M tower at 24, written as a *_HF
+    checkpoint directory; configs/stage2_72b_tp8fsdp8.yaml's settings
+    (everything trainable, the tower at lr x 0.1 with layer decay 0.9,
+    remat, 16384 tokens), the logit budget cut to 4096; two packed rows,
+    each with a 7-tile image. First the reference (FSDP off, dp 1, both
+    rows) in a process of its own, then dp 2 x ``tp`` with FSDP, a row a dp
+    rank (backend "staged": two gloo processes sharing this card with
+    host-staged collectives; "nccl": a card a rank, from phase_cp_nccl;
+    "gloo" with device "cpu": the rehearsal), each rank reading only its
+    pieces. Gates: each step's loss within TRAIN_LOSS_REL of the
+    reference's and grad_norm within 3x that; every rank the same loss
+    bits; the first step's gradients against the reference's at cosine >=
+    TRAIN_GRAD_COS for every leaf group (from the shards); two planted
+    faults on 4096-token rows that must fail: grad_norm without its dp sum
+    of squares (against the reference's norm of those rows, which the sound
+    norm meets), and the reduce-scatter replaced by the rank's own slice
+    (the cosine gate); the warm-up's lr-0 step leaving every bit; each
+    rank's resident parameter, gradient and moment bytes the shard
+    arithmetic exactly, and the bytes it read those of its pieces plus the
+    tower and projector whole; K1, K3, K4 and K5 launches exact. kernels:
+    first K1, K4 and K5 at a rank's heads on T2's packed row. -> {"counts":
+    every FSDP rank's launches summed, "err": the kernels' largest error}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_72b
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.parallel.sharding import long_vita_param_specs
+    from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
+
+    t_phase = time.perf_counter()
+    cpu = device == "cpu"
+    dev = torch.device(device)
+    base = cfg or long_vita_72b()
+    heads = (base.text.num_attention_heads // tp, max(base.text.num_key_value_heads // tp, 1))
+    err = phase_tp_train_kernels(heads=heads, dev=dev, label="a 72B FSDP rank",
+                                 tag="fsdp train kernels") if kernels else 0.0
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, num_hidden_layers=layers))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_fsdp_train_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 82)
+        rng = np.random.default_rng(SEED + 83)
+        probe = rng.standard_normal((2, cfg.vision.image_size, cfg.vision.image_size, 3),
+                                    dtype=np.float32)
+        lv, _ = _vlm_params(qwen2.init_qwen2_params(gen, cfg.text, torch.bfloat16, dev), cfg,
+                            dev, SEED + 82, probe)
+        ckpt = os.path.join(work, "ckpt")
+        save_hf_checkpoint(lv, cfg, ckpt)
+        shapes = {n: (tuple(p.shape), p.dtype) for n, p in lv.named_parameters()}
+        specs = long_vita_param_specs(lv)
+        whole_b = sum(p.nbytes for p in lv.parameters())
+        text_b = sum(p.nbytes for p in lv.text.parameters())
+        del lv
+        if not cpu:
+            torch.cuda.empty_cache()
+        with open(os.path.join(work, "corpus.yaml"), "w") as f:  # the recipe names one
+            json.dump({"dataset": {"chat": {"ratio": 1, "data_paths": [
+                os.path.join(work, "chat.jsonl")]}}}, f)
+        with open(os.path.join(work, "chat.jsonl"), "w") as f:
+            f.write(json.dumps({"messages": [{"role": "user", "content": "hi"},
+                                             {"role": "assistant", "content": "hello"}]}))
+        tc = cfg.text
+        print(f"[fsdp train] the VLM at full width (h {tc.hidden_size}, ffn "
+              f"{tc.intermediate_size}, {tc.num_attention_heads}/{tc.num_key_value_heads} heads, "
+              f"vocab {tc.vocab_size}; {layers} decoder layers; {whole_b / 1e9:.3f} GB, the "
+              f"decoder {text_b / 1e9:.3f} GB) written as a checkpoint directory in "
+              f"{time.perf_counter() - t0:.1f} s")
+        sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq, tp=tp,
+                     budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
+                     text_sup=text_sup, tok=tok or {})
+        t0 = time.perf_counter()
+        one = _spawn(_fsdp_train_worker, 1, {**sizes, "backend": "gloo"},
+                     2 * TP_TRAIN_TIMEOUT)[0]
+        t1 = time.perf_counter()
+        world = 2 * tp
+        ranks = [r for _, r in sorted(_spawn(_fsdp_train_worker, world, sizes,
+                                             2 * TP_TRAIN_TIMEOUT).items())]
+        print(f"[fsdp train] the reference process {t1 - t0:.1f} s, the {world} FSDP processes "
+              f"{time.perf_counter() - t1:.1f} s (start-up, loading, the faults' passes, the "
+              "steps)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failures = []
+
+    def check(good: bool, what: str) -> None:
+        print(f"[fsdp train] {what}: {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(what)
+
+    where = {"staged": STAGED_NOTE, "nccl": f"{world} cards over NCCL",
+             "gloo": f"{world} gloo processes on the CPU"}[backend]
+    geom = f"dp 2 x tp {tp}" if tp > 1 else "dp 2"
+    hkv = cfg.text.num_key_value_heads
+    r0 = ranks[0]
+    for r in ranks:
+        st = r["fsdp_stats"]
+        print(f"[fsdp train] rank (dp {r['coords'][0]}, tp {r['coords'][1]}) of {geom} "
+              f"({r['heads'][0]}/{r['heads'][1]} heads): built through train.build_from_recipe "
+              f"in {r['build_s']:.1f} s, read {r['bytes_read'] / 1e6:.3f} MB of the checkpoint's "
+              f"{whole_b / 1e6:.3f} MB; holds {r['param_bytes'] / 1e9:.3f} GB of parameters, "
+              f"{r['moment_bytes'] / 1e9:.3f} GB of moments, {r['grad_bytes'] / 1e9:.3f} GB of "
+              f"gradients; steps {[round(t, 3) for t in r['step_s']]} s ({where}), staged copies "
+              f"{[round(t, 3) for t in r['staged_s']]} s of them, "
+              f"{[round(b, 3) for b in r['staged_gb']]} GB staged a step; the main path's "
+              f"gathers {st['gathers']}, regathers {st['regathers']}, reduce-scatters "
+              f"{st['scatters']}, {st['gathered_bytes'] / 1e9:.3f} GB gathered, at most "
+              f"{st['peak_live']} unit(s) of whole weights alive; peak allocated "
+              f"{r['peak_gb']:.2f} GB in the steps ({r.get('peak_before_gb', 0.0):.2f} GB "
+              f"before them); losses {r['losses']} grad_norm {r['norms']}")
+    print(f"[fsdp train] the reference (FSDP off, one process, both rows): read "
+          f"{one['bytes_read'] / 1e6:.3f} MB; holds {one['param_bytes'] / 1e9:.3f} GB of "
+          f"parameters, {one['moment_bytes'] / 1e9:.3f} GB of moments; steps "
+          f"{[round(t, 3) for t in one['step_s']]} s; peak allocated {one['peak_gb']:.2f} GB "
+          f"({one.get('peak_before_gb', 0.0):.2f} GB before the steps); losses {one['losses']} "
+          f"grad_norm {one['norms']}; {one['supervised']} supervised rows")
+    if not cpu:
+        both = sum(max(r["peak_gb"], r.get("peak_before_gb", 0.0)) for r in ranks)
+        print(f"[fsdp train] the FSDP ranks' peaks together {both:.2f} GB")
+    check(all(r["losses"] == r0["losses"] for r in ranks), "every rank reports the same loss bits")
+    check(len(r0["losses"]) == steps and all(
+        abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], one["losses"])),
+        f"{geom} FSDP losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of the "
+        f"reference's {one['losses']}")
+    check(all(abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["norms"], one["norms"])),
+          f"{geom} FSDP grad_norm {r0['norms']} within {3 * TRAIN_LOSS_REL} of the reference's "
+          f"{one['norms']}")
+    cos = r0["cos"]
+    check(min(cos.values()) >= TRAIN_GRAD_COS and set(cos) == set(GRAD_GROUPS) | {
+        "vision", "projector"},
+        "the first step's gradients of the FSDP shards vs the reference's, cosine by group "
+        f"(>= {TRAIN_GRAD_COS}): " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    def rel(x, i):
+        return abs(x - one["fault_norm"][i]) / one["fault_norm"][i]
+
+    for i, what in enumerate(("grad_norm", "grad_norm of the decoder's leaves")):
+        check(rel(r0["fault_norm"][i], i) <= 3 * TRAIN_LOSS_REL,
+              f"{what} on the {fault_seq}-token rows, {r0['fault_norm'][i]:.6f}, within "
+              f"{3 * TRAIN_LOSS_REL} of the reference's {one['fault_norm'][i]:.6f}")
+    print(f"[fsdp train] grad_norm with the norm's dp sum of squares removed: "
+          f"{[round(r['fault_norm_unsummed'][0], 6) for r in ranks]}")
+    check(all(rel(r["fault_norm_unsummed"][1], 1) > 3 * TRAIN_LOSS_REL for r in ranks),
+          "the decoder's grad_norm gate with the norm's dp sum of squares removed (a planted "
+          f"fault) must fail: {[round(r['fault_norm_unsummed'][1], 6) for r in ranks]}")
+    fault = r0["cos_fault"]
+    check(min(fault.values()) < TRAIN_GRAD_COS,
+          "the cosine gate with the reduce-scatter replaced by each rank's slice of its own "
+          f"gradient (a planted fault; {fault_seq}-token rows) must fail: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in fault.items()))
+    check(all(r["moved_at_lr0"] == [] for r in ranks + [one]),
+          "the warm-up's first step (lr 0) leaves every leaf's bits on every rank "
+          "(stage 2 freezes no leaf)")
+    whole_shapes = _shard_bytes(shapes, specs, hkv, 0, 1, 0, 1)
+    resident = [r["param_bytes"] == r["grad_bytes"] == r["moment_bytes"] // 2
+                == _shard_bytes(shapes, specs, hkv, r["coords"][0], 2, r["coords"][1], tp)
+                for r in ranks]
+    check(all(resident) and one["param_bytes"] == whole_shapes == one["moment_bytes"] // 2,
+          "each rank's resident parameters, gradients and Adam moments are its shards' bytes "
+          f"exactly ({[round(r['param_bytes'] / 1e9, 3) for r in ranks]} GB of parameters "
+          f"against the reference's {one['param_bytes'] / 1e9:.3f})")
+    reads = [r["bytes_read"] == one["bytes_read"] - text_b + _shard_bytes(
+        shapes, specs, hkv, r["coords"][0], 2, r["coords"][1], tp, text_only=True)
+        for r in ranks]
+    check(all(reads), "each rank read its pieces of the decoder and the tower and projector "
+          f"whole: {[round(r['bytes_read'] / 1e6, 3) for r in ranks]} MB of the reference's "
+          f"{one['bytes_read'] / 1e6:.3f}")
+    # the launches of the main path on each rank: the decoder's K1 twice a
+    # layer a step (remat's recompute), the tower's on every rank (it
+    # encodes its rows' tiles, trainable); the backward by JAX's rule at the
+    # rank's heads and rows
+    tc, vc = cfg.text, cfg.vision
+    for r, n_rows in [(r, 1) for r in ranks] + [(one, 2)]:
+        hq, _ = r["heads"]
+        fused = fa.bwd_uses_fused(n_rows, seq, seq, hq, tc.head_dim, 2)
+        vit_fused = fa.bwd_uses_fused(7 * n_rows, vc.seq_len, vc.seq_len, vc.num_attention_heads,
+                                      vc.head_dim, 2)
+        want = dict.fromkeys(r["counts"], 0)
+        want["flash_fwd"] = 2 * (tc.num_hidden_layers + vc.num_hidden_layers) * steps
+        for n_layers, uses in ((tc.num_hidden_layers, fused), (vc.num_hidden_layers, vit_fused)):
+            if uses:
+                want["flash_bwd"] += n_layers * steps
+            else:
+                want["flash_bwd_dkv"] += n_layers * steps
+                want["flash_bwd_dq"] += n_layers * steps
+        who = "the reference" if r is one else f"rank {r['rank']}"
+        if not cpu:
+            check(r["counts"] == want, f"launches of {who}: {r['counts']} (expected {want})")
+        else:
+            print(f"[fsdp train] launches of {who} (the CPU runs the plain versions): "
+                  f"{r['counts']}")
+    step = min(r0["step_s"])
+    share = [s / t for s, t in zip(r0["staged_s"], r0["step_s"])]
+    print(f"[fsdp train] a {geom} FSDP step {step:.3f} s against the reference's "
+          f"{min(one['step_s']):.3f} s ({where}); the staged copies' share of a step "
+          f"{[round(x, 3) for x in share]}")
+    print(f"[fsdp train] phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"[fsdp train] {failures}")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
     return {"counts": counts, "err": err}
 
 
@@ -4952,7 +5465,15 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
     # phase_tp_train's gates (the planted fault included)
     if device == "cuda":
         phase_tp_train(backend="nccl", kernels=False)
+        # FSDP over NCCL: dp 2 on two cards; on four, dp 2 x tp 2 (the tp8 x
+        # fsdp8 recipes' layout in miniature)
+        phase_fsdp_train(backend="nccl", kernels=False)
+        if n_dev >= 4:
+            phase_fsdp_train(backend="nccl", tp=2, kernels=False)
     print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
+
+
+_STARTED = time.monotonic()  # the run's time budget: _collect prints the time spent
 
 
 def _collect(when: str) -> None:
@@ -4966,7 +5487,8 @@ def _collect(when: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[main] {when}: allocated {held / 1e9:.2f} GB, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after a garbage collection")
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after a garbage collection; "
+          f"{time.monotonic() - _STARTED:.1f} s since the script started")
 
 
 def main() -> int:
@@ -5037,7 +5559,9 @@ def main() -> int:
     # with phase_tp_train
     add(phase_cp_server(*_decoder_prefix(params, cfg, 24), dev))
     _collect("after the cp server phase")
-    add(phase_tp_serve(params, cfg, dev))
+    # the decoder's first 24 layers, so that the run keeps inside its time
+    # with phase_fsdp_train
+    add(phase_tp_serve(*_decoder_prefix(params, cfg, 24), dev))
     _collect("after the tp serving phase")
     tp_train = phase_tp_train()
     add(tp_train["counts"])
@@ -5074,7 +5598,10 @@ def main() -> int:
         add(phase_recipe(ckpt, os.path.join(work, "recipe"), cfg, dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    _collect("before the cp NCCL phase")
+    _collect("before the FSDP phase")
+    fsdp_train = phase_fsdp_train()
+    add(fsdp_train["counts"])
+    _collect("after the FSDP training phase")
     phase_autograd_probe()
     phase_cp_nccl()
     report = {"kernels": [

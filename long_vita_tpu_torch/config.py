@@ -121,6 +121,21 @@ def long_vita_14b() -> LongVITAConfig:
     return LongVITAConfig()
 
 
+def long_vita_72b() -> LongVITAConfig:
+    """Qwen2.5-72B decoder + InternViT-300M (JAX config.py:122; reference
+    scripts/megatron/qwen25/finetune_qwen25_72b_..._tp8pp8_stage1.sh), the
+    geometry of configs/stage{1,2}_72b_tp8fsdp8.yaml."""
+    return LongVITAConfig(
+        text=TextConfig(
+            hidden_size=8192,
+            intermediate_size=29568,
+            num_hidden_layers=80,
+            num_attention_heads=64,
+            num_key_value_heads=8,
+        )
+    )
+
+
 def tiny_test_config(vocab_size: int = 512, num_experts: int = 0) -> LongVITAConfig:
     """A miniature geometry for fast tests (same structural shape)."""
     return LongVITAConfig(
@@ -148,6 +163,6 @@ def tiny_test_config(vocab_size: int = 512, num_experts: int = 0) -> LongVITACon
 
 
 __all__ = [
-    "LongVITAConfig", "TextConfig", "VisionConfig", "long_vita_14b",
+    "LongVITAConfig", "TextConfig", "VisionConfig", "long_vita_14b", "long_vita_72b",
     "tiny_test_config",
 ]

@@ -47,7 +47,16 @@ Differences from the JAX package, all of form rather than of numbers:
     (reduce-scatter, its backward an all-gather) follows o_proj and
     down_proj, and the lookup is vocab-parallel straight into the slice
     (``embed_tokens_vp``, JAX :918). Attention runs on the rank's q and kv
-    heads over the whole cp shard (the ring over cp as before).
+    heads over the whole cp shard (the ring over cp as before);
+  - under FSDP (``Qwen2Params.fsdp``, parallel/sharding.shard_params(...,
+    fsdp=True)) the tree holds 1/dp of each weight and parallel/fsdp.py
+    gathers a layer's norms and projection weights over dp just before the
+    layer runs (inside remat's checkpoint, so the recompute gathers again),
+    the embedding before the lookup and the head before its GEMM, and
+    reduce-scatters their gradients; a saved gathered weight is gathered
+    again in the backward (``fsdp.streaming``), so one unit's whole weights
+    are alive at a time. JAX's GSPMD inserts the same collectives inside
+    the scan.
 """
 from __future__ import annotations
 
@@ -70,6 +79,7 @@ from long_vita_tpu_torch.ops.attention import (
 from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from long_vita_tpu_torch.parallel.comm import gather_seq, scatter_seq
+from long_vita_tpu_torch.parallel.fsdp import embed_table, gathered_layer, head_weight, streaming
 
 CacheLen = Union[int, torch.Tensor]
 
@@ -248,9 +258,11 @@ class Qwen2Params(nn.Module):
     """The text decoder's weights (the JAX package's ``params["text"]``).
     ``tp_comm``: None for the whole tree; on a rank's tensor-parallel shard
     (parallel/sharding.shard_params) the tp communicator its collectives
-    run on."""
+    run on. ``fsdp``: None, or on an FSDP shard the parallel.fsdp.Fsdp
+    that gathers its units over dp."""
 
     tp_comm = None
+    fsdp = None
 
     def __init__(
         self, *, embed: torch.Tensor, layers: list[DecoderLayer],
@@ -657,18 +669,21 @@ def qwen2_decoder(
     x = inputs_embeds
     cache_len = kv_cache.length if kv_cache is not None else None
     aux = None  # a dense decoder adds no work for it
-    for i, layer in enumerate(params.layers):
-        cache_kv = None
-        if kv_cache is not None:
-            cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
-        args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-                segment_ids, attn_impl, parallel, q_sharded, tp, sp)
-        if recompute:
-            x, aux_l = remat_checkpoint(decoder_layer, *args, remat=remat)
-        else:
-            x, aux_l = decoder_layer(*args)
-        if aux_l is not None:
-            aux = aux_l if aux is None else aux + aux_l
+    fs = params.fsdp
+    run = decoder_layer if fs is None else functools.partial(_streamed_layer, fs)
+    with streaming(params):
+        for i, layer in enumerate(params.layers):
+            cache_kv = None
+            if kv_cache is not None:
+                cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
+            args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
+                    segment_ids, attn_impl, parallel, q_sharded, tp, sp)
+            if recompute:
+                x, aux_l = remat_checkpoint(run, *args, remat=remat)
+            else:
+                x, aux_l = run(*args)
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
     new_cache = None
     if kv_cache is not None:
         new_cache = dataclasses.replace(kv_cache, length=kv_cache.length + seq)
@@ -682,6 +697,12 @@ def qwen2_decoder(
     return hidden, new_cache
 
 
+def _streamed_layer(fs, layer: DecoderLayer, *args):
+    """decoder_layer on the layer's weights gathered over dp (an FSDP
+    shard, parallel/fsdp.gathered_layer)."""
+    return decoder_layer(gathered_layer(layer, fs), *args)
+
+
 def embed_tokens(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tensor:
     """Row lookup. Ids past the table clamp to its last row, as the JAX
     gather does (a finished row of a ragged batch feeds back eos, which
@@ -690,14 +711,16 @@ def embed_tokens(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tensor:
     On a tp shard (vocab-parallel, JAX's embed_tokens_vp :918 as GSPMD
     serves it): the id is clamped to the whole table first, each rank looks
     up the rows its slice holds with zeros elsewhere, and the rows are
-    summed over tp, which is exact (one real row plus zeros)."""
+    summed over tp, which is exact (one real row plus zeros). On an FSDP
+    shard the table is gathered over dp first."""
     tp = params.tp_comm
-    n = params.embed.shape[0]
+    table = embed_table(params)
+    n = table.shape[0]
     if tp is None:
-        return F.embedding(input_ids.clamp(max=n - 1), params.embed)
+        return F.embedding(input_ids.clamp(max=n - 1), table)
     local = input_ids.clamp(max=n * tp.size - 1) - tp.rank * n
     hit = (local >= 0) & (local < n)
-    rows = F.embedding(local.clamp(0, n - 1), params.embed)
+    rows = F.embedding(local.clamp(0, n - 1), table)
     return tp.all_reduce_sum(torch.where(hit[..., None], rows, torch.zeros_like(rows)))
 
 
@@ -709,12 +732,14 @@ def embed_tokens_vp(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tenso
     the partial rows are reduce-scattered over tp along the sequence
     (``scatter_seq``): -> this rank's slice [B, S/tp, H], bit for bit the
     plain rows (one real row plus zeros). The embedding's gradient is the
-    all-gathered rows' gradient at the rank's own ids."""
+    all-gathered rows' gradient at the rank's own ids. On an FSDP shard the
+    rank's tp slice of the table is gathered over dp first."""
     tp = params.tp_comm
-    n = params.embed.shape[0]
+    table = embed_table(params)
+    n = table.shape[0]
     local = input_ids.long() - tp.rank * n
     hit = (local >= 0) & (local < n)
-    rows = F.embedding(local.clamp(0, n - 1), params.embed)
+    rows = F.embedding(local.clamp(0, n - 1), table)
     return scatter_seq(torch.where(hit[..., None], rows, torch.zeros_like(rows)), tp, 1)
 
 
@@ -729,14 +754,16 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     w4_matmul with f32 out; int8 codes cast to the hidden dtype, the f32
     product, then the f32 scale. On a tp shard (vocab-parallel) each rank
     computes its [..., V / tp] logits and they are all-gathered over tp:
-    the whole row, exactly."""
+    the whole row, exactly. On an FSDP shard the weight is gathered over dp
+    first (and gathered again for the backward)."""
     entry = params.lm_head
     if isinstance(entry, QuantDense4):
         logits = w4_matmul(hidden, entry.packed, entry.scales, out_dtype=torch.float32)
     elif isinstance(entry, QuantDense8):
         logits = _f32_logits(hidden, entry.weight_q.to(hidden.dtype)) * entry.scale
     else:
-        logits = _f32_logits(hidden, entry.weight)
+        with streaming(params):
+            logits = _f32_logits(hidden, head_weight(params))
     tp = params.tp_comm
     return logits if tp is None else tp.all_gather(logits, -1)
 
@@ -756,7 +783,11 @@ class _F32Logits(torch.autograd.Function):
     logit gradient and the bf16 operand, cast once to the operand's dtype):
     the gradient is split into two bf16 halves, hi = bf16(g) and lo =
     bf16(g - hi), which carry 16 of its 24 mantissa bits, and each product
-    is the f32 sum of two bf16 GEMMs."""
+    is the f32 sum of two bf16 GEMMs. The weight's gradient is formed
+    BACKWARD_ROWS of its rows at a time: its f32 sums whole would be 5 GB
+    each for the 72B's [152064, 8192] head."""
+
+    BACKWARD_ROWS = 16384
 
     @staticmethod
     def forward(ctx, flat, w):
@@ -770,8 +801,12 @@ class _F32Logits(torch.autograd.Function):
         lo = (g - hi.float()).to(w.dtype)
 
         def product(a_hi, a_lo, b, dtype):
-            return (torch.mm(a_hi, b, out_dtype=torch.float32)
-                    + torch.mm(a_lo, b, out_dtype=torch.float32)).to(dtype)
+            out = torch.empty((a_hi.shape[0], b.shape[1]), dtype=dtype, device=b.device)
+            for i in range(0, a_hi.shape[0], _F32Logits.BACKWARD_ROWS):
+                r = slice(i, i + _F32Logits.BACKWARD_ROWS)
+                out[r] = (torch.mm(a_hi[r], b, out_dtype=torch.float32)
+                          + torch.mm(a_lo[r], b, out_dtype=torch.float32))
+            return out
 
         d_flat = product(hi, lo, w, flat.dtype) if ctx.needs_input_grad[0] else None
         d_w = product(hi.t(), lo.t(), flat, w.dtype) if ctx.needs_input_grad[1] else None

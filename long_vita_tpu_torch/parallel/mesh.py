@@ -7,8 +7,8 @@ the port's mesh is a grid of ranks over a world communicator with one
 communicator per axis. A rank's coordinates follow JAX's ``np.reshape(
 devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = (d * cp + c) * tp + t,
 dp outermost and tp innermost. The dp, cp and tp axes run, for serving
-and for training; pp > 1 and tq > 1 raise, naming the ROADMAP items that
-port them.
+and for training (FSDP over dp too); pp > 1 and tq > 1 raise, naming the
+ROADMAP items that port them.
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after training over tp: "
-              "2-D tp (tq), FSDP, pipeline stages and expert parallelism)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after FSDP: "
+              "2-D tp (tq), pipeline stages and expert parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,19 +77,23 @@ class Mesh:
         self._rank = rank
         self._shared: dict = {}
 
-    def shared_comm(self, share: int) -> Comm:
+    def shared_comm(self, share: int, over_dp: bool = True) -> Comm:
         """The ranks that hold the same slice when ``share`` consecutive tp
         ranks share it (a kv head replicated over tp // Hkv ranks): tp
-        indices t with the same t // share, over every dp and cp index. A
-        gradient of such a slice is summed over them. Made on the first
-        call (every rank calls it at the same point)."""
-        if share not in self._shared:
+        indices t with the same t // share, over every dp and cp index (of
+        this rank's dp index alone with over_dp False: an FSDP shard, whose
+        gradient is reduce-scattered over dp first). A gradient of such a
+        slice is summed over them. Made on the first call (every rank calls
+        it at the same point)."""
+        key = (share, over_dp)
+        if key not in self._shared:
             dp, cp, tp = self.cfg.dp, self.cfg.cp, self.cfg.tp
-            self._shared[share] = self._axis([
-                [self._rank(d, c, t) for d in range(dp) for c in range(cp)
+            dps = [[d] for d in range(dp)] if not over_dp else [list(range(dp))]
+            self._shared[key] = self._axis([
+                [self._rank(d, c, t) for d in ds for c in range(cp)
                  for t in range(j * share, (j + 1) * share)]
-                for j in range(tp // share)])
-        return self._shared[share]
+                for ds in dps for j in range(tp // share)])
+        return self._shared[key]
 
     def _axis(self, groups: list) -> Comm:
         if len(groups[0]) == 1:
@@ -113,14 +117,18 @@ def make_mesh(cfg: Optional[MeshConfig] = None, comm: Optional[Comm] = None) -> 
 
 
 def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
-                      virtual_pp: int = 1, logit_budget: int = 0) -> None:
+                      virtual_pp: int = 1, logit_budget: int = 0, fsdp: bool = False) -> None:
     """Fail fast when a model geometry cannot shard over a mesh (JAX :84,
     the same checks and messages), and, for training over tp, the two rules
     under which the JAX step takes its tp path (train_step.py:75-84,
     long_vita.py:283-292): the sequence divides into cp x tp slices (the
     sequence-parallel layout and the vocab-parallel lookup) and the logit
     budget into cp blocks (the vocab-parallel CE). Where JAX would fall
-    back to GSPMD's plain layout, the port has no such path and raises."""
+    back to GSPMD's plain layout, the port has no such path and raises.
+    fsdp (over dp > 1): every dim FSDP cuts splits into dp equal pieces,
+    the hidden dim (the column kernels' input, the row kernels' output,
+    the norms) and the vocabulary into tp x dp pieces (the embedding and
+    the head); JAX pads such a dim under GSPMD, the port raises."""
     errs = []
     tp, pp, cp = mesh_cfg.tp, mesh_cfg.pp, mesh_cfg.cp
     if text_cfg.num_attention_heads % tp:
@@ -148,6 +156,15 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
     if logit_budget and tp > 1 and min(logit_budget, seq_len or logit_budget) % cp:
         errs.append(f"logit budget {logit_budget} % cp {cp} != 0 (the vocab-parallel CE "
                     "splits the budget rows over cp)")
+    dp = mesh_cfg.dp
+    if fsdp and dp > 1:
+        if text_cfg.hidden_size % dp:
+            errs.append(f"hidden {text_cfg.hidden_size} % dp {dp} != 0 (FSDP cuts the hidden "
+                        "dim over dp: the column kernels' input, the row kernels' output, the "
+                        "norms)")
+        if text_cfg.vocab_size % (tp * dp):
+            errs.append(f"vocab {text_cfg.vocab_size} % tp*dp {tp * dp} != 0 (FSDP cuts the "
+                        "embedding's and the head's vocabulary into tp x dp pieces)")
     if mesh_cfg.tq > 1:
         if text_cfg.hidden_size % mesh_cfg.tq:
             errs.append(f"hidden {text_cfg.hidden_size} % tq {mesh_cfg.tq} != 0")

@@ -36,6 +36,18 @@ put shards back together (checkpoints, LoRA files, tests);
 way, and ``slice_leaf`` cuts one tensor (the per-rank checkpoint loader,
 utils/checkpoint_io.py).
 
+FSDP (JAX ``text_param_specs(fsdp=True)`` :39-79: ZeRO-3 weight
+streaming) cuts one more dim of each decoder weight over dp, the one tp
+leaves whole (``fsdp_dim``; torch's ``[out, in]``): a column weight's
+input dim (torch dim 1), a row weight's output dim (dim 0), the norms;
+the embedding and the head their vocabulary into tp x dp pieces, piece t
+* dp + d on rank (t, d) (JAX's ``(AXIS_TP, AXIS_DP)``), so the dp gather
+gives the rank's tp slice. Biases, final_norm, the tower, the projector
+and LoRA's adapters stay as they were. ``shard_params(..., fsdp=True)``
+cuts such a tree and binds ``Qwen2Params.fsdp`` (parallel/fsdp.py
+gathers a layer's weights before it runs); a Leaf then carries its dp
+piece too, and ``gather_named`` gathers over dp before tp.
+
 The batch slices (JAX ``batch_spec`` :165, P(dp, cp), and
 ``activation_spec`` :170) are ``rank_rows`` and ``rank_seq``.
 """
@@ -112,31 +124,69 @@ def _piece(t: torch.Tensor, dim: int, index: int, pieces: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """Where one parameter lies over tp: ``dim`` the torch dim cut into
-    ``pieces`` equal slices (None: replicated), ``index`` the slice this
-    rank holds, and ``share`` the tp ranks that hold that same slice (tp //
-    Hkv for a kv projection at tp > Hkv, else 1)."""
+    ``pieces`` equal slices (None: replicated over tp), ``index`` the slice
+    this rank holds, and ``share`` the tp ranks that hold that same slice
+    (tp // Hkv for a kv projection at tp > Hkv, else 1); under FSDP, of
+    that slice, piece ``dp_index`` of ``dp`` along ``fsdp_dim`` (None: not
+    cut over dp)."""
 
     dim: Optional[int]
     pieces: int = 1
     index: int = 0
     share: int = 1
+    fsdp_dim: Optional[int] = None
+    dp: int = 1
+    dp_index: int = 0
 
     @property
     def sharded(self) -> bool:
+        """Cut over tp."""
         return self.dim is not None
 
+    @property
+    def fsdp(self) -> bool:
+        """Cut over dp."""
+        return self.fsdp_dim is not None
 
-def leaf_rule(name: str, dim: Optional[int], tp_index: int, tp: int, hkv: int) -> Leaf:
+
+def leaf_rule(name: str, dim: Optional[int], tp_index: int, tp: int, hkv: int,
+              fsdp_dim: Optional[int] = None, dp_index: int = 0, dp: int = 1) -> Leaf:
     """The Leaf of parameter ``name`` whose spec is ``dim``, on tp rank
-    ``tp_index`` of ``tp``: whole kv heads, so with tp > Hkv a k/v
-    projection splits into Hkv pieces and rank t takes the piece of its q
-    heads' kv head."""
-    if dim is None:
-        return Leaf(None)
+    ``tp_index`` of ``tp`` (and, with ``fsdp_dim``, dp rank ``dp_index`` of
+    ``dp``): whole kv heads, so with tp > Hkv a k/v projection splits into
+    Hkv pieces and rank t takes the piece of its q heads' kv head. Nothing
+    is cut over an axis of one rank."""
+    fs = dict(fsdp_dim=fsdp_dim, dp=dp, dp_index=dp_index) if fsdp_dim is not None and dp > 1 \
+        else {}
+    if dim is None or tp == 1:
+        return Leaf(None, **fs)
     if tp > hkv and (".k_proj." in name or ".v_proj." in name):
         share = tp // hkv
-        return Leaf(dim, hkv, tp_index // share, share)
-    return Leaf(dim, tp, tp_index)
+        return Leaf(dim, hkv, tp_index // share, share, **fs)
+    return Leaf(dim, tp, tp_index, **fs)
+
+
+def fsdp_dim(name: str) -> Optional[int]:
+    """The torch dim FSDP cuts over dp of a dense decoder parameter, by its
+    name in the tree (``text.layers.3.o_proj.weight``, or without
+    ``text.`` in a Qwen2Params): a column weight's 1, a row weight's 0, a
+    norm's, the embedding's and the head's 0; None for everything else
+    (biases, final_norm, LoRA, the tower and the projector)."""
+    if name.startswith(("vision.", "projector.")):
+        return None
+    name = name.removeprefix("text.")
+    if name in ("embed", "lm_head.weight"):
+        return 0
+    parts = name.split(".")
+    if len(parts) == 3 and parts[0] == "layers" and parts[2] in ("input_norm",
+                                                                  "post_attn_norm"):
+        return 0
+    if len(parts) == 4 and parts[0] == "layers" and parts[3] == "weight":
+        if parts[2] in COLUMN:
+            return 1
+        if parts[2] in ROW:
+            return 0
+    return None
 
 
 def dense_spec(name: str) -> Optional[int]:
@@ -154,22 +204,44 @@ def dense_spec(name: str) -> Optional[int]:
     return None
 
 
-def leaf_layout(params, cfg, tp_index: int, tp: int) -> dict[str, Leaf]:
+def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
+                dp: int = 1) -> dict[str, Leaf]:
     """name -> Leaf for every parameter of ``params`` (a whole tree or a
-    shard: the names and specs are the same) on tp rank ``tp_index``.
-    ``cfg``: a LongVITAConfig or TextConfig (the kv heads)."""
+    shard: the names and specs are the same) on tp rank ``tp_index``, and
+    with dp > 1 FSDP's dp rank ``dp_index`` of ``dp``. ``cfg``: a
+    LongVITAConfig or TextConfig (the kv heads)."""
     hkv = getattr(cfg, "text", cfg).num_key_value_heads
-    return {name: leaf_rule(name, dim, tp_index, tp, hkv)
+    return {name: leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp)
             for name, dim in long_vita_param_specs(params).items()}
+
+
+def _text(params):
+    return getattr(params, "text", params)
+
+
+def rank_layout(params, cfg, mesh: Mesh) -> Optional[dict[str, Leaf]]:
+    """The layout of a rank's tree as it is cut: over tp when it is bound
+    to a tp communicator, over dp when it is FSDP-sharded
+    (``Qwen2Params.fsdp``); None for a whole tree."""
+    text = _text(params)
+    tp = mesh.shape["tp"] if text.tp_comm is not None else 1
+    dp = mesh.shape["dp"] if text.fsdp is not None else 1
+    if tp == 1 and dp == 1:
+        return None
+    return leaf_layout(params, cfg, mesh.tp_index, tp, mesh.dp_index, dp)
 
 
 def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
     """This rank's slice of a whole tensor (a view; t itself when
-    replicated)."""
-    return t if leaf.dim is None else _piece(t, leaf.dim, leaf.index, leaf.pieces)
+    replicated): its tp piece, then of that its dp piece."""
+    if leaf.dim is not None:
+        t = _piece(t, leaf.dim, leaf.index, leaf.pieces)
+    if leaf.fsdp_dim is not None:
+        t = _piece(t, leaf.fsdp_dim, leaf.dp_index, leaf.dp)
+    return t
 
 
-def shard_params(params, mesh: Mesh, cfg, *, own: bool = False):
+def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = False):
     """This rank's tree over ``mesh``'s tp axis (JAX :153): a new
     LongVITAParams or Qwen2Params of the same classes whose tensors are the
     rank's slices of ``params`` (views where the slice is a view; K6's int4
@@ -180,17 +252,23 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False):
     TextConfig) gives the kv heads, and validate_geometry runs on it
     first. own (training): every tensor, replicated ones too, is a
     contiguous copy with its own storage, so that nothing of ``params`` is
-    kept alive by the shard. tp 1 returns ``params``."""
+    kept alive by the shard. fsdp (training, dp > 1): the decoder's
+    weights are cut over dp too (see the module docstring) and the tree is
+    bound to ``parallel.fsdp.Fsdp(mesh.dp_comm)``; a dense tree only. tp 1
+    without FSDP returns ``params``."""
     from long_vita_tpu_torch.models.long_vita import LongVITAParams
     from long_vita_tpu_torch.models.qwen2 import check_moe_mesh
+    from long_vita_tpu_torch.parallel.fsdp import Fsdp
 
-    tp = mesh.shape["tp"]
-    if tp == 1:
+    tp, dp = mesh.shape["tp"], mesh.shape["dp"] if fsdp else 1
+    if tp == 1 and dp == 1:
         return params
     text_cfg = getattr(cfg, "text", cfg)
-    validate_geometry(text_cfg, MeshConfig(tp=tp))
-    check_moe_mesh(text_cfg, tp=tp)
-    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp)
+    validate_geometry(text_cfg, MeshConfig(dp=dp, tp=tp), fsdp=fsdp)
+    check_moe_mesh(text_cfg, dp=dp, tp=tp)
+    if dp > 1 and any(n.endswith((".weight_q", ".packed")) for n, _ in params.named_parameters()):
+        raise ValueError("FSDP shards a dense tree (training); this one is quantised")
+    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp)
     tensors = {}
     for name, t in params.named_parameters():
         piece = slice_leaf(t.detach(), layout[name])
@@ -200,7 +278,9 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False):
             piece = piece.contiguous()  # K6 reads contiguous codes and scales
         tensors[name] = piece
     local = _rebuild(params, tensors)
-    (local.text if isinstance(local, LongVITAParams) else local).tp_comm = mesh.tp_comm
+    text = local.text if isinstance(local, LongVITAParams) else local
+    text.tp_comm = mesh.tp_comm if tp > 1 else None
+    text.fsdp = Fsdp(mesh.dp_comm) if dp > 1 else None
     return local
 
 
@@ -211,18 +291,22 @@ def shard_named(tensors: dict, layout: dict[str, Leaf]) -> dict:
 
 
 def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None,
-                 keep: bool = True) -> Optional[dict]:
+                 keep: bool = True, dp_comm=None) -> Optional[dict]:
     """Shards (name -> this rank's slice) -> the whole tensors, leaf by leaf
-    in ``tensors``' order (every tp rank calls it with the same names): a
-    sharded leaf is all-gathered over ``tp_comm`` along its dim, and of a
-    slice that ``share`` ranks hold one copy is kept. Each whole tensor is
-    moved to ``device`` (default: where it was gathered) before the next
-    leaf is gathered. keep False: the gathers run, nothing is kept, and
-    None is returned (the ranks other than a checkpoint's writer)."""
+    in ``tensors``' order (every tp rank, and under FSDP every dp rank,
+    calls it with the same names): an FSDP leaf is all-gathered over
+    ``dp_comm`` along its fsdp_dim first, a tp-sharded one then over
+    ``tp_comm`` along its dim, and of a slice that ``share`` ranks hold one
+    copy is kept. Each whole tensor is moved to ``device`` (default: where
+    it was gathered) before the next leaf is gathered. keep False: the
+    gathers run, nothing is kept, and None is returned (the ranks other
+    than a checkpoint's writer)."""
     out = {} if keep else None
     for name, t in tensors.items():
         leaf = layout.get(name, Leaf(None))
         whole = t.detach()
+        if leaf.fsdp:
+            whole = dp_comm.all_gather(whole.contiguous(), leaf.fsdp_dim)
         if leaf.sharded and tp_comm.size > 1:
             whole = tp_comm.all_gather(whole.contiguous(), leaf.dim)
             if leaf.share > 1:
@@ -234,18 +318,18 @@ def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None
 
 
 def gather_params(local, mesh: Mesh, cfg, *, device=None):
-    """A rank's shard (shard_params) -> the whole tree, every tp rank the
-    same one, on ``device`` (default: the shard's), not bound to a tp
-    communicator (checkpoints, export). tp 1 returns ``local``."""
-    from long_vita_tpu_torch.models.long_vita import LongVITAParams
-
-    tp = mesh.shape["tp"]
-    if tp == 1:
+    """A rank's shard (shard_params) -> the whole tree, every tp (and FSDP
+    dp) rank the same one, on ``device`` (default: the shard's), bound to
+    no communicator (checkpoints, export). A whole tree is returned as it
+    is."""
+    layout = rank_layout(local, cfg, mesh)
+    if layout is None:
         return local
-    layout = leaf_layout(local, cfg, mesh.tp_index, tp)
     named = dict(local.named_parameters())
-    whole = _rebuild(local, gather_named(named, layout, mesh.tp_comm, device=device))
-    (whole.text if isinstance(whole, LongVITAParams) else whole).tp_comm = None
+    whole = _rebuild(local, gather_named(named, layout, mesh.tp_comm, device=device,
+                                         dp_comm=mesh.dp_comm))
+    text = _text(whole)
+    text.tp_comm = text.fsdp = None
     return whole
 
 

@@ -11,12 +11,14 @@ Stage handoff: ``load_checkpoint(..., load_optim=False)`` and
 ``restore_params_only`` take the parameters and keep the fresh optimizer
 state, as the reference's --no-load-optim --finetune.
 
-The format knows no mesh geometry: over tensor parallelism (``layout``,
-parallel/sharding.leaf_layout of a rank's shard) ``save_checkpoint``
-gathers the parameters and the moments leaf by leaf over tp and world rank
-0 writes the whole tree, the tp-1 format (JAX's orbax stores hold global
-arrays too); loading cuts each rank's slices from the whole tensors. A
-checkpoint written at tp 2 resumes at tp 1, and the other way round.
+The format knows no mesh geometry: over tensor parallelism and FSDP
+(``layout``, parallel/sharding.rank_layout of a rank's shard)
+``save_checkpoint`` gathers the parameters and the moments leaf by leaf,
+over dp (FSDP) then tp, and world rank 0 writes the whole tree, the
+one-device format (JAX's orbax stores hold global arrays too); loading
+cuts each rank's slices from the whole tensors. A checkpoint written at
+tp 2 or under FSDP resumes at tp 1 without FSDP, and the other way
+round.
 """
 from __future__ import annotations
 
@@ -47,17 +49,20 @@ def _steps(directory: str) -> list[int]:
 
 
 def save_checkpoint(directory: str, state: TrainState, step: Optional[int] = None, *,
-                    layout: Optional[dict] = None, tp_comm=None, write: bool = True) -> None:
+                    layout: Optional[dict] = None, tp_comm=None, write: bool = True,
+                    dp_comm=None) -> None:
     """Write ``state`` as step ``step`` (default: state.step); drop all but
-    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp
-    (``layout`` of the state's shards and their ``tp_comm``): every tp rank
-    calls it, the parameters and moments are gathered to the host leaf by
-    leaf, and only the rank given ``write`` writes."""
+    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp and
+    FSDP (``layout`` of the state's shards, their ``tp_comm`` and, for
+    FSDP leaves, ``dp_comm``): every rank of those groups calls it, the
+    parameters and moments are gathered to the host leaf by leaf, and only
+    the rank given ``write`` writes."""
     step = state.step if step is None else int(step)
     params = {n: p.detach() for n, p in state.params.named_parameters()}
     mu, nu = state.opt_state.mu, state.opt_state.nu
     if layout is not None:
-        params, mu, nu = (gather_named(t, layout, tp_comm, device="cpu", keep=write)
+        params, mu, nu = (gather_named(t, layout, tp_comm, device="cpu", keep=write,
+                                       dp_comm=dp_comm)
                           for t in (params, mu, nu))
     if not write:
         return
@@ -111,7 +116,8 @@ def load_checkpoint(
 ) -> TrainState:
     """Restore the newest (or ``step``'s) checkpoint into ``state``: the
     parameters in place and, with load_optim, the moments, counts and step.
-    ``layout`` (state's parameters a tp shard): each tensor's slice."""
+    ``layout`` (state's parameters a tp or FSDP shard): each tensor's
+    slice."""
     saved = _read(directory, step)
     cut = (lambda t: t) if layout is None else (lambda t: shard_named(t, layout))
     _copy_params(state.params, cut(saved["params"]))
@@ -130,8 +136,8 @@ def restore_params_only(directory: str, params_template: nn.Module,
                         step: Optional[int] = None,
                         layout: Optional[dict] = None) -> nn.Module:
     """Stage handoff: the parameters of a previous stage, copied into
-    ``params_template`` in place (``layout``: the template is a tp shard,
-    each tensor's slice); everything else starts fresh."""
+    ``params_template`` in place (``layout``: the template is a tp or FSDP
+    shard, each tensor's slice); everything else starts fresh."""
     saved = _read(directory, step)["params"]
     _copy_params(params_template, saved if layout is None else shard_named(saved, layout))
     return params_template

@@ -98,9 +98,13 @@ def add_lora_params(
     A ~ N(0, 1) / r, drawn in f32 from ``generator`` (on its device) and
     cast to ``dtype``, target by target and layer by layer. The adapters lie
     on the layer's device. On a tp shard each ``a`` is drawn whole and the
-    rank keeps its slice. -> (params, cfg with the lora fields)."""
+    rank keeps its slice; on an FSDP shard the adapters are whole (they
+    stay replicated over dp, JAX's specs). -> (params, cfg with the lora
+    fields)."""
     layers = _text(params).layers
     tp = _text(params).tp_comm
+    fs = _text(params).fsdp
+    dp = fs.comm.size if fs is not None else 1
     for t in lcfg.targets:
         if t not in ALL_TARGETS:
             raise ValueError(f"lora target {t!r} not in decoder layers (dense targets: {ALL_TARGETS})")
@@ -110,6 +114,11 @@ def add_lora_params(
             d_in, d_out = _in_out(entry)
             if tp is not None and t in ("o_proj", "down_proj"):
                 d_in *= tp.size  # the whole input dim of a row projection
+            # FSDP cuts a column weight's input dim and a row weight's output dim
+            if t in ("o_proj", "down_proj"):
+                d_out *= dp
+            else:
+                d_in *= dp
             dev = layer.input_norm.device
             a = torch.randn((d_in, lcfg.r), generator=generator, device=generator.device,
                             dtype=torch.float32) / lcfg.r
@@ -128,6 +137,9 @@ def merge_lora(params: Params, cfg: TextConfig) -> Params:
     tp_comm."""
     if cfg.lora_r == 0:
         return params
+    if _text(params).fsdp is not None:
+        raise ValueError("merge_lora takes a whole tree or a tp shard; gather an FSDP shard "
+                         "first (parallel/sharding.gather_params)")
     scale = cfg.lora_alpha / cfg.lora_r
     text = _text(params)
     layers = []

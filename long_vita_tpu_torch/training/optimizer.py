@@ -40,7 +40,9 @@ sharding.py) and AdamW stays elementwise on them; the global norm that
 clipping and the grad_norm metric read is ``tp_global_norm``: a sharded
 leaf's squares summed over tp (a slice that several ranks share counted
 once), a replicated leaf's counted once, as optax.global_norm counts the
-global arrays.
+global arrays. Under FSDP a rank's parameters, gradients and moments are
+its 1/dp shards (the moments take the parameters' shapes), and the norm
+sums an FSDP leaf's squares over dp as well.
 """
 from __future__ import annotations
 
@@ -254,28 +256,44 @@ def global_norm(tensors, extra_sq: Optional[torch.Tensor] = None) -> torch.Tenso
     return total.sqrt()
 
 
-def tp_global_norm(grads: dict, layout: dict, tp_comm,
-                   folded: Optional[tuple] = None) -> torch.Tensor:
+def leaf_class(leaf) -> int:
+    """A Leaf's (parallel/sharding.py) class in the global norm: 0
+    replicated, 1 cut over tp, 2 over dp (FSDP), 3 over both."""
+    return (1 if leaf.sharded else 0) + (2 if leaf.fsdp else 0)
+
+
+def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] = None,
+                   dp_comm=None) -> torch.Tensor:
     """The global norm over a rank's shards (optax.global_norm of the whole
-    arrays): ``layout`` (parallel/sharding.leaf_layout) tells a sharded
-    leaf, whose squares are summed over ``tp_comm`` (of a slice that
-    ``share`` ranks hold, only the first rank's), from a replicated one,
-    counted once (its summed gradient is the same on every rank).
-    ``folded``: (sharded, replicated) f32 sums of squares of gradients
-    folded away already, the sharded one this rank's share. -> f32 scalar,
-    the same bits on every tp rank."""
-    sharded, replicated = folded if folded is not None else (None, None)
+    arrays): ``layout`` (parallel/sharding.leaf_layout) tells a leaf cut
+    over tp, whose squares are summed over ``tp_comm`` (of a slice that
+    ``share`` ranks hold, only the first rank's), or over dp by FSDP,
+    summed over ``dp_comm``, from a replicated one, counted once (its
+    summed gradient is the same on every rank); a tp-cut leaf's summed
+    gradient is the same on every dp rank and an FSDP-cut replicated one's
+    on every tp rank, so each counts once there. ``folded``: f32 sums of
+    squares of gradients folded away already, by leaf_class (this rank's
+    shares). -> f32 scalar, the same bits on every rank."""
+    sums = list(folded) if folded is not None else [None] * 4
     for name, g in grads.items():
         leaf = layout[name]
         if leaf.sharded and tp_comm.rank % leaf.share:
             continue
+        k = leaf_class(leaf)
         sq = square_sum(g)
-        if leaf.sharded:
-            sharded = sq if sharded is None else sharded + sq
-        else:
-            replicated = sq if replicated is None else replicated + sq
+        sums[k] = sq if sums[k] is None else sums[k] + sq
     like = next(iter(grads.values()), None)
-    zero = torch.zeros((), dtype=torch.float32,
-                       device=like.device if like is not None else None)
-    total = tp_comm.all_reduce_sum(sharded if sharded is not None else zero)
-    return (total + (replicated if replicated is not None else zero)).sqrt()
+    dev = like.device if like is not None else None
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sums = [s if s is not None else zero for s in sums]
+
+    def once(first: bool) -> torch.Tensor:
+        return torch.tensor(1.0 if first else 0.0, device=dev)
+
+    cut = torch.stack(sums[1:])  # [tp, dp, both]
+    if dp_comm is not None and dp_comm.size > 1:
+        cut = dp_comm.all_reduce_sum(cut * torch.stack([once(dp_comm.rank == 0), once(True),
+                                                        once(True)]))
+    cut = tp_comm.all_reduce_sum(cut * torch.stack([once(True), once(tp_comm.rank == 0),
+                                                    once(True)]))
+    return (cut.sum() + sums[0]).sqrt()

@@ -24,10 +24,15 @@ over tp its shard of the weights (Megatron's tensor and sequence
 parallelism, models/qwen2.py): each rank reads only its slices of the
 checkpoint's tensors (utils/checkpoint_io.py), and a checkpoint the run
 writes is gathered into the tp-1 format (training/checkpoint.py);
-run.cp_algo, cp_inner and cp_window_size shape the attention:
+run.cp_algo, cp_inner and cp_window_size shape the attention. With
+run.fsdp (ZeRO-3 weight streaming over dp, models/qwen2.py and
+parallel/fsdp.py) each rank reads only its (tp, dp) piece of every FSDP
+leaf and holds 1/dp of it, its gradient and its moments:
 
     torchrun --nproc-per-node 8 -m long_vita_tpu_torch.training.train \
         --config recipe.yaml      # mesh: {dp: 1, cp: 1, tp: 8}
+    torchrun --nnodes 8 --nproc-per-node 8 ... \
+        --config configs/stage2_72b_tp8fsdp8.yaml   # mesh {dp: 8, tp: 8}, run.fsdp
  The JAX main
 also enables JAX's persistent compile cache, which has no counterpart: the
 port compiles nothing at run time but its kernels, which ops/_build.py
@@ -107,11 +112,12 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     where the JAX function takes the 14B model's (448 px, 256 tokens)
     whatever the checkpoint; the two agree on every released model.
     comm: the world communicator of a mesh of more than one rank (default:
-    the initialized torch.distributed group). Over tp > 1 the mesh is made
-    here and each rank loads only its slices of the decoder (from
-    ``model.checkpoint`` or ``model.graft``; a ``load_stage`` checkpoint is
-    cut the same way), and LoRA's adapters are drawn whole and cut, so
-    that every geometry starts from the same model. The Trainer's
+    the initialized torch.distributed group). Over tp > 1, or dp > 1 with
+    run.fsdp, the mesh is made here and each rank loads only its slices of
+    the decoder (from ``model.checkpoint`` or ``model.graft``; a
+    ``load_stage`` checkpoint is cut the same way), and LoRA's adapters are
+    drawn whole and cut over tp (replicated over dp), so that every
+    geometry starts from the same model. The Trainer's
     ``checkpoint_bytes``: the bytes this rank copied out of the checkpoint's
     files (None for a graft)."""
     from long_vita_tpu_torch.data.image_processor import ImageProcessor
@@ -124,8 +130,9 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     tcfg = trainer_config(recipe)
     dtype = _DTYPES[model_cfg.get("dtype", "bfloat16")]
     mesh, stats = None, {}
-    if tcfg.mesh.tp > 1:
-        mesh = _tp_mesh(tcfg, comm)
+    fsdp = tcfg.fsdp and tcfg.mesh.dp > 1
+    if tcfg.mesh.tp > 1 or fsdp:
+        mesh = _recipe_mesh(tcfg, comm)
     if model_cfg.get("graft"):
         # stage-1 bootstrap: stock Qwen2 + stock InternViT (reference
         # finetune_long_vita.py:480-530 grafting)
@@ -133,14 +140,14 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
 
         g = model_cfg["graft"]
         params, cfg = graft_checkpoints(g["llm"], g["vit"], dtype=dtype, device=device,
-                                        mesh=mesh)
+                                        mesh=mesh, fsdp=fsdp)
         tokenizer = load_tokenizer(g["llm"])
     else:
         from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
 
         ckpt = model_cfg["checkpoint"]
         params, cfg = load_long_vita_checkpoint(ckpt, dtype=dtype, device=device, mesh=mesh,
-                                                stats=stats)
+                                                stats=stats, fsdp=fsdp)
         tokenizer = load_tokenizer(ckpt)
 
     if model_cfg.get("load_stage"):  # stage handoff: the previous stage's parameters
@@ -148,9 +155,9 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
 
         layout = None
         if mesh is not None:
-            from long_vita_tpu_torch.parallel.sharding import leaf_layout
+            from long_vita_tpu_torch.parallel.sharding import rank_layout
 
-            layout = leaf_layout(params, cfg, mesh.tp_index, mesh.shape["tp"])
+            layout = rank_layout(params, cfg, mesh)
         params = restore_params_only(model_cfg["load_stage"], params, layout=layout)
 
     if model_cfg.get("lora"):
@@ -195,9 +202,10 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     return trainer, batches, tokenizer
 
 
-def _tp_mesh(tcfg, comm):
+def _recipe_mesh(tcfg, comm):
     """The recipe's mesh over ``comm`` or the initialized torch.distributed
-    group (the ranks load their slices before the Trainer is made)."""
+    group (the ranks load their tp and FSDP slices before the Trainer is
+    made)."""
     from long_vita_tpu_torch.parallel.mesh import make_mesh
 
     if comm is None:

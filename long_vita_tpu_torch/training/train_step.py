@@ -32,6 +32,20 @@ gradient is folded once it is summed over its ranks (a square of a sum is
 not a sum of squares): a decoder layer's, in its hook during the backward;
 the rest after it, with the other gradients.
 
+Under FSDP (the tree cut over dp too, ``Qwen2Params.fsdp``) a rank's
+parameters, gradients and moments are its 1/dp shards. Each unit's
+gradient is reduce-scattered over dp in the backward of the gather that
+made its whole weights (parallel/fsdp.py), in the decoder's order on every
+rank, and lands in the shard's .grad; the reduction then sums an FSDP leaf
+over the ranks that hold the same shard: cp (``Mesh.cp_comm``), the kv
+slice's sharers of the rank's dp index (``Mesh.shared_comm(share,
+over_dp=False)``), and for a norm, replicated over tp and partial under
+sequence parallelism, cp x tp (``Mesh.replica_comm``). Biases, the tower
+and the projector are summed after the backward as before (their graph
+differs between dp rows), and grad_norm sums the FSDP leaves' squares over
+dp. ``_NORM_UNSUMMED_OVER_DP`` is the norm's fault for the gates, as
+_UNSUMMED_OVER_TP is the reduction's.
+
 On CUDA, thread-ranks (parallel/comm.ThreadComm) cannot train: autograd
 runs every backward on a CUDA device on one worker thread of that device,
 so a rank's ring backward that waits for another rank's blocks the other
@@ -60,12 +74,14 @@ from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams, cp_logit_rows, long_vita_forward
 from long_vita_tpu_torch.models.qwen2 import ParallelConfig
 from long_vita_tpu_torch.parallel.comm import ThreadComm
-from long_vita_tpu_torch.parallel.sharding import leaf_layout
+from long_vita_tpu_torch.parallel.fsdp import head_weight, streaming
+from long_vita_tpu_torch.parallel.sharding import rank_layout
 from long_vita_tpu_torch.training.loss import cross_entropy, vocab_parallel_ce
 from long_vita_tpu_torch.training.optimizer import (
     AdamState,
     AdamW,
     global_norm,
+    leaf_class,
     square_sum,
     tp_global_norm,
 )
@@ -78,6 +94,9 @@ GRAD_BUCKET_BYTES = 256 * 2**20  # gradients all-reduced in buckets of this size
 # replicated gradient summed over dp x cp only, not over tp, as if the
 # sequence-parallel norms' tp sum were missing.
 _UNSUMMED_OVER_TP: tuple = ()
+# A fault for the same gates, never set in training: grad_norm counts each
+# rank's own FSDP shards only (their squares not summed over dp).
+_NORM_UNSUMMED_OVER_DP = False
 
 
 @dataclasses.dataclass
@@ -118,8 +137,9 @@ def loss_terms(
                                 parallel.comm.rank)
         labels = labels[mask][None]
     if vp:
-        loss_sum, count = vocab_parallel_ce(params.text.lm_head.weight, out, labels,
-                                            params.text.tp_comm)
+        with streaming(params.text):  # an FSDP head is gathered, and again in the backward
+            loss_sum, count = vocab_parallel_ce(head_weight(params.text), out, labels,
+                                                params.text.tp_comm)
     else:
         loss_sum, count = cross_entropy(out, labels)
     return loss_sum, count, aux
@@ -202,21 +222,28 @@ def _all_reduce_grads(grads: dict, comm_of) -> dict:
 
 class _Reduction:
     """Which ranks a leaf's gradient is summed over, and how it counts in
-    the global norm (see the module docstring): without tp, every leaf over
-    the world; over tp, by parallel/sharding.leaf_layout."""
+    the global norm (see the module docstring): without tp or FSDP, every
+    leaf over the world; else by parallel/sharding.rank_layout."""
 
     def __init__(self, params, cfg, mesh):
         self.mesh, self.world = mesh, mesh.world
-        self.tp = mesh.shape["tp"]
-        self.layout = leaf_layout(params, cfg, mesh.tp_index, self.tp) if self.tp > 1 else None
+        self.layout = rank_layout(params, cfg, mesh)
+        self.fsdp = params.text.fsdp is not None
 
     def comm(self, name: str):
+        """The ranks the gradient is summed over (an FSDP leaf's after its
+        reduce-scatter over dp)."""
         if self.layout is None:
             return self.world
-        leaf = self.layout[name]
+        leaf, mesh = self.layout[name], self.mesh
+        unsummed = name.endswith(_UNSUMMED_OVER_TP)
+        if leaf.fsdp:
+            if not leaf.sharded:
+                return mesh.cp_comm if unsummed else mesh.replica_comm
+            return mesh.shared_comm(leaf.share, over_dp=False) if leaf.share > 1 else mesh.cp_comm
         if not leaf.sharded:
-            return self.mesh.dp_cp_comm if name.endswith(_UNSUMMED_OVER_TP) else self.world
-        return self.mesh.shared_comm(leaf.share) if leaf.share > 1 else self.mesh.dp_cp_comm
+            return mesh.dp_cp_comm if unsummed else self.world
+        return mesh.shared_comm(leaf.share) if leaf.share > 1 else mesh.dp_cp_comm
 
     def counts(self, name: str) -> bool:
         """Whether this rank counts the leaf's squares in the norm (of a
@@ -226,16 +253,18 @@ class _Reduction:
         leaf = self.layout[name]
         return not leaf.sharded or self.mesh.tp_comm.rank % leaf.share == 0
 
-    def sharded(self, name: str) -> bool:
-        return self.layout is not None and self.layout[name].sharded
+    def klass(self, name: str) -> int:
+        """The leaf's optimizer.leaf_class (0 without a layout)."""
+        return 0 if self.layout is None else leaf_class(self.layout[name])
 
     def norm(self, grads: dict, folded=None) -> torch.Tensor:
-        """The global norm of the summed ``grads`` (and of ``folded``:
-        (sharded, replicated) squares folded already)."""
+        """The global norm of the summed ``grads`` (and of ``folded``: the
+        squares folded already, by leaf_class)."""
         if self.layout is None:
-            extra = None if folded is None else folded[1]
+            extra = None if folded is None else folded[0]
             return global_norm(grads.values(), extra)
-        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded)
+        dp_comm = self.mesh.dp_comm if self.fsdp and not _NORM_UNSUMMED_OVER_DP else None
+        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded, dp_comm)
 
 
 def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:
@@ -290,12 +319,13 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
     its ranks in its post-accumulate hook, folded and dropped, so that at
     most one such gradient is held (lora_only's base weights are most of a
     model); every rank runs the same decoder graph, so the hooks fire in the
-    same order on each. The rest (whose graph can differ between dp rows:
-    the tower and projector reach only a rank with images) are summed after
-    the backward, the ``fold`` ones among them folded then. -> folded as
-    (sharded, replicated) sums of squares (this rank's share of the
-    sharded one), or None without ``fold``; the loss and count summed over
-    dp x cp (the tp ranks of a cp shard hold the same rows)."""
+    same order on each (an FSDP leaf's gradient is the shard's, already
+    reduce-scattered over dp). The rest (whose graph can differ between dp
+    rows: the tower and projector reach only a rank with images) are summed
+    after the backward, the ``fold`` ones among them folded then. -> folded
+    as four sums of squares by optimizer.leaf_class (this rank's shares),
+    or None without ``fold``; the loss and count summed over dp x cp (the
+    tp ranks of a cp shard hold the same rows)."""
     set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
     params.zero_grad(set_to_none=True)
     red = _Reduction(params, cfg, mesh)
@@ -303,12 +333,11 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
 
     def fold_in(name, g):
         if red.counts(name):
-            folded[0 if red.sharded(name) else 1].add_(square_sum(g))
+            folded[red.klass(name)].add_(square_sum(g))
 
     if fold:
         dev = batch["tokens"].device
-        folded = (torch.zeros((), dtype=torch.float32, device=dev),
-                  torch.zeros((), dtype=torch.float32, device=dev))
+        folded = tuple(torch.zeros((), dtype=torch.float32, device=dev) for _ in range(4))
 
         def fold_grad(name, p):
             fold_in(name, red.comm(name).all_reduce_sum(p.grad))
@@ -417,8 +446,8 @@ def make_grad_accum_steps(
         grads = {n: g / n_micro for n, g in grads.items()}
         named = dict(state.params.named_parameters())
         cast = {n: g.to(named[n].dtype) for n, g in grads.items()}
-        if mesh is not None and mesh.shape["tp"] > 1:
-            red = _Reduction(state.params, cfg, mesh)
+        red = _Reduction(state.params, cfg, mesh) if mesh is not None and mesh.size > 1 else None
+        if red is not None and red.layout is not None:
             grad_norm = red.norm(grads)
             tx.step(state.params, cast, state.opt_state, g_norm=red.norm(cast))
         else:
@@ -438,7 +467,7 @@ def init_train_state(
     moments for every parameter that takes gradients and is not frozen by
     the optimizer's mask (set requires_grad first,
     utils/convert.set_requires_grad). On a mesh every rank holds the whole
-    parameters, or over tp its shard of them (FSDP comes with a later
-    slice)."""
+    parameters, or over tp and under FSDP its shard of them (the moments
+    take the shard's shapes)."""
     _check_mesh(mesh)
     return TrainState(params, tx.init(params), 0)

@@ -25,8 +25,13 @@ JAX :83-116); each rank keeps its dp rows and cp sequence shard
 parallel split happens inside the model), the loss and the gradients are
 global (train_step.py), and world rank 0 writes the checkpoints (over tp
 the gathered tree, in the tp-1 format: a checkpoint resumes at any tp) and
-metrics.jsonl. Raising, with their ROADMAP items (§1 items 6-8): 2-D tp
-(tq), FSDP, pp and virtual pipeline stages; thread-ranks on CUDA
+metrics.jsonl. With ``tcfg.fsdp`` over dp > 1 (ZeRO-3 weight streaming,
+JAX trainer.py:74,144) each rank holds 1/dp of every decoder weight, its
+gradient and its moments (shard_params(..., fsdp=True), or the slices
+train.build_from_recipe loaded); checkpoints are gathered over dp and tp
+into the same one-device format; at dp 1 FSDP is the plain step, as JAX's
+mesh is None there. Raising, with their ROADMAP items (§1 items 6 and 8):
+2-D tp (tq), pp and virtual pipeline stages; thread-ranks on CUDA
 (train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
@@ -90,7 +95,7 @@ class TrainerConfig:
     cp_inner: int = 1  # hybrid: ulysses lanes per ring group
     cp_window: int = 0  # double-ring window size (reference --cp-window-size)
     virtual_pp: int = 1  # interleaved-pipeline chunks per pp stage (next slice)
-    fsdp: bool = False  # shard layer stacks over dp (next slice)
+    fsdp: bool = False  # ZeRO-3: decoder weights, gradients and moments cut over dp
     resume: bool = True  # auto-resume from save_dir's latest checkpoint
     straggler_threshold: float = 2.0  # warn when a step takes > thr x median
     output_dir: Optional[str] = None  # metrics.jsonl / print_batch.log / trace / data report
@@ -140,10 +145,10 @@ class Trainer:
         (default: the initialized torch.distributed group), or the
         parallel.mesh.Mesh of tcfg.mesh over it. Over tp, ``params`` is the
         whole tree (this rank's shard is cut from it and the caller may
-        drop it) or this rank's shard (its tp_comm set)."""
+        drop it) or this rank's shard (its tp_comm set; under FSDP cut over
+        dp too, its fsdp set)."""
         unported = {
             f"{tcfg.virtual_pp} virtual pipeline stages": tcfg.virtual_pp > 1,
-            "FSDP": tcfg.fsdp,
             f"pp = {tcfg.mesh.pp}": tcfg.mesh.pp > 1,
             f"tq = {tcfg.mesh.tq} (2-D tp)": tcfg.mesh.tq > 1,
         }
@@ -153,7 +158,7 @@ class Trainer:
         check_remat(tcfg.remat)
         check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp)
         validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp,
-                          logit_budget=tcfg.logit_budget)
+                          logit_budget=tcfg.logit_budget, fsdp=tcfg.fsdp)
         self.mesh = None
         if isinstance(comm, Mesh):
             if comm.cfg != tcfg.mesh:
@@ -172,8 +177,13 @@ class Trainer:
                     )
                 comm = DistComm()
             self.mesh = make_mesh(tcfg.mesh, comm)
-        if tcfg.mesh.tp > 1 and params.text.tp_comm is None:
-            params = shard_params(params, self.mesh, cfg, own=True)
+        fsdp = tcfg.fsdp and tcfg.mesh.dp > 1
+        if (tcfg.mesh.tp > 1 and params.text.tp_comm is None) or (
+                fsdp and params.text.fsdp is None):
+            if params.text.tp_comm is not None:
+                raise ValueError("FSDP cuts a whole tree (or loads its slices, "
+                                 "train.build_from_recipe); this one is a tp shard")
+            params = shard_params(params, self.mesh, cfg, own=True, fsdp=fsdp)
         self.cfg, self.tcfg = cfg, tcfg
         self.checkpoint_bytes: Optional[int] = None  # train.build_from_recipe's loader count
         self.tx = make_optimizer(
@@ -227,26 +237,31 @@ class Trainer:
         return make_global_batch(local_rows(batch, self.mesh, rows), self.mesh, self.device)
 
     def _layout(self):
-        """The tp layout of this rank's parameters, or None without tp."""
-        if self.mesh is None or self.mesh.shape["tp"] == 1:
+        """The tp and FSDP layout of this rank's parameters, or None for a
+        whole tree."""
+        if self.mesh is None:
             return None
-        from long_vita_tpu_torch.parallel.sharding import leaf_layout
+        from long_vita_tpu_torch.parallel.sharding import rank_layout
 
-        return leaf_layout(self.state.params, self.cfg, self.mesh.tp_index,
-                           self.mesh.shape["tp"])
+        return rank_layout(self.state.params, self.cfg, self.mesh)
 
     def _save(self, save_checkpoint) -> None:
         """World rank 0 writes (every rank holds the same parameters; over
-        tp the tp ranks gather the tree and its moments for it first)."""
+        tp and under FSDP the ranks of its cp index gather the tree and its
+        moments for it first)."""
         if self.mesh is None:
             save_checkpoint(self.tcfg.save_dir, self.state)
             return
-        layout = self._layout()
-        # over tp, the tp group of world rank 0 (dp and cp index 0) gathers
-        if self.mesh.world.rank == 0 or (layout is not None and self.mesh.dp_cp_comm.rank == 0):
+        layout, mesh = self._layout(), self.mesh
+        fsdp = self.state.params.text.fsdp is not None
+        # cp index 0 gathers: over tp the tp group of world rank 0, under
+        # FSDP its dp groups too
+        if mesh.world.rank == 0 or (layout is not None and mesh.cp_index == 0
+                                    and (fsdp or mesh.dp_index == 0)):
             save_checkpoint(self.tcfg.save_dir, self.state, layout=layout,
-                            tp_comm=self.mesh.tp_comm, write=self.mesh.world.rank == 0)
-        self.mesh.world.barrier()
+                            tp_comm=mesh.tp_comm, dp_comm=mesh.dp_comm if fsdp else None,
+                            write=mesh.world.rank == 0)
+        mesh.world.barrier()
 
     @torch.no_grad()
     def evaluate(self, batches: Iterator[dict], max_steps: int = 0) -> dict:

@@ -36,7 +36,11 @@ slices of each sharded tensor from the memory-mapped file (a column slice
 is a row range of bytes, a row-parallel slice a strided range), and the
 tree it returns is bit for bit ``parallel/sharding.shard_params(whole,
 mesh, cfg, own=True)`` of the whole load, bound to the mesh's tp_comm; the
-whole tree is never built. ``SafetensorsIndex.bytes_read`` counts the bytes
+whole tree is never built. With ``fsdp=True`` (over dp > 1) a rank reads
+only its (tp, dp) piece of each FSDP leaf (a norm's, the embedding's and
+the head's are row ranges, a column weight's a strided range), as
+``shard_params(..., fsdp=True)`` would cut it, and the tree is bound to
+the mesh's dp_comm too. ``SafetensorsIndex.bytes_read`` counts the bytes
 copied out of the files.
 """
 from __future__ import annotations
@@ -173,24 +177,32 @@ def save_safetensors(tensors: dict[str, torch.Tensor], path: str) -> None:
 
 def load_text_params(
     idx: SafetensorsIndex, cfg: LongVITAConfig, dtype=torch.bfloat16,
-    prefix: str = "model.", device="cuda", mesh=None,
+    prefix: str = "model.", device="cuda", mesh=None, fsdp: bool = False,
 ) -> Qwen2Params:
-    """The decoder; over ``mesh``'s tp axis this rank's slices of it, read
-    from the files, and bound to mesh.tp_comm."""
+    """The decoder; over ``mesh``'s tp axis (and with fsdp its dp axis)
+    this rank's slices of it, read from the files, and bound to
+    mesh.tp_comm (and an FSDP Fsdp over mesh.dp_comm)."""
     device = _target(device)
     tp = mesh.shape["tp"] if mesh is not None else 1
-    if tp > 1:
+    dp = mesh.shape["dp"] if mesh is not None and fsdp else 1
+    if tp > 1 or dp > 1:
         from long_vita_tpu_torch.parallel.mesh import MeshConfig, validate_geometry
-        from long_vita_tpu_torch.parallel.sharding import dense_spec, leaf_rule, slice_leaf
+        from long_vita_tpu_torch.parallel.sharding import (
+            dense_spec,
+            fsdp_dim,
+            leaf_rule,
+            slice_leaf,
+        )
 
-        validate_geometry(cfg.text, MeshConfig(tp=tp))
+        validate_geometry(cfg.text, MeshConfig(dp=dp, tp=tp), fsdp=fsdp)
 
     def t(name, tree=None):
-        """The file's tensor ``name``; over tp this rank's slice of the
-        tree's parameter ``tree`` (replicated when None)."""
-        if tp == 1 or tree is None:
+        """The file's tensor ``name``; over tp and dp this rank's slice of
+        the tree's parameter ``tree`` (replicated when None)."""
+        if (tp == 1 and dp == 1) or tree is None:
             return idx.tensor(name, device, dtype)
-        leaf = leaf_rule(tree, dense_spec(tree), mesh.tp_index, tp, cfg.text.num_key_value_heads)
+        leaf = leaf_rule(tree, dense_spec(tree), mesh.tp_index, tp, cfg.text.num_key_value_heads,
+                         fsdp_dim(tree), mesh.dp_index, dp)
         return idx.tensor(name, device, dtype, lambda view: slice_leaf(view, leaf))
 
     lm_head_key = "lm_head.weight"
@@ -206,8 +218,9 @@ def load_text_params(
                          t(p + name + ".bias", tree + "bias") if bias else None)
 
         layers.append(DecoderLayer(
-            input_norm=t(p + "input_layernorm.weight"),
-            post_attn_norm=t(p + "post_attention_layernorm.weight"),
+            input_norm=t(p + "input_layernorm.weight", f"text.layers.{i}.input_norm"),
+            post_attn_norm=t(p + "post_attention_layernorm.weight",
+                             f"text.layers.{i}.post_attn_norm"),
             q_proj=proj("self_attn.q_proj", bias=True),
             k_proj=proj("self_attn.k_proj", bias=True),
             v_proj=proj("self_attn.v_proj", bias=True),
@@ -224,6 +237,10 @@ def load_text_params(
     )
     if tp > 1:
         text.tp_comm = mesh.tp_comm
+    if dp > 1:
+        from long_vita_tpu_torch.parallel.fsdp import Fsdp
+
+        text.fsdp = Fsdp(mesh.dp_comm)
     return text
 
 
@@ -288,18 +305,19 @@ def load_long_vita_checkpoint(
     device="cuda",
     mesh=None,
     stats: Optional[dict] = None,
+    fsdp: bool = False,
 ) -> tuple[Union[LongVITAParams, Qwen2Params], LongVITAConfig]:
     """Load a released Long-VITA-*_HF checkpoint directory. -> (a
     LongVITAParams, or the decoder's Qwen2Params alone when the directory
     holds no vision tower, and the configuration). mesh (a
-    parallel.mesh.Mesh with tp > 1): this rank's shard, read slice by slice
-    (see the module docstring). stats: a dict that receives "bytes_read",
-    the bytes copied out of the files."""
+    parallel.mesh.Mesh with tp > 1, or dp > 1 with fsdp): this rank's
+    shard, read slice by slice (see the module docstring). stats: a dict
+    that receives "bytes_read", the bytes copied out of the files."""
     device = _target(device)
     if cfg is None:
         cfg = LongVITAConfig.from_json(os.path.join(path, "config.json"))
     idx = SafetensorsIndex(path)
-    text = load_text_params(idx, cfg, dtype, device=device, mesh=mesh)
+    text = load_text_params(idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp)
     params: Union[LongVITAParams, Qwen2Params] = text
     if cfg.vision is not None and any(k.startswith("model.vision_model.") for k in idx.keys()):
         params = LongVITAParams(

@@ -43,6 +43,7 @@ def graft_checkpoints(
     device="cuda",
     out_dir: Optional[str] = None,
     mesh=None,
+    fsdp: bool = False,
 ) -> tuple[LongVITAParams, LongVITAConfig]:
     """-> (params, cfg) for a fresh Long-VITA from stock checkpoints.
 
@@ -51,9 +52,10 @@ def graft_checkpoints(
              like `embeddings.*` / `encoder.layers.*` without the grafted
              `model.vision_model.` prefix).
     out_dir: when given, the grafted model is saved there as well.
-    mesh: a parallel.mesh.Mesh with tp > 1: the decoder is this rank's
-          shard, read slice by slice (utils/checkpoint_io.load_text_params);
-          out_dir is then refused (export writes whole trees).
+    mesh: a parallel.mesh.Mesh with tp > 1 (or dp > 1 with fsdp, FSDP's
+          cut): the decoder is this rank's shard, read slice by slice
+          (utils/checkpoint_io.load_text_params); out_dir is then refused
+          (export writes whole trees).
     """
     device = _target(device)
     with open(os.path.join(llm_dir, "config.json")) as f:
@@ -72,11 +74,12 @@ def graft_checkpoints(
         image_token_length=int((vision.grid * downsample) ** 2),
     )
 
-    if mesh is not None and out_dir is not None and mesh.shape["tp"] > 1:
+    if mesh is not None and out_dir is not None and (
+            mesh.shape["tp"] > 1 or (fsdp and mesh.shape["dp"] > 1)):
         raise ValueError("graft_checkpoints(out_dir=...) writes a whole tree; load it without "
-                         "a tp mesh")
+                         "a tp or FSDP mesh")
     llm_idx = SafetensorsIndex(llm_dir)
-    text = load_text_params(llm_idx, cfg, dtype, device=device, mesh=mesh)
+    text = load_text_params(llm_idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp)
     llm_idx.close()
 
     vit_idx = SafetensorsIndex(vit_dir)

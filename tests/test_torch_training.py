@@ -415,11 +415,13 @@ def test_trainer_accumulates_micro_batches():
 def test_unported_options_raise():
     """What still waits for the later multi-GPU slices (ROADMAP's port
     queue) raises: training over 2-D tp (tq) and pipeline parallel meshes,
-    virtual pipeline stages, FSDP and MoE layers over a mesh (expert
+    virtual pipeline stages and MoE layers over a mesh (expert
     parallelism). (dp x cp meshes and zigzag batches train since the
     context-parallel slice, tests/test_torch_cp_training.py; tp since the
     tp training slice, tests/test_torch_tp_training.py: a tp mesh now gets
-    as far as asking for its communicator.)"""
+    as far as asking for its communicator; FSDP since the FSDP slice,
+    tests/test_torch_fsdp.py: on one rank it is the plain step, as JAX's
+    Trainer, whose mesh is None at size 1.)"""
     from long_vita_tpu_torch.parallel.comm import ThreadComm
     from long_vita_tpu_torch.parallel.mesh import make_mesh
 
@@ -431,8 +433,13 @@ def test_unported_options_raise():
         _trainer(None, 1, mesh=MeshConfig(pp=4))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         _trainer(None, 1, virtual_pp=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _trainer(None, 1, fsdp=True)
+    plain, fsdp = _trainer(None, 1), _trainer(None, 1, fsdp=True)
+    assert fsdp.mesh is None and fsdp.state.params.text.fsdp is None
+    batches = [_batch((1,))]
+    assert fsdp.train(iter(batches))["losses"] == plain.train(iter(batches))["losses"]
+    for (n, a), (_, b) in zip(plain.state.params.named_parameters(),
+                              fsdp.state.params.named_parameters()):
+        assert torch.equal(a, b), n
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0]))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
