@@ -50,8 +50,9 @@ Phases (each raises on failure; the script then exits non-zero):
      counts of K1, K2 and K3 are checked against the layers and chunks the
      requests need; the video's last-row logits and its encoded features are
      held against the same flow on the plain versions;
-  5b. cp serving (phase_cp_serve): the same decoder, cut to its first 24
-     layers (the full depth runs in 5c), in an InferenceEngine
+  5b. cp serving (phase_cp_serve): the same decoder, cut to its first 8
+     layers since the pp training phase joined (24 before), in an
+     InferenceEngine
      over a cp mesh of 4 thread-ranks (a 65536-slot cache, 16384 a rank,
      chunk 2048): a 60000-id prompt and 16 greedy tokens with a bf16 cache,
      again with an int8 cache (K2), and a 16-frame video through the
@@ -60,7 +61,8 @@ Phases (each raises on failure; the script then exits non-zero):
      (every step's logits; each cp pick the one-device argmax up to a
      rounding tie);
   5c. the cp server (phase_cp_server): the same decoder, cut to its first
-     24 layers since the tp training phase joined, with a random tower
+     8 layers since the pp training phase joined (24 since the tp training
+     phase), with a random tower
      behind the port's server on cp rank 0 of 4 thread-ranks, ranks 1-3 in
      follower_serve replaying its actions (the lockstep channel,
      inference/multihost.py), a 32768-slot cache (8192 a rank), chunk 2048:
@@ -75,7 +77,8 @@ Phases (each raises on failure; the script then exits non-zero):
   5d. tp serving (phase_tp_serve): K6 on one row into the tp-4 column
      shards (out 1280, 256, 3456, 38016) and K1 / K2 on a 2048-row chunk
      at 10/2 heads against their plain versions; then the same decoder,
-     cut to its first 24 layers since the FSDP phase joined, over tp 4
+     cut to its first 8 layers since the pp training phase joined (24
+     since the FSDP phase), over tp 4
      thread-ranks (each rank's shard a view of the
      weights, parallel/sharding.shard_params): a 5000-id prompt and 8
      greedy tokens, int8 weights (quantised once, whole) into an int8 cache
@@ -83,7 +86,7 @@ Phases (each raises on failure; the script then exits non-zero):
      by step to the one-device engine fed the tp tokens (§2's gate; every
      rank the same bits); the lockstep server on the 4 ranks (3 concurrent
      requests; gates (a) and (b) as 5c); cp 2 x tp 2 on the decoder's
-     first 24 layers with a 7000-id prompt. K1, K2, K3, K6 and K6's
+     first layers with a 7000-id prompt. K1, K2, K3, K6 and K6's
      dequantise route counted exactly; the phase's seconds and peak memory
      printed;
   5e. training over tp (phase_tp_train): K1 forward and K4 and K5 backward
@@ -160,6 +163,25 @@ Phases (each raises on failure; the script then exits non-zero):
      resident parameter / gradient / moment bytes and the bytes read
      against the shard arithmetic, K1/K3/K4/K5 launches exact; peak memory,
      step time and the staged bytes and seconds a step printed.
+  9c. pipeline stages from the recipe entry (phase_pp_train), after the
+     FSDP phase: K1, K4 and K5 at the 72B's 64/8 heads on T2's packed row
+     against their plain versions; then the 72B VLM at full width, the
+     decoder cut to 4 layers, written as a *_HF directory, and
+     configs/stage1_72b_tp8pp8.yaml's settings (the projector alone
+     trains, remat, single-tile images; 16384 tokens, logit budget cut to
+     2048 a row) on four rows: 2 steps without pp in a process of its own,
+     then pp 2 in two gloo processes sharing this card (host-staged
+     shifts), GPipe and then the interleaved schedule (virtual_pp 2) in the
+     same processes, each stage reading its layers. Gates for each
+     schedule: losses and grad_norm against the reference, every rank's
+     loss bits, the first step's projector gradient, every shared leaf's
+     bits equal on both stages after each step, the lr-0 step, nothing
+     but the projector moving, each rank's resident and read bytes its
+     stage's share, K1/K3/K4/K5 launches exact; three planted faults that
+     must fail (the shift's backward sending zeros upstream; grad_norm
+     without its pp sum; the shared leaves' gradients summed within a
+     stage); ticks, bubble share, the bytes shifted and staged a step, the
+     step times and peaks printed.
 
   2c. the eleventh slice, after the cp attention phases: K7 (phase_fwd_lab:
      every variant of the forward-kernel lab against its plain version at
@@ -186,7 +208,8 @@ Phases (each raises on failure; the script then exits non-zero):
      TTFT at tp 2 over the two cards against one card, phase_tp_train
      at tp 2 over NCCL (a card a rank) against tp 1 under its gates, and
      phase_fsdp_train at dp 2 over NCCL (and, on four cards, at dp 2 x tp
-     2). On one GPU it prints {"phase": "cp_nccl",
+     2), and phase_pp_train at pp 2 (on four cards also pp 2 x tp 2). On
+     one GPU it prints {"phase": "cp_nccl",
      "ran": false, "devices": 1} and does nothing else. ``python3
      chip_smoke.py --nccl-only`` builds the kernels and runs this phase
      alone.
@@ -206,6 +229,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import logging
 import os
@@ -3753,7 +3777,7 @@ def phase_cp_server(params, cfg, dev, *, max_seq=32768, chunk=2048, slots=4, tic
                     stream_chars=600, sampled_chars=400, batch_chars=(900, 500),
                     beam_chars=300, beam_tokens=4, vision_chunk=64, tokenizer=None) -> dict:
     """Serving a cp group from its entry points: the 14B (full width, the
-    decoder at the depth given: main passes its first 24 layers; the serving
+    decoder at the depth given: main passes its first 8 layers; the serving
     phases' random bf16 weights with a random tower and projector, shared by
     the thread-ranks) behind the port's server on cp
     rank 0 of CP thread-ranks, ranks 1.. in follower_serve (the lockstep,
@@ -3983,7 +4007,7 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
     random bf16 weights, shared by the thread-ranks; each rank's shard is a
     view of them, K6's int4 column shards copies): phase_tp_kernels first,
     then the main path over TP thread-ranks (parallel/comm.ThreadComm, one
-    card) at the depth of ``params`` (main(): the first 24 layers), each
+    card) at the depth of ``params`` (main(): the first 8 layers), each
     against the one-device engine on the same
     weights (_cp_against_one_device: teacher-forced, §2's logit gate at
     every step, each pick the one-device argmax up to a tie; every rank's
@@ -5074,6 +5098,516 @@ def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_T
     return {"counts": counts, "err": err}
 
 
+PP_TRAIN_LAYERS = 4  # the 72B decoder's depth in phase_pp_train (pp 2 x v 2 needs L % 4 == 0)
+PP_ROWS = 4  # rows a step in phase_pp_train, one single-tile image each
+
+
+def _pp_train_recipe(work, ckpt, sizes, pp, tp, virtual) -> dict:
+    """The recipe of phase_pp_train: configs/stage1_72b_tp8pp8.yaml's
+    settings (the projector alone trains, both towers frozen; lr 1e-3 after
+    30 warm-up steps of 1000, min lr 1e-5; remat; single-tile images) over
+    pp x tp with run.virtual_pp ``virtual``, four rows a step (pp
+    microbatches), the logit budget cut to sizes["budget"]; pp 1: the
+    reference."""
+    mesh = {"pp": pp, "tp": tp} if pp * tp > 1 else {}
+    return {
+        "model": {"checkpoint": ckpt, "dtype": "bfloat16"},
+        "data": {"corpus": os.path.join(work, "corpus.yaml"), "seq_len": sizes["seq"],
+                 "logit_budget": sizes["budget"], "vision_chunk": 64, "max_patch_grid": 1},
+        "mesh": mesh,
+        "optim": {"lr": 1.0e-3, "min_lr_ratio": 0.01, "warmup_steps": 30, "total_steps": 1000,
+                  "freeze_vision": True, "freeze_text": True},
+        "run": {"steps": sizes["steps"], "global_batch": PP_ROWS, "remat": True, "seed": SEED,
+                "virtual_pp": virtual},
+    }
+
+
+def _pp_train_worker(rank, world, init, out, sizes):
+    """One process of phase_pp_train: ``world`` 1 is the reference (pp off,
+    the four rows in one process), else rank ``rank`` of pp 2 x sizes["tp"]
+    over gloo with CUDA operands staged through host memory
+    (sizes["backend"] "staged"; every rank on card 0), NCCL (a card a rank)
+    or plain gloo on the CPU (the rehearsal). For each schedule (GPipe, then
+    the interleaved one at virtual_pp 2, in the same processes) it builds
+    the Trainer through train.build_from_recipe (a stage reads its layers
+    of the checkpoint), takes the planted faults' passes on 4096-token rows
+    (the shift's backward sending zeros upstream; under GPipe grad_norm
+    without its pp sum of squares, with the decoder's layers trainable so
+    that they carry the norm), then trains sizes["steps"] steps through
+    Trainer.train, fingerprinting every leaf the stages share after each
+    step; after the interleaved run, one more step with the shared leaves'
+    gradients summed within a stage only (the third fault). Puts (rank,
+    results or the error) on ``out``; the reference writes its gradients to
+    the work directory for the stages' cosine gates."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        import long_vita_tpu_torch.tokenizer as port_tokenizer
+        from long_vita_tpu_torch.parallel import pipeline as pl
+        from long_vita_tpu_torch.parallel.comm import init_process_group
+        from long_vita_tpu_torch.training import train as ttrain
+        from long_vita_tpu_torch.training import train_step as tts
+        from long_vita_tpu_torch.training.loss import collate_packs
+        from long_vita_tpu_torch.training.optimizer import global_norm
+
+        cpu = sizes["device"] == "cpu"
+        if cpu:
+            torch.set_num_threads(1)
+        backend = sizes["backend"]
+        comm = None
+        if world > 1:
+            comm = init_process_group(
+                rank, world, init, backend="nccl" if backend == "nccl" else "gloo",
+                timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
+        dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
+        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+        stats = getattr(comm, "stats", None)
+        res = {"rank": rank, "runs": {}}
+        pp, tp = (2, sizes["tp"]) if world > 1 else (1, 1)
+        work = sizes["work"]
+        for virtual in ((1, 2) if world > 1 else (1,)):
+            run = {}
+            t0 = time.perf_counter()
+            trainer, stream, _ = ttrain.build_from_recipe(
+                _pp_train_recipe(work, sizes["ckpt"], sizes, pp, tp, virtual), device=dev,
+                comm=comm)
+            del stream  # the phase trains on its own packed rows
+            sync()
+            run["build_s"] = time.perf_counter() - t0
+            run["bytes_read"] = trainer.checkpoint_bytes
+            cfg, params, mesh = trainer.cfg, trainer.state.params, trainer.mesh
+            stage = params.text.pp
+            res["coords"] = (mesh.pp_index, mesh.tp_index) if mesh is not None else (0, 0)
+            run["layers"] = stage.layers() if stage is not None else list(
+                range(cfg.text.num_hidden_layers))
+            run["param_bytes"] = sum(p.nbytes for p in params.parameters())
+            layout = trainer._layout()
+            shared = [n for n, _ in params.named_parameters()
+                      if layout is None or not layout[n].staged]
+            vc = cfg.vision
+            per_tile = int((vc.grid * cfg.vision_downsample_ratio) ** 2)
+            tiles = [np.random.default_rng(SEED + 91 + i).standard_normal(
+                (1, vc.image_size, vc.image_size, 3)).astype(np.float32)
+                for i in range(PP_ROWS)]
+
+            def rows(seq, budget):
+                # four packed rows, each with a single-tile image (stage 1's data)
+                packs = [_train_pack(dataclasses.replace(cfg, image_token_length=per_tile), seq,
+                                     [], [(tiles[i], (1, 1))],
+                                     np.random.default_rng(SEED + 94 + i), text_segments=4,
+                                     answer=sizes["answer"],
+                                     text_sup=sizes["text_sup"] * seq // sizes["seq"])
+                         for i in range(PP_ROWS)]
+                b = collate_packs(packs, budget)
+                b["tokens"] = np.minimum(b["tokens"], cfg.text.vocab_size - 1)
+                return b
+
+            batch = rows(sizes["seq"], sizes["budget"])
+            run["supervised"] = int((batch["labels"] != -100).sum())
+            remat, chunk = trainer.tcfg.remat, trainer.tcfg.vision_chunk
+            parallel = tts.make_parallel_config(mesh)
+
+            def backward(b, freeze_text=True):
+                return tts._backward(params, b, cfg, remat, chunk, True, freeze_text, mesh=mesh,
+                                     parallel=parallel)[0]
+
+            # ---- the planted faults' passes, on 4096-token rows (the main
+            # path's logit budget: the last stage holds the four rows' f32
+            # logits and their gradient)
+            fault_batch = trainer._device_batch(rows(sizes["fault_seq"], sizes["budget"]))
+            proj_path = os.path.join(work, "fault_projector_ref.pt")
+            g = backward(fault_batch)
+            if world == 1:
+                torch.save({n: t.cpu() for n, t in g.items()}, proj_path)
+            else:
+                run["cos_fault_sound"] = _group_cosines(g, proj_path, layout, mesh.tp_comm, dev)
+                pl._SHIFT_BACKWARD_DROPPED = True
+                try:
+                    g = backward(fault_batch)
+                finally:
+                    pl._SHIFT_BACKWARD_DROPPED = False
+                run["cos_fault"] = _group_cosines(g, proj_path, layout, mesh.tp_comm, dev)
+            del g
+            if virtual == 1:
+                # the decoder's layers trainable: they carry the norm's squares
+                g = backward(fault_batch, freeze_text=False)
+                layers_g = {n: t for n, t in g.items() if ".layers." in n}
+                if world == 1:
+                    res["fault_norm"] = [float(global_norm(x.values())) for x in (g, layers_g)]
+                else:
+                    red = tts._Reduction(params, cfg, mesh)
+                    res["fault_norm"] = [float(red.norm(x)) for x in (g, layers_g)]
+                    tts._NORM_UNSUMMED_OVER_PP = True
+                    try:
+                        res["fault_norm_unsummed"] = [float(red.norm(x)) for x in (g, layers_g)]
+                    finally:
+                        tts._NORM_UNSUMMED_OVER_PP = False
+                del g, layers_g
+            for p in params.parameters():  # back to stage 1's freezes
+                p.grad = None
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+
+            # ---- the main path: Trainer.train, the steps on the four rows
+            first = {}
+            step_backward = tts._backward
+
+            def keep_first(*a, **k):
+                out_ = step_backward(*a, **k)
+                if "grads" not in first:
+                    first["grads"] = {n: t.to("cpu") for n, t in out_[0].items()}
+                return out_
+
+            tts._backward = keep_first
+            before = {n: _fingerprint(p) for n, p in params.named_parameters()}
+            step_fn, kept, norms_log, prints = trainer.step_fn, [], [], []
+
+            def logged(state, b):
+                state, m = step_fn(state, b)
+                norms_log.append(float(m["grad_norm"]))
+                named = dict(state.params.named_parameters())
+                prints.append([_fingerprint(named[n]) for n in shared])
+                if not kept:  # the warm-up's first step runs at lr 0
+                    kept.append(sorted(n for n, p in named.items()
+                                       if _fingerprint(p) != before[n]))
+                return state, m
+
+            trainer.step_fn = logged
+            stamps, staged, moved = [], [], []
+
+            def batches():
+                for _ in range(sizes["steps"]):
+                    sync()
+                    stamps.append(time.perf_counter())
+                    staged.append(stats["seconds"] if stats else 0.0)
+                    moved.append(stats["bytes"] if stats else 0)
+                    yield batch
+
+            _reset_counts()
+            if stage is not None:
+                stage.reset_stats()
+            if not cpu:
+                run["peak_before_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                run["losses"] = trainer.train(batches())["losses"]
+            finally:
+                tts._backward = step_backward
+            sync()
+            stamps.append(time.perf_counter())
+            staged.append(stats["seconds"] if stats else 0.0)
+            moved.append(stats["bytes"] if stats else 0)
+            run["peak_gb"] = 0.0 if cpu else torch.cuda.max_memory_allocated() / 1e9
+            run["counts"] = _read_counts()
+            run["stage_stats"] = dict(stage.stats) if stage is not None else None
+            run["norms"] = list(norms_log)
+            run["prints"] = list(prints)
+            run["moved_at_lr0"] = kept[0] if kept else None
+            run["moved"] = sorted(n for n, p in params.named_parameters()
+                                  if _fingerprint(p) != before[n])
+            run["step_s"] = [b - a for a, b in zip(stamps, stamps[1:])]
+            run["staged_s"] = [b - a for a, b in zip(staged, staged[1:])]
+            run["staged_gb"] = [(b - a) / 1e9 for a, b in zip(moved, moved[1:])]
+            grads = first.pop("grads")
+            path = os.path.join(work, "grads_ref.pt")
+            if world == 1:
+                torch.save(grads, path)
+            else:
+                run["cos"] = _group_cosines(grads, path, layout, mesh.tp_comm, dev)
+            del grads
+            if world > 1 and virtual == 2:
+                # the third fault: the shared leaves summed within a stage only
+                tts._UNSUMMED_OVER_PP = True
+                try:
+                    trainer.step_fn(trainer.state, fault_batch)
+                finally:
+                    tts._UNSUMMED_OVER_PP = False
+                res["prints_unsummed"] = prints[-1]
+            res["runs"][virtual] = run
+            trainer.step_fn = step_fn
+            del trainer, params, fault_batch
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        out.put((rank, res))
+        if comm is not None:
+            comm.barrier()
+            torch.distributed.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2500:]}"))
+
+
+def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN_LAYERS, tp=1,
+                   seq=16384, budget=2048, fault_seq=4096, steps=2, answer=300, text_sup=430,
+                   tok=None, kernels=True) -> dict:
+    """Pipeline stages from the recipe entry: the 72B VLM (long_vita_72b(): h
+    8192, ffn 29568, 64/8 heads, vocab 152064) at full width, the decoder
+    cut to ``layers`` layers, the InternViT-300M tower at 24, written as a
+    *_HF checkpoint directory; configs/stage1_72b_tp8pp8.yaml's settings
+    (the projector alone trains, remat, single-tile images) at ``seq``
+    tokens, the logit budget cut to ``budget`` a row; four rows a step,
+    each with a single-tile image. First the reference (pp off, the four
+    rows in one process), then pp 2 x ``tp`` (backend "staged": two gloo
+    processes sharing this card with host-staged collectives; "nccl": a
+    card a rank, from phase_cp_nccl; "gloo" with device "cpu": the
+    rehearsal), GPipe and then the interleaved schedule (virtual_pp 2) in
+    the same processes, each stage reading its layers. Gates, for each
+    schedule: each step's loss within TRAIN_LOSS_REL of the reference's and
+    grad_norm within 3x that; every rank the same loss bits; the first
+    step's projector gradient against the reference's at cosine >=
+    TRAIN_GRAD_COS; after every step, every leaf the stages share the same
+    bits on every rank; the warm-up's lr-0 step leaving every bit, and
+    nothing but the projector moving; each rank's resident parameters and
+    the bytes it read its stage's share exactly; K1, K3, K4 and K5
+    launches exact. Three planted faults must fail: the shift's backward
+    sending zeros upstream (the projector's cosine, on 4096-token rows,
+    both schedules), grad_norm without its pp sum of squares (against the
+    reference's norm of the 4096-token rows with the decoder's layers
+    trainable), and the shared leaves' gradients summed within a stage
+    only (the same-bits gate, a step after the interleaved run). kernels:
+    first K1, K4 and K5 at a stage's heads on T2's packed row. -> {"counts":
+    every pp rank's launches over both schedules, "err": the kernels'
+    largest error}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_72b
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.parallel import pipeline as pl
+    from long_vita_tpu_torch.parallel.sharding import long_vita_param_specs
+    from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
+
+    t_phase = time.perf_counter()
+    cpu = device == "cpu"
+    dev = torch.device(device)
+    base = cfg or long_vita_72b()
+    heads = (base.text.num_attention_heads // tp, max(base.text.num_key_value_heads // tp, 1))
+    err = phase_tp_train_kernels(heads=heads, dev=dev, label="a 72B pp stage",
+                                 tag="pp train kernels") if kernels else 0.0
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, num_hidden_layers=layers))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pp_train_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+        rng = np.random.default_rng(SEED + 93)
+        probe = rng.standard_normal((2, cfg.vision.image_size, cfg.vision.image_size, 3),
+                                    dtype=np.float32)
+        lv, _ = _vlm_params(qwen2.init_qwen2_params(gen, cfg.text, torch.bfloat16, dev), cfg,
+                            dev, SEED + 92, probe)
+        ckpt = os.path.join(work, "ckpt")
+        save_hf_checkpoint(lv, cfg, ckpt)
+        shapes = {n: (tuple(p.shape), p.dtype) for n, p in lv.named_parameters()}
+        specs = long_vita_param_specs(lv)
+        whole_b = sum(p.nbytes for p in lv.parameters())
+        layer_b = [sum(p.nbytes for p in layer.parameters()) for layer in lv.text.layers]
+        del lv
+        if not cpu:
+            torch.cuda.empty_cache()
+        with open(os.path.join(work, "corpus.yaml"), "w") as f:  # the recipe names one
+            json.dump({"dataset": {"chat": {"ratio": 1, "data_paths": [
+                os.path.join(work, "chat.jsonl")]}}}, f)
+        with open(os.path.join(work, "chat.jsonl"), "w") as f:
+            f.write(json.dumps({"messages": [{"role": "user", "content": "hi"},
+                                             {"role": "assistant", "content": "hello"}]}))
+        tc = cfg.text
+        print(f"[pp train] the VLM at full width (h {tc.hidden_size}, ffn "
+              f"{tc.intermediate_size}, {tc.num_attention_heads}/{tc.num_key_value_heads} heads, "
+              f"vocab {tc.vocab_size}; {layers} decoder layers of {layer_b[0] / 1e9:.3f} GB; "
+              f"{whole_b / 1e9:.3f} GB) written as a checkpoint directory in "
+              f"{time.perf_counter() - t0:.1f} s")
+        sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq, tp=tp,
+                     budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
+                     text_sup=text_sup, tok=tok or {})
+        t0 = time.perf_counter()
+        one = _spawn(_pp_train_worker, 1, {**sizes, "backend": "gloo"},
+                     2 * TP_TRAIN_TIMEOUT)[0]
+        t1 = time.perf_counter()
+        world = 2 * tp
+        ranks = [r for _, r in sorted(_spawn(_pp_train_worker, world, sizes,
+                                             4 * TP_TRAIN_TIMEOUT).items())]
+        print(f"[pp train] the reference process {t1 - t0:.1f} s, the {world} pp processes "
+              f"{time.perf_counter() - t1:.1f} s (start-up, loading twice, the faults' passes, "
+              "the steps of both schedules)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failures = []
+
+    def check(good: bool, what: str) -> None:
+        print(f"[pp train] {what}: {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(what)
+
+    where = {"staged": STAGED_NOTE, "nccl": f"{world} cards over NCCL",
+             "gloo": f"{world} gloo processes on the CPU"}[backend]
+    geom = f"pp 2 x tp {tp}" if tp > 1 else "pp 2"
+    ref = one["runs"][1]
+    hkv = cfg.text.num_key_value_heads
+    m = 2  # microbatches: pp (JAX's default, ParallelConfig.microbatches 0)
+    print(f"[pp train] the reference (pp off, one process, the four rows): read "
+          f"{ref['bytes_read'] / 1e6:.3f} MB; holds {ref['param_bytes'] / 1e9:.3f} GB of "
+          f"parameters; steps {[round(t, 3) for t in ref['step_s']]} s; peak allocated "
+          f"{ref['peak_gb']:.2f} GB ({ref.get('peak_before_gb', 0.0):.2f} GB before the steps); "
+          f"losses {ref['losses']} grad_norm {ref['norms']}; {ref['supervised']} supervised rows")
+    counts = None
+    for virtual, name in ((1, "GPipe"), (2, "interleaved (virtual_pp 2)")):
+        runs = [r["runs"][virtual] for r in ranks]
+        r0 = runs[0]
+        for r, run in zip(ranks, runs):
+            st = run["stage_stats"]
+            print(f"[pp train] {name}, rank (pp {r['coords'][0]}, tp {r['coords'][1]}) of {geom}: "
+                  f"layers {run['layers']}; built through train.build_from_recipe in "
+                  f"{run['build_s']:.1f} s, read {run['bytes_read'] / 1e6:.3f} MB of the "
+                  f"checkpoint's {whole_b / 1e6:.3f} MB; holds {run['param_bytes'] / 1e9:.3f} GB "
+                  f"of parameters; steps {[round(t, 3) for t in run['step_s']]} s ({where}), "
+                  f"staged copies {[round(t, 3) for t in run['staged_s']]} s of them, "
+                  f"{[round(b, 3) for b in run['staged_gb']]} GB staged a step; the schedule: "
+                  f"{st['ticks'] // steps} ticks a step, {st['busy'] // steps} busy (bubble "
+                  f"share {1 - st['busy'] / max(st['ticks'], 1):.3f}, "
+                  f"{pl.bubble_share(m, 2, virtual):.3f} by the formula), shifts "
+                  f"{st['sent_bytes'] / steps / 1e9:.3f} GB sent and "
+                  f"{st['received_bytes'] / steps / 1e9:.3f} GB received a step; peak allocated "
+                  f"{run['peak_gb']:.2f} GB in the steps ({run.get('peak_before_gb', 0.0):.2f} GB "
+                  f"before them); losses {run['losses']} grad_norm {run['norms']}")
+        if not cpu:
+            both = sum(max(x["peak_gb"], x.get("peak_before_gb", 0.0)) for x in runs)
+            print(f"[pp train] {name}: the pp ranks' peaks together {both:.2f} GB")
+        check(all(x["losses"] == r0["losses"] and x["norms"] == r0["norms"] for x in runs),
+              f"{name}: every rank reports the same loss and grad_norm bits")
+        check(len(r0["losses"]) == steps and all(
+            abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], ref["losses"])),
+            f"{name} {geom} losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of the "
+            f"reference's {ref['losses']}")
+        check(all(abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b)
+                  for a, b in zip(r0["norms"], ref["norms"])),
+              f"{name} {geom} grad_norm {r0['norms']} within {3 * TRAIN_LOSS_REL} of the "
+              f"reference's {ref['norms']}")
+        cos = r0["cos"]
+        check(set(cos) == {"projector"} and cos["projector"] >= TRAIN_GRAD_COS,
+              f"{name}: the first step's projector gradient vs the reference's, cosine "
+              f"(>= {TRAIN_GRAD_COS}): {cos}")
+        check(all(x["prints"] == y["prints"] for (r, x), (q, y) in
+                  itertools.product(zip(ranks, runs), repeat=2)
+                  if r["coords"][1] == q["coords"][1]) and len(r0["prints"]) == steps,
+              f"{name}: after every step every leaf the stages share (the embedding, the head, "
+              f"final_norm, the tower, the projector) holds the same bits on every stage (of a "
+              f"tp index: its tp slice)")
+        check(all(x["moved_at_lr0"] == [] for x in runs + [ref]),
+              f"{name}: the warm-up's first step (lr 0) leaves every leaf's bits on every rank")
+        check(all(x["moved"] and all(n.startswith("projector.") for n in x["moved"])
+                  for x in runs + [ref]),
+              f"{name}: after the steps the projector alone moved, every frozen leaf keeps its "
+              f"bits ({len(r0['moved'])} projector leaves moved)")
+        check(all(x["cos_fault_sound"]["projector"] >= TRAIN_GRAD_COS for x in runs),
+              f"{name}: the projector gradient on the {fault_seq}-token rows vs the "
+              f"reference's: {[round(x['cos_fault_sound']['projector'], 6) for x in runs]}")
+        check(all(x["cos_fault"].get("projector", 0.0) < TRAIN_GRAD_COS for x in runs),
+              f"{name}: the cosine gate with the shift's backward sending zeros upstream (a "
+              f"planted fault; {fault_seq}-token rows) must fail: "
+              f"{[round(x['cos_fault'].get('projector', 0.0), 6) for x in runs]}")
+        # resident bytes and the bytes read: the stage's layers (its tp
+        # slices) plus every leaf the stages share, whole
+        for r, run in zip(ranks, runs):
+            t = r["coords"][1]
+            mine = sum(_shard_bytes({n: s for n, s in shapes.items()
+                                     if n.startswith(f"text.layers.{g}.")}, specs, hkv, 0, 1,
+                                    t, tp)
+                       for g in run["layers"])
+            rest = _shard_bytes({n: s for n, s in shapes.items()
+                                 if not n.startswith("text.layers.")}, specs, hkv, 0, 1, t, tp)
+            # the loader reads the tower's tensors in the files' layout (the
+            # reference's read against its resident bytes gives the difference)
+            check(run["param_bytes"] == mine + rest
+                  and run["bytes_read"] == ref["bytes_read"] - whole_b + mine + rest,
+                  f"{name}: rank (pp {r['coords'][0]}, tp {t}) holds and read its stage's share "
+                  f"exactly: {run['param_bytes'] / 1e9:.3f} GB held, "
+                  f"{run['bytes_read'] / 1e6:.3f} MB read; its {len(run['layers'])} layers "
+                  f"{mine / 1e9:.3f} GB, the shared leaves {rest / 1e9:.3f} GB (the reference "
+                  f"{ref['param_bytes'] / 1e9:.3f} GB)")
+        # the launches: the decoder's K1 twice a layer a microbatch a step
+        # (remat's recompute) on each stage, K4 or K5 once; the frozen
+        # tower's K3 a layer a step on the first stage alone
+        tc, vc = cfg.text, cfg.vision
+        for r, run in zip(ranks, runs):
+            p_idx = r["coords"][0]
+            hq = tc.num_attention_heads // tp
+            n_layers = len(run["layers"])
+            fused = fa.bwd_uses_fused(PP_ROWS // m, seq, seq, hq, tc.head_dim, 2)
+            want = dict.fromkeys(run["counts"], 0)
+            want["flash_fwd"] = 2 * n_layers * m * steps
+            if fused:
+                want["flash_bwd"] = n_layers * m * steps
+            else:
+                want["flash_bwd_dkv"] = want["flash_bwd_dq"] = n_layers * m * steps
+            if p_idx == 0:
+                want["short_attn"] = vc.num_hidden_layers * steps
+            if not cpu:
+                check(run["counts"] == want, f"{name}: launches of rank {r['rank']}: "
+                      f"{run['counts']} (expected {want})")
+            else:
+                print(f"[pp train] {name}: launches of rank {r['rank']} (the CPU runs the plain "
+                      f"versions): {run['counts']}")
+        step = min(r0["step_s"])
+        share = [s / t for s, t in zip(r0["staged_s"], r0["step_s"])]
+        print(f"[pp train] a {geom} {name} step {step:.3f} s against the reference's "
+              f"{min(ref['step_s']):.3f} s ({where}); the staged copies' share of a step "
+              f"{[round(x, 3) for x in share]}")
+        c = {k: sum(run["counts"][k] for run in runs) for k in r0["counts"]}
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+    # the reference's launches: every layer on the four rows at once
+    tc, vc = cfg.text, cfg.vision
+    fused = fa.bwd_uses_fused(PP_ROWS, seq, seq, tc.num_attention_heads, tc.head_dim, 2)
+    want = dict.fromkeys(ref["counts"], 0)
+    want["flash_fwd"] = 2 * tc.num_hidden_layers * steps
+    want["short_attn"] = vc.num_hidden_layers * steps
+    for k in (["flash_bwd"] if fused else ["flash_bwd_dkv", "flash_bwd_dq"]):
+        want[k] = tc.num_hidden_layers * steps
+    if not cpu:
+        check(ref["counts"] == want, f"launches of the reference: {ref['counts']} (expected "
+              f"{want})")
+    # the norm's pp sum of squares (GPipe, the decoder's layers trainable),
+    # read on every rank: without the sum each stage sees its own layers,
+    # and the first layers' gradients can hold nearly all the squares
+    # (the first stage then reads close to the whole), so the gate holds
+    # every rank's reading
+
+    def rel(x, i):
+        return abs(x - one["fault_norm"][i]) / one["fault_norm"][i]
+
+    for i, what in enumerate(("grad_norm", "grad_norm of the decoder's layers")):
+        check(all(rel(r["fault_norm"][i], i) <= 3 * TRAIN_LOSS_REL for r in ranks),
+              f"{what} on the {fault_seq}-token rows with the layers trainable, every rank's "
+              f"{[round(r['fault_norm'][i], 6) for r in ranks]}, within {3 * TRAIN_LOSS_REL} of "
+              f"the reference's {one['fault_norm'][i]:.6f}")
+    print(f"[pp train] grad_norm with the norm's pp sum of squares removed: "
+          f"{[round(r['fault_norm_unsummed'][0], 6) for r in ranks]}")
+    check(any(rel(r["fault_norm_unsummed"][1], 1) > 3 * TRAIN_LOSS_REL for r in ranks),
+          "the decoder's grad_norm gate with the norm's pp sum of squares removed (a planted "
+          f"fault) must fail: {[round(r['fault_norm_unsummed'][1], 6) for r in ranks]}")
+    check(any(r["prints_unsummed"] != q["prints_unsummed"]
+              for r, q in itertools.product(ranks, repeat=2) if r["coords"][1] == q["coords"][1]),
+          "the same-bits gate after a step with the shared leaves' gradients summed within a "
+          "stage only (a planted fault) must fail")
+    print(f"[pp train] phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"[pp train] {failures}")
+    return {"counts": counts, "err": err}
+
+
 def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
     """Whether two thread-ranks can run backward passes that wait for each
     other on ``device``. Each thread builds a graph through a Function whose
@@ -5470,6 +6004,11 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
         phase_fsdp_train(backend="nccl", kernels=False)
         if n_dev >= 4:
             phase_fsdp_train(backend="nccl", tp=2, kernels=False)
+        # pipeline stages over NCCL: pp 2 on two cards; on four, pp 2 x tp 2
+        # (the tp8 x pp8 recipe's layout in miniature)
+        phase_pp_train(backend="nccl", kernels=False)
+        if n_dev >= 4:
+            phase_pp_train(backend="nccl", tp=2, kernels=False)
     print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
 
 
@@ -5553,15 +6092,13 @@ def main() -> int:
     del bits
     add(phase_multimodal(params, cfg, dev))
     _collect("after the multimodal phase")  # the serving engines and their caches are gone
-    add(phase_cp_serve(params, cfg, dev))
+    # the cp and tp serving phases on the decoder's first 8 layers, so that
+    # the run keeps inside its time with phase_pp_train (24 before it)
+    add(phase_cp_serve(params, cfg, dev, layers=8))
     _collect("after the cp serving phase")
-    # the decoder's first 24 layers, so that the run keeps inside its time
-    # with phase_tp_train
-    add(phase_cp_server(*_decoder_prefix(params, cfg, 24), dev))
+    add(phase_cp_server(*_decoder_prefix(params, cfg, 8), dev))
     _collect("after the cp server phase")
-    # the decoder's first 24 layers, so that the run keeps inside its time
-    # with phase_fsdp_train
-    add(phase_tp_serve(*_decoder_prefix(params, cfg, 24), dev))
+    add(phase_tp_serve(*_decoder_prefix(params, cfg, 8), dev, cpxtp_layers=8))
     _collect("after the tp serving phase")
     tp_train = phase_tp_train()
     add(tp_train["counts"])
@@ -5602,6 +6139,9 @@ def main() -> int:
     fsdp_train = phase_fsdp_train()
     add(fsdp_train["counts"])
     _collect("after the FSDP training phase")
+    pp_train = phase_pp_train()
+    add(pp_train["counts"])
+    _collect("after the pp training phase")
     phase_autograd_probe()
     phase_cp_nccl()
     report = {"kernels": [

@@ -199,6 +199,10 @@ class InferenceEngine:
         self.mesh, self.parallel = mesh, None
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
+        if mesh is not None and mesh.shape["pp"] > 1:
+            raise NotImplementedError(
+                f"serving over a pp {mesh.shape['pp']} mesh: pipeline stages run in training "
+                "only, as in the JAX package (its engine takes a tp x cp mesh)")
         if mesh is not None:
             validate_geometry(cfg.text, mesh.cfg)
             qwen2.check_moe_mesh(cfg.text, dp=mesh.shape["dp"], cp=mesh.shape["cp"],

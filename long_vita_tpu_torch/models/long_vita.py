@@ -217,6 +217,7 @@ def long_vita_forward(
     freeze_vision: bool = False,
     head: bool = True,
     parallel=None,
+    return_anchor: bool = False,
 ):
     """The full VLM forward, on one device or on this rank's shard.
 
@@ -237,12 +238,30 @@ def long_vita_forward(
     to [1, N_local, ...] in (row, m) order (cp_logit_rows gives the mask):
     the loss sums them over ranks (training/train_step.py). With tp > 1 too
     (a tp shard of the tree, training): the sequence-parallel forward of
-    the module docstring, the same rows on every tp rank of a cp shard."""
+    the module docstring, the same rows on every tp rank of a cp shard.
+
+    Pipelined (``parallel`` with pp > 1, no cache, params.text a stage's
+    tree: training): the first stage alone looks the tokens up and encodes
+    and scatters the tiles, the decoder runs the pipeline
+    (qwen2._pipelined_decoder), and the last stage alone gathers the budget
+    rows and applies the head; the other stages return None for the
+    result. JAX keeps every leaf outside the layer stack replicated over pp
+    and computes all of it on every stage, the output psum'd to each; the
+    port's stages hold the same leaves and skip the work whose result only
+    the other end reads. Under tp the lookup lands in the rank's sequence
+    slice (qwen2.embed_tokens_vp: the same rows as JAX's plain lookup under
+    its [B@dp, S@(cp, tp), H] constraint, :295-301) and head=True is the
+    plain head over the gathered rows (JAX's rule: no vocab-parallel CE
+    under pp, train_step.py:75-85). return_anchor: the pipeline's anchor
+    last (parallel/pipeline.py; 0 without pp)."""
     qwen2.check_remat(remat)
     cp = parallel.cp if parallel is not None and kv_cache is None else 1
     sp = (parallel is not None and kv_cache is None and parallel.mesh.shape["tp"] > 1
           and params.text.tp_comm is not None)
-    if sp:
+    stage = params.text.pp if parallel is not None and kv_cache is None else None
+    if stage is not None and not stage.first:
+        inputs_embeds, images = None, None
+    elif sp:
         tp = params.text.tp_comm
         s_cp = input_ids.shape[1]
         if s_cp % tp.size:
@@ -269,12 +288,14 @@ def long_vita_forward(
             )
         else:
             inputs_embeds = merge_image_embeddings(inputs_embeds, image_embeds, image_indices)
-    hidden, new_cache, aux = qwen2.qwen2_decoder(
+    hidden, new_cache, aux, anchor = qwen2.qwen2_decoder(
         params.text, inputs_embeds, position_ids, cfg.text,
         kv_cache=kv_cache, segment_ids=segment_ids, attn_impl=attn_impl,
-        remat=remat, parallel=parallel, return_aux=True,
+        remat=remat, parallel=parallel, return_aux=True, return_anchor=True,
     )
-    if logit_positions is not None and sp:
+    if hidden is None:  # a pipeline stage before the last
+        out = None
+    elif logit_positions is not None and sp:
         hidden = sp_logit_rows(hidden, logit_positions, parallel.comm.rank if cp > 1 else 0,
                                params.text.tp_comm)
     elif logit_positions is not None and cp > 1:
@@ -283,10 +304,14 @@ def long_vita_forward(
         hidden = hidden[rows[mask], local[mask]][None]
     elif logit_positions is not None:
         hidden = torch.take_along_dim(hidden, logit_positions[:, :, None].long(), dim=1)
-    out = qwen2.lm_head(params.text, hidden) if head else hidden
+    if hidden is not None:
+        out = qwen2.lm_head(params.text, hidden) if head else hidden
+    result = (out, new_cache)
     if return_aux:
-        return out, new_cache, aux
-    return out, new_cache
+        result += (aux,)
+    if return_anchor:
+        result += (anchor,)
+    return result
 
 
 def init_long_vita_params(

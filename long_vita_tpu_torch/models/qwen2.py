@@ -56,7 +56,12 @@ Differences from the JAX package, all of form rather than of numbers:
     reduce-scatters their gradients; a saved gathered weight is gathered
     again in the backward (``fsdp.streaming``), so one unit's whole weights
     are alive at a time. JAX's GSPMD inserts the same collectives inside
-    the scan.
+    the scan;
+  - over pp (``Qwen2Params.pp``, a stage's tree: parallel/sharding.
+    shard_params cuts it) the decoder runs its stage's layers in the
+    pipeline's schedule (``_pipelined_decoder``, parallel/pipeline.py),
+    the activation moving between stages in autograd Functions, where JAX
+    runs one shard_map over the pp axis.
 """
 from __future__ import annotations
 
@@ -78,7 +83,7 @@ from long_vita_tpu_torch.ops.attention import (
 )
 from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from long_vita_tpu_torch.parallel.comm import gather_seq, scatter_seq
+from long_vita_tpu_torch.parallel.comm import copy_to_tp, gather_from_tp, gather_seq, scatter_seq
 from long_vita_tpu_torch.parallel.fsdp import embed_table, gathered_layer, head_weight, streaming
 
 CacheLen = Union[int, torch.Tensor]
@@ -96,13 +101,16 @@ class ParallelConfig:
     inputs zigzag-permuted over cp), "ulysses" (head all-to-all, contiguous
     shards) or "hybrid" (Ulysses over cp_inner lanes inside ring groups, the
     inputs zigzag-permuted over cp // cp_inner); cp_window: the double
-    ring's window (0 = the plain ring). The pipeline fields of the JAX
-    config come with pp (ROADMAP §1, pipeline stages)."""
+    ring's window (0 = the plain ring). microbatches: the pipeline's
+    microbatches over a pp mesh (0: pp, as in JAX); the interleaved
+    schedule's chunks a stage are its tree's (``Qwen2Params.pp.virtual``),
+    where JAX reads ``virtual_pp`` here."""
 
     mesh: Any
     cp_algo: str = "ring"
     cp_inner: int = 1
     cp_window: int = 0
+    microbatches: int = 0
 
     def __post_init__(self):
         if self.cp_algo not in CP_ALGOS:
@@ -113,6 +121,10 @@ class ParallelConfig:
     @property
     def cp(self) -> int:
         return self.mesh.shape["cp"]
+
+    @property
+    def pp(self) -> int:
+        return self.mesh.shape["pp"]
 
     @property
     def comm(self):
@@ -259,10 +271,13 @@ class Qwen2Params(nn.Module):
     ``tp_comm``: None for the whole tree; on a rank's tensor-parallel shard
     (parallel/sharding.shard_params) the tp communicator its collectives
     run on. ``fsdp``: None, or on an FSDP shard the parallel.fsdp.Fsdp
-    that gathers its units over dp."""
+    that gathers its units over dp. ``pp``: None, or on a pipeline stage's
+    tree (its ``layers`` the stage's, parallel/sharding.shard_params) the
+    parallel.pipeline.Stage."""
 
     tp_comm = None
     fsdp = None
+    pp = None
 
     def __init__(
         self, *, embed: torch.Tensor, layers: list[DecoderLayer],
@@ -522,17 +537,18 @@ def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None, s
     return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp, sp), None
 
 
-def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1) -> None:
+def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1, pp: int = 1) -> None:
     """MoE runs on one device (or on replicas of one). The JAX package shards
     the experts over dp (expert parallelism, two all_to_alls a layer), their
-    intermediate dim over tp, and routes cp's tokens as one global batch
-    with one capacity; none of it is ported (ROADMAP §1, expert
-    parallelism), so a MoE model over dp, cp or tp > 1 raises."""
-    if cfg.num_experts > 0 and (dp > 1 or cp > 1 or tp > 1):
+    intermediate dim over tp, routes cp's tokens as one global batch with
+    one capacity, and carries the aux loss through the pipeline's stages;
+    none of it is ported (ROADMAP §1, expert parallelism), so a MoE model
+    over dp, cp, tp or pp > 1 raises."""
+    if cfg.num_experts > 0 and (dp > 1 or cp > 1 or tp > 1 or pp > 1):
         raise NotImplementedError(
-            f"MoE layers over a multi-GPU mesh (dp {dp}, cp {cp}, tp {tp}): expert "
-            "parallelism, MoE over tp and cp's global routing are not ported (ROADMAP §1 "
-            "item 8, expert parallelism)")
+            f"MoE layers over a multi-GPU mesh (dp {dp}, pp {pp}, cp {cp}, tp {tp}): expert "
+            "parallelism, MoE over tp and pp and cp's global routing are not ported "
+            "(ROADMAP §1 item 8, expert parallelism)")
 
 
 def decoder_layer(
@@ -629,6 +645,7 @@ def qwen2_decoder(
     remat: Union[bool, str] = False,
     parallel: Optional[ParallelConfig] = None,
     return_aux: bool = False,
+    return_anchor: bool = False,
 ):
     """Run the decoder. inputs_embeds [B, S, H]; position_ids [B|1, S].
 
@@ -648,10 +665,18 @@ def qwen2_decoder(
     counterpart of jax.checkpoint with nothing_saveable), "dots" its
     products' outputs too, "flash" the flash forward's (o, lse).
 
+    Pipelined (a pipeline stage's tree, ``params.pp``, under a ``parallel``
+    mesh of pp > 1, no cache: training): _pipelined_decoder.
+
     -> (final_norm(hidden) [B, S, H], the cache at length + S, or None),
     and with return_aux the MoE aux loss summed over the layers (f32, 0 for
-    a dense decoder). The cache's buffers are written in place; the
-    returned KVCache shares them."""
+    a dense decoder), with return_anchor the pipeline's anchor
+    (parallel/pipeline.py: a zero the caller adds to its loss; a constant 0
+    without pp). The cache's buffers are written in place; the returned
+    KVCache shares them."""
+    if parallel is not None and parallel.pp > 1 and kv_cache is None:
+        return _pipelined_decoder(params, inputs_embeds, position_ids, cfg, segment_ids,
+                                  attn_impl, remat, parallel, return_aux, return_anchor)
     recompute = check_remat(remat) and kv_cache is None
     seq = inputs_embeds.shape[1]
     cp = parallel.cp if parallel is not None else 1
@@ -690,11 +715,86 @@ def qwen2_decoder(
     hidden = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
     if q_sharded:
         hidden = parallel.comm.all_gather(hidden, 1)
+    out = (hidden, new_cache)
     if return_aux:
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        return hidden, new_cache, aux
-    return hidden, new_cache
+        out += (aux,)
+    if return_anchor:
+        out += (torch.zeros((), dtype=torch.float32, device=hidden.device),)
+    return out
+
+
+def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: TextConfig,
+                       segment_ids, attn_impl, remat, parallel: ParallelConfig, return_aux,
+                       return_anchor):
+    """The decoder over the pp axis (JAX's _pipelined_decoder :797-911):
+    this rank runs its stage's layers (``params.pp``, a
+    parallel.pipeline.Stage; ``params.layers`` its L / pp layers, or its
+    ``virtual`` chunks chunk-major) in the GPipe or, with virtual > 1, the
+    interleaved schedule (parallel/pipeline.run_schedule). The batch splits
+    into parallel.microbatches (0: pp) microbatches of consecutive rows;
+    the activation travels between stages, and each stage takes a
+    microbatch's rope tables, positions and segment ids from its own copy
+    (every stage holds the whole batch's position_ids and segment_ids
+    [B, S]). inputs_embeds: the embeddings on the first stage (under
+    sequence parallelism this rank's 1/tp slice [B, S / tp, H], the slice
+    a stage's activation keeps: JAX's [B@dp, S@(cp, tp), H] inside the
+    stage), None on the others. Each layer recomputes in the backward at
+    the remat level (remat_checkpoint), under both schedules: JAX remats
+    the interleaved schedule's whole ticks instead, only so that XLA does
+    not stack the chunk's sliced weights per tick (pipeline.py:182-193),
+    which eager PyTorch never does; the numbers are the same. -> as
+    qwen2_decoder: hidden the final-normed [B, S(/tp), H] on the last
+    stage, None on the others; the MoE aux 0 (MoE over pp raises, JAX
+    takes the mean over microbatches, :909-911); the anchor."""
+    from long_vita_tpu_torch.parallel.pipeline import run_schedule
+
+    stage = params.pp
+    if stage is None:
+        raise ValueError("a pp mesh runs a pipeline stage's tree "
+                         "(parallel/sharding.shard_params over the mesh)")
+    check_moe_mesh(cfg, pp=stage.size)
+    tp = params.tp_comm
+    sp = tp is not None and parallel.mesh.shape["tp"] > 1
+    b, s = position_ids.shape
+    m = parallel.microbatches or stage.size
+    if b % m:
+        raise ValueError(f"batch {b} not divisible by microbatches {m}")
+    recompute = check_remat(remat)
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+
+    def split(x):
+        return x.reshape(m, b // m, *x.shape[1:])
+
+    local = {"cos": split(cos), "sin": split(sin), "pos": split(position_ids)}
+    if segment_ids is not None:
+        local["seg"] = split(segment_ids)
+    s_x = s // tp.size if sp else s
+    specs = {"x": ((b // m, s_x, cfg.hidden_size), params.embed.dtype, params.embed.device)}
+
+    def body(chunk, t):
+        x = t["x"]
+        for layer in chunk:
+            args = (layer, x, t["cos"], t["sin"], cfg, None, None, t["pos"], t.get("seg"),
+                    attn_impl, parallel, False, tp, sp)
+            x, _ = remat_checkpoint(decoder_layer, *args, remat=remat) if recompute else \
+                decoder_layer(*args)
+        return {"x": x}
+
+    out, anchor = run_schedule(params.layers, {"x": split(inputs_embeds)} if stage.first else None,
+                               body, stage.comm, m=m, virtual=stage.virtual, specs=specs,
+                               local=local, stats=stage.stats)
+    hidden = None
+    if out is not None:
+        hidden = rms_norm(out["x"].reshape(b, s_x, cfg.hidden_size), params.final_norm,
+                          cfg.rms_norm_eps)
+    result = (hidden, None)
+    if return_aux:
+        result += (torch.zeros((), dtype=torch.float32, device=position_ids.device),)
+    if return_anchor:
+        result += (anchor,)
+    return result
 
 
 def _streamed_layer(fs, layer: DecoderLayer, *args):
@@ -754,9 +854,14 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     w4_matmul with f32 out; int8 codes cast to the hidden dtype, the f32
     product, then the f32 scale. On a tp shard (vocab-parallel) each rank
     computes its [..., V / tp] logits and they are all-gathered over tp:
-    the whole row, exactly. On an FSDP shard the weight is gathered over dp
+    the whole row, exactly (differentiable, Megatron's plain head: the
+    hidden rows' gradient summed over tp, each rank's logits taking its
+    slice of theirs; the training head of a pp mesh, JAX's rule). On an FSDP shard the weight is gathered over dp
     first (and gathered again for the backward)."""
     entry = params.lm_head
+    tp = params.tp_comm
+    if tp is not None:
+        hidden = copy_to_tp(hidden, tp)
     if isinstance(entry, QuantDense4):
         logits = w4_matmul(hidden, entry.packed, entry.scales, out_dtype=torch.float32)
     elif isinstance(entry, QuantDense8):
@@ -764,8 +869,7 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     else:
         with streaming(params):
             logits = _f32_logits(hidden, head_weight(params))
-    tp = params.tp_comm
-    return logits if tp is None else tp.all_gather(logits, -1)
+    return logits if tp is None else gather_from_tp(logits, tp, -1)
 
 
 def _f32_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,12 @@ one small interface on the communicator of that axis:
     the sum over ranks, cut into ``size`` pieces along dim, piece j kept
     by rank j (one reduction of the same operands, in rank order, so it
     equals a slice of all_reduce_sum bit for bit);
+  - ``send_recv(x, dst, src, shape, dtype, device)``: send x to rank dst
+    and receive a tensor of (shape, dtype, device) from rank src, either
+    None for nothing (one tick of a ``ppermute`` whose pairs change from
+    tick to tick: the pipeline's shifts, parallel/pipeline.py); every rank
+    of the communicator calls it at the same point, also with nothing to
+    send or receive;
   - ``broadcast(x, src)``: every rank gets src's x
     (``multihost_utils.broadcast_one_to_all``, which the JAX package's
     serving lockstep uses);
@@ -57,7 +63,8 @@ Three implementations:
 Megatron's conjugate collectives, as autograd Functions over a
 communicator (the tensor-parallel training path, models/qwen2.py):
 ``copy_to_tp`` (identity forward, all-reduce backward), ``reduce_from_tp``
-(all-reduce forward, identity backward), ``gather_seq`` (all-gather along
+(all-reduce forward, identity backward), ``gather_from_tp`` (all-gather
+forward, the rank's own slice backward), ``gather_seq`` (all-gather along
 the sequence forward, reduce-scatter backward) and ``scatter_seq``
 (reduce-scatter forward, all-gather backward). On one rank each is the
 identity.
@@ -107,6 +114,10 @@ class Comm:
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         raise NotImplementedError
 
+    def send_recv(self, x: Optional[torch.Tensor], dst: Optional[int], src: Optional[int],
+                  shape=None, dtype=None, device=None) -> Optional[torch.Tensor]:
+        raise NotImplementedError
+
     def host_comm(self) -> "Comm":
         return self
 
@@ -148,6 +159,11 @@ class LocalComm(Comm):
         if src != 0:
             raise ValueError(f"src {src} is not a rank of a one-rank communicator")
         return x
+
+    def send_recv(self, x, dst, src, shape=None, dtype=None, device=None):
+        if dst is not None or src is not None:
+            raise ValueError("a one-rank communicator has no other rank to send to or receive from")
+        return None
 
     def split(self, groups):
         self._my_group(groups)
@@ -251,6 +267,18 @@ class ThreadComm(Comm):
         # only src's deposit is read; every rank takes its own copy
         return self._exchange(x if self.rank == src else None,
                               lambda vals: vals[src].clone())
+
+    def send_recv(self, x, dst, src, shape=None, dtype=None, device=None):
+        def consume(vals):
+            if src is None:
+                return None
+            to, sent = vals[src]
+            if to != self.rank:
+                raise ValueError(f"thread-rank {self.rank} receives from {src}, which sends to "
+                                 f"{to}")
+            return sent.clone()
+
+        return self._exchange((dst, x), consume)
 
     def split(self, groups):
         mine = self._my_group(groups)
@@ -377,6 +405,7 @@ class DistComm(Comm):
         self.timeout = timeout
         self._splits: dict = {}
         self._host: Optional[DistComm] = None
+        self._p2p_ready = False
 
     @property
     def staged_seconds(self) -> float:
@@ -439,6 +468,28 @@ class DistComm(Comm):
         self._p2p([((self.rank + shift) % self.size, x)],
                   [((self.rank - shift) % self.size, out)])
         return self._out(out, dev)
+
+    def send_recv(self, x, dst, src, shape=None, dtype=None, device=None):
+        """Point to point (batch_isend_irecv); a staged group's CUDA
+        operands through pinned host memory. Over NCCL the group's first
+        point-to-point call is preceded by a barrier of all its ranks (NCCL
+        sets up its communicator in the first call, which every rank must
+        join)."""
+        if not self.gloo and not self._p2p_ready:
+            self.barrier()
+            self._p2p_ready = True
+        sends, recvs, out = [], [], None
+        if dst is not None:
+            sends.append((dst, self._in(x.contiguous())[0]))
+        staged = self.staged and torch.device(device).type == "cuda"
+        if src is not None:
+            out = (torch.empty(shape, dtype=dtype, pin_memory=True) if staged
+                   else torch.empty(shape, dtype=dtype, device=device))
+            recvs.append((src, out))
+        self._p2p(sends, recvs)
+        if out is not None and staged:
+            return self._out(out, torch.device(device))
+        return out
 
     def _exchange_pieces(self, x, split_dim) -> list:
         """Piece j of x (cut along split_dim) to rank j: -> the pieces
@@ -608,6 +659,17 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.chunk(g, ctx.comm.size, ctx.dim)[ctx.comm.rank].contiguous(), None, None
+
+
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, dim):
@@ -639,6 +701,13 @@ def copy_to_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
 def reduce_from_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """Sum over ``comm`` forward; the gradient passed through (Megatron's g)."""
     return x if comm.size == 1 else _ReduceFromTP.apply(x, comm)
+
+
+def gather_from_tp(x: torch.Tensor, comm: Comm, dim: int = -1) -> torch.Tensor:
+    """All-gather along ``dim`` forward; the gradient's own slice backward
+    (Megatron's gather_from_tensor_model_parallel_region: every rank goes
+    on with the same whole tensor, so its gradient is the same on each)."""
+    return x if comm.size == 1 else _GatherFromTP.apply(x, comm, dim)
 
 
 def gather_seq(x: torch.Tensor, comm: Comm, dim: int = 1) -> torch.Tensor:

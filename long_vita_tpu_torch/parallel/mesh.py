@@ -1,18 +1,20 @@
-"""The (dp, cp, tp) mesh of ranks.
+"""The (dp, pp, cp, tp) mesh of ranks.
 
 Counterpart of long_vita_tpu/parallel/mesh.py: ``MeshConfig`` (:41),
 ``make_mesh`` (:60) and ``validate_geometry`` (:84). Where JAX names the
 axes of one device array and shard_map (or GSPMD) hands a body its axis,
 the port's mesh is a grid of ranks over a world communicator with one
 communicator per axis. A rank's coordinates follow JAX's ``np.reshape(
-devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = (d * cp + c) * tp + t,
-dp outermost and tp innermost. The dp, cp and tp axes run, for serving
-and for training (FSDP over dp too); pp > 1 and tq > 1 raise, naming the
-ROADMAP items that port them.
+devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = ((d * pp + p) * cp + c) *
+tp + t, dp outermost and tp innermost. The dp, cp and tp axes run for
+serving and for training (FSDP over dp too); pp runs for training
+(parallel/pipeline.py), as in the JAX package, whose serving mesh has no
+pp; tq > 1 raises, naming the ROADMAP items that port it.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
@@ -20,8 +22,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after FSDP: "
-              "2-D tp (tq), pipeline stages and expert parallelism)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after pipeline stages: "
+              "2-D tp (tq) and expert parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,61 +40,76 @@ class MeshConfig:
 
 
 class Mesh:
-    """Ranks of ``comm`` (the world) as a dp x cp x tp grid, with one
-    communicator per axis: ``tp_comm`` joins the ranks of one (dp, cp)
-    index, ``cp_comm`` those of one (dp, tp) index, ``dp_comm`` those of
-    one (cp, tp) index, ``replica_comm`` the cp x tp ranks of one dp
-    index (the ranks that hold the same requests or batch rows), and
-    ``dp_cp_comm`` the dp x cp ranks of one tp index (the ranks that hold
-    the same tp shard: a sharded leaf's gradient is summed over them). An
-    axis of size 1 gets a LocalComm, and a group of every rank the world
-    itself. ``shape`` maps each axis name to its size, as a JAX mesh's
-    does."""
+    """Ranks of ``comm`` (the world) as a dp x pp x cp x tp grid, with one
+    communicator per axis: ``tp_comm`` joins the ranks of one (dp, pp, cp)
+    index, ``cp_comm`` those of one (dp, pp, tp) index, ``dp_comm`` those of
+    one (pp, cp, tp) index, ``pp_comm`` those of one (dp, cp, tp) index (the
+    stages a microbatch passes through), ``replica_comm`` the cp x tp ranks
+    of one (dp, pp) index (the ranks that hold the same requests or batch
+    rows and the same layers), ``dp_cp_comm`` the dp x cp ranks of one (pp,
+    tp) index (the ranks that hold the same tp shard of a stage's layers: a
+    sharded layer's gradient is summed over them), ``stage_comm`` the dp x
+    cp x tp ranks of one pp index (the world without pp) and ``dp_pp_cp_comm``
+    the dp x pp x cp ranks of one tp index (the ranks that hold the same tp
+    shard of a leaf replicated over pp, the embedding's and the head's, and
+    share the loss). An axis of size 1 gets a LocalComm, and a group of
+    every rank the world itself. ``shape`` maps each axis name to its size,
+    as a JAX mesh's does."""
 
     def __init__(self, cfg: MeshConfig, comm: Comm):
-        for name, n in (("pp", cfg.pp), ("tq", cfg.tq)):
-            if n > 1:
-                raise NotImplementedError(f"mesh axis {name} = {n} {NEXT_SLICE}")
+        if cfg.tq > 1:
+            raise NotImplementedError(f"mesh axis tq = {cfg.tq} {NEXT_SLICE}")
         if cfg.size != comm.size:
             raise ValueError(f"mesh {cfg} needs {cfg.size} ranks, the communicator has {comm.size}")
         self.cfg, self.world = cfg, comm
-        dp, cp, tp = cfg.dp, cfg.cp, cfg.tp
+        dp, pp, cp, tp = cfg.dp, cfg.pp, cfg.cp, cfg.tp
 
-        def rank(d, c, t):
-            return (d * cp + c) * tp + t
+        def rank(d, p, c, t):
+            return ((d * pp + p) * cp + c) * tp + t
 
-        self.dp_index, rest = divmod(comm.rank, cp * tp)
+        coords = list(itertools.product(range(dp), range(pp), range(cp), range(tp)))
+
+        def groups(*inner):
+            """The ranks that differ only in the ``inner`` axes: one group
+            (in rank order) for each index of the other axes."""
+            free = [("dp", "pp", "cp", "tp").index(a) for a in inner]
+            out: dict = {}
+            for c in coords:
+                out.setdefault(tuple(v for i, v in enumerate(c) if i not in free), []).append(
+                    rank(*c))
+            return list(out.values())
+
+        self.dp_index, rest = divmod(comm.rank, pp * cp * tp)
+        self.pp_index, rest = divmod(rest, cp * tp)
         self.cp_index, self.tp_index = divmod(rest, tp)
-        self.tp_comm = self._axis([[rank(d, c, t) for t in range(tp)]
-                                   for d in range(dp) for c in range(cp)])
-        self.cp_comm = self._axis([[rank(d, c, t) for c in range(cp)]
-                                   for d in range(dp) for t in range(tp)])
-        self.dp_comm = self._axis([[rank(d, c, t) for d in range(dp)]
-                                   for c in range(cp) for t in range(tp)])
-        self.replica_comm = self._axis([[d * cp * tp + j for j in range(cp * tp)]
-                                        for d in range(dp)])
-        self.dp_cp_comm = self._axis([[rank(d, c, t) for d in range(dp) for c in range(cp)]
-                                      for t in range(tp)])
-        self.shape = {AXIS_DP: dp, AXIS_PP: 1, AXIS_CP: cp, AXIS_TP: tp, AXIS_TQ: 1}
+        self.tp_comm = self._axis(groups("tp"))
+        self.cp_comm = self._axis(groups("cp"))
+        self.dp_comm = self._axis(groups("dp"))
+        self.pp_comm = self._axis(groups("pp"))
+        self.replica_comm = self._axis(groups("cp", "tp"))
+        self.dp_cp_comm = self._axis(groups("dp", "cp"))
+        self.stage_comm = self._axis(groups("dp", "cp", "tp"))
+        self.dp_pp_cp_comm = self.dp_cp_comm if pp == 1 else self._axis(groups("dp", "pp", "cp"))
+        self.shape = {AXIS_DP: dp, AXIS_PP: pp, AXIS_CP: cp, AXIS_TP: tp, AXIS_TQ: 1}
         self._rank = rank
         self._shared: dict = {}
 
     def shared_comm(self, share: int, over_dp: bool = True) -> Comm:
         """The ranks that hold the same slice when ``share`` consecutive tp
         ranks share it (a kv head replicated over tp // Hkv ranks): tp
-        indices t with the same t // share, over every dp and cp index (of
-        this rank's dp index alone with over_dp False: an FSDP shard, whose
-        gradient is reduce-scattered over dp first). A gradient of such a
+        indices t with the same t // share, over every dp and cp index of
+        one pp index (of this rank's dp index alone with over_dp False: an
+        FSDP shard, whose gradient is reduce-scattered over dp first). A gradient of such a
         slice is summed over them. Made on the first call (every rank calls
         it at the same point)."""
         key = (share, over_dp)
         if key not in self._shared:
-            dp, cp, tp = self.cfg.dp, self.cfg.cp, self.cfg.tp
+            dp, pp, cp, tp = self.cfg.dp, self.cfg.pp, self.cfg.cp, self.cfg.tp
             dps = [[d] for d in range(dp)] if not over_dp else [list(range(dp))]
             self._shared[key] = self._axis([
-                [self._rank(d, c, t) for d in ds for c in range(cp)
+                [self._rank(d, p, c, t) for d in ds for c in range(cp)
                  for t in range(j * share, (j + 1) * share)]
-                for ds in dps for j in range(tp // share)])
+                for p in range(pp) for ds in dps for j in range(tp // share)])
         return self._shared[key]
 
     def _axis(self, groups: list) -> Comm:

@@ -48,6 +48,18 @@ cuts such a tree and binds ``Qwen2Params.fsdp`` (parallel/fsdp.py
 gathers a layer's weights before it runs); a Leaf then carries its dp
 piece too, and ``gather_named`` gathers over dp before tp.
 
+Pipeline stages (JAX ``text_param_specs(pp=True)``: the layer dim over
+pp) keep a stage's layers alone in the rank's tree, its L / pp layers or,
+for the interleaved schedule, its virtual chunks chunk-major
+(parallel/pipeline.stage_layers), named by their local index
+(``layers.0`` ...) and bound to ``Qwen2Params.pp`` (a
+parallel.pipeline.Stage); every other leaf is whole on every stage. A
+Leaf of a stage's layer carries its global layer (``pp_layer``):
+``shard_named`` takes a checkpoint's tensors of those global names and
+``gather_named`` gathers the stages' layers back under them, so that a
+checkpoint holds the canonical order whatever the schedule. FSDP inside
+pipeline stages is not ported (``check_pp_fsdp`` raises).
+
 The batch slices (JAX ``batch_spec`` :165, P(dp, cp), and
 ``activation_spec`` :170) are ``rank_rows`` and ``rank_seq``.
 """
@@ -128,7 +140,8 @@ class Leaf:
     this rank holds, and ``share`` the tp ranks that hold that same slice
     (tp // Hkv for a kv projection at tp > Hkv, else 1); under FSDP, of
     that slice, piece ``dp_index`` of ``dp`` along ``fsdp_dim`` (None: not
-    cut over dp)."""
+    cut over dp); over pp, ``pp_layer`` the global layer of a leaf of the
+    stage's layers (None: a leaf every stage holds)."""
 
     dim: Optional[int]
     pieces: int = 1
@@ -137,6 +150,7 @@ class Leaf:
     fsdp_dim: Optional[int] = None
     dp: int = 1
     dp_index: int = 0
+    pp_layer: Optional[int] = None
 
     @property
     def sharded(self) -> bool:
@@ -147,6 +161,24 @@ class Leaf:
     def fsdp(self) -> bool:
         """Cut over dp."""
         return self.fsdp_dim is not None
+
+    @property
+    def staged(self) -> bool:
+        """A layer of this rank's pipeline stage (cut over pp)."""
+        return self.pp_layer is not None
+
+
+def layer_of(name: str) -> Optional[int]:
+    """The layer index in a decoder parameter's name (``text.layers.3.
+    q_proj.weight`` or ``layers.3.q_proj.weight``), or None."""
+    parts = name.removeprefix("text.").split(".")
+    return int(parts[1]) if len(parts) > 2 and parts[0] == "layers" else None
+
+
+def renamed(name: str, layer: int) -> str:
+    """``name`` with its layer index replaced by ``layer``."""
+    head, rest = name.split("layers.", 1)
+    return f"{head}layers.{layer}.{rest.split('.', 1)[1]}"
 
 
 def leaf_rule(name: str, dim: Optional[int], tp_index: int, tp: int, hkv: int,
@@ -205,14 +237,21 @@ def dense_spec(name: str) -> Optional[int]:
 
 
 def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
-                dp: int = 1) -> dict[str, Leaf]:
+                dp: int = 1, stage=None) -> dict[str, Leaf]:
     """name -> Leaf for every parameter of ``params`` (a whole tree or a
     shard: the names and specs are the same) on tp rank ``tp_index``, and
-    with dp > 1 FSDP's dp rank ``dp_index`` of ``dp``. ``cfg``: a
+    with dp > 1 FSDP's dp rank ``dp_index`` of ``dp``; with ``stage`` (a
+    parallel.pipeline.Stage, the tree that stage's) each leaf of local
+    layer i carries the global layer stage.layers()[i]. ``cfg``: a
     LongVITAConfig or TextConfig (the kv heads)."""
     hkv = getattr(cfg, "text", cfg).num_key_value_heads
-    return {name: leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp)
-            for name, dim in long_vita_param_specs(params).items()}
+    ids = stage.layers() if stage is not None else None
+    out = {}
+    for name, dim in long_vita_param_specs(params).items():
+        leaf = leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp)
+        i = layer_of(name) if ids is not None else None
+        out[name] = dataclasses.replace(leaf, pp_layer=ids[i]) if i is not None else leaf
+    return out
 
 
 def _text(params):
@@ -222,13 +261,14 @@ def _text(params):
 def rank_layout(params, cfg, mesh: Mesh) -> Optional[dict[str, Leaf]]:
     """The layout of a rank's tree as it is cut: over tp when it is bound
     to a tp communicator, over dp when it is FSDP-sharded
-    (``Qwen2Params.fsdp``); None for a whole tree."""
+    (``Qwen2Params.fsdp``), over pp when it is a pipeline stage's
+    (``Qwen2Params.pp``); None for a whole tree."""
     text = _text(params)
     tp = mesh.shape["tp"] if text.tp_comm is not None else 1
     dp = mesh.shape["dp"] if text.fsdp is not None else 1
-    if tp == 1 and dp == 1:
+    if tp == 1 and dp == 1 and text.pp is None:
         return None
-    return leaf_layout(params, cfg, mesh.tp_index, tp, mesh.dp_index, dp)
+    return leaf_layout(params, cfg, mesh.tp_index, tp, mesh.dp_index, dp, text.pp)
 
 
 def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
@@ -241,7 +281,24 @@ def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
     return t
 
 
-def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = False):
+def stage_tree(params, layers: list):
+    """A shallow copy of ``params`` (a LongVITAParams or Qwen2Params) whose
+    decoder holds ``layers`` (its other modules and every tensor shared)."""
+    import copy
+
+    from long_vita_tpu_torch.models.long_vita import LongVITAParams
+
+    text = copy.copy(_text(params))
+    text._modules = {**text._modules, "layers": torch.nn.ModuleList(layers)}
+    if not isinstance(params, LongVITAParams):
+        return text
+    new = copy.copy(params)
+    new._modules = {**params._modules, "text": text}
+    return new
+
+
+def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = False,
+                 virtual_pp: int = 1):
     """This rank's tree over ``mesh``'s tp axis (JAX :153): a new
     LongVITAParams or Qwen2Params of the same classes whose tensors are the
     rank's slices of ``params`` (views where the slice is a view; K6's int4
@@ -254,21 +311,33 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     contiguous copy with its own storage, so that nothing of ``params`` is
     kept alive by the shard. fsdp (training, dp > 1): the decoder's
     weights are cut over dp too (see the module docstring) and the tree is
-    bound to ``parallel.fsdp.Fsdp(mesh.dp_comm)``; a dense tree only. tp 1
-    without FSDP returns ``params``."""
+    bound to ``parallel.fsdp.Fsdp(mesh.dp_comm)``; a dense tree only. Over
+    pp (training, JAX's ``text_param_specs(pp=True)``: the layer dim over
+    pp) the decoder keeps the stage's layers alone, ``virtual_pp`` chunks
+    of them chunk-major (parallel/pipeline.stage_layers), and is bound to
+    ``parallel.pipeline.Stage(mesh.pp_comm, L, virtual_pp)``
+    (``Qwen2Params.pp``); every other leaf is whole on every stage. tp 1
+    without FSDP or pp returns ``params``."""
     from long_vita_tpu_torch.models.long_vita import LongVITAParams
     from long_vita_tpu_torch.models.qwen2 import check_moe_mesh
     from long_vita_tpu_torch.parallel.fsdp import Fsdp
+    from long_vita_tpu_torch.parallel.pipeline import Stage
 
-    tp, dp = mesh.shape["tp"], mesh.shape["dp"] if fsdp else 1
-    if tp == 1 and dp == 1:
+    tp, dp, pp = mesh.shape["tp"], mesh.shape["dp"] if fsdp else 1, mesh.shape["pp"]
+    if tp == 1 and dp == 1 and pp == 1:
         return params
     text_cfg = getattr(cfg, "text", cfg)
-    validate_geometry(text_cfg, MeshConfig(dp=dp, tp=tp), fsdp=fsdp)
-    check_moe_mesh(text_cfg, dp=dp, tp=tp)
+    validate_geometry(text_cfg, MeshConfig(dp=dp, pp=pp, tp=tp), virtual_pp=virtual_pp,
+                      fsdp=fsdp)
+    check_moe_mesh(text_cfg, dp=dp, tp=tp, pp=pp)
     if dp > 1 and any(n.endswith((".weight_q", ".packed")) for n, _ in params.named_parameters()):
         raise ValueError("FSDP shards a dense tree (training); this one is quantised")
-    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp)
+    stage = None
+    if pp > 1:
+        check_pp_fsdp(pp, dp)
+        stage = Stage(mesh.pp_comm, len(_text(params).layers), virtual_pp)
+        params = stage_tree(params, [_text(params).layers[g] for g in stage.layers()])
+    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp, stage)
     tensors = {}
     for name, t in params.named_parameters():
         piece = slice_leaf(t.detach(), layout[name])
@@ -281,26 +350,50 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     text = local.text if isinstance(local, LongVITAParams) else local
     text.tp_comm = mesh.tp_comm if tp > 1 else None
     text.fsdp = Fsdp(mesh.dp_comm) if dp > 1 else None
+    text.pp = stage
     return local
+
+
+def check_pp_fsdp(pp: int, dp: int) -> None:
+    """FSDP inside pipeline stages (JAX's text_param_specs(fsdp=True,
+    pp=True): each stage's layers cut over dp too) is not ported: raises
+    for pp > 1 with FSDP over dp > 1."""
+    if pp > 1 and dp > 1:
+        raise NotImplementedError(
+            f"FSDP over dp {dp} inside pp {pp} pipeline stages is not ported yet (ROADMAP §1, "
+            "pipeline stages: pp x FSDP)")
 
 
 def shard_named(tensors: dict, layout: dict[str, Leaf]) -> dict:
     """A whole name -> tensor dict (a checkpoint's) -> this rank's slices
-    (views) of the names in ``layout``; other names pass whole."""
-    return {n: slice_leaf(t, layout[n]) if n in layout else t for n, t in tensors.items()}
+    (views) of the names in ``layout``; other names pass whole. A layout
+    of a pipeline stage takes the tensors of its layers' global names under
+    its local ones (in the layout's order) and drops the other stages'."""
+    if not any(leaf.staged for leaf in layout.values()):
+        return {n: slice_leaf(t, layout[n]) if n in layout else t for n, t in tensors.items()}
+    out = {}
+    for n, leaf in layout.items():
+        src = renamed(n, leaf.pp_layer) if leaf.staged else n
+        if src in tensors:
+            out[n] = slice_leaf(tensors[src], leaf)
+    out.update({n: t for n, t in tensors.items() if n not in layout and layer_of(n) is None})
+    return out
 
 
 def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None,
-                 keep: bool = True, dp_comm=None) -> Optional[dict]:
+                 keep: bool = True, dp_comm=None, stage=None) -> Optional[dict]:
     """Shards (name -> this rank's slice) -> the whole tensors, leaf by leaf
     in ``tensors``' order (every tp rank, and under FSDP every dp rank,
     calls it with the same names): an FSDP leaf is all-gathered over
     ``dp_comm`` along its fsdp_dim first, a tp-sharded one then over
     ``tp_comm`` along its dim, and of a slice that ``share`` ranks hold one
-    copy is kept. Each whole tensor is moved to ``device`` (default: where
-    it was gathered) before the next leaf is gathered. keep False: the
-    gathers run, nothing is kept, and None is returned (the ranks other
-    than a checkpoint's writer)."""
+    copy is kept; a layer of a pipeline ``stage`` is then all-gathered over
+    its pp communicator (every stage calls it with its local names) and
+    kept under each stage's global name (the one-device order). Each whole
+    tensor is moved to ``device`` (default: where it was gathered) before
+    the next leaf is gathered. keep False: the gathers run, nothing is
+    kept, and None is returned (the ranks other than a checkpoint's
+    writer)."""
     out = {} if keep else None
     for name, t in tensors.items():
         leaf = layout.get(name, Leaf(None))
@@ -312,24 +405,35 @@ def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None
             if leaf.share > 1:
                 parts = torch.chunk(whole, tp_comm.size, leaf.dim)[::leaf.share]
                 whole = torch.cat(parts, leaf.dim)
+        named = [(name, whole)]
+        if leaf.staged:
+            i = layer_of(name)
+            parts = stage.comm.all_gather(whole[None].contiguous(), 0)
+            named = [(renamed(name, stage.layers(p)[i]), parts[p]) for p in range(stage.size)]
         if keep:
-            out[name] = whole.to(device) if device is not None else whole.clone()
+            for n, w in named:
+                out[n] = w.to(device) if device is not None else w.clone()
     return out
 
 
 def gather_params(local, mesh: Mesh, cfg, *, device=None):
     """A rank's shard (shard_params) -> the whole tree, every tp (and FSDP
-    dp) rank the same one, on ``device`` (default: the shard's), bound to
+    dp, and pp) rank the same one (a pipeline stage's layers back in
+    canonical order), on ``device`` (default: the shard's), bound to
     no communicator (checkpoints, export). A whole tree is returned as it
     is."""
     layout = rank_layout(local, cfg, mesh)
     if layout is None:
         return local
     named = dict(local.named_parameters())
-    whole = _rebuild(local, gather_named(named, layout, mesh.tp_comm, device=device,
-                                         dp_comm=mesh.dp_comm))
+    stage = _text(local).pp
+    gathered = gather_named(named, layout, mesh.tp_comm, device=device, dp_comm=mesh.dp_comm,
+                            stage=stage)
+    if stage is not None:  # a template of the whole decoder's layers
+        local = stage_tree(local, [_text(local).layers[0]] * stage.n_layers)
+    whole = _rebuild(local, gathered)
     text = _text(whole)
-    text.tp_comm = text.fsdp = None
+    text.tp_comm = text.fsdp = text.pp = None
     return whole
 
 

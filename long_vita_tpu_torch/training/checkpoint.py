@@ -11,14 +11,19 @@ Stage handoff: ``load_checkpoint(..., load_optim=False)`` and
 ``restore_params_only`` take the parameters and keep the fresh optimizer
 state, as the reference's --no-load-optim --finetune.
 
-The format knows no mesh geometry: over tensor parallelism and FSDP
-(``layout``, parallel/sharding.rank_layout of a rank's shard)
-``save_checkpoint`` gathers the parameters and the moments leaf by leaf,
-over dp (FSDP) then tp, and world rank 0 writes the whole tree, the
-one-device format (JAX's orbax stores hold global arrays too); loading
-cuts each rank's slices from the whole tensors. A checkpoint written at
-tp 2 or under FSDP resumes at tp 1 without FSDP, and the other way
-round.
+The format knows no mesh geometry: over tensor parallelism, FSDP and
+pipeline stages (``layout``, parallel/sharding.rank_layout of a rank's
+shard) ``save_checkpoint`` gathers the parameters and the moments leaf by
+leaf, over dp (FSDP), then tp, then pp (a stage's layers under their
+global names, in canonical order whatever the schedule), and world rank 0
+writes the whole tree, the one-device format (JAX's orbax stores hold
+global arrays too); loading cuts each rank's slices from the whole tensors
+and takes a stage's layers. A checkpoint written at tp 2, under FSDP or
+over pp 2 (GPipe or interleaved) resumes at tp 1 without FSDP or pp, and
+the other way round. JAX's stores keep the interleaved schedule's
+chunk-major layer order and record (pp, virtual_pp), refusing a restore
+into another layout (checkpoint.py:41-112); the port's canonical order
+needs no such record.
 """
 from __future__ import annotations
 
@@ -52,17 +57,19 @@ def save_checkpoint(directory: str, state: TrainState, step: Optional[int] = Non
                     layout: Optional[dict] = None, tp_comm=None, write: bool = True,
                     dp_comm=None) -> None:
     """Write ``state`` as step ``step`` (default: state.step); drop all but
-    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp and
-    FSDP (``layout`` of the state's shards, their ``tp_comm`` and, for
-    FSDP leaves, ``dp_comm``): every rank of those groups calls it, the
-    parameters and moments are gathered to the host leaf by leaf, and only
-    the rank given ``write`` writes."""
+    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp, FSDP
+    and pp (``layout`` of the state's shards, their ``tp_comm`` and, for
+    FSDP leaves, ``dp_comm``; a pipeline stage's tree gathers its layers
+    over its Stage's communicator): every rank of those groups calls it,
+    the parameters and moments are gathered to the host leaf by leaf, and
+    only the rank given ``write`` writes."""
     step = state.step if step is None else int(step)
     params = {n: p.detach() for n, p in state.params.named_parameters()}
     mu, nu = state.opt_state.mu, state.opt_state.nu
     if layout is not None:
+        stage = getattr(state.params, "text", state.params).pp
         params, mu, nu = (gather_named(t, layout, tp_comm, device="cpu", keep=write,
-                                       dp_comm=dp_comm)
+                                       dp_comm=dp_comm, stage=stage)
                           for t in (params, mu, nu))
     if not write:
         return

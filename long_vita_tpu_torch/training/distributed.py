@@ -8,14 +8,18 @@ port has no global arrays: every rank walks the same stream of whole
 and the sequence shard of its cp index (``make_global_batch``), and the
 step sums the loss over ranks. The tp ranks of one (dp, cp) index take
 the same rows and the same cp shard: the sequence-parallel split into tp
-slices happens inside the model (models/long_vita.py).
+slices happens inside the model (models/long_vita.py). The pp ranks of one
+dp index take the same rows too (JAX's pp geometry feeds dp x pp rows, a
+microbatch of pp on each dp rank): the first stage embeds them, the last
+scores them, and every stage reads a microbatch's positions and segment
+ids from them (models/qwen2._pipelined_decoder).
 
 Launch with torchrun (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) or the
 JAX package's variables (LVT_COORDINATOR=host:port, LVT_NUM_PROCESSES,
 LVT_PROCESS_ID), e.g. on one host with two GPUs:
 
     torchrun --nproc-per-node 2 -m long_vita_tpu_torch.training.train \\
-        --config recipe.yaml      # mesh: {dp: 1, cp: 2} or {dp: 1, cp: 1, tp: 2}
+        --config recipe.yaml      # mesh: {dp: 1, cp: 2}, {tp: 2} or {pp: 2}
 """
 from __future__ import annotations
 
@@ -66,7 +70,8 @@ def maybe_initialize(timeout: float = DEFAULT_TIMEOUT) -> Optional[DistComm]:
 
 def process_dp_rows(mesh: Mesh, global_batch: int) -> tuple[int, int]:
     """[start, stop) of the global batch rows this rank feeds: its dp
-    index's 1/dp of them (parallel/sharding.rank_rows)."""
+    index's 1/dp of them (parallel/sharding.rank_rows), the same on every
+    pp, cp and tp rank of that dp index."""
     rows = rank_rows(mesh, global_batch)
     return rows.start, rows.stop
 

@@ -99,18 +99,24 @@ def add_lora_params(
     cast to ``dtype``, target by target and layer by layer. The adapters lie
     on the layer's device. On a tp shard each ``a`` is drawn whole and the
     rank keeps its slice; on an FSDP shard the adapters are whole (they
-    stay replicated over dp, JAX's specs). -> (params, cfg with the lora
-    fields)."""
-    layers = _text(params).layers
-    tp = _text(params).tp_comm
-    fs = _text(params).fsdp
+    stay replicated over dp, JAX's specs); on a pipeline stage's tree every
+    layer's are drawn and the stage keeps its layers'. -> (params, cfg with
+    the lora fields)."""
+    text = _text(params)
+    tp, fs, stage = text.tp_comm, text.fsdp, text.pp
     dp = fs.comm.size if fs is not None else 1
+    # the decoder's layers in drawing order, None where another stage holds it
+    layers = list(text.layers)
+    if stage is not None:
+        local = dict(zip(stage.layers(), layers))
+        layers = [local.get(g) for g in range(stage.n_layers)]
     for t in lcfg.targets:
         if t not in ALL_TARGETS:
             raise ValueError(f"lora target {t!r} not in decoder layers (dense targets: {ALL_TARGETS})")
     for t in lcfg.targets:
+        template = getattr(text.layers[0], t)
         for layer in layers:
-            entry = getattr(layer, t)
+            entry = getattr(layer, t) if layer is not None else template
             d_in, d_out = _in_out(entry)
             if tp is not None and t in ("o_proj", "down_proj"):
                 d_in *= tp.size  # the whole input dim of a row projection
@@ -119,9 +125,11 @@ def add_lora_params(
                 d_out *= dp
             else:
                 d_in *= dp
-            dev = layer.input_norm.device
+            dev = text.layers[0].input_norm.device
             a = torch.randn((d_in, lcfg.r), generator=generator, device=generator.device,
                             dtype=torch.float32) / lcfg.r
+            if layer is None:
+                continue
             a = _row_piece(t, a, tp)
             entry.lora = LoraAdapter(a.to(dev, dtype),
                                      torch.zeros((lcfg.r, d_out), dtype=dtype, device=dev))
@@ -137,9 +145,9 @@ def merge_lora(params: Params, cfg: TextConfig) -> Params:
     tp_comm."""
     if cfg.lora_r == 0:
         return params
-    if _text(params).fsdp is not None:
+    if _text(params).fsdp is not None or _text(params).pp is not None:
         raise ValueError("merge_lora takes a whole tree or a tp shard; gather an FSDP shard "
-                         "first (parallel/sharding.gather_params)")
+                         "or a pipeline stage's tree first (parallel/sharding.gather_params)")
     scale = cfg.lora_alpha / cfg.lora_r
     text = _text(params)
     layers = []
@@ -190,6 +198,9 @@ def _adapters(params: Params, cfg: TextConfig) -> dict[str, dict[str, torch.Tens
 
     text = _text(params)
     tp = text.tp_comm
+    if text.pp is not None:
+        raise ValueError("the adapters of a pipeline stage's tree: gather it first "
+                         "(parallel/sharding.gather_params)")
     if tp is None:
         return lora_subtree(params)
     layout = leaf_layout(text, cfg, tp.rank, tp.size)
@@ -233,6 +244,8 @@ def load_lora(path: str, params: Params, cfg: TextConfig,
         arrays = {k: data[k] for k in data.files}
     layers = _text(params).layers
     tp = _text(params).tp_comm
+    if _text(params).pp is not None:
+        raise ValueError("load_lora takes a whole tree or a tp shard, not a pipeline stage's")
     for t in meta["targets"]:
         a, b = arrays[f"{t}.a"], arrays[f"{t}.b"]
         if a.shape[0] != len(layers):

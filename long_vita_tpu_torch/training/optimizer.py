@@ -42,7 +42,9 @@ leaf's squares summed over tp (a slice that several ranks share counted
 once), a replicated leaf's counted once, as optax.global_norm counts the
 global arrays. Under FSDP a rank's parameters, gradients and moments are
 its 1/dp shards (the moments take the parameters' shapes), and the norm
-sums an FSDP leaf's squares over dp as well.
+sums an FSDP leaf's squares over dp as well. Over pp a rank holds its
+stage's layers: their squares are summed over the stages, and a leaf
+every stage holds is counted once.
 """
 from __future__ import annotations
 
@@ -258,12 +260,13 @@ def global_norm(tensors, extra_sq: Optional[torch.Tensor] = None) -> torch.Tenso
 
 def leaf_class(leaf) -> int:
     """A Leaf's (parallel/sharding.py) class in the global norm: 0
-    replicated, 1 cut over tp, 2 over dp (FSDP), 3 over both."""
-    return (1 if leaf.sharded else 0) + (2 if leaf.fsdp else 0)
+    replicated, 1 cut over tp, 2 over dp (FSDP), 3 over both; 4 more for a
+    layer of a pipeline stage (cut over pp)."""
+    return (1 if leaf.sharded else 0) + (2 if leaf.fsdp else 0) + (4 if leaf.staged else 0)
 
 
 def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] = None,
-                   dp_comm=None) -> torch.Tensor:
+                   dp_comm=None, pp_comm=None) -> torch.Tensor:
     """The global norm over a rank's shards (optax.global_norm of the whole
     arrays): ``layout`` (parallel/sharding.leaf_layout) tells a leaf cut
     over tp, whose squares are summed over ``tp_comm`` (of a slice that
@@ -271,10 +274,13 @@ def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] =
     summed over ``dp_comm``, from a replicated one, counted once (its
     summed gradient is the same on every rank); a tp-cut leaf's summed
     gradient is the same on every dp rank and an FSDP-cut replicated one's
-    on every tp rank, so each counts once there. ``folded``: f32 sums of
-    squares of gradients folded away already, by leaf_class (this rank's
-    shares). -> f32 scalar, the same bits on every rank."""
-    sums = list(folded) if folded is not None else [None] * 4
+    on every tp rank, so each counts once there. A pipeline stage's layers
+    are summed over ``pp_comm`` too, a leaf every stage holds counted once.
+    ``folded``: f32 sums of squares of gradients folded away already, by
+    leaf_class (this rank's shares). -> f32 scalar, the same bits on every
+    rank."""
+    sums = list(folded) if folded is not None else [None] * 8
+    sums += [None] * (8 - len(sums))
     for name, g in grads.items():
         leaf = layout[name]
         if leaf.sharded and tp_comm.rank % leaf.share:
@@ -285,15 +291,19 @@ def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] =
     like = next(iter(grads.values()), None)
     dev = like.device if like is not None else None
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    sums = [s if s is not None else zero for s in sums]
+    sums = torch.stack([s if s is not None else zero for s in sums]).view(2, 4)
 
     def once(first: bool) -> torch.Tensor:
         return torch.tensor(1.0 if first else 0.0, device=dev)
 
-    cut = torch.stack(sums[1:])  # [tp, dp, both]
+    cut = sums[:, 1:]  # [every stage's, a stage's] x [tp, dp, both]
     if dp_comm is not None and dp_comm.size > 1:
         cut = dp_comm.all_reduce_sum(cut * torch.stack([once(dp_comm.rank == 0), once(True),
                                                         once(True)]))
     cut = tp_comm.all_reduce_sum(cut * torch.stack([once(True), once(tp_comm.rank == 0),
                                                     once(True)]))
-    return (cut.sum() + sums[0]).sqrt()
+    total = cut.sum(1) + sums[:, 0]
+    staged = total[1]
+    if pp_comm is not None and pp_comm.size > 1:
+        staged = pp_comm.all_reduce_sum(staged)
+    return (total[0] + staged).sqrt()

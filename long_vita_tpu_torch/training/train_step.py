@@ -1,4 +1,4 @@
-"""The training step, on one device or on a dp x cp x tp mesh of ranks.
+"""The training step, on one device or on a dp x pp x cp x tp mesh of ranks.
 
 Counterpart of long_vita_tpu/training/train_step.py: the loss of the
 logits-masked head over the VLM forward, its gradients by autograd (through
@@ -45,6 +45,22 @@ and the projector are summed after the backward as before (their graph
 differs between dp rows), and grad_norm sums the FSDP leaves' squares over
 dp. ``_NORM_UNSUMMED_OVER_DP`` is the norm's fault for the gates, as
 _UNSUMMED_OVER_TP is the reduction's.
+
+Over pp (pipeline stages, parallel/pipeline.py; a rank's tree holds its
+stage's layers, ``Qwen2Params.pp``) the loss follows JAX's rule (the
+plain head and CE, train_step.py:75-85): the last stage computes it, and
+a stage before the last returns the pipeline's anchor with a count of 0,
+so that its backward runs the schedule in reverse; the loss and count are
+summed over dp x pp x cp (``Mesh.dp_pp_cp_comm``). A stage's layer is
+summed over the ranks of its stage that hold its slice (``Mesh.dp_cp_comm``,
+``stage_comm`` for one replicated over tp); a leaf every stage holds (the
+embedding, the head, final_norm, the tower, the projector) over pp too,
+where the first stage alone has the embedding's, tower's and projector's
+gradient and the last alone the head's: each counts once, and every stage
+applies the same update to the same bits. grad_norm sums the stages'
+layers' squares over pp and counts a shared leaf once (leaf_class's
+stage classes). ``_UNSUMMED_OVER_PP`` and ``_NORM_UNSUMMED_OVER_PP`` are
+the gates' faults.
 
 On CUDA, thread-ranks (parallel/comm.ThreadComm) cannot train: autograd
 runs every backward on a CUDA device on one worker thread of that device,
@@ -97,6 +113,12 @@ _UNSUMMED_OVER_TP: tuple = ()
 # A fault for the same gates, never set in training: grad_norm counts each
 # rank's own FSDP shards only (their squares not summed over dp).
 _NORM_UNSUMMED_OVER_DP = False
+# Faults for the pipeline's gates, never set in training: a leaf every stage
+# holds (the embedding, the head, final_norm, the tower, the projector) has
+# its gradient summed within its stage only, not over pp; grad_norm counts
+# each stage's own layers only (their squares not summed over pp).
+_UNSUMMED_OVER_PP = False
+_NORM_UNSUMMED_OVER_PP = False
 
 
 @dataclasses.dataclass
@@ -121,18 +143,25 @@ def loss_terms(
     (the parameters a tp shard): the vocab-parallel CE of those rows (JAX
     :75-84's rule: tp > 1 without pp or tq, the budget dividing over cp,
     which the Trainer's validate_geometry holds), the same on every tp
-    rank."""
-    vp = parallel is not None and parallel.mesh.shape["tp"] > 1
-    out, _, aux = long_vita_forward(
+    rank. Over pp (JAX's rule: the plain head and CE there): the last
+    stage's rows; a stage before the last returns the pipeline's anchor (a
+    zero tied to its backward, parallel/pipeline.py) and a count of 0, and
+    the last stage adds the anchor to its sum."""
+    tp = parallel.mesh.shape["tp"] if parallel is not None else 1
+    pp = parallel.pp if parallel is not None else 1
+    vp = tp > 1 and pp == 1
+    out, _, aux, anchor = long_vita_forward(
         params, batch["tokens"], batch["positions"], cfg,
         images=batch.get("images"), image_indices=batch.get("image_indices"),
         segment_ids=batch.get("segment_ids"),
         logit_positions=batch["logit_positions"], vision_chunk=vision_chunk,
         attn_impl=attn_impl, remat=remat, return_aux=True,
-        freeze_vision=freeze_vision, parallel=parallel, head=not vp,
+        freeze_vision=freeze_vision, parallel=parallel, head=not vp, return_anchor=True,
     )
+    if out is None:  # a pipeline stage before the last
+        return anchor, torch.zeros((), dtype=torch.float32, device=anchor.device), aux
     labels = batch["labels"]
-    if parallel is not None and (parallel.cp > 1 or vp):
+    if parallel is not None and (parallel.cp > 1 or tp > 1):
         mask, _ = cp_logit_rows(batch["logit_positions"], batch["tokens"].shape[1],
                                 parallel.comm.rank)
         labels = labels[mask][None]
@@ -142,7 +171,7 @@ def loss_terms(
                                                 params.text.tp_comm)
     else:
         loss_sum, count = cross_entropy(out, labels)
-    return loss_sum, count, aux
+    return loss_sum + anchor, count, aux
 
 
 def loss_fn(
@@ -174,7 +203,7 @@ def make_parallel_config(mesh, *, cp_algo: str = "ring", cp_inner: int = 1,
 
 
 def _check_mesh(mesh, device=None) -> None:
-    """A mesh must be a parallel.mesh.Mesh (dp x cp x tp; pp and tq raise
+    """A mesh must be a parallel.mesh.Mesh (dp x pp x cp x tp; tq raises
     where the Mesh is made); thread-ranks train only on the CPU (see the
     module docstring)."""
     if mesh is None:
@@ -232,7 +261,8 @@ class _Reduction:
 
     def comm(self, name: str):
         """The ranks the gradient is summed over (an FSDP leaf's after its
-        reduce-scatter over dp)."""
+        reduce-scatter over dp): the ranks that hold the same slice, a
+        pipeline stage's layer over its stage's ranks only."""
         if self.layout is None:
             return self.world
         leaf, mesh = self.layout[name], self.mesh
@@ -241,9 +271,12 @@ class _Reduction:
             if not leaf.sharded:
                 return mesh.cp_comm if unsummed else mesh.replica_comm
             return mesh.shared_comm(leaf.share, over_dp=False) if leaf.share > 1 else mesh.cp_comm
-        if not leaf.sharded:
-            return mesh.dp_cp_comm if unsummed else self.world
-        return mesh.shared_comm(leaf.share) if leaf.share > 1 else mesh.dp_cp_comm
+        if leaf.sharded and leaf.share > 1:
+            return mesh.shared_comm(leaf.share)
+        one_stage = leaf.staged or _UNSUMMED_OVER_PP
+        if not leaf.sharded and not unsummed:
+            return mesh.stage_comm if one_stage else self.world
+        return mesh.dp_cp_comm if one_stage else mesh.dp_pp_cp_comm
 
     def counts(self, name: str) -> bool:
         """Whether this rank counts the leaf's squares in the norm (of a
@@ -264,7 +297,8 @@ class _Reduction:
             extra = None if folded is None else folded[0]
             return global_norm(grads.values(), extra)
         dp_comm = self.mesh.dp_comm if self.fsdp and not _NORM_UNSUMMED_OVER_DP else None
-        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded, dp_comm)
+        pp_comm = self.mesh.pp_comm if not _NORM_UNSUMMED_OVER_PP else None
+        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded, dp_comm, pp_comm)
 
 
 def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:
@@ -323,9 +357,10 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
     reduce-scattered over dp). The rest (whose graph can differ between dp
     rows: the tower and projector reach only a rank with images) are summed
     after the backward, the ``fold`` ones among them folded then. -> folded
-    as four sums of squares by optimizer.leaf_class (this rank's shares),
-    or None without ``fold``; the loss and count summed over dp x cp (the
-    tp ranks of a cp shard hold the same rows)."""
+    as eight sums of squares by optimizer.leaf_class (this rank's shares),
+    or None without ``fold``; the loss and count summed over dp x pp x cp
+    (the tp ranks of a cp shard hold the same rows; of a pipeline's stages
+    the last alone counts them)."""
     set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
     params.zero_grad(set_to_none=True)
     red = _Reduction(params, cfg, mesh)
@@ -337,7 +372,7 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
 
     if fold:
         dev = batch["tokens"].device
-        folded = tuple(torch.zeros((), dtype=torch.float32, device=dev) for _ in range(4))
+        folded = tuple(torch.zeros((), dtype=torch.float32, device=dev) for _ in range(8))
 
         def fold_grad(name, p):
             fold_in(name, red.comm(name).all_reduce_sum(p.grad))
@@ -350,7 +385,7 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
     try:
         loss_sum, count, _ = loss_terms(params, batch, cfg, remat, vision_chunk, freeze_vision,
                                         attn_impl, parallel)
-        total = mesh.dp_cp_comm.all_reduce_sum(
+        total = mesh.dp_pp_cp_comm.all_reduce_sum(
             torch.stack([loss_sum.detach().float(), count.float()]))
         n = total[1].clamp_min(1.0)
         (loss_sum / n).backward()

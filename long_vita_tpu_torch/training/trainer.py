@@ -1,5 +1,5 @@
 """Training loop: data pipeline -> train step -> checkpoints, on one GPU or
-over a dp x cp x tp mesh of ranks.
+over a dp x pp x cp x tp mesh of ranks.
 
 Counterpart of long_vita_tpu/training/trainer.py. Kept from the JAX trainer: gradient accumulation over micro-batches,
 the NaN tripwire (pretrain_long_vita.py:822-827), the straggler log, save
@@ -12,7 +12,7 @@ make_data_pipeline, data_report.json / data_samples.json / data_error.log.
 make_data_pipeline is the JAX one: corpus YAML -> ChatML supervision ->
 greedy packs -> batches -> a prefetch thread.
 
-A mesh (``tcfg.mesh`` of dp x cp x tp ranks over ``comm``, a
+A mesh (``tcfg.mesh`` of dp x pp x cp x tp ranks over ``comm``, a
 parallel.comm communicator, or the torch.distributed group that
 training/distributed.maybe_initialize starts): every rank builds the Trainer
 with its own copy of the parameters (over tp > 1 the Trainer cuts its
@@ -30,8 +30,17 @@ JAX trainer.py:74,144) each rank holds 1/dp of every decoder weight, its
 gradient and its moments (shard_params(..., fsdp=True), or the slices
 train.build_from_recipe loaded); checkpoints are gathered over dp and tp
 into the same one-device format; at dp 1 FSDP is the plain step, as JAX's
-mesh is None there. Raising, with their ROADMAP items (§1 items 6 and 8):
-2-D tp (tq), pp and virtual pipeline stages; thread-ranks on CUDA
+mesh is None there. Over pp (JAX trainer.py:136-152) each rank holds its
+stage's layers (shard_params(..., virtual_pp=), or the layers
+train.build_from_recipe loaded), ``tcfg.virtual_pp`` chunks of them
+chunk-major for the interleaved schedule, and every leaf outside the layer
+stack whole; the pp ranks of one dp index take the same rows, the batch
+splits into pp microbatches (JAX's ParallelConfig default), and checkpoints
+gather the stages' layers back into canonical order (where JAX keeps its
+stores chunk-major and refuses another (pp, virtual_pp) on restore, a
+port checkpoint resumes at any pp and virtual_pp). Raising, with their
+ROADMAP items: 2-D tp (tq), MoE over a mesh (expert parallelism), FSDP
+inside pipeline stages; thread-ranks on CUDA
 (train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
@@ -57,7 +66,7 @@ from long_vita_tpu_torch.parallel.mesh import (
     make_mesh,
     validate_geometry,
 )
-from long_vita_tpu_torch.parallel.sharding import shard_params
+from long_vita_tpu_torch.parallel.sharding import check_pp_fsdp, shard_params
 from long_vita_tpu_torch.parallel.zigzag import inverse_zigzag_permutation, zigzag_permute
 from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
 from long_vita_tpu_torch.training.loss import collate_packs, to_device
@@ -94,7 +103,7 @@ class TrainerConfig:
     cp_algo: str = "ring"  # "ring" | "ulysses" | "hybrid"
     cp_inner: int = 1  # hybrid: ulysses lanes per ring group
     cp_window: int = 0  # double-ring window size (reference --cp-window-size)
-    virtual_pp: int = 1  # interleaved-pipeline chunks per pp stage (next slice)
+    virtual_pp: int = 1  # interleaved-pipeline chunks per pp stage
     fsdp: bool = False  # ZeRO-3: decoder weights, gradients and moments cut over dp
     resume: bool = True  # auto-resume from save_dir's latest checkpoint
     straggler_threshold: float = 2.0  # warn when a step takes > thr x median
@@ -143,20 +152,16 @@ class Trainer:
                  comm=None):
         """comm: the world communicator of a mesh of more than one rank
         (default: the initialized torch.distributed group), or the
-        parallel.mesh.Mesh of tcfg.mesh over it. Over tp, ``params`` is the
-        whole tree (this rank's shard is cut from it and the caller may
-        drop it) or this rank's shard (its tp_comm set; under FSDP cut over
-        dp too, its fsdp set)."""
-        unported = {
-            f"{tcfg.virtual_pp} virtual pipeline stages": tcfg.virtual_pp > 1,
-            f"pp = {tcfg.mesh.pp}": tcfg.mesh.pp > 1,
-            f"tq = {tcfg.mesh.tq} (2-D tp)": tcfg.mesh.tq > 1,
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"{what} {NEXT_SLICE}")
+        parallel.mesh.Mesh of tcfg.mesh over it. Over tp or pp, ``params``
+        is the whole tree (this rank's shard is cut from it and the caller
+        may drop it) or this rank's shard (its tp_comm set; under FSDP cut
+        over dp too, its fsdp set; over pp a stage's, its pp set)."""
+        if tcfg.mesh.tq > 1:
+            raise NotImplementedError(f"tq = {tcfg.mesh.tq} (2-D tp) {NEXT_SLICE}")
         check_remat(tcfg.remat)
-        check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp)
+        check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp,
+                       pp=tcfg.mesh.pp)
+        check_pp_fsdp(tcfg.mesh.pp, tcfg.mesh.dp if tcfg.fsdp else 1)
         validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp,
                           logit_budget=tcfg.logit_budget, fsdp=tcfg.fsdp)
         self.mesh = None
@@ -178,12 +183,17 @@ class Trainer:
                 comm = DistComm()
             self.mesh = make_mesh(tcfg.mesh, comm)
         fsdp = tcfg.fsdp and tcfg.mesh.dp > 1
+        staged = tcfg.mesh.pp > 1
         if (tcfg.mesh.tp > 1 and params.text.tp_comm is None) or (
-                fsdp and params.text.fsdp is None):
+                fsdp and params.text.fsdp is None) or (staged and params.text.pp is None):
             if params.text.tp_comm is not None:
-                raise ValueError("FSDP cuts a whole tree (or loads its slices, "
+                raise ValueError("FSDP and pp cut a whole tree (or load its slices, "
                                  "train.build_from_recipe); this one is a tp shard")
-            params = shard_params(params, self.mesh, cfg, own=True, fsdp=fsdp)
+            params = shard_params(params, self.mesh, cfg, own=True, fsdp=fsdp,
+                                  virtual_pp=tcfg.virtual_pp)
+        if staged and params.text.pp.virtual != tcfg.virtual_pp:
+            raise ValueError(f"the stage's tree holds {params.text.pp.virtual} chunks, the "
+                             f"recipe's virtual_pp is {tcfg.virtual_pp}")
         self.cfg, self.tcfg = cfg, tcfg
         self.checkpoint_bytes: Optional[int] = None  # train.build_from_recipe's loader count
         self.tx = make_optimizer(
@@ -237,8 +247,8 @@ class Trainer:
         return make_global_batch(local_rows(batch, self.mesh, rows), self.mesh, self.device)
 
     def _layout(self):
-        """The tp and FSDP layout of this rank's parameters, or None for a
-        whole tree."""
+        """The tp, FSDP and pp layout of this rank's parameters, or None for
+        a whole tree."""
         if self.mesh is None:
             return None
         from long_vita_tpu_torch.parallel.sharding import rank_layout
@@ -247,8 +257,8 @@ class Trainer:
 
     def _save(self, save_checkpoint) -> None:
         """World rank 0 writes (every rank holds the same parameters; over
-        tp and under FSDP the ranks of its cp index gather the tree and its
-        moments for it first)."""
+        tp, under FSDP and over pp the ranks of its cp index (and dp index
+        without FSDP) gather the tree and its moments for it first)."""
         if self.mesh is None:
             save_checkpoint(self.tcfg.save_dir, self.state)
             return
@@ -276,8 +286,9 @@ class Trainer:
                 self.state.params, self._device_batch(batch), self.cfg, False,
                 self.tcfg.vision_chunk, parallel=parallel,
             )
-            if self.mesh is not None:  # the tp ranks of a cp shard agree on its rows
-                loss_sum, tokens = self.mesh.dp_cp_comm.all_reduce_sum(
+            if self.mesh is not None:  # the tp ranks of a cp shard agree on its rows;
+                # of a pipeline's stages the last alone counts them
+                loss_sum, tokens = self.mesh.dp_pp_cp_comm.all_reduce_sum(
                     torch.stack([loss_sum.float(), tokens.float()]))
             total += float(loss_sum)
             count += float(tokens)

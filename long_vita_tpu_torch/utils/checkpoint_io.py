@@ -178,23 +178,35 @@ def save_safetensors(tensors: dict[str, torch.Tensor], path: str) -> None:
 def load_text_params(
     idx: SafetensorsIndex, cfg: LongVITAConfig, dtype=torch.bfloat16,
     prefix: str = "model.", device="cuda", mesh=None, fsdp: bool = False,
+    virtual_pp: int = 1,
 ) -> Qwen2Params:
     """The decoder; over ``mesh``'s tp axis (and with fsdp its dp axis)
     this rank's slices of it, read from the files, and bound to
-    mesh.tp_comm (and an FSDP Fsdp over mesh.dp_comm)."""
+    mesh.tp_comm (and an FSDP Fsdp over mesh.dp_comm); over its pp axis
+    the stage's layers alone (``virtual_pp`` chunks of them chunk-major,
+    parallel/pipeline.stage_layers), bound to a parallel.pipeline.Stage
+    over mesh.pp_comm."""
     device = _target(device)
     tp = mesh.shape["tp"] if mesh is not None else 1
     dp = mesh.shape["dp"] if mesh is not None and fsdp else 1
-    if tp > 1 or dp > 1:
+    pp = mesh.shape["pp"] if mesh is not None else 1
+    stage = None
+    if tp > 1 or dp > 1 or pp > 1:
         from long_vita_tpu_torch.parallel.mesh import MeshConfig, validate_geometry
+        from long_vita_tpu_torch.parallel.pipeline import Stage
         from long_vita_tpu_torch.parallel.sharding import (
+            check_pp_fsdp,
             dense_spec,
             fsdp_dim,
             leaf_rule,
             slice_leaf,
         )
 
-        validate_geometry(cfg.text, MeshConfig(dp=dp, tp=tp), fsdp=fsdp)
+        validate_geometry(cfg.text, MeshConfig(dp=dp, pp=pp, tp=tp), virtual_pp=virtual_pp,
+                          fsdp=fsdp)
+        check_pp_fsdp(pp, dp)
+        if pp > 1:
+            stage = Stage(mesh.pp_comm, cfg.text.num_hidden_layers, virtual_pp)
 
     def t(name, tree=None):
         """The file's tensor ``name``; over tp and dp this rank's slice of
@@ -209,7 +221,7 @@ def load_text_params(
     if lm_head_key not in idx:  # tied embeddings fallback
         lm_head_key = prefix + "embed_tokens.weight"
     layers = []
-    for i in range(cfg.text.num_hidden_layers):
+    for i in (stage.layers() if stage is not None else range(cfg.text.num_hidden_layers)):
         p = f"{prefix}layers.{i}."
 
         def proj(name, bias=False):
@@ -237,6 +249,7 @@ def load_text_params(
     )
     if tp > 1:
         text.tp_comm = mesh.tp_comm
+    text.pp = stage
     if dp > 1:
         from long_vita_tpu_torch.parallel.fsdp import Fsdp
 
@@ -306,18 +319,22 @@ def load_long_vita_checkpoint(
     mesh=None,
     stats: Optional[dict] = None,
     fsdp: bool = False,
+    virtual_pp: int = 1,
 ) -> tuple[Union[LongVITAParams, Qwen2Params], LongVITAConfig]:
     """Load a released Long-VITA-*_HF checkpoint directory. -> (a
     LongVITAParams, or the decoder's Qwen2Params alone when the directory
     holds no vision tower, and the configuration). mesh (a
     parallel.mesh.Mesh with tp > 1, or dp > 1 with fsdp): this rank's
-    shard, read slice by slice (see the module docstring). stats: a dict
-    that receives "bytes_read", the bytes copied out of the files."""
+    shard, read slice by slice (see the module docstring); with pp > 1 the
+    decoder's layers of this rank's stage alone (virtual_pp: its chunks,
+    load_text_params). stats: a dict that receives "bytes_read", the bytes
+    copied out of the files."""
     device = _target(device)
     if cfg is None:
         cfg = LongVITAConfig.from_json(os.path.join(path, "config.json"))
     idx = SafetensorsIndex(path)
-    text = load_text_params(idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp)
+    text = load_text_params(idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp,
+                            virtual_pp=virtual_pp)
     params: Union[LongVITAParams, Qwen2Params] = text
     if cfg.vision is not None and any(k.startswith("model.vision_model.") for k in idx.keys()):
         params = LongVITAParams(

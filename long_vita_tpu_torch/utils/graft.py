@@ -44,6 +44,7 @@ def graft_checkpoints(
     out_dir: Optional[str] = None,
     mesh=None,
     fsdp: bool = False,
+    virtual_pp: int = 1,
 ) -> tuple[LongVITAParams, LongVITAConfig]:
     """-> (params, cfg) for a fresh Long-VITA from stock checkpoints.
 
@@ -53,7 +54,8 @@ def graft_checkpoints(
              `model.vision_model.` prefix).
     out_dir: when given, the grafted model is saved there as well.
     mesh: a parallel.mesh.Mesh with tp > 1 (or dp > 1 with fsdp, FSDP's
-          cut): the decoder is this rank's shard, read slice by slice
+          cut, or pp > 1, the stage's layers, virtual_pp chunks of them):
+          the decoder is this rank's shard, read slice by slice
           (utils/checkpoint_io.load_text_params); out_dir is then refused
           (export writes whole trees).
     """
@@ -75,11 +77,12 @@ def graft_checkpoints(
     )
 
     if mesh is not None and out_dir is not None and (
-            mesh.shape["tp"] > 1 or (fsdp and mesh.shape["dp"] > 1)):
+            mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1 or (fsdp and mesh.shape["dp"] > 1)):
         raise ValueError("graft_checkpoints(out_dir=...) writes a whole tree; load it without "
-                         "a tp or FSDP mesh")
+                         "a tp, pp or FSDP mesh")
     llm_idx = SafetensorsIndex(llm_dir)
-    text = load_text_params(llm_idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp)
+    text = load_text_params(llm_idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp,
+                            virtual_pp=virtual_pp)
     llm_idx.close()
 
     vit_idx = SafetensorsIndex(vit_dir)

@@ -190,14 +190,17 @@ def test_sampled_generate_is_seeded(engines):
     assert all(0 <= t < cfg.text.vocab_size for t in a.token_ids)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh_cfg=MeshConfig(pp=2)), "multi-GPU")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh_cfg=MeshConfig(pp=2)), "training only")])
 def test_later_slices_raise(engines, kw, item):
     """cp and tp meshes serve (tests/test_torch_cp_engine.py,
-    test_torch_tp_engine.py); a pipeline one waits for a later multi-GPU
-    slice."""
+    test_torch_tp_engine.py); a pipeline one raises: pp runs in training
+    only, as in the JAX package, whose engine takes a tp x cp mesh."""
+    from long_vita_tpu_torch.parallel.comm import ThreadComm
+
     _, port, cfg = engines
     with pytest.raises(NotImplementedError, match=item):
-        InferenceEngine(port.params, cfg, _MM(), mesh=make_mesh(kw["mesh_cfg"], LocalComm()))
+        InferenceEngine(port.params, cfg, _MM(),
+                        mesh=make_mesh(kw["mesh_cfg"], ThreadComm.group(2)[0]))
 
 
 @pytest.mark.parametrize(

@@ -519,3 +519,55 @@ def test_tp_training_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
+_NO_JAX_PP_TRAIN = """
+import copy, dataclasses, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["long_vita_tpu"] = None
+import numpy as np, torch
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+from long_vita_tpu_torch.parallel import comm, mesh, pipeline, sharding
+from long_vita_tpu_torch.training import optimizer
+from long_vita_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+torch.set_num_threads(1)
+base = tiny_test_config()
+cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, num_hidden_layers=4))
+vlm = init_long_vita_params(torch.Generator().manual_seed(1), cfg)
+rng = np.random.default_rng(0)
+s, m = 64, 16
+batch = {"tokens": rng.integers(0, 500, (2, s)).astype(np.int32),
+         "positions": np.tile(np.arange(s, dtype=np.int32), (2, 1)),
+         "segment_ids": np.zeros((2, s), np.int32),
+         "logit_positions": np.tile(np.arange(0, s, s // m, dtype=np.int32), (2, 1)),
+         "labels": rng.integers(0, 500, (2, m)).astype(np.int32),
+         "images": None, "image_indices": None}
+
+def run(c, dims, v=1):
+    tcfg = TrainerConfig(seq_len=s, logit_budget=m, global_batch=2, steps=2, remat=True,
+                         mesh=mesh.MeshConfig(**dims), virtual_pp=v,
+                         optim=optimizer.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    return Trainer(copy.deepcopy(vlm), cfg, tcfg, comm=c).train(iter([batch, batch]))["losses"]
+
+want = run(None, {})
+for dims, v, n in ((dict(pp=2), 1, 2), (dict(pp=2), 2, 2), (dict(pp=2, tp=2), 1, 4)):
+    got = comm.run_thread_ranks(lambda c: run(c, dims, v), n, timeout=120)
+    for g in got:
+        np.testing.assert_allclose(g, want, rtol=1e-5, err_msg=str(dims))
+print("ok")
+"""
+
+
+def test_pp_training_without_jax():
+    """Training over pipeline stages (parallel/pipeline.py: GPipe and the
+    interleaved schedule, the stages' shards, the reduction over pp)
+    imports and trains over pp 2, pp 2 x v 2 and pp 2 x tp 2 thread-ranks
+    to the one-device losses, with neither JAX nor the JAX package
+    loadable."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_PP_TRAIN], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

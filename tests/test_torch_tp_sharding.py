@@ -101,9 +101,12 @@ def test_mesh_ranks_follow_jax_device_array(dims):
 
 
 def test_mesh_raises_for_pp_and_tq():
-    for dims in (dict(pp=2), dict(tq=2)):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            make_mesh(MeshConfig(**dims), ThreadComm.group(2)[0])
+    """tq (2-D tp) raises, naming its ROADMAP item; pp builds since the
+    pipeline slice (its rank order: tests/test_torch_pipeline.py)."""
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0])
+    mesh = make_mesh(MeshConfig(pp=2), ThreadComm.group(2)[1])
+    assert mesh.shape["pp"] == 2 and mesh.pp_index == 1 and mesh.pp_comm.size == 2
 
 
 # ---- the shards ----------------------------------------------------------------

@@ -57,9 +57,9 @@ CFG = tiny_test_config()
 S = 64
 
 
-def _jax_params(seed=0):
+def _jax_params(seed=0, cfg=CFG):
     """Random tiny VLM with non-trivial norms and biases (f32)."""
-    p = jlv.init_long_vita_params(jax.random.PRNGKey(seed), CFG, jnp.float32)
+    p = jlv.init_long_vita_params(jax.random.PRNGKey(seed), cfg, jnp.float32)
     rng = np.random.default_rng(seed)
 
     def fill(path, a):
@@ -414,14 +414,16 @@ def test_trainer_accumulates_micro_batches():
 
 def test_unported_options_raise():
     """What still waits for the later multi-GPU slices (ROADMAP's port
-    queue) raises: training over 2-D tp (tq) and pipeline parallel meshes,
-    virtual pipeline stages and MoE layers over a mesh (expert
-    parallelism). (dp x cp meshes and zigzag batches train since the
-    context-parallel slice, tests/test_torch_cp_training.py; tp since the
-    tp training slice, tests/test_torch_tp_training.py: a tp mesh now gets
-    as far as asking for its communicator; FSDP since the FSDP slice,
+    queue) raises: training over 2-D tp (tq) and MoE layers over a mesh
+    (expert parallelism). (dp x cp meshes and zigzag batches train since
+    the context-parallel slice, tests/test_torch_cp_training.py; tp since
+    the tp training slice, tests/test_torch_tp_training.py: a tp mesh now
+    gets as far as asking for its communicator; FSDP since the FSDP slice,
     tests/test_torch_fsdp.py: on one rank it is the plain step, as JAX's
-    Trainer, whose mesh is None at size 1.)"""
+    Trainer, whose mesh is None at size 1; pp and virtual pipeline stages
+    since the pipeline slice, tests/test_torch_pp_training.py: a pp mesh
+    asks for its communicator, and virtual_pp at pp 1 is the plain step,
+    as in JAX.)"""
     from long_vita_tpu_torch.parallel.comm import ThreadComm
     from long_vita_tpu_torch.parallel.mesh import make_mesh
 
@@ -429,21 +431,24 @@ def test_unported_options_raise():
         _trainer(None, 1, mesh=MeshConfig(dp=2, tp=2, tq=2))
     with pytest.raises(ValueError, match="needs comm="):
         _trainer(None, 1, mesh=MeshConfig(dp=2, tp=2))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _trainer(None, 1, mesh=MeshConfig(pp=4))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _trainer(None, 1, virtual_pp=2)
+    with pytest.raises(ValueError, match="needs comm="):
+        _trainer(None, 1, mesh=MeshConfig(pp=2))
     plain, fsdp = _trainer(None, 1), _trainer(None, 1, fsdp=True)
+    virtual = _trainer(None, 1, virtual_pp=2)
     assert fsdp.mesh is None and fsdp.state.params.text.fsdp is None
+    assert virtual.mesh is None and virtual.state.params.text.pp is None
     batches = [_batch((1,))]
-    assert fsdp.train(iter(batches))["losses"] == plain.train(iter(batches))["losses"]
-    for (n, a), (_, b) in zip(plain.state.params.named_parameters(),
-                              fsdp.state.params.named_parameters()):
-        assert torch.equal(a, b), n
+    losses = plain.train(iter(batches))["losses"]
+    assert fsdp.train(iter(batches))["losses"] == losses
+    assert virtual.train(iter(batches))["losses"] == losses
+    for (n, a), (_, b), (_, c) in zip(plain.state.params.named_parameters(),
+                                      fsdp.state.params.named_parameters(),
+                                      virtual.state.params.named_parameters()):
+        assert torch.equal(a, b) and torch.equal(a, c), n
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0]))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tts.make_train_step(CFG, None, mesh=make_mesh(MeshConfig(pp=2), ThreadComm.group(2)[0]))
+    with pytest.raises(NotImplementedError, match="pp x FSDP"):
+        _trainer(None, 1, mesh=MeshConfig(dp=2, pp=2), fsdp=True)
     from long_vita_tpu_torch.models.long_vita import init_long_vita_params
 
     moe_cfg = port_tiny_config(num_experts=4)  # MoE trains on one device only
