@@ -50,8 +50,9 @@ Phases (each raises on failure; the script then exits non-zero):
      counts of K1, K2 and K3 are checked against the layers and chunks the
      requests need; the video's last-row logits and its encoded features are
      held against the same flow on the plain versions;
-  5b. cp serving (phase_cp_serve): the same decoder, cut to its first 8
-     layers since the pp training phase joined (24 before), in an
+  5b. cp serving (phase_cp_serve): the same decoder, cut to its first
+     SERVE_PREFIX (2) layers since the 2-D tp geometry joined (8 since the
+     pp training phase, 24 before), in an
      InferenceEngine
      over a cp mesh of 4 thread-ranks (a 65536-slot cache, 16384 a rank,
      chunk 2048): a 60000-id prompt and 16 greedy tokens with a bf16 cache,
@@ -61,8 +62,8 @@ Phases (each raises on failure; the script then exits non-zero):
      (every step's logits; each cp pick the one-device argmax up to a
      rounding tie);
   5c. the cp server (phase_cp_server): the same decoder, cut to its first
-     8 layers since the pp training phase joined (24 since the tp training
-     phase), with a random tower
+     SERVE_PREFIX (2) layers (8 since the pp training phase joined, 24 since
+     the tp training phase), with a random tower
      behind the port's server on cp rank 0 of 4 thread-ranks, ranks 1-3 in
      follower_serve replaying its actions (the lockstep channel,
      inference/multihost.py), a 32768-slot cache (8192 a rank), chunk 2048:
@@ -77,8 +78,8 @@ Phases (each raises on failure; the script then exits non-zero):
   5d. tp serving (phase_tp_serve): K6 on one row into the tp-4 column
      shards (out 1280, 256, 3456, 38016) and K1 / K2 on a 2048-row chunk
      at 10/2 heads against their plain versions; then the same decoder,
-     cut to its first 8 layers since the pp training phase joined (24
-     since the FSDP phase), over tp 4
+     cut to its first SERVE_PREFIX (2) layers (8 since the pp training
+     phase joined, 24 since the FSDP phase), over tp 4
      thread-ranks (each rank's shard a view of the
      weights, parallel/sharding.shard_params): a 5000-id prompt and 8
      greedy tokens, int8 weights (quantised once, whole) into an int8 cache
@@ -89,24 +90,6 @@ Phases (each raises on failure; the script then exits non-zero):
      first layers with a 7000-id prompt. K1, K2, K3, K6 and K6's
      dequantise route counted exactly; the phase's seconds and peak memory
      printed;
-  5e. training over tp (phase_tp_train): K1 forward and K4 and K5 backward
-     at a tp-8 rank's heads ([1, 16384, 5/1, 128], T2's packed row) against
-     their plain versions; then the 14B VLM at full width, the decoder cut
-     to 4 layers, the 24-layer tower, written as a *_HF checkpoint
-     directory, and configs/stage2_16k.yaml's settings (everything
-     trainable, the tower at lr x 0.1, remat, 16384 tokens; logit budget
-     cut to 4096) on one packed row with a 7-tile image, through
-     train.build_from_recipe and Trainer.train: 2 steps at tp 1 in a
-     process of its own, then at tp 2 in two gloo processes sharing this
-     card (parallel/comm.init_process_group(..., staged_device="cuda"):
-     each collective's operands staged through pinned host memory), each
-     rank reading only its slices of the checkpoint. Gates: losses and
-     grad_norm against tp 1, both ranks' loss bits, the first step's
-     gradients gathered from the shards against tp 1's by leaf group, a
-     planted fault (the norms' tp sum removed) that must fail that gate,
-     the warm-up's lr-0 step leaving every bit, K1/K3/K4/K5 launches exact;
-     bytes read, step times, the staged copies' share and each rank's peak
-     memory printed;
   6. the port's serving entry points on a checkpoint it writes and reads:
      the decoder with a random InternViT-300M and projector exported as a
      *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
@@ -146,14 +129,40 @@ Phases (each raises on failure; the script then exits non-zero):
      loss bits, gradients at cosine >= 0.999, K1 launches, peak memory),
      merge_lora under the logit gate, and save_lora -> load_lora bit for
      bit.
-  9b. FSDP from the recipe entry (phase_fsdp_train), once the card is
-     free: K1, K4 and K5 at the 72B's 64/8 heads on T2's packed row against
+  9a. training over tp and 2-D tp (phase_tp_train), once the card is free
+     (the main process holds nothing on it from here on; the phase ran
+     after the tp serving phase until the 2-D tp geometry joined): K1
+     forward and K4 and K5 backward at a tp-8 rank's heads ([1, 16384,
+     5/1, 128], T2's packed row) against their plain versions; then the
+     14B VLM at full width, the decoder cut to 4 layers, the 24-layer
+     tower, written as a *_HF checkpoint directory, and
+     configs/stage2_16k.yaml's settings (everything trainable, the tower
+     at lr x 0.1, remat, 16384 tokens; logit budget cut to 4096) on one
+     packed row with a 7-tile image, through train.build_from_recipe and
+     Trainer.train: one step (the warm-up's lr-0 step; two until the 2-D
+     tp geometry joined) at tp 1 in a process of its own, then at tp 2 in
+     two gloo processes sharing this card
+     (parallel/comm.init_process_group(..., staged_device="cuda"): each
+     collective's operands staged through pinned host memory), then at tp
+     2 x tq 2 (the recipe's mesh {dp: 4, tp: 8} cut to {tp: 2, tq: 2}:
+     every decoder weight cut over both matrix dims) in four such
+     processes from the same directory, each rank reading only its slices
+     of the checkpoint. Gates, for each geometry: losses and grad_norm
+     against tp 1, every rank's loss bits, the first step's gradients
+     gathered from the shards against tp 1's by leaf group, a planted
+     fault (the norms' tp sum removed; over tq their tq sum) that must
+     fail that gate, the warm-up's lr-0 step leaving every bit, K1/K3/
+     K4/K5 launches exact; bytes read, step times, the staged copies'
+     share and each process's peak memory printed;
+  9b. FSDP from the recipe entry (phase_fsdp_train), after the tp training
+     phase: K1, K4 and K5 at the 72B's 64/8 heads on T2's packed row against
      their plain versions; then the 72B VLM (long_vita_72b()) at full width,
      the decoder cut to 2 layers, the 24-layer tower, written as a *_HF
      directory, and configs/stage2_72b_tp8fsdp8.yaml's settings (all
      trainable, the tower at lr x 0.1 with layer decay 0.9, remat, 16384
      tokens; logit budget cut to 4096) on two packed rows with a 7-tile
-     image each: 2 steps without FSDP in a process of its own, then dp 2
+     image each: one step (the lr-0 step; two until the 2-D tp geometry
+     joined the run) without FSDP in a process of its own, then dp 2
      with FSDP in two gloo processes sharing this card (host-staged
      collectives), a row a rank, each reading only its pieces. Gates:
      losses and grad_norm against the reference, every rank's loss bits,
@@ -164,12 +173,14 @@ Phases (each raises on failure; the script then exits non-zero):
      against the shard arithmetic, K1/K3/K4/K5 launches exact; peak memory,
      step time and the staged bytes and seconds a step printed.
   9c. pipeline stages from the recipe entry (phase_pp_train), after the
-     FSDP phase: K1, K4 and K5 at the 72B's 64/8 heads on T2's packed row
-     against their plain versions; then the 72B VLM at full width, the
+     FSDP phase (K1, K4 and K5 at the 72B's 64/8 heads on T2's packed row
+     against their plain versions: the FSDP phase's check, run once); the
+     72B VLM at full width, the
      decoder cut to 4 layers, written as a *_HF directory, and
      configs/stage1_72b_tp8pp8.yaml's settings (the projector alone
      trains, remat, single-tile images; 16384 tokens, logit budget cut to
-     2048 a row) on four rows: 2 steps without pp in a process of its own,
+     2048 a row) on PP_ROWS rows (2; 4 until the 2-D tp geometry joined):
+     2 steps without pp in a process of its own,
      then pp 2 in two gloo processes sharing this card (host-staged
      shifts), GPipe and then the interleaved schedule (virtual_pp 2) in the
      same processes, each stage reading its layers. Gates for each
@@ -206,7 +217,8 @@ Phases (each raises on failure; the script then exits non-zero):
      width, the decoder cut to 4 layers) against cp 1, the lockstep server
      at cp 2 and at tp 2 on that model (gates (a), (b)), a 16000-id
      TTFT at tp 2 over the two cards against one card, phase_tp_train
-     at tp 2 over NCCL (a card a rank) against tp 1 under its gates, and
+     at tp 2 over NCCL (a card a rank; on four cards also tp 2 x tq 2)
+     against tp 1 under its gates, and
      phase_fsdp_train at dp 2 over NCCL (and, on four cards, at dp 2 x tp
      2), and phase_pp_train at pp 2 (on four cards also pp 2 x tp 2). On
      one GPU it prints {"phase": "cp_nccl",
@@ -3012,6 +3024,9 @@ def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, ch
 # ---------------------------------------------------------------------------
 
 CP = 4  # thread-ranks of the cp phases (one card: they share it)
+# the decoder's depth in the cp and tp serving phases of the full run (24
+# until the pp training phase joined, 8 until the 2-D tp geometry did)
+SERVE_PREFIX = 2
 CP_SEQ = 65536  # tokens of the cp attention phases: zigzag chunks of 8192
 CP_TIMEOUT = 900.0  # seconds any one wait of a thread-rank may take
 THREADS_NOTE = "4 thread-ranks on one card, not a multi-GPU time"
@@ -3777,7 +3792,7 @@ def phase_cp_server(params, cfg, dev, *, max_seq=32768, chunk=2048, slots=4, tic
                     stream_chars=600, sampled_chars=400, batch_chars=(900, 500),
                     beam_chars=300, beam_tokens=4, vision_chunk=64, tokenizer=None) -> dict:
     """Serving a cp group from its entry points: the 14B (full width, the
-    decoder at the depth given: main passes its first 8 layers; the serving
+    decoder at the depth given: main passes its first SERVE_PREFIX; the serving
     phases' random bf16 weights with a random tower and projector, shared by
     the thread-ranks) behind the port's server on cp
     rank 0 of CP thread-ranks, ranks 1.. in follower_serve (the lockstep,
@@ -4007,7 +4022,7 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
     random bf16 weights, shared by the thread-ranks; each rank's shard is a
     view of them, K6's int4 column shards copies): phase_tp_kernels first,
     then the main path over TP thread-ranks (parallel/comm.ThreadComm, one
-    card) at the depth of ``params`` (main(): the first 8 layers), each
+    card) at the depth of ``params`` (main(): the first SERVE_PREFIX), each
     against the one-device engine on the same
     weights (_cp_against_one_device: teacher-forced, §2's logit gate at
     every step, each pick the one-device argmax up to a tie; every rank's
@@ -4187,6 +4202,9 @@ TP_TRAIN_LAYERS = 4  # the decoder's depth in phase_tp_train (full width)
 TP_TRAIN_TIMEOUT = 600.0  # seconds any one wait of a phase_tp_train process may take
 STAGED_NOTE = ("two processes sharing one card, their collectives staged through host "
                "memory over gloo: no multi-GPU time")
+# the training phases over a mesh take one step in the full run (the
+# warm-up's lr-0 step, which every gate reads), for the run's time
+MESH_TRAIN_STEPS = 1
 # the gradient gate's leaf groups: each norm, each projection, the embedding,
 # the head, the tower and the projector
 GRAD_GROUPS = ("input_norm", "post_attn_norm", "final_norm", "q_proj", "k_proj", "v_proj",
@@ -4237,15 +4255,16 @@ def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None,
     return max(errs)
 
 
-def _tp_train_recipe(work, ckpt, sizes, tp) -> dict:
+def _tp_train_recipe(work, ckpt, sizes) -> dict:
     """The recipe of phase_tp_train: configs/stage2_16k.yaml's settings (lr
     1e-5 after 100 warmup steps of 7000, the tower at lr x 0.1, everything
-    trainable, remat) at ``tp``, the logit budget cut to sizes["budget"]."""
+    trainable, remat) on sizes["mesh"] ({} for the reference, {"tp": 2},
+    or {"tp": 2, "tq": 2}), the logit budget cut to sizes["budget"]."""
     return {
         "model": {"checkpoint": ckpt, "dtype": "bfloat16"},
         "data": {"corpus": os.path.join(work, "corpus.yaml"), "seq_len": sizes["seq"],
                  "logit_budget": sizes["budget"], "vision_chunk": 64},
-        "mesh": {"tp": tp} if tp > 1 else {},
+        "mesh": sizes["mesh"],
         "optim": {"lr": 1.0e-5, "warmup_steps": 100, "total_steps": 7000, "vit_lr_mult": 0.1},
         "run": {"steps": sizes["steps"], "global_batch": 1, "remat": True, "seed": SEED},
     }
@@ -4253,16 +4272,17 @@ def _tp_train_recipe(work, ckpt, sizes, tp) -> dict:
 
 def _tp_train_worker(rank, world, init, out, sizes):
     """One process of phase_tp_train: ``world`` 1 is the tp-1 reference (a
-    process of its own), else tp rank ``rank`` over gloo with CUDA operands
-    staged through host memory (sizes["backend"] "staged"; both ranks on
-    card 0), NCCL (one card a rank) or plain gloo on the CPU (the
-    rehearsal). Builds the Trainer through train.build_from_recipe (each tp
-    rank reads its slices of the checkpoint), takes the first step's
-    gradients through train_step._backward (and again with the norms' tp sum
-    removed: the planted fault), then trains sizes["steps"] steps through
+    process of its own), else rank ``rank`` of the sizes["mesh"] mesh (tp
+    2, or tp 2 x tq 2) over gloo with CUDA operands staged through host
+    memory (sizes["backend"] "staged"; every rank on card 0), NCCL (one
+    card a rank) or plain gloo on the CPU (the rehearsal). Builds the
+    Trainer through train.build_from_recipe (each rank reads its slices of
+    the checkpoint), takes the first step's gradients through
+    train_step._backward with the norms' tp sum removed (over tq: their tq
+    sum; the planted fault), then trains sizes["steps"] steps through
     Trainer.train on the one packed row. Puts (rank, results or the error)
     on ``out``; the tp-1 process writes its gradients to the work
-    directory, tp rank 0 reads them for the gate."""
+    directory, mesh rank 0 reads them for the gate."""
     import dataclasses
 
     import numpy as np
@@ -4272,7 +4292,7 @@ def _tp_train_worker(rank, world, init, out, sizes):
         import long_vita_tpu_torch.tokenizer as port_tokenizer
         from long_vita_tpu_torch.models import qwen2
         from long_vita_tpu_torch.parallel.comm import init_process_group
-        from long_vita_tpu_torch.parallel.sharding import leaf_layout
+        from long_vita_tpu_torch.parallel.sharding import rank_layout
         from long_vita_tpu_torch.training import train as ttrain
         from long_vita_tpu_torch.training import train_step as tts
         from long_vita_tpu_torch.training.loss import collate_packs
@@ -4293,7 +4313,7 @@ def _tp_train_worker(rank, world, init, out, sizes):
         res = {"rank": rank}
         t0 = time.perf_counter()
         trainer, stream, _ = ttrain.build_from_recipe(
-            _tp_train_recipe(sizes["work"], sizes["ckpt"], sizes, world), device=dev, comm=comm)
+            _tp_train_recipe(sizes["work"], sizes["ckpt"], sizes), device=dev, comm=comm)
         del stream  # the phase trains on its own packed row
         sync()
         res["build_s"] = time.perf_counter() - t0
@@ -4322,28 +4342,31 @@ def _tp_train_worker(rank, world, init, out, sizes):
         batch = row(sizes["seq"], sizes["budget"])
         res["supervised"] = int((batch["labels"] != -100).sum())
         mesh = trainer.mesh
-        layout = leaf_layout(params, cfg, mesh.tp_index, world) if world > 1 else None
+        layout = rank_layout(params, cfg, mesh) if world > 1 else None
+        tq_comm = mesh.tq_comm if world > 1 else None
 
         # ---- the planted fault, before the steps, on a shorter row: the
-        # norms' gradients with their tp sum removed (tp 2) against the
-        # same row's summed ones (tp 1)
+        # norms' gradients with their tp sum removed (tp 2; over tq their tq
+        # sum) against the same row's summed ones (tp 1)
         fault_path = os.path.join(sizes["work"], "norm_grads_tp1.pt")
         fault_len = sizes["fault_seq"]
+        fault = "_UNSUMMED_OVER_TQ" if sizes["mesh"].get("tq", 1) > 1 else "_UNSUMMED_OVER_TP"
         if world > 1:
-            tts._UNSUMMED_OVER_TP = ("norm",)
+            setattr(tts, fault, ("norm",))
         try:
             g, _, _, _ = tts._backward(
                 params, trainer._device_batch(row(fault_len, fault_len)), cfg,
                 trainer.tcfg.remat, trainer.tcfg.vision_chunk, trainer.freeze["freeze_vision"],
                 trainer.freeze["freeze_text"], mesh=mesh, parallel=tts.make_parallel_config(mesh))
         finally:
-            tts._UNSUMMED_OVER_TP = ()
+            setattr(tts, fault, ())
         norms = {n: t for n, t in g.items() if _grad_group(n).endswith("norm")}
         del g
         if world == 1:
             torch.save({n: t.cpu() for n, t in norms.items()}, fault_path)
         else:
-            res["cos_fault"] = _group_cosines(norms, fault_path, layout, mesh.tp_comm, dev)
+            res["cos_fault"] = _group_cosines(norms, fault_path, layout, mesh.tp_comm, dev,
+                                              tq_comm=tq_comm)
         del norms
         if not cpu:
             torch.cuda.empty_cache()
@@ -4397,7 +4420,8 @@ def _tp_train_worker(rank, world, init, out, sizes):
         if world == 1:
             torch.save({n: t.cpu() for n, t in first.pop("grads").items()}, path)
         else:
-            res["cos"] = _group_cosines(first.pop("grads"), path, layout, mesh.tp_comm, dev)
+            res["cos"] = _group_cosines(first.pop("grads"), path, layout, mesh.tp_comm, dev,
+                                        tq_comm=tq_comm)
         res["counts"] = _read_counts()
         res["norms"] = norms_log
         res["step_s"] = [b - a for a, b in zip(stamps, stamps[1:])]
@@ -4416,17 +4440,19 @@ def _tp_train_worker(rank, world, init, out, sizes):
         out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2500:]}"))
 
 
-def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=None) -> dict:
+def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=None,
+                   tq_comm=None) -> dict:
     """Cosine of each leaf group's whole gradient (GRAD_GROUPS, the tower,
     the projector) against the reference process's, from this rank's
     shards: each rank takes the dot products of its slices with the same
     slices of the reference's gradients (read from the memory-mapped file),
     a slice several ranks hold and a replicated leaf counted once, and the
     sums are added over tp (and under FSDP over ``dp_comm``: an FSDP piece
-    on every dp rank, any other leaf on dp rank 0), which gives the gathered
-    vectors' cosines without moving them. Every rank of those groups calls
-    it; only the groups of ``grads`` that the file holds are compared. ->
-    {group: cosine}."""
+    on every dp rank, any other leaf on dp rank 0; under 2-D tp over
+    ``tq_comm``: a piece cut over tq on every tq rank, any other leaf on tq
+    rank 0), which gives the gathered vectors' cosines without moving them.
+    Every rank of those groups calls it; only the groups of ``grads`` that
+    the file holds are compared. -> {group: cosine}."""
     import torch
 
     from long_vita_tpu_torch.parallel.sharding import slice_leaf
@@ -4436,11 +4462,12 @@ def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=Non
     groups = sorted({_grad_group(n) for n in grads})
     acc = torch.zeros(len(groups), 3, dtype=torch.float64, device=dev)
     dp_rank = dp_comm.rank if dp_comm is not None else 0
+    tq_rank = tq_comm.rank if tq_comm is not None else 0
     for n, g in grads.items():
         leaf = layout[n]
         if tp_comm.rank % leaf.share if leaf.sharded else tp_comm.rank:
             continue
-        if dp_rank and not leaf.fsdp:
+        if (dp_rank and not leaf.fsdp) or (tq_rank and not leaf.cut_tq):
             continue
         a = g.to(dev).float().flatten()
         b = slice_leaf(ref[n], leaf).to(dev).float().flatten()
@@ -4448,6 +4475,8 @@ def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=Non
     acc = tp_comm.all_reduce_sum(acc)
     if dp_comm is not None:
         acc = dp_comm.all_reduce_sum(acc)
+    if tq_comm is not None:
+        acc = tq_comm.all_reduce_sum(acc)
     return {k: dot / max((aa * bb) ** 0.5, 1e-30)
             for k, (dot, aa, bb) in zip(groups, acc.tolist())}
 
@@ -4494,7 +4523,7 @@ def _spawn(target, world, sizes, timeout) -> dict:
 
 def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN_LAYERS,
                    seq=16384, budget=4096, fault_seq=4096, steps=2, answer=300, text_sup=900,
-                   tok=None, kernels=True) -> dict:
+                   tok=None, kernels=True, tq=1) -> dict:
     """Training over tp from the recipe entry: the 14B VLM at full width, the
     decoder cut to ``layers`` layers, the InternViT-300M tower at 24,
     written as a *_HF checkpoint directory; configs/stage2_16k.yaml's
@@ -4503,17 +4532,21 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     tp-1 reference in a process of its own, then tp 2 in two processes
     (backend "staged": gloo sharing this card with host-staged collectives;
     "nccl": a card each, from phase_cp_nccl; "gloo" with device "cpu": the
-    rehearsal), each rank loading only its slices. Gates: each step's loss
-    within TRAIN_LOSS_REL of tp 1's and grad_norm within 3x that; both ranks
-    the same loss bits; the first step's gradients against tp 1's at cosine
-    >= TRAIN_GRAD_COS for every leaf group (the whole vectors' cosines,
-    from each rank's shards: _group_cosines), and the same gate failing
-    with the norms' tp sum removed (on a fault_seq-token row of the same
-    layout, before the steps); the warm-up's lr-0
-    first step leaving every leaf's bits (stage 2 freezes none); K1, K3, K4
-    and K5 launches exact for the layers, steps and remat. kernels: first
-    K1, K4 and K5 at a tp-8 rank's heads. -> {"counts": both tp ranks'
-    launches summed, "err": the kernels' largest error}."""
+    rehearsal), each rank loading only its slices; with tq > 1, then 2-D tp
+    (tp 2 x tq, the stage-2 recipe's mesh {dp: 4, tp: 8} cut to {tp: 2,
+    tq: tq}) in 2 x tq processes from the same directory, held to the same
+    tp-1 reference. Gates,
+    for each geometry: each step's loss within TRAIN_LOSS_REL of tp 1's and
+    grad_norm within 3x that; every rank the same loss bits; the first
+    step's gradients against tp 1's at cosine >= TRAIN_GRAD_COS for every
+    leaf group (the whole vectors' cosines, from each rank's shards:
+    _group_cosines), and the same gate failing with the norms' tp sum (over
+    tq: their tq sum) removed (on a fault_seq-token row of the same layout,
+    before the steps); the warm-up's lr-0 first step leaving every leaf's
+    bits (stage 2 freezes none); K1, K3, K4 and K5 launches exact for the
+    layers, steps and remat. kernels: first K1, K4 and K5 at a tp-8 rank's
+    heads. -> {"counts": every process's launches but the reference's
+    summed, "err": the kernels' largest error}."""
     import dataclasses
 
     import numpy as np
@@ -4521,7 +4554,6 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
 
     from long_vita_tpu_torch.config import long_vita_14b
     from long_vita_tpu_torch.models import qwen2
-    from long_vita_tpu_torch.ops import flash_attention as fa
     from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
 
     t_phase = time.perf_counter()
@@ -4533,6 +4565,7 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_train_", dir=build)
+    runs = {}
     try:
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(SEED + 72)
@@ -4560,63 +4593,97 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
         sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq,
                      budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
                      text_sup=text_sup, tok=tok or {})
+        geometries = [("tp 2", {"tp": 2})]
+        if tq > 1:
+            geometries.append((f"tp 2 x tq {tq}", {"tp": 2, "tq": tq}))
         t0 = time.perf_counter()
-        one = _spawn(_tp_train_worker, 1, {**sizes, "backend": "gloo"}, 2 * TP_TRAIN_TIMEOUT)[0]
-        t1 = time.perf_counter()
-        two = _spawn(_tp_train_worker, 2, sizes, 2 * TP_TRAIN_TIMEOUT)
-        print(f"[tp train] the tp-1 process {t1 - t0:.1f} s, the tp-2 processes "
-              f"{time.perf_counter() - t1:.1f} s (start-up, loading, the gradient gate's passes, "
-              "the steps)")
+        one = _spawn(_tp_train_worker, 1, {**sizes, "backend": "gloo", "mesh": {}},
+                     2 * TP_TRAIN_TIMEOUT)[0]
+        print(f"[tp train] the tp-1 process {time.perf_counter() - t0:.1f} s (start-up, loading, "
+              "the gradient gate's passes, the steps)")
+        for geom, mesh in geometries:
+            t0 = time.perf_counter()
+            world = int(np.prod(list(mesh.values())))
+            runs[geom] = _spawn(_tp_train_worker, world, {**sizes, "mesh": mesh},
+                                2 * TP_TRAIN_TIMEOUT)
+            print(f"[tp train] the {geom} processes {time.perf_counter() - t0:.1f} s (start-up, "
+                  "loading, the gradient gate's passes, the steps)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    r0, r1 = two[0], two[1]
     failures = []
+    where = {"staged": "{n} processes sharing one card, their collectives staged through "
+                       "host memory over gloo: no multi-GPU time",
+             "nccl": "{n} cards over NCCL", "gloo": "{n} gloo processes on the CPU"}[backend]
+    print(f"[tp train] tp 1 (a process of its own): read {one['bytes_read'] / 1e6:.3f} MB; "
+          f"steps {[round(t, 3) for t in one['step_s']]} s; peak allocated {one['peak_gb']:.2f} "
+          f"GB; losses {one['losses']} grad_norm {one['norms']}; {one['supervised']} "
+          f"supervised rows")
+    for geom, ranks in runs.items():
+        _tp_train_gates(geom, ranks, one, cfg, seq, fault_seq, whole_gb,
+                        where.format(n=len(ranks)), cpu, failures)
+    print(f"[tp train] phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"[tp train] {failures}")
+    counts = dict.fromkeys(one["counts"], 0)
+    for ranks in runs.values():
+        for r in ranks.values():
+            for k in counts:
+                counts[k] += r["counts"][k]
+    return {"counts": counts, "err": err}
+
+
+def _tp_train_gates(geom, ranks, one, cfg, seq, fault_seq, whole_gb, where, cpu,
+                    failures) -> None:
+    """phase_tp_train's gates for one geometry (``ranks``: rank -> the
+    worker's results) against the tp-1 reference ``one``; a failed gate is
+    appended to ``failures``."""
+    from long_vita_tpu_torch.ops import flash_attention as fa
 
     def check(good: bool, what: str) -> None:
         print(f"[tp train] {what}: {'ok' if good else 'FAIL'}")
         if not good:
             failures.append(what)
 
-    where = {"staged": STAGED_NOTE, "nccl": "two cards over NCCL",
-             "gloo": "two gloo processes on the CPU"}[backend]
-    for r in (r0, r1):
-        print(f"[tp train] tp rank {r['rank']} ({r['heads'][0]}/{r['heads'][1]} heads): built "
+    r0 = ranks[0]
+    steps = len(one["step_s"])
+    for r in ranks.values():
+        print(f"[tp train] {geom} rank {r['rank']} ({r['heads'][0]}/{r['heads'][1]} heads): built "
               f"through train.build_from_recipe in {r['build_s']:.1f} s, read "
               f"{r['bytes_read'] / 1e6:.3f} MB of the checkpoint's {whole_gb * 1e3:.3f} MB; steps "
               f"{[round(t, 3) for t in r['step_s']]} s ({where}), staged copies "
               f"{[round(t, 3) for t in r['staged_s']]} s of them "
               f"({r['staged_gb']:.2f} GB copied in the run); peak allocated "
               f"{r['peak_gb']:.2f} GB; losses {r['losses']} grad_norm {r['norms']}")
-    print(f"[tp train] tp 1 (a process of its own): read {one['bytes_read'] / 1e6:.3f} MB; "
-          f"steps {[round(t, 3) for t in one['step_s']]} s; peak allocated {one['peak_gb']:.2f} "
-          f"GB; losses {one['losses']} grad_norm {one['norms']}; {one['supervised']} "
-          f"supervised rows")
-    check(r0["losses"] == r1["losses"], "both tp ranks report the same loss bits")
+    same = ("both tp ranks report" if len(ranks) == 2 else
+            f"all {len(ranks)} ranks of {geom} report")
+    check(all(r["losses"] == r0["losses"] for r in ranks.values()), f"{same} the same loss bits")
+    ref_losses, ref_norms = one["losses"], one["norms"]
     check(len(r0["losses"]) == steps and all(
-        abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], one["losses"])),
-        f"tp 2 losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of tp 1's "
-        f"{one['losses']}")
-    check(all(abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["norms"], one["norms"])),
-          f"tp 2 grad_norm {r0['norms']} within {3 * TRAIN_LOSS_REL} of tp 1's {one['norms']}")
+        abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], ref_losses)),
+        f"{geom} losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of tp 1's "
+        f"{ref_losses}")
+    check(all(abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["norms"], ref_norms)),
+          f"{geom} grad_norm {r0['norms']} within {3 * TRAIN_LOSS_REL} of tp 1's {ref_norms}")
     cos, fault = r0["cos"], r0["cos_fault"]
     check(min(cos.values()) >= TRAIN_GRAD_COS and set(cos) == set(GRAD_GROUPS) | {
         "vision", "projector"},
-        "the first step's gradients of the tp-2 shards vs tp 1's, cosine by group "
+        f"the first step's gradients of the {geom} shards vs tp 1's, cosine by group "
         f"(>= {TRAIN_GRAD_COS}): " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    summed = "tq" if "tq" in geom else "tp"
     check(min(fault.values()) < TRAIN_GRAD_COS,
-          f"the same gate with the norms' tp sum removed (a planted fault; a {fault_seq}-token "
-          "row) must fail: "
+          f"the same gate with the norms' {summed} sum removed (a planted fault; a "
+          f"{fault_seq}-token row) must fail: "
           + ", ".join(f"{k} {v:.6f}" for k, v in fault.items()))
-    check(all(r["moved_at_lr0"] == [] for r in (r0, r1, one)),
+    check(all(r["moved_at_lr0"] == [] for r in [*ranks.values(), one]),
           "the warm-up's first step (lr 0) leaves every leaf's bits on every rank "
           "(stage 2 freezes no leaf)")
     # the launches of the main path on each rank: the decoder's K1 twice a
     # layer a step (remat's recompute), the tower's on every rank (it
     # encodes every tile, trainable); the backward by JAX's rule at the
-    # rank's heads
+    # rank's heads (the same on every tq rank of a tp index)
     tc, vc = cfg.text, cfg.vision
-    for r in (r0, r1, one):
-        hq, hkv = r["heads"]
+    for r in [*ranks.values(), one]:
+        hq, _ = r["heads"]
         fused = fa.bwd_uses_fused(1, seq, seq, hq, tc.head_dim, 2)
         vit_fused = fa.bwd_uses_fused(7, vc.seq_len, vc.seq_len, vc.num_attention_heads,
                                       vc.head_dim, 2)
@@ -4629,20 +4696,18 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
                 want["flash_bwd_dkv"] += n_layers * steps
                 want["flash_bwd_dq"] += n_layers * steps
         if not cpu:
-            ok = r["counts"] == want
-            check(ok, f"launches of {'tp 1' if r is one else f'tp rank {r['rank']}'}: "
-                      f"{r['counts']} (expected {want})")
-        else:
+            check(r["counts"] == want,
+                  f"launches of {'tp 1' if r is one else f'{geom} rank {r['rank']}'}: "
+                  f"{r['counts']} (expected {want})")
+        elif r is not one:
             print(f"[tp train] launches (the CPU runs the plain versions): {r['counts']}")
-    tp2_step = min(r0["step_s"])
+    step = min(r0["step_s"])
     share = [s / t for s, t in zip(r0["staged_s"], r0["step_s"])]
-    print(f"[tp train] a tp-2 step {tp2_step:.3f} s against a tp-1 step {min(one['step_s']):.3f} "
-          f"s ({where}); the staged copies' share of a tp-2 step {[round(x, 3) for x in share]}")
-    print(f"[tp train] phase {time.perf_counter() - t_phase:.1f} s")
-    if failures:
-        raise AssertionError(f"[tp train] {failures}")
-    counts = {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
-    return {"counts": counts, "err": err}
+    peaks = [round(r["peak_gb"], 2) for r in ranks.values()]
+    print(f"[tp train] a {geom} step {step:.3f} s against a tp-1 step {min(one['step_s']):.3f} "
+          f"s ({where}); the staged copies' share of a {geom} step "
+          f"{[round(x, 3) for x in share]}; each process's peak allocated {peaks} GB, "
+          f"{sum(peaks):.2f} GB together")
 
 
 # ---- FSDP: ZeRO-3 weight streaming over dp (phase_fsdp_train) --------------------
@@ -5099,14 +5164,16 @@ def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_T
 
 
 PP_TRAIN_LAYERS = 4  # the 72B decoder's depth in phase_pp_train (pp 2 x v 2 needs L % 4 == 0)
-PP_ROWS = 4  # rows a step in phase_pp_train, one single-tile image each
+# rows a step in phase_pp_train, one single-tile image each (4 until the
+# 2-D tp geometry joined the run, for its time)
+PP_ROWS = 2
 
 
 def _pp_train_recipe(work, ckpt, sizes, pp, tp, virtual) -> dict:
     """The recipe of phase_pp_train: configs/stage1_72b_tp8pp8.yaml's
     settings (the projector alone trains, both towers frozen; lr 1e-3 after
     30 warm-up steps of 1000, min lr 1e-5; remat; single-tile images) over
-    pp x tp with run.virtual_pp ``virtual``, four rows a step (pp
+    pp x tp with run.virtual_pp ``virtual``, PP_ROWS rows a step (pp
     microbatches), the logit budget cut to sizes["budget"]; pp 1: the
     reference."""
     mesh = {"pp": pp, "tp": tp} if pp * tp > 1 else {}
@@ -5124,7 +5191,7 @@ def _pp_train_recipe(work, ckpt, sizes, pp, tp, virtual) -> dict:
 
 def _pp_train_worker(rank, world, init, out, sizes):
     """One process of phase_pp_train: ``world`` 1 is the reference (pp off,
-    the four rows in one process), else rank ``rank`` of pp 2 x sizes["tp"]
+    the PP_ROWS rows in one process), else rank ``rank`` of pp 2 x sizes["tp"]
     over gloo with CUDA operands staged through host memory
     (sizes["backend"] "staged"; every rank on card 0), NCCL (a card a rank)
     or plain gloo on the CPU (the rehearsal). For each schedule (GPipe, then
@@ -5198,7 +5265,7 @@ def _pp_train_worker(rank, world, init, out, sizes):
                 for i in range(PP_ROWS)]
 
             def rows(seq, budget):
-                # four packed rows, each with a single-tile image (stage 1's data)
+                # packed rows, each with a single-tile image (stage 1's data)
                 packs = [_train_pack(dataclasses.replace(cfg, image_token_length=per_tile), seq,
                                      [], [(tiles[i], (1, 1))],
                                      np.random.default_rng(SEED + 94 + i), text_segments=4,
@@ -5219,7 +5286,7 @@ def _pp_train_worker(rank, world, init, out, sizes):
                                      parallel=parallel)[0]
 
             # ---- the planted faults' passes, on 4096-token rows (the main
-            # path's logit budget: the last stage holds the four rows' f32
+            # path's logit budget: the last stage holds the rows' f32
             # logits and their gradient)
             fault_batch = trainer._device_batch(rows(sizes["fault_seq"], sizes["budget"]))
             proj_path = os.path.join(work, "fault_projector_ref.pt")
@@ -5256,7 +5323,7 @@ def _pp_train_worker(rank, world, init, out, sizes):
             if not cpu:
                 torch.cuda.empty_cache()
 
-            # ---- the main path: Trainer.train, the steps on the four rows
+            # ---- the main path: Trainer.train, the steps on the rows
             first = {}
             step_backward = tts._backward
 
@@ -5355,9 +5422,9 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
     cut to ``layers`` layers, the InternViT-300M tower at 24, written as a
     *_HF checkpoint directory; configs/stage1_72b_tp8pp8.yaml's settings
     (the projector alone trains, remat, single-tile images) at ``seq``
-    tokens, the logit budget cut to ``budget`` a row; four rows a step,
-    each with a single-tile image. First the reference (pp off, the four
-    rows in one process), then pp 2 x ``tp`` (backend "staged": two gloo
+    tokens, the logit budget cut to ``budget`` a row; PP_ROWS rows a step,
+    each with a single-tile image. First the reference (pp off, the rows
+    in one process), then pp 2 x ``tp`` (backend "staged": two gloo
     processes sharing this card with host-staged collectives; "nccl": a
     card a rank, from phase_cp_nccl; "gloo" with device "cpu": the
     rehearsal), GPipe and then the interleaved schedule (virtual_pp 2) in
@@ -5458,7 +5525,7 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
     ref = one["runs"][1]
     hkv = cfg.text.num_key_value_heads
     m = 2  # microbatches: pp (JAX's default, ParallelConfig.microbatches 0)
-    print(f"[pp train] the reference (pp off, one process, the four rows): read "
+    print(f"[pp train] the reference (pp off, one process, the {PP_ROWS} rows): read "
           f"{ref['bytes_read'] / 1e6:.3f} MB; holds {ref['param_bytes'] / 1e9:.3f} GB of "
           f"parameters; steps {[round(t, 3) for t in ref['step_s']]} s; peak allocated "
           f"{ref['peak_gb']:.2f} GB ({ref.get('peak_before_gb', 0.0):.2f} GB before the steps); "
@@ -5568,7 +5635,7 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
               f"{[round(x, 3) for x in share]}")
         c = {k: sum(run["counts"][k] for run in runs) for k in r0["counts"]}
         counts = c if counts is None else {k: counts[k] + c[k] for k in c}
-    # the reference's launches: every layer on the four rows at once
+    # the reference's launches: every layer on the rows at once
     tc, vc = cfg.text, cfg.vision
     fused = fa.bwd_uses_fused(PP_ROWS, seq, seq, tc.num_attention_heads, tc.head_dim, 2)
     want = dict.fromkeys(ref["counts"], 0)
@@ -5645,7 +5712,7 @@ def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
     return {"completed": done, "seconds": time.perf_counter() - t0, "error": err}
 
 
-def phase_autograd_probe(timeout: float = 10.0) -> None:
+def phase_autograd_probe(timeout: float = 5.0) -> None:
     """Why the cp backward runs at op level on thread-ranks: two thread-
     ranks whose backward passes wait for each other (autograd_thread_probe)
     on the CPU and on the card. Run last, after every training phase: on
@@ -5998,7 +6065,8 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
     # the Trainer at tp 2 over NCCL, a card a rank, against tp 1, under
     # phase_tp_train's gates (the planted fault included)
     if device == "cuda":
-        phase_tp_train(backend="nccl", kernels=False)
+        # on four cards also tp 2 x tq 2 (2-D tp, a card a rank)
+        phase_tp_train(backend="nccl", kernels=False, tq=2 if n_dev >= 4 else 1)
         # FSDP over NCCL: dp 2 on two cards; on four, dp 2 x tp 2 (the tp8 x
         # fsdp8 recipes' layout in miniature)
         phase_fsdp_train(backend="nccl", kernels=False)
@@ -6092,17 +6160,15 @@ def main() -> int:
     del bits
     add(phase_multimodal(params, cfg, dev))
     _collect("after the multimodal phase")  # the serving engines and their caches are gone
-    # the cp and tp serving phases on the decoder's first 8 layers, so that
-    # the run keeps inside its time with phase_pp_train (24 before it)
-    add(phase_cp_serve(params, cfg, dev, layers=8))
+    # the cp and tp serving phases on the decoder's first SERVE_PREFIX
+    # layers, so that the run keeps inside its time
+    add(phase_cp_serve(params, cfg, dev, layers=SERVE_PREFIX))
     _collect("after the cp serving phase")
-    add(phase_cp_server(*_decoder_prefix(params, cfg, 8), dev))
+    add(phase_cp_server(*_decoder_prefix(params, cfg, SERVE_PREFIX), dev))
     _collect("after the cp server phase")
-    add(phase_tp_serve(*_decoder_prefix(params, cfg, 8), dev, cpxtp_layers=8))
+    add(phase_tp_serve(*_decoder_prefix(params, cfg, SERVE_PREFIX), dev,
+                       cpxtp_layers=SERVE_PREFIX))
     _collect("after the tp serving phase")
-    tp_train = phase_tp_train()
-    add(tp_train["counts"])
-    _collect("after the tp training phase")
     # the decoder is exported, freed and loaded back; the loaded one trains,
     # and the exported directory (~31 GB) serves the recipe phase last
     holder = [params]
@@ -6135,11 +6201,18 @@ def main() -> int:
         add(phase_recipe(ckpt, os.path.join(work, "recipe"), cfg, dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    _collect("before the FSDP phase")
-    fsdp_train = phase_fsdp_train()
+    # the training phases over a mesh, once the main process holds nothing on
+    # the card (the tq geometry's four processes share it)
+    _collect("before the tp training phase")
+    tp_train = phase_tp_train(tq=2, steps=MESH_TRAIN_STEPS)
+    add(tp_train["counts"])
+    _collect("after the tp training phase")
+    fsdp_train = phase_fsdp_train(steps=MESH_TRAIN_STEPS)
     add(fsdp_train["counts"])
     _collect("after the FSDP training phase")
-    pp_train = phase_pp_train()
+    # its K1/K4/K5 check at the 72B's 64/8 heads is the FSDP phase's, on the
+    # same inputs: run once
+    pp_train = phase_pp_train(kernels=False)
     add(pp_train["counts"])
     _collect("after the pp training phase")
     phase_autograd_probe()

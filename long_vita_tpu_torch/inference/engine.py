@@ -70,7 +70,7 @@ from long_vita_tpu_torch.models.quantize import (
     quantize_weights_int4,
     quantize_weights_int8,
 )
-from long_vita_tpu_torch.parallel.mesh import Mesh, validate_geometry
+from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, Mesh, validate_geometry
 from long_vita_tpu_torch.parallel.sharding import shard_params
 
 _OOB_SEQ = 2**30  # a feature row at this position lands in no chunk
@@ -203,6 +203,11 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"serving over a pp {mesh.shape['pp']} mesh: pipeline stages run in training "
                 "only, as in the JAX package (its engine takes a tp x cp mesh)")
+        if mesh is not None and mesh.shape["tq"] > 1:
+            # JAX's engine serves on a tq mesh (2-D sharded weights); the
+            # port's tq layout is the training one alone, so it raises
+            # rather than run a 1-D or replicated path
+            raise NotImplementedError(f"serving over tq {mesh.shape['tq']} (2-D tp) {NEXT_SLICE}")
         if mesh is not None:
             validate_geometry(cfg.text, mesh.cfg)
             qwen2.check_moe_mesh(cfg.text, dp=mesh.shape["dp"], cp=mesh.shape["cp"],

@@ -36,6 +36,16 @@ rows on every tp rank (JAX's in_specs P(dp, cp, None) for the
 vocab-parallel CE): each tp rank contributes the rows of its slice and the
 rows are summed over tp (``reduce_from_tp``: exact, one real row and zeros;
 the gradient passes through, the CE having summed it over tp).
+
+Under 2-D tp (the tree bound to a tq communicator, JAX's [B@dp, S@(cp,
+tp), H@tq], :280-290) the rows are also cut over the hidden dim: the
+lookup on the 2-D table lands in the rank's [B, S/tp, H/tq] slice, each
+projected image row's hidden slice is scattered into it (the tower and
+the projector replicated, as in JAX: each tq rank encodes the tiles and
+keeps its slice of the projector's output, so their gradients are summed
+over tq with the rest of the world), and ``head=False`` returns the budget
+rows' hidden slices (loss.vocab_parallel_ce sums the partial logits over
+tq).
 """
 from __future__ import annotations
 
@@ -238,7 +248,9 @@ def long_vita_forward(
     to [1, N_local, ...] in (row, m) order (cp_logit_rows gives the mask):
     the loss sums them over ranks (training/train_step.py). With tp > 1 too
     (a tp shard of the tree, training): the sequence-parallel forward of
-    the module docstring, the same rows on every tp rank of a cp shard.
+    the module docstring, the same rows on every tp rank of a cp shard;
+    under 2-D tp (the tree bound to a tq communicator too) their hidden
+    slices.
 
     Pipelined (``parallel`` with pp > 1, no cache, params.text a stage's
     tree: training): the first stage alone looks the tokens up and encodes
@@ -256,8 +268,10 @@ def long_vita_forward(
     last (parallel/pipeline.py; 0 without pp)."""
     qwen2.check_remat(remat)
     cp = parallel.cp if parallel is not None and kv_cache is None else 1
-    sp = (parallel is not None and kv_cache is None and parallel.mesh.shape["tp"] > 1
+    sp = (parallel is not None and kv_cache is None
+          and parallel.mesh.shape["tp"] * parallel.mesh.shape["tq"] > 1
           and params.text.tp_comm is not None)
+    tq = params.text.tq_comm
     stage = params.text.pp if parallel is not None and kv_cache is None else None
     if stage is not None and not stage.first:
         inputs_embeds, images = None, None
@@ -281,6 +295,9 @@ def long_vita_forward(
             parallel=parallel if freeze_vision and (cp > 1 or sp) else None,
         )
         if cp > 1 or sp:
+            if tq is not None:  # the rank's hidden slice of the rows
+                h = inputs_embeds.shape[-1]
+                image_embeds = image_embeds.narrow(-1, tq.rank * h, h)
             idx = image_indices.clone()
             idx[1] -= offset
             inputs_embeds = merge_image_embeddings_chunked(

@@ -57,6 +57,20 @@ Differences from the JAX package, all of form rather than of numbers:
     again in the backward (``fsdp.streaming``), so one unit's whole weights
     are alive at a time. JAX's GSPMD inserts the same collectives inside
     the scan;
+  - under 2-D tensor parallelism (``Qwen2Params.tq_comm``, the tq axis:
+    JAX's training layout [B@dp, S@(cp, tp), H@tq], long_vita.py:280-290,
+    where GSPMD derives every collective) x is also cut over the hidden
+    dim: RMSNorm sums its squares over tq before the rsqrt and scales the
+    rank's slice of its weight; a column projection takes the partial
+    product of the rank's hidden slice, summed over tq (``reduce_from_tp``
+    over the tq communicator: the gradient passes through) before the
+    bias; a row projection's input, the same on every tq rank, goes
+    through ``copy_to_tp`` over tq (its gradient summed) and its product
+    gives the rank's output slice, reduce-scattered over tp as before. q,
+    k and v, and so the attention, are the same on every tq rank of a tp
+    index (computed tq times); the lookup on the 2-D table lands in the slice as under 1-D tp
+    (ids clamped, as JAX's plain lookup there), and the head sums its
+    partial logits over tq;
   - over pp (``Qwen2Params.pp``, a stage's tree: parallel/sharding.
     shard_params cuts it) the decoder runs its stage's layers in the
     pipeline's schedule (``_pipelined_decoder``, parallel/pipeline.py),
@@ -83,7 +97,13 @@ from long_vita_tpu_torch.ops.attention import (
 )
 from long_vita_tpu_torch.ops.quant_matmul import w4_matmul
 from long_vita_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from long_vita_tpu_torch.parallel.comm import copy_to_tp, gather_from_tp, gather_seq, scatter_seq
+from long_vita_tpu_torch.parallel.comm import (
+    copy_to_tp,
+    gather_from_tp,
+    gather_seq,
+    reduce_from_tp,
+    scatter_seq,
+)
 from long_vita_tpu_torch.parallel.fsdp import embed_table, gathered_layer, head_weight, streaming
 
 CacheLen = Union[int, torch.Tensor]
@@ -273,9 +293,11 @@ class Qwen2Params(nn.Module):
     run on. ``fsdp``: None, or on an FSDP shard the parallel.fsdp.Fsdp
     that gathers its units over dp. ``pp``: None, or on a pipeline stage's
     tree (its ``layers`` the stage's, parallel/sharding.shard_params) the
-    parallel.pipeline.Stage."""
+    parallel.pipeline.Stage. ``tq_comm``: None, or on a 2-D tp shard the
+    tq communicator (``tp_comm`` is then set too, a LocalComm at tp 1)."""
 
     tp_comm = None
+    tq_comm = None
     fsdp = None
     pp = None
 
@@ -302,11 +324,20 @@ def kv_heads(params: Qwen2Params, cfg: TextConfig) -> int:
     return out_features(params.layers[0].k_proj) // cfg.head_dim
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, tq=None) -> torch.Tensor:
     """RMSNorm with f32 variance; the weight multiplies the normalised x
-    AFTER it is cast back to x's dtype (HF Qwen2RMSNorm numerics)."""
+    AFTER it is cast back to x's dtype (HF Qwen2RMSNorm numerics). tq (2-D
+    tp): x is the rank's hidden slice, its squares are summed over tq
+    before the mean, and the rank's slice of the (whole) weight scales it."""
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
+    if tq is None:
+        var = xf.square().mean(-1, keepdim=True)
+    else:
+        h = x.shape[-1]
+        # summed over tq both ways: each rank applies the sum to its own slice
+        sq = copy_to_tp(reduce_from_tp(xf.square().sum(-1, keepdim=True), tq), tq)
+        var = sq / (h * tq.size)
+        weight = weight.narrow(0, tq.rank * h, h)
     xf = xf * torch.rsqrt(var + eps)
     return weight * xf.to(x.dtype)
 
@@ -381,13 +412,23 @@ def _with_lora(entry: Projection, x: torch.Tensor, out: torch.Tensor,
     return out + ((x @ entry.lora.a) @ entry.lora.b) * scale
 
 
-def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
+def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tq=None) -> torch.Tensor:
     """A projection without its bias (callers add it in the param dtype
     after the product, as the JAX package does), plus its LoRA update.
     Dispatches on the layout as the JAX _proj (:174-184): int8 codes cast to
     x's dtype, the product, then the scale in x's dtype; packed int4 through
     w4_matmul (K6 for decode-sized row counts, the dequantise route for
-    prefill chunks)."""
+    prefill chunks). tq (a column projection under 2-D tp, a dense one): x
+    is the rank's hidden slice and the weight its input rows, the product
+    summed over tq; LoRA's ``a`` is replicated, its rows of the slice taken
+    and that product summed over tq too, before ``b``."""
+    if tq is not None:
+        out = reduce_from_tp(F.linear(x, entry.weight), tq)
+        if entry.lora is None or cfg.lora_r == 0:
+            return out
+        h = x.shape[-1]
+        xa = reduce_from_tp(x @ entry.lora.a.narrow(0, tq.rank * h, h), tq)
+        return out + (xa @ entry.lora.b) * (cfg.lora_alpha / cfg.lora_r)
     if isinstance(entry, QuantDense8):
         out = F.linear(x, entry.weight_q.to(x.dtype)) * entry.scale.to(x.dtype)
     elif isinstance(entry, QuantDense4):
@@ -398,13 +439,26 @@ def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
 
 
 def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp,
-              sp: bool = False) -> torch.Tensor:
+              sp: bool = False, tq=None) -> torch.Tensor:
     """A row-parallel projection (o_proj, down_proj) on a tp shard: this
     rank's slice of the input dim, then one all_reduce_sum over tp (sp: a
     reduce-scatter along the sequence into this rank's slice, through
     autograd); an int4 one is replicated (quantize.quantized_param_specs),
     so its input is all-gathered over tp and the whole product computed.
-    tp None: _proj."""
+    tp None: _proj. tq (2-D tp, sequence parallel, a dense projection): x
+    is the same on every tq rank and the weight holds the rank's output
+    rows, so x passes copy_to_tp over tq (its gradient summed over tq)
+    and the product is the rank's hidden slice; LoRA's ``a`` (cut over tp)
+    gives a product the same on every tq rank, copied likewise, and the
+    rank's columns of the replicated ``b`` follow."""
+    if tq is not None:
+        out = F.linear(copy_to_tp(x, tq), entry.weight)
+        if entry.lora is not None and cfg.lora_r:
+            h = out.shape[-1]
+            xa = copy_to_tp(x @ entry.lora.a, tq)
+            out = out + (xa @ entry.lora.b.narrow(1, tq.rank * h, h)) * (cfg.lora_alpha
+                                                                         / cfg.lora_r)
+        return scatter_seq(out, tp, 1)
     if tp is None:
         return _proj(entry, x, cfg)
     if sp:
@@ -442,13 +496,14 @@ def _attention_block(
     q_sharded: bool = False,
     tp=None,
     sp: bool = False,
+    tq=None,
 ) -> torch.Tensor:
     b, s, _ = x.shape
     d = cfg.head_dim
 
-    q = _proj(layer.q_proj, x, cfg) + layer.q_proj.bias
-    k = _proj(layer.k_proj, x, cfg) + layer.k_proj.bias
-    v = _proj(layer.v_proj, x, cfg) + layer.v_proj.bias
+    q = _proj(layer.q_proj, x, cfg, tq) + layer.q_proj.bias
+    k = _proj(layer.k_proj, x, cfg, tq) + layer.k_proj.bias
+    v = _proj(layer.v_proj, x, cfg, tq) + layer.v_proj.bias
     # the heads this rank computes: cfg's, or a tp shard's local ones
     hq, hkv = q.shape[-1] // d, k.shape[-1] // d
     q = q.reshape(b, s, hq, d)
@@ -520,30 +575,37 @@ def _attention_block(
             kv_segment_ids=segment_ids,
             impl=attn_impl,
         )
-    return _row_proj(layer.o_proj, out.reshape(b, s, hq * d), cfg, tp, sp)
+    return _row_proj(layer.o_proj, out.reshape(b, s, hq * d), cfg, tp, sp, tq)
 
 
-def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None, sp=False):
+def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None, sp=False,
+               tq=None):
     """Dense SwiGLU (on a tp shard, this rank's slice of the intermediate
     dim, then down_proj's all-reduce), or the MoE MLP when the layer carries
     a router (JAX :602-667, local mode). -> (out, the layer's aux loss or
-    None). sp: x is the gathered sequence and out this rank's slice."""
+    None). sp: x is the gathered sequence and out this rank's slice; tq:
+    2-D tp (x and out hidden slices too, _proj and _row_proj)."""
     if hasattr(layer, "router"):
         from long_vita_tpu_torch.ops.moe import moe_mlp
 
         return moe_mlp(layer, x, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
-    gate = _proj(layer.gate_proj, x, cfg)
-    up = _proj(layer.up_proj, x, cfg)
-    return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp, sp), None
+    gate = _proj(layer.gate_proj, x, cfg, tq)
+    up = _proj(layer.up_proj, x, cfg, tq)
+    return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp, sp, tq), None
 
 
-def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1, pp: int = 1) -> None:
+def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1, pp: int = 1,
+                   tq: int = 1) -> None:
     """MoE runs on one device (or on replicas of one). The JAX package shards
     the experts over dp (expert parallelism, two all_to_alls a layer), their
     intermediate dim over tp, routes cp's tokens as one global batch with
     one capacity, and carries the aux loss through the pipeline's stages;
     none of it is ported (ROADMAP §1, expert parallelism), so a MoE model
-    over dp, cp, tp or pp > 1 raises."""
+    over dp, cp, tp or pp > 1 raises. 2-D tp does not compose with MoE in
+    JAX either (mesh.py:129-130): tq > 1 raises with its words."""
+    if cfg.num_experts > 0 and tq > 1:
+        raise ValueError(f"model geometry cannot shard over tq {tq}: 2-D TP (tq > 1) does not "
+                         "compose with MoE/EP")
     if cfg.num_experts > 0 and (dp > 1 or cp > 1 or tp > 1 or pp > 1):
         raise NotImplementedError(
             f"MoE layers over a multi-GPU mesh (dp {dp}, pp {pp}, cp {cp}, tp {tp}): expert "
@@ -566,22 +628,27 @@ def decoder_layer(
     q_sharded: bool = False,
     tp=None,
     sp: bool = False,
+    tq=None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """-> (x, the MoE aux loss of the layer, None for a dense one). tp: the
     tree's tp communicator (row-parallel all-reduces), or None. sp
     (sequence parallelism): x is this rank's slice of the sequence; each
     normed input is gathered over tp before its column projections and
-    each row projection reduce-scattered back into the slice."""
+    each row projection reduce-scattered back into the slice. tq (2-D tp,
+    with sp): x is also the rank's hidden slice (see the module
+    docstring)."""
 
     def gathered(h):
         return gather_seq(h, tp, 1) if sp else h
 
     x = x + _attention_block(
-        layer, gathered(rms_norm(x, layer.input_norm, cfg.rms_norm_eps)), cos, sin, cfg,
+        layer, gathered(rms_norm(x, layer.input_norm, cfg.rms_norm_eps, tq)), cos, sin, cfg,
         cache_kv, cache_len, position_ids, segment_ids, attn_impl, parallel, q_sharded, tp, sp,
+        tq,
     )
-    out, aux = _mlp_block(layer, gathered(rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)),
-                          cfg, tp, sp)
+    out, aux = _mlp_block(layer,
+                          gathered(rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps, tq)),
+                          cfg, tp, sp, tq)
     return x + out, aux
 
 
@@ -653,7 +720,8 @@ def qwen2_decoder(
     tp > 1, no cache: training): inputs_embeds and the result are this
     rank's 1/tp slice [B, S/tp, H] of the sequence whose position_ids and
     segment_ids [B, S] are given whole (this rank's cp shard under cp); see
-    the module docstring.
+    the module docstring. Under 2-D tp (a tree bound to a tq communicator)
+    the slice is [B, S/tp, H/tq].
 
     parallel (cp > 1): without a cache, inputs_embeds, position_ids and
     segment_ids are this rank's sequence shard (zigzag-permuted for ring and
@@ -681,9 +749,12 @@ def qwen2_decoder(
     seq = inputs_embeds.shape[1]
     cp = parallel.cp if parallel is not None else 1
     check_moe_mesh(cfg, cp=cp)
-    tp = params.tp_comm
+    tp, tq = params.tp_comm, params.tq_comm
     sp = (tp is not None and kv_cache is None and parallel is not None
-          and parallel.mesh.shape["tp"] > 1)
+          and parallel.mesh.shape["tp"] * parallel.mesh.shape["tq"] > 1)
+    if tq is not None and not sp:
+        raise ValueError("a 2-D tp shard runs the training layout alone (no cache, under its "
+                         "mesh's ParallelConfig); serving over tq is not ported")
     # a cached chunk that divides by cp runs on this rank's 1/cp of its rows
     q_sharded = kv_cache is not None and cp > 1 and seq > 1 and seq % cp == 0
     if q_sharded:
@@ -702,7 +773,7 @@ def qwen2_decoder(
             if kv_cache is not None:
                 cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
             args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-                    segment_ids, attn_impl, parallel, q_sharded, tp, sp)
+                    segment_ids, attn_impl, parallel, q_sharded, tp, sp, tq)
             if recompute:
                 x, aux_l = remat_checkpoint(run, *args, remat=remat)
             else:
@@ -712,7 +783,7 @@ def qwen2_decoder(
     new_cache = None
     if kv_cache is not None:
         new_cache = dataclasses.replace(kv_cache, length=kv_cache.length + seq)
-    hidden = rms_norm(x, params.final_norm, cfg.rms_norm_eps)
+    hidden = rms_norm(x, params.final_norm, cfg.rms_norm_eps, tq)
     if q_sharded:
         hidden = parallel.comm.all_gather(hidden, 1)
     out = (hidden, new_cache)
@@ -833,10 +904,16 @@ def embed_tokens_vp(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tenso
     (``scatter_seq``): -> this rank's slice [B, S/tp, H], bit for bit the
     plain rows (one real row plus zeros). The embedding's gradient is the
     all-gathered rows' gradient at the rank's own ids. On an FSDP shard the
-    rank's tp slice of the table is gathered over dp first."""
+    rank's tp slice of the table is gathered over dp first. On a 2-D tp
+    shard the table is the rank's [V/tp, H/tq] block and the rows its
+    hidden slice; the ids are clamped to the whole table first, since JAX
+    looks them up plainly there (long_vita.py:294-300: past the table, the
+    last row)."""
     tp = params.tp_comm
     table = embed_table(params)
     n = table.shape[0]
+    if params.tq_comm is not None:
+        input_ids = input_ids.clamp(max=n * tp.size - 1)
     local = input_ids.long() - tp.rank * n
     hit = (local >= 0) & (local < n)
     rows = F.embedding(local.clamp(0, n - 1), table)
@@ -857,7 +934,10 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     the whole row, exactly (differentiable, Megatron's plain head: the
     hidden rows' gradient summed over tp, each rank's logits taking its
     slice of theirs; the training head of a pp mesh, JAX's rule). On an FSDP shard the weight is gathered over dp
-    first (and gathered again for the backward)."""
+    first (and gathered again for the backward). On a 2-D tp shard hidden
+    is the rank's hidden slice and the weight its [V/tp, H/tq] block: the
+    f32 partial logits are summed over tq first (JAX's plain head under
+    tq, train_step.py:75-84)."""
     entry = params.lm_head
     tp = params.tp_comm
     if tp is not None:
@@ -869,6 +949,8 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     else:
         with streaming(params):
             logits = _f32_logits(hidden, head_weight(params))
+    if params.tq_comm is not None:
+        logits = reduce_from_tp(logits, params.tq_comm)
     return logits if tp is None else gather_from_tp(logits, tp, -1)
 
 

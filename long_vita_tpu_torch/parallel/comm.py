@@ -694,12 +694,19 @@ class _ScatterSeq(torch.autograd.Function):
 
 def copy_to_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """Identity forward; the gradient summed over ``comm`` (Megatron's f:
-    a replicated input to a sharded computation)."""
+    a replicated input to a sharded computation). Over tq (2-D tp,
+    models/qwen2.py): a row kernel's input, the same on every tq rank,
+    whose product gives each rank its own hidden slice of the output; the
+    transpose of reduce_from_tp there."""
     return x if comm.size == 1 else _CopyToTP.apply(x, comm)
 
 
 def reduce_from_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
-    """Sum over ``comm`` forward; the gradient passed through (Megatron's g)."""
+    """Sum over ``comm`` forward; the gradient passed through (Megatron's g).
+    Over tq (2-D tp, models/qwen2.py): a column kernel's contraction, each
+    rank's partial product of its hidden slice summed; every tq rank goes
+    on with the same sum and so holds its whole gradient, and the product's
+    own backward cuts the input's gradient back to the rank's slice."""
     return x if comm.size == 1 else _ReduceFromTP.apply(x, comm)
 
 
@@ -720,3 +727,4 @@ def scatter_seq(x: torch.Tensor, comm: Comm, dim: int = 1) -> torch.Tensor:
     """Reduce-scatter along ``dim`` forward, all-gather backward (partial
     sums of the whole sequence -> the rank's summed slice)."""
     return x if comm.size == 1 else _ScatterSeq.apply(x, comm, dim)
+

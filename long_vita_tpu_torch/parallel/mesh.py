@@ -1,15 +1,15 @@
-"""The (dp, pp, cp, tp) mesh of ranks.
+"""The (dp, pp, cp, tp, tq) mesh of ranks.
 
 Counterpart of long_vita_tpu/parallel/mesh.py: ``MeshConfig`` (:41),
 ``make_mesh`` (:60) and ``validate_geometry`` (:84). Where JAX names the
 axes of one device array and shard_map (or GSPMD) hands a body its axis,
 the port's mesh is a grid of ranks over a world communicator with one
 communicator per axis. A rank's coordinates follow JAX's ``np.reshape(
-devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = ((d * pp + p) * cp + c) *
-tp + t, dp outermost and tp innermost. The dp, cp and tp axes run for
-serving and for training (FSDP over dp too); pp runs for training
-(parallel/pipeline.py), as in the JAX package, whose serving mesh has no
-pp; tq > 1 raises, naming the ROADMAP items that port it.
+devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = (((d * pp + p) * cp + c)
+* tp + t) * tq + q, dp outermost and tq innermost. The dp, cp and tp axes
+run for serving and for training (FSDP over dp too); pp and tq (2-D tensor
+parallelism, the second factor of tp) run for training, as in the JAX
+package, whose serving mesh has neither.
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1: the multi-GPU items after pipeline stages: "
-              "2-D tp (tq) and expert parallelism)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1, the multi-GPU items left: serving over 2-D tp, "
+              "item 6; expert parallelism, item 8; FSDP inside pipeline stages, item 3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,76 +40,85 @@ class MeshConfig:
 
 
 class Mesh:
-    """Ranks of ``comm`` (the world) as a dp x pp x cp x tp grid, with one
-    communicator per axis: ``tp_comm`` joins the ranks of one (dp, pp, cp)
-    index, ``cp_comm`` those of one (dp, pp, tp) index, ``dp_comm`` those of
-    one (pp, cp, tp) index, ``pp_comm`` those of one (dp, cp, tp) index (the
-    stages a microbatch passes through), ``replica_comm`` the cp x tp ranks
-    of one (dp, pp) index (the ranks that hold the same requests or batch
-    rows and the same layers), ``dp_cp_comm`` the dp x cp ranks of one (pp,
-    tp) index (the ranks that hold the same tp shard of a stage's layers: a
-    sharded layer's gradient is summed over them), ``stage_comm`` the dp x
-    cp x tp ranks of one pp index (the world without pp) and ``dp_pp_cp_comm``
-    the dp x pp x cp ranks of one tp index (the ranks that hold the same tp
-    shard of a leaf replicated over pp, the embedding's and the head's, and
-    share the loss). An axis of size 1 gets a LocalComm, and a group of
-    every rank the world itself. ``shape`` maps each axis name to its size,
-    as a JAX mesh's does."""
+    """Ranks of ``comm`` (the world) as a dp x pp x cp x tp x tq grid, with
+    one communicator per axis: ``tp_comm`` joins the ranks of one (dp, pp,
+    cp, tq) index, ``tq_comm`` those of one (dp, pp, cp, tp) index (2-D
+    tp's contractions over the hidden dim), ``cp_comm`` those of one (dp,
+    pp, tp, tq) index, ``dp_comm`` those of one (pp, cp, tp, tq) index,
+    ``pp_comm`` those of one (dp, cp, tp, tq) index (the stages a
+    microbatch passes through), ``replica_comm`` the cp x tp x tq ranks of
+    one (dp, pp) index (the ranks that hold the same requests or batch rows
+    and the same layers), ``dp_cp_comm`` the dp x cp ranks of one (pp, tp,
+    tq) index (the ranks that hold the same tp (and tq) shard of a stage's
+    layers: a sharded layer's gradient is summed over them), ``stage_comm``
+    the dp x cp x tp x tq ranks of one pp index (the world without pp) and
+    ``dp_pp_cp_comm`` the dp x pp x cp ranks of one (tp, tq) index (the
+    ranks that hold the same shard of a leaf replicated over pp, the
+    embedding's and the head's, and share the loss). An axis of size 1
+    gets a LocalComm, and a group of every rank the world itself; at tq 1
+    every group has the members it had before the tq axis. ``shape`` maps
+    each axis name to its size, as a JAX mesh's does."""
 
     def __init__(self, cfg: MeshConfig, comm: Comm):
-        if cfg.tq > 1:
-            raise NotImplementedError(f"mesh axis tq = {cfg.tq} {NEXT_SLICE}")
         if cfg.size != comm.size:
             raise ValueError(f"mesh {cfg} needs {cfg.size} ranks, the communicator has {comm.size}")
         self.cfg, self.world = cfg, comm
-        dp, pp, cp, tp = cfg.dp, cfg.pp, cfg.cp, cfg.tp
+        dp, pp, cp, tp, tq = cfg.dp, cfg.pp, cfg.cp, cfg.tp, cfg.tq
 
-        def rank(d, p, c, t):
-            return ((d * pp + p) * cp + c) * tp + t
+        def rank(d, p, c, t, q):
+            return (((d * pp + p) * cp + c) * tp + t) * tq + q
 
-        coords = list(itertools.product(range(dp), range(pp), range(cp), range(tp)))
-
-        def groups(*inner):
-            """The ranks that differ only in the ``inner`` axes: one group
-            (in rank order) for each index of the other axes."""
-            free = [("dp", "pp", "cp", "tp").index(a) for a in inner]
-            out: dict = {}
-            for c in coords:
-                out.setdefault(tuple(v for i, v in enumerate(c) if i not in free), []).append(
-                    rank(*c))
-            return list(out.values())
-
-        self.dp_index, rest = divmod(comm.rank, pp * cp * tp)
-        self.pp_index, rest = divmod(rest, cp * tp)
-        self.cp_index, self.tp_index = divmod(rest, tp)
-        self.tp_comm = self._axis(groups("tp"))
-        self.cp_comm = self._axis(groups("cp"))
-        self.dp_comm = self._axis(groups("dp"))
-        self.pp_comm = self._axis(groups("pp"))
-        self.replica_comm = self._axis(groups("cp", "tp"))
-        self.dp_cp_comm = self._axis(groups("dp", "cp"))
-        self.stage_comm = self._axis(groups("dp", "cp", "tp"))
-        self.dp_pp_cp_comm = self.dp_cp_comm if pp == 1 else self._axis(groups("dp", "pp", "cp"))
-        self.shape = {AXIS_DP: dp, AXIS_PP: pp, AXIS_CP: cp, AXIS_TP: tp, AXIS_TQ: 1}
+        self._coords = list(itertools.product(range(dp), range(pp), range(cp), range(tp),
+                                              range(tq)))
+        self.dp_index, rest = divmod(comm.rank, pp * cp * tp * tq)
+        self.pp_index, rest = divmod(rest, cp * tp * tq)
+        self.cp_index, rest = divmod(rest, tp * tq)
+        self.tp_index, self.tq_index = divmod(rest, tq)
         self._rank = rank
+        self._over: dict = {}
+        self.tp_comm = self.over(AXIS_TP)
+        self.tq_comm = self.over(AXIS_TQ)
+        self.cp_comm = self.over(AXIS_CP)
+        self.dp_comm = self.over(AXIS_DP)
+        self.pp_comm = self.over(AXIS_PP)
+        self.replica_comm = self.over(AXIS_CP, AXIS_TP, AXIS_TQ)
+        self.dp_cp_comm = self.over(AXIS_DP, AXIS_CP)
+        self.stage_comm = self.over(AXIS_DP, AXIS_CP, AXIS_TP, AXIS_TQ)
+        self.dp_pp_cp_comm = self.dp_cp_comm if pp == 1 else self.over(AXIS_DP, AXIS_PP, AXIS_CP)
+        self.shape = {AXIS_DP: dp, AXIS_PP: pp, AXIS_CP: cp, AXIS_TP: tp, AXIS_TQ: tq}
         self._shared: dict = {}
+
+    def over(self, *axes: str) -> Comm:
+        """The communicator of the ranks that differ only in ``axes`` (one
+        group, in rank order, for each index of the other axes). The axes'
+        communicators above are made with the mesh; another set of axes on
+        its first call (every rank calls it at the same point)."""
+        key = tuple(sorted(AXES.index(a) for a in axes))
+        if key not in self._over:
+            out: dict = {}
+            for c in self._coords:
+                out.setdefault(tuple(v for i, v in enumerate(c) if i not in key), []).append(
+                    self._rank(*c))
+            self._over[key] = self._axis(list(out.values()))
+        return self._over[key]
 
     def shared_comm(self, share: int, over_dp: bool = True) -> Comm:
         """The ranks that hold the same slice when ``share`` consecutive tp
         ranks share it (a kv head replicated over tp // Hkv ranks): tp
         indices t with the same t // share, over every dp and cp index of
-        one pp index (of this rank's dp index alone with over_dp False: an
-        FSDP shard, whose gradient is reduce-scattered over dp first). A gradient of such a
-        slice is summed over them. Made on the first call (every rank calls
-        it at the same point)."""
+        one (pp, tq) index (of this rank's dp index alone with over_dp
+        False: an FSDP shard, whose gradient is reduce-scattered over dp
+        first). A gradient of such a slice is summed over them. Made on the
+        first call (every rank calls it at the same point)."""
         key = (share, over_dp)
         if key not in self._shared:
-            dp, pp, cp, tp = self.cfg.dp, self.cfg.pp, self.cfg.cp, self.cfg.tp
+            dp, pp, cp, tp, tq = (self.cfg.dp, self.cfg.pp, self.cfg.cp, self.cfg.tp,
+                                  self.cfg.tq)
             dps = [[d] for d in range(dp)] if not over_dp else [list(range(dp))]
             self._shared[key] = self._axis([
-                [self._rank(d, p, c, t) for d in ds for c in range(cp)
+                [self._rank(d, p, c, t, q) for d in ds for c in range(cp)
                  for t in range(j * share, (j + 1) * share)]
-                for p in range(pp) for ds in dps for j in range(tp // share)])
+                for p in range(pp) for ds in dps for j in range(tp // share) for q in range(tq)])
         return self._shared[key]
 
     def _axis(self, groups: list) -> Comm:
@@ -145,7 +154,9 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
     fsdp (over dp > 1): every dim FSDP cuts splits into dp equal pieces,
     the hidden dim (the column kernels' input, the row kernels' output,
     the norms) and the vocabulary into tp x dp pieces (the embedding and
-    the head); JAX pads such a dim under GSPMD, the port raises."""
+    the head); JAX pads such a dim under GSPMD, the port raises. tq > 1
+    (2-D tp): the hidden dim splits over tq, and neither pp, MoE nor FSDP
+    composes with it (JAX :122-130 and sharding.py:62-63, their words)."""
     errs = []
     tp, pp, cp = mesh_cfg.tp, mesh_cfg.pp, mesh_cfg.cp
     if text_cfg.num_attention_heads % tp:
@@ -167,10 +178,10 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
         errs.append("pp and cp are mutually exclusive (pipeline runs cp=1)")
     if seq_len and cp > 1 and seq_len % (2 * cp):
         errs.append(f"seq_len {seq_len} % 2*cp {2 * cp} != 0 (zigzag needs 2cp equal chunks)")
-    if seq_len and tp > 1 and seq_len % (cp * tp):
+    if seq_len and tp * mesh_cfg.tq > 1 and seq_len % (cp * tp):
         errs.append(f"seq_len {seq_len} % cp*tp {cp * tp} != 0 (the sequence-parallel layout "
                     "needs cp x tp equal slices)")
-    if logit_budget and tp > 1 and min(logit_budget, seq_len or logit_budget) % cp:
+    if logit_budget and tp * mesh_cfg.tq > 1 and min(logit_budget, seq_len or logit_budget) % cp:
         errs.append(f"logit budget {logit_budget} % cp {cp} != 0 (the vocab-parallel CE "
                     "splits the budget rows over cp)")
     dp = mesh_cfg.dp
@@ -189,5 +200,7 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
             errs.append("2-D TP (tq > 1) does not compose with pp")
         if getattr(text_cfg, "num_experts", 0) > 0:
             errs.append("2-D TP (tq > 1) does not compose with MoE/EP")
+        if fsdp:  # JAX's text_param_specs (sharding.py:62-63)
+            errs.append("tp2d composes with neither fsdp nor MoE")
     if errs:
         raise ValueError(f"model geometry cannot shard over mesh {mesh_cfg}: " + "; ".join(errs))

@@ -60,6 +60,20 @@ Leaf of a stage's layer carries its global layer (``pp_layer``):
 checkpoint holds the canonical order whatever the schedule. FSDP inside
 pipeline stages is not ported (``check_pp_fsdp`` raises).
 
+2-D tensor parallelism (JAX ``text_param_specs(tp2d=True)`` :57-79: the
+tq axis) cuts the other matrix dim of each decoder weight over tq
+(``tq_dim``; torch's ``[out, in]``): a column weight's input dim (torch
+dim 1, JAX's ``[L, in@tq, out@tp]``), a row weight's output dim (dim 0,
+``[L, in@tp, out@tq]``), the embedding's and the head's hidden dim (dim 1,
+``[V@tp, H@tq]`` and ``[H@tq, V@tp]``); piece q on tq rank q. Biases, the
+norms, LoRA's adapters, the tower and the projector stay replicated over
+tq, as in JAX; a bias (and a LoRA factor cut over tp) is used after the
+sum over tq, the same on every tq rank (``Leaf.tq_same``), where a norm
+(and the rest) is used on the rank's hidden slice. kv heads keep the
+whole-head rule over tp. ``shard_params`` binds ``Qwen2Params.tq_comm``
+(and ``tp_comm``, a LocalComm at tp 1), and gathers go over tq as well.
+Quantised trees, FSDP and pp do not compose with tq (validate_geometry).
+
 The batch slices (JAX ``batch_spec`` :165, P(dp, cp), and
 ``activation_spec`` :170) are ``rank_rows`` and ``rank_seq``.
 """
@@ -141,7 +155,11 @@ class Leaf:
     (tp // Hkv for a kv projection at tp > Hkv, else 1); under FSDP, of
     that slice, piece ``dp_index`` of ``dp`` along ``fsdp_dim`` (None: not
     cut over dp); over pp, ``pp_layer`` the global layer of a leaf of the
-    stage's layers (None: a leaf every stage holds)."""
+    stage's layers (None: a leaf every stage holds); under 2-D tp, piece
+    ``tq_index`` of ``tq`` along ``tq_dim`` (None: replicated over tq), and
+    ``tq_same`` for a leaf replicated over tq that the tq ranks use after
+    their sum, all in the same way (a bias): its gradient is the same on
+    each."""
 
     dim: Optional[int]
     pieces: int = 1
@@ -151,6 +169,10 @@ class Leaf:
     dp: int = 1
     dp_index: int = 0
     pp_layer: Optional[int] = None
+    tq_dim: Optional[int] = None
+    tq: int = 1
+    tq_index: int = 0
+    tq_same: bool = False
 
     @property
     def sharded(self) -> bool:
@@ -167,6 +189,18 @@ class Leaf:
         """A layer of this rank's pipeline stage (cut over pp)."""
         return self.pp_layer is not None
 
+    @property
+    def cut_tq(self) -> bool:
+        """Cut over tq (2-D tp)."""
+        return self.tq_dim is not None
+
+    @property
+    def partial(self) -> bool:
+        """Replicated over tp and tq and used on the rank's slice of the
+        sequence or of the hidden dim: its gradient on a rank is a part of
+        the whole one, summed over every rank that holds it."""
+        return not (self.sharded or self.cut_tq or self.tq_same)
+
 
 def layer_of(name: str) -> Optional[int]:
     """The layer index in a decoder parameter's name (``text.layers.3.
@@ -182,14 +216,20 @@ def renamed(name: str, layer: int) -> str:
 
 
 def leaf_rule(name: str, dim: Optional[int], tp_index: int, tp: int, hkv: int,
-              fsdp_dim: Optional[int] = None, dp_index: int = 0, dp: int = 1) -> Leaf:
+              fsdp_dim: Optional[int] = None, dp_index: int = 0, dp: int = 1,
+              tq_dim: Optional[int] = None, tq_index: int = 0, tq: int = 1) -> Leaf:
     """The Leaf of parameter ``name`` whose spec is ``dim``, on tp rank
     ``tp_index`` of ``tp`` (and, with ``fsdp_dim``, dp rank ``dp_index`` of
-    ``dp``): whole kv heads, so with tp > Hkv a k/v projection splits into
-    Hkv pieces and rank t takes the piece of its q heads' kv head. Nothing
-    is cut over an axis of one rank."""
+    ``dp``; with ``tq_dim``, tq rank ``tq_index`` of ``tq``): whole kv
+    heads, so with tp > Hkv a k/v projection splits into Hkv pieces and
+    rank t takes the piece of its q heads' kv head. Nothing is cut over an
+    axis of one rank. Under tq > 1 a leaf with a tp spec that tq leaves
+    whole is ``tq_same``."""
     fs = dict(fsdp_dim=fsdp_dim, dp=dp, dp_index=dp_index) if fsdp_dim is not None and dp > 1 \
         else {}
+    if tq > 1:
+        fs.update(dict(tq_dim=tq_dim, tq=tq, tq_index=tq_index) if tq_dim is not None
+                  else dict(tq_same=dim is not None))
     if dim is None or tp == 1:
         return Leaf(None, **fs)
     if tp > hkv and (".k_proj." in name or ".v_proj." in name):
@@ -221,6 +261,18 @@ def fsdp_dim(name: str) -> Optional[int]:
     return None
 
 
+def tq_dim(name: str) -> Optional[int]:
+    """The torch dim 2-D tp cuts over tq of a decoder parameter, by its name
+    in the tree (``text.layers.3.o_proj.weight``, or without ``text.``):
+    the one FSDP cuts over dp (a column weight's input, 1; a row weight's
+    output, 0), but the embedding's and the head's hidden dim (1) where
+    FSDP cuts their vocabulary, and no norm; None for everything else
+    (biases, norms, LoRA, the tower and the projector: replicated)."""
+    if name.removeprefix("text.") in ("embed", "lm_head.weight"):
+        return 1
+    return None if name.endswith("_norm") else fsdp_dim(name)
+
+
 def dense_spec(name: str) -> Optional[int]:
     """The spec of a dense parameter of the decoder by its name in the tree
     (``text.layers.3.o_proj.weight``; no LoRA, no quantisation): what
@@ -237,10 +289,11 @@ def dense_spec(name: str) -> Optional[int]:
 
 
 def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
-                dp: int = 1, stage=None) -> dict[str, Leaf]:
+                dp: int = 1, stage=None, tq_index: int = 0, tq: int = 1) -> dict[str, Leaf]:
     """name -> Leaf for every parameter of ``params`` (a whole tree or a
     shard: the names and specs are the same) on tp rank ``tp_index``, and
-    with dp > 1 FSDP's dp rank ``dp_index`` of ``dp``; with ``stage`` (a
+    with dp > 1 FSDP's dp rank ``dp_index`` of ``dp``, with tq > 1 2-D tp's
+    tq rank ``tq_index`` of ``tq``; with ``stage`` (a
     parallel.pipeline.Stage, the tree that stage's) each leaf of local
     layer i carries the global layer stage.layers()[i]. ``cfg``: a
     LongVITAConfig or TextConfig (the kv heads)."""
@@ -248,7 +301,8 @@ def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
     ids = stage.layers() if stage is not None else None
     out = {}
     for name, dim in long_vita_param_specs(params).items():
-        leaf = leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp)
+        leaf = leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp,
+                         tq_dim(name), tq_index, tq)
         i = layer_of(name) if ids is not None else None
         out[name] = dataclasses.replace(leaf, pp_layer=ids[i]) if i is not None else leaf
     return out
@@ -260,22 +314,26 @@ def _text(params):
 
 def rank_layout(params, cfg, mesh: Mesh) -> Optional[dict[str, Leaf]]:
     """The layout of a rank's tree as it is cut: over tp when it is bound
-    to a tp communicator, over dp when it is FSDP-sharded
-    (``Qwen2Params.fsdp``), over pp when it is a pipeline stage's
-    (``Qwen2Params.pp``); None for a whole tree."""
+    to a tp communicator, over tq when it is bound to a tq one (2-D tp),
+    over dp when it is FSDP-sharded (``Qwen2Params.fsdp``), over pp when it
+    is a pipeline stage's (``Qwen2Params.pp``); None for a whole tree."""
     text = _text(params)
     tp = mesh.shape["tp"] if text.tp_comm is not None else 1
+    tq = mesh.shape["tq"] if text.tq_comm is not None else 1
     dp = mesh.shape["dp"] if text.fsdp is not None else 1
-    if tp == 1 and dp == 1 and text.pp is None:
+    if tp == 1 and tq == 1 and dp == 1 and text.pp is None:
         return None
-    return leaf_layout(params, cfg, mesh.tp_index, tp, mesh.dp_index, dp, text.pp)
+    return leaf_layout(params, cfg, mesh.tp_index, tp, mesh.dp_index, dp, text.pp,
+                       mesh.tq_index, tq)
 
 
 def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
     """This rank's slice of a whole tensor (a view; t itself when
-    replicated): its tp piece, then of that its dp piece."""
+    replicated): its tp piece, of that its tq piece, then its dp piece."""
     if leaf.dim is not None:
         t = _piece(t, leaf.dim, leaf.index, leaf.pieces)
+    if leaf.tq_dim is not None:
+        t = _piece(t, leaf.tq_dim, leaf.tq_index, leaf.tq)
     if leaf.fsdp_dim is not None:
         t = _piece(t, leaf.fsdp_dim, leaf.dp_index, leaf.dp)
     return t
@@ -316,28 +374,36 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     pp) the decoder keeps the stage's layers alone, ``virtual_pp`` chunks
     of them chunk-major (parallel/pipeline.stage_layers), and is bound to
     ``parallel.pipeline.Stage(mesh.pp_comm, L, virtual_pp)``
-    (``Qwen2Params.pp``); every other leaf is whole on every stage. tp 1
-    without FSDP or pp returns ``params``."""
+    (``Qwen2Params.pp``); every other leaf is whole on every stage. Over tq
+    (training, JAX's ``tp2d``) the decoder's weights are cut over tq too
+    (``tq_dim``) and the tree is bound to ``mesh.tq_comm`` (and to
+    ``mesh.tp_comm`` at tp 1 too, a LocalComm: the 2-D layer runs
+    sequence parallel); a dense tree only. tp 1 without FSDP, pp or tq
+    returns ``params``."""
     from long_vita_tpu_torch.models.long_vita import LongVITAParams
     from long_vita_tpu_torch.models.qwen2 import check_moe_mesh
     from long_vita_tpu_torch.parallel.fsdp import Fsdp
     from long_vita_tpu_torch.parallel.pipeline import Stage
 
     tp, dp, pp = mesh.shape["tp"], mesh.shape["dp"] if fsdp else 1, mesh.shape["pp"]
-    if tp == 1 and dp == 1 and pp == 1:
+    tq = mesh.shape["tq"]
+    if tp == 1 and dp == 1 and pp == 1 and tq == 1:
         return params
     text_cfg = getattr(cfg, "text", cfg)
-    validate_geometry(text_cfg, MeshConfig(dp=dp, pp=pp, tp=tp), virtual_pp=virtual_pp,
+    validate_geometry(text_cfg, MeshConfig(dp=dp, pp=pp, tp=tp, tq=tq), virtual_pp=virtual_pp,
                       fsdp=fsdp)
-    check_moe_mesh(text_cfg, dp=dp, tp=tp, pp=pp)
-    if dp > 1 and any(n.endswith((".weight_q", ".packed")) for n, _ in params.named_parameters()):
-        raise ValueError("FSDP shards a dense tree (training); this one is quantised")
+    check_moe_mesh(text_cfg, dp=dp, tp=tp, pp=pp, tq=tq)
+    quantised = any(n.endswith((".weight_q", ".packed")) for n, _ in params.named_parameters())
+    if quantised and (dp > 1 or tq > 1):
+        raise ValueError(f"{'FSDP' if dp > 1 else '2-D tp (tq)'} shards a dense tree "
+                         "(training); this one is quantised")
     stage = None
     if pp > 1:
         check_pp_fsdp(pp, dp)
         stage = Stage(mesh.pp_comm, len(_text(params).layers), virtual_pp)
         params = stage_tree(params, [_text(params).layers[g] for g in stage.layers()])
-    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp, stage)
+    layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp, stage,
+                         mesh.tq_index, tq)
     tensors = {}
     for name, t in params.named_parameters():
         piece = slice_leaf(t.detach(), layout[name])
@@ -348,7 +414,8 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
         tensors[name] = piece
     local = _rebuild(params, tensors)
     text = local.text if isinstance(local, LongVITAParams) else local
-    text.tp_comm = mesh.tp_comm if tp > 1 else None
+    text.tp_comm = mesh.tp_comm if tp > 1 or tq > 1 else None
+    text.tq_comm = mesh.tq_comm if tq > 1 else None
     text.fsdp = Fsdp(mesh.dp_comm) if dp > 1 else None
     text.pp = stage
     return local
@@ -381,11 +448,12 @@ def shard_named(tensors: dict, layout: dict[str, Leaf]) -> dict:
 
 
 def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None,
-                 keep: bool = True, dp_comm=None, stage=None) -> Optional[dict]:
+                 keep: bool = True, dp_comm=None, stage=None, tq_comm=None) -> Optional[dict]:
     """Shards (name -> this rank's slice) -> the whole tensors, leaf by leaf
     in ``tensors``' order (every tp rank, and under FSDP every dp rank,
-    calls it with the same names): an FSDP leaf is all-gathered over
-    ``dp_comm`` along its fsdp_dim first, a tp-sharded one then over
+    under 2-D tp every tq rank, calls it with the same names): an FSDP leaf
+    is all-gathered over ``dp_comm`` along its fsdp_dim first, a leaf cut
+    over tq over ``tq_comm`` along its tq_dim, a tp-sharded one then over
     ``tp_comm`` along its dim, and of a slice that ``share`` ranks hold one
     copy is kept; a layer of a pipeline ``stage`` is then all-gathered over
     its pp communicator (every stage calls it with its local names) and
@@ -400,6 +468,8 @@ def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None
         whole = t.detach()
         if leaf.fsdp:
             whole = dp_comm.all_gather(whole.contiguous(), leaf.fsdp_dim)
+        if leaf.cut_tq:
+            whole = tq_comm.all_gather(whole.contiguous(), leaf.tq_dim)
         if leaf.sharded and tp_comm.size > 1:
             whole = tp_comm.all_gather(whole.contiguous(), leaf.dim)
             if leaf.share > 1:
@@ -418,7 +488,7 @@ def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None
 
 def gather_params(local, mesh: Mesh, cfg, *, device=None):
     """A rank's shard (shard_params) -> the whole tree, every tp (and FSDP
-    dp, and pp) rank the same one (a pipeline stage's layers back in
+    dp, tq, and pp) rank the same one (a pipeline stage's layers back in
     canonical order), on ``device`` (default: the shard's), bound to
     no communicator (checkpoints, export). A whole tree is returned as it
     is."""
@@ -428,12 +498,12 @@ def gather_params(local, mesh: Mesh, cfg, *, device=None):
     named = dict(local.named_parameters())
     stage = _text(local).pp
     gathered = gather_named(named, layout, mesh.tp_comm, device=device, dp_comm=mesh.dp_comm,
-                            stage=stage)
+                            stage=stage, tq_comm=mesh.tq_comm)
     if stage is not None:  # a template of the whole decoder's layers
         local = stage_tree(local, [_text(local).layers[0]] * stage.n_layers)
     whole = _rebuild(local, gathered)
     text = _text(whole)
-    text.tp_comm = text.fsdp = text.pp = None
+    text.tp_comm = text.tq_comm = text.fsdp = text.pp = None
     return whole
 
 

@@ -11,10 +11,10 @@ Stage handoff: ``load_checkpoint(..., load_optim=False)`` and
 ``restore_params_only`` take the parameters and keep the fresh optimizer
 state, as the reference's --no-load-optim --finetune.
 
-The format knows no mesh geometry: over tensor parallelism, FSDP and
-pipeline stages (``layout``, parallel/sharding.rank_layout of a rank's
+The format knows no mesh geometry: over tensor parallelism (1-D and 2-D),
+FSDP and pipeline stages (``layout``, parallel/sharding.rank_layout of a rank's
 shard) ``save_checkpoint`` gathers the parameters and the moments leaf by
-leaf, over dp (FSDP), then tp, then pp (a stage's layers under their
+leaf, over dp (FSDP), then tq, then tp, then pp (a stage's layers under their
 global names, in canonical order whatever the schedule), and world rank 0
 writes the whole tree, the one-device format (JAX's orbax stores hold
 global arrays too); loading cuts each rank's slices from the whole tensors
@@ -55,21 +55,22 @@ def _steps(directory: str) -> list[int]:
 
 def save_checkpoint(directory: str, state: TrainState, step: Optional[int] = None, *,
                     layout: Optional[dict] = None, tp_comm=None, write: bool = True,
-                    dp_comm=None) -> None:
+                    dp_comm=None, tq_comm=None) -> None:
     """Write ``state`` as step ``step`` (default: state.step); drop all but
-    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp, FSDP
-    and pp (``layout`` of the state's shards, their ``tp_comm`` and, for
-    FSDP leaves, ``dp_comm``; a pipeline stage's tree gathers its layers
-    over its Stage's communicator): every rank of those groups calls it,
-    the parameters and moments are gathered to the host leaf by leaf, and
-    only the rank given ``write`` writes."""
+    the newest MAX_TO_KEEP steps. The file appears atomically. Over tp, tq,
+    FSDP and pp (``layout`` of the state's shards, their ``tp_comm`` and,
+    for FSDP leaves, ``dp_comm``, for leaves cut over tq, ``tq_comm``; a
+    pipeline stage's tree gathers its layers over its Stage's
+    communicator): every rank of those groups calls it, the parameters and
+    moments are gathered to the host leaf by leaf, and only the rank given
+    ``write`` writes."""
     step = state.step if step is None else int(step)
     params = {n: p.detach() for n, p in state.params.named_parameters()}
     mu, nu = state.opt_state.mu, state.opt_state.nu
     if layout is not None:
         stage = getattr(state.params, "text", state.params).pp
         params, mu, nu = (gather_named(t, layout, tp_comm, device="cpu", keep=write,
-                                       dp_comm=dp_comm, stage=stage)
+                                       dp_comm=dp_comm, stage=stage, tq_comm=tq_comm)
                           for t in (params, mu, nu))
     if not write:
         return

@@ -26,7 +26,10 @@ a column projection, ``a`` its in dim in a row one, the other factor
 replicated. add_lora_params draws each ``a`` whole and keeps the rank's
 slice, so every geometry draws the same adapters; merge_lora folds per
 shard (the slice of the whole merge); save_lora gathers them over tp and
-tp rank 0 writes; load_lora cuts the rank's slices.
+tp rank 0 writes; load_lora cuts the rank's slices. On a 2-D tp shard
+(its tq_comm set too) the adapters are those of the rank's tp index, each
+replicated over tq (JAX replicates them): the decoder takes the rows or
+columns of its hidden slice from them (models/qwen2.py).
 """
 from __future__ import annotations
 
@@ -105,6 +108,8 @@ def add_lora_params(
     text = _text(params)
     tp, fs, stage = text.tp_comm, text.fsdp, text.pp
     dp = fs.comm.size if fs is not None else 1
+    # FSDP (dp) and 2-D tp (tq) cut the dim of a weight that tp leaves whole
+    dp *= text.tq_comm.size if text.tq_comm is not None else 1
     # the decoder's layers in drawing order, None where another stage holds it
     layers = list(text.layers)
     if stage is not None:
@@ -120,7 +125,7 @@ def add_lora_params(
             d_in, d_out = _in_out(entry)
             if tp is not None and t in ("o_proj", "down_proj"):
                 d_in *= tp.size  # the whole input dim of a row projection
-            # FSDP cuts a column weight's input dim and a row weight's output dim
+            # FSDP and tq cut a column weight's input dim and a row weight's output dim
             if t in ("o_proj", "down_proj"):
                 d_out *= dp
             else:
@@ -145,9 +150,11 @@ def merge_lora(params: Params, cfg: TextConfig) -> Params:
     tp_comm."""
     if cfg.lora_r == 0:
         return params
-    if _text(params).fsdp is not None or _text(params).pp is not None:
-        raise ValueError("merge_lora takes a whole tree or a tp shard; gather an FSDP shard "
-                         "or a pipeline stage's tree first (parallel/sharding.gather_params)")
+    if (_text(params).fsdp is not None or _text(params).pp is not None
+            or _text(params).tq_comm is not None):
+        raise ValueError("merge_lora takes a whole tree or a tp shard; gather an FSDP shard, a "
+                         "2-D tp shard or a pipeline stage's tree first "
+                         "(parallel/sharding.gather_params)")
     scale = cfg.lora_alpha / cfg.lora_r
     text = _text(params)
     layers = []
@@ -217,10 +224,10 @@ def _adapters(params: Params, cfg: TextConfig) -> dict[str, dict[str, torch.Tens
 def save_lora(path: str, params: Params, cfg: TextConfig, lcfg: LoraConfig) -> None:
     """Write the adapters as lora_weights.npz + lora_config.json. On a tp
     shard every tp rank calls it: the adapters are gathered over tp and tp
-    rank 0 writes."""
-    tp = _text(params).tp_comm
+    rank 0 writes (of a 2-D shard, tq rank 0 of it)."""
+    tp, tq = _text(params).tp_comm, _text(params).tq_comm
     adapters = _adapters(params, cfg)
-    if tp is not None and tp.rank != 0:
+    if (tp is not None and tp.rank != 0) or (tq is not None and tq.rank != 0):
         return
     os.makedirs(path, exist_ok=True)
     flat = {}

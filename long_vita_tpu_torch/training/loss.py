@@ -69,8 +69,10 @@ class _VocabParallelCE(torch.autograd.Function):
     but for the hidden rows' gradient, summed over tp."""
 
     @staticmethod
-    def forward(ctx, hidden, weight, labels, tp):
+    def forward(ctx, hidden, weight, labels, tp, tq):
         logits = _f32_logits_local(hidden, weight)  # [N, V/tp]
+        if tq is not None:  # 2-D tp: partial logits of the rank's hidden slice
+            logits = tq.all_reduce_sum(logits)
         vloc = logits.shape[1]
         # the max offset cancels, so it is taken without a gradient: the
         # rank's row max, then the max over tp (an exact all-gather)
@@ -101,11 +103,11 @@ class _VocabParallelCE(torch.autograd.Function):
             d_hidden = ctx.tp.all_reduce_sum(_f32_product(dlogits, weight, hidden.dtype))
         if ctx.needs_input_grad[1]:
             d_weight = _f32_product(dlogits.t(), hidden, weight.dtype)
-        return d_hidden, d_weight, None, None
+        return d_hidden, d_weight, None, None, None
 
 
 def vocab_parallel_ce(
-    weight: torch.Tensor, hidden: torch.Tensor, labels: torch.Tensor, tp
+    weight: torch.Tensor, hidden: torch.Tensor, labels: torch.Tensor, tp, tq=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The budget rows' head GEMM and CE against the vocab-sharded head
     (loss.py:40, the reference's vocab-parallel CE): weight [V/tp, H], this
@@ -117,10 +119,15 @@ def vocab_parallel_ce(
     holds the label (IGNORE_INDEX rows masked). -> (summed loss, count) of
     these rows, f32, the same on every tp rank: the caller sums them over
     dp x cp (disjoint rows). The rows' gradient is summed over tp in the
-    backward, the weight's stays the rank's own."""
+    backward, the weight's stays the rank's own. tq (2-D tp, where JAX
+    takes its plain head, train_step.py:75-84): hidden is the rows' hidden
+    slice and weight the rank's [V/tp, H/tq] block; the f32 partial logits
+    are summed over tq first, so every tq rank goes on with the same logits
+    and its gradient passes through that sum (each rank's rows and weight
+    take theirs from it)."""
     flat = hidden.reshape(-1, hidden.shape[-1])
     labels = labels.reshape(-1)
-    nll = _VocabParallelCE.apply(flat, weight, labels, tp)
+    nll = _VocabParallelCE.apply(flat, weight, labels, tp, tq)
     return nll.sum(), (labels != IGNORE_INDEX).sum().float()
 
 

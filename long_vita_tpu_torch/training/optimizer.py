@@ -44,7 +44,9 @@ global arrays. Under FSDP a rank's parameters, gradients and moments are
 its 1/dp shards (the moments take the parameters' shapes), and the norm
 sums an FSDP leaf's squares over dp as well. Over pp a rank holds its
 stage's layers: their squares are summed over the stages, and a leaf
-every stage holds is counted once.
+every stage holds is counted once. Under 2-D tp a leaf cut over tq has
+its squares summed over tq, and one that tq leaves whole is counted on tq
+rank 0 alone.
 """
 from __future__ import annotations
 
@@ -265,8 +267,17 @@ def leaf_class(leaf) -> int:
     return (1 if leaf.sharded else 0) + (2 if leaf.fsdp else 0) + (4 if leaf.staged else 0)
 
 
+def counted(leaf, tp_comm, tq_comm) -> bool:
+    """Whether this rank counts a Leaf's squares in the global norm: of a
+    slice that ``share`` tp ranks hold, the first; of a leaf that tq does
+    not cut, tq rank 0."""
+    if leaf.sharded and tp_comm.rank % leaf.share:
+        return False
+    return leaf.cut_tq or tq_comm.rank == 0
+
+
 def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] = None,
-                   dp_comm=None, pp_comm=None) -> torch.Tensor:
+                   dp_comm=None, pp_comm=None, tq_comm=None) -> torch.Tensor:
     """The global norm over a rank's shards (optax.global_norm of the whole
     arrays): ``layout`` (parallel/sharding.leaf_layout) tells a leaf cut
     over tp, whose squares are summed over ``tp_comm`` (of a slice that
@@ -276,14 +287,18 @@ def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] =
     gradient is the same on every dp rank and an FSDP-cut replicated one's
     on every tp rank, so each counts once there. A pipeline stage's layers
     are summed over ``pp_comm`` too, a leaf every stage holds counted once.
-    ``folded``: f32 sums of squares of gradients folded away already, by
+    Under 2-D tp every class is summed over ``tq_comm``, each leaf counted
+    as ``counted`` says. ``folded``: f32 sums of squares of gradients folded away already, by
     leaf_class (this rank's shares). -> f32 scalar, the same bits on every
     rank."""
     sums = list(folded) if folded is not None else [None] * 8
     sums += [None] * (8 - len(sums))
+    from long_vita_tpu_torch.parallel.comm import LocalComm
+
+    tq_comm = tq_comm if tq_comm is not None else LocalComm()
     for name, g in grads.items():
         leaf = layout[name]
-        if leaf.sharded and tp_comm.rank % leaf.share:
+        if not counted(leaf, tp_comm, tq_comm):
             continue
         k = leaf_class(leaf)
         sq = square_sum(g)
@@ -303,6 +318,8 @@ def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] =
     cut = tp_comm.all_reduce_sum(cut * torch.stack([once(True), once(tp_comm.rank == 0),
                                                     once(True)]))
     total = cut.sum(1) + sums[:, 0]
+    if tq_comm.size > 1:
+        total = tq_comm.all_reduce_sum(total)
     staged = total[1]
     if pp_comm is not None and pp_comm.size > 1:
         staged = pp_comm.all_reduce_sum(staged)

@@ -10,7 +10,7 @@ for the released stages):
            lora: {r, alpha, targets, lora_only}
     data:  {corpus: <corpus.yaml>, seq_len, logit_budget, max_patch_grid,
             max_num_frame, max_fps, system_message, cross_dataset_joint, ...}
-    mesh:  {dp, pp, cp, tp}            # dp x pp x cp x tp over processes; tq raises
+    mesh:  {dp, pp, cp, tp, tq}        # dp x pp x cp x tp x tq over processes
     optim: {lr, warmup_steps, total_steps, freeze_vision, ...}
     run:   {steps, global_batch, micro_batch, remat, save_dir, output_dir,
             profile_steps, seed, virtual_pp, fsdp, ...}
@@ -30,7 +30,9 @@ parallel/fsdp.py) each rank reads only its (tp, dp) piece of every FSDP
 leaf and holds 1/dp of it, its gradient and its moments. Over pp
 (pipeline stages, parallel/pipeline.py; run.virtual_pp > 1 the interleaved
 schedule) each rank reads only its stage's layers (and of them its tp
-slices):
+slices). Over tq (2-D tp: every decoder weight cut over both matrix dims,
+the hidden dim of the activations over tq) each rank reads only its (tp,
+tq) block of every decoder weight, the embedding and the head:
 
     torchrun --nproc-per-node 8 -m long_vita_tpu_torch.training.train \
         --config recipe.yaml      # mesh: {dp: 1, cp: 1, tp: 8}
@@ -38,6 +40,8 @@ slices):
         --config configs/stage2_72b_tp8fsdp8.yaml   # mesh {dp: 8, tp: 8}, run.fsdp
     torchrun --nnodes 8 --nproc-per-node 8 ... \
         --config configs/stage1_72b_tp8pp8.yaml     # mesh {dp: 1, pp: 8, tp: 8}
+    torchrun --nproc-per-node 8 -m long_vita_tpu_torch.training.train \
+        --config recipe.yaml      # mesh: {dp: 2, tp: 2, tq: 2}
  The JAX main
 also enables JAX's persistent compile cache, which has no counterpart: the
 port compiles nothing at run time but its kernels, which ops/_build.py
@@ -117,9 +121,9 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     where the JAX function takes the 14B model's (448 px, 256 tokens)
     whatever the checkpoint; the two agree on every released model.
     comm: the world communicator of a mesh of more than one rank (default:
-    the initialized torch.distributed group). Over tp > 1, pp > 1, or dp >
-    1 with run.fsdp, the mesh is made here and each rank loads only its
-    slices of the decoder, over pp its stage's layers (from
+    the initialized torch.distributed group). Over tp > 1, tq > 1, pp > 1,
+    or dp > 1 with run.fsdp, the mesh is made here and each rank loads only
+    its slices of the decoder, over pp its stage's layers (from
     ``model.checkpoint`` or ``model.graft``; a ``load_stage`` checkpoint is
     cut the same way), and LoRA's adapters are drawn whole and cut over tp
     (replicated over dp, the stage's kept over pp), so that every
@@ -137,7 +141,7 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     dtype = _DTYPES[model_cfg.get("dtype", "bfloat16")]
     mesh, stats = None, {}
     fsdp = tcfg.fsdp and tcfg.mesh.dp > 1
-    if tcfg.mesh.tp > 1 or tcfg.mesh.pp > 1 or fsdp:
+    if tcfg.mesh.tp > 1 or tcfg.mesh.tq > 1 or tcfg.mesh.pp > 1 or fsdp:
         mesh = _recipe_mesh(tcfg, comm)
     if model_cfg.get("graft"):
         # stage-1 bootstrap: stock Qwen2 + stock InternViT (reference

@@ -1,4 +1,4 @@
-"""The training step, on one device or on a dp x pp x cp x tp mesh of ranks.
+"""The training step, on one device or on a dp x pp x cp x tp x tq mesh of ranks.
 
 Counterpart of long_vita_tpu/training/train_step.py: the loss of the
 logits-masked head over the VLM forward, its gradients by autograd (through
@@ -70,6 +70,21 @@ processes, over gloo processes sharing a card through host-staged
 collectives (parallel/comm.init_process_group(..., staged_device="cuda")),
 or on the CPU, it runs.
 
+Under 2-D tp (the tq axis, ``Qwen2Params.tq_comm``; JAX keeps the plain
+head there, :75-84) the forward runs in the [B@dp, S@(cp, tp), H@tq]
+layout and the loss is vocab_parallel_ce over tp of the logits summed
+over tq, the same on every tp and tq rank of a (dp, cp) index. Who sums
+what over tq (JAX's GSPMD gives these sums implicitly): a leaf cut over tq
+(the kernels, the embedding, the head) has its own gradient on each tq
+rank and is summed over dp x cp as a tp shard is; a leaf with a tp spec
+that tq leaves whole (the q/k/v biases, LoRA's factors cut over tp) is
+used after the sum over tq, the same on every tq rank, so its gradient is
+too and is summed over dp x cp alone (``Leaf.tq_same``), counted once in
+grad_norm; every other leaf (the norms, final_norm, the tower, the
+projector, LoRA's replicated factors) is used on the rank's hidden slice,
+or feeds a row that is cut to it, and is summed over the world, tq
+included (``Leaf.partial``). ``_UNSUMMED_OVER_TQ`` is the gates' fault.
+
 Freezing mirrors the JAX step: freeze_text stops the gradient at the text
 weights (requires_grad off: no dW is formed, activation gradients still flow
 through the decoder to the projector), freeze_vision runs the tower under
@@ -96,6 +111,7 @@ from long_vita_tpu_torch.training.loss import cross_entropy, vocab_parallel_ce
 from long_vita_tpu_torch.training.optimizer import (
     AdamState,
     AdamW,
+    counted,
     global_norm,
     leaf_class,
     square_sum,
@@ -119,6 +135,11 @@ _NORM_UNSUMMED_OVER_DP = False
 # each stage's own layers only (their squares not summed over pp).
 _UNSUMMED_OVER_PP = False
 _NORM_UNSUMMED_OVER_PP = False
+# A fault for the 2-D tp gates, never set in training: parameter names ending
+# in one of these suffixes have their replicated gradient summed over the
+# ranks of this rank's tq index only (each rank's norm gradient covers its
+# hidden slice alone).
+_UNSUMMED_OVER_TQ: tuple = ()
 
 
 @dataclasses.dataclass
@@ -143,11 +164,13 @@ def loss_terms(
     (the parameters a tp shard): the vocab-parallel CE of those rows (JAX
     :75-84's rule: tp > 1 without pp or tq, the budget dividing over cp,
     which the Trainer's validate_geometry holds), the same on every tp
+    rank. With tq > 1 (a 2-D tp shard), where JAX takes its plain head:
+    the same CE of the logits summed over tq, the same on every tp and tq
     rank. Over pp (JAX's rule: the plain head and CE there): the last
     stage's rows; a stage before the last returns the pipeline's anchor (a
     zero tied to its backward, parallel/pipeline.py) and a count of 0, and
     the last stage adds the anchor to its sum."""
-    tp = parallel.mesh.shape["tp"] if parallel is not None else 1
+    tp = parallel.mesh.shape["tp"] * parallel.mesh.shape["tq"] if parallel is not None else 1
     pp = parallel.pp if parallel is not None else 1
     vp = tp > 1 and pp == 1
     out, _, aux, anchor = long_vita_forward(
@@ -168,7 +191,7 @@ def loss_terms(
     if vp:
         with streaming(params.text):  # an FSDP head is gathered, and again in the backward
             loss_sum, count = vocab_parallel_ce(head_weight(params.text), out, labels,
-                                                params.text.tp_comm)
+                                                params.text.tp_comm, params.text.tq_comm)
     else:
         loss_sum, count = cross_entropy(out, labels)
     return loss_sum + anchor, count, aux
@@ -203,9 +226,8 @@ def make_parallel_config(mesh, *, cp_algo: str = "ring", cp_inner: int = 1,
 
 
 def _check_mesh(mesh, device=None) -> None:
-    """A mesh must be a parallel.mesh.Mesh (dp x pp x cp x tp; tq raises
-    where the Mesh is made); thread-ranks train only on the CPU (see the
-    module docstring)."""
+    """A mesh must be a parallel.mesh.Mesh (dp x pp x cp x tp x tq);
+    thread-ranks train only on the CPU (see the module docstring)."""
     if mesh is None:
         return
     from long_vita_tpu_torch.parallel.mesh import Mesh
@@ -267,6 +289,8 @@ class _Reduction:
             return self.world
         leaf, mesh = self.layout[name], self.mesh
         unsummed = name.endswith(_UNSUMMED_OVER_TP)
+        if leaf.partial and not unsummed and name.endswith(_UNSUMMED_OVER_TQ):
+            return mesh.over("dp", "pp", "cp", "tp")
         if leaf.fsdp:
             if not leaf.sharded:
                 return mesh.cp_comm if unsummed else mesh.replica_comm
@@ -274,17 +298,17 @@ class _Reduction:
         if leaf.sharded and leaf.share > 1:
             return mesh.shared_comm(leaf.share)
         one_stage = leaf.staged or _UNSUMMED_OVER_PP
-        if not leaf.sharded and not unsummed:
+        if leaf.partial and not unsummed:
             return mesh.stage_comm if one_stage else self.world
         return mesh.dp_cp_comm if one_stage else mesh.dp_pp_cp_comm
 
     def counts(self, name: str) -> bool:
         """Whether this rank counts the leaf's squares in the norm (of a
-        slice several tp ranks share, only the first)."""
+        slice several tp ranks share, only the first; of a leaf that tq
+        does not cut, tq rank 0)."""
         if self.layout is None:
             return True
-        leaf = self.layout[name]
-        return not leaf.sharded or self.mesh.tp_comm.rank % leaf.share == 0
+        return counted(self.layout[name], self.mesh.tp_comm, self.mesh.tq_comm)
 
     def klass(self, name: str) -> int:
         """The leaf's optimizer.leaf_class (0 without a layout)."""
@@ -298,7 +322,8 @@ class _Reduction:
             return global_norm(grads.values(), extra)
         dp_comm = self.mesh.dp_comm if self.fsdp and not _NORM_UNSUMMED_OVER_DP else None
         pp_comm = self.mesh.pp_comm if not _NORM_UNSUMMED_OVER_PP else None
-        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded, dp_comm, pp_comm)
+        return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded, dp_comm, pp_comm,
+                              self.mesh.tq_comm)
 
 
 def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Training loop: data pipeline -> train step -> checkpoints, on one GPU or
-over a dp x pp x cp x tp mesh of ranks.
+over a dp x pp x cp x tp x tq mesh of ranks.
 
 Counterpart of long_vita_tpu/training/trainer.py. Kept from the JAX trainer: gradient accumulation over micro-batches,
 the NaN tripwire (pretrain_long_vita.py:822-827), the straggler log, save
@@ -12,7 +12,7 @@ make_data_pipeline, data_report.json / data_samples.json / data_error.log.
 make_data_pipeline is the JAX one: corpus YAML -> ChatML supervision ->
 greedy packs -> batches -> a prefetch thread.
 
-A mesh (``tcfg.mesh`` of dp x pp x cp x tp ranks over ``comm``, a
+A mesh (``tcfg.mesh`` of dp x pp x cp x tp x tq ranks over ``comm``, a
 parallel.comm communicator, or the torch.distributed group that
 training/distributed.maybe_initialize starts): every rank builds the Trainer
 with its own copy of the parameters (over tp > 1 the Trainer cuts its
@@ -38,9 +38,13 @@ stack whole; the pp ranks of one dp index take the same rows, the batch
 splits into pp microbatches (JAX's ParallelConfig default), and checkpoints
 gather the stages' layers back into canonical order (where JAX keeps its
 stores chunk-major and refuses another (pp, virtual_pp) on restore, a
-port checkpoint resumes at any pp and virtual_pp). Raising, with their
-ROADMAP items: 2-D tp (tq), MoE over a mesh (expert parallelism), FSDP
-inside pipeline stages; thread-ranks on CUDA
+port checkpoint resumes at any pp and virtual_pp). Over tq (2-D tp, JAX's
+tp2d layout) each rank holds its (tp, tq) block of every decoder weight
+(shard_params, or the blocks train.build_from_recipe loaded); the tq ranks
+of a (dp, cp) index take the same rows, and checkpoints gather over tq
+too, into the same one-device format. Raising, with their ROADMAP items
+or JAX's words: MoE over a mesh (expert parallelism), FSDP inside pipeline
+stages, tq with pp, MoE or FSDP; thread-ranks on CUDA
 (train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
@@ -60,7 +64,6 @@ from long_vita_tpu_torch.config import LongVITAConfig
 from long_vita_tpu_torch.models.long_vita import LongVITAParams
 from long_vita_tpu_torch.models.qwen2 import check_moe_mesh, check_remat
 from long_vita_tpu_torch.parallel.mesh import (
-    NEXT_SLICE,
     Mesh,
     MeshConfig,
     make_mesh,
@@ -152,15 +155,14 @@ class Trainer:
                  comm=None):
         """comm: the world communicator of a mesh of more than one rank
         (default: the initialized torch.distributed group), or the
-        parallel.mesh.Mesh of tcfg.mesh over it. Over tp or pp, ``params``
-        is the whole tree (this rank's shard is cut from it and the caller
-        may drop it) or this rank's shard (its tp_comm set; under FSDP cut
-        over dp too, its fsdp set; over pp a stage's, its pp set)."""
-        if tcfg.mesh.tq > 1:
-            raise NotImplementedError(f"tq = {tcfg.mesh.tq} (2-D tp) {NEXT_SLICE}")
+        parallel.mesh.Mesh of tcfg.mesh over it. Over tp, tq or pp,
+        ``params`` is the whole tree (this rank's shard is cut from it and
+        the caller may drop it) or this rank's shard (its tp_comm set, over
+        tq its tq_comm too; under FSDP cut over dp too, its fsdp set; over
+        pp a stage's, its pp set)."""
         check_remat(tcfg.remat)
         check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp,
-                       pp=tcfg.mesh.pp)
+                       pp=tcfg.mesh.pp, tq=tcfg.mesh.tq)
         check_pp_fsdp(tcfg.mesh.pp, tcfg.mesh.dp if tcfg.fsdp else 1)
         validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp,
                           logit_budget=tcfg.logit_budget, fsdp=tcfg.fsdp)
@@ -185,6 +187,7 @@ class Trainer:
         fsdp = tcfg.fsdp and tcfg.mesh.dp > 1
         staged = tcfg.mesh.pp > 1
         if (tcfg.mesh.tp > 1 and params.text.tp_comm is None) or (
+                tcfg.mesh.tq > 1 and params.text.tq_comm is None) or (
                 fsdp and params.text.fsdp is None) or (staged and params.text.pp is None):
             if params.text.tp_comm is not None:
                 raise ValueError("FSDP and pp cut a whole tree (or load its slices, "
@@ -257,8 +260,9 @@ class Trainer:
 
     def _save(self, save_checkpoint) -> None:
         """World rank 0 writes (every rank holds the same parameters; over
-        tp, under FSDP and over pp the ranks of its cp index (and dp index
-        without FSDP) gather the tree and its moments for it first)."""
+        tp and tq, under FSDP and over pp the ranks of its cp index (and dp
+        index without FSDP) gather the tree and its moments for it
+        first)."""
         if self.mesh is None:
             save_checkpoint(self.tcfg.save_dir, self.state)
             return
@@ -270,7 +274,7 @@ class Trainer:
                                     and (fsdp or mesh.dp_index == 0)):
             save_checkpoint(self.tcfg.save_dir, self.state, layout=layout,
                             tp_comm=mesh.tp_comm, dp_comm=mesh.dp_comm if fsdp else None,
-                            write=mesh.world.rank == 0)
+                            write=mesh.world.rank == 0, tq_comm=mesh.tq_comm)
         mesh.world.barrier()
 
     @torch.no_grad()

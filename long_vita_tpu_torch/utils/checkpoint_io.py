@@ -40,8 +40,10 @@ whole tree is never built. With ``fsdp=True`` (over dp > 1) a rank reads
 only its (tp, dp) piece of each FSDP leaf (a norm's, the embedding's and
 the head's are row ranges, a column weight's a strided range), as
 ``shard_params(..., fsdp=True)`` would cut it, and the tree is bound to
-the mesh's dp_comm too. ``SafetensorsIndex.bytes_read`` counts the bytes
-copied out of the files.
+the mesh's dp_comm too. Over tq (2-D tp) a rank reads only its (tp, tq)
+block of each decoder weight, the embedding and the head, as
+``shard_params`` cuts it over a tq mesh, bound to the mesh's tq_comm too.
+``SafetensorsIndex.bytes_read`` counts the bytes copied out of the files.
 """
 from __future__ import annotations
 
@@ -180,18 +182,20 @@ def load_text_params(
     prefix: str = "model.", device="cuda", mesh=None, fsdp: bool = False,
     virtual_pp: int = 1,
 ) -> Qwen2Params:
-    """The decoder; over ``mesh``'s tp axis (and with fsdp its dp axis)
-    this rank's slices of it, read from the files, and bound to
-    mesh.tp_comm (and an FSDP Fsdp over mesh.dp_comm); over its pp axis
+    """The decoder; over ``mesh``'s tp axis (and with fsdp its dp axis, or
+    its tq axis) this rank's slices of it, read from the files, and bound
+    to mesh.tp_comm (and an FSDP Fsdp over mesh.dp_comm, or mesh.tq_comm);
+    over its pp axis
     the stage's layers alone (``virtual_pp`` chunks of them chunk-major,
     parallel/pipeline.stage_layers), bound to a parallel.pipeline.Stage
     over mesh.pp_comm."""
     device = _target(device)
     tp = mesh.shape["tp"] if mesh is not None else 1
+    tq = mesh.shape["tq"] if mesh is not None else 1
     dp = mesh.shape["dp"] if mesh is not None and fsdp else 1
     pp = mesh.shape["pp"] if mesh is not None else 1
     stage = None
-    if tp > 1 or dp > 1 or pp > 1:
+    if tp > 1 or tq > 1 or dp > 1 or pp > 1:
         from long_vita_tpu_torch.parallel.mesh import MeshConfig, validate_geometry
         from long_vita_tpu_torch.parallel.pipeline import Stage
         from long_vita_tpu_torch.parallel.sharding import (
@@ -200,21 +204,22 @@ def load_text_params(
             fsdp_dim,
             leaf_rule,
             slice_leaf,
+            tq_dim,
         )
 
-        validate_geometry(cfg.text, MeshConfig(dp=dp, pp=pp, tp=tp), virtual_pp=virtual_pp,
-                          fsdp=fsdp)
+        validate_geometry(cfg.text, MeshConfig(dp=dp, pp=pp, tp=tp, tq=tq),
+                          virtual_pp=virtual_pp, fsdp=fsdp)
         check_pp_fsdp(pp, dp)
         if pp > 1:
             stage = Stage(mesh.pp_comm, cfg.text.num_hidden_layers, virtual_pp)
 
     def t(name, tree=None):
-        """The file's tensor ``name``; over tp and dp this rank's slice of
-        the tree's parameter ``tree`` (replicated when None)."""
-        if (tp == 1 and dp == 1) or tree is None:
+        """The file's tensor ``name``; over tp, tq and dp this rank's slice
+        of the tree's parameter ``tree`` (replicated when None)."""
+        if (tp == 1 and tq == 1 and dp == 1) or tree is None:
             return idx.tensor(name, device, dtype)
         leaf = leaf_rule(tree, dense_spec(tree), mesh.tp_index, tp, cfg.text.num_key_value_heads,
-                         fsdp_dim(tree), mesh.dp_index, dp)
+                         fsdp_dim(tree), mesh.dp_index, dp, tq_dim(tree), mesh.tq_index, tq)
         return idx.tensor(name, device, dtype, lambda view: slice_leaf(view, leaf))
 
     lm_head_key = "lm_head.weight"
@@ -247,8 +252,10 @@ def load_text_params(
         final_norm=t(prefix + "norm.weight"),
         lm_head=Dense(t(lm_head_key, "text.lm_head.weight")),
     )
-    if tp > 1:
+    if tp > 1 or tq > 1:
         text.tp_comm = mesh.tp_comm
+    if tq > 1:
+        text.tq_comm = mesh.tq_comm
     text.pp = stage
     if dp > 1:
         from long_vita_tpu_torch.parallel.fsdp import Fsdp

@@ -77,9 +77,10 @@ def graft_checkpoints(
     )
 
     if mesh is not None and out_dir is not None and (
-            mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1 or (fsdp and mesh.shape["dp"] > 1)):
+            mesh.shape["tp"] * mesh.shape["tq"] > 1 or mesh.shape["pp"] > 1
+            or (fsdp and mesh.shape["dp"] > 1)):
         raise ValueError("graft_checkpoints(out_dir=...) writes a whole tree; load it without "
-                         "a tp, pp or FSDP mesh")
+                         "a tp, tq, pp or FSDP mesh")
     llm_idx = SafetensorsIndex(llm_dir)
     text = load_text_params(llm_idx, cfg, dtype, device=device, mesh=mesh, fsdp=fsdp,
                             virtual_pp=virtual_pp)

@@ -261,12 +261,12 @@ def test_interleaved_encode_matches_upfront(media):
 
 
 def test_engine_rejects_mesh(media):
-    """A 2-D tensor-parallel mesh (tq) waits for a later multi-GPU slice
-    (cp and tp meshes serve: tests/test_torch_cp_engine.py,
-    test_torch_tp_engine.py)."""
-    from long_vita_tpu_torch.parallel.comm import LocalComm
+    """Serving over a 2-D tensor-parallel mesh (tq) waits for a later
+    multi-GPU slice (cp and tp meshes serve: tests/test_torch_cp_engine.py,
+    test_torch_tp_engine.py; tq trains: tests/test_torch_tp2d.py)."""
+    from long_vita_tpu_torch.parallel.comm import ThreadComm
     from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         InferenceEngine(media["plain"].params, media["cfg"], media["mm"],
-                        mesh=make_mesh(MeshConfig(tq=2), LocalComm()))
+                        mesh=make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0]))

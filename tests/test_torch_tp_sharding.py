@@ -100,13 +100,23 @@ def test_mesh_ranks_follow_jax_device_array(dims):
         assert replica == arr[d, 0].reshape(-1).tolist()
 
 
-def test_mesh_raises_for_pp_and_tq():
-    """tq (2-D tp) raises, naming its ROADMAP item; pp builds since the
-    pipeline slice (its rank order: tests/test_torch_pipeline.py)."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0])
+def test_mesh_raises_for_pp_and_tq(model):
+    """The mesh builds with tq (2-D tp, a training layout since its slice;
+    its rank order: tests/test_torch_tp2d.py) and with pp (since the
+    pipeline slice: tests/test_torch_pipeline.py); serving raises on either,
+    the engine on a tq mesh naming its ROADMAP item, rather than run a 1-D
+    or replicated path."""
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+
+    cfg, _, port_trees = model
+    mesh = make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[1])
+    assert mesh.shape["tq"] == 2 and mesh.tq_index == 1 and mesh.tq_comm.size == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP §1.*item 6"):
+        InferenceEngine(port_trees["f32"], cfg, None, mesh=mesh)
     mesh = make_mesh(MeshConfig(pp=2), ThreadComm.group(2)[1])
     assert mesh.shape["pp"] == 2 and mesh.pp_index == 1 and mesh.pp_comm.size == 2
+    with pytest.raises(NotImplementedError, match="pipeline stages run in training only"):
+        InferenceEngine(port_trees["f32"], cfg, None, mesh=mesh)
 
 
 # ---- the shards ----------------------------------------------------------------
