@@ -33,7 +33,9 @@ Phases (each raises on failure; the script then exits non-zero):
      each against K1 and K4/K5 over the whole unpermuted sequence (o, lse,
      dq, dk, dv);
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
-     bf16 weights from a seeded generator) through InferenceEngine: greedy
+     bf16 weights from a seeded generator; the phases after it through the
+     recipe phase take its first MAIN_LAYERS (24) layers, for the run's
+     time) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
      K1's launches; then the prefill's last-row logits against two plain
      references;
@@ -140,14 +142,15 @@ Phases (each raises on failure; the script then exits non-zero):
      at lr x 0.1, remat, 16384 tokens; logit budget cut to 4096) on one
      packed row with a 7-tile image, through train.build_from_recipe and
      Trainer.train: one step (the warm-up's lr-0 step; two until the 2-D
-     tp geometry joined) at tp 1 in a process of its own, then at tp 2 in
-     two gloo processes sharing this card
+     tp geometry joined) at tp 1 (in this process), then at tp 2 in two
+     gloo processes sharing this card
      (parallel/comm.init_process_group(..., staged_device="cuda"): each
      collective's operands staged through pinned host memory), then at tp
      2 x tq 2 (the recipe's mesh {dp: 4, tp: 8} cut to {tp: 2, tq: 2}:
      every decoder weight cut over both matrix dims) in four such
      processes from the same directory, each rank reading only its slices
-     of the checkpoint. Gates, for each geometry: losses and grad_norm
+     of the checkpoint. Gates, for each
+     geometry: losses and grad_norm
      against tp 1, every rank's loss bits, the first step's gradients
      gathered from the shards against tp 1's by leaf group, a planted
      fault (the norms' tp sum removed; over tq their tq sum) that must
@@ -162,7 +165,7 @@ Phases (each raises on failure; the script then exits non-zero):
      trainable, the tower at lr x 0.1 with layer decay 0.9, remat, 16384
      tokens; logit budget cut to 4096) on two packed rows with a 7-tile
      image each: one step (the lr-0 step; two until the 2-D tp geometry
-     joined the run) without FSDP in a process of its own, then dp 2
+     joined the run) without FSDP (in this process), then dp 2
      with FSDP in two gloo processes sharing this card (host-staged
      collectives), a row a rank, each reading only its pieces. Gates:
      losses and grad_norm against the reference, every rank's loss bits,
@@ -180,7 +183,7 @@ Phases (each raises on failure; the script then exits non-zero):
      configs/stage1_72b_tp8pp8.yaml's settings (the projector alone
      trains, remat, single-tile images; 16384 tokens, logit budget cut to
      2048 a row) on PP_ROWS rows (2; 4 until the 2-D tp geometry joined):
-     2 steps without pp in a process of its own,
+     2 steps without pp (in this process),
      then pp 2 in two gloo processes sharing this card (host-staged
      shifts), GPipe and then the interleaved schedule (virtual_pp 2) in the
      same processes, each stage reading its layers. Gates for each
@@ -207,8 +210,27 @@ Phases (each raises on failure; the script then exits non-zero):
      layers so, all 63 against an f32 tower), and SigLIP's backward
      through K4/K5 against the plain one); MoE (phase_moe: the 14B's widths
      with 8 experts, top-2, cut to 4 layers: a 2048-id prompt and 8 greedy
-     tokens through the engine under the logit gate, then two Trainer steps
-     with the aux loss on 2 of the layers);
+     tokens through the engine under the logit gate, then the same decoder
+     over tp 2 thread-ranks against one device, teacher-forced, routed as
+     the tp engine routed; its training is phase_ep_train's);
+  9d. expert parallelism (phase_ep_train), after the pp phase: the MoE VLM
+     at the 14B's widths (8 experts, top-2, capacity factor E / k so that
+     nothing drops), the decoder cut to 2 layers, the tower, embedding and
+     head frozen, two 8192-token rows with a 7-tile image each, two steps
+     (the lr-0 step, then one at lr 1e-5) through the Trainer at dp 1 (the
+     reference, in this process), then at dp 2 with the experts cut over
+     dp in two gloo processes sharing this card (host-staged), a row a
+     rank, routed as the reference routed that row. Gates: no drop, losses
+     and grad_norm against the reference, every rank's loss bits, the
+     gradients by group (experts and routers included), the EP aux against
+     the rows' own Switch losses and its term in the reported loss, three
+     planted faults (the experts summed over dp as if replicated; grad_norm
+     counting them once over dp; the aux summed over dp, not averaged), the
+     lr-0 step leaving every bit and the second moving every expert stack
+     and router, each rank's share of the expert bytes, K1/K3/K4 launches
+     exact.
+  The multi-process training phases run their world-1 reference in this
+  process (_reference; a process of its own in the CPU rehearsals);
   10. cp over NCCL (phase_cp_nccl), only where torch.cuda.device_count() >=
      2: two processes, a GPU each: ring attention forward and backward
      through autograd at 64K tokens against K1 and K4/K5 on the whole
@@ -269,7 +291,8 @@ F32_ATOL = 1e-4
 # layers of random weights amplify any rounding difference. On an H100 the
 # plain attention alone, chunked against a cache vs one 5000-row pass, lands
 # at cosine 0.9985 and a max logit move of 3.1% of the spread; the bounds
-# leave room for that floor and catch a kernel that is wrong.
+# leave room for that floor and catch a kernel that is wrong. (The run's 24
+# layers, MAIN_LAYERS: the kernel path at 0.9994-0.9995 against both.)
 LOGIT_COS, LOGIT_SPREAD_FRAC = 0.995, 0.05
 # ViT features through K3 vs through the plain attention, 24 bf16 layers of
 # random weights then the projector: the two round p to bf16 at different
@@ -296,8 +319,10 @@ EVA_GATE_LAYERS = 24
 GRAD_TOL = 1e-2
 # T2: the trainable gradients of one step through the kernels vs the same
 # step on the plain attention, 48 bf16 layers of random weights: cosine of
-# the flattened gradients and the relative loss difference. Measured on an
-# H100: sound runs 0.9948-0.9961; each bf16 path lands at 0.9963 against
+# the flattened gradients and the relative loss difference (at the run's 24
+# layers, MAIN_LAYERS, on an H100: 0.9983 sound, 0.9430 with the planted
+# fault below). Measured on an H100 at 48: sound runs 0.9948-0.9961; each
+# bf16 path lands at 0.9963 against
 # the same step in f32, so the gap is bf16 rounding at different points,
 # amplified by 72 random layers (K4's dQ atomics in another order alone give
 # 0.9998). Dropping one kv tile's dQ, or its dK and dV, in the decoder's K4
@@ -1273,6 +1298,8 @@ def _logit_check(tag, name, logits, ref) -> bool:
 def phase_serving(params) -> tuple:
     """Text serving. -> (K1 launches made by the serving requests, the
     kernel path's last-row logits of the 5000-id prompt)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1281,7 +1308,9 @@ def phase_serving(params) -> tuple:
     from long_vita_tpu_torch.inference.sampler import SamplingParams
     from long_vita_tpu_torch.models import qwen2
 
-    cfg = long_vita_14b()
+    base = long_vita_14b()  # at the depth of ``params``
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, num_hidden_layers=len(params.layers)))
     tc = cfg.text
     dev = torch.device("cuda")
     chunk, max_seq = 2048, 16384
@@ -1356,6 +1385,24 @@ def phase_serving(params) -> tuple:
         raise AssertionError("kernel-path logits disagree with the plain forward")
     _decode_profile(engine, prompt, "serve")
     return launches, logits
+
+
+def _prefill_logits(params, cfg):
+    """The kernel path's last-row logits of the text-serving phase's
+    5000-id prompt (engine.prefill and the head, as phase_serving takes
+    them) on ``params``: the bf16 logits the quantised phases are held
+    to at that depth."""
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.models import qwen2
+
+    engine = InferenceEngine(params, cfg, _StubMM(), max_seq_len=16384, chunk=2048)
+    prompt = np.random.default_rng(SEED).integers(0, cfg.text.vocab_size, 5000).tolist()
+    with torch.no_grad():
+        _, hidden, _ = engine.prefill(prompt)
+        return qwen2.lm_head(engine.text, hidden)
 
 
 def _decode_steps(results, max_new: int, budget: int, segment: int = 64) -> int:
@@ -2848,23 +2895,34 @@ def phase_generic_vit(work, *, n_tiles=8, configs=None, dev=None) -> dict:
 
 
 @contextlib.contextmanager
-def _routing_tap(forced=None):
-    """Within the block, ops.moe.route records the expert ids of each call
-    (in order); with ``forced`` (a list of id tensors) the i-th call routes
-    to forced[i] instead, its gates the call's own probabilities at those
-    ids (teacher forcing of the routes). -> the list of recorded ids."""
+def _routing_tap(forced=None, part=None, per_thread=True):
+    """Within the block, ops.moe.route records the expert ids of each call,
+    in order, in a list per thread (thread-ranks route at once; with
+    per_thread False one list for the process, whose backward recomputes
+    layers on autograd's device thread); with ``forced`` (a list of id
+    tensors) the i-th call of a list routes to forced[i] instead (with
+    ``part`` (i, n), the i-th of n equal row blocks of it: an
+    expert-parallel rank's share of a call that routed n ranks' rows), its
+    gates the call's own probabilities at those ids (teacher forcing of the
+    routes). -> {thread id, or None: [recorded ids]}."""
+    import threading
+
     from long_vita_tpu_torch.ops import moe
 
-    orig, seen = moe.route, []
+    orig, seen = moe.route, {}
 
     def tap(router, xe, top_k):
+        calls = seen.setdefault(threading.get_ident() if per_thread else None, [])
         probs, gates, ids = orig(router, xe, top_k)
         if forced is not None:
-            if forced[len(seen)].shape != ids.shape:
+            want = forced[len(calls)].to(ids.device)
+            if part is not None:
+                want = want.chunk(part[1])[part[0]]
+            if want.shape != ids.shape:
                 raise AssertionError("the forced routes do not match the calls' tokens")
-            ids = forced[len(seen)]
+            ids = want
             gates = probs.gather(-1, ids)
-        seen.append(ids)
+        calls.append(ids)
         return probs, gates, ids
 
     moe.route = tap
@@ -2874,8 +2932,8 @@ def _routing_tap(forced=None):
         moe.route = orig
 
 
-def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, chunk=2048,
-              train_seq=4096, base=None, dev=None) -> dict:
+def phase_moe(*, layers=4, experts=8, n_prompt=2048, n_new=8, chunk=2048, tp_layers=4,
+              base=None, dev=None) -> dict:
     """A MoE decoder at the 14B's widths (h 5120, ffn 13824 an expert, 40/8
     heads) with ``experts`` experts, top-2, capacity 1.25, cut to ``layers``
     layers (~3.4 GB of experts a layer), random bf16 weights. Serving: an
@@ -2886,12 +2944,15 @@ def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, ch
     kernel path routed (_routing_tap): with random routers a token's top-2
     margin is of the order of bf16 rounding, a few tokens a layer change
     experts between the two paths, and each such token's hidden state (and
-    the capacity's token-major slots after it) changes wholesale. Training: the first
-    ``train_layers`` layers (Adam's f32 moments for all four would not fit
-    on the card beside the weights), a frozen tower, two Trainer steps with
-    moe_aux_loss_coef on one packed row: the second step's loss below the
-    first's, the aux finite and > 0, the routers moved. base: the config
-    whose widths are taken (long_vita_14b(); the CPU rehearsal's tiny one).
+    the capacity's token-major slots after it) changes wholesale. Then the
+    decoder's first ``tp_layers`` layers over tp 2 thread-ranks (each rank
+    its heads and the experts' ffn columns, their partial output summed over
+    tp) against the one-device engine on the same weights
+    (_cp_against_one_device, routed: the one-device engine fed the tp
+    engine's tokens and routes), K1 launches exact. Training this model
+    (one device, and expert parallelism over dp 2) is phase_ep_train's.
+    base: the config whose widths are taken (long_vita_14b(); the CPU
+    rehearsal's tiny one).
     -> launch counts."""
     import dataclasses
 
@@ -2902,14 +2963,9 @@ def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, ch
     from long_vita_tpu_torch.inference.engine import InferenceEngine
     from long_vita_tpu_torch.inference.sampler import SamplingParams
     from long_vita_tpu_torch.models import qwen2
-    from long_vita_tpu_torch.models.intern_vit import init_vit_params
-    from long_vita_tpu_torch.models.long_vita import LongVITAParams
-    from long_vita_tpu_torch.models.projector import init_projector_params
-    from long_vita_tpu_torch.ops import flash_attention as fa
-    from long_vita_tpu_torch.training import train_step as ts
-    from long_vita_tpu_torch.training.optimizer import OptimizerConfig
-    from long_vita_tpu_torch.training.trainer import Trainer, TrainerConfig, batch_iterator
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig
 
+    t_phase = time.perf_counter()
     dev = dev or torch.device("cuda")
     base = base or long_vita_14b()
     cfg = dataclasses.replace(base, text=dataclasses.replace(
@@ -2937,14 +2993,16 @@ def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, ch
         total[key] += counts[key]
     if first.token_ids != again.token_ids or len(first.token_ids) != n_new:
         raise AssertionError(f"MoE greedy generate: {first.token_ids} vs {again.token_ids}")
-    with _routing_tap() as routes:
+    with _routing_tap() as tapped:
         ttft, _, logits, decode_ms = _ttft_decode(engine, prompt, t_again, n_new)
+    routes = next(iter(tapped.values()))
     print(f"[moe] {n_prompt}-id prompt, {n_new} greedy tokens x2 identical {first.token_ids}; "
           f"TTFT {ttft * 1e3:.1f} ms, decode {decode_ms:.2f} ms/token (first generate "
           f"{t_first:.2f} s)")
     _reset_counts()
-    with _routing_tap() as free:
+    with _routing_tap() as tapped:
         _plain_chunked_last_row(text, tc, prompt, chunk, 2 * chunk)
+    free = next(iter(tapped.values()))
     moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
                 for a, b in zip(routes, free))
     with _routing_tap(forced=routes):
@@ -2955,67 +3013,16 @@ def phase_moe(*, layers=4, train_layers=2, experts=8, n_prompt=2048, n_new=8, ch
     if not _logit_check("moe", "kernel path vs plain chunked prefill", logits, plain):
         raise AssertionError("the MoE decoder's logits disagree with the plain attention's")
     del engine, logits, plain
-
-    # training: the first train_layers layers, a frozen random tower
-    tcfg_text = dataclasses.replace(tc, num_hidden_layers=train_layers)
-    cfg_t = dataclasses.replace(cfg, text=tcfg_text)
-    text_t = qwen2.Qwen2Params(embed=text.embed, layers=list(text.layers[:train_layers]),
-                               final_norm=text.final_norm, lm_head=text.lm_head)
-    del text
-    torch.cuda.empty_cache()
-    lv = LongVITAParams(
-        text=text_t,
-        vision=init_vit_params(gen, cfg_t.vision, torch.bfloat16, dev),
-        projector=init_projector_params(gen, cfg_t, torch.bfloat16, dev))
-    router0 = lv.text.layers[0].router.weight.detach().clone()
-    rng = np.random.default_rng(SEED + 82)
-    vc = cfg_t.vision
-    tiles = rng.standard_normal((7, vc.image_size, vc.image_size, 3)).astype(np.float32)
-    pack = _train_pack(cfg_t, train_seq, [], [(tiles, (2, 3))], rng, text_segments=4,
-                       answer=200, text_sup=100)
-    aux_seen = []
-    loss_terms = ts.loss_terms
-
-    def tap(*a, **kw):  # the aux term of each step's loss
-        out = loss_terms(*a, **kw)
-        aux_seen.append(out[2].item())
-        return out
-
-    ts.loss_terms = tap
-    try:
-        trainer = Trainer(lv, cfg_t, TrainerConfig(
-            seq_len=train_seq, logit_budget=train_seq, steps=2, remat=True, vision_chunk=64,
-            optim=OptimizerConfig(lr=1e-5, warmup_steps=0, total_steps=10, freeze_vision=True,
-                                  moment_dtype="bfloat16")))
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        out, t_train = _timed(lambda: trainer.train(
-            batch_iterator(iter([pack, pack]), 1, train_seq)))
-        counts = _read_counts()
-    finally:
-        ts.loss_terms = loss_terms
+    # the decoder's first tp_layers layers over tp 2 thread-ranks
+    text_tp, cfg_tp = _decoder_prefix(text, cfg, tp_layers)
+    counts = _cp_against_one_device(
+        "moe tp", text_tp, cfg_tp, prompt, seq=2 * chunk, chunk=chunk, vision_chunk=64,
+        expected=lambda n: {"flash_fwd": 2 * tp_layers * -(-n // chunk)}, tokens=n_new,
+        mesh_cfg=MeshConfig(tp=2), routed=True)
     for key in total:
         total[key] += counts[key]
-    losses = out["losses"]
-    moved = not torch.equal(trainer.state.params.text.layers[0].router.weight, router0)
-    ok = (len(losses) == 2 and losses[1] < losses[0] and all(np.isfinite(aux_seen))
-          and min(aux_seen) > 0 and moved)
-    print(f"[moe] Trainer, {train_layers} MoE layers at full width, 2 steps on a {train_seq}-token "
-          f"row (moe_aux_loss_coef {tc.moe_aux_loss_coef}): losses {losses}, aux {aux_seen}, "
-          f"the routers moved: {moved}; {t_train:.2f} s, peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts} "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("MoE training: the loss did not fall, or the aux is not finite")
-    # each step: K1 in the forward and in the recompute of every layer, K4 or
-    # K5 in its backward; the frozen tower's 7 tiles in one batch through K3
-    steps = 2
-    fused = fa.bwd_uses_fused(1, train_seq, train_seq, tc.num_attention_heads, tc.head_dim, 2)
-    _check_launches(counts, {
-        "flash_fwd": 2 * train_layers * steps, "short_attn": vc.num_hidden_layers * steps,
-        **({"flash_bwd": train_layers * steps} if fused else
-           {"flash_bwd_dkv": train_layers * steps, "flash_bwd_dq": train_layers * steps})})
-    del trainer, lv, text_t, out
+    del text, text_tp
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -3027,6 +3034,10 @@ CP = 4  # thread-ranks of the cp phases (one card: they share it)
 # the decoder's depth in the cp and tp serving phases of the full run (24
 # until the pp training phase joined, 8 until the 2-D tp geometry did)
 SERVE_PREFIX = 2
+# the 14B decoder's depth in the quantised and multimodal serving, server,
+# T1 / T2 and recipe phases (48 until the expert-parallel phase joined the
+# run), for the run's time; phase_serving runs all 48
+MAIN_LAYERS = 24
 CP_SEQ = 65536  # tokens of the cp attention phases: zigzag chunks of 8192
 CP_TIMEOUT = 900.0  # seconds any one wait of a thread-rank may take
 THREADS_NOTE = "4 thread-ranks on one card, not a multi-GPU time"
@@ -3469,7 +3480,7 @@ def _timed_generate(eng, prompt, videos, sp, images=()):
 
 def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk, expected,
                            tokens, kv_quant=False, videos=(), images=(), mm=None,
-                           mesh_cfg=None) -> dict:
+                           mesh_cfg=None, routed=False) -> dict:
     """``prompt`` (token ids) served by an InferenceEngine over a mesh of
     thread-ranks (``mesh_cfg``, a cp mesh of CP by default: each rank holds
     seq // cp slots and Hkv // tp kv heads) and greedy-decoded for
@@ -3477,8 +3488,11 @@ def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk,
     after it and fed the mesh engine's tokens (teacher forcing, so that a
     near-tie does not end the check): every step's f32 logits under the
     logit gate and each mesh pick against the one-device argmax (up to a
-    rounding tie). The mesh run's launches must equal expected(prompt ids).
-    -> those launch counts."""
+    rounding tie). routed (a MoE decoder): the one-device engine routes as
+    the mesh engine did too (_routing_tap: random routers put a token's
+    top-2 margin at the order of bf16 rounding), and every rank's routes
+    must be the same. The mesh run's launches must equal expected(prompt
+    ids). -> those launch counts."""
     import torch
 
     from long_vita_tpu_torch.inference.engine import InferenceEngine
@@ -3510,16 +3524,30 @@ def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk,
         counts = _read_counts() if comm.rank == 0 else None
         return seen[threading.get_ident()], out.token_ids, ttft, ms, counts
 
-    with _sampling_tap() as seen:
+    with contextlib.ExitStack() as stack:
+        seen = stack.enter_context(_sampling_tap())
+        routes = stack.enter_context(_routing_tap()) if routed else None
         res = run_thread_ranks(rank, mesh_cfg.size, timeout=CP_TIMEOUT)
     steps, got, ttft, ms, counts = res[0]
+    forced_routes = None
+    if routed:
+        per_rank = list(routes.values())
+        forced_routes = per_rank[0]
+        if len(per_rank) != mesh_cfg.size or any(
+                len(r) != len(forced_routes) or not all(torch.equal(a, b) for a, b in
+                                                        zip(r, forced_routes))
+                for r in per_rank):
+            raise AssertionError(f"[{tag}] the thread-ranks routed their tokens differently")
     if any(r[1] != got or len(r[0]) != len(steps) or not all(
             torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r[0], steps))
            for r in res):
         raise AssertionError(f"[{tag}] the thread-ranks sampled different tokens or logits")
     del res
     # teacher forcing: the one-device engine fed the mesh engine's picks
-    with _sampling_tap(forced=[t for _, t in steps]) as seen_one:
+    with contextlib.ExitStack() as stack:
+        seen_one = stack.enter_context(_sampling_tap(forced=[t for _, t in steps]))
+        if routed:
+            stack.enter_context(_routing_tap(forced=forced_routes))
         ref_out, ttft1, ms1 = _timed_generate(one, prompt, videos, sp, images)
     ref_steps = next(iter(seen_one.values()))
     ok = all(bool(torch.isfinite(g).all()) for g, _ in steps) and _logit_check(
@@ -4211,10 +4239,14 @@ GRAD_GROUPS = ("input_norm", "post_attn_norm", "final_norm", "q_proj", "k_proj",
                "o_proj", "gate_proj", "up_proj", "down_proj", "embed", "lm_head")
 
 
+# a MoE layer's groups (phase_ep_train)
+MOE_GRAD_GROUPS = ("router", "experts")
+
+
 def _grad_group(name: str) -> str:
     if name.startswith(("vision.", "projector.")):
         return name.split(".")[0]
-    return next(g for g in GRAD_GROUPS if f".{g}" in name)
+    return next(g for g in GRAD_GROUPS + MOE_GRAD_GROUPS if f".{g}" in name)
 
 
 def phase_tp_train_kernels(*, s=16384, heads=(40 // 8, 8 // 8), d=128, dev=None,
@@ -4447,8 +4479,9 @@ def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=Non
     shards: each rank takes the dot products of its slices with the same
     slices of the reference's gradients (read from the memory-mapped file),
     a slice several ranks hold and a replicated leaf counted once, and the
-    sums are added over tp (and under FSDP over ``dp_comm``: an FSDP piece
-    on every dp rank, any other leaf on dp rank 0; under 2-D tp over
+    sums are added over tp (and under FSDP or expert parallelism over
+    ``dp_comm``: an FSDP piece or an expert stack's on every dp rank, any
+    other leaf on dp rank 0; under 2-D tp over
     ``tq_comm``: a piece cut over tq on every tq rank, any other leaf on tq
     rank 0), which gives the gathered vectors' cosines without moving them.
     Every rank of those groups calls it; only the groups of ``grads`` that
@@ -4467,7 +4500,7 @@ def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=Non
         leaf = layout[n]
         if tp_comm.rank % leaf.share if leaf.sharded else tp_comm.rank:
             continue
-        if (dp_rank and not leaf.fsdp) or (tq_rank and not leaf.cut_tq):
+        if (dp_rank and not (leaf.fsdp or leaf.expert)) or (tq_rank and not leaf.cut_tq):
             continue
         a = g.to(dev).float().flatten()
         b = slice_leaf(ref[n], leaf).to(dev).float().flatten()
@@ -4521,6 +4554,28 @@ def _spawn(target, world, sizes, timeout) -> dict:
     return results
 
 
+def _reference(target, sizes, timeout) -> dict:
+    """The world-1 reference of a multi-process training phase:
+    target(0, 1, None, queue, sizes) in this process on the card (a spawned
+    process takes ~8-10 s to reach it), its memory freed after; in a process
+    of its own on the CPU (the rehearsals: the workers set process-wide state,
+    the thread count and the tokenizer loader). -> what it put."""
+    if sizes["device"] == "cpu":
+        return _spawn(target, 1, sizes, timeout)[0]
+    import queue as queue_mod
+
+    import torch
+
+    out = queue_mod.SimpleQueue()
+    target(0, 1, None, out, sizes)
+    _, res = out.get()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if isinstance(res, str):
+        raise AssertionError(f"the reference failed: {res}")
+    return res
+
+
 def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN_LAYERS,
                    seq=16384, budget=4096, fault_seq=4096, steps=2, answer=300, text_sup=900,
                    tok=None, kernels=True, tq=1) -> dict:
@@ -4529,7 +4584,8 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     written as a *_HF checkpoint directory; configs/stage2_16k.yaml's
     settings (the tower trainable at lr x 0.1, remat, 16384 tokens), the
     logit budget cut to 4096; one packed row with a 7-tile image. First the
-    tp-1 reference in a process of its own, then tp 2 in two processes
+    tp-1 reference (_reference: in this process on the card), then tp 2 in
+    two processes
     (backend "staged": gloo sharing this card with host-staged collectives;
     "nccl": a card each, from phase_cp_nccl; "gloo" with device "cpu": the
     rehearsal), each rank loading only its slices; with tq > 1, then 2-D tp
@@ -4597,9 +4653,9 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
         if tq > 1:
             geometries.append((f"tp 2 x tq {tq}", {"tp": 2, "tq": tq}))
         t0 = time.perf_counter()
-        one = _spawn(_tp_train_worker, 1, {**sizes, "backend": "gloo", "mesh": {}},
-                     2 * TP_TRAIN_TIMEOUT)[0]
-        print(f"[tp train] the tp-1 process {time.perf_counter() - t0:.1f} s (start-up, loading, "
+        one = _reference(_tp_train_worker, {**sizes, "backend": "gloo", "mesh": {}},
+                         2 * TP_TRAIN_TIMEOUT)
+        print(f"[tp train] the tp-1 reference {time.perf_counter() - t0:.1f} s (start-up, loading, "
               "the gradient gate's passes, the steps)")
         for geom, mesh in geometries:
             t0 = time.perf_counter()
@@ -4614,7 +4670,7 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     where = {"staged": "{n} processes sharing one card, their collectives staged through "
                        "host memory over gloo: no multi-GPU time",
              "nccl": "{n} cards over NCCL", "gloo": "{n} gloo processes on the CPU"}[backend]
-    print(f"[tp train] tp 1 (a process of its own): read {one['bytes_read'] / 1e6:.3f} MB; "
+    print(f"[tp train] tp 1 (the reference): read {one['bytes_read'] / 1e6:.3f} MB; "
           f"steps {[round(t, 3) for t in one['step_s']]} s; peak allocated {one['peak_gb']:.2f} "
           f"GB; losses {one['losses']} grad_norm {one['norms']}; {one['supervised']} "
           f"supervised rows")
@@ -5033,13 +5089,13 @@ def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_T
                      budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
                      text_sup=text_sup, tok=tok or {})
         t0 = time.perf_counter()
-        one = _spawn(_fsdp_train_worker, 1, {**sizes, "backend": "gloo"},
-                     2 * TP_TRAIN_TIMEOUT)[0]
+        one = _reference(_fsdp_train_worker, {**sizes, "backend": "gloo"},
+                         2 * TP_TRAIN_TIMEOUT)
         t1 = time.perf_counter()
         world = 2 * tp
         ranks = [r for _, r in sorted(_spawn(_fsdp_train_worker, world, sizes,
                                              2 * TP_TRAIN_TIMEOUT).items())]
-        print(f"[fsdp train] the reference process {t1 - t0:.1f} s, the {world} FSDP processes "
+        print(f"[fsdp train] the reference {t1 - t0:.1f} s, the {world} FSDP processes "
               f"{time.perf_counter() - t1:.1f} s (start-up, loading, the faults' passes, the "
               "steps)")
     finally:
@@ -5501,13 +5557,13 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
                      budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
                      text_sup=text_sup, tok=tok or {})
         t0 = time.perf_counter()
-        one = _spawn(_pp_train_worker, 1, {**sizes, "backend": "gloo"},
-                     2 * TP_TRAIN_TIMEOUT)[0]
+        one = _reference(_pp_train_worker, {**sizes, "backend": "gloo"},
+                         2 * TP_TRAIN_TIMEOUT)
         t1 = time.perf_counter()
         world = 2 * tp
         ranks = [r for _, r in sorted(_spawn(_pp_train_worker, world, sizes,
                                              4 * TP_TRAIN_TIMEOUT).items())]
-        print(f"[pp train] the reference process {t1 - t0:.1f} s, the {world} pp processes "
+        print(f"[pp train] the reference {t1 - t0:.1f} s, the {world} pp processes "
               f"{time.perf_counter() - t1:.1f} s (start-up, loading twice, the faults' passes, "
               "the steps of both schedules)")
     finally:
@@ -5710,6 +5766,481 @@ def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
     except (TimeoutError, RuntimeError) as e:  # a broken wait, raised inside a backward
         done, err = False, repr(e)
     return {"completed": done, "seconds": time.perf_counter() - t0, "error": err}
+
+
+# ---- expert parallelism: MoE over dp (phase_ep_train) ----------------------------
+
+EP_TRAIN_LAYERS = 2  # the MoE decoder's depth in phase_ep_train (the 14B's widths)
+EP_TRAIN_STEPS = 2  # the warm-up's lr-0 step, then one at lr 1e-5
+EP_EXPERTS = 8
+EP_AUX_REL = 1e-3  # the EP aux against the mean of the rows' own Switch losses
+# the aux term of the EP step's reported loss (its loss less the reference's
+# cross-entropy) against coef x the rows' own mean, relative to that term
+EP_AUX_TERM_REL = 0.1
+EP_NORM_REL = 3e-2  # grad_norm against the reference's
+
+
+def _ep_train_worker(rank, world, init, out, sizes):
+    """One process of phase_ep_train: ``world`` 1 is the dp-1 reference
+    (both rows one routing batch; _reference), else rank ``rank``
+    of dp 2 (x sizes["tp"]) with the experts cut over dp (expert
+    parallelism), over gloo with CUDA operands staged through host memory
+    (sizes["backend"] "staged"; every rank on card 0), NCCL (a card a rank)
+    or plain gloo on the CPU (the rehearsal). Builds the MoE VLM from the
+    seed (every process the same whole tree) and hands it to the Trainer,
+    which cuts the rank's shard. The reference trains sizes["steps"] steps
+    on the two rows through Trainer.train and records its routes, its first
+    step's gradients (to the work directory) and, after that lr-0 step,
+    each row's own aux (a forward of that row alone, routed as in its
+    step); an EP rank takes the same steps, routed as the reference routed
+    its row (_routing_tap's part), and on its first step's gradients and
+    loss terms runs the three planted faults: the reduction summing the
+    expert stacks over dp as if replicated, grad_norm counting them as if
+    replicated over dp, and the reported loss summing the aux over dp.
+    After the last step every process lists the leaves that moved. Puts
+    (rank, results or the error) on ``out``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        from long_vita_tpu_torch.models import qwen2
+        from long_vita_tpu_torch.models.intern_vit import init_vit_params
+        from long_vita_tpu_torch.models.long_vita import LongVITAParams
+        from long_vita_tpu_torch.models.projector import init_projector_params
+        from long_vita_tpu_torch.ops import moe
+        from long_vita_tpu_torch.parallel.comm import init_process_group
+        from long_vita_tpu_torch.parallel.mesh import MeshConfig
+        from long_vita_tpu_torch.parallel.sharding import slice_leaf
+        from long_vita_tpu_torch.training import train_step as tts
+        from long_vita_tpu_torch.training.loss import collate_packs
+        from long_vita_tpu_torch.training.optimizer import OptimizerConfig, global_norm
+        from long_vita_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+        cpu = sizes["device"] == "cpu"
+        if cpu:
+            torch.set_num_threads(1)
+        backend = sizes["backend"]
+        comm = None
+        if world > 1:
+            comm = init_process_group(
+                rank, world, init, backend="nccl" if backend == "nccl" else "gloo",
+                timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
+        dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        cfg, work, steps = sizes["cfg"], sizes["work"], sizes["steps"]
+        tp = sizes["tp"] if world > 1 else 1
+        mesh_cfg = MeshConfig(dp=world // tp, tp=tp) if world > 1 else MeshConfig()
+        res = {"rank": rank}
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+        lv = LongVITAParams(
+            text=qwen2.init_qwen2_params(gen, cfg.text, torch.bfloat16, dev),
+            vision=init_vit_params(gen, cfg.vision, torch.bfloat16, dev),
+            projector=init_projector_params(gen, cfg, torch.bfloat16, dev))
+        whole = {n: p.detach() for n, p in lv.named_parameters() if ".experts." in n}
+        res["expert_bytes_whole"] = sum(p.nbytes for p in whole.values())
+        tcfg = TrainerConfig(
+            seq_len=sizes["seq"], logit_budget=sizes["budget"], global_batch=2, steps=steps,
+            mesh=mesh_cfg, remat=True, vision_chunk=64,
+            optim=OptimizerConfig(lr=1e-5, warmup_steps=1, total_steps=1000, freeze_vision=True,
+                                  freeze_embed=True, moment_dtype="bfloat16"))
+        trainer = Trainer(lv, cfg, tcfg, comm=comm)
+        params, mesh = trainer.state.params, trainer.mesh
+        layout = trainer._layout()
+        own = {n: p.detach() for n, p in params.named_parameters() if ".experts." in n}
+        opt = trainer.state.opt_state
+        res["expert_bytes"] = sum(p.nbytes for p in own.values())
+        res["expert_moment_bytes"] = sum(opt.mu[n].nbytes + opt.nu[n].nbytes for n in own)
+        res["expert_pieces_exact"] = all(
+            torch.equal(p, slice_leaf(whole[n], layout[n]) if layout is not None else whole[n])
+            for n, p in own.items())
+        res["trained"] = sorted({_grad_group(n) for n in opt.mu})
+        trained = set(opt.mu)
+        res["coords"] = (mesh.dp_index, mesh.tp_index) if mesh is not None else (0, 0)
+        del lv, whole, own
+        if not cpu:
+            torch.cuda.empty_cache()
+        sync()
+        res["build_s"] = time.perf_counter() - t0
+
+        vc = cfg.vision
+        per_tile = int((vc.grid * cfg.vision_downsample_ratio) ** 2)
+        pcfg = dataclasses.replace(cfg, image_token_length=per_tile)
+        packs = [_train_pack(pcfg, sizes["seq"], [], [(np.random.default_rng(SEED + 91 + i)
+                                                       .standard_normal((7, vc.image_size,
+                                                                         vc.image_size, 3))
+                                                       .astype(np.float32), (2, 3))],
+                             np.random.default_rng(SEED + 93 + i), text_segments=4,
+                             answer=sizes["answer"], text_sup=sizes["text_sup"])
+                 for i in range(2)]
+
+        def collated(rows):
+            b = collate_packs(rows, sizes["budget"])
+            b["tokens"] = np.minimum(b["tokens"], cfg.text.vocab_size - 1)
+            return b
+
+        batch = collated(packs)
+        res["supervised"] = [int((collated([p])["labels"] != -100).sum()) for p in packs]
+        routes_path = os.path.join(work, "routes.pt")
+        grads_path = os.path.join(work, "grads_ref.pt")
+        part = (mesh.dp_index, mesh.shape["dp"]) if mesh is not None else None
+        forced = torch.load(routes_path) if world > 1 else None
+
+        # ---- the main path: Trainer.train, the steps on the two rows
+        first, auxes, terms = {}, [], []
+        step_backward, step_terms = tts._backward, tts.loss_terms
+
+        def keep_first(*a, **k):
+            out_ = step_backward(*a, **k)
+            if "grads" not in first:
+                first["grads"] = {n: t.to("cpu") for n, t in out_[0].items()}
+                # the experts' part of grad_norm (the frozen embedding's and
+                # head's folded squares outweigh it), and on an EP rank the
+                # same with the planted norm fault
+                experts = {n: g for n, g in out_[0].items() if ".experts." in n}
+                if mesh is None:
+                    first["expert_norm"] = float(global_norm(experts.values()))
+                else:
+                    red = tts._Reduction(params, cfg, mesh)
+                    first["expert_norm"] = float(red.norm(experts))
+                    tts._NORM_EXPERTS_ONCE_OVER_DP = True
+                    try:
+                        first["fault_norm"] = float(red.norm(experts))
+                    finally:
+                        tts._NORM_EXPERTS_ONCE_OVER_DP = False
+            return out_
+
+        def aux_tap(*a, **k):
+            out_ = step_terms(*a, **k)
+            auxes.append(float(out_[2].detach()))
+            if not terms:  # the first step's loss terms, for the aux fault
+                terms.append(tuple(t.detach() for t in out_))
+            return out_
+
+        tts._backward, tts.loss_terms = keep_first, aux_tap
+        before = {n: _fingerprint(p) for n, p in params.named_parameters()}
+        step_fn, kept, norms_log = trainer.step_fn, [], []
+
+        def logged(state, b):
+            state, m = step_fn(state, b)
+            norms_log.append(float(m["grad_norm"]))
+            if not kept:  # the warm-up's first step runs at lr 0
+                kept.append(sorted(n for n, p in state.params.named_parameters()
+                                   if _fingerprint(p) != before[n]))
+            return state, m
+
+        routes = {}  # the main path's recorded calls (the reference's)
+
+        def row_aux():
+            """Each row's own Switch loss: a forward of that row alone,
+            routed as the step's forward routed it (its first calls), at the
+            step's weights (the lr-0 step moved none); the calls the main
+            path's tap records meanwhile are dropped."""
+            calls = routes["tapped"][None]
+            n, out_ = len(calls), []
+            before_ = _read_counts()
+            for i in range(2):
+                with torch.no_grad(), _routing_tap(forced=calls[:n], part=(i, 2),
+                                                   per_thread=False):
+                    out_.append(float(tts.loss_terms(
+                        params, trainer._device_batch(collated([packs[i]])), cfg, False,
+                        trainer.tcfg.vision_chunk, freeze_vision=True)[2]))
+            del calls[n:]
+            # the rows' forwards are not the main path's launches
+            res["row_aux_counts"] = {k: v - before_[k] for k, v in _read_counts().items()}
+            return out_
+
+        def logged_ref(state, b):
+            state, m = logged(state, b)
+            if "row_aux" not in res:
+                res["row_aux"] = row_aux()
+            return state, m
+
+        trainer.step_fn = logged if world > 1 else logged_ref
+        stamps, staged = [], []
+        stats = getattr(comm, "stats", None)
+
+        def batches():
+            for _ in range(steps):
+                sync()
+                stamps.append(time.perf_counter())
+                staged.append(stats["seconds"] if stats else 0.0)
+                yield batch
+
+        _reset_counts()
+        moe.reset_stats()
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            with _routing_tap(forced=forced, part=part, per_thread=False) as tapped:
+                routes["tapped"] = tapped
+                res["losses"] = trainer.train(batches())["losses"]
+        finally:
+            tts._backward, tts.loss_terms = step_backward, step_terms
+        sync()
+        stamps.append(time.perf_counter())
+        staged.append(stats["seconds"] if stats else 0.0)
+        res["counts"] = {k: v - res.get("row_aux_counts", {}).get(k, 0)
+                         for k, v in _read_counts().items()}
+        res["moe"] = moe.stats()
+        res["peak_gb"] = 0.0 if cpu else torch.cuda.max_memory_allocated() / 1e9
+        res["norms"], res["aux"] = norms_log, auxes[:1]
+        res["fault_norm"], res["expert_norm"] = first.get("fault_norm"), first["expert_norm"]
+        res["moved_at_lr0"] = kept[0] if kept else None
+        moved = {n for n, p in params.named_parameters() if _fingerprint(p) != before[n]}
+        moe_leaves = [n for n, _ in params.named_parameters()
+                      if ".experts." in n or ".router." in n]
+        res["moe_moved"] = (sum(n in moved for n in moe_leaves), len(moe_leaves))
+        res["moved_untrained"] = sorted(moved - trained)
+        res["step_s"] = [b - a for a, b in zip(stamps, stamps[1:])]
+        res["staged_s"] = [b - a for a, b in zip(staged, staged[1:])]
+        grads = first.pop("grads")
+        if world == 1:
+            torch.save(tapped[None], routes_path)
+            torch.save(grads, grads_path)
+        else:
+            res["cos"] = _group_cosines(grads, grads_path, layout, mesh.tp_comm, dev,
+                                        mesh.dp_comm)
+            # the planted reduction fault on the step's own gradients (layer
+            # 0's gate stack, for the run's time): summed over dp x cp as if
+            # replicated (at cp 1 the sound sum over cp left them as they are)
+            leaf = next(n for n in grads if n.endswith(".experts.gate"))
+            tts._EXPERTS_SUMMED_OVER_DP = True
+            try:
+                faulty = tts._all_reduce_grads({leaf: grads[leaf].to(dev)},
+                                               tts._Reduction(params, cfg, mesh).comm)
+            finally:
+                tts._EXPERTS_SUMMED_OVER_DP = False
+            res["cos_fault"] = _group_cosines(faulty, grads_path, layout, mesh.tp_comm, dev,
+                                              mesh.dp_comm)
+            del faulty
+            # the aux fault on the first step's own loss terms: the reported
+            # loss with the aux summed over dp, not averaged
+            tts._AUX_SUMMED_OVER_DP = True
+            try:
+                res["loss_aux_fault"] = float(tts.mesh_loss(*terms[0], cfg, mesh)[1])
+            finally:
+                tts._AUX_SUMMED_OVER_DP = False
+        del grads
+        out.put((rank, res))
+        if comm is not None:
+            comm.barrier()
+            torch.distributed.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        out.put((rank, f"raised {type(e).__name__}: {e}\n{traceback.format_exc()[-2500:]}"))
+
+
+def _ep_capacity(tc, routes_path: str, seq: int) -> tuple:
+    """The EP ranks' capacity factor: the least multiple of 1/8 (at most
+    E / k) whose capacity holds, in every call the reference recorded, the
+    copies one expert took from one row (a row an EP rank's routing batch),
+    so that nothing drops there either; a smaller buffer than E / k's, whose
+    every slot crosses the exchange. -> (the factor, the slots needed)."""
+    import torch
+
+    from long_vita_tpu_torch.ops.moe import moe_capacity
+
+    e, k = tc.num_experts, tc.moe_top_k
+    calls = torch.load(routes_path)
+    need = max(int(torch.bincount(row.reshape(-1), minlength=e).max())
+               for ids in calls for row in ids.reshape(-1, seq * k))
+    cf = 1 / 8
+    while cf < e / k and moe_capacity(seq, e, k, cf) < need:
+        cf += 1 / 8
+    return cf, need
+
+
+def phase_ep_train(*, backend="staged", device="cuda", base=None, layers=EP_TRAIN_LAYERS,
+                   experts=EP_EXPERTS, tp=1, seq=8192, budget=2048, steps=EP_TRAIN_STEPS,
+                   answer=200, text_sup=400) -> dict:
+    """Expert parallelism from the Trainer: the MoE VLM at the 14B's widths
+    (h 5120, 40/8 heads, ``experts`` experts of ffn 13824, top-2,
+    moe_aux_loss_coef 0.01), the decoder cut to ``layers`` layers, the
+    InternViT-300M tower frozen, the embedding and the head frozen (the
+    optimizer's mask: their gradients count in grad_norm), Adam's first
+    moments in bf16; random weights from the seed; two packed rows of
+    ``seq`` tokens, each with a 7-tile image, the logit budget ``budget``
+    a row; the capacity factor E / k in the reference and, on the EP
+    ranks, the least that the reference's routes of their rows need
+    (_ep_capacity: nothing drops, with a smaller buffer); ``steps`` steps (the
+    warm-up's lr-0 step, then lr 1e-5). First the dp-1 reference
+    (both rows one routing batch; _reference: in this process on the
+    card), then dp 2 (x ``tp``) with the experts cut over dp, a row a dp
+    rank (backend "staged": two gloo processes sharing this card,
+    host-staged; "nccl": a card a rank; "gloo" with device "cpu": the
+    rehearsal). Every EP call routes as the reference routed its row
+    (_routing_tap: random routers put a token's top-2 margin at the order
+    of bf16 rounding). Gates: no copy dropped; each step's loss within
+    TRAIN_LOSS_REL of the reference's, grad_norm within EP_NORM_REL; every
+    rank the same loss bits; the first step's gradients against the
+    reference's at cosine >= TRAIN_GRAD_COS for every group (experts and
+    routers included); the EP aux (the mean of the ranks' own) within
+    EP_AUX_REL of the mean of the rows' own Switch losses, recomputed by
+    the reference from each row alone; the aux term of the EP first step's
+    reported loss (less the reference's cross-entropy) within
+    EP_AUX_TERM_REL of coef x that mean; three planted faults that must
+    fail: the expert gradients summed over dp as if replicated (the cosine
+    gate), grad_norm counting them as if replicated over dp (the experts'
+    part of grad_norm, within EP_NORM_REL of the reference's without the
+    fault), the aux summed over dp in the reported loss (the aux-term
+    gate); the lr-0 step leaving every bit, the second step moving every
+    expert stack and router on every rank and no leaf the optimizer does
+    not train; each rank holding exactly its
+    share of the expert bytes (its pieces the whole tree's slices, bit for
+    bit, and their moments); K1, K3 and K4 or K5 launches exact. ->
+    {"counts": every EP rank's launches summed}."""
+    import dataclasses
+
+    from long_vita_tpu_torch.config import long_vita_14b
+    from long_vita_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cpu = device == "cpu"
+    base = base or long_vita_14b()
+    # a capacity factor of E / k gives each expert a slot for every token of
+    # its routing batch: nothing drops, so dp 1 (both rows one call) and EP (a
+    # row a call, at the factor the reference's routes need) route alike
+    # (under drops they should differ; tests/test_torch_ep_*.py hold the drop
+    # semantics to JAX's)
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, num_hidden_layers=layers, num_experts=experts,
+        moe_capacity_factor=experts / base.text.moe_top_k))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ep_train_", dir=build)
+    sizes = dict(device=device, backend=backend, work=work, cfg=cfg, seq=seq, budget=budget,
+                 steps=steps, tp=tp, answer=answer, text_sup=text_sup)
+    try:
+        t0 = time.perf_counter()
+        one = _reference(_ep_train_worker, {**sizes, "backend": "gloo"}, 2 * TP_TRAIN_TIMEOUT)
+        t1 = time.perf_counter()
+        cf_ep, need = _ep_capacity(cfg.text, os.path.join(work, "routes.pt"), seq)
+        ep_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, moe_capacity_factor=cf_ep))
+        world = 2 * tp
+        ranks = [r for _, r in sorted(_spawn(_ep_train_worker, world, {**sizes, "cfg": ep_cfg},
+                                             2 * TP_TRAIN_TIMEOUT).items())]
+        print(f"[ep train] the reference {t1 - t0:.1f} s, the {world} EP processes "
+              f"{time.perf_counter() - t1:.1f} s (start-up, building, the steps, the "
+              "faults on the first step's gradients)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failures = []
+
+    def check(good: bool, what: str) -> None:
+        print(f"[ep train] {what}: {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(what)
+
+    where = {"staged": STAGED_NOTE, "nccl": f"{world} cards over NCCL",
+             "gloo": f"{world} gloo processes on the CPU"}[backend]
+    geom = f"EP dp 2 x tp {tp}" if tp > 1 else "EP dp 2"
+    tc, vc = cfg.text, cfg.vision
+    r0 = ranks[0]
+    print(f"[ep train] the MoE VLM at the 14B's widths (h {tc.hidden_size}, {experts} experts of "
+          f"ffn {tc.intermediate_size}, top-{tc.moe_top_k}, capacity factor "
+          f"{tc.moe_capacity_factor}, aux coefficient {tc.moe_aux_loss_coef}), {layers} layers, "
+          f"two {seq}-token rows ({one['supervised']} supervised), trained leaves "
+          f"{r0['trained']}")
+    for r in ranks + [one]:
+        who = "the reference" if r is one else f"rank (dp {r['coords'][0]}, tp {r['coords'][1]})"
+        print(f"[ep train] {who}: built in {r['build_s']:.1f} s; holds "
+              f"{r['expert_bytes'] / 1e9:.3f} GB of the {r['expert_bytes_whole'] / 1e9:.3f} GB of "
+              f"experts, {r['expert_moment_bytes'] / 1e9:.3f} GB of their moments; steps "
+              f"{[round(t, 3) for t in r['step_s']]} s ({where if r is not one else 'one process'}"
+              f"), staged copies {[round(t, 3) for t in r['staged_s']]} s of them; peak allocated "
+              f"{r['peak_gb']:.2f} GB; losses {r['losses']} grad_norm {r['norms']}; routed "
+              f"{r['moe']}")
+    check(all(r["moe"]["dropped"] == 0 and r["moe"]["copies"] > 0 for r in ranks + [one]),
+          f"no copy dropped (capacity factor E / k in the reference; {cf_ep} on the EP ranks, "
+          f"whose rows' routes need {need} slots of an expert) in the reference or on any EP "
+          "rank")
+    check(all(r["losses"] == r0["losses"] for r in ranks), "every EP rank reports the same loss "
+          "bits")
+    check(len(r0["losses"]) == steps and all(
+        abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], one["losses"])),
+        f"{geom} losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of the dp-1 "
+        f"reference's {one['losses']}")
+    check(all(abs(a - b) <= EP_NORM_REL * abs(b) for a, b in zip(r0["norms"], one["norms"])),
+          f"{geom} grad_norm {r0['norms']} within {EP_NORM_REL} of the reference's "
+          f"{one['norms']}")
+    cos = r0["cos"]
+    want_groups = {"experts", "router", "input_norm", "post_attn_norm", "final_norm", "q_proj",
+                   "k_proj", "v_proj", "o_proj", "projector"}
+    check(min(cos.values()) >= TRAIN_GRAD_COS and set(cos) == want_groups,
+          "the first step's gradients of the EP shards vs the reference's, cosine by group "
+          f"(>= {TRAIN_GRAD_COS}): " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    fault = r0["cos_fault"]
+    check(fault["experts"] < TRAIN_GRAD_COS,
+          "the cosine gate with the expert gradients summed over dp as if replicated (a planted "
+          f"fault; layer 0's gate stack) must fail: experts {fault['experts']:.6f}")
+    def rel(x):
+        return abs(x - one["expert_norm"]) / one["expert_norm"]
+
+    check(all(rel(r["expert_norm"]) <= EP_NORM_REL for r in ranks),
+          f"the experts' part of grad_norm {[round(r['expert_norm'], 6) for r in ranks]} within "
+          f"{EP_NORM_REL} of the reference's {one['expert_norm']:.6f}")
+    check(all(rel(r["fault_norm"]) > EP_NORM_REL for r in ranks),
+          "that gate with the experts counted as if replicated over dp (a planted fault) must "
+          f"fail: {[round(r['fault_norm'], 6) for r in ranks]}")
+    ep_aux = sum(r["aux"][0] for r in ranks if r["coords"][1] == 0) / 2
+    rows_aux = sum(one["row_aux"]) / 2
+    check(abs(ep_aux - rows_aux) <= EP_AUX_REL * abs(rows_aux),
+          f"the EP aux {ep_aux:.6f} (the mean over dp of each rank's row's) within {EP_AUX_REL} "
+          f"of the mean of the rows' own Switch losses {rows_aux:.6f} ({one['row_aux']}; the "
+          f"reference's two-row call: {one['aux'][0]:.6f})")
+    coef = tc.moe_aux_loss_coef
+    term = coef * rows_aux
+    want = one["losses"][0] - coef * one["aux"][0] + term  # the reference's CE + the EP term
+
+    def term_check(loss):
+        return abs(loss - want) <= EP_AUX_TERM_REL * term
+
+    check(term_check(r0["losses"][0]),
+          f"the aux term of the EP loss, {r0['losses'][0] - want + term:.6f} (its first loss "
+          f"{r0['losses'][0]:.6f} less the reference's cross-entropy), within {EP_AUX_TERM_REL} "
+          f"(relative) of {coef} x the rows' own mean, {term:.6f}")
+    check(all(not term_check(r["loss_aux_fault"]) for r in ranks),
+          "that gate with the aux summed over dp, not averaged (a planted fault) must fail: "
+          f"losses {[round(r['loss_aux_fault'], 6) for r in ranks]} against {want:.6f}")
+    check(all(r["moved_at_lr0"] == [] for r in ranks + [one]),
+          "the warm-up's first step (lr 0) leaves every leaf's bits on every rank")
+    check(steps < 2 or all(r["moe_moved"][0] == r["moe_moved"][1] > 0
+                           and not r["moved_untrained"] for r in ranks + [one]),
+          f"after the step at lr > 0 every expert stack and router moved on every rank "
+          f"({[r['moe_moved'] for r in ranks + [one]]} (moved, of)) and no leaf the optimizer "
+          f"does not train ({[r['moved_untrained'][:3] for r in ranks + [one]]})")
+    check(all(r["expert_pieces_exact"] and r["expert_bytes"] * 2 * tp == r["expert_bytes_whole"]
+              and r["expert_moment_bytes"] * 2 * tp == one["expert_moment_bytes"]
+              for r in ranks) and one["expert_pieces_exact"],
+          "each rank holds exactly its share of the expert bytes (its pieces the whole tree's "
+          "slices bit for bit, 1 / (dp x tp) of the bytes and of their moments)")
+    for r, n_rows in [(r, 1) for r in ranks] + [(one, 2)]:
+        fused = fa.bwd_uses_fused(n_rows, seq, seq, tc.num_attention_heads // (
+            1 if r is one else tp), tc.head_dim, 2)
+        want = dict.fromkeys(r["counts"], 0)
+        want["flash_fwd"] = 2 * layers * steps
+        want["short_attn"] = vc.num_hidden_layers * steps
+        if fused:
+            want["flash_bwd"] = layers * steps
+        else:
+            want["flash_bwd_dkv"] = want["flash_bwd_dq"] = layers * steps
+        who = "the reference" if r is one else f"rank {r['rank']}"
+        if not cpu:
+            check(r["counts"] == want, f"launches of {who}: {r['counts']} (expected {want})")
+        else:
+            print(f"[ep train] launches of {who} (the CPU runs the plain versions): "
+                  f"{r['counts']}")
+    print(f"[ep train] an {geom} step {min(r0['step_s']):.3f} s against the reference's "
+          f"{min(one['step_s']):.3f} s ({where}); phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"[ep train] {failures}")
+    return {"counts": {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}}
 
 
 def phase_autograd_probe(timeout: float = 5.0) -> None:
@@ -6077,6 +6608,10 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
         phase_pp_train(backend="nccl", kernels=False)
         if n_dev >= 4:
             phase_pp_train(backend="nccl", tp=2, kernels=False)
+        # expert parallelism over NCCL: dp 2 on two cards; on four, dp 2 x tp 2
+        phase_ep_train(backend="nccl")
+        if n_dev >= 4:
+            phase_ep_train(backend="nccl", tp=2)
     print(json.dumps({"phase": "cp_nccl", "ran": True, "devices": n_dev}))
 
 
@@ -6099,6 +6634,8 @@ def _collect(when: str) -> None:
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6144,11 +6681,15 @@ def main() -> int:
     _collect("after the generic towers")
     add(phase_moe())
     _collect("after the MoE phase")
-    cfg, dev = long_vita_14b(), torch.device("cuda")
-    params = _text_params(cfg, dev)
-
-    k1, bf16_logits = phase_serving(params)
+    dev = torch.device("cuda")
+    whole = _text_params(long_vita_14b(), dev)
+    k1, _ = phase_serving(whole)
     launches["flash_fwd"] += k1
+    # the phases after it take the decoder's first MAIN_LAYERS layers, for the
+    # run's time; its bf16 last-row logits at that depth are theirs to hold to
+    params, cfg = _decoder_prefix(whole, long_vita_14b(), MAIN_LAYERS)
+    del whole
+    bf16_logits = _prefill_logits(params, cfg)
     bits = _snapshot(params, set())
     add(phase_int4(params, cfg, dev, bf16_logits))
     add(phase_int8(params, cfg, dev, bf16_logits))
@@ -6215,6 +6756,8 @@ def main() -> int:
     pp_train = phase_pp_train(kernels=False)
     add(pp_train["counts"])
     _collect("after the pp training phase")
+    add(phase_ep_train()["counts"])
+    _collect("after the expert-parallel training phase")
     phase_autograd_probe()
     phase_cp_nccl()
     report = {"kernels": [

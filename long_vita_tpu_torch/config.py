@@ -67,9 +67,9 @@ class TextConfig:
     hidden_act: str = "silu"
     bos_token_id: int = 151643
     eos_token_id: int = 151645
-    # Mixture-of-experts; num_experts == 0 keeps the dense SwiGLU MLP. Local
-    # mode (ops/moe.py): expert parallelism over dp, and MoE over cp, raise
-    # (ROADMAP §1 item 8)
+    # Mixture-of-experts; num_experts == 0 keeps the dense SwiGLU MLP
+    # (ops/moe.py): over a mesh, expert parallelism over dp (dp divides
+    # num_experts), the experts' ffn over tp, one routing batch over cp
     num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25

@@ -212,6 +212,12 @@ class InferenceEngine:
             validate_geometry(cfg.text, mesh.cfg)
             qwen2.check_moe_mesh(cfg.text, dp=mesh.shape["dp"], cp=mesh.shape["cp"],
                                  tp=mesh.shape["tp"])
+            if cfg.text.num_experts and mesh.shape["dp"] > 1:
+                # expert parallelism exchanges rows between the dp ranks in
+                # every call: a training layout (JAX's engine takes tp x cp)
+                raise NotImplementedError(
+                    f"serving a MoE model over dp {mesh.shape['dp']}: the engine serves a "
+                    "tp x cp mesh (MoE over tp, cp and cp x tp)")
         if mesh is not None and mesh.size > 1:
             self.parallel = qwen2.ParallelConfig(mesh)
         if mesh is not None and mesh.shape["cp"] > 1:

@@ -2,8 +2,8 @@
 
 Counterpart of long_vita_tpu/models/qwen2.py (text path). Architecture:
 RMSNorm (eps 1e-6), GQA attention with q/k/v bias and rotate-half RoPE, a
-SwiGLU MLP or, in a layer that carries a router, the local mixture of
-experts of ops/moe.py (its aux loss summed over the layers), untied lm_head.
+SwiGLU MLP or, in a layer that carries a router, the mixture of experts of
+ops/moe.py (its aux loss summed over the layers), untied lm_head.
 
 Differences from the JAX package, all of form rather than of numbers:
   - the stacked ``[L, ...]`` parameter pytree scanned by ``lax.scan`` becomes
@@ -75,7 +75,18 @@ Differences from the JAX package, all of form rather than of numbers:
     shard_params cuts it) the decoder runs its stage's layers in the
     pipeline's schedule (``_pipelined_decoder``, parallel/pipeline.py),
     the activation moving between stages in autograd Functions, where JAX
-    runs one shard_map over the pp axis.
+    runs one shard_map over the pp axis;
+  - a MoE layer over the mesh (JAX :602-667 and GSPMD) routes, in
+    training, each dp shard's tokens as one batch: expert parallelism over
+    dp (``Qwen2Params.ep_comm``, the experts cut over dp, rows exchanged
+    with their owners, ops/moe.py) at dp > 1, the batch spread over the cp
+    ranks (global slot ids and capacity, the aux from the summed
+    statistics), under tp the experts' intermediate dim cut like the dense
+    gate/up and down (each tp rank routes the gathered tokens and its
+    partial output is reduce-scattered, or all-reduced in serving); in
+    serving one call (a prefill or verify chunk, a decode step) is one
+    batch, over cp's q-sharded chunk every rank's rows; over pp each
+    microbatch is one call and the aux travels with the activation.
 """
 from __future__ import annotations
 
@@ -107,6 +118,19 @@ from long_vita_tpu_torch.parallel.comm import (
 from long_vita_tpu_torch.parallel.fsdp import embed_table, gathered_layer, head_weight, streaming
 
 CacheLen = Union[int, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoERoute:
+    """Where a MoE layer's routing batch and experts lie (ops/moe.moe_mlp):
+    ``ep`` the expert communicator (None: every expert here), ``seq`` the
+    ranks that hold the batch's tokens (None: this rank's alone),
+    ``share`` the ranks that route the same tokens for the aux's gradient
+    (tp under sequence parallelism)."""
+
+    ep: Any = None
+    seq: Any = None
+    share: int = 1
 
 
 CP_ALGOS = ("ring", "ulysses", "hybrid")
@@ -294,12 +318,15 @@ class Qwen2Params(nn.Module):
     that gathers its units over dp. ``pp``: None, or on a pipeline stage's
     tree (its ``layers`` the stage's, parallel/sharding.shard_params) the
     parallel.pipeline.Stage. ``tq_comm``: None, or on a 2-D tp shard the
-    tq communicator (``tp_comm`` is then set too, a LocalComm at tp 1)."""
+    tq communicator (``tp_comm`` is then set too, a LocalComm at tp 1).
+    ``ep_comm``: None, or on a MoE tree whose experts are cut over dp
+    (expert parallelism) the dp communicator they are exchanged over."""
 
     tp_comm = None
     tq_comm = None
     fsdp = None
     pp = None
+    ep_comm = None
 
     def __init__(
         self, *, embed: torch.Tensor, layers: list[DecoderLayer],
@@ -579,16 +606,24 @@ def _attention_block(
 
 
 def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None, sp=False,
-               tq=None):
+               tq=None, moe: Optional[MoERoute] = None):
     """Dense SwiGLU (on a tp shard, this rank's slice of the intermediate
     dim, then down_proj's all-reduce), or the MoE MLP when the layer carries
-    a router (JAX :602-667, local mode). -> (out, the layer's aux loss or
-    None). sp: x is the gathered sequence and out this rank's slice; tq:
-    2-D tp (x and out hidden slices too, _proj and _row_proj)."""
+    a router (JAX :602-667; ``moe`` where its batch and experts lie, one
+    device's by default), its tp-partial output reduced as down_proj's.
+    -> (out, the layer's aux loss or None). sp: x is the gathered sequence
+    and out this rank's slice; tq: 2-D tp (x and out hidden slices too,
+    _proj and _row_proj)."""
     if hasattr(layer, "router"):
         from long_vita_tpu_torch.ops.moe import moe_mlp
 
-        return moe_mlp(layer, x, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+        moe = moe or MoERoute()
+        out, aux = moe_mlp(layer, x, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor, axis_name=moe.ep,
+                           seq_comm=moe.seq, aux_share=moe.share)
+        if tp is not None and tp.size > 1:
+            out = scatter_seq(out, tp, 1) if sp else tp.all_reduce_sum(out)
+        return out, aux
     gate = _proj(layer.gate_proj, x, cfg, tq)
     up = _proj(layer.up_proj, x, cfg, tq)
     return _row_proj(layer.down_proj, F.silu(gate) * up, cfg, tp, sp, tq), None
@@ -596,21 +631,27 @@ def _mlp_block(layer: DecoderLayer, x: torch.Tensor, cfg: TextConfig, tp=None, s
 
 def check_moe_mesh(cfg: TextConfig, dp: int = 1, cp: int = 1, tp: int = 1, pp: int = 1,
                    tq: int = 1) -> None:
-    """MoE runs on one device (or on replicas of one). The JAX package shards
-    the experts over dp (expert parallelism, two all_to_alls a layer), their
-    intermediate dim over tp, routes cp's tokens as one global batch with
-    one capacity, and carries the aux loss through the pipeline's stages;
-    none of it is ported (ROADMAP §1, expert parallelism), so a MoE model
-    over dp, cp, tp or pp > 1 raises. 2-D tp does not compose with MoE in
-    JAX either (mesh.py:129-130): tq > 1 raises with its words."""
+    """The MoE meshes JAX rejects: at dp > 1 the experts are cut over dp
+    (expert parallelism, sharding.py:88-97), so dp must divide them (JAX's
+    device_put fails otherwise); 2-D tp does not compose with MoE
+    (mesh.py:129-130, its words). cp, tp, pp and FSDP compose."""
     if cfg.num_experts > 0 and tq > 1:
         raise ValueError(f"model geometry cannot shard over tq {tq}: 2-D TP (tq > 1) does not "
                          "compose with MoE/EP")
-    if cfg.num_experts > 0 and (dp > 1 or cp > 1 or tp > 1 or pp > 1):
-        raise NotImplementedError(
-            f"MoE layers over a multi-GPU mesh (dp {dp}, pp {pp}, cp {cp}, tp {tp}): expert "
-            "parallelism, MoE over tp and pp and cp's global routing are not ported "
-            "(ROADMAP §1 item 8, expert parallelism)")
+    if cfg.num_experts > 0 and dp > 1 and cfg.num_experts % dp:
+        raise ValueError(f"{cfg.num_experts} experts do not divide over dp {dp}: expert "
+                         "parallelism cuts the expert dim over dp")
+
+
+def moe_route(params: "Qwen2Params", parallel: Optional[ParallelConfig], sp: bool,
+              spread: bool) -> MoERoute:
+    """The MoE layers' routing context of a decoder call: the tree's expert
+    communicator, the cp ranks when the call's tokens are spread over them
+    (``spread``: training's sequence shards, or a q-sharded cached chunk),
+    and the tp ranks that route the same gathered tokens under sequence
+    parallelism."""
+    seq = parallel.comm if spread and parallel is not None and parallel.cp > 1 else None
+    return MoERoute(params.ep_comm, seq, params.tp_comm.size if sp else 1)
 
 
 def decoder_layer(
@@ -629,6 +670,7 @@ def decoder_layer(
     tp=None,
     sp: bool = False,
     tq=None,
+    moe: Optional[MoERoute] = None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """-> (x, the MoE aux loss of the layer, None for a dense one). tp: the
     tree's tp communicator (row-parallel all-reduces), or None. sp
@@ -636,7 +678,7 @@ def decoder_layer(
     normed input is gathered over tp before its column projections and
     each row projection reduce-scattered back into the slice. tq (2-D tp,
     with sp): x is also the rank's hidden slice (see the module
-    docstring)."""
+    docstring). moe: a MoE layer's routing context (moe_route)."""
 
     def gathered(h):
         return gather_seq(h, tp, 1) if sp else h
@@ -648,7 +690,7 @@ def decoder_layer(
     )
     out, aux = _mlp_block(layer,
                           gathered(rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps, tq)),
-                          cfg, tp, sp, tq)
+                          cfg, tp, sp, tq, moe)
     return x + out, aux
 
 
@@ -748,7 +790,6 @@ def qwen2_decoder(
     recompute = check_remat(remat) and kv_cache is None
     seq = inputs_embeds.shape[1]
     cp = parallel.cp if parallel is not None else 1
-    check_moe_mesh(cfg, cp=cp)
     tp, tq = params.tp_comm, params.tq_comm
     sp = (tp is not None and kv_cache is None and parallel is not None
           and parallel.mesh.shape["tp"] * parallel.mesh.shape["tq"] > 1)
@@ -762,6 +803,8 @@ def qwen2_decoder(
         inputs_embeds = inputs_embeds[:, lo:hi]
         position_ids = position_ids[:, lo:hi]
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    moe = moe_route(params, parallel, sp, kv_cache is None or q_sharded) \
+        if cfg.num_experts else None
     x = inputs_embeds
     cache_len = kv_cache.length if kv_cache is not None else None
     aux = None  # a dense decoder adds no work for it
@@ -773,7 +816,7 @@ def qwen2_decoder(
             if kv_cache is not None:
                 cache_kv = (kv_cache.k, kv_cache.v, kv_cache.k_scale, kv_cache.v_scale, i)
             args = (layer, x, cos, sin, cfg, cache_kv, cache_len, position_ids,
-                    segment_ids, attn_impl, parallel, q_sharded, tp, sp, tq)
+                    segment_ids, attn_impl, parallel, q_sharded, tp, sp, tq, moe)
             if recompute:
                 x, aux_l = remat_checkpoint(run, *args, remat=remat)
             else:
@@ -815,17 +858,20 @@ def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: Te
     the remat level (remat_checkpoint), under both schedules: JAX remats
     the interleaved schedule's whole ticks instead, only so that XLA does
     not stack the chunk's sliced weights per tick (pipeline.py:182-193),
-    which eager PyTorch never does; the numbers are the same. -> as
-    qwen2_decoder: hidden the final-normed [B, S(/tp), H] on the last
-    stage, None on the others; the MoE aux 0 (MoE over pp raises, JAX
-    takes the mean over microbatches, :909-911); the anchor."""
+    which eager PyTorch never does; the numbers are the same. A MoE
+    layer routes each microbatch as one call (its dp shard's rows under
+    expert parallelism), and the microbatch's aux travels with its
+    activation (an ``aux`` leaf of the shifted tree, each stage adding its
+    layers'), as JAX's carry does (:842-911). -> as qwen2_decoder: hidden
+    the final-normed [B, S(/tp), H] on the last stage, None on the others;
+    the MoE aux, the mean over microbatches on the last stage (JAX
+    :909-911), 0 on the others; the anchor."""
     from long_vita_tpu_torch.parallel.pipeline import run_schedule
 
     stage = params.pp
     if stage is None:
         raise ValueError("a pp mesh runs a pipeline stage's tree "
                          "(parallel/sharding.shard_params over the mesh)")
-    check_moe_mesh(cfg, pp=stage.size)
     tp = params.tp_comm
     sp = tp is not None and parallel.mesh.shape["tp"] > 1
     b, s = position_ids.shape
@@ -842,27 +888,43 @@ def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: Te
     if segment_ids is not None:
         local["seg"] = split(segment_ids)
     s_x = s // tp.size if sp else s
-    specs = {"x": ((b // m, s_x, cfg.hidden_size), params.embed.dtype, params.embed.device)}
+    dev = params.embed.device
+    specs = {"x": ((b // m, s_x, cfg.hidden_size), params.embed.dtype, dev)}
+    moe = moe_route(params, parallel, sp, False) if cfg.num_experts else None
+    if moe is not None:
+        specs["aux"] = ((), torch.float32, dev)
 
     def body(chunk, t):
-        x = t["x"]
+        x, aux = t["x"], t.get("aux")
         for layer in chunk:
             args = (layer, x, t["cos"], t["sin"], cfg, None, None, t["pos"], t.get("seg"),
-                    attn_impl, parallel, False, tp, sp)
-            x, _ = remat_checkpoint(decoder_layer, *args, remat=remat) if recompute else \
+                    attn_impl, parallel, False, tp, sp, None, moe)
+            x, aux_l = remat_checkpoint(decoder_layer, *args, remat=remat) if recompute else \
                 decoder_layer(*args)
-        return {"x": x}
+            if aux_l is not None:
+                aux = aux + aux_l
+        return {"x": x} if moe is None else {"x": x, "aux": aux}
 
-    out, anchor = run_schedule(params.layers, {"x": split(inputs_embeds)} if stage.first else None,
-                               body, stage.comm, m=m, virtual=stage.virtual, specs=specs,
-                               local=local, stats=stage.stats)
+    first = None
+    if stage.first:
+        first = {"x": split(inputs_embeds)}
+        if moe is not None:
+            first["aux"] = torch.zeros((m,), dtype=torch.float32, device=dev)
+    out, anchor = run_schedule(params.layers, first, body, stage.comm, m=m,
+                               virtual=stage.virtual, specs=specs, local=local,
+                               stats=stage.stats)
     hidden = None
+    aux = torch.zeros((), dtype=torch.float32, device=position_ids.device)
     if out is not None:
         hidden = rms_norm(out["x"].reshape(b, s_x, cfg.hidden_size), params.final_norm,
                           cfg.rms_norm_eps)
+        if moe is not None:
+            # the mean: the Switch aux does not grow with a call's tokens, so a
+            # sum would scale the coefficient m-fold (JAX :908-911)
+            aux = out["aux"].mean()
     result = (hidden, None)
     if return_aux:
-        result += (torch.zeros((), dtype=torch.float32, device=position_ids.device),)
+        result += (aux,)
     if return_anchor:
         result += (anchor,)
     return result

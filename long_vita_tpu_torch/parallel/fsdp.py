@@ -15,6 +15,11 @@ embedding, or the head) is gathered by ``_Gather``, a torch.autograd.Function:
     the shards (summed in rank order), which accumulate into the shard
     parameters' ``.grad``.
 
+A MoE layer's unit is its norms and attention weights: its router is
+replicated and its expert stacks are cut over dp for expert parallelism
+(JAX's specs, sharding.py:88-97), so they are the shard's own and never
+gathered (ops/moe.py exchanges the rows instead).
+
 The whole tensors are freed once the unit's forward ends. Under remat the
 gather runs inside the checkpointed layer, so the backward's recompute
 gathers again. Without remat a product would save its gathered weight for

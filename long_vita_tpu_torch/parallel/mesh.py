@@ -22,8 +22,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1, the multi-GPU items left: serving over 2-D tp, "
-              "item 6; expert parallelism, item 8; FSDP inside pipeline stages, item 3)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1, the multi-GPU items left: FSDP inside pipeline "
+              "stages, item 3; serving over 2-D tp, item 6)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +156,9 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
     the norms) and the vocabulary into tp x dp pieces (the embedding and
     the head); JAX pads such a dim under GSPMD, the port raises. tq > 1
     (2-D tp): the hidden dim splits over tq, and neither pp, MoE nor FSDP
-    composes with it (JAX :122-130 and sharding.py:62-63, their words)."""
+    composes with it (JAX :122-130 and sharding.py:62-63, their words). A
+    MoE model at dp > 1 cuts its experts over dp (expert parallelism):
+    dp divides the expert count (JAX's device_put fails otherwise)."""
     errs = []
     tp, pp, cp = mesh_cfg.tp, mesh_cfg.pp, mesh_cfg.cp
     if text_cfg.num_attention_heads % tp:
@@ -185,6 +187,10 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
         errs.append(f"logit budget {logit_budget} % cp {cp} != 0 (the vocab-parallel CE "
                     "splits the budget rows over cp)")
     dp = mesh_cfg.dp
+    experts = getattr(text_cfg, "num_experts", 0)
+    if experts > 0 and dp > 1 and experts % dp:
+        errs.append(f"experts {experts} % dp {dp} != 0 (expert parallelism cuts the expert "
+                    "dim over dp)")
     if fsdp and dp > 1:
         if text_cfg.hidden_size % dp:
             errs.append(f"hidden {text_cfg.hidden_size} % dp {dp} != 0 (FSDP cuts the hidden "

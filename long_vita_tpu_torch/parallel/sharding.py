@@ -60,6 +60,16 @@ Leaf of a stage's layer carries its global layer (``pp_layer``):
 checkpoint holds the canonical order whatever the schedule. FSDP inside
 pipeline stages is not ported (``check_pp_fsdp`` raises).
 
+A MoE layer (JAX ``text_param_specs(moe=True)`` :88-97) keeps its router
+replicated and cuts its experts' intermediate dim over tp like the dense
+MLP (gate and up [E, H, I] along I, torch dim 2; down [E, I, H] along I,
+dim 1), and at dp > 1 their expert dim (dim 0) over dp: expert
+parallelism, piece d on dp rank d (``Leaf.ep``, ``ep_index``), bound to
+``Qwen2Params.ep_comm`` (the mesh's dp communicator). Under FSDP the dense
+leaves of a MoE layer stream over dp as a dense layer's do, while the
+expert stacks keep dp for EP and are never gathered (parallel/fsdp.py).
+Checkpoints gather the experts over dp and tp into the one-device format.
+
 2-D tensor parallelism (JAX ``text_param_specs(tp2d=True)`` :57-79: the
 tq axis) cuts the other matrix dim of each decoder weight over tq
 (``tq_dim``; torch's ``[out, in]``): a column weight's input dim (torch
@@ -98,11 +108,16 @@ def text_param_specs(params) -> Specs:
     quantize.quantized_param_specs on top). A LoRA adapter follows its
     projection: ``b`` [r, out] splits its out dim in a column projection,
     ``a`` [in, r] its in dim in a row one; the other factor is replicated.
-    MoE layers have no tp layout in the port (qwen2.check_moe_mesh)."""
+    A MoE layer's router is replicated and its experts split their
+    intermediate dim (gate and up dim 2, down dim 1; JAX :88-97)."""
     specs: Specs = {"embed": 0, "final_norm": None, "lm_head.weight": 0}
     for i, layer in enumerate(params.layers):
         p = f"layers.{i}."
         specs[p + "input_norm"] = specs[p + "post_attn_norm"] = None
+        if hasattr(layer, "router"):
+            specs[p + "router.weight"] = None
+            specs[p + "experts.gate"] = specs[p + "experts.up"] = 2
+            specs[p + "experts.down"] = 1
         for name, split in [(n, "col") for n in COLUMN] + [(n, "row") for n in ROW]:
             entry = getattr(layer, name, None)
             if entry is None:
@@ -159,7 +174,19 @@ class Leaf:
     ``tq_index`` of ``tq`` along ``tq_dim`` (None: replicated over tq), and
     ``tq_same`` for a leaf replicated over tq that the tq ranks use after
     their sum, all in the same way (a bias): its gradient is the same on
-    each."""
+    each; under expert parallelism, of a MoE layer's expert stack, piece
+    ``ep_index`` of ``ep`` along the expert dim (dim 0; ep 1: whole).
+
+    Who sums a leaf's gradient over which ranks (train_step._Reduction)
+    and how it counts in grad_norm (optimizer.tp_global_norm): a leaf cut
+    over tp, over every rank that holds its slice (dp x cp); a replicated
+    one, partial on each rank, over the world; an expert stack, over cp
+    alone: the exchange's backward brought every dp rank's tokens to its
+    owner, so its gradient there is the whole dp sum already, and it
+    counts once per owner (summed over dp and tp in the norm, as an FSDP
+    piece). The router is replicated and summed like any replicated
+    leaf (its gradient is partial over tp too: its gates multiply the
+    experts' tp-partial outputs)."""
 
     dim: Optional[int]
     pieces: int = 1
@@ -173,6 +200,8 @@ class Leaf:
     tq: int = 1
     tq_index: int = 0
     tq_same: bool = False
+    ep: int = 1
+    ep_index: int = 0
 
     @property
     def sharded(self) -> bool:
@@ -195,11 +224,16 @@ class Leaf:
         return self.tq_dim is not None
 
     @property
+    def expert(self) -> bool:
+        """An expert stack cut over dp (expert parallelism)."""
+        return self.ep > 1
+
+    @property
     def partial(self) -> bool:
         """Replicated over tp and tq and used on the rank's slice of the
         sequence or of the hidden dim: its gradient on a rank is a part of
         the whole one, summed over every rank that holds it."""
-        return not (self.sharded or self.cut_tq or self.tq_same)
+        return not (self.sharded or self.cut_tq or self.tq_same or self.expert)
 
 
 def layer_of(name: str) -> Optional[int]:
@@ -217,19 +251,23 @@ def renamed(name: str, layer: int) -> str:
 
 def leaf_rule(name: str, dim: Optional[int], tp_index: int, tp: int, hkv: int,
               fsdp_dim: Optional[int] = None, dp_index: int = 0, dp: int = 1,
-              tq_dim: Optional[int] = None, tq_index: int = 0, tq: int = 1) -> Leaf:
+              tq_dim: Optional[int] = None, tq_index: int = 0, tq: int = 1, ep: int = 1,
+              ep_index: int = 0) -> Leaf:
     """The Leaf of parameter ``name`` whose spec is ``dim``, on tp rank
     ``tp_index`` of ``tp`` (and, with ``fsdp_dim``, dp rank ``dp_index`` of
     ``dp``; with ``tq_dim``, tq rank ``tq_index`` of ``tq``): whole kv
     heads, so with tp > Hkv a k/v projection splits into Hkv pieces and
     rank t takes the piece of its q heads' kv head. Nothing is cut over an
     axis of one rank. Under tq > 1 a leaf with a tp spec that tq leaves
-    whole is ``tq_same``."""
+    whole is ``tq_same``. With ``ep`` > 1 an expert stack is cut over dp
+    (piece ``ep_index``)."""
     fs = dict(fsdp_dim=fsdp_dim, dp=dp, dp_index=dp_index) if fsdp_dim is not None and dp > 1 \
         else {}
     if tq > 1:
         fs.update(dict(tq_dim=tq_dim, tq=tq, tq_index=tq_index) if tq_dim is not None
                   else dict(tq_same=dim is not None))
+    if ep > 1 and ".experts." in name:
+        fs.update(ep=ep, ep_index=ep_index)
     if dim is None or tp == 1:
         return Leaf(None, **fs)
     if tp > hkv and (".k_proj." in name or ".v_proj." in name):
@@ -289,20 +327,22 @@ def dense_spec(name: str) -> Optional[int]:
 
 
 def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
-                dp: int = 1, stage=None, tq_index: int = 0, tq: int = 1) -> dict[str, Leaf]:
+                dp: int = 1, stage=None, tq_index: int = 0, tq: int = 1,
+                ep: int = 1) -> dict[str, Leaf]:
     """name -> Leaf for every parameter of ``params`` (a whole tree or a
     shard: the names and specs are the same) on tp rank ``tp_index``, and
     with dp > 1 FSDP's dp rank ``dp_index`` of ``dp``, with tq > 1 2-D tp's
     tq rank ``tq_index`` of ``tq``; with ``stage`` (a
     parallel.pipeline.Stage, the tree that stage's) each leaf of local
     layer i carries the global layer stage.layers()[i]. ``cfg``: a
-    LongVITAConfig or TextConfig (the kv heads)."""
+    LongVITAConfig or TextConfig (the kv heads). ep > 1: the expert stacks
+    are cut over that many dp ranks, this rank's piece ``dp_index``."""
     hkv = getattr(cfg, "text", cfg).num_key_value_heads
     ids = stage.layers() if stage is not None else None
     out = {}
     for name, dim in long_vita_param_specs(params).items():
         leaf = leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp,
-                         tq_dim(name), tq_index, tq)
+                         tq_dim(name), tq_index, tq, ep, dp_index)
         i = layer_of(name) if ids is not None else None
         out[name] = dataclasses.replace(leaf, pp_layer=ids[i]) if i is not None else leaf
     return out
@@ -316,15 +356,17 @@ def rank_layout(params, cfg, mesh: Mesh) -> Optional[dict[str, Leaf]]:
     """The layout of a rank's tree as it is cut: over tp when it is bound
     to a tp communicator, over tq when it is bound to a tq one (2-D tp),
     over dp when it is FSDP-sharded (``Qwen2Params.fsdp``), over pp when it
-    is a pipeline stage's (``Qwen2Params.pp``); None for a whole tree."""
+    is a pipeline stage's (``Qwen2Params.pp``), its experts over dp under
+    expert parallelism (``Qwen2Params.ep_comm``); None for a whole tree."""
     text = _text(params)
     tp = mesh.shape["tp"] if text.tp_comm is not None else 1
     tq = mesh.shape["tq"] if text.tq_comm is not None else 1
     dp = mesh.shape["dp"] if text.fsdp is not None else 1
-    if tp == 1 and tq == 1 and dp == 1 and text.pp is None:
+    ep = mesh.shape["dp"] if text.ep_comm is not None else 1
+    if tp == 1 and tq == 1 and dp == 1 and ep == 1 and text.pp is None:
         return None
     return leaf_layout(params, cfg, mesh.tp_index, tp, mesh.dp_index, dp, text.pp,
-                       mesh.tq_index, tq)
+                       mesh.tq_index, tq, ep)
 
 
 def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
@@ -332,6 +374,8 @@ def slice_leaf(t: torch.Tensor, leaf: Leaf) -> torch.Tensor:
     replicated): its tp piece, of that its tq piece, then its dp piece."""
     if leaf.dim is not None:
         t = _piece(t, leaf.dim, leaf.index, leaf.pieces)
+    if leaf.expert:
+        t = _piece(t, 0, leaf.ep_index, leaf.ep)
     if leaf.tq_dim is not None:
         t = _piece(t, leaf.tq_dim, leaf.tq_index, leaf.tq)
     if leaf.fsdp_dim is not None:
@@ -378,8 +422,10 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     (training, JAX's ``tp2d``) the decoder's weights are cut over tq too
     (``tq_dim``) and the tree is bound to ``mesh.tq_comm`` (and to
     ``mesh.tp_comm`` at tp 1 too, a LocalComm: the 2-D layer runs
-    sequence parallel); a dense tree only. tp 1 without FSDP, pp or tq
-    returns ``params``."""
+    sequence parallel); a dense tree only. A MoE tree at dp > 1 has its
+    experts cut over dp (expert parallelism) and is bound to
+    ``mesh.dp_comm`` (``Qwen2Params.ep_comm``). tp 1 without FSDP, EP, pp
+    or tq returns ``params``."""
     from long_vita_tpu_torch.models.long_vita import LongVITAParams
     from long_vita_tpu_torch.models.qwen2 import check_moe_mesh
     from long_vita_tpu_torch.parallel.fsdp import Fsdp
@@ -387,12 +433,13 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
 
     tp, dp, pp = mesh.shape["tp"], mesh.shape["dp"] if fsdp else 1, mesh.shape["pp"]
     tq = mesh.shape["tq"]
-    if tp == 1 and dp == 1 and pp == 1 and tq == 1:
-        return params
     text_cfg = getattr(cfg, "text", cfg)
+    ep = mesh.shape["dp"] if text_cfg.num_experts and mesh.shape["dp"] > 1 else 1
+    if tp == 1 and dp == 1 and pp == 1 and tq == 1 and ep == 1:
+        return params
     validate_geometry(text_cfg, MeshConfig(dp=dp, pp=pp, tp=tp, tq=tq), virtual_pp=virtual_pp,
                       fsdp=fsdp)
-    check_moe_mesh(text_cfg, dp=dp, tp=tp, pp=pp, tq=tq)
+    check_moe_mesh(text_cfg, dp=mesh.shape["dp"], tp=tp, pp=pp, tq=tq)
     quantised = any(n.endswith((".weight_q", ".packed")) for n, _ in params.named_parameters())
     if quantised and (dp > 1 or tq > 1):
         raise ValueError(f"{'FSDP' if dp > 1 else '2-D tp (tq)'} shards a dense tree "
@@ -403,7 +450,7 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
         stage = Stage(mesh.pp_comm, len(_text(params).layers), virtual_pp)
         params = stage_tree(params, [_text(params).layers[g] for g in stage.layers()])
     layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp, stage,
-                         mesh.tq_index, tq)
+                         mesh.tq_index, tq, ep)
     tensors = {}
     for name, t in params.named_parameters():
         piece = slice_leaf(t.detach(), layout[name])
@@ -418,6 +465,7 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     text.tq_comm = mesh.tq_comm if tq > 1 else None
     text.fsdp = Fsdp(mesh.dp_comm) if dp > 1 else None
     text.pp = stage
+    text.ep_comm = mesh.dp_comm if ep > 1 else None
     return local
 
 
@@ -455,7 +503,8 @@ def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None
     is all-gathered over ``dp_comm`` along its fsdp_dim first, a leaf cut
     over tq over ``tq_comm`` along its tq_dim, a tp-sharded one then over
     ``tp_comm`` along its dim, and of a slice that ``share`` ranks hold one
-    copy is kept; a layer of a pipeline ``stage`` is then all-gathered over
+    copy is kept (an expert stack is all-gathered over ``dp_comm`` along
+    its expert dim first); a layer of a pipeline ``stage`` is then all-gathered over
     its pp communicator (every stage calls it with its local names) and
     kept under each stage's global name (the one-device order). Each whole
     tensor is moved to ``device`` (default: where it was gathered) before
@@ -466,6 +515,8 @@ def gather_named(tensors: dict, layout: dict[str, Leaf], tp_comm, *, device=None
     for name, t in tensors.items():
         leaf = layout.get(name, Leaf(None))
         whole = t.detach()
+        if leaf.expert:
+            whole = dp_comm.all_gather(whole.contiguous(), 0)
         if leaf.fsdp:
             whole = dp_comm.all_gather(whole.contiguous(), leaf.fsdp_dim)
         if leaf.cut_tq:
@@ -503,7 +554,7 @@ def gather_params(local, mesh: Mesh, cfg, *, device=None):
         local = stage_tree(local, [_text(local).layers[0]] * stage.n_layers)
     whole = _rebuild(local, gathered)
     text = _text(whole)
-    text.tp_comm = text.tq_comm = text.fsdp = text.pp = None
+    text.tp_comm = text.tq_comm = text.fsdp = text.pp = text.ep_comm = None
     return whole
 
 

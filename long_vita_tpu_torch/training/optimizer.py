@@ -260,11 +260,14 @@ def global_norm(tensors, extra_sq: Optional[torch.Tensor] = None) -> torch.Tenso
     return total.sqrt()
 
 
-def leaf_class(leaf) -> int:
+def leaf_class(leaf, experts_as_replicated: bool = False) -> int:
     """A Leaf's (parallel/sharding.py) class in the global norm: 0
-    replicated, 1 cut over tp, 2 over dp (FSDP), 3 over both; 4 more for a
-    layer of a pipeline stage (cut over pp)."""
-    return (1 if leaf.sharded else 0) + (2 if leaf.fsdp else 0) + (4 if leaf.staged else 0)
+    replicated, 1 cut over tp, 2 over dp (FSDP, or an expert stack under
+    expert parallelism: a piece per owner), 3 over both; 4 more for a layer
+    of a pipeline stage (cut over pp). experts_as_replicated: the gates'
+    fault (train_step._NORM_EXPERTS_ONCE_OVER_DP)."""
+    over_dp = leaf.fsdp or (leaf.expert and not experts_as_replicated)
+    return (1 if leaf.sharded else 0) + (2 if over_dp else 0) + (4 if leaf.staged else 0)
 
 
 def counted(leaf, tp_comm, tq_comm) -> bool:
@@ -277,12 +280,14 @@ def counted(leaf, tp_comm, tq_comm) -> bool:
 
 
 def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] = None,
-                   dp_comm=None, pp_comm=None, tq_comm=None) -> torch.Tensor:
+                   dp_comm=None, pp_comm=None, tq_comm=None,
+                   experts_as_replicated: bool = False) -> torch.Tensor:
     """The global norm over a rank's shards (optax.global_norm of the whole
     arrays): ``layout`` (parallel/sharding.leaf_layout) tells a leaf cut
     over tp, whose squares are summed over ``tp_comm`` (of a slice that
     ``share`` ranks hold, only the first rank's), or over dp by FSDP,
-    summed over ``dp_comm``, from a replicated one, counted once (its
+    summed over ``dp_comm`` (an expert stack under expert parallelism too:
+    one piece per owner), from a replicated one, counted once (its
     summed gradient is the same on every rank); a tp-cut leaf's summed
     gradient is the same on every dp rank and an FSDP-cut replicated one's
     on every tp rank, so each counts once there. A pipeline stage's layers
@@ -300,7 +305,7 @@ def tp_global_norm(grads: dict, layout: dict, tp_comm, folded: Optional[tuple] =
         leaf = layout[name]
         if not counted(leaf, tp_comm, tq_comm):
             continue
-        k = leaf_class(leaf)
+        k = leaf_class(leaf, experts_as_replicated)
         sq = square_sum(g)
         sums[k] = sq if sums[k] is None else sums[k] + sq
     like = next(iter(grads.values()), None)

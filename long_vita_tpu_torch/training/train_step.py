@@ -85,6 +85,24 @@ projector, LoRA's replicated factors) is used on the rank's hidden slice,
 or feeds a row that is cut to it, and is summed over the world, tq
 included (``Leaf.partial``). ``_UNSUMMED_OVER_TQ`` is the gates' fault.
 
+A MoE decoder over the mesh (models/qwen2.py, ops/moe.py) adds the
+Switch aux loss as JAX does (:110-113, loss + moe_aux_loss_coef * aux),
+where JAX's aux is the mean over dp of each dp shard's aux (pmean inside
+its EP shard_map), summed over the layers and, over pp, averaged over the
+microbatches. Each rank's aux is its dp shard's, the same on the shard's
+cp and tp ranks, its gradient flowing into the rank's own tokens alone
+(ops/moe.py), so each rank backpropagates moe_aux_loss_coef * aux / dp and
+the reported loss adds the mean over dp. Who sums what (sharding.Leaf):
+an expert stack cut over dp (expert parallelism) is summed over cp alone,
+since the exchange's backward brought every dp rank's rows to its owner,
+and counts once per owner in grad_norm (summed over dp and tp there, as an
+FSDP piece); at dp 1 it is a tp shard (or replicated) as any other; the
+router is replicated and summed over the world. ``_EXPERTS_SUMMED_OVER_DP``
+(the expert gradients summed over dp x cp as if replicated),
+``_NORM_EXPERTS_ONCE_OVER_DP`` (grad_norm counting them as a leaf
+replicated over dp: one rank's experts for all) and ``_AUX_SUMMED_OVER_DP``
+(the aux summed over dp, not averaged) are the gates' faults.
+
 Freezing mirrors the JAX step: freeze_text stops the gradient at the text
 weights (requires_grad off: no dW is formed, activation gradients still flow
 through the decoder to the projector), freeze_vision runs the tower under
@@ -140,6 +158,14 @@ _NORM_UNSUMMED_OVER_PP = False
 # ranks of this rank's tq index only (each rank's norm gradient covers its
 # hidden slice alone).
 _UNSUMMED_OVER_TQ: tuple = ()
+# Faults for the expert-parallel gates, never set in training: the expert
+# stacks' gradients summed over dp x cp as if they were replicated over dp;
+# grad_norm counting them as a leaf replicated over dp (one rank's for all);
+# the aux summed over dp instead of averaged (in the objective and the
+# reported loss).
+_EXPERTS_SUMMED_OVER_DP = False
+_NORM_EXPERTS_ONCE_OVER_DP = False
+_AUX_SUMMED_OVER_DP = False
 
 
 @dataclasses.dataclass
@@ -280,6 +306,7 @@ class _Reduction:
         self.mesh, self.world = mesh, mesh.world
         self.layout = rank_layout(params, cfg, mesh)
         self.fsdp = params.text.fsdp is not None
+        self.ep = params.text.ep_comm is not None
 
     def comm(self, name: str):
         """The ranks the gradient is summed over (an FSDP leaf's after its
@@ -288,6 +315,8 @@ class _Reduction:
         if self.layout is None:
             return self.world
         leaf, mesh = self.layout[name], self.mesh
+        if leaf.expert:
+            return mesh.dp_cp_comm if _EXPERTS_SUMMED_OVER_DP else mesh.cp_comm
         unsummed = name.endswith(_UNSUMMED_OVER_TP)
         if leaf.partial and not unsummed and name.endswith(_UNSUMMED_OVER_TQ):
             return mesh.over("dp", "pp", "cp", "tp")
@@ -312,7 +341,8 @@ class _Reduction:
 
     def klass(self, name: str) -> int:
         """The leaf's optimizer.leaf_class (0 without a layout)."""
-        return 0 if self.layout is None else leaf_class(self.layout[name])
+        return 0 if self.layout is None else leaf_class(self.layout[name],
+                                                        _NORM_EXPERTS_ONCE_OVER_DP)
 
     def norm(self, grads: dict, folded=None) -> torch.Tensor:
         """The global norm of the summed ``grads`` (and of ``folded``: the
@@ -320,10 +350,11 @@ class _Reduction:
         if self.layout is None:
             extra = None if folded is None else folded[0]
             return global_norm(grads.values(), extra)
-        dp_comm = self.mesh.dp_comm if self.fsdp and not _NORM_UNSUMMED_OVER_DP else None
+        dp_comm = self.mesh.dp_comm if (self.fsdp or self.ep) and not _NORM_UNSUMMED_OVER_DP \
+            else None
         pp_comm = self.mesh.pp_comm if not _NORM_UNSUMMED_OVER_PP else None
         return tp_global_norm(grads, self.layout, self.mesh.tp_comm, folded, dp_comm, pp_comm,
-                              self.mesh.tq_comm)
+                              self.mesh.tq_comm, _NORM_EXPERTS_ONCE_OVER_DP)
 
 
 def gradients(params: LongVITAParams, exclude=frozenset()) -> dict[str, torch.Tensor]:
@@ -385,7 +416,8 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
     as eight sums of squares by optimizer.leaf_class (this rank's shares),
     or None without ``fold``; the loss and count summed over dp x pp x cp
     (the tp ranks of a cp shard hold the same rows; of a pipeline's stages
-    the last alone counts them)."""
+    the last alone counts them), the loss with a MoE decoder's aux term
+    (the mean over dp of each dp shard's)."""
     set_requires_grad(params, freeze_text=freeze_text, freeze_vision=freeze_vision)
     params.zero_grad(set_to_none=True)
     red = _Reduction(params, cfg, mesh)
@@ -408,12 +440,10 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
         hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n: fold_grad(n, p))
                  for n, p in params.named_parameters() if n in in_hook]
     try:
-        loss_sum, count, _ = loss_terms(params, batch, cfg, remat, vision_chunk, freeze_vision,
-                                        attn_impl, parallel)
-        total = mesh.dp_pp_cp_comm.all_reduce_sum(
-            torch.stack([loss_sum.detach().float(), count.float()]))
-        n = total[1].clamp_min(1.0)
-        (loss_sum / n).backward()
+        objective, loss, count = mesh_loss(
+            *loss_terms(params, batch, cfg, remat, vision_chunk, freeze_vision, attn_impl,
+                        parallel), cfg, mesh)
+        objective.backward()
     finally:
         for h in hooks:
             h.remove()
@@ -421,7 +451,27 @@ def _backward_mesh(params, batch, cfg, remat, vision_chunk, freeze_vision, freez
     params.zero_grad(set_to_none=True)
     for name in [n for n in grads if n in fold]:  # the same order on every rank
         fold_in(name, grads.pop(name))
-    return grads, total[0] / n, total[1], folded
+    return grads, loss, count, folded
+
+
+def mesh_loss(loss_sum, count, aux, cfg: LongVITAConfig, mesh):
+    """A mesh rank's loss terms (loss_terms) -> (the objective it
+    backpropagates, the reported loss, the supervised count): the loss and
+    count summed over dp x pp x cp, and with a MoE decoder the aux term,
+    moe_aux_loss_coef x the mean over dp of each dp shard's aux (a rank's
+    aux is its dp shard's, the same on the shard's cp ranks), of which each
+    rank backpropagates its aux / dp."""
+    dp, cp = mesh.shape["dp"], mesh.shape["cp"]
+    over = 1 if _AUX_SUMMED_OVER_DP else dp
+    # the sum over dp x pp x cp of aux / (dp x cp) is the mean over dp
+    total = mesh.dp_pp_cp_comm.all_reduce_sum(
+        torch.stack([loss_sum.detach().float(), count.float(), aux.detach().float() / (over * cp)]))
+    n = total[1].clamp_min(1.0)
+    objective, loss = loss_sum / n, total[0] / n
+    if cfg.text.num_experts > 0:
+        objective = objective + cfg.text.moe_aux_loss_coef * aux / over
+        loss = loss + cfg.text.moe_aux_loss_coef * total[2]
+    return objective, loss, total[1]
 
 
 def make_train_step(

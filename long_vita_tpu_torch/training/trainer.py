@@ -42,9 +42,13 @@ port checkpoint resumes at any pp and virtual_pp). Over tq (2-D tp, JAX's
 tp2d layout) each rank holds its (tp, tq) block of every decoder weight
 (shard_params, or the blocks train.build_from_recipe loaded); the tq ranks
 of a (dp, cp) index take the same rows, and checkpoints gather over tq
-too, into the same one-device format. Raising, with their ROADMAP items
-or JAX's words: MoE over a mesh (expert parallelism), FSDP inside pipeline
-stages, tq with pp, MoE or FSDP; thread-ranks on CUDA
+too, into the same one-device format. A MoE model trains over every axis
+but tq (JAX's rule): at dp > 1 its experts are cut over dp (expert
+parallelism, shard_params) and its checkpoints gather them back into the
+one-device format, so a run saved under EP resumes at dp 1 and the other
+way round. Raising, with their ROADMAP items or JAX's words: FSDP inside
+pipeline stages, tq with pp, MoE or FSDP, a MoE model whose experts dp
+does not divide; thread-ranks on CUDA
 (train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
@@ -186,9 +190,11 @@ class Trainer:
             self.mesh = make_mesh(tcfg.mesh, comm)
         fsdp = tcfg.fsdp and tcfg.mesh.dp > 1
         staged = tcfg.mesh.pp > 1
+        ep = cfg.text.num_experts > 0 and tcfg.mesh.dp > 1
         if (tcfg.mesh.tp > 1 and params.text.tp_comm is None) or (
                 tcfg.mesh.tq > 1 and params.text.tq_comm is None) or (
-                fsdp and params.text.fsdp is None) or (staged and params.text.pp is None):
+                fsdp and params.text.fsdp is None) or (staged and params.text.pp is None) or (
+                ep and params.text.ep_comm is None):
             if params.text.tp_comm is not None:
                 raise ValueError("FSDP and pp cut a whole tree (or load its slices, "
                                  "train.build_from_recipe); this one is a tp shard")
@@ -260,20 +266,21 @@ class Trainer:
 
     def _save(self, save_checkpoint) -> None:
         """World rank 0 writes (every rank holds the same parameters; over
-        tp and tq, under FSDP and over pp the ranks of its cp index (and dp
-        index without FSDP) gather the tree and its moments for it
-        first)."""
+        tp and tq, under FSDP or expert parallelism and over pp the ranks of
+        its cp index (and dp index without FSDP or EP) gather the tree and
+        its moments for it first)."""
         if self.mesh is None:
             save_checkpoint(self.tcfg.save_dir, self.state)
             return
         layout, mesh = self._layout(), self.mesh
-        fsdp = self.state.params.text.fsdp is not None
+        text = self.state.params.text
+        over_dp = text.fsdp is not None or text.ep_comm is not None
         # cp index 0 gathers: over tp the tp group of world rank 0, under
-        # FSDP its dp groups too
+        # FSDP and expert parallelism its dp groups too
         if mesh.world.rank == 0 or (layout is not None and mesh.cp_index == 0
-                                    and (fsdp or mesh.dp_index == 0)):
+                                    and (over_dp or mesh.dp_index == 0)):
             save_checkpoint(self.tcfg.save_dir, self.state, layout=layout,
-                            tp_comm=mesh.tp_comm, dp_comm=mesh.dp_comm if fsdp else None,
+                            tp_comm=mesh.tp_comm, dp_comm=mesh.dp_comm if over_dp else None,
                             write=mesh.world.rank == 0, tq_comm=mesh.tq_comm)
         mesh.world.barrier()
 

@@ -410,7 +410,8 @@ def test_long_vita_72b_matches_jax_and_its_recipes_pass_the_geometry():
     """long_vita_72b() field for field JAX's; configs/stage{1,2}_72b_tp8fsdp8
     at their own mesh ({dp: 8, tp: 8}, FSDP) and the 14B at dp 4 x tp 2
     pass validate_geometry; a dim that does not split over dp raises,
-    naming it; MoE with FSDP raises (expert parallelism)."""
+    naming it; a MoE model whose experts dp does not divide raises (expert
+    parallelism cuts them over dp)."""
     from pathlib import Path
 
     import yaml
@@ -437,8 +438,8 @@ def test_long_vita_72b_matches_jax_and_its_recipes_pass_the_geometry():
     validate_geometry(bad, MeshConfig(dp=2, tp=2))  # without FSDP the vocab splits over tp
     with pytest.raises(ValueError, match="hidden 64 % dp 3"):
         validate_geometry(tiny_test_config().text, MeshConfig(dp=3), fsdp=True)
-    moe = tiny_test_config(num_experts=4)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    moe = tiny_test_config(num_experts=3)  # FSDP with MoE runs (tests/test_torch_ep_fsdp.py)
+    with pytest.raises(ValueError, match="3 experts do not divide over dp 2"):
         Trainer(tq.init_qwen2_params(torch.Generator(), moe.text), moe,
                 TrainerConfig(seq_len=S, logit_budget=S, steps=1, mesh=MeshConfig(dp=2),
                               fsdp=True))

@@ -15,8 +15,9 @@ CPU):
     (the training slice's tolerances, tests/test_torch_training.py);
   - the serving engine (chunked prefill with a padded last chunk, then
     decode): greedy tokens identical, logprobs to 1e-4;
-  - what stays unported raises: an expert axis, MoE over a mesh, and weight
-    quantization of a MoE tree.
+  - what JAX rejects raises: an expert count that dp does not divide, MoE
+    over tq, and weight quantization of a MoE tree (expert parallelism and
+    MoE over the mesh are in tests/test_torch_ep_*.py).
 """
 import dataclasses
 
@@ -133,8 +134,11 @@ def test_capacity_drops_fall_through_to_zero():
 
 
 def test_expert_axis_raises():
+    """The expert axis is a communicator (expert parallelism runs over
+    ThreadComm, gloo or NCCL ranks, tests/test_torch_ep_moe.py); a JAX axis
+    name raises."""
     p = _port(_moe_weights(2, 8, 16))
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    with pytest.raises(TypeError, match="expert communicator"):
         tmoe.moe_mlp(p, torch.zeros(1, 4, 8), axis_name="dp")
 
 
@@ -287,17 +291,23 @@ def test_moe_engine_batch_matches_jax(engines):
 
 
 def test_moe_over_a_mesh_and_quantized_moe_raise():
+    """The MoE meshes JAX rejects raise, and only those: an expert count dp
+    does not divide (expert parallelism), tq (2-D tp), and the serving
+    engine over dp; dp, cp, tp and pp are accepted (tests/test_torch_ep_*.py
+    run them against JAX). Weight quantization of a MoE tree raises."""
     cfg = port_tiny_config(num_experts=4)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tq.check_moe_mesh(cfg.text, dp=2)
-    with pytest.raises(NotImplementedError, match="MoE over tp"):
-        tq.check_moe_mesh(cfg.text, tp=2)
+    with pytest.raises(ValueError, match="4 experts do not divide over dp 3"):
+        tq.check_moe_mesh(cfg.text, dp=3)
+    with pytest.raises(ValueError, match="does not compose with MoE"):
+        tq.check_moe_mesh(cfg.text, tq=2)
     tq.check_moe_mesh(cfg.text)  # one device: fine
-    tq.check_moe_mesh(port_tiny_config().text, dp=2, cp=2)  # dense: fine
+    tq.check_moe_mesh(cfg.text, dp=2, cp=2, tp=2)
+    tq.check_moe_mesh(cfg.text, dp=4, pp=2)
+    tq.check_moe_mesh(port_tiny_config().text, dp=3, tq=2)  # dense: fine
     text = tq.init_qwen2_params(torch.Generator().manual_seed(0), cfg.text)
     comms = ThreadComm.group(2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="serving a MoE model over dp 2"):
         InferenceEngine(text, cfg, _MM(), cache_dtype=torch.float32,
-                        mesh=make_mesh(MeshConfig(cp=2), comms[0]))
+                        mesh=make_mesh(MeshConfig(dp=2), comms[0]))
     with pytest.raises(ValueError, match="MoE"):
         quantize_weights_int8(text)

@@ -244,8 +244,9 @@ def test_pipelined_decoder_matches_jax(case, one_torch_thread):
 
 
 def test_decoder_refuses_a_whole_tree_on_a_pp_mesh():
-    """A pp mesh runs a stage's tree (shard_params cuts it); the MoE
-    decoder over pp raises with expert parallelism."""
+    """A pp mesh runs a stage's tree (shard_params cuts it); a MoE decoder
+    over pp is accepted (tests/test_torch_ep_pipeline.py trains it), unless
+    dp does not divide its experts."""
     cfg = _text_cfg()
     whole = params_from_jax(_jtext_params(cfg), device="cpu")
 
@@ -258,8 +259,9 @@ def test_decoder_refuses_a_whole_tree_on_a_pp_mesh():
         return True
 
     assert all(run_thread_ranks(rank, 2, timeout=TIMEOUT))
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tq.check_moe_mesh(dataclasses.replace(cfg, num_experts=4), pp=2)
+    tq.check_moe_mesh(dataclasses.replace(cfg, num_experts=4), dp=2, pp=2)
+    with pytest.raises(ValueError, match="3 experts do not divide over dp 2"):
+        tq.check_moe_mesh(dataclasses.replace(cfg, num_experts=3), dp=2, pp=2)
 
 
 # ---- the mesh --------------------------------------------------------------------

@@ -414,8 +414,8 @@ def test_trainer_accumulates_micro_batches():
 
 def test_unported_options_raise():
     """What still waits for the later multi-GPU slices (ROADMAP's port
-    queue) raises: MoE layers over a mesh (expert parallelism) and FSDP
-    inside pipeline stages. (dp x cp meshes and zigzag batches train since
+    queue) raises: FSDP inside pipeline stages; and MoE over tq, as in JAX
+    (MoE over dp, cp, tp and pp trains since the expert-parallel slice). (dp x cp meshes and zigzag batches train since
     the context-parallel slice, tests/test_torch_cp_training.py; tp since
     the tp training slice, tests/test_torch_tp_training.py: a tp mesh now
     gets as far as asking for its communicator; FSDP since the FSDP slice,
@@ -452,10 +452,15 @@ def test_unported_options_raise():
         _trainer(None, 1, mesh=MeshConfig(dp=2, pp=2), fsdp=True)
     from long_vita_tpu_torch.models.long_vita import init_long_vita_params
 
-    moe_cfg = port_tiny_config(num_experts=4)  # MoE trains on one device only
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # MoE trains over a mesh as any model (tests/test_torch_ep_*.py), but
+    # not over tq, as in JAX
+    moe_cfg = port_tiny_config(num_experts=4)
+    with pytest.raises(ValueError, match="needs comm="):
         Trainer(init_long_vita_params(torch.Generator(), moe_cfg), moe_cfg,
                 TrainerConfig(seq_len=S, logit_budget=S, steps=1, mesh=MeshConfig(dp=2)))
+    with pytest.raises(ValueError, match="does not compose with MoE"):
+        Trainer(init_long_vita_params(torch.Generator(), moe_cfg), moe_cfg,
+                TrainerConfig(seq_len=S, logit_budget=S, steps=1, mesh=MeshConfig(tq=2)))
     # the stage recipes' meshes (configs/stage*.yaml) are multi-device: dp
     # x cp x tp at the 14B's widths passes the port's checks and asks for
     # its ranks, and so does the same recipe over 2-D tp
