@@ -34,7 +34,7 @@ Phases (each raises on failure; the script then exits non-zero):
      dq, dk, dv);
   3. text serving: the full-width, full-depth Qwen2.5-14B decoder (random
      bf16 weights from a seeded generator; the phases after it through the
-     recipe phase take its first MAIN_LAYERS (24) layers, for the run's
+     recipe phase take its first MAIN_LAYERS (12) layers, for the run's
      time) through InferenceEngine: greedy
      generate twice, a ragged generate_batch and a sampled request, counting
      K1's launches; then the prefill's last-row logits against two plain
@@ -263,10 +263,12 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import itertools
 import json
 import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -291,8 +293,8 @@ F32_ATOL = 1e-4
 # layers of random weights amplify any rounding difference. On an H100 the
 # plain attention alone, chunked against a cache vs one 5000-row pass, lands
 # at cosine 0.9985 and a max logit move of 3.1% of the spread; the bounds
-# leave room for that floor and catch a kernel that is wrong. (The run's 24
-# layers, MAIN_LAYERS: the kernel path at 0.9994-0.9995 against both.)
+# leave room for that floor and catch a kernel that is wrong. (At 24
+# layers: the kernel path at 0.9994-0.9995 against both.)
 LOGIT_COS, LOGIT_SPREAD_FRAC = 0.995, 0.05
 # ViT features through K3 vs through the plain attention, 24 bf16 layers of
 # random weights then the projector: the two round p to bf16 at different
@@ -319,9 +321,9 @@ EVA_GATE_LAYERS = 24
 GRAD_TOL = 1e-2
 # T2: the trainable gradients of one step through the kernels vs the same
 # step on the plain attention, 48 bf16 layers of random weights: cosine of
-# the flattened gradients and the relative loss difference (at the run's 24
-# layers, MAIN_LAYERS, on an H100: 0.9983 sound, 0.9430 with the planted
-# fault below). Measured on an H100 at 48: sound runs 0.9948-0.9961; each
+# the flattened gradients and the relative loss difference (at the run's 12
+# layers, MAIN_LAYERS, on an H100: 0.9991 sound, 0.9584 with the planted
+# fault below; 0.9983 and 0.9430 at 24). Measured on an H100 at 48: sound runs 0.9948-0.9961; each
 # bf16 path lands at 0.9963 against
 # the same step in f32, so the gap is bf16 rounding at different points,
 # amplified by 72 random layers (K4's dQ atomics in another order alone give
@@ -3036,8 +3038,9 @@ CP = 4  # thread-ranks of the cp phases (one card: they share it)
 SERVE_PREFIX = 2
 # the 14B decoder's depth in the quantised and multimodal serving, server,
 # T1 / T2 and recipe phases (48 until the expert-parallel phase joined the
-# run), for the run's time; phase_serving runs all 48
-MAIN_LAYERS = 24
+# run, 24 until the pp x FSDP phase did), for the run's time; phase_serving
+# runs all 48
+MAIN_LAYERS = 12
 CP_SEQ = 65536  # tokens of the cp attention phases: zigzag chunks of 8192
 CP_TIMEOUT = 900.0  # seconds any one wait of a thread-rank may take
 THREADS_NOTE = "4 thread-ranks on one card, not a multi-GPU time"
@@ -3480,7 +3483,7 @@ def _timed_generate(eng, prompt, videos, sp, images=()):
 
 def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk, expected,
                            tokens, kv_quant=False, videos=(), images=(), mm=None,
-                           mesh_cfg=None, routed=False) -> dict:
+                           mesh_cfg=None, routed=False, times=None) -> dict:
     """``prompt`` (token ids) served by an InferenceEngine over a mesh of
     thread-ranks (``mesh_cfg``, a cp mesh of CP by default: each rank holds
     seq // cp slots and Hkv // tp kv heads) and greedy-decoded for
@@ -3492,7 +3495,8 @@ def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk,
     the mesh engine did too (_routing_tap: random routers put a token's
     top-2 margin at the order of bf16 rounding), and every rank's routes
     must be the same. The mesh run's launches must equal expected(prompt
-    ids). -> those launch counts."""
+    ids). times: a dict that takes the mesh run's TTFT (s) and decode
+    ms/token. -> those launch counts."""
     import torch
 
     from long_vita_tpu_torch.inference.engine import InferenceEngine
@@ -3502,7 +3506,8 @@ def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk,
 
     mm = mm or _StubMM()
     mesh_cfg = mesh_cfg or MeshConfig(cp=CP)
-    label = " x ".join(f"{a} {n}" for a, n in (("cp", mesh_cfg.cp), ("tp", mesh_cfg.tp)) if n > 1)
+    label = " x ".join(f"{a} {n}" for a, n in (("cp", mesh_cfg.cp), ("tp", mesh_cfg.tp),
+                                                ("tq", mesh_cfg.tq)) if n > 1)
     sp = SamplingParams(max_new_tokens=tokens)
     kw = dict(max_seq_len=seq, chunk=chunk, kv_quant=kv_quant, vision_chunk=vision_chunk)
     one = InferenceEngine(model, cfg, mm, **kw)
@@ -3560,6 +3565,8 @@ def _cp_against_one_device(tag, model, cfg, prompt, *, seq, chunk, vision_chunk,
           f"card, not a multi-GPU time); the one-device engine (fed the mesh tokens, after the "
           f"mesh run) TTFT {ttft1:.3f} s, decode {ms1:.1f} ms/token")
     _check_launches(counts, expected(n_ids))
+    if times is not None:
+        times.update(ttft=ttft, ms=ms)
     return counts
 
 
@@ -4066,9 +4073,16 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
     admissions. Last, cp 2 x tp 2 (the decoder's first ``cpxtp_layers``
     layers) on a ~7000-id prompt. Launch counts exact: K1 = ranks x layers
     x chunks, K2 likewise, K3 = TP x 24 x a rank's encode batches, K6 and
-    its dequantise route per pass. Times are thread-ranks on one card. Its
-    sizes are arguments, so that it rehearses on the CPU at a tiny size.
-    -> the launch counts of the phase."""
+    its dequantise route per pass. Before the server, 2-D tp: tp 2 x tq 2
+    on four thread-ranks (the weights cut over tp and tq, the cache's Hkv /
+    tp heads on every tq rank) on the same prompt (K1; tp 2 too, for the
+    time), int8 weights into an int8 cache (K2), int4 weights (K6 on the
+    column cuts over tp and the row cuts over tq), the 4-tile image (K3,
+    the tiles 1/4 a rank), then cp 2 x tq 2 on the prompt; RMSNorm without
+    its tq sum of squares (a planted fault) must fail the logit gate. Times
+    are thread-ranks on one card. Its sizes are arguments, so that it
+    rehearses on the CPU at a tiny size. -> the launch counts of the
+    phase."""
     import types
 
     import numpy as np
@@ -4077,6 +4091,7 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
     from long_vita_tpu_torch.data.image_processor import ImageProcessor
     from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
     from long_vita_tpu_torch.inference.engine import InferenceEngine
+    from long_vita_tpu_torch.models import qwen2
     from long_vita_tpu_torch.models.quantize import quantize_weights_int4, quantize_weights_int8
     from long_vita_tpu_torch.parallel.comm import run_thread_ranks
     from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
@@ -4147,6 +4162,66 @@ def phase_tp_serve(params, cfg, dev, *, chunk=2048, n_prompt=5000, seq=8192, new
           expected=lambda n: {"flash_fwd": TP * layers * chunks(n),
                               "short_attn": TP * vc.num_hidden_layers
                               * -(-per_rank // vision_chunk)})
+
+    # ---- 2-D tp (the tq axis): tp 2 x tq 2 on four thread-ranks, each
+    # holding its [out/tp, in/tq] or [out/tq, in/tp] block of every weight
+    # and the cache's Hkv / tp heads; tp 2 on the same prompt for its time
+    tq_cfg, n_tq = MeshConfig(tp=2, tq=2), 4
+    print(f"[tq-serve] the decoder's {layers} layers at full width over tp 2 x tq 2 "
+          f"thread-ranks (each rank {tc.num_attention_heads // 2}/"
+          f"{max(tc.num_key_value_heads // 2, 1)} heads, a half of the hidden dim)")
+    t_tp2, t_tq = {}, {}
+    serve("tq-serve tp 2 (for the time)", params, prompt, mesh_cfg=MeshConfig(tp=2),
+          times=t_tp2, expected=lambda n: {"flash_fwd": 2 * layers * chunks(n)})
+    serve("tq-serve tp 2 x tq 2 bf16", params, prompt, mesh_cfg=tq_cfg, times=t_tq,
+          expected=lambda n: {"flash_fwd": n_tq * layers * chunks(n)})
+    print(f"[tq-serve] {len(prompt)}-id prompt: tp 2 x tq 2 TTFT {t_tq['ttft']:.3f} s, decode "
+          f"{t_tq['ms']:.1f} ms/token against tp 2's {t_tp2['ttft']:.3f} s, "
+          f"{t_tp2['ms']:.1f} ms/token (thread-ranks on one card, not a multi-GPU time)")
+    q8 = quantize_weights_int8(params)
+    serve("tq-serve tp 2 x tq 2 int8 weights, int8 cache", q8, prompt, mesh_cfg=tq_cfg,
+          kv_quant=True, tokens=short_tokens,
+          expected=lambda n: {"flash_fwd_quant": n_tq * layers * chunks(n)})
+    del q8
+    _collect("after the tq int8 engines")
+    q4 = quantize_weights_int4(params)
+    # every int4 projection through K6 or its dequantise route: a column one
+    # on the input gathered over tq (its output over tp), a row one on the
+    # input gathered over tp (its output over tq)
+    serve("tq-serve tp 2 x tq 2 int4 weights", q4, prompt, mesh_cfg=tq_cfg, tokens=short_tokens,
+          expected=lambda n: {"flash_fwd": n_tq * layers * chunks(n),
+                              "w4_dequant": n_tq * per_pass * chunks(n),
+                              "w4_matmul": n_tq * (per_pass + 1) * (1 + steps)})
+    del q4
+    _collect("after the tq int4 engines")
+    tq_per_rank = -(-n_tiles // n_tq)
+    serve("tq-serve tp 2 x tq 2 image", lv, [*rng.integers(0, vocab, 20).tolist(), IMG_TAG,
+                                             *rng.integers(0, vocab, 20).tolist()],
+          mesh_cfg=tq_cfg, images=[(tiles(n_tiles), image_grid)],
+          mm=_StubMM(cfg.image_token_length), tokens=short_tokens,
+          expected=lambda n: {"flash_fwd": n_tq * layers * chunks(n),
+                              "short_attn": n_tq * vc.num_hidden_layers
+                              * -(-tq_per_rank // vision_chunk)})
+    serve("tq-serve cp 2 x tq 2", params, prompt, mesh_cfg=MeshConfig(cp=2, tq=2),
+          expected=lambda n: {"flash_fwd": n_tq * layers * chunks(n)})
+    # the planted fault: RMSNorm without its tq sum of squares must fail the
+    # logit gate (the gate's own lines are kept out of the log: they read FAIL)
+    qwen2._RMS_UNSUMMED_OVER_TQ = True
+    gate_log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(gate_log):
+            serve("tq-serve tp 2 x tq 2, RMSNorm's tq sum removed", params, prompt[:chunk],
+                  mesh_cfg=tq_cfg, tokens=2,
+                  expected=lambda n: {"flash_fwd": n_tq * layers * chunks(n)})
+        caught = "nothing"
+    except AssertionError as e:
+        caught = str(e)
+    finally:
+        qwen2._RMS_UNSUMMED_OVER_TQ = False
+    worst = re.search(r"cosine (\S+)", gate_log.getvalue())
+    check("disagree" in caught, "[tq-serve] the logit gate with RMSNorm's tq sum of squares "
+          f"removed (a planted fault) must fail: the first step's logit cosine "
+          f"{worst[1] if worst else '?'}; {caught[:120]}")
 
     # ---- the lockstep server on the TP ranks, then gate (b)'s replay
     mm = MultimodalTokenizer(tokenizer or ByteTokenizer(), image_processor=ImageProcessor(
@@ -4473,7 +4548,7 @@ def _tp_train_worker(rank, world, init, out, sizes):
 
 
 def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=None,
-                   tq_comm=None) -> dict:
+                   tq_comm=None, pp_comm=None) -> dict:
     """Cosine of each leaf group's whole gradient (GRAD_GROUPS, the tower,
     the projector) against the reference process's, from this rank's
     shards: each rank takes the dot products of its slices with the same
@@ -4483,33 +4558,44 @@ def _group_cosines(grads: dict, ref_path: str, layout, tp_comm, dev, dp_comm=Non
     ``dp_comm``: an FSDP piece or an expert stack's on every dp rank, any
     other leaf on dp rank 0; under 2-D tp over
     ``tq_comm``: a piece cut over tq on every tq rank, any other leaf on tq
-    rank 0), which gives the gathered vectors' cosines without moving them.
-    Every rank of those groups calls it; only the groups of ``grads`` that
-    the file holds are compared. -> {group: cosine}."""
+    rank 0; over pp, ``pp_comm``: a stage's layer on its stage, under its
+    global name in the file, any other leaf on the first stage), which
+    gives the gathered vectors' cosines without moving them. Every rank of
+    those groups calls it; only the groups of ``grads`` that the file holds
+    are compared. -> {group: cosine}."""
     import torch
 
-    from long_vita_tpu_torch.parallel.sharding import slice_leaf
+    from long_vita_tpu_torch.parallel.sharding import renamed, slice_leaf
+
+    def source(n):
+        leaf = layout[n]
+        return renamed(n, leaf.pp_layer) if leaf.staged else n
 
     ref = torch.load(ref_path, map_location="cpu", weights_only=True, mmap=True)
-    grads = {n: g for n, g in grads.items() if n in ref}
+    grads = {n: g for n, g in grads.items() if source(n) in ref}
     groups = sorted({_grad_group(n) for n in grads})
     acc = torch.zeros(len(groups), 3, dtype=torch.float64, device=dev)
     dp_rank = dp_comm.rank if dp_comm is not None else 0
     tq_rank = tq_comm.rank if tq_comm is not None else 0
+    pp_rank = pp_comm.rank if pp_comm is not None else 0
     for n, g in grads.items():
         leaf = layout[n]
         if tp_comm.rank % leaf.share if leaf.sharded else tp_comm.rank:
             continue
         if (dp_rank and not (leaf.fsdp or leaf.expert)) or (tq_rank and not leaf.cut_tq):
             continue
+        if pp_rank and not leaf.staged:
+            continue
         a = g.to(dev).float().flatten()
-        b = slice_leaf(ref[n], leaf).to(dev).float().flatten()
+        b = slice_leaf(ref[source(n)], leaf).to(dev).float().flatten()
         acc[groups.index(_grad_group(n))] += torch.stack([a @ b, a @ a, b @ b]).double()
     acc = tp_comm.all_reduce_sum(acc)
     if dp_comm is not None:
         acc = dp_comm.all_reduce_sum(acc)
     if tq_comm is not None:
         acc = tq_comm.all_reduce_sum(acc)
+    if pp_comm is not None:
+        acc = pp_comm.all_reduce_sum(acc)
     return {k: dot / max((aa * bb) ** 0.5, 1e-30)
             for k, (dot, aa, bb) in zip(groups, acc.tolist())}
 
@@ -4768,7 +4854,9 @@ def _tp_train_gates(geom, ranks, one, cfg, seq, fault_seq, whole_gb, where, cpu,
 
 # ---- FSDP: ZeRO-3 weight streaming over dp (phase_fsdp_train) --------------------
 
-FSDP_TRAIN_LAYERS = 2  # the 72B decoder's depth in phase_fsdp_train (full width)
+# the 72B decoder's depth in phase_fsdp_train (full width; 2 until the pp x
+# FSDP phase joined the run, for the run's time)
+FSDP_TRAIN_LAYERS = 1
 # the planted reduce-scatter fault's gradient groups (final_norm, no FSDP leaf, a control)
 FSDP_FAULT_GROUPS = ("input_norm", "post_attn_norm", "final_norm", "q_proj", "k_proj", "v_proj",
                      "o_proj")
@@ -5731,6 +5819,518 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
     return {"counts": counts, "err": err}
 
 
+# ---- FSDP inside pipeline stages (phase_pp_fsdp_train) ----------------------------
+
+# rows a step in phase_pp_fsdp_train, one single-tile image each: dp 2 x M 2
+# microbatches of one row
+PP_FSDP_ROWS = 4
+
+
+def _pp_fsdp_train_recipe(work, ckpt, sizes, mesh: bool, virtual) -> dict:
+    """The recipe of phase_pp_fsdp_train: configs/stage2_72b_tp8fsdp8.yaml's
+    settings (lr 1e-5 after 210 warm-up steps of 7000, min lr 1e-7, the
+    decoder trainable, remat, FSDP) over dp 2 x pp 2 with run.virtual_pp
+    ``virtual``, PP_FSDP_ROWS rows a step, the logit budget cut to
+    sizes["budget"] a row; to fit four processes on one card the embedding
+    and the head are mask-frozen (freeze_embed: their gradients still count
+    in grad_norm) and the tower frozen (freeze_vision, stage 1's); mesh
+    False: the reference, without pp or FSDP."""
+    return {
+        "model": {"checkpoint": ckpt, "dtype": "bfloat16"},
+        "data": {"corpus": os.path.join(work, "corpus.yaml"), "seq_len": sizes["seq"],
+                 "logit_budget": sizes["budget"], "vision_chunk": 64, "max_patch_grid": 1},
+        "mesh": {"dp": 2, "pp": 2} if mesh else {},
+        "optim": {"lr": 1.0e-5, "min_lr_ratio": 0.01, "warmup_steps": 210, "total_steps": 7000,
+                  "vit_lr_mult": 0.1, "vit_layer_decay": 0.9, "freeze_embed": True,
+                  "freeze_vision": True},
+        "run": {"steps": sizes["steps"], "global_batch": PP_FSDP_ROWS, "remat": True,
+                "seed": SEED, "virtual_pp": virtual, "fsdp": mesh},
+    }
+
+
+def _pp_fsdp_train_worker(rank, world, init, out, sizes):
+    """One process of phase_pp_fsdp_train: ``world`` 1 is the reference (pp
+    and FSDP off, the PP_FSDP_ROWS rows in one process), else rank
+    ``rank`` of dp 2 x pp 2 with FSDP over gloo with CUDA operands staged
+    through host memory (sizes["backend"] "staged"; every rank on card 0),
+    NCCL (a card a rank) or plain gloo on the CPU (the rehearsal). For each
+    schedule (GPipe, then the interleaved one at virtual_pp 2, in the same
+    processes) it builds the Trainer through train.build_from_recipe (a
+    rank reads its stage's layers, and of them its dp pieces); under GPipe
+    it first takes the reduce-scatter fault's pass (the rank's own slice
+    kept) on the rows, then trains sizes["steps"] steps through
+    Trainer.train, fingerprinting every leaf the stages share after each
+    step, and reads grad_norm of the decoder's layers on the first step's
+    gradients with and without its dp sum. Puts (rank, results or the error) on
+    ``out``; the reference writes its gradients to the work directory for
+    the ranks' cosine gates."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        import long_vita_tpu_torch.tokenizer as port_tokenizer
+        from long_vita_tpu_torch.parallel import fsdp as fsdp_mod
+        from long_vita_tpu_torch.parallel.comm import init_process_group
+        from long_vita_tpu_torch.training import train as ttrain
+        from long_vita_tpu_torch.training import train_step as tts
+        from long_vita_tpu_torch.training.loss import collate_packs
+        from long_vita_tpu_torch.training.optimizer import global_norm
+
+        cpu = sizes["device"] == "cpu"
+        if cpu:
+            torch.set_num_threads(1)
+        backend = sizes["backend"]
+        comm = None
+        if world > 1:
+            comm = init_process_group(
+                rank, world, init, backend="nccl" if backend == "nccl" else "gloo",
+                timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
+        dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
+        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+        stats = getattr(comm, "stats", None)
+        res = {"rank": rank, "runs": {}}
+        work = sizes["work"]
+        for virtual in ((1, 2) if world > 1 else (1,)):
+            run = {}
+            t0 = time.perf_counter()
+            trainer, stream, _ = ttrain.build_from_recipe(
+                _pp_fsdp_train_recipe(work, sizes["ckpt"], sizes, world > 1, virtual),
+                device=dev, comm=comm)
+            del stream  # the phase trains on its own packed rows
+            sync()
+            run["build_s"] = time.perf_counter() - t0
+            run["bytes_read"] = trainer.checkpoint_bytes
+            cfg, params, mesh = trainer.cfg, trainer.state.params, trainer.mesh
+            stage, fs = params.text.pp, params.text.fsdp
+            res["coords"] = (mesh.dp_index, mesh.pp_index) if mesh is not None else (0, 0)
+            run["layers"] = stage.layers() if stage is not None else list(
+                range(cfg.text.num_hidden_layers))
+            run["param_bytes"] = sum(p.nbytes for p in params.parameters())
+            opt = trainer.state.opt_state
+            run["moment_bytes"] = sum(t.nbytes for t in list(opt.mu.values())
+                                      + list(opt.nu.values()))
+            layout = trainer._layout()
+            shared = [n for n, _ in params.named_parameters()
+                      if layout is None or not layout[n].staged]
+            run["shared_fsdp"] = [n for n in shared if layout is not None and layout[n].fsdp]
+            vc = cfg.vision
+            per_tile = int((vc.grid * cfg.vision_downsample_ratio) ** 2)
+            tiles = [np.random.default_rng(SEED + 121 + i).standard_normal(
+                (1, vc.image_size, vc.image_size, 3)).astype(np.float32)
+                for i in range(PP_FSDP_ROWS)]
+
+            def rows(seq, budget):
+                # packed rows, each with a single-tile image; a dp rank keeps its own
+                packs = [_train_pack(dataclasses.replace(cfg, image_token_length=per_tile), seq,
+                                     [], [(tiles[i], (1, 1))],
+                                     np.random.default_rng(SEED + 125 + i), text_segments=4,
+                                     answer=sizes["answer"],
+                                     text_sup=sizes["text_sup"] * seq // sizes["seq"])
+                         for i in range(PP_FSDP_ROWS)]
+                b = collate_packs(packs, budget)
+                b["tokens"] = np.minimum(b["tokens"], cfg.text.vocab_size - 1)
+                return b
+
+            batch = rows(sizes["seq"], sizes["budget"])
+            run["supervised"] = int((batch["labels"] != -100).sum())
+            flags = (trainer.tcfg.remat, trainer.tcfg.vision_chunk,
+                     trainer.freeze["freeze_vision"], trainer.freeze["freeze_text"])
+            parallel = tts.make_parallel_config(mesh)
+
+            def backward(b):
+                return tts._backward(params, b, cfg, *flags, mesh=mesh, parallel=parallel)[0]
+
+            cos_kw = {} if mesh is None else dict(dp_comm=mesh.dp_comm, pp_comm=mesh.pp_comm)
+            path = os.path.join(work, "grads_ref.pt")  # the reference's first-step gradients
+            if virtual == 1 and world > 1:
+                # ---- the reduce-scatter fault's pass, before the steps, on the
+                # main path's rows: its gradients against the reference's first
+                # step's (the sound counterpart is the first step's own gate)
+                fsdp_mod._LOCAL_SLICE_NOT_SCATTERED = True
+                try:
+                    g = backward(trainer._device_batch(batch))
+                finally:
+                    fsdp_mod._LOCAL_SLICE_NOT_SCATTERED = False
+                res["cos_fault"] = _group_cosines(g, path, layout, mesh.tp_comm, dev, **cos_kw)
+                del g
+                for p in params.parameters():
+                    p.grad = None
+                gc.collect()
+                if not cpu:
+                    torch.cuda.empty_cache()
+
+            # ---- the main path: Trainer.train, the steps on the rows; the
+            # first step's gradients kept on the host for the gradient gate
+            first = {}
+            step_backward = tts._backward
+
+            def keep_first(*a, **k):
+                out_ = step_backward(*a, **k)
+                if "grads" not in first:
+                    first["grads"] = {n: t.to("cpu") for n, t in out_[0].items()}
+                return out_
+
+            tts._backward = keep_first
+            before = {n: _fingerprint(p) for n, p in params.named_parameters()}
+            step_fn, kept, norms_log, prints = trainer.step_fn, [], [], []
+
+            def logged(state, b):
+                state, m = step_fn(state, b)
+                norms_log.append(float(m["grad_norm"]))
+                named = dict(state.params.named_parameters())
+                prints.append({n: _fingerprint(named[n]) for n in shared})
+                if not kept:  # the warm-up's first step runs at lr 0
+                    kept.append(sorted(n for n, p in named.items()
+                                       if _fingerprint(p) != before[n]))
+                return state, m
+
+            trainer.step_fn = logged
+            stamps, staged, moved = [], [], []
+
+            def batches():
+                for _ in range(sizes["steps"]):
+                    sync()
+                    stamps.append(time.perf_counter())
+                    staged.append(stats["seconds"] if stats else 0.0)
+                    moved.append(stats["bytes"] if stats else 0)
+                    yield batch
+
+            _reset_counts()
+            if fs is not None:
+                fs.reset_stats()
+            if not cpu:
+                run["peak_before_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                run["losses"] = trainer.train(batches())["losses"]
+            finally:
+                tts._backward = step_backward
+            sync()
+            stamps.append(time.perf_counter())
+            staged.append(stats["seconds"] if stats else 0.0)
+            moved.append(stats["bytes"] if stats else 0)
+            run["peak_gb"] = 0.0 if cpu else torch.cuda.max_memory_allocated() / 1e9
+            run["counts"] = _read_counts()
+            run["fsdp_stats"] = dict(fs.stats) if fs is not None else None
+            run["norms"] = list(norms_log)
+            run["prints"] = list(prints)
+            run["moved_at_lr0"] = kept[0] if kept else None
+            run["step_s"] = [b - a for a, b in zip(stamps, stamps[1:])]
+            run["staged_s"] = [b - a for a, b in zip(staged, staged[1:])]
+            run["staged_gb"] = [(b - a) / 1e9 for a, b in zip(moved, moved[1:])]
+            grads = first.pop("grads")
+            run["grad_bytes"] = sum(t.nbytes for t in grads.values())
+            # grad_norm of the decoder's layers, and (the planted fault) without
+            # its dp sum of squares: the first step's gradients, read on every rank
+            # on the card: an f32 sum of squares on the host over a whole
+            # layer's 242 M elements loses low bits (0.5% of this norm)
+            layers_g = {n: t.to(dev) for n, t in grads.items() if ".layers." in n}
+            if world == 1:
+                torch.save(grads, path)
+                run["layers_norm"] = float(global_norm(layers_g.values()))
+            else:
+                run["cos"] = _group_cosines(grads, path, layout, mesh.tp_comm, dev, **cos_kw)
+                red = tts._Reduction(params, cfg, mesh)
+                run["layers_norm"] = float(red.norm(layers_g))
+                tts._NORM_UNSUMMED_OVER_DP = True
+                try:
+                    run["layers_norm_unsummed"] = float(red.norm(layers_g))
+                finally:
+                    tts._NORM_UNSUMMED_OVER_DP = False
+            del grads, layers_g
+            res["runs"][virtual] = run
+            trainer.step_fn = step_fn
+            del trainer, params, opt
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        out.put((rank, res))
+        if comm is not None:
+            comm.barrier()
+            torch.distributed.destroy_process_group()
+    except Exception as e:  # noqa: BLE001 (reported to the parent)
+        import traceback
+
+        mem = "" if sizes["device"] == "cpu" else (
+            f" (this process: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+        out.put((rank, f"raised {type(e).__name__}{mem}: {e}\n"
+                       f"{traceback.format_exc()[-2500:]}"))
+
+
+def phase_pp_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN_LAYERS,
+                        seq=4096, budget=512, steps=MESH_TRAIN_STEPS, answer=100,
+                        text_sup=100, tok=None) -> dict:
+    """FSDP inside pipeline stages from the recipe entry: the 72B VLM
+    (long_vita_72b(): h 8192, ffn 29568, 64/8 heads, vocab 152064) at full
+    width, the decoder cut to ``layers`` layers (two a stage), the
+    InternViT-300M tower at 24, written as a *_HF checkpoint directory;
+    configs/stage2_72b_tp8fsdp8.yaml's settings (the decoder trains, so
+    that the reduce-scatter carries its gradients; remat) at ``seq``
+    tokens, the logit budget cut to ``budget`` a row; PP_FSDP_ROWS rows a
+    step, each with a single-tile image. First the reference (pp and FSDP
+    off, the rows in one process), then dp 2 x pp 2 with run.fsdp (backend
+    "staged": four gloo processes sharing this card with host-staged
+    collectives; "nccl": a card a rank, from phase_cp_nccl; "gloo" with
+    device "cpu": the rehearsal), GPipe and then the interleaved schedule
+    (virtual_pp 2) in the same processes, each rank reading its stage's
+    layers and of them its dp pieces. Gates, for each schedule: each step's
+    loss within TRAIN_LOSS_REL of the reference's and grad_norm within 3x
+    that; every rank the same loss and grad_norm bits; the first step's
+    decoder gradients (by group) and the projector's against the
+    reference's at cosine >= TRAIN_GRAD_COS; after every step every leaf
+    the stages share the same bits on every rank that holds it; the
+    warm-up's lr-0 step leaving every bit; each rank's resident parameters
+    and the bytes it read its stage's 1/dp share exactly; Fsdp.stats'
+    gathers, regathers and scatters parallel/fsdp.step_counts' of its stage
+    exactly, at most one unit of whole weights alive; K1, K3, K4 and K5
+    launches exact. Two planted faults (GPipe, the same rows) must fail:
+    the reduce-scatter replaced by each rank's own slice (a backward pass
+    before the steps, under the cosine gate of the decoder's groups) and
+    grad_norm of the decoder's layers without its dp sum of squares (the
+    first step's gradients, every rank's reading, against the
+    reference's, which the sound norm meets).
+    -> {"counts": every rank's launches over both schedules, "gathered_gb":
+    the bytes a rank gathers a step, "step_s": {schedule: a step's time}}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from long_vita_tpu_torch.config import long_vita_72b
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.parallel import fsdp as fsdp_mod
+    from long_vita_tpu_torch.parallel.sharding import long_vita_param_specs
+    from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
+
+    t_phase = time.perf_counter()
+    cpu = device == "cpu"
+    dev = torch.device(device)
+    base = cfg or long_vita_72b()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, num_hidden_layers=layers))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pp_fsdp_train_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 122)
+        rng = np.random.default_rng(SEED + 123)
+        probe = rng.standard_normal((2, cfg.vision.image_size, cfg.vision.image_size, 3),
+                                    dtype=np.float32)
+        lv, _ = _vlm_params(qwen2.init_qwen2_params(gen, cfg.text, torch.bfloat16, dev), cfg,
+                            dev, SEED + 122, probe)
+        ckpt = os.path.join(work, "ckpt")
+        save_hf_checkpoint(lv, cfg, ckpt)
+        shapes = {n: (tuple(p.shape), p.dtype) for n, p in lv.named_parameters()}
+        specs = long_vita_param_specs(lv)
+        whole_b = sum(p.nbytes for p in lv.parameters())
+        layer_b = sum(p.nbytes for p in lv.text.layers[0].parameters())
+        del lv
+        if not cpu:
+            torch.cuda.empty_cache()
+        with open(os.path.join(work, "corpus.yaml"), "w") as f:  # the recipe names one
+            json.dump({"dataset": {"chat": {"ratio": 1, "data_paths": [
+                os.path.join(work, "chat.jsonl")]}}}, f)
+        with open(os.path.join(work, "chat.jsonl"), "w") as f:
+            f.write(json.dumps({"messages": [{"role": "user", "content": "hi"},
+                                             {"role": "assistant", "content": "hello"}]}))
+        tc = cfg.text
+        print(f"[pp fsdp train] the VLM at full width (h {tc.hidden_size}, ffn "
+              f"{tc.intermediate_size}, {tc.num_attention_heads}/{tc.num_key_value_heads} heads, "
+              f"vocab {tc.vocab_size}; {layers} decoder layers of {layer_b / 1e9:.3f} GB; "
+              f"{whole_b / 1e9:.3f} GB) written as a checkpoint directory in "
+              f"{time.perf_counter() - t0:.1f} s")
+        sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq,
+                     budget=budget, steps=steps, answer=answer, text_sup=text_sup,
+                     tok=tok or {})
+        t0 = time.perf_counter()
+        one = _reference(_pp_fsdp_train_worker, {**sizes, "backend": "gloo"},
+                         2 * TP_TRAIN_TIMEOUT)
+        t1 = time.perf_counter()
+        world = 4
+        ranks = [r for _, r in sorted(_spawn(_pp_fsdp_train_worker, world, sizes,
+                                             4 * TP_TRAIN_TIMEOUT).items())]
+        print(f"[pp fsdp train] the reference {t1 - t0:.1f} s, the {world} dp x pp processes "
+              f"{time.perf_counter() - t1:.1f} s (start-up, loading twice, the faults' passes, "
+              "the steps of both schedules)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failures = []
+
+    def check(good: bool, what: str) -> None:
+        print(f"[pp fsdp train] {what}: {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(what)
+
+    where = {"staged": STAGED_NOTE.replace("two processes", "four processes"),
+             "nccl": f"{world} cards over NCCL",
+             "gloo": f"{world} gloo processes on the CPU"}[backend]
+    geom = "dp 2 x pp 2 FSDP"
+    ref = one["runs"][1]
+    hkv = cfg.text.num_key_value_heads
+    m = 2  # microbatches: pp (JAX's default), a row each on a dp rank's two rows
+    print(f"[pp fsdp train] the reference (pp and FSDP off, one process, the {PP_FSDP_ROWS} "
+          f"rows): read {ref['bytes_read'] / 1e6:.3f} MB; holds {ref['param_bytes'] / 1e9:.3f} GB "
+          f"of parameters, {ref['moment_bytes'] / 1e9:.3f} GB of moments; steps "
+          f"{[round(t, 3) for t in ref['step_s']]} s; peak allocated {ref['peak_gb']:.2f} GB "
+          f"({ref.get('peak_before_gb', 0.0):.2f} GB before the steps); losses {ref['losses']} "
+          f"grad_norm {ref['norms']}; {ref['supervised']} supervised rows")
+    counts, gathered, step_s = None, None, {}
+    for virtual, name in ((1, "GPipe"), (2, "interleaved (virtual_pp 2)")):
+        runs = [r["runs"][virtual] for r in ranks]
+        r0 = runs[0]
+        for r, run in zip(ranks, runs):
+            st = run["fsdp_stats"]
+            print(f"[pp fsdp train] {name}, rank (dp {r['coords'][0]}, pp {r['coords'][1]}): "
+                  f"layers {run['layers']}; built through train.build_from_recipe in "
+                  f"{run['build_s']:.1f} s, read {run['bytes_read'] / 1e6:.3f} MB of the "
+                  f"checkpoint's {whole_b / 1e6:.3f} MB; holds {run['param_bytes'] / 1e9:.3f} GB "
+                  f"of parameters, {run['moment_bytes'] / 1e9:.3f} GB of moments, "
+                  f"{run['grad_bytes'] / 1e9:.3f} GB of gradients; steps "
+                  f"{[round(t, 3) for t in run['step_s']]} s ({where}), staged copies "
+                  f"{[round(t, 3) for t in run['staged_s']]} s of them, "
+                  f"{[round(b, 3) for b in run['staged_gb']]} GB staged a step; gathers "
+                  f"{st['gathers']}, regathers {st['regathers']}, reduce-scatters "
+                  f"{st['scatters']}, {st['gathered_bytes'] / steps / 1e9:.3f} GB gathered a "
+                  f"step, at most {st['peak_live']} unit(s) of whole weights alive; peak "
+                  f"allocated {run['peak_gb']:.2f} GB in the steps "
+                  f"({run.get('peak_before_gb', 0.0):.2f} GB before them); losses "
+                  f"{run['losses']} grad_norm {run['norms']}")
+        if not cpu:
+            both = sum(max(x["peak_gb"], x.get("peak_before_gb", 0.0)) for x in runs)
+            print(f"[pp fsdp train] {name}: the four ranks' peaks together {both:.2f} GB")
+        check(all(x["losses"] == r0["losses"] and x["norms"] == r0["norms"] for x in runs),
+              f"{name}: every rank reports the same loss and grad_norm bits")
+        check(len(r0["losses"]) == steps and all(
+            abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in zip(r0["losses"], ref["losses"])),
+            f"{name} {geom} losses {r0['losses']} within {TRAIN_LOSS_REL} (relative) of the "
+            f"reference's {ref['losses']}")
+        check(all(abs(a - b) <= 3 * TRAIN_LOSS_REL * abs(b)
+                  for a, b in zip(r0["norms"], ref["norms"])),
+              f"{name} {geom} grad_norm {r0['norms']} within {3 * TRAIN_LOSS_REL} of the "
+              f"reference's {ref['norms']}")
+        cos = r0["cos"]
+        # the embedding's and the head's gradients (mask-frozen) are folded
+        # into the norm and never held
+        check(set(cos) == set(GRAD_GROUPS) - {"embed", "lm_head"} | {"projector"}
+              and min(cos.values()) >= TRAIN_GRAD_COS,
+              f"{name}: the first step's gradients of the stages' dp shards vs the reference's, "
+              f"cosine by group (>= {TRAIN_GRAD_COS}): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+        same = True
+        for (r, x), (q, y) in itertools.product(zip(ranks, runs), repeat=2):
+            for a, b in zip(x["prints"], y["prints"]):
+                for n, fp in a.items():
+                    fsdp_leaf = n in x["shared_fsdp"]
+                    if (not fsdp_leaf or r["coords"][0] == q["coords"][0]) and b[n] != fp:
+                        same = False
+        check(same and len(r0["prints"]) == steps,
+              f"{name}: after every step every leaf the stages share holds the same bits on "
+              f"every rank that holds it (final_norm, the tower, the projector on all four; the "
+              f"embedding's and the head's dp pieces on both stages)")
+        check(all(x["moved_at_lr0"] == [] for x in runs + [ref]),
+              f"{name}: the warm-up's first step (lr 0) leaves every leaf's bits on every rank")
+        for r, run in zip(ranks, runs):
+            d = r["coords"][0]
+            mine = sum(_shard_bytes({n: s for n, s in shapes.items()
+                                     if n.startswith(f"text.layers.{g}.")}, specs, hkv, d, 2,
+                                    0, 1) for g in run["layers"])
+            rest = _shard_bytes({n: s for n, s in shapes.items()
+                                 if not n.startswith("text.layers.")}, specs, hkv, d, 2, 0, 1)
+            check(run["param_bytes"] == mine + rest
+                  and run["bytes_read"] == ref["bytes_read"] - whole_b + mine + rest,
+                  f"{name}: rank (dp {d}, pp {r['coords'][1]}) holds and read its stage's 1/dp "
+                  f"share exactly: {run['param_bytes'] / 1e9:.3f} GB held, "
+                  f"{run['bytes_read'] / 1e6:.3f} MB read; its {len(run['layers'])} layers' "
+                  f"pieces {mine / 1e9:.3f} GB, the shared leaves {rest / 1e9:.3f} GB (the "
+                  f"reference {ref['param_bytes'] / 1e9:.3f} GB)")
+        for r, run in zip(ranks, runs):
+            p_idx = r["coords"][1]
+            # the head's f32 product saves its gathered bf16 weight on the card
+            # (one GEMM into f32); the CPU widens it to an f32 copy first
+            want = fsdp_mod.step_counts(len(run["layers"]), m, p_idx == 0, p_idx == 1, True,
+                                        head_saved=not cpu)
+            got = {k: run["fsdp_stats"][k] // steps for k in want}
+            check(got == want and all(run["fsdp_stats"][k] == steps * want[k] for k in want)
+                  and run["fsdp_stats"]["peak_live"] == 1,
+                  f"{name}: rank (dp {r['coords'][0]}, pp {p_idx}) gathers, regathers and "
+                  f"reduce-scatters a step {got} (step_counts: {want}), at most "
+                  f"{run['fsdp_stats']['peak_live']} unit of whole weights alive")
+        # the launches: the decoder's K1 twice a layer a microbatch a step
+        # (remat's recompute) on each stage, K4 or K5 once; the frozen
+        # tower's K3 a layer a step on the first stage alone
+        tc, vc = cfg.text, cfg.vision
+        for r, run in zip(ranks, runs):
+            n_layers = len(run["layers"])
+            fused = fa.bwd_uses_fused(PP_FSDP_ROWS // (2 * m), seq, seq, tc.num_attention_heads,
+                                      tc.head_dim, 2)
+            want = dict.fromkeys(run["counts"], 0)
+            want["flash_fwd"] = 2 * n_layers * m * steps
+            if fused:
+                want["flash_bwd"] = n_layers * m * steps
+            else:
+                want["flash_bwd_dkv"] = want["flash_bwd_dq"] = n_layers * m * steps
+            if r["coords"][1] == 0:
+                want["short_attn"] = vc.num_hidden_layers * steps
+            if not cpu:
+                check(run["counts"] == want, f"{name}: launches of rank {r['rank']}: "
+                      f"{run['counts']} (expected {want})")
+            else:
+                print(f"[pp fsdp train] {name}: launches of rank {r['rank']} (the CPU runs the "
+                      f"plain versions): {run['counts']}")
+        step_s[name] = min(r0["step_s"])
+        share = [s / t for s, t in zip(r0["staged_s"], r0["step_s"])]
+        gathered = r0["fsdp_stats"]["gathered_bytes"] / steps / 1e9
+        print(f"[pp fsdp train] a {geom} {name} step {step_s[name]:.3f} s against the "
+              f"reference's {min(ref['step_s']):.3f} s ({where}); a rank gathers "
+              f"{gathered:.3f} GB a step; the staged copies' share of a step "
+              f"{[round(x, 3) for x in share]}")
+        c = {k: sum(run["counts"][k] for run in runs) for k in r0["counts"]}
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+    tc, vc = cfg.text, cfg.vision
+    fused = fa.bwd_uses_fused(PP_FSDP_ROWS, seq, seq, tc.num_attention_heads, tc.head_dim, 2)
+    want = dict.fromkeys(ref["counts"], 0)
+    want["flash_fwd"] = 2 * tc.num_hidden_layers * steps
+    want["short_attn"] = vc.num_hidden_layers * steps
+    for k in (["flash_bwd"] if fused else ["flash_bwd_dkv", "flash_bwd_dq"]):
+        want[k] = tc.num_hidden_layers * steps
+    if not cpu:
+        check(ref["counts"] == want, f"launches of the reference: {ref['counts']} (expected "
+              f"{want})")
+    # the planted faults (GPipe, the main rows, before the step and on the
+    # first step's gradients)
+    fault = ranks[0]["cos_fault"]
+    check(min(fault.values()) < TRAIN_GRAD_COS,
+          "the cosine gate with the reduce-scatter replaced by each rank's slice of its own "
+          "gradient inside a stage (a planted fault) must fail: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in fault.items()))
+    want_norm = ref["layers_norm"]
+    gpipe = [r["runs"][1] for r in ranks]
+
+    def rel(x):
+        return abs(x - want_norm) / want_norm
+
+    check(all(rel(x["layers_norm"]) <= 3 * TRAIN_LOSS_REL for x in gpipe),
+          f"grad_norm of the decoder's layers (GPipe's first step), every rank's "
+          f"{[round(x['layers_norm'], 6) for x in gpipe]}, within {3 * TRAIN_LOSS_REL} of the "
+          f"reference's {want_norm:.6f}")
+    check(all(rel(x["layers_norm_unsummed"]) > 3 * TRAIN_LOSS_REL for x in gpipe),
+          "the same gate with the norm's dp sum of squares removed (a planted fault) must fail "
+          f"on every rank: {[round(x['layers_norm_unsummed'], 6) for x in gpipe]}")
+    print(f"[pp fsdp train] phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"[pp fsdp train] {failures}")
+    return {"counts": counts, "gathered_gb": gathered, "step_s": step_s,
+            "ref_step_s": min(ref["step_s"])}
+
+
 def autograd_thread_probe(device, timeout: float = 20.0) -> dict:
     """Whether two thread-ranks can run backward passes that wait for each
     other on ``device``. Each thread builds a graph through a Function whose
@@ -6608,6 +7208,9 @@ def phase_cp_nccl(*, force=False, device="cuda", seq=CP_SEQ, heads=(40, 8), d=12
         phase_pp_train(backend="nccl", kernels=False)
         if n_dev >= 4:
             phase_pp_train(backend="nccl", tp=2, kernels=False)
+        # FSDP inside pipeline stages over NCCL: dp 2 x pp 2 on four cards
+        if n_dev >= 4:
+            phase_pp_fsdp_train(backend="nccl")
         # expert parallelism over NCCL: dp 2 on two cards; on four, dp 2 x tp 2
         phase_ep_train(backend="nccl")
         if n_dev >= 4:
@@ -6653,6 +7256,11 @@ def main() -> int:
     if "--nccl-only" in sys.argv[1:]:
         phase_cp_nccl()
         return 0
+    # FSDP inside the pipeline's stages first, while this process holds
+    # nothing on the card: its four processes' peaks together come within a
+    # few GB of the card's 80 (PERF.md §4)
+    pp_fsdp_counts = phase_pp_fsdp_train()["counts"]
+    _collect("after the pp x FSDP training phase")
     kern = {
         "flash_fwd": phase_kernels(),
         "flash_fwd_quant": phase_kernels_quant(),
@@ -6665,6 +7273,8 @@ def main() -> int:
     def add(counts):
         for name in SOURCES:
             launches[name] += counts[name]
+
+    add(pp_fsdp_counts)
 
     kern["fwd_lab"], counts = phase_fwd_lab()
     add(counts)

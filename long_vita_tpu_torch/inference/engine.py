@@ -50,6 +50,23 @@ so every rank samples the same token with the same generator), and a
 cache of the rank's kv heads. K1 and K2 run at the local head counts; K6
 on the int4 column shards. Tiles are encoded 1/(cp x tp) a rank. cp and tp
 compose: the cache is then sharded by slot over cp and by kv head over tp.
+
+With a mesh of tq > 1 too (2-D tensor parallelism: JAX's engine calls
+shard_params, which takes ``text_param_specs(tp2d=True)`` there, :215-233)
+every weight of the decoder is cut over both matrix dims: a column weight
+[out@tp, in@tq], a row weight [out@tq, in@tp], the embedding and the head
+[V@tp, H@tq], and the quantised trees as JAX's quantized_param_specs
+adapts them (int8 codes as their weight, the scale with the output dim;
+int4 by its output dim alone, over tp for a column weight and the head,
+over tq for a row one). The decoder runs the cached path on the rank's
+hidden slice [B, S, H/tq] without sequence parallelism (models/qwen2.py):
+RMSNorm sums its squares over tq, a column product is summed over tq, a
+row product gives the rank's hidden slice summed over tp, and the head
+sums its partial logits over tq before the all-gather over tp, so every
+rank samples the same token. The cache keeps num_kv_heads / tp heads on
+every tq rank (JAX's shard_cache, :279-290); the attention is the same on
+each. cp composes with it as with tp. A MoE model refuses tq (JAX's
+words), and so does pp.
 """
 from __future__ import annotations
 
@@ -70,7 +87,7 @@ from long_vita_tpu_torch.models.quantize import (
     quantize_weights_int4,
     quantize_weights_int8,
 )
-from long_vita_tpu_torch.parallel.mesh import NEXT_SLICE, Mesh, validate_geometry
+from long_vita_tpu_torch.parallel.mesh import Mesh, validate_geometry
 from long_vita_tpu_torch.parallel.sharding import shard_params
 
 _OOB_SEQ = 2**30  # a feature row at this position lands in no chunk
@@ -194,8 +211,10 @@ class InferenceEngine:
         decoder's projections and head are quantized into a new tree on the
         parameters' device; ``params`` stays as it is.
         mesh: a parallel.mesh.Mesh; with cp > 1, the cp-sharded cache, with
-        tp > 1 the tp-sharded weights and cache (see the module docstring);
-        ``params`` is the whole tree on every rank."""
+        tp > 1 the tp-sharded weights and cache, with tq > 1 the weights cut
+        over tq too (see the module docstring); ``params`` is the whole tree
+        on every rank. A pp mesh, and a MoE model over dp or tq, raise (as
+        JAX's engine does, or with its words)."""
         self.mesh, self.parallel = mesh, None
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a long_vita_tpu_torch.parallel.mesh.Mesh, got {mesh!r}")
@@ -203,15 +222,10 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"serving over a pp {mesh.shape['pp']} mesh: pipeline stages run in training "
                 "only, as in the JAX package (its engine takes a tp x cp mesh)")
-        if mesh is not None and mesh.shape["tq"] > 1:
-            # JAX's engine serves on a tq mesh (2-D sharded weights); the
-            # port's tq layout is the training one alone, so it raises
-            # rather than run a 1-D or replicated path
-            raise NotImplementedError(f"serving over tq {mesh.shape['tq']} (2-D tp) {NEXT_SLICE}")
         if mesh is not None:
             validate_geometry(cfg.text, mesh.cfg)
             qwen2.check_moe_mesh(cfg.text, dp=mesh.shape["dp"], cp=mesh.shape["cp"],
-                                 tp=mesh.shape["tp"])
+                                 tp=mesh.shape["tp"], tq=mesh.shape["tq"])
             if cfg.text.num_experts and mesh.shape["dp"] > 1:
                 # expert parallelism exchanges rows between the dp ranks in
                 # every call: a training layout (JAX's engine takes tp x cp)
@@ -333,6 +347,10 @@ class InferenceEngine:
             )[0]
             if rows.size:
                 flat = feats.reshape(-1, feats.shape[-1])
+                tq = self.text.tq_comm
+                if tq is not None:  # the rank's hidden slice of the rows (2-D tp)
+                    h = embeds.shape[-1]
+                    flat = flat.narrow(-1, tq.rank * h, h)
                 dev = self.device
                 embeds[torch.as_tensor(b_idx[rows], device=dev),
                        torch.as_tensor(s_idx[rows], device=dev)] = (

@@ -22,7 +22,8 @@ CUDA division by a Python scalar multiplies by its reciprocal, which can
 differ in the last bit), round half to even as ``np.rint``, the same clips. Each function returns a new tree that shares
 every unquantized tensor with the input and leaves the input untouched.
 ``quantized_param_specs`` adapts the tensor-parallel specs of
-parallel/sharding.py to a quantised tree (JAX :159-193).
+parallel/sharding.py to a quantised tree (JAX :159-193), and
+``quantized_tq_specs`` the 2-D layout's tq dims (serving over tq).
 """
 from __future__ import annotations
 
@@ -155,3 +156,28 @@ def quantized_param_specs(text: Qwen2Params, specs: dict) -> dict:
             if entry.lora is not None and not col:
                 specs[f"{path}.lora.a"] = None
     return specs
+
+
+def quantized_tq_specs(text: Qwen2Params, tq_specs: dict) -> dict:
+    """Adapt the 2-D layout's tq dims (parallel/sharding.tq_dim, by
+    parameter name: a column weight's input dim 1, a row weight's output
+    dim 0, the head's hidden dim 1) to a quantised decoder (JAX :159-193
+    on ``text_param_specs(tp2d=True)``). int8: ``weight_q`` keeps the
+    weight's cut, and ``scale`` [out] follows the output dim (cut over tq
+    for a row projection, whose output is tq's; whole for a column one and
+    the head). int4: ``packed`` and ``scales`` cut their output dim alone
+    (torch dim 1), so a row projection's over tq and a column one's, and
+    the head's, not over tq at all (their output is tp's)."""
+    from long_vita_tpu_torch.parallel.sharding import tq_dim
+
+    tq_specs = dict(tq_specs)
+    for path, entry in text.named_modules():
+        if not isinstance(entry, (QuantDense8, QuantDense4)):
+            continue
+        dim = tq_dim(f"{path}.weight")
+        if isinstance(entry, QuantDense8):
+            tq_specs[f"{path}.weight_q"] = dim
+            tq_specs[f"{path}.scale"] = 0 if dim == 0 else None
+        else:
+            tq_specs[f"{path}.packed"] = tq_specs[f"{path}.scales"] = 1 if dim == 0 else None
+    return tq_specs

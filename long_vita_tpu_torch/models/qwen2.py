@@ -56,7 +56,10 @@ Differences from the JAX package, all of form rather than of numbers:
     reduce-scatters their gradients; a saved gathered weight is gathered
     again in the backward (``fsdp.streaming``), so one unit's whole weights
     are alive at a time. JAX's GSPMD inserts the same collectives inside
-    the scan;
+    the scan. Inside pipeline stages (JAX's text_param_specs(fsdp=True,
+    pp=True)) a stage's layers stream the same way in every tick that runs
+    them (``_pipelined_decoder``), the first stage gathering the embedding
+    and the last the head;
   - under 2-D tensor parallelism (``Qwen2Params.tq_comm``, the tq axis:
     JAX's training layout [B@dp, S@(cp, tp), H@tq], long_vita.py:280-290,
     where GSPMD derives every collective) x is also cut over the hidden
@@ -70,7 +73,14 @@ Differences from the JAX package, all of form rather than of numbers:
     k and v, and so the attention, are the same on every tq rank of a tp
     index (computed tq times); the lookup on the 2-D table lands in the slice as under 1-D tp
     (ids clamped, as JAX's plain lookup there), and the head sums its
-    partial logits over tq;
+    partial logits over tq. Serving over tq (a cache; JAX's engine on its
+    tp2d specs) runs the same [B, S, H/tq] hidden slices without sequence
+    parallelism: a row product's slice is summed over tp by one
+    all_reduce_sum, the quantised trees take JAX's 2-D cuts (int8 codes as
+    their weight, the scale with the output; int4 by its output dim alone,
+    so its input is gathered over tq for a column product and over tp for
+    a row one), and the head's logits are summed over tq, then gathered
+    over tp;
   - over pp (``Qwen2Params.pp``, a stage's tree: parallel/sharding.
     shard_params cuts it) the decoder runs its stage's layers in the
     pipeline's schedule (``_pipelined_decoder``, parallel/pipeline.py),
@@ -351,6 +361,12 @@ def kv_heads(params: Qwen2Params, cfg: TextConfig) -> int:
     return out_features(params.layers[0].k_proj) // cfg.head_dim
 
 
+# A fault for the 2-D serving gate that must catch it (chip_smoke.py), never
+# set in serving or training: rms_norm under tq drops the sum of its squares
+# over tq (each rank divides its own slice's squares by the whole width).
+_RMS_UNSUMMED_OVER_TQ = False
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, tq=None) -> torch.Tensor:
     """RMSNorm with f32 variance; the weight multiplies the normalised x
     AFTER it is cast back to x's dtype (HF Qwen2RMSNorm numerics). tq (2-D
@@ -361,8 +377,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, tq=None) -> torc
         var = xf.square().mean(-1, keepdim=True)
     else:
         h = x.shape[-1]
-        # summed over tq both ways: each rank applies the sum to its own slice
-        sq = copy_to_tp(reduce_from_tp(xf.square().sum(-1, keepdim=True), tq), tq)
+        sq = xf.square().sum(-1, keepdim=True)
+        if not _RMS_UNSUMMED_OVER_TQ:
+            # summed over tq both ways: each rank applies the sum to its own slice
+            sq = copy_to_tp(reduce_from_tp(sq, tq), tq)
         var = sq / (h * tq.size)
         weight = weight.narrow(0, tq.rank * h, h)
     xf = xf * torch.rsqrt(var + eps)
@@ -439,30 +457,39 @@ def _with_lora(entry: Projection, x: torch.Tensor, out: torch.Tensor,
     return out + ((x @ entry.lora.a) @ entry.lora.b) * scale
 
 
+def _product(entry: Projection, x: torch.Tensor) -> torch.Tensor:
+    """x times the projection's weight, without bias or LoRA: int8 codes
+    cast to x's dtype, the product, then the scale in x's dtype; packed
+    int4 through w4_matmul (K6 for decode-sized row counts, the dequantise
+    route for prefill chunks)."""
+    if isinstance(entry, QuantDense8):
+        return F.linear(x, entry.weight_q.to(x.dtype)) * entry.scale.to(x.dtype)
+    if isinstance(entry, QuantDense4):
+        return w4_matmul(x, entry.packed, entry.scales)
+    return F.linear(x, entry.weight)
+
+
 def _proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tq=None) -> torch.Tensor:
     """A projection without its bias (callers add it in the param dtype
     after the product, as the JAX package does), plus its LoRA update.
-    Dispatches on the layout as the JAX _proj (:174-184): int8 codes cast to
-    x's dtype, the product, then the scale in x's dtype; packed int4 through
-    w4_matmul (K6 for decode-sized row counts, the dequantise route for
-    prefill chunks). tq (a column projection under 2-D tp, a dense one): x
-    is the rank's hidden slice and the weight its input rows, the product
-    summed over tq; LoRA's ``a`` is replicated, its rows of the slice taken
-    and that product summed over tq too, before ``b``."""
+    Dispatches on the layout as the JAX _proj (:174-184) (``_product``). tq
+    (a column projection under 2-D tp): x is the rank's hidden slice and
+    the weight its input rows (int8 codes too, their scale per output
+    column), each rank's scaled partial product summed over tq; LoRA's
+    ``a`` is replicated, its rows of the slice taken and that product
+    summed over tq too, before ``b``. An int4 weight keeps its whole input
+    dim (JAX cuts int4 by its output dim alone), so x is all-gathered over
+    tq first and K6 computes the whole product."""
     if tq is not None:
-        out = reduce_from_tp(F.linear(x, entry.weight), tq)
+        if isinstance(entry, QuantDense4):
+            return _proj(entry, tq.all_gather(x, -1), cfg)
+        out = reduce_from_tp(_product(entry, x), tq)
         if entry.lora is None or cfg.lora_r == 0:
             return out
         h = x.shape[-1]
         xa = reduce_from_tp(x @ entry.lora.a.narrow(0, tq.rank * h, h), tq)
         return out + (xa @ entry.lora.b) * (cfg.lora_alpha / cfg.lora_r)
-    if isinstance(entry, QuantDense8):
-        out = F.linear(x, entry.weight_q.to(x.dtype)) * entry.scale.to(x.dtype)
-    elif isinstance(entry, QuantDense4):
-        out = w4_matmul(x, entry.packed, entry.scales)
-    else:
-        out = F.linear(x, entry.weight)
-    return _with_lora(entry, x, out, cfg)
+    return _with_lora(entry, x, _product(entry, x), cfg)
 
 
 def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp,
@@ -472,20 +499,24 @@ def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp,
     reduce-scatter along the sequence into this rank's slice, through
     autograd); an int4 one is replicated (quantize.quantized_param_specs),
     so its input is all-gathered over tp and the whole product computed.
-    tp None: _proj. tq (2-D tp, sequence parallel, a dense projection): x
-    is the same on every tq rank and the weight holds the rank's output
-    rows, so x passes copy_to_tp over tq (its gradient summed over tq)
-    and the product is the rank's hidden slice; LoRA's ``a`` (cut over tp)
-    gives a product the same on every tq rank, copied likewise, and the
-    rank's columns of the replicated ``b`` follow."""
+    tp None: _proj. tq (2-D tp): x is the same on every tq rank and the
+    weight holds the rank's output rows, so the product is the rank's
+    hidden slice, summed over tp (sp, training: x passes copy_to_tp over tq,
+    its gradient summed over tq, and the sum is the reduce-scatter along
+    the sequence; serving: one all_reduce_sum over tp, an int8 product
+    scaled on each tp rank first); LoRA's ``a`` (cut over tp) gives a
+    product the same on every tq rank, and the rank's columns of the
+    replicated ``b`` follow. An int4 one (serving) keeps its whole input
+    dim and cuts its output over tq (JAX's quantized_param_specs): its
+    input is all-gathered over tp and K6 computes the rank's output
+    columns."""
     if tq is not None:
-        out = F.linear(copy_to_tp(x, tq), entry.weight)
-        if entry.lora is not None and cfg.lora_r:
-            h = out.shape[-1]
-            xa = copy_to_tp(x @ entry.lora.a, tq)
-            out = out + (xa @ entry.lora.b.narrow(1, tq.rank * h, h)) * (cfg.lora_alpha
-                                                                         / cfg.lora_r)
-        return scatter_seq(out, tp, 1)
+        if isinstance(entry, QuantDense4):
+            xg = tp.all_gather(x, -1)
+            return _lora_cols(entry, xg, w4_matmul(xg, entry.packed, entry.scales), cfg, tq)
+        out = _lora_cols(entry, x, _product(entry, copy_to_tp(x, tq) if sp else x), cfg, tq,
+                         sp)
+        return scatter_seq(out, tp, 1) if sp else tp.all_reduce_sum(out)
     if tp is None:
         return _proj(entry, x, cfg)
     if sp:
@@ -493,6 +524,21 @@ def _row_proj(entry: Projection, x: torch.Tensor, cfg: TextConfig, tp,
     if isinstance(entry, QuantDense4):
         return _proj(entry, tp.all_gather(x, -1), cfg)
     return tp.all_reduce_sum(_proj(entry, x, cfg))
+
+
+def _lora_cols(entry: Projection, x: torch.Tensor, out: torch.Tensor, cfg: TextConfig, tq,
+               sp: bool = False) -> torch.Tensor:
+    """``out`` (the rank's output columns of a row projection under 2-D tp)
+    plus the same columns of its LoRA update: x @ a, copied over tq under
+    sequence parallelism (its gradient summed there), times the rank's
+    columns of ``b``."""
+    if entry.lora is None or cfg.lora_r == 0:
+        return out
+    h = out.shape[-1]
+    xa = x @ entry.lora.a
+    if sp:
+        xa = copy_to_tp(xa, tq)
+    return out + (xa @ entry.lora.b.narrow(1, tq.rank * h, h)) * (cfg.lora_alpha / cfg.lora_r)
 
 
 def _row_write(buf: torch.Tensor, new: torch.Tensor, cache_len: torch.Tensor) -> None:
@@ -763,7 +809,9 @@ def qwen2_decoder(
     rank's 1/tp slice [B, S/tp, H] of the sequence whose position_ids and
     segment_ids [B, S] are given whole (this rank's cp shard under cp); see
     the module docstring. Under 2-D tp (a tree bound to a tq communicator)
-    the slice is [B, S/tp, H/tq].
+    the slice is [B, S/tp, H/tq]; with a cache (serving over tq) the rows
+    are whole and the hidden dim the rank's 1/tq, [B, S, H/tq], in and
+    out.
 
     parallel (cp > 1): without a cache, inputs_embeds, position_ids and
     segment_ids are this rank's sequence shard (zigzag-permuted for ring and
@@ -793,9 +841,6 @@ def qwen2_decoder(
     tp, tq = params.tp_comm, params.tq_comm
     sp = (tp is not None and kv_cache is None and parallel is not None
           and parallel.mesh.shape["tp"] * parallel.mesh.shape["tq"] > 1)
-    if tq is not None and not sp:
-        raise ValueError("a 2-D tp shard runs the training layout alone (no cache, under its "
-                         "mesh's ParallelConfig); serving over tq is not ported")
     # a cached chunk that divides by cp runs on this rank's 1/cp of its rows
     q_sharded = kv_cache is not None and cp > 1 and seq > 1 and seq % cp == 0
     if q_sharded:
@@ -862,7 +907,14 @@ def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: Te
     layer routes each microbatch as one call (its dp shard's rows under
     expert parallelism), and the microbatch's aux travels with its
     activation (an ``aux`` leaf of the shifted tree, each stage adding its
-    layers'), as JAX's carry does (:842-911). -> as qwen2_decoder: hidden
+    layers'), as JAX's carry does (:842-911). On an FSDP stage tree
+    (``params.fsdp``, JAX's text_param_specs(fsdp=True, pp=True)) each
+    layer runs on its weights gathered over dp in the tick that runs it
+    (``_streamed_layer``, inside ``fsdp.streaming``): a microbatch's pass
+    through a layer is one unit, gathered once (twice under remat: the
+    recompute) and reduce-scattered once, and every dp rank of the stage
+    runs the same ticks, so its gathers and scatters come in the same
+    order on each. -> as qwen2_decoder: hidden
     the final-normed [B, S(/tp), H] on the last stage, None on the others;
     the MoE aux, the mean over microbatches on the last stage (JAX
     :909-911), 0 on the others; the anchor."""
@@ -894,13 +946,15 @@ def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: Te
     if moe is not None:
         specs["aux"] = ((), torch.float32, dev)
 
+    fs = params.fsdp
+    run = decoder_layer if fs is None else functools.partial(_streamed_layer, fs)
+
     def body(chunk, t):
         x, aux = t["x"], t.get("aux")
         for layer in chunk:
             args = (layer, x, t["cos"], t["sin"], cfg, None, None, t["pos"], t.get("seg"),
                     attn_impl, parallel, False, tp, sp, None, moe)
-            x, aux_l = remat_checkpoint(decoder_layer, *args, remat=remat) if recompute else \
-                decoder_layer(*args)
+            x, aux_l = remat_checkpoint(run, *args, remat=remat) if recompute else run(*args)
             if aux_l is not None:
                 aux = aux + aux_l
         return {"x": x} if moe is None else {"x": x, "aux": aux}
@@ -910,9 +964,10 @@ def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: Te
         first = {"x": split(inputs_embeds)}
         if moe is not None:
             first["aux"] = torch.zeros((m,), dtype=torch.float32, device=dev)
-    out, anchor = run_schedule(params.layers, first, body, stage.comm, m=m,
-                               virtual=stage.virtual, specs=specs, local=local,
-                               stats=stage.stats)
+    with streaming(params):
+        out, anchor = run_schedule(params.layers, first, body, stage.comm, m=m,
+                                   virtual=stage.virtual, specs=specs, local=local,
+                                   stats=stage.stats)
     hidden = None
     aux = torch.zeros((), dtype=torch.float32, device=position_ids.device)
     if out is not None:
@@ -999,20 +1054,24 @@ def lm_head(params: Qwen2Params, hidden: torch.Tensor) -> torch.Tensor:
     first (and gathered again for the backward). On a 2-D tp shard hidden
     is the rank's hidden slice and the weight its [V/tp, H/tq] block: the
     f32 partial logits are summed over tq first (JAX's plain head under
-    tq, train_step.py:75-84)."""
+    tq, train_step.py:75-84); an int8 head's partial logits are scaled
+    before that sum, and an int4 one (serving: its whole hidden dim, its
+    vocabulary over tp) takes the hidden rows all-gathered over tq."""
     entry = params.lm_head
-    tp = params.tp_comm
+    tp, tq = params.tp_comm, params.tq_comm
     if tp is not None:
         hidden = copy_to_tp(hidden, tp)
     if isinstance(entry, QuantDense4):
+        if tq is not None:  # the whole hidden dim: JAX cuts int4 by its output dim alone
+            hidden, tq = tq.all_gather(hidden, -1), None
         logits = w4_matmul(hidden, entry.packed, entry.scales, out_dtype=torch.float32)
     elif isinstance(entry, QuantDense8):
         logits = _f32_logits(hidden, entry.weight_q.to(hidden.dtype)) * entry.scale
     else:
         with streaming(params):
             logits = _f32_logits(hidden, head_weight(params))
-    if params.tq_comm is not None:
-        logits = reduce_from_tp(logits, params.tq_comm)
+    if tq is not None:
+        logits = reduce_from_tp(logits, tq)
     return logits if tp is None else gather_from_tp(logits, tp, -1)
 
 

@@ -531,8 +531,17 @@ class DistComm(Comm):
             recv = {j: torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for j in others}
             mine = self._in(x)[0]
             self._p2p([(j, mine) for j in others], [(j, recv[j]) for j in others])
-            return torch.cat([x if j == self.rank else self._out(recv[j], x.device)
-                              for j in range(self.size)], dim)
+            # each piece copied from the host straight into its place
+            dim %= x.dim()
+            n = x.shape[dim]
+            out = x.new_empty((*x.shape[:dim], self.size * n, *x.shape[dim + 1:]))
+            for j in range(self.size):
+                piece = out.narrow(dim, j * n, n)
+                if j == self.rank:
+                    piece.copy_(x)
+                else:
+                    self._copy(recv[j], piece)
+            return out
         x, dev = self._in(x.contiguous())
         parts = [torch.empty_like(x) for _ in range(self.size)]
         self._wait([self._dist.all_gather(parts, x, group=self.group, async_op=True)])
@@ -552,6 +561,8 @@ class DistComm(Comm):
                       [(j, recv[j]) for j in others])
             parts = [mine if j == self.rank else self._out(recv[j], x.device)
                      for j in range(self.size)]
+            if self.size == 2:  # one addition, the stacked sum's bits without its copy
+                return parts[0] + parts[1]
             return torch.stack(parts).sum(0)
         x, dev = self._in(x)
         if self.gloo:

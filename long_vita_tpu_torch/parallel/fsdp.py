@@ -8,12 +8,14 @@ scan all-gathers one layer's weights inside the loop body and
 reduce-scatters dW; here a unit (one decoder layer's FSDP leaves, the
 embedding, or the head) is gathered by ``_Gather``, a torch.autograd.Function:
 
-  - forward: one all-gather over ``Fsdp.comm`` (the mesh's dp_comm) of the
-    unit's shards, flattened per dtype, cut back into the whole tensors
-    (with tp, the rank's tp slices: tp's collectives then run as before);
-  - backward: one reduce-scatter of the whole tensors' gradients back to
-    the shards (summed in rank order), which accumulate into the shard
-    parameters' ``.grad``.
+  - forward: an all-gather over ``Fsdp.comm`` (the mesh's dp_comm) of the
+    unit's shards, flattened in buckets of at most BUCKET_BYTES of whole
+    tensors (a 72B layer: its attention weights and norms, then gate, up
+    and down alone), cut back into the whole tensors (with tp, the rank's
+    tp slices: tp's collectives then run as before);
+  - backward: a reduce-scatter a bucket of the whole tensors' gradients
+    back to the shards (summed in rank order), which accumulate into the
+    shard parameters' ``.grad``.
 
 A MoE layer's unit is its norms and attention weights: its router is
 replicated and its expert stacks are cut over dp for expert parallelism
@@ -35,6 +37,24 @@ same order). ``Fsdp.live_units()`` and ``Fsdp.stats`` count the units
 whose gathered tensors are alive (the tests hold the peak to one unit),
 the gathers, regathers and scatters, and the bytes gathered.
 
+Inside pipeline stages (JAX's text_param_specs(fsdp=True, pp=True)) a
+stage's tree holds 1/dp of each of its layers, and ``Fsdp.comm`` joins the
+dp ranks of the stage. The units are the stage's own layers, each gathered
+in every tick that runs it: one unit a (microbatch, layer) pass, under
+GPipe (M microbatches through each layer, forward, then the backward) and
+under the interleaved schedule (chunk-major ticks) alike; the first stage
+gathers the embedding and the last the head, once a step. Every dp rank
+of a stage runs the same ticks in the same order, so the regather rule
+holds there too. With Ls layers a stage, M microbatches and remat off, a
+step on one rank makes Ls M + e + h gathers, Ls M + h regathers (the
+saved-tensor hooks; the embedding's lookup saves no weight) and Ls M + e
++ h scatters, where e is 1 on the first stage and h 1 on the last (0
+elsewhere); with remat the recompute gathers each unit again (2 Ls M + e
++ h gathers) and only the head is regathered (``step_counts``; the head
+when its product saves the gathered weight). pp and
+virtual_pp enter only through e and h: the interleaved schedule runs each
+of its M v units through Ls / v layers.
+
 ``_LOCAL_SLICE_NOT_SCATTERED`` is a fault for the gates that must catch it
 (tests, chip_smoke.py), never set in training: the backward keeps the
 rank's own slice of its own gradient instead of the reduce-scatter.
@@ -52,6 +72,8 @@ from long_vita_tpu_torch.parallel.sharding import COLUMN, ROW
 
 # A fault for the gates (see the module docstring), never set in training.
 _LOCAL_SLICE_NOT_SCATTERED = False
+# whole-tensor bytes a unit's collective moves at most (one larger leaf alone)
+BUCKET_BYTES = 512 * 2**20
 
 class Fsdp:
     """What a tree's decoder needs to stream its FSDP leaves
@@ -88,16 +110,38 @@ class _Unit:
         self.shards, self.dims, self.fs, self.comm = shards, dims, fs, fs.comm
         self.regathered: Optional[list] = None
 
+    def buckets(self) -> list:
+        """The unit's leaves in the groups that move together: consecutive
+        leaves of one dtype up to BUCKET_BYTES of whole tensors (a larger
+        leaf alone), so that a collective's buffers stay near one such
+        group beside the unit's whole tensors."""
+        out, size = [], 0
+        for i, s in enumerate(self.shards):
+            whole = s.nbytes * self.comm.size
+            same = out and s.dtype == self.shards[out[-1][-1]].dtype
+            if same and size + whole <= BUCKET_BYTES:
+                out[-1].append(i)
+                size += whole
+            else:
+                out.append([i])
+                size = whole
+        return out
+
     def gather(self, register: bool) -> list:
-        """All-gather the shards over ``comm``: one collective per dtype of
+        """All-gather the shards over ``comm``: one collective a bucket of
         the flattened shards, each leaf's whole tensor cut out of the rows
-        and concatenated along its dim."""
+        and concatenated along its dim (a bucket of one leaf gathered along
+        its dim straight into its whole tensor)."""
         n = self.comm.size
         wholes: list = [None] * len(self.shards)
-        for dtype in dict.fromkeys(s.dtype for s in self.shards):
-            idx = [i for i, s in enumerate(self.shards) if s.dtype == dtype]
+        for idx in self.buckets():
+            if len(idx) == 1:  # one leaf: gathered along its dim, into its whole tensor
+                i = idx[0]
+                wholes[i] = self.comm.all_gather(self.shards[i].detach(), self.dims[i])
+                continue
             flat = torch.cat([self.shards[i].detach().reshape(-1) for i in idx])
             rows = self.comm.all_gather(flat[None], 0)  # [n, numel]
+            del flat
             off = 0
             for i in idx:
                 shard = self.shards[i]
@@ -109,7 +153,9 @@ class _Unit:
         fs = self.fs
         fs.stats["gathered_bytes"] += sum(w.nbytes for w in wholes)
         for i, w in enumerate(wholes):
-            ref = weakref.ref(w)
+            # a view's storage lives as long as its base (autograd may hand the
+            # caller another tensor object over the same view)
+            ref = weakref.ref(w if w._base is None else w._base)
             fs._live.append((id(self), ref))
             if register:
                 fs._gathered[w.untyped_storage().data_ptr()] = (self, i, ref)
@@ -118,21 +164,26 @@ class _Unit:
 
     def scatter(self, grads) -> list:
         """The whole tensors' gradients -> each shard's, reduce-scattered over
-        ``comm`` (one collective per dtype; summed in rank order)."""
+        ``comm`` (one collective a bucket; summed in rank order)."""
         n, rank = self.comm.size, self.comm.rank
         out: list = [None] * len(self.shards)
-        for dtype in dict.fromkeys(s.dtype for s in self.shards):
-            idx = [i for i, s in enumerate(self.shards) if s.dtype == dtype]
+        for idx in self.buckets():
+            dtype = self.shards[idx[0]].dtype
             # row r: piece r of every leaf's gradient, flattened (autograd
-            # materialises an unused output's gradient as zeros)
-            stacked = torch.empty((n, sum(self.shards[i].numel() for i in idx)), dtype=dtype,
-                                  device=grads[idx[0]].device)
-            off = 0
-            for i in idx:
-                shard = self.shards[i]
-                for r, p in enumerate(torch.chunk(grads[i], n, self.dims[i])):
-                    stacked[r, off:off + shard.numel()].view(shard.shape).copy_(p)
-                off += shard.numel()
+            # materialises an unused output's gradient as zeros); one leaf cut
+            # along dim 0 is that already
+            if len(idx) == 1 and self.dims[idx[0]] == 0:
+                stacked = grads[idx[0]].reshape(n, -1)
+                grads[idx[0]] = None
+            else:
+                stacked = torch.empty((n, sum(self.shards[i].numel() for i in idx)),
+                                      dtype=dtype, device=grads[idx[0]].device)
+                off = 0
+                for i in idx:
+                    shard = self.shards[i]
+                    for r, p in enumerate(torch.chunk(grads[i], n, self.dims[i])):
+                        stacked[r, off:off + shard.numel()].view(shard.shape).copy_(p)
+                    off += shard.numel()
             if _LOCAL_SLICE_NOT_SCATTERED:
                 mine = stacked[rank]
             else:
@@ -174,6 +225,23 @@ class _Gather(torch.autograd.Function):
         unit = ctx.unit
         unit.regathered = None  # the unit's backward is done
         return (None, *unit.scatter(list(grads)))
+
+
+def step_counts(layers: int, m: int, first: bool, last: bool, remat: bool,
+                head_saved: bool = True) -> dict:
+    """``Fsdp.stats``' gathers, regathers and scatters of one training step
+    on a rank of a pipeline stage (see the module docstring): ``layers``
+    the stage's layers, ``m`` the microbatches, ``first`` / ``last`` the
+    stage that gathers the embedding / the head. Without pp: the whole
+    decoder's layers, m 1, first and last both True. head_saved: the head's
+    product saves its gathered weight for the backward (so it is gathered
+    again there): the f32 head of a bf16 weight does on CUDA (one GEMM into
+    f32), not on the CPU, whose product widens the weight to f32 first and
+    saves that copy."""
+    e, h, units = int(first), int(last), layers * m
+    return dict(gathers=(2 if remat else 1) * units + e + h,
+                regathers=(h if head_saved else 0) + (0 if remat else units),
+                scatters=units + e + h)
 
 
 def _gather(shards: list, dims: list, fs: Fsdp) -> list:

@@ -7,9 +7,10 @@ the port's mesh is a grid of ranks over a world communicator with one
 communicator per axis. A rank's coordinates follow JAX's ``np.reshape(
 devices, (dp, pp, cp, tp, tq))`` (:78-80): rank = (((d * pp + p) * cp + c)
 * tp + t) * tq + q, dp outermost and tq innermost. The dp, cp and tp axes
-run for serving and for training (FSDP over dp too); pp and tq (2-D tensor
-parallelism, the second factor of tp) run for training, as in the JAX
-package, whose serving mesh has neither.
+run for serving and for training (FSDP over dp too, inside pipeline stages
+as well); tq (2-D tensor parallelism, the second factor of tp) runs for
+both, and pp for training alone, as in the JAX package, whose engine
+serves no pipeline.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1, the multi-GPU items left: FSDP inside pipeline "
-              "stages, item 3; serving over 2-D tp, item 6)")
+NEXT_SLICE = ("is not ported yet (ROADMAP §1, the one port item left: orbax interop, item 9, "
+              "reading and writing JAX's orbax checkpoint stores)")
 
 
 @dataclasses.dataclass(frozen=True)

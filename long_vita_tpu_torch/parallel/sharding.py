@@ -58,7 +58,13 @@ Leaf of a stage's layer carries its global layer (``pp_layer``):
 ``shard_named`` takes a checkpoint's tensors of those global names and
 ``gather_named`` gathers the stages' layers back under them, so that a
 checkpoint holds the canonical order whatever the schedule. FSDP inside
-pipeline stages is not ported (``check_pp_fsdp`` raises).
+pipeline stages (JAX ``text_param_specs(fsdp=True, pp=True)``: ``col =
+P(pp, dp, tp)``, ``row = P(pp, tp, dp)``, norms ``P(pp, dp)``) cuts each of
+the stage's layers over dp as FSDP alone cuts a layer (its layers by pp,
+then each layer's ``fsdp_dim`` over dp); the embedding and the head keep
+their (tp, dp) cut on every stage, the first stage gathering the one and
+the last the other. ``shard_named`` and ``gather_named`` move whole
+tensors to and from that layout over dp, then tp, then pp.
 
 A MoE layer (JAX ``text_param_specs(moe=True)`` :88-97) keeps its router
 replicated and cuts its experts' intermediate dim over tp like the dense
@@ -82,7 +88,9 @@ sum over tq, the same on every tq rank (``Leaf.tq_same``), where a norm
 (and the rest) is used on the rank's hidden slice. kv heads keep the
 whole-head rule over tp. ``shard_params`` binds ``Qwen2Params.tq_comm``
 (and ``tp_comm``, a LocalComm at tp 1), and gathers go over tq as well.
-Quantised trees, FSDP and pp do not compose with tq (validate_geometry).
+Serving takes the same cuts, and a quantised tree JAX's adapter of them
+(``long_vita_tq_specs``, quantize.quantized_tq_specs); FSDP, pp and MoE
+do not compose with tq (validate_geometry).
 
 The batch slices (JAX ``batch_spec`` :165, P(dp, cp), and
 ``activation_spec`` :170) are ``rank_rows`` and ``rank_seq``.
@@ -326,6 +334,23 @@ def dense_spec(name: str) -> Optional[int]:
     return None
 
 
+def long_vita_tq_specs(params) -> Specs:
+    """Every parameter's tq dim (``tq_dim``, by name; None: replicated over
+    tq), a quantised decoder's entries through
+    quantize.quantized_tq_specs."""
+    from long_vita_tpu_torch.models.long_vita import LongVITAParams
+    from long_vita_tpu_torch.models.quantize import quantized_tq_specs
+
+    lv = isinstance(params, LongVITAParams)
+    text = params.text if lv else params
+    specs = quantized_tq_specs(text, {n: tq_dim(n) for n, _ in text.named_parameters()})
+    if not lv:
+        return specs
+    out = {f"text.{k}": v for k, v in specs.items()}
+    out.update({n: None for n, _ in params.named_parameters() if not n.startswith("text.")})
+    return out
+
+
 def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
                 dp: int = 1, stage=None, tq_index: int = 0, tq: int = 1,
                 ep: int = 1) -> dict[str, Leaf]:
@@ -339,10 +364,11 @@ def leaf_layout(params, cfg, tp_index: int, tp: int, dp_index: int = 0,
     are cut over that many dp ranks, this rank's piece ``dp_index``."""
     hkv = getattr(cfg, "text", cfg).num_key_value_heads
     ids = stage.layers() if stage is not None else None
+    tq_dims = long_vita_tq_specs(params) if tq > 1 else {}
     out = {}
     for name, dim in long_vita_param_specs(params).items():
         leaf = leaf_rule(name, dim, tp_index, tp, hkv, fsdp_dim(name), dp_index, dp,
-                         tq_dim(name), tq_index, tq, ep, dp_index)
+                         tq_dims.get(name), tq_index, tq, ep, dp_index)
         i = layer_of(name) if ids is not None else None
         out[name] = dataclasses.replace(leaf, pp_layer=ids[i]) if i is not None else leaf
     return out
@@ -418,11 +444,13 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     pp) the decoder keeps the stage's layers alone, ``virtual_pp`` chunks
     of them chunk-major (parallel/pipeline.stage_layers), and is bound to
     ``parallel.pipeline.Stage(mesh.pp_comm, L, virtual_pp)``
-    (``Qwen2Params.pp``); every other leaf is whole on every stage. Over tq
-    (training, JAX's ``tp2d``) the decoder's weights are cut over tq too
-    (``tq_dim``) and the tree is bound to ``mesh.tq_comm`` (and to
-    ``mesh.tp_comm`` at tp 1 too, a LocalComm: the 2-D layer runs
-    sequence parallel); a dense tree only. A MoE tree at dp > 1 has its
+    (``Qwen2Params.pp``); every other leaf is whole on every stage; with
+    fsdp the stage's layers are cut over dp too. Over tq (JAX's ``tp2d``,
+    training and serving) the decoder's weights are cut over tq too
+    (``long_vita_tq_specs``: a quantised tree's codes, scales and packed
+    int4 as JAX's adapter cuts them) and the tree is bound to
+    ``mesh.tq_comm`` (and to ``mesh.tp_comm`` at tp 1 too, a LocalComm).
+    A MoE tree at dp > 1 has its
     experts cut over dp (expert parallelism) and is bound to
     ``mesh.dp_comm`` (``Qwen2Params.ep_comm``). tp 1 without FSDP, EP, pp
     or tq returns ``params``."""
@@ -441,12 +469,10 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
                       fsdp=fsdp)
     check_moe_mesh(text_cfg, dp=mesh.shape["dp"], tp=tp, pp=pp, tq=tq)
     quantised = any(n.endswith((".weight_q", ".packed")) for n, _ in params.named_parameters())
-    if quantised and (dp > 1 or tq > 1):
-        raise ValueError(f"{'FSDP' if dp > 1 else '2-D tp (tq)'} shards a dense tree "
-                         "(training); this one is quantised")
+    if quantised and dp > 1:
+        raise ValueError("FSDP shards a dense tree (training); this one is quantised")
     stage = None
     if pp > 1:
-        check_pp_fsdp(pp, dp)
         stage = Stage(mesh.pp_comm, len(_text(params).layers), virtual_pp)
         params = stage_tree(params, [_text(params).layers[g] for g in stage.layers()])
     layout = leaf_layout(params, text_cfg, mesh.tp_index, tp, mesh.dp_index, dp, stage,
@@ -456,7 +482,8 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
         piece = slice_leaf(t.detach(), layout[name])
         if own:
             piece = piece.clone(memory_format=torch.contiguous_format)
-        elif name.endswith((".packed", ".scales")) and layout[name].sharded:
+        elif name.endswith((".packed", ".scales")) and (layout[name].sharded
+                                                         or layout[name].cut_tq):
             piece = piece.contiguous()  # K6 reads contiguous codes and scales
         tensors[name] = piece
     local = _rebuild(params, tensors)
@@ -467,16 +494,6 @@ def shard_params(params, mesh: Mesh, cfg, *, own: bool = False, fsdp: bool = Fal
     text.pp = stage
     text.ep_comm = mesh.dp_comm if ep > 1 else None
     return local
-
-
-def check_pp_fsdp(pp: int, dp: int) -> None:
-    """FSDP inside pipeline stages (JAX's text_param_specs(fsdp=True,
-    pp=True): each stage's layers cut over dp too) is not ported: raises
-    for pp > 1 with FSDP over dp > 1."""
-    if pp > 1 and dp > 1:
-        raise NotImplementedError(
-            f"FSDP over dp {dp} inside pp {pp} pipeline stages is not ported yet (ROADMAP §1, "
-            "pipeline stages: pp x FSDP)")
 
 
 def shard_named(tensors: dict, layout: dict[str, Leaf]) -> dict:

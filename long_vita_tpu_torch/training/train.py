@@ -30,7 +30,8 @@ parallel/fsdp.py) each rank reads only its (tp, dp) piece of every FSDP
 leaf and holds 1/dp of it, its gradient and its moments. Over pp
 (pipeline stages, parallel/pipeline.py; run.virtual_pp > 1 the interleaved
 schedule) each rank reads only its stage's layers (and of them its tp
-slices). Over tq (2-D tp: every decoder weight cut over both matrix dims,
+slices, and with run.fsdp its dp slices: FSDP inside pipeline stages).
+Over tq (2-D tp: every decoder weight cut over both matrix dims,
 the hidden dim of the activations over tq) each rank reads only its (tp,
 tq) block of every decoder weight, the embedding and the head:
 
@@ -40,6 +41,8 @@ tq) block of every decoder weight, the embedding and the head:
         --config configs/stage2_72b_tp8fsdp8.yaml   # mesh {dp: 8, tp: 8}, run.fsdp
     torchrun --nnodes 8 --nproc-per-node 8 ... \
         --config configs/stage1_72b_tp8pp8.yaml     # mesh {dp: 1, pp: 8, tp: 8}
+    torchrun --nnodes 8 --nproc-per-node 8 ... \
+        --config recipe.yaml      # mesh: {dp: 4, pp: 2, tp: 8}, run.fsdp
     torchrun --nproc-per-node 8 -m long_vita_tpu_torch.training.train \
         --config recipe.yaml      # mesh: {dp: 2, tp: 2, tq: 2}
  The JAX main

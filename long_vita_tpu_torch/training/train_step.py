@@ -44,7 +44,13 @@ sequence parallelism, cp x tp (``Mesh.replica_comm``). Biases, the tower
 and the projector are summed after the backward as before (their graph
 differs between dp rows), and grad_norm sums the FSDP leaves' squares over
 dp. ``_NORM_UNSUMMED_OVER_DP`` is the norm's fault for the gates, as
-_UNSUMMED_OVER_TP is the reduction's.
+_UNSUMMED_OVER_TP is the reduction's. Over pp too (FSDP inside pipeline
+stages, JAX's text_param_specs(fsdp=True, pp=True)) a stage's layer is
+reduce-scattered over the dp ranks of its stage and summed as above within
+the stage, and the embedding's and the head's shards, reduce-scattered on
+the stage that used them (zeros on the others), are summed over pp as
+well; grad_norm sums the stages' shards over dp, then over pp, and counts
+the embedding's and the head's once.
 
 Over pp (pipeline stages, parallel/pipeline.py; a rank's tree holds its
 stage's layers, ``Qwen2Params.pp``) the loss follows JAX's rule (the
@@ -321,9 +327,12 @@ class _Reduction:
         if leaf.partial and not unsummed and name.endswith(_UNSUMMED_OVER_TQ):
             return mesh.over("dp", "pp", "cp", "tp")
         if leaf.fsdp:
-            if not leaf.sharded:
-                return mesh.cp_comm if unsummed else mesh.replica_comm
-            return mesh.shared_comm(leaf.share, over_dp=False) if leaf.share > 1 else mesh.cp_comm
+            if leaf.sharded and leaf.share > 1:
+                return mesh.shared_comm(leaf.share, over_dp=False)
+            axes = ["cp"] if leaf.sharded or unsummed else ["cp", "tp", "tq"]
+            if not leaf.staged and mesh.shape["pp"] > 1 and not _UNSUMMED_OVER_PP:
+                axes.append("pp")  # the embedding's or the head's shard, one stage's gradient
+            return mesh.over(*axes)
         if leaf.sharded and leaf.share > 1:
             return mesh.shared_comm(leaf.share)
         one_stage = leaf.staged or _UNSUMMED_OVER_PP

@@ -46,9 +46,11 @@ too, into the same one-device format. A MoE model trains over every axis
 but tq (JAX's rule): at dp > 1 its experts are cut over dp (expert
 parallelism, shard_params) and its checkpoints gather them back into the
 one-device format, so a run saved under EP resumes at dp 1 and the other
-way round. Raising, with their ROADMAP items or JAX's words: FSDP inside
-pipeline stages, tq with pp, MoE or FSDP, a MoE model whose experts dp
-does not divide; thread-ranks on CUDA
+way round. FSDP composes with pp (JAX's text_param_specs(fsdp=True,
+pp=True)): each rank holds 1/dp of its stage's layers and of the
+embedding and the head, and its dp ranks stream them in the schedule's
+order. Raising, with JAX's words: tq with pp, MoE or FSDP, a MoE model
+whose experts dp does not divide; thread-ranks on CUDA
 (train_step._check_mesh). The data modules, the metrics and the profiler
 are imported inside the functions that use them, so a run that is handed
 batches needs neither yaml nor PIL.
@@ -73,7 +75,7 @@ from long_vita_tpu_torch.parallel.mesh import (
     make_mesh,
     validate_geometry,
 )
-from long_vita_tpu_torch.parallel.sharding import check_pp_fsdp, shard_params
+from long_vita_tpu_torch.parallel.sharding import shard_params
 from long_vita_tpu_torch.parallel.zigzag import inverse_zigzag_permutation, zigzag_permute
 from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
 from long_vita_tpu_torch.training.loss import collate_packs, to_device
@@ -167,7 +169,6 @@ class Trainer:
         check_remat(tcfg.remat)
         check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp,
                        pp=tcfg.mesh.pp, tq=tcfg.mesh.tq)
-        check_pp_fsdp(tcfg.mesh.pp, tcfg.mesh.dp if tcfg.fsdp else 1)
         validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp,
                           logit_budget=tcfg.logit_budget, fsdp=tcfg.fsdp)
         self.mesh = None

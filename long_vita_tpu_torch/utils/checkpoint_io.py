@@ -185,10 +185,10 @@ def load_text_params(
     """The decoder; over ``mesh``'s tp axis (and with fsdp its dp axis, or
     its tq axis) this rank's slices of it, read from the files, and bound
     to mesh.tp_comm (and an FSDP Fsdp over mesh.dp_comm, or mesh.tq_comm);
-    over its pp axis
-    the stage's layers alone (``virtual_pp`` chunks of them chunk-major,
-    parallel/pipeline.stage_layers), bound to a parallel.pipeline.Stage
-    over mesh.pp_comm."""
+    over its pp axis the stage's layers alone (``virtual_pp`` chunks of
+    them chunk-major, parallel/pipeline.stage_layers; with fsdp too, of
+    each its dp slices), bound to a parallel.pipeline.Stage over
+    mesh.pp_comm."""
     device = _target(device)
     tp = mesh.shape["tp"] if mesh is not None else 1
     tq = mesh.shape["tq"] if mesh is not None else 1
@@ -199,7 +199,6 @@ def load_text_params(
         from long_vita_tpu_torch.parallel.mesh import MeshConfig, validate_geometry
         from long_vita_tpu_torch.parallel.pipeline import Stage
         from long_vita_tpu_torch.parallel.sharding import (
-            check_pp_fsdp,
             dense_spec,
             fsdp_dim,
             leaf_rule,
@@ -209,7 +208,6 @@ def load_text_params(
 
         validate_geometry(cfg.text, MeshConfig(dp=dp, pp=pp, tp=tp, tq=tq),
                           virtual_pp=virtual_pp, fsdp=fsdp)
-        check_pp_fsdp(pp, dp)
         if pp > 1:
             stage = Stage(mesh.pp_comm, cfg.text.num_hidden_layers, virtual_pp)
 

@@ -261,12 +261,34 @@ def test_interleaved_encode_matches_upfront(media):
 
 
 def test_engine_rejects_mesh(media):
-    """Serving over a 2-D tensor-parallel mesh (tq) waits for a later
-    multi-GPU slice (cp and tp meshes serve: tests/test_torch_cp_engine.py,
-    test_torch_tp_engine.py; tq trains: tests/test_torch_tp2d.py)."""
-    from long_vita_tpu_torch.parallel.comm import ThreadComm
+    """Serving over 2-D tp (a tq mesh) with the prefix cache and
+    interleaved encode, since the tq serving slice (the engine over tq:
+    tests/test_torch_tq_serving.py): on a tq 2 mesh of thread-ranks (at
+    g128 its int4 weights cut over tq by their output dim) the engine gives
+    the JAX engine's tokens for the interleaved video prompt, and an exact
+    repeat resumes after the first chunk, on every rank. (The name is kept
+    from when a tq mesh raised here.)"""
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
     from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        InferenceEngine(media["plain"].params, media["cfg"], media["mm"],
-                        mesh=make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0]))
+    e = media
+    rng = np.random.default_rng(13)
+    ids = [*rng.integers(0, 480, 86), VID_TAG, *rng.integers(0, 480, 5)]
+    videos = [_tiles(14, 5)]
+    x = _check_no_wrap(e["mm"], ids, videos=videos)
+    want = _same(e, ids, videos=videos)
+    sp = SamplingParams(max_new_tokens=8)
+    kw = dict(max_seq_len=512, chunk=CHUNK * 4, decode_segment=8, vision_chunk=3,
+              transfer_chunk=2, interleave_encode=True, prefix_cache_entries=2)
+
+    def rank(comm):
+        # the plain engine's tree, quantised already at g128: the engine cuts it
+        eng = InferenceEngine(e["plain"].params, e["cfg"], e["mm"], cache_dtype=torch.float32,
+                              mesh=make_mesh(MeshConfig(tq=2), comm), **kw)
+        first = eng.generate(input_ids=ids, videos=videos, sampling=sp).token_ids
+        resumed = eng.start_prefill(x.input_ids, x.images, x.image_indices).resumed_from
+        again = eng.generate(input_ids=ids, videos=videos, sampling=sp).token_ids
+        return first, resumed, again
+
+    for first, resumed, again in run_thread_ranks(rank, 2, timeout=120):
+        assert first == want and again == want and resumed == 64

@@ -2,7 +2,9 @@
 tiny_test_config() in bf16 (the phase's gates at a size that runs here):
 the tp-4 engine of thread-ranks against the one-device engine,
 teacher-forced under §2's logit gate, with bf16, int8 (into an int8
-cache) and int4 weights and a 4-tile image; the lockstep server on tp 4
+cache) and int4 weights and a 4-tile image; the same over 2-D tp (tp 2 x
+tq 2, and tp 2 alone on the prompt), cp 2 x tq 2, and RMSNorm without its
+tq sum (a planted fault) failing the logit gate; the lockstep server on tp 4
 thread-ranks with gates (a) and (b); cp 2 x tp 2 on one layer; every
 launch count (zero here: the kernels' plain versions run on the CPU, and
 the count of K6's dequantise route is checked exactly). torch.cuda's
@@ -47,7 +49,10 @@ def test_tp_serve_phase_rehearsal(chip_smoke, no_cuda_calls, one_torch_thread, c
     out = capsys.readouterr().out
     assert "FAIL" not in out
     for tag in ("tp-serve bf16", "tp-serve int8 weights, int8 cache", "tp-serve int4 weights",
-                "tp-serve image", "tp-serve cp 2 x tp 2"):
+                "tp-serve image", "tp-serve cp 2 x tp 2", "tq-serve tp 2 (for the time)",
+                "tq-serve tp 2 x tq 2 bf16", "tq-serve tp 2 x tq 2 int8 weights, int8 cache",
+                "tq-serve tp 2 x tq 2 int4 weights", "tq-serve tp 2 x tq 2 image",
+                "tq-serve cp 2 x tq 2"):
         assert re.search(rf"\[{re.escape(tag)}\] \d+ steps, the one-device engine fed the mesh "
                          r"engine's tokens", out), tag
     # K1 4 ranks x 2 layers x 3 chunks; K2 likewise; the K3 batches of a
@@ -62,10 +67,22 @@ def test_tp_serve_phase_rehearsal(chip_smoke, no_cuda_calls, one_torch_thread, c
     c4, e4 = checked[2]
     assert e4["w4_dequant"] == 4 * 7 * 2 * 3 and e4["w4_matmul"] == 4 * 15 * 3
     assert c4["w4_dequant"] == e4["w4_dequant"] + e4["w4_matmul"]
-    assert [c["w4_dequant"] for i, (c, _) in enumerate(checked) if i != 2] == [0] * 5
+    # 2-D tp: tp 2 (2 ranks) and tp 2 x tq 2 (4) on the prompt, int8, int4
+    # (every projection K6 or its dequantise route on each of the 4 ranks),
+    # the image (5 tiles over 4 ranks: 2 a rank, one K3 batch of 2), cp 2 x
+    # tq 2; the planted fault's run stops at the logit gate
+    assert expected[4:7] == [{"flash_fwd": 12}, {"flash_fwd": 24}, {"flash_fwd_quant": 24}]
+    c7, e7 = checked[7]
+    assert e7["w4_dequant"] == 4 * 7 * 2 * 3 and e7["w4_matmul"] == 4 * 15 * 3
+    assert c7["w4_dequant"] == e7["w4_dequant"] + e7["w4_matmul"]
+    assert expected[8]["short_attn"] == 4 * cfg.vision.num_hidden_layers
+    assert expected[9] == {"flash_fwd": 24}
+    assert re.search(r"\[tq-serve\] the logit gate with RMSNorm's tq sum of squares removed \(a "
+                     r"planted fault\) must fail: .*disagree.*: ok", out)
+    assert [c["w4_dequant"] for i, (c, _) in enumerate(checked) if i not in (2, 7)] == [0] * 10
     assert "[tp-server] (a) lockstep: each of 3 followers replayed rank 0's 3 pool" in out
     assert "(b) each HTTP answer equals the in-process pool's row of the same admission" in out
-    assert counts["w4_dequant"] == c4["w4_dequant"]
+    assert counts["w4_dequant"] == c4["w4_dequant"] + c7["w4_dequant"]
     assert all(counts[k] == 0 for k in chip_smoke.SOURCES)
 
 

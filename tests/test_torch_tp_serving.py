@@ -1,13 +1,15 @@
-"""PyTorch port: serving over a tensor-parallel mesh and over cp x tp — the
-slot pool (a row joining mid-flight), the speculative pool, beam search, a
-prefix-cache hit, and the lockstep server on tp rank 0 with the other rank
-replaying its actions — at tiny_test_config() in f32 on the CPU, on 2
-(tp 2) and 4 (cp 2 x tp 2) thread-ranks.
+"""PyTorch port: serving over a tensor-parallel mesh, over cp x tp and over
+2-D tp (tp 2 x tq 2: the weights cut over tp and tq) — the slot pool (a row
+joining mid-flight), the speculative pool, beam search, a prefix-cache hit,
+and the lockstep server on world rank 0 with the other ranks replaying its
+actions — at tiny_test_config() in f32 on the CPU, on 2 (tp 2) and 4 (cp 2
+x tp 2, tp 2 x tq 2) thread-ranks.
 
 References: the JAX engine on a CPU mesh of the same geometry
-(MeshConfig(tp=2) and MeshConfig(cp=2, tp=2), the geometry of JAX's
-tests/test_continuous.py:96 and tests/test_speculative.py:201; each built
-once for the module), and for the server the one-process JAX server
+(MeshConfig(tp=2), MeshConfig(cp=2, tp=2) and MeshConfig(tp=2, tq=2), the
+first two the geometry of JAX's tests/test_continuous.py:96 and
+tests/test_speculative.py:201; each built once for the module), and for
+the server the one-process JAX server
 (test_torch_cp_serving's answers). Greedy tokens and texts identical,
 logprobs and beam scores within 1e-4; what a follower rank replays equals
 rank 0's answers exactly.
@@ -55,7 +57,7 @@ from test_torch_serving import TIMEOUT, _fill, _put, _serve, tiny_tokenizer
 
 KW = dict(max_seq_len=512, chunk=64)
 RANK_TIMEOUT = 120.0
-MESHES = {"tp2": dict(tp=2), "cp2xtp2": dict(cp=2, tp=2)}
+MESHES = {"tp2": dict(tp=2), "cp2xtp2": dict(cp=2, tp=2), "tp2xtq2": dict(tp=2, tq=2)}
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +188,8 @@ def test_prefix_cache_hit_on_the_mesh(model, mesh, one_torch_thread):
 # ---- the server over tp: rank 0 serves, the other replays ------------------
 
 @pytest.mark.parametrize("mesh,mode", [("tp2", "continuous"), ("tp2", "window"),
-                                       ("cp2xtp2", "continuous")])
+                                       ("cp2xtp2", "continuous"), ("tp2xtq2", "continuous"),
+                                       ("tp2xtq2", "window")])
 def test_tp_server_matches_the_jax_server_and_followers_replay(model, jax_answers, mesh, mode,
                                                                one_torch_thread):
     from test_torch_cp_serving import WINDOW

@@ -101,18 +101,27 @@ def test_mesh_ranks_follow_jax_device_array(dims):
 
 
 def test_mesh_raises_for_pp_and_tq(model):
-    """The mesh builds with tq (2-D tp, a training layout since its slice;
-    its rank order: tests/test_torch_tp2d.py) and with pp (since the
-    pipeline slice: tests/test_torch_pipeline.py); serving raises on either,
-    the engine on a tq mesh naming its ROADMAP item, rather than run a 1-D
-    or replicated path."""
+    """The mesh builds with tq (2-D tp; its rank order:
+    tests/test_torch_tp2d.py) and with pp (since the pipeline slice:
+    tests/test_torch_pipeline.py). The engine serves on a tq mesh since the
+    tq serving slice (tests/test_torch_tq_serving.py): it binds the mesh's
+    tp and tq communicators and each tq rank's cache keeps num_kv_heads /
+    tp heads; it still raises on a pp mesh, as JAX's engine serves no
+    pipeline."""
     from long_vita_tpu_torch.inference.engine import InferenceEngine
 
     cfg, _, port_trees = model
-    mesh = make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[1])
-    assert mesh.shape["tq"] == 2 and mesh.tq_index == 1 and mesh.tq_comm.size == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.*item 6"):
-        InferenceEngine(port_trees["f32"], cfg, None, mesh=mesh)
+
+    def rank(comm):
+        mesh = make_mesh(MeshConfig(tp=2, tq=2), comm)
+        eng = InferenceEngine(port_trees["f32"], cfg, None, mesh=mesh, max_seq_len=128,
+                              chunk=64)
+        assert mesh.tq_comm.size == 2 and mesh.tq_index == comm.rank % 2
+        assert eng.text.tq_comm is mesh.tq_comm and eng.text.tp_comm is mesh.tp_comm
+        return eng._make_cache(1, 128).k.shape[3]
+
+    assert run_thread_ranks(rank, 4, timeout=RANK_TIMEOUT) == [
+        cfg.text.num_key_value_heads // 2] * 4
     mesh = make_mesh(MeshConfig(pp=2), ThreadComm.group(2)[1])
     assert mesh.shape["pp"] == 2 and mesh.pp_index == 1 and mesh.pp_comm.size == 2
     with pytest.raises(NotImplementedError, match="pipeline stages run in training only"):

@@ -413,9 +413,10 @@ def test_trainer_accumulates_micro_batches():
 
 
 def test_unported_options_raise():
-    """What still waits for the later multi-GPU slices (ROADMAP's port
-    queue) raises: FSDP inside pipeline stages; and MoE over tq, as in JAX
-    (MoE over dp, cp, tp and pp trains since the expert-parallel slice). (dp x cp meshes and zigzag batches train since
+    """What does not compose raises: MoE over tq, as in JAX (MoE over dp,
+    cp, tp and pp trains since the expert-parallel slice); FSDP inside
+    pipeline stages binds its communicators since the pp x FSDP slice.
+    (dp x cp meshes and zigzag batches train since
     the context-parallel slice, tests/test_torch_cp_training.py; tp since
     the tp training slice, tests/test_torch_tp_training.py: a tp mesh now
     gets as far as asking for its communicator; FSDP since the FSDP slice,
@@ -448,8 +449,23 @@ def test_unported_options_raise():
         assert torch.equal(a, b) and torch.equal(a, c), n
     assert callable(tts.make_train_step(CFG, None,
                                         mesh=make_mesh(MeshConfig(tq=2), ThreadComm.group(2)[0])))
-    with pytest.raises(NotImplementedError, match="pp x FSDP"):
-        _trainer(None, 1, mesh=MeshConfig(dp=2, pp=2), fsdp=True)
+    # FSDP inside pipeline stages trains since the pp x FSDP slice
+    # (tests/test_torch_pp_fsdp.py): the Trainer binds a stage's tree cut
+    # over dp to the mesh's dp and pp communicators
+    from long_vita_tpu_torch.parallel.comm import run_thread_ranks
+
+    def staged(comm):
+        tcfg = TrainerConfig(seq_len=S, logit_budget=S, steps=1, remat=True, vision_chunk=1,
+                             mesh=MeshConfig(dp=2, pp=2), fsdp=True,
+                             optim=topt.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=6))
+        tr = Trainer(long_vita_params_from_jax(_jax_params(0), device="cpu"), CFG, tcfg,
+                     comm=comm)
+        text = tr.state.params.text
+        return (text.fsdp is not None and text.fsdp.comm is tr.mesh.dp_comm
+                and text.pp.comm is tr.mesh.pp_comm and len(text.layers) == 1
+                and text.layers[0].q_proj.weight.shape[1] * 2 == CFG.text.hidden_size)
+
+    assert all(run_thread_ranks(staged, 4, timeout=60))
     from long_vita_tpu_torch.models.long_vita import init_long_vita_params
 
     # MoE trains over a mesh as any model (tests/test_torch_ep_*.py), but
