@@ -229,6 +229,17 @@ Phases (each raises on failure; the script then exits non-zero):
      lr-0 step leaving every bit and the second moving every expert stack
      and router, each rank's share of the expert bytes, K1/K3/K4 launches
      exact.
+  9e. the JAX package's orbax stores (phase_orbax), after the recipe phase:
+     the 14B VLM at full width, the decoder cut to ORBAX_LAYERS (2) layers,
+     fully fine-tuned in bf16 (the tower frozen) from the recipe entry with
+     save_interval 1 over 2 steps, each save an orbax store; a second
+     build_from_recipe resumes step 1's store, every parameter, mu, nu and
+     the count bit for bit against step 1's on the card, and its step-2
+     loss is printed beside the uninterrupted run's; restore_params_only
+     into tp rank 0's tree reads exactly its slices; the JAX-written fixture
+     (tests/data/orbax_jax_tiny: OCDBT, zstd) decodes to its arrays; the
+     write and read rates in GB/s beside the nvidia-smi line; K1, K3 and
+     K4/K5 launches exact.
   The multi-process training phases run their world-1 reference in this
   process (_reference; a process of its own in the CPU rehearsals);
   10. cp over NCCL (phase_cp_nccl), only where torch.cuda.device_count() >=
@@ -2623,6 +2634,285 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
     del trainer, lv, saved, back
     if failures:
         raise AssertionError(f"phase_recipe: {failures}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the twentieth slice: the JAX package's orbax stores from the training entry
+# ---------------------------------------------------------------------------
+
+ORBAX_LAYERS = 2  # the decoder's depth in phase_orbax (Qwen2.5-14B's widths)
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_jax_tiny")  # tools/make_orbax_fixture.py
+
+
+def _store_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _fixture_check(root) -> tuple:
+    """The JAX-written fixture (OCDBT, zarr v2, zstd; written by the JAX
+    package with tools/make_orbax_fixture.py) decoded by the port against
+    the arrays saved beside it. -> (arrays that match bit for bit, arrays,
+    whether the store holds the same names)."""
+    import numpy as np
+
+    from long_vita_tpu_torch.utils import orbax_store
+
+    want = np.load(os.path.join(root, "leaves.npz"))
+    step = os.path.join(root, "store", "3")
+    got = {}
+    for item in ("params", "opt_state"):
+        got.update({f"{item}.{k}": v for k, v in
+                    orbax_store.Item(os.path.join(step, item)).arrays().items()})
+    names = set(want.files) - {"bfloat16"}
+    same = [n for n in sorted(names) if n in got and got[n].dtype == want[n].dtype
+            and got[n].shape == want[n].shape and np.array_equal(got[n], want[n])]
+    ok_step = orbax_store.read_step_item(os.path.join(step, "step")) == 3
+    return len(same) + ok_step, len(names) + 1, set(got) == names
+
+
+def phase_orbax(*, layers=ORBAX_LAYERS, seq_len=4096, budget=2048, steps=2, device="cuda",
+                cfg=None, tokenizer=None, vision_chunk=64, n_docs=4, doc_chars=1200,
+                n_captions=8, n_chat=8, chat_chars=300) -> dict:
+    """The JAX package's orbax stores from the training entry point, at full
+    width: the Qwen2.5-14B VLM (h 5120, 40/8 heads, ffn 13824, vocab
+    152064) with the decoder cut to ``layers`` layers and a random
+    InternViT-300M tower, written as a *_HF directory; a recipe that
+    fine-tunes the whole decoder in bf16 (the tower frozen; optax keeps the
+    moments in the parameters' dtype), seq_len tokens a pack with images,
+    remat "flash", run.save_dir with save_interval 1, ``steps`` steps,
+    through train.build_from_recipe and Trainer.train as train.main runs
+    them (load_tokenizer bound to a ByteTokenizer). Every save writes an
+    orbax store (training/checkpoint.py) and is timed. Step 1's store is
+    then handed to a second save_dir, and a second build_from_recipe
+    resumes from it. Gates: every parameter, mu, nu and the count it
+    restores equal what step 1 held, bit for bit, on the card; its step-2
+    loss is printed beside the uninterrupted run's (the same bits are
+    expected); restore_params_only into a tp-2 shard's layout (rank 0's
+    tree, made on one process) reads exactly the shard's bytes (the tower
+    and projector whole, the decoder's slices: about half of it) and gets
+    the step-1 slices bit for bit; the JAX-written fixture decodes to the
+    arrays saved beside it; K1, K3 and K4/K5 launched as the first run's
+    layers, steps and tiles need. The write and read rates are printed in
+    GB/s beside the card's nvidia-smi line. -> the first run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import long_vita_tpu_torch.tokenizer as port_tokenizer
+    from long_vita_tpu_torch.config import long_vita_14b
+    from long_vita_tpu_torch.models import qwen2
+    from long_vita_tpu_torch.ops import flash_attention as fa
+    from long_vita_tpu_torch.parallel.comm import ThreadComm
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from long_vita_tpu_torch.parallel.sharding import leaf_layout, shard_params, slice_leaf
+    from long_vita_tpu_torch.training import checkpoint as ckpt
+    from long_vita_tpu_torch.training import train as ttrain
+    from long_vita_tpu_torch.utils import orbax_store
+    from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
+
+    t_phase = time.perf_counter()
+    cpu = device == "cpu"
+    dev = torch.device(device)
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    base = cfg or long_vita_14b()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text,
+                                                             num_hidden_layers=layers))
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        print(f"[orbax] {what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_orbax_", dir=build)
+    real_save, real_load = ckpt.save_checkpoint, ckpt.load_checkpoint
+    saves, loads, held = [], [], {}
+
+    def save_spy(directory, state, step=None, **kw):
+        step = state.step if step is None else step
+        if step == 1 and not held:  # what step 1 holds, kept on the card
+            opt = state.opt_state
+            held.update(params={n: p.detach().clone() for n, p in
+                                state.params.named_parameters()},
+                        mu={n: t.clone() for n, t in opt.mu.items()},
+                        nu={n: t.clone() for n, t in opt.nu.items()}, count=opt.count)
+        before = orbax_store.steps(directory)
+        sync()
+        t = time.perf_counter()
+        real_save(directory, state, step, **kw)
+        sync()
+        dt = time.perf_counter() - t
+        wrote = step not in before and step in orbax_store.steps(directory)
+        saves.append((step, dt, _store_bytes(os.path.join(directory, str(step))) if wrote
+                      else 0))
+
+    def load_spy(directory, state, **kw):
+        sync()
+        t = time.perf_counter()
+        out = real_load(directory, state, **kw)
+        sync()
+        loads.append((time.perf_counter() - t, _store_bytes(os.path.join(
+            directory, str(ckpt.latest_step(directory))))))
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+        rng = np.random.default_rng(SEED + 91)
+        px = cfg.vision.image_size
+        probe = rng.standard_normal((2, px, px, 3), dtype=np.float32)
+        lv, _ = _vlm_params(qwen2.init_qwen2_params(gen, cfg.text, torch.bfloat16, dev), cfg,
+                            dev, SEED + 90, probe)
+        model_dir = os.path.join(work, "ckpt")
+        save_hf_checkpoint(lv, cfg, model_dir)
+        text_gb = sum(p.nbytes for p in lv.text.parameters()) / 1e9
+        whole_gb = sum(p.nbytes for p in lv.parameters()) / 1e9
+        del lv
+        corpus = _recipe_inputs(work, image_px=px, n_docs=n_docs, doc_chars=doc_chars,
+                                n_captions=n_captions, n_chat=n_chat, chat_chars=chat_chars,
+                                seed=SEED + 92)
+        first, second = os.path.join(work, "run"), os.path.join(work, "resumed")
+
+        def recipe(save_dir):
+            path = os.path.join(work, f"{os.path.basename(save_dir)}.yaml")
+            with open(path, "w") as f:  # YAML's flow style is JSON
+                json.dump({
+                    "model": {"checkpoint": model_dir, "dtype": "bfloat16"},
+                    "data": {"corpus": corpus, "seq_len": seq_len, "logit_budget": budget,
+                             "vision_chunk": vision_chunk, "cross_dataset_joint": True},
+                    "optim": {"lr": 1.0e-4, "warmup_steps": 0, "total_steps": 1000,
+                              "freeze_vision": True},
+                    "run": {"steps": steps, "remat": "flash", "seed": SEED,
+                            "save_dir": save_dir, "save_interval": 1},
+                }, f)
+            return ttrain.load_recipe(path)
+
+        tok = tokenizer or port_tokenizer.ByteTokenizer()
+        load_tokenizer = port_tokenizer.load_tokenizer
+        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
+        ckpt.save_checkpoint, ckpt.load_checkpoint = save_spy, load_spy
+        try:
+            trainer, batches, _ = ttrain.build_from_recipe(recipe(first), device=dev)
+            print(f"[orbax] the {layers}-layer VLM at full width ({whole_gb:.2f} GB, the "
+                  f"decoder {text_gb:.2f} GB) written as a checkpoint directory and built "
+                  f"from the recipe in {time.perf_counter() - t0:.1f} s; moments for "
+                  f"{len(trainer.state.opt_state.mu)} tensors")
+            seen = []
+
+            def stream():
+                for batch in batches:
+                    seen.append(batch)
+                    yield batch
+
+            _reset_counts()
+            t0 = time.perf_counter()
+            losses = trainer.train(stream())["losses"]
+            sync()
+            counts = _read_counts()
+            tiles = [0 if b["images"] is None else len(b["images"]) for b in seen]
+            print(f"[orbax] the uninterrupted run: losses {losses} in "
+                  f"{time.perf_counter() - t0:.1f} s, saves included; tiles a pack {tiles}")
+            check(len(losses) == steps and all(np.isfinite(losses)) and any(tiles),
+                  "every step's loss is finite and the packs hold images (K3 runs)")
+            del trainer, batches
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+            # step 1's store into a save_dir of its own; step 2's stays behind
+            os.makedirs(second)
+            os.rename(os.path.join(first, "1"), os.path.join(second, "1"))
+            shutil.copy(os.path.join(first, orbax_store.LAYOUT), second)
+            shutil.rmtree(first)
+            t0 = time.perf_counter()
+            resumed, again, _ = ttrain.build_from_recipe(recipe(second), device=dev)
+            print(f"[orbax] the second build_from_recipe resumed step {resumed.start_step} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            state = resumed.state
+            same = {kind: [n for n, t in held[kind].items()
+                           if n in got and got[n].dtype == t.dtype and torch.equal(got[n], t)]
+                    for kind, got in (("params", {n: p.detach() for n, p in
+                                                  state.params.named_parameters()}),
+                                      ("mu", state.opt_state.mu), ("nu", state.opt_state.nu))}
+            check(resumed.start_step == 1 and state.step == 1 and state.opt_state.count
+                  == held["count"] == 1
+                  and all(len(same[k]) == len(held[k]) for k in same)
+                  and state.opt_state.mu.keys() == held["mu"].keys(),
+                  f"the resumed state equals step 1's bit for bit on the {dev.type}: "
+                  f"{len(same['params'])}/{len(held['params'])} parameters, "
+                  f"{len(same['mu'])}/{len(held['mu'])} mu, {len(same['nu'])}/"
+                  f"{len(held['nu'])} nu, count {state.opt_state.count}")
+            tail = resumed.train(itertools.islice(again, 1, None))["losses"]
+            print(f"[orbax] step 2's loss: resumed {tail} vs uninterrupted {losses[1:]} "
+                  f"(the same bits: {tail == losses[1:]})")
+            check(len(tail) == steps - 1 and all(np.isfinite(tail)),
+                  "the resumed run's step 2 is finite")
+        finally:
+            ckpt.save_checkpoint, ckpt.load_checkpoint = real_save, real_load
+            port_tokenizer.load_tokenizer = load_tokenizer
+        whole = resumed.state.params
+        del resumed, again, state
+        gc.collect()
+        # restore_params_only into tp rank 0's tree of tp 2, made on one process
+        mesh = make_mesh(MeshConfig(tp=2), ThreadComm.group(2)[0])
+        shard = shard_params(whole, mesh, cfg, own=True)
+        del whole
+        layout = leaf_layout(shard, cfg, 0, 2)
+        stats = {}
+        sync()
+        t0 = time.perf_counter()
+        ckpt.restore_params_only(second, shard, step=1, layout=layout, stats=stats)
+        sync()
+        t_shard = time.perf_counter() - t0
+        wanted = {n: slice_leaf(held["params"][n], layout[n]) for n, _ in
+                  shard.named_parameters()}
+        exact = sum(torch.equal(p, wanted[n]) for n, p in shard.named_parameters())
+        text_bytes = sum(t.nbytes for n, t in held["params"].items() if n.startswith("text."))
+        text_read = sum(wanted[n].nbytes for n in wanted if n.startswith("text."))
+        print(f"[orbax] restore_params_only at tp 2 (rank 0): read {stats['bytes_read'] / 1e9:.3f}"
+              f" GB in {t_shard:.2f} s, of it the decoder's slices {text_read / 1e9:.3f} of its "
+              f"{text_bytes / 1e9:.3f} GB ({text_read / text_bytes:.3f})")
+        check(exact == len(wanted) and stats["bytes_read"] == sum(t.nbytes for t in
+                                                                    wanted.values()),
+              f"the tp-2 shard holds step 1's slices bit for bit ({exact}/{len(wanted)}) and "
+              f"read exactly their bytes")
+        del shard, wanted, held
+        leaves, total, names = _fixture_check(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE))
+        check(names and leaves == total,
+              f"the JAX-written fixture (OCDBT, zstd) decodes bit for bit: {leaves}/{total} "
+              "arrays")
+        written = [(s, dt, b) for s, dt, b in saves if b]
+        for s, dt, b in written:
+            print(f"[orbax] save of step {s}: {b / 1e9:.3f} GB in {dt:.2f} s = "
+                  f"{b / 1e9 / dt:.3f} GB/s")
+        for dt, b in loads:
+            print(f"[orbax] resume (load_checkpoint): {b / 1e9:.3f} GB in {dt:.2f} s = "
+                  f"{b / 1e9 / dt:.3f} GB/s")
+        check(len(written) == steps + 1 and len(loads) == 1,
+              f"{len(written)} stores written ({len(saves) - len(written)} saves of a step "
+              "already held skipped), one resume")
+        if not cpu:
+            print(f"[orbax] {_nvidia_smi()}: write "
+                  f"{[round(b / 1e9 / dt, 3) for _, dt, b in written]} GB/s, read "
+                  f"{[round(b / 1e9 / dt, 3) for dt, b in loads]} GB/s (warm page cache)")
+            n_vit = cfg.vision.num_hidden_layers
+            expected = {"flash_fwd": layers * steps,
+                        "short_attn": n_vit * sum(-(-t // vision_chunk) for t in tiles)}
+            if fa.bwd_uses_fused(1, seq_len, seq_len, cfg.text.num_attention_heads,
+                                 cfg.text.head_dim, 2):
+                expected["flash_bwd"] = layers * steps
+            else:
+                expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = layers * steps
+            _check_launches(counts, expected)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[orbax] the phase took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase_orbax: {failures}")
     return counts
 
 
@@ -7352,6 +7642,10 @@ def main() -> int:
         add(phase_recipe(ckpt, os.path.join(work, "recipe"), cfg, dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # the orbax stores from the training entry point, once the recipe phase's
+    # directory is gone (the phase writes ~40 GB of stores)
+    _collect("before the orbax phase")
+    add(phase_orbax())
     # the training phases over a mesh, once the main process holds nothing on
     # the card (the tq geometry's four processes share it)
     _collect("before the tp training phase")

@@ -23,9 +23,6 @@ from long_vita_tpu_torch.parallel.comm import Comm, LocalComm
 AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ = "dp", "pp", "cp", "tp", "tq"
 AXES = (AXIS_DP, AXIS_PP, AXIS_CP, AXIS_TP, AXIS_TQ)
 
-NEXT_SLICE = ("is not ported yet (ROADMAP §1, the one port item left: orbax interop, item 9, "
-              "reading and writing JAX's orbax checkpoint stores)")
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:

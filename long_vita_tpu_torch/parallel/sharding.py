@@ -57,7 +57,7 @@ parallel.pipeline.Stage); every other leaf is whole on every stage. A
 Leaf of a stage's layer carries its global layer (``pp_layer``):
 ``shard_named`` takes a checkpoint's tensors of those global names and
 ``gather_named`` gathers the stages' layers back under them, so that a
-checkpoint holds the canonical order whatever the schedule. FSDP inside
+checkpoint is written and read by global layer whatever the schedule. FSDP inside
 pipeline stages (JAX ``text_param_specs(fsdp=True, pp=True)``: ``col =
 P(pp, dp, tp)``, ``row = P(pp, tp, dp)``, norms ``P(pp, dp)``) cuts each of
 the stage's layers over dp as FSDP alone cuts a layer (its layers by pp,

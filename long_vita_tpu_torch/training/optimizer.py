@@ -150,11 +150,25 @@ def warmup_cosine_schedule(cfg: OptimizerConfig):
 class AdamState:
     """Adam moments per trainable-by-gradient parameter, and the step count
     (optax's ScaleByAdamState.count and ScaleByScheduleState.count, which
-    advance together)."""
+    advance together); ``config``: the OptimizerConfig of the chain it
+    belongs to (AdamW.init sets it; a checkpoint keys the state by it)."""
 
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
     count: int = 0
+    config: Optional[OptimizerConfig] = None
+
+
+def optax_chain_slots(cfg: OptimizerConfig) -> tuple[str, str, tuple[str, ...]]:
+    """Where make_optimizer's optax chain (optimizer.py:106-138) keeps its
+    state, as orbax keys it: (scale_by_adam's index, with count, mu and nu;
+    scale_by_learning_rate's, with its count; the empty states':
+    clip_by_global_norm, add_decayed_weights when weight_decay is set,
+    _scale_by_tree). JAX holds mu and nu for every leaf, mu in bfloat16
+    under moment_dtype "bfloat16", else each in its parameter's dtype."""
+    if cfg.weight_decay:
+        return "1", "4", ("0", "2", "3")
+    return "1", "3", ("0", "2")
 
 
 class AdamW:
@@ -178,7 +192,7 @@ class AdamW:
             if p.requires_grad and name not in self.frozen:
                 mu[name] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                 nu[name] = torch.zeros_like(p)
-        return AdamState(mu, nu, 0)
+        return AdamState(mu, nu, 0, self.cfg)
 
     @torch.no_grad()
     def step(

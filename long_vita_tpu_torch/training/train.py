@@ -130,9 +130,12 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
     ``model.checkpoint`` or ``model.graft``; a ``load_stage`` checkpoint is
     cut the same way), and LoRA's adapters are drawn whole and cut over tp
     (replicated over dp, the stage's kept over pp), so that every
-    geometry starts from the same model. The Trainer's
+    geometry starts from the same model. ``load_stage`` names a previous
+    stage's save_dir, written by this package or by the JAX package (an
+    orbax store: training/checkpoint.py). The Trainer's
     ``checkpoint_bytes``: the bytes this rank copied out of the checkpoint's
-    files (None for a graft)."""
+    files and the load_stage store's (a zstd chunk counts its stored bytes;
+    None for a graft without load_stage)."""
     from long_vita_tpu_torch.data.image_processor import ImageProcessor
     from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
     from long_vita_tpu_torch.tokenizer import load_tokenizer
@@ -172,7 +175,10 @@ def build_from_recipe(recipe: dict, *, device="cuda", comm=None):
             from long_vita_tpu_torch.parallel.sharding import rank_layout
 
             layout = rank_layout(params, cfg, mesh)
-        params = restore_params_only(model_cfg["load_stage"], params, layout=layout)
+        stage_stats: dict = {}
+        params = restore_params_only(model_cfg["load_stage"], params, layout=layout,
+                                     stats=stage_stats)
+        stats["bytes_read"] = stats.get("bytes_read", 0) + stage_stats["bytes_read"]
 
     if model_cfg.get("lora"):
         # parameter-efficient finetuning (reference --lora-r/-alpha/

@@ -23,9 +23,9 @@ ring attention (over the ring groups for hybrid, unpermuted for Ulysses,
 JAX :83-116); each rank keeps its dp rows and cp sequence shard
 (training/distributed.py; the tp ranks of one the same, the sequence-
 parallel split happens inside the model), the loss and the gradients are
-global (train_step.py), and world rank 0 writes the checkpoints (over tp
-the gathered tree, in the tp-1 format: a checkpoint resumes at any tp) and
-metrics.jsonl. With ``tcfg.fsdp`` over dp > 1 (ZeRO-3 weight streaming,
+global (train_step.py), and world rank 0 writes the checkpoints (the JAX
+package's orbax stores, training/checkpoint.py; over tp the gathered tree,
+in the tp-1 format: a checkpoint resumes at any tp) and metrics.jsonl. With ``tcfg.fsdp`` over dp > 1 (ZeRO-3 weight streaming,
 JAX trainer.py:74,144) each rank holds 1/dp of every decoder weight, its
 gradient and its moments (shard_params(..., fsdp=True), or the slices
 train.build_from_recipe loaded); checkpoints are gathered over dp and tp
@@ -36,9 +36,10 @@ train.build_from_recipe loaded), ``tcfg.virtual_pp`` chunks of them
 chunk-major for the interleaved schedule, and every leaf outside the layer
 stack whole; the pp ranks of one dp index take the same rows, the batch
 splits into pp microbatches (JAX's ParallelConfig default), and checkpoints
-gather the stages' layers back into canonical order (where JAX keeps its
-stores chunk-major and refuses another (pp, virtual_pp) on restore, a
-port checkpoint resumes at any pp and virtual_pp). Over tq (2-D tp, JAX's
+gather the stages' layers back under their global names (the interleaved
+schedule's stores are written chunk-major with (pp, virtual_pp) recorded, as
+JAX writes them; where JAX refuses another (pp, virtual_pp) on restore, a
+port run resumes a store at any pp and virtual_pp). Over tq (2-D tp, JAX's
 tp2d layout) each rank holds its (tp, tq) block of every decoder weight
 (shard_params, or the blocks train.build_from_recipe loaded); the tq ranks
 of a (dp, cp) index take the same rows, and checkpoints gather over tq

@@ -29,6 +29,14 @@ The tensors land on the card (``device="cuda"``) unless the caller passes
 another device, ``device="cpu"`` included; on a machine without a card the
 default raises rather than building a model that would serve on the host.
 
+``jax_path`` is the way back, the name map of the port's training
+checkpoints (training/checkpoint.py): a parameter's name -> its JAX path, the
+row of the stacked ``[L, ...]`` leaf that holds it, and whether the port
+holds it transposed (a dense ``weight`` [out, in] is the JAX ``kernel`` [in,
+out]). It covers every tree these functions build from a float JAX tree:
+the decoder (LoRA ``a``/``b`` and a MoE layer's ``router`` and ``experts``
+included), the InternViT tower and the projector.
+
 ``set_requires_grad`` turns gradients on and off as the JAX training step
 differentiates the same tree.
 """
@@ -252,6 +260,39 @@ def long_vita_params_from_jax(
         vision=vision_params_from_jax(tree["vision"], device, dtype),
         projector=projector_params_from_jax(tree["projector"], device, dtype),
     )
+
+
+def jax_path(name: str) -> tuple[tuple[str, ...], Optional[int], bool]:
+    """A port parameter's name -> (its leaf's path in the JAX tree, the row
+    of the stacked [L, ...] leaf that holds it or None, whether the port
+    holds it transposed): ``text.layers.3.q_proj.weight`` -> (("text",
+    "layers", "q_proj", "kernel"), 3, True); ``text.embed`` -> (("text",
+    "embed", "embedding"), None, False)."""
+    parts = name.split(".")
+    layer = None
+    if "layers" in parts:
+        k = parts.index("layers")
+        layer = int(parts.pop(k + 1))
+    if parts[-1] == "embed":
+        parts.append("embedding")
+    transpose = parts[-1] == "weight"
+    if transpose:
+        parts[-1] = "kernel"
+    return tuple(parts), layer, transpose
+
+
+def port_name(path: tuple, layer: Optional[int]) -> tuple[str, bool]:
+    """jax_path's inverse: a JAX leaf's path and row -> (the port
+    parameter's name, whether the port holds it transposed)."""
+    parts = list(path)
+    if parts[-1] == "embedding":
+        parts.pop()
+    transposed = parts[-1] == "kernel"
+    if transposed:
+        parts[-1] = "weight"
+    if layer is not None:
+        parts.insert(parts.index("layers") + 1, str(layer))
+    return ".".join(parts), transposed
 
 
 def set_requires_grad(

@@ -439,6 +439,22 @@ def test_no_jax_package_import_in_the_port():
     assert not pat.search("from long_vita_tpu_torch.config import TextConfig")
 
 
+def test_no_orbax_or_tensorstore_import_in_the_port():
+    """The port reads and writes the JAX package's orbax stores itself
+    (utils/ocdbt.py, utils/zarr.py, utils/zstd.py, utils/orbax_store.py):
+    no module of it and not chip_smoke.py imports orbax, tensorstore or
+    zarr."""
+    pat = re.compile(r"^\s*(import|from)\s+(orbax|tensorstore|zarr)\b", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert len(files) > 10 and not offenders, offenders
+    covered = {f.relative_to(PKG).as_posix() for f in files if f.is_relative_to(PKG)}
+    assert {"utils/ocdbt.py", "utils/zarr.py", "utils/zstd.py", "utils/orbax_store.py",
+            "training/checkpoint.py"} <= covered
+    assert pat.search("import orbax.checkpoint as ocp") and pat.search("import tensorstore")
+    assert not pat.search("from long_vita_tpu_torch.utils.zarr import ZarrArray")
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
     """With no CUDA device (this machine), or copied away from the repo,

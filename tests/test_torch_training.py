@@ -493,8 +493,8 @@ def test_unported_options_raise():
 
 
 _NO_JAX_TRAIN = """
-import sys
-for mod in ("jax", "PIL", "yaml", "optax", "orbax"):
+import sys, tempfile
+for mod in ("jax", "PIL", "yaml", "optax", "orbax", "tensorstore"):
     sys.modules[mod] = None  # any import of them now raises ImportError
 import numpy as np, torch
 from long_vita_tpu_torch.config import tiny_test_config
@@ -511,12 +511,24 @@ labels = np.where(np.arange(S) >= 20, tokens, -100).astype(np.int32)
 pack = Pack(tokens, labels, np.arange(S, dtype=np.int32), np.zeros(S, np.int32),
             rng.standard_normal((1, 56, 56, 3)).astype(np.float32),
             np.stack([np.zeros((1, t), np.int64), 2 + np.arange(t)[None]]))
-params = init_long_vita_params(torch.Generator().manual_seed(0), cfg)
-tr = Trainer(params, cfg, TrainerConfig(
-    seq_len=S, logit_budget=S, steps=2, vision_chunk=1,
-    optim=OptimizerConfig(lr=1e-3, freeze_text=True, freeze_vision=True)))
+save_dir = tempfile.mkdtemp()
+
+def trainer(steps):
+    return Trainer(init_long_vita_params(torch.Generator().manual_seed(0), cfg), cfg,
+                   TrainerConfig(seq_len=S, logit_budget=S, steps=steps, vision_chunk=1,
+                                 save_dir=save_dir, optim=OptimizerConfig(
+                                     lr=1e-3, freeze_text=True, freeze_vision=True)))
+
+tr = trainer(2)
 out = tr.train(batch_iterator(iter([pack, pack]), 1, S))
 assert len(out["losses"]) == 2 and out["losses"][1] < out["losses"][0], out
+# the orbax store it wrote resumes with neither orbax nor tensorstore
+back = trainer(3)
+assert back.start_step == 2 and back.state.opt_state.count == 2
+for (n, p), (_, q) in zip(back.state.params.named_parameters(), tr.state.params.named_parameters()):
+    assert torch.equal(p, q), n
+for n, m in tr.state.opt_state.mu.items():
+    assert torch.equal(back.state.opt_state.mu[n], m), n
 loaded = [m for m, v in sys.modules.items() if v is not None]
 assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
 assert not any(m.startswith(("PIL", "yaml", "long_vita_tpu.data")) for m in loaded)
