@@ -94,10 +94,13 @@ Phases (each raises on failure; the script then exits non-zero):
      printed;
   6. the port's serving entry points on a checkpoint it writes and reads:
      the decoder with a random InternViT-300M and projector exported as a
-     *_HF safetensors directory (save_hf_checkpoint), freed, loaded back
-     (load_long_vita_checkpoint) with every tensor's bits held to its
-     fingerprint; then the real MultimodalTokenizer (byte-level tokenizer)
-     and PUT /api in continuous mode on a thread: a 5000-token greedy
+     *_HF safetensors directory (save_hf_checkpoint) with the committed
+     Qwen2 tokenizer fixture padded to Qwen2.5's ids (tokenizer_dir),
+     freed, and the engine built as a user builds it,
+     long_vita_tpu_torch.build_engine(dir): every tensor's bits held to its
+     fingerprint, the port's own BPE reading the tokenizer files (its rate
+     on a 1 MB document printed beside the nvidia-smi line); then PUT /api
+     in continuous mode on a thread: a 5000-id greedy
      request equal to the in-process generate, three concurrent requests
      equal to their solo answers, a stream whose deltas concatenate, a
      beam request and a malformed one; and a 16-frame uint8 video in
@@ -122,8 +125,8 @@ Phases (each raises on failure; the script then exits non-zero):
      recipe (the exported directory, LoRA r 16 on q/k/v/o with lora_only, a
      frozen tower, 16K packs, logit budget 4096, remat "flash", an
      output_dir with the profiler over step 1) through
-     train.build_from_recipe and Trainer.train for 3 steps, with
-     load_tokenizer bound to a ByteTokenizer at Qwen2.5's ids. The loss of
+     train.build_from_recipe and Trainer.train for 3 steps, the tokenizer
+     read from the exported directory. The loss of
      the first batch must fall, the base weights keep their bits, K1, K3
      and K4/K5 launch exactly as counted, the output files and the trace
      (naming K1's and K4's kernels) exist; then remat True vs "flash" and
@@ -235,7 +238,7 @@ Phases (each raises on failure; the script then exits non-zero):
      save_interval 1 over 2 steps, each save an orbax store; a second
      build_from_recipe resumes step 1's store, every parameter, mu, nu and
      the count bit for bit against step 1's on the card, and its step-2
-     loss is printed beside the uninterrupted run's; restore_params_only
+     loss the uninterrupted run's bits; restore_params_only
      into tp rank 0's tree reads exactly its slices; the JAX-written fixture
      (tests/data/orbax_jax_tiny: OCDBT, zstd) decodes to its arrays; the
      write and read rates in GB/s beside the nvidia-smi line; K1, K3 and
@@ -1844,23 +1847,109 @@ def _random_text(rng, n: int) -> str:
     return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz    "), n))
 
 
+TOKENIZER_FIXTURE = os.path.join("tests", "data", "qwen2_tokenizer_tiny")  # tools/make_tokenizer_fixture.py
+QWEN25_FIRST_ADDED = 151643  # <|endoftext|>'s id in Qwen2.5; its 22 added tokens follow
+
+
+def tokenizer_dir(dst, first_special: int = QWEN25_FIRST_ADDED) -> str:
+    """Write the committed Qwen2 tokenizer fixture into ``dst`` with its BPE
+    vocabulary cut or padded to ``first_special`` entries, so that its 22
+    added tokens (Qwen2.5's, in its order) take ids first_special.. and the
+    17 multimodal tokens that load_tokenizer adds follow them: at Qwen2.5's
+    151643.. and 151665.. by default. A cut keeps the merges whose results
+    it keeps (a prefix of them: each merge's result takes the next id); the
+    padding entries (``<|pad_N|>``) are unreachable, as no merge makes
+    them. -> dst."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), TOKENIZER_FIXTURE)
+    with open(os.path.join(src, "tokenizer.json"), encoding="utf-8") as f:
+        tj = json.load(f)
+    with open(os.path.join(src, "tokenizer_config.json"), encoding="utf-8") as f:
+        config = json.load(f)
+    model = tj["model"]
+    vocab = {t: i for t, i in model["vocab"].items() if i < first_special}
+    model["merges"] = [m for m in model["merges"] if "".join(m) in vocab]
+    vocab.update((f"<|pad_{i}|>", i) for i in range(len(vocab), first_special))
+    model["vocab"] = vocab
+    for k, t in enumerate(sorted(tj["added_tokens"], key=lambda t: t["id"])):
+        t["id"] = first_special + k
+    config["added_tokens_decoder"] = {
+        str(first_special + k): d for k, (_, d) in enumerate(
+            sorted(config["added_tokens_decoder"].items(), key=lambda kv: int(kv[0])))}
+    os.makedirs(dst, exist_ok=True)
+    for name, obj in (("tokenizer.json", tj), ("tokenizer_config.json", config)):
+        with open(os.path.join(dst, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    return dst
+
+
+def _tokenizer_rate(ckpt, n_chars: int) -> bool:
+    """The port's tokenizer on a document of n_chars characters of the
+    text the fixture was trained on (the JAX package's Python sources,
+    read as text): a fresh load of ``ckpt``'s files encodes it cold (every
+    word through the merges) and again warm (every word from its cache),
+    and decodes it; the rates in characters and ids a second, on this
+    machine's host CPU, beside the card's nvidia-smi line, and the split
+    pattern's one-time build. -> whether the ids decode to the document's
+    NFC text."""
+    import pathlib
+    import unicodedata
+
+    from long_vita_tpu_torch import tokenizer as port_tokenizer
+
+    sources = pathlib.Path(__file__).resolve().parent / "long_vita_tpu"
+    text = "".join(p.read_text(encoding="utf-8") for p in sorted(sources.rglob("*.py")))
+    doc = (text * (n_chars // len(text) + 1))[:n_chars]
+    _, t_pattern = _timed(port_tokenizer._split_pattern.__wrapped__)
+    tok, t_load = _timed(lambda: port_tokenizer.load_tokenizer(ckpt))
+    ids, t_cold = _timed(lambda: tok(doc).input_ids)
+    again, t_warm = _timed(lambda: tok(doc).input_ids)
+    back, t_decode = _timed(lambda: tok.decode(ids))
+    smi = _nvidia_smi() if shutil.which("nvidia-smi") else "no nvidia-smi"
+    print(f"[tokenizer] {smi}: a {len(doc)}-character document of the JAX package's sources "
+          f"-> {len(ids)} ids; load {t_load:.3f} s, the split pattern's one-time build "
+          f"{t_pattern:.3f} s; encode cold {t_cold:.3f} s = {len(doc) / t_cold:.0f} chars/s = "
+          f"{len(ids) / t_cold:.0f} ids/s, warm {t_warm:.3f} s = {len(doc) / t_warm:.0f} "
+          f"chars/s = {len(ids) / t_warm:.0f} ids/s; decode {t_decode:.3f} s = "
+          f"{len(ids) / t_decode:.0f} ids/s (host CPU, one thread)")
+    return again == ids and back == unicodedata.normalize("NFC", doc)
+
+
+def _id_text(tok, rng, n: int) -> str:
+    """Random text of exactly n ids of ``tok``: n draws of the vocabulary's
+    single-id words (a space then letters), which the split keeps apart."""
+    words = getattr(tok, "_one_id_words", None)
+    if words is None:
+        words = sorted(w for w in (tok.decode([i]) for i in range(len(tok)))
+                       if len(w) > 1 and w[0] == " " and w[1:].isascii() and w[1:].isalpha()
+                       and len(tok(w).input_ids) == 1)
+        tok._one_id_words = words
+    text = "".join(rng.choice(words, n))
+    assert len(tok(text).input_ids) == n, n
+    return text
+
+
 def phase_server(
-    holder, cfg, dev, ckpt, *, chunk=2048, max_seq=8192, prompt_chars=4990,
-    batch_chars=(700, 2100, 4000), new_tokens=32, tick=8, n_frames=16,
-    frame_hw=(360, 640), vision_chunk=64,
+    holder, cfg, dev, ckpt, *, chunk=2048, max_seq=8192, prompt_ids=5000,
+    batch_ids=(700, 2100, 4000), new_tokens=32, tick=8, n_frames=16,
+    frame_hw=(360, 640), vision_chunk=64, first_special=QWEN25_FIRST_ADDED,
+    doc_chars=1_000_000,
 ) -> tuple:
     """The port's own serving entry points at full width, on a checkpoint it
     writes and reads back: export the decoder in ``holder`` (which the phase
     empties, so the card never holds two copies), a random InternViT-300M
     and projector as a *_HF directory into ``ckpt`` (save_hf_checkpoint; the
-    caller deletes it, after phase_recipe has trained from it), free them,
-    load the directory (load_long_vita_checkpoint) and hold every tensor's bits
-    to its fingerprint; build the real MultimodalTokenizer (a byte-level
-    tokenizer, no tokenizer files) and an InferenceEngine on the loaded
-    tree; serve PUT /api in continuous mode (4 slots, ticks of ``tick``
-    tokens, so a request stays in the pool for several ticks) on a thread and send
-    a 5000-token greedy request, three concurrent ones, a streamed one, a
-    beam request and a malformed one over urllib; then a 16-frame video
+    caller deletes it, after phase_recipe has trained from it) with the
+    Qwen2 tokenizer fixture (tokenizer_dir: its added tokens at
+    first_special, Qwen2.5's 151643 by default), free them, and build the
+    engine as a user does, long_vita_tpu_torch.build_engine(ckpt): the
+    safetensors reader (every tensor's bits held to its fingerprint), the
+    port's own BPE reading the tokenizer files, MultimodalTokenizer and
+    InferenceEngine. The tokenizer's rate on a doc_chars document of the
+    fixture's training text, cold and warm. Serve
+    PUT /api in continuous mode (4 slots, ticks of ``tick`` tokens, so a
+    request stays in the pool for several ticks) on a thread and send a
+    prompt_ids-id greedy request, three concurrent ones, a streamed one,
+    a beam request and a malformed one over urllib; then a 16-frame video
     in process through MultimodalTokenizer.expand (the native feedworker,
     K3, K1). -> (launch counts of the run, the loaded decoder)."""
     import os
@@ -1869,15 +1958,11 @@ def phase_server(
     import numpy as np
     import torch
 
-    from long_vita_tpu_torch.data.image_processor import ImageProcessor
-    from long_vita_tpu_torch.data.multimodal import MultimodalTokenizer
+    import long_vita_tpu_torch
     from long_vita_tpu_torch.inference.continuous import ContinuousEngine
-    from long_vita_tpu_torch.inference.engine import InferenceEngine
     from long_vita_tpu_torch.inference.sampler import SamplingParams
     from long_vita_tpu_torch.inference.server import _validate, make_server
     from long_vita_tpu_torch.models import qwen2
-    from long_vita_tpu_torch.tokenizer import ByteTokenizer
-    from long_vita_tpu_torch.utils.checkpoint_io import load_long_vita_checkpoint
     from long_vita_tpu_torch.utils.export_hf import save_hf_checkpoint
 
     vc, tc = cfg.vision, cfg.text
@@ -1896,6 +1981,7 @@ def phase_server(
     prints = {name: _fingerprint(p) for name, p in lv.named_parameters()}
     _, t_export = _timed(lambda: save_hf_checkpoint(lv, cfg, ckpt))
     n_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    tokenizer_dir(ckpt, first_special)
     shards = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
     print(f"[server] exported {len(prints)} tensors, {n_bytes / 1e9:.3f} GB in {len(shards)} "
           f"shards ({shards[0]} .. {shards[-1]}) in {t_export:.2f} s "
@@ -1905,23 +1991,32 @@ def phase_server(
     torch.cuda.empty_cache()
     print(f"[server] freed the in-memory VLM: allocated {held / 1e9:.2f} -> "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    (loaded, loaded_cfg), t_load = _timed(
-        lambda: load_long_vita_checkpoint(ckpt, dtype=dtype, device=dev)
-    )
-    print(f"[server] loaded {ckpt} in {t_load:.2f} s ({n_bytes / 1e9 / t_load:.2f} GB/s)")
+    dtype_name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype]
+    engine, t_load = _timed(lambda: long_vita_tpu_torch.build_engine(
+        ckpt, max_seq_len=max_seq, chunk=chunk, dtype_name=dtype_name, device=dev))
+    loaded, mm = engine.params, engine.mm
+    tok = mm.tokenizer
+    print(f"[server] long_vita_tpu_torch.build_engine({ckpt}) in {t_load:.2f} s "
+          f"({n_bytes / 1e9 / t_load:.2f} GB/s with the tokenizer's files): {type(tok).__name__}, "
+          f"{len(tok)} ids, <|endoftext|> {tok.pad_token_id}, <img> "
+          f"{tok.convert_tokens_to_ids('<img>')}")
     got = {name: _fingerprint(p) for name, p in loaded.named_parameters()}
     differ = [n for n in prints if got.get(n) != prints[n]]
-    check(got.keys() == prints.keys() and not differ and loaded_cfg.text == tc
-          and loaded_cfg.vision == vc,
+    check(got.keys() == prints.keys() and not differ and engine.cfg.text == tc
+          and engine.cfg.vision == vc and engine.vision_chunk == vision_chunk
+          and mm.image_token_length == cfg.image_token_length
+          and mm.processor.image_size == vc.image_size,
           f"{len(got)} loaded tensors hold their exported bits ({len(differ)} differ), "
-          f"config.json gives the configuration")
+          f"config.json gives the configuration, the front end its geometry")
+    check(type(tok).__name__ == "Qwen2Tokenizer"
+          and tok.convert_tokens_to_ids(["<|endoftext|>", "<|im_end|>", "<img>"])
+          == [first_special, first_special + 2, first_special + 22]
+          and tok.convert_tokens_to_ids("<|im_end|>") == tc.eos_token_id,
+          "the port's Qwen2 BPE read the directory's tokenizer: the added tokens from "
+          f"{first_special}, the multimodal ones after them, <|im_end|> the configuration's eos")
+    check(_tokenizer_rate(ckpt, doc_chars), "the document decodes back to its NFC text")
 
-    # ---- the engine and the server ------------------------------------------
-    tok = ByteTokenizer()
-    mm = MultimodalTokenizer(tok, image_processor=ImageProcessor(image_size=vc.image_size),
-                             image_token_length=cfg.image_token_length)
-    engine = InferenceEngine(loaded, cfg, mm, max_seq_len=max_seq, chunk=chunk,
-                             vision_chunk=vision_chunk)
+    # ---- the server ------------------------------------------------------------
     server = make_server(engine, "127.0.0.1", 0, continuous=True, max_batch=4, tick=tick)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1930,9 +2025,16 @@ def phase_server(
     def n_ids(text):
         return len(mm.encode_chat([{"role": "user", "content": text}]))
 
-    prompt = _random_text(rng, prompt_chars)
-    others = [_random_text(rng, n) for n in batch_chars]
-    beam_prompt = _random_text(rng, 300)
+    frame = n_ids("")  # the chat template's ids around the user's text
+
+    def prompt_of(n):  # a user text whose chat prompt is n ids
+        text = _id_text(tok, rng, n - frame)
+        assert n_ids(text) == n, (n, n_ids(text))
+        return text
+
+    prompt = prompt_of(prompt_ids)
+    others = [prompt_of(n) for n in batch_ids]
+    beam_prompt = prompt_of(300)
     frames = list(rng.integers(0, 256, (n_frames, *frame_hw, 3), dtype=np.uint8))
     vid_ids = mm.encode_chat([{"role": "user", "content": "<video>\nDescribe the video."}])
     greedy = {"tokens_to_generate": new_tokens, "logprobs": True}
@@ -2323,23 +2425,21 @@ def phase_train_grads(lv, cfg, dev, *, seq_len=4096, grid=(2, 3), vision_chunk=6
         raise AssertionError("the T2 gate did not reject the planted fault")
 
 
-def _recipe_inputs(root, *, image_px, n_docs, doc_chars, n_captions, n_chat, chat_chars,
+def _recipe_inputs(root, tok, *, image_px, n_docs, doc_ids, n_captions, n_chat, chat_ids,
                    seed) -> str:
     """A corpus for the recipe phase under ``root``: "docs", long text
-    inputs with short answers (ratio 1); "captions", a 448-px PNG each
-    (ratio 0.5); "chat", short two-turn chats (ratio 1.5, a num cap).
-    Answers come from a few templates, so that every pack teaches the same
-    thing and one pack's loss falls with steps on the others. -> the
-    corpus YAML's path."""
+    inputs of doc_ids ids of ``tok`` with short answers (ratio 1);
+    "captions", a 448-px PNG each (ratio 0.5); "chat", short two-turn
+    chats (ratio 1.5, a num cap). Answers come from a few templates, so
+    that every pack teaches the same thing and one pack's loss falls with
+    steps on the others. -> the corpus YAML's path."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(seed)
 
     def words(n):
-        chars = rng.integers(97, 123, n).astype(np.uint8)
-        chars[rng.random(n) < 0.18] = 32
-        return chars.tobytes().decode()
+        return _id_text(tok, rng, n)
 
     def answer():
         k = int(rng.integers(1, 9))
@@ -2350,14 +2450,14 @@ def _recipe_inputs(root, *, image_px, n_docs, doc_chars, n_captions, n_chat, cha
         path = os.path.join(root, f"img{i}.png")
         Image.fromarray(rng.integers(0, 256, (image_px, image_px, 3), dtype=np.uint8)).save(path)
         images.append(path)
-    docs = [{"messages": [{"role": "user", "content": words(doc_chars) + "\nHow many?"},
+    docs = [{"messages": [{"role": "user", "content": words(doc_ids) + "\nHow many?"},
                           {"role": "assistant", "content": answer()}]} for _ in range(n_docs)]
     captions = [{"messages": [{"role": "user", "content": "<image>\nHow many things are there?"},
                               {"role": "assistant", "content": answer()}],
                  "images": [images[i % len(images)]]} for i in range(n_captions)]
-    chat = [{"conversations": [{"role": "human", "content": words(chat_chars) + "?"},
+    chat = [{"conversations": [{"role": "human", "content": words(chat_ids) + "?"},
                                {"role": "gpt", "content": answer()},
-                               {"role": "human", "content": words(chat_chars // 2) + "?"},
+                               {"role": "human", "content": words(chat_ids // 2) + "?"},
                                {"role": "gpt", "content": answer()}]} for _ in range(n_chat)]
     for name, rows in (("docs", docs), ("captions", captions), ("chat", chat)):
         with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
@@ -2399,18 +2499,18 @@ def _trace_kernels(path) -> set:
     return {e["name"] for e in events if e.get("cat") == "kernel"}
 
 
-def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=4096, steps=3,
+def phase_recipe(ckpt, root, cfg, dev, *, seq_len=16384, budget=4096, steps=3,
                  dots_len=4096, vit_len=4096, merge_len=2048, vision_chunk=64, n_docs=14,
-                 doc_chars=4000, n_captions=24, n_chat=12, chat_chars=300, answer=300,
+                 doc_ids=4000, n_captions=24, n_chat=12, chat_ids=300, answer=300,
                  text_sup=700) -> dict:
     """The training entry point as a user runs it, at full width: a corpus
     and a recipe written into the new directory ``root`` (the model: the
     *_HF directory ``ckpt`` that phase_server exported; LoRA r 16, alpha 32 on q/k/v/o, lora_only; a
     frozen tower; seq_len tokens a pack, cross_dataset_joint, the logit
     budget; remat "flash"; an output_dir with the profiler over step 1), then
-    train.build_from_recipe and Trainer.train as train.main runs them, with
-    load_tokenizer bound to a ByteTokenizer at Qwen2.5's ids (the repository
-    holds no tokenizer files). Gates: finite losses; the first batch's loss
+    train.build_from_recipe and Trainer.train as train.main runs them, the
+    tokenizer read from ``ckpt`` (the port's own BPE on the Qwen2 fixture
+    at Qwen2.5's ids, which phase_server wrote there). Gates: finite losses; the first batch's loss
     (Trainer.evaluate) lower after the steps; every base weight keeps its
     bits and every B adapter moved; K1, K3 and K4/K5 launched exactly as
     the layers, steps and encode batches need; metrics.jsonl,
@@ -2429,7 +2529,6 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
     import torch
     import torch.nn.functional as F
 
-    import long_vita_tpu_torch.tokenizer as port_tokenizer
     from long_vita_tpu_torch.data.dataset import load_corpus
     from long_vita_tpu_torch.models.long_vita import long_vita_forward
     from long_vita_tpu_torch.ops import flash_attention as fa
@@ -2442,6 +2541,7 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
         merge_lora,
         save_lora,
     )
+    from long_vita_tpu_torch.tokenizer import load_tokenizer
     from long_vita_tpu_torch.training.train_step import _backward
 
     vc, tc = cfg.vision, cfg.text
@@ -2454,8 +2554,9 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
 
     os.makedirs(root)
     out_dir = os.path.join(root, "out")
-    corpus = _recipe_inputs(root, image_px=vc.image_size, n_docs=n_docs, doc_chars=doc_chars,
-                            n_captions=n_captions, n_chat=n_chat, chat_chars=chat_chars,
+    tok = load_tokenizer(ckpt)
+    corpus = _recipe_inputs(root, tok, image_px=vc.image_size, n_docs=n_docs, doc_ids=doc_ids,
+                            n_captions=n_captions, n_chat=n_chat, chat_ids=chat_ids,
                             seed=SEED + 9)
     lcfg = LoraConfig(r=16, alpha=32, targets=("q_proj", "k_proj", "v_proj", "o_proj"))
     recipe = {
@@ -2470,20 +2571,14 @@ def phase_recipe(ckpt, root, cfg, dev, *, tokenizer=None, seq_len=16384, budget=
     }
     with open(os.path.join(root, "recipe.yaml"), "w") as f:  # YAML's flow style is JSON
         json.dump(recipe, f)
-    tok = tokenizer or port_tokenizer.ByteTokenizer()
-    print(f"[recipe] load_tokenizer bound to ByteTokenizer (Qwen2.5's special ids "
-          f"{tok.pad_token_id}..; the repository holds no tokenizer files); corpus and recipe "
-          f"in {root}; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the load")
+    print(f"[recipe] the tokenizer from {ckpt}: {len(tok)} ids, <|endoftext|> at "
+          f"{tok.pad_token_id}; corpus and recipe (documents of {doc_ids} ids) in {root}; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the load")
 
     # ---- train.main's path: build_from_recipe, then Trainer.train -----------
-    load_tokenizer = port_tokenizer.load_tokenizer
-    port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
     t0 = time.perf_counter()
-    try:
-        trainer, batches, tokenizer = ttrain.build_from_recipe(
-            ttrain.load_recipe(os.path.join(root, "recipe.yaml")), device=dev)
-    finally:
-        port_tokenizer.load_tokenizer = load_tokenizer
+    trainer, batches, tokenizer = ttrain.build_from_recipe(
+        ttrain.load_recipe(os.path.join(root, "recipe.yaml")), device=dev)
     lv, lcfg_text = trainer.state.params, trainer.cfg.text
     adapters = {n for n, _ in lv.named_parameters() if ".lora." in n}
     n_adapter = sum(p.numel() for n, p in lv.named_parameters() if n in adapters)
@@ -2672,23 +2767,25 @@ def _fixture_check(root) -> tuple:
 
 
 def phase_orbax(*, layers=ORBAX_LAYERS, seq_len=4096, budget=2048, steps=2, device="cuda",
-                cfg=None, tokenizer=None, vision_chunk=64, n_docs=4, doc_chars=1200,
-                n_captions=8, n_chat=8, chat_chars=300) -> dict:
+                cfg=None, first_special=QWEN25_FIRST_ADDED, vision_chunk=64, n_docs=4,
+                doc_ids=1200, n_captions=8, n_chat=8, chat_ids=300) -> dict:
     """The JAX package's orbax stores from the training entry point, at full
     width: the Qwen2.5-14B VLM (h 5120, 40/8 heads, ffn 13824, vocab
     152064) with the decoder cut to ``layers`` layers and a random
-    InternViT-300M tower, written as a *_HF directory; a recipe that
+    InternViT-300M tower, written as a *_HF directory with the Qwen2
+    tokenizer fixture (tokenizer_dir, its added tokens at first_special);
+    a recipe that
     fine-tunes the whole decoder in bf16 (the tower frozen; optax keeps the
     moments in the parameters' dtype), seq_len tokens a pack with images,
     remat "flash", run.save_dir with save_interval 1, ``steps`` steps,
     through train.build_from_recipe and Trainer.train as train.main runs
-    them (load_tokenizer bound to a ByteTokenizer). Every save writes an
-    orbax store (training/checkpoint.py) and is timed. Step 1's store is
-    then handed to a second save_dir, and a second build_from_recipe
-    resumes from it. Gates: every parameter, mu, nu and the count it
-    restores equal what step 1 held, bit for bit, on the card; its step-2
-    loss is printed beside the uninterrupted run's (the same bits are
-    expected); restore_params_only into a tp-2 shard's layout (rank 0's
+    them (each reading the tokenizer from the directory). Every save
+    writes an orbax store (training/checkpoint.py) and is timed. Step 1's
+    store is then handed to a second save_dir, and a second
+    build_from_recipe resumes from it. Gates: every parameter, mu, nu and
+    the count it restores equal what step 1 held, bit for bit, on the
+    card; its step-2 loss equals the uninterrupted run's, bit for bit;
+    restore_params_only into a tp-2 shard's layout (rank 0's
     tree, made on one process) reads exactly the shard's bytes (the tower
     and projector whole, the decoder's slices: about half of it) and gets
     the step-1 slices bit for bit; the JAX-written fixture decodes to the
@@ -2700,13 +2797,13 @@ def phase_orbax(*, layers=ORBAX_LAYERS, seq_len=4096, budget=2048, steps=2, devi
     import numpy as np
     import torch
 
-    import long_vita_tpu_torch.tokenizer as port_tokenizer
     from long_vita_tpu_torch.config import long_vita_14b
     from long_vita_tpu_torch.models import qwen2
     from long_vita_tpu_torch.ops import flash_attention as fa
     from long_vita_tpu_torch.parallel.comm import ThreadComm
     from long_vita_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from long_vita_tpu_torch.parallel.sharding import leaf_layout, shard_params, slice_leaf
+    from long_vita_tpu_torch.tokenizer import load_tokenizer
     from long_vita_tpu_torch.training import checkpoint as ckpt
     from long_vita_tpu_torch.training import train as ttrain
     from long_vita_tpu_torch.utils import orbax_store
@@ -2769,12 +2866,13 @@ def phase_orbax(*, layers=ORBAX_LAYERS, seq_len=4096, budget=2048, steps=2, devi
                             dev, SEED + 90, probe)
         model_dir = os.path.join(work, "ckpt")
         save_hf_checkpoint(lv, cfg, model_dir)
+        tokenizer_dir(model_dir, first_special)
         text_gb = sum(p.nbytes for p in lv.text.parameters()) / 1e9
         whole_gb = sum(p.nbytes for p in lv.parameters()) / 1e9
         del lv
-        corpus = _recipe_inputs(work, image_px=px, n_docs=n_docs, doc_chars=doc_chars,
-                                n_captions=n_captions, n_chat=n_chat, chat_chars=chat_chars,
-                                seed=SEED + 92)
+        corpus = _recipe_inputs(work, load_tokenizer(model_dir), image_px=px, n_docs=n_docs,
+                                doc_ids=doc_ids, n_captions=n_captions, n_chat=n_chat,
+                                chat_ids=chat_ids, seed=SEED + 92)
         first, second = os.path.join(work, "run"), os.path.join(work, "resumed")
 
         def recipe(save_dir):
@@ -2791,9 +2889,6 @@ def phase_orbax(*, layers=ORBAX_LAYERS, seq_len=4096, budget=2048, steps=2, devi
                 }, f)
             return ttrain.load_recipe(path)
 
-        tok = tokenizer or port_tokenizer.ByteTokenizer()
-        load_tokenizer = port_tokenizer.load_tokenizer
-        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
         ckpt.save_checkpoint, ckpt.load_checkpoint = save_spy, load_spy
         try:
             trainer, batches, _ = ttrain.build_from_recipe(recipe(first), device=dev)
@@ -2848,11 +2943,10 @@ def phase_orbax(*, layers=ORBAX_LAYERS, seq_len=4096, budget=2048, steps=2, devi
             tail = resumed.train(itertools.islice(again, 1, None))["losses"]
             print(f"[orbax] step 2's loss: resumed {tail} vs uninterrupted {losses[1:]} "
                   f"(the same bits: {tail == losses[1:]})")
-            check(len(tail) == steps - 1 and all(np.isfinite(tail)),
-                  "the resumed run's step 2 is finite")
+            check(len(tail) == steps - 1 and tail == losses[1:],
+                  "the resumed run's step-2 loss equals the uninterrupted run's bits")
         finally:
             ckpt.save_checkpoint, ckpt.load_checkpoint = real_save, real_load
-            port_tokenizer.load_tokenizer = load_tokenizer
         whole = resumed.state.params
         del resumed, again, state
         gc.collect()
@@ -4686,7 +4780,6 @@ def _tp_train_worker(rank, world, init, out, sizes):
     import torch
 
     try:
-        import long_vita_tpu_torch.tokenizer as port_tokenizer
         from long_vita_tpu_torch.models import qwen2
         from long_vita_tpu_torch.parallel.comm import init_process_group
         from long_vita_tpu_torch.parallel.sharding import rank_layout
@@ -4705,8 +4798,6 @@ def _tp_train_worker(rank, world, init, out, sizes):
                 timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
         dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
         sync = (lambda: None) if cpu else torch.cuda.synchronize
-        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
-        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
         res = {"rank": rank}
         t0 = time.perf_counter()
         trainer, stream, _ = ttrain.build_from_recipe(
@@ -4954,7 +5045,7 @@ def _reference(target, sizes, timeout) -> dict:
 
 def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN_LAYERS,
                    seq=16384, budget=4096, fault_seq=4096, steps=2, answer=300, text_sup=900,
-                   tok=None, kernels=True, tq=1) -> dict:
+                   first_special=QWEN25_FIRST_ADDED, kernels=True, tq=1) -> dict:
     """Training over tp from the recipe entry: the 14B VLM at full width, the
     decoder cut to ``layers`` layers, the InternViT-300M tower at 24,
     written as a *_HF checkpoint directory; configs/stage2_16k.yaml's
@@ -5008,6 +5099,7 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
                             dev, SEED + 72, probe)
         ckpt = os.path.join(work, "ckpt")
         save_hf_checkpoint(lv, cfg, ckpt)
+        tokenizer_dir(ckpt, first_special)
         whole_gb = sum(p.nbytes for p in lv.parameters()) / 1e9
         text_gb = sum(p.nbytes for p in lv.text.parameters()) / 1e9
         del lv
@@ -5024,7 +5116,7 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
               f"{time.perf_counter() - t0:.1f} s")
         sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq,
                      budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
-                     text_sup=text_sup, tok=tok or {})
+                     text_sup=text_sup)
         geometries = [("tp 2", {"tp": 2})]
         if tq > 1:
             geometries.append((f"tp 2 x tq {tq}", {"tp": 2, "tq": tq}))
@@ -5193,7 +5285,6 @@ def _fsdp_train_worker(rank, world, init, out, sizes):
     # rather than keeping freed blocks of one size (read at the card's first use)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
-        import long_vita_tpu_torch.tokenizer as port_tokenizer
         from long_vita_tpu_torch.models import qwen2
         from long_vita_tpu_torch.parallel import fsdp as fsdp_mod
         from long_vita_tpu_torch.parallel.comm import init_process_group
@@ -5213,8 +5304,6 @@ def _fsdp_train_worker(rank, world, init, out, sizes):
                 timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
         dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
         sync = (lambda: None) if cpu else torch.cuda.synchronize
-        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
-        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
         res = {"rank": rank}
         dp, tp = (2, sizes["tp"]) if world > 1 else (1, 1)
         t0 = time.perf_counter()
@@ -5387,7 +5476,7 @@ def _shard_bytes(shapes: dict, specs: dict, hkv: int, d: int, dp: int, t: int, t
 
 def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_TRAIN_LAYERS,
                      tp=1, seq=16384, budget=4096, fault_seq=4096, steps=2, answer=300,
-                     text_sup=900, tok=None, kernels=True) -> dict:
+                     text_sup=900, first_special=QWEN25_FIRST_ADDED, kernels=True) -> dict:
     """FSDP from the recipe entry: the 72B VLM (long_vita_72b(): h 8192, ffn
     29568, 64/8 heads, vocab 152064) at full width, the decoder cut to
     ``layers`` layers, the InternViT-300M tower at 24, written as a *_HF
@@ -5444,6 +5533,7 @@ def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_T
                             dev, SEED + 82, probe)
         ckpt = os.path.join(work, "ckpt")
         save_hf_checkpoint(lv, cfg, ckpt)
+        tokenizer_dir(ckpt, first_special)
         shapes = {n: (tuple(p.shape), p.dtype) for n, p in lv.named_parameters()}
         specs = long_vita_param_specs(lv)
         whole_b = sum(p.nbytes for p in lv.parameters())
@@ -5465,7 +5555,7 @@ def phase_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=FSDP_T
               f"{time.perf_counter() - t0:.1f} s")
         sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq, tp=tp,
                      budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
-                     text_sup=text_sup, tok=tok or {})
+                     text_sup=text_sup)
         t0 = time.perf_counter()
         one = _reference(_fsdp_train_worker, {**sizes, "backend": "gloo"},
                          2 * TP_TRAIN_TIMEOUT)
@@ -5648,7 +5738,6 @@ def _pp_train_worker(rank, world, init, out, sizes):
 
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
-        import long_vita_tpu_torch.tokenizer as port_tokenizer
         from long_vita_tpu_torch.parallel import pipeline as pl
         from long_vita_tpu_torch.parallel.comm import init_process_group
         from long_vita_tpu_torch.training import train as ttrain
@@ -5667,8 +5756,6 @@ def _pp_train_worker(rank, world, init, out, sizes):
                 timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
         dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
         sync = (lambda: None) if cpu else torch.cuda.synchronize
-        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
-        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
         stats = getattr(comm, "stats", None)
         res = {"rank": rank, "runs": {}}
         pp, tp = (2, sizes["tp"]) if world > 1 else (1, 1)
@@ -5850,7 +5937,7 @@ def _pp_train_worker(rank, world, init, out, sizes):
 
 def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN_LAYERS, tp=1,
                    seq=16384, budget=2048, fault_seq=4096, steps=2, answer=300, text_sup=430,
-                   tok=None, kernels=True) -> dict:
+                   first_special=QWEN25_FIRST_ADDED, kernels=True) -> dict:
     """Pipeline stages from the recipe entry: the 72B VLM (long_vita_72b(): h
     8192, ffn 29568, 64/8 heads, vocab 152064) at full width, the decoder
     cut to ``layers`` layers, the InternViT-300M tower at 24, written as a
@@ -5912,6 +5999,7 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
                             dev, SEED + 92, probe)
         ckpt = os.path.join(work, "ckpt")
         save_hf_checkpoint(lv, cfg, ckpt)
+        tokenizer_dir(ckpt, first_special)
         shapes = {n: (tuple(p.shape), p.dtype) for n, p in lv.named_parameters()}
         specs = long_vita_param_specs(lv)
         whole_b = sum(p.nbytes for p in lv.parameters())
@@ -5933,7 +6021,7 @@ def phase_pp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN
               f"{time.perf_counter() - t0:.1f} s")
         sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq, tp=tp,
                      budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
-                     text_sup=text_sup, tok=tok or {})
+                     text_sup=text_sup)
         t0 = time.perf_counter()
         one = _reference(_pp_train_worker, {**sizes, "backend": "gloo"},
                          2 * TP_TRAIN_TIMEOUT)
@@ -6162,7 +6250,6 @@ def _pp_fsdp_train_worker(rank, world, init, out, sizes):
 
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
-        import long_vita_tpu_torch.tokenizer as port_tokenizer
         from long_vita_tpu_torch.parallel import fsdp as fsdp_mod
         from long_vita_tpu_torch.parallel.comm import init_process_group
         from long_vita_tpu_torch.training import train as ttrain
@@ -6181,8 +6268,6 @@ def _pp_fsdp_train_worker(rank, world, init, out, sizes):
                 timeout=TP_TRAIN_TIMEOUT, staged_device="cuda" if backend == "staged" else None)
         dev = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
         sync = (lambda: None) if cpu else torch.cuda.synchronize
-        tok = port_tokenizer.ByteTokenizer(**sizes["tok"])
-        port_tokenizer.load_tokenizer = lambda path, template="long_vita": tok
         stats = getattr(comm, "stats", None)
         res = {"rank": rank, "runs": {}}
         work = sizes["work"]
@@ -6356,7 +6441,7 @@ def _pp_fsdp_train_worker(rank, world, init, out, sizes):
 
 def phase_pp_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_TRAIN_LAYERS,
                         seq=4096, budget=512, steps=MESH_TRAIN_STEPS, answer=100,
-                        text_sup=100, tok=None) -> dict:
+                        text_sup=100, first_special=QWEN25_FIRST_ADDED) -> dict:
     """FSDP inside pipeline stages from the recipe entry: the 72B VLM
     (long_vita_72b(): h 8192, ffn 29568, 64/8 heads, vocab 152064) at full
     width, the decoder cut to ``layers`` layers (two a stage), the
@@ -6418,6 +6503,7 @@ def phase_pp_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_
                             dev, SEED + 122, probe)
         ckpt = os.path.join(work, "ckpt")
         save_hf_checkpoint(lv, cfg, ckpt)
+        tokenizer_dir(ckpt, first_special)
         shapes = {n: (tuple(p.shape), p.dtype) for n, p in lv.named_parameters()}
         specs = long_vita_param_specs(lv)
         whole_b = sum(p.nbytes for p in lv.parameters())
@@ -6438,8 +6524,7 @@ def phase_pp_fsdp_train(*, backend="staged", device="cuda", cfg=None, layers=PP_
               f"{whole_b / 1e9:.3f} GB) written as a checkpoint directory in "
               f"{time.perf_counter() - t0:.1f} s")
         sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq,
-                     budget=budget, steps=steps, answer=answer, text_sup=text_sup,
-                     tok=tok or {})
+                     budget=budget, steps=steps, answer=answer, text_sup=text_sup)
         t0 = time.perf_counter()
         one = _reference(_pp_fsdp_train_worker, {**sizes, "backend": "gloo"},
                          2 * TP_TRAIN_TIMEOUT)

@@ -141,18 +141,22 @@ def make_mesh(cfg: Optional[MeshConfig] = None, comm: Optional[Comm] = None) -> 
 
 
 def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
-                      virtual_pp: int = 1, logit_budget: int = 0, fsdp: bool = False) -> None:
+                      virtual_pp: int = 1, fsdp: bool = False) -> None:
     """Fail fast when a model geometry cannot shard over a mesh (JAX :84,
-    the same checks and messages), and, for training over tp, the two rules
-    under which the JAX step takes its tp path (train_step.py:75-84,
-    long_vita.py:283-292): the sequence divides into cp x tp slices (the
-    sequence-parallel layout and the vocab-parallel lookup) and the logit
-    budget into cp blocks (the vocab-parallel CE). Where JAX would fall
-    back to GSPMD's plain layout, the port has no such path and raises.
+    the same checks and messages), and, for training over tp, a sequence
+    that does not split into cp x tp equal slices: the port's sequence-
+    parallel layout needs them, where JAX's GSPMD falls back to its plain
+    layout and trains (long_vita.py:283-292; at the tiny configuration's 2
+    kv heads over tp 4 JAX raises for any sequence, its attention cutting
+    the kv heads over tp). A logit budget that does not divide over cp is
+    no refusal: JAX takes its plain head and CE there (train_step.py:
+    75-84), the port its vocab-parallel CE over each cp shard's budget
+    rows, however many (the same loss and gradients).
     fsdp (over dp > 1): every dim FSDP cuts splits into dp equal pieces,
     the hidden dim (the column kernels' input, the row kernels' output,
     the norms) and the vocabulary into tp x dp pieces (the embedding and
-    the head); JAX pads such a dim under GSPMD, the port raises. tq > 1
+    the head); JAX's device_put of such a dim raises too ("should be
+    divisible by"; sharding.shard_params). tq > 1
     (2-D tp): the hidden dim splits over tq, and neither pp, MoE nor FSDP
     composes with it (JAX :122-130 and sharding.py:62-63, their words). A
     MoE model at dp > 1 cuts its experts over dp (expert parallelism):
@@ -181,9 +185,6 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
     if seq_len and tp * mesh_cfg.tq > 1 and seq_len % (cp * tp):
         errs.append(f"seq_len {seq_len} % cp*tp {cp * tp} != 0 (the sequence-parallel layout "
                     "needs cp x tp equal slices)")
-    if logit_budget and tp * mesh_cfg.tq > 1 and min(logit_budget, seq_len or logit_budget) % cp:
-        errs.append(f"logit budget {logit_budget} % cp {cp} != 0 (the vocab-parallel CE "
-                    "splits the budget rows over cp)")
     dp = mesh_cfg.dp
     experts = getattr(text_cfg, "num_experts", 0)
     if experts > 0 and dp > 1 and experts % dp:

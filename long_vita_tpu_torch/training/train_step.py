@@ -194,8 +194,9 @@ def loss_terms(
     """-> (summed loss over the supervised rows, their count, MoE aux). With
     ``parallel`` (cp > 1): over the rows of this rank's shard. With tp > 1
     (the parameters a tp shard): the vocab-parallel CE of those rows (JAX
-    :75-84's rule: tp > 1 without pp or tq, the budget dividing over cp,
-    which the Trainer's validate_geometry holds), the same on every tp
+    :75-84's rule: tp > 1 without pp or tq, the budget dividing over cp;
+    where it does not, JAX's plain head and CE give the same loss, and the
+    port keeps this CE over each cp shard's rows), the same on every tp
     rank. With tq > 1 (a 2-D tp shard), where JAX takes its plain head:
     the same CE of the logits summed over tq, the same on every tp and tq
     rank. Over pp (JAX's rule: the plain head and CE there): the last

@@ -171,7 +171,7 @@ class Trainer:
         check_moe_mesh(cfg.text, dp=tcfg.mesh.dp, cp=tcfg.mesh.cp, tp=tcfg.mesh.tp,
                        pp=tcfg.mesh.pp, tq=tcfg.mesh.tq)
         validate_geometry(cfg.text, tcfg.mesh, seq_len=tcfg.seq_len, virtual_pp=tcfg.virtual_pp,
-                          logit_budget=tcfg.logit_budget, fsdp=tcfg.fsdp)
+                          fsdp=tcfg.fsdp)
         self.mesh = None
         if isinstance(comm, Mesh):
             if comm.cfg != tcfg.mesh:

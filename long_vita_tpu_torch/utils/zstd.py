@@ -11,6 +11,7 @@ no encoder.
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from typing import Optional
 
@@ -32,7 +33,10 @@ def _library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             try:
-                lib = ctypes.CDLL(LIBRARY)
+                # its own symbols first: a library loaded with RTLD_GLOBAL
+                # before it (TensorFlow's carries another zstd) must not
+                # take its internal calls
+                lib = ctypes.CDLL(LIBRARY, mode=os.RTLD_LOCAL | os.RTLD_DEEPBIND)
             except OSError as e:
                 raise RuntimeError(
                     f"reading an orbax store's zstd frames needs the system's {LIBRARY} "

@@ -55,20 +55,13 @@ def test_token_constants_and_templates_identical():
 
 
 def _hf_tokenizer_dir(path):
-    """A tiny word-level Hugging Face tokenizer saved to ``path``: no
-    released assets are needed to exercise load_tokenizer."""
-    from tokenizers import Tokenizer, models, pre_tokenizers
-    from transformers import PreTrainedTokenizerFast
+    """A tiny Qwen2 byte-level BPE directory written to ``path``: the
+    committed fixture (tests/data/qwen2_tokenizer_tiny) cut to 300 BPE
+    entries, its 22 added tokens after them. The port's load_tokenizer
+    reads Qwen2 tokenizer directories; no released assets are needed."""
+    import chip_smoke
 
-    vocab = {w: i for i, w in enumerate(
-        ["[UNK]", "<|im_start|>", "<|im_end|>", "user", "assistant", "system", "hello", "\n"]
-    )}
-    tok = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
-    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
-    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="[UNK]")
-    fast.add_special_tokens({"additional_special_tokens": ["<|im_start|>", "<|im_end|>"]})
-    fast.save_pretrained(path)
-    return str(path)
+    return chip_smoke.tokenizer_dir(str(path), 300)
 
 
 @pytest.mark.parametrize("template", ["long_vita", "qwen"])

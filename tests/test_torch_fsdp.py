@@ -428,10 +428,9 @@ def test_long_vita_72b_matches_jax_and_its_recipes_pass_the_geometry():
         recipe = yaml.safe_load((root / "configs" / name).read_text())
         tcfg = ttrain.trainer_config(recipe)
         assert tcfg.fsdp and (tcfg.mesh.dp, tcfg.mesh.tp) == (8, 8)
-        validate_geometry(cfg72.text, tcfg.mesh, seq_len=tcfg.seq_len,
-                          logit_budget=tcfg.logit_budget, fsdp=True)
+        validate_geometry(cfg72.text, tcfg.mesh, seq_len=tcfg.seq_len, fsdp=True)
     validate_geometry(tconfig.long_vita_14b().text, MeshConfig(dp=4, tp=2), seq_len=16384,
-                      logit_budget=4096, fsdp=True)
+                      fsdp=True)
     bad = dataclasses.replace(tiny_test_config().text, vocab_size=510)
     with pytest.raises(ValueError, match="vocab 510 % tp\\*dp 4"):
         validate_geometry(bad, MeshConfig(dp=2, tp=2), fsdp=True)

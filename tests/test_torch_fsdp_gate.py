@@ -23,7 +23,7 @@ def test_fsdp_train_phase_rehearsal(chip_smoke, capsys, tp):
         backend="gloo", device="cpu", tp=tp, cfg=tiny_test_config(), layers=2, seq=512,
         budget=128,
         fault_seq=256, steps=2, answer=8, text_sup=8, kernels=False,
-        tok=dict(endoftext=256, im_start=257, im_end=258, first_added=259))
+        first_special=256)
     text = capsys.readouterr().out
     assert "FAIL" not in text
     for gate in ("every rank reports the same loss bits: ok",

@@ -209,6 +209,69 @@ def test_training_entry_point_without_jax_pil_or_hf_packages():
     assert res.stdout.startswith("OK ")
 
 
+_NO_HF_ENTRY_POINTS = """
+import json, shutil, sys, tempfile
+BLOCKED = ("jax", "long_vita_tpu", "transformers", "tokenizers", "regex", "PIL", "safetensors")
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of these now raises ImportError
+import torch, yaml
+import long_vita_tpu_torch
+from long_vita_tpu_torch.config import tiny_test_config
+from long_vita_tpu_torch.models.long_vita import init_long_vita_params
+from long_vita_tpu_torch.training import train
+from long_vita_tpu_torch.utils import export_hf
+
+root = tempfile.mkdtemp()
+cfg = tiny_test_config(vocab_size=4224)  # the fixture's 4135 ids
+export_hf.save_hf_checkpoint(init_long_vita_params(torch.Generator().manual_seed(0), cfg), cfg,
+                             root + "/ckpt")
+for name in ("tokenizer.json", "tokenizer_config.json"):
+    shutil.copy("tests/data/qwen2_tokenizer_tiny/" + name, root + "/ckpt")
+eng = long_vita_tpu_torch.build_engine(root + "/ckpt", device="cpu", dtype_name="float32",
+                                       max_seq_len=256, chunk=64)
+msgs = [{"role": "user", "content": "What does the tokenizer read?"}]
+out = eng.generate(msgs, sampling=long_vita_tpu_torch.SamplingParams(max_new_tokens=4))
+ids = eng.mm.encode_chat(msgs)
+assert len(out.token_ids) == 4 and out.prompt_tokens == len(ids) < 20, (out, ids)
+rows = [{"messages": [{"role": "user", "content": "question " * (3 + i)},
+                      {"role": "assistant", "content": "answer " * (5 + i)}]} for i in range(8)]
+open(root + "/a.jsonl", "w").write("\\n".join(json.dumps(r) for r in rows))
+yaml.safe_dump({"dataset": {"A": {"data_paths": [root + "/a.jsonl"]}}}, open(root + "/c.yaml", "w"))
+yaml.safe_dump({
+    "model": {"checkpoint": root + "/ckpt", "dtype": "float32"},
+    "data": {"corpus": root + "/c.yaml", "seq_len": 64, "logit_budget": 64},
+    "optim": {"lr": 1e-3, "freeze_vision": True},
+    "run": {"steps": 1},
+}, open(root + "/r.yaml", "w"))
+res = train.main(["--config", root + "/r.yaml"], device="cpu")
+assert len(res["losses"]) == 1, res
+loaded = [m for m, v in sys.modules.items() if v is not None]
+for name in BLOCKED:
+    assert not any(m == name or m.startswith(name + ".") for m in loaded), name
+print("OK", repr(out.text), res["losses"])
+"""
+
+
+def test_entry_points_read_the_tokenizer_without_hf_packages():
+    """long_vita_tpu_torch.build_engine on an exported checkpoint directory
+    with the committed Qwen2 tokenizer fixture generates, and the recipe
+    entry trains a step from the same directory, each reading the
+    tokenizer files with the port's own BPE, with JAX, the JAX package,
+    transformers, tokenizers, regex, PIL and safetensors blocked."""
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_HF_ENTRY_POINTS], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.startswith("OK"), res.stderr[-3000:]
+
+
+def test_tokenizer_imports_no_hf_package():
+    """tokenizer.py imports neither transformers, tokenizers nor regex."""
+    pat = re.compile(r"^\s*(import|from)\s+(transformers|tokenizers|regex)\b", re.M)
+    assert not pat.search((PKG / "tokenizer.py").read_text())
+    assert pat.search("from tokenizers import Tokenizer") and pat.search("import regex")
+
+
 _NO_JAX_CP = """
 import copy, sys
 sys.modules["jax"] = None

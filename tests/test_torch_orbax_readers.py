@@ -3,7 +3,8 @@ tensorstore or zarr in the port (the tests hold them to tensorstore, which
 they import themselves):
 
   - utils/zstd.py: libzstd's frames at levels 1, 3 and 19, 0 bytes to 3 MB,
-    decoded whole; a truncated frame raises;
+    decoded whole; a truncated frame raises; the same, and the fixture's
+    store, with TensorFlow (another zstd, RTLD_GLOBAL) loaded first;
   - utils/ocdbt.py: ``list()`` and ``read()`` against tensorstore's own
     ``ocdbt`` kvstore on the JAX-written fixture's merged stores and on a
     store of 340 keys in 41 versions with nodes of at most 512 bytes (a
@@ -20,6 +21,8 @@ import ctypes
 import json
 import os
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +36,7 @@ FIXTURE = Path(__file__).resolve().parent / "data" / "orbax_jax_tiny"
 
 
 def _compress(data: bytes, level: int) -> bytes:
-    lib = ctypes.CDLL(zstd.LIBRARY)
+    lib = zstd._library()  # the library as the port loads it, whichever test loads it first
     lib.ZSTD_compressBound.restype = ctypes.c_size_t
     lib.ZSTD_compress.restype = ctypes.c_size_t
     cap = lib.ZSTD_compressBound(ctypes.c_size_t(len(data)))
@@ -55,6 +58,31 @@ def test_zstd_frames(level):
         if size:
             with pytest.raises(ValueError, match="zstd"):
                 zstd.decompress(frame[:-3])
+
+
+_AFTER_TENSORFLOW = """
+import sys
+import tensorflow  # noqa: F401  (its libtensorflow_framework carries another zstd, RTLD_GLOBAL)
+sys.path.insert(0, "tests")
+from test_torch_orbax_readers import FIXTURE, test_zstd_frames
+from long_vita_tpu_torch.utils.ocdbt import OcdbtStore
+test_zstd_frames(19)
+store = OcdbtStore(FIXTURE / "store" / "3" / "params")
+assert all(store.read(k) is not None for k in store.list())
+print("ok")
+"""
+
+
+def test_zstd_after_tensorflow():
+    """TensorFlow loaded first (as transformers loads it to test an array's
+    type) must not take libzstd's internal calls: the port loads the
+    library with its own symbols first (RTLD_DEEPBIND)."""
+    pytest.importorskip("tensorflow")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]),
+               TF_CPP_MIN_LOG_LEVEL="3")
+    res = subprocess.run([sys.executable, "-c", _AFTER_TENSORFLOW], cwd=Path(__file__).resolve().parents[1],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 
 def _against_tensorstore(root: Path) -> OcdbtStore:

@@ -19,7 +19,7 @@ def test_pp_fsdp_train_phase_rehearsal(chip_smoke, capsys):
     out = chip_smoke.phase_pp_fsdp_train(
         backend="gloo", device="cpu", cfg=tiny_test_config(), layers=4, seq=512, budget=128,
         steps=1, answer=8, text_sup=8,
-        tok=dict(endoftext=256, im_start=257, im_end=258, first_added=259))
+        first_special=256)
     text = capsys.readouterr().out
     assert "FAIL" not in text
     for name in ("GPipe", "interleaved (virtual_pp 2)"):

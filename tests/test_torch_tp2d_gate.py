@@ -16,7 +16,7 @@ def test_tp2d_train_phase_rehearsal(chip_smoke, capsys):
     out = chip_smoke.phase_tp_train(
         backend="gloo", device="cpu", cfg=tiny_test_config(), layers=2, seq=512, budget=128,
         fault_seq=256, steps=1, answer=8, text_sup=8, kernels=False, tq=2,
-        tok=dict(endoftext=256, im_start=257, im_end=258, first_added=259))
+        first_special=256)
     text = capsys.readouterr().out
     assert "FAIL" not in text
     for gate in ("both tp ranks report the same loss bits: ok",

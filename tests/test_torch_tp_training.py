@@ -164,16 +164,30 @@ def test_loss_gradients_over_tp_match_jax(cp, one_torch_thread):
     summed over the ranks as the step sums them and gathered over tp,
     against jax.grad of JAX's loss_fn on the same mesh (its vocab-parallel
     CE and lookup; the tower trains, two rows with images), atol 2e-4."""
+    _check_loss_gradients(cp, S)
+
+
+def test_budget_not_dividing_over_cp_matches_jax_plain_head(one_torch_thread):
+    """cp 2 x tp 2 with a 31-row logit budget, which does not divide over
+    cp: JAX takes its plain head and CE there (train_step.py:75-84), the
+    port its vocab-parallel CE over each cp shard's rows, however many.
+    The loss at rtol 1e-5 and every gradient at atol 2e-4 against JAX's
+    loss_fn on the same mesh, as above."""
+    _check_loss_gradients(2, 31)
+
+
+def _check_loss_gradients(cp, budget):
     tp = 2
     jparams = _jax_params(0)
     packs = _packs(jdata.Pack)[:2]
-    jbatch = next(jtrainer.batch_iterator(iter(packs), 2, S, cp))
+    jbatch = next(jtrainer.batch_iterator(iter(packs), 2, budget, cp))
+    assert (jbatch["logit_positions"].shape[1] % cp == 0) == (budget == S)
     jpar = JParallel(_jmesh(cp, tp))
     jl, jg = jax.jit(jax.value_and_grad(
         lambda p, b: jts.loss_fn(p, b, CFG, jpar, True, 2)[0]))(jparams, _jnp(jbatch))
     want = _named(jg)
     whole = long_vita_params_from_jax(jparams, device="cpu")
-    batch = next(batch_iterator(iter(_packs(tloss.Pack)[:2]), 2, S, cp))
+    batch = next(batch_iterator(iter(_packs(tloss.Pack)[:2]), 2, budget, cp))
 
     def rank(comm):
         from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
@@ -199,11 +213,11 @@ def test_loss_gradients_over_tp_match_jax(cp, one_torch_thread):
 _REFERENCE: dict = {}
 
 
-def _reference(fv: bool, accum: bool = False):
+def _reference(fv: bool, accum: bool = False, budget: int = S):
     """JAX's train step (its gradient accumulation with ``accum``: 2
     micro-batches of one row) on the whole, unpermuted batches on one
     device: -> (named params, [metrics]) after STEPS steps."""
-    key = (fv, accum)
+    key = (fv, accum, budget)
     if key in _REFERENCE:
         return _REFERENCE[key]
     flags = dict(freeze_vision=fv, freeze_text=False)
@@ -226,19 +240,20 @@ def _reference(fv: bool, accum: bool = False):
             metrics.append({k: float(v) for k, v in m.items()})
     else:
         step = jts.make_train_step(CFG, jtx, None, remat=False, vision_chunk=2, **flags)
-        for b in jtrainer.batch_iterator(iter(_packs(jdata.Pack)), 2, S, 1):
+        for b in jtrainer.batch_iterator(iter(_packs(jdata.Pack)), 2, budget, 1):
             state, m = step(state, _jnp(b))
             metrics.append({k: float(v) for k, v in m.items()})
     _REFERENCE[key] = (_named(state.params), metrics)
     return _REFERENCE[key]
 
 
-def _train(params, mesh, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_only=False):
+def _train(params, mesh, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_only=False,
+           budget=S):
     """One rank: a Trainer over ``comm`` (the whole tree handed in; the
     Trainer cuts the rank's shard) on the zigzag stream, -> (losses, grad
     norms, the parameters gathered over tp)."""
     tcfg = TrainerConfig(
-        seq_len=S, logit_budget=S, global_batch=2, micro_batch=1 if accum else 0, steps=STEPS,
+        seq_len=S, logit_budget=budget, global_batch=2, micro_batch=1 if accum else 0, steps=STEPS,
         mesh=mesh, remat=remat, vision_chunk=2,
         optim=topt.OptimizerConfig(**OPTIM, freeze_vision=fv, lora_only=lora_only))
     tr = Trainer(params, cfg, tcfg, comm=comm)
@@ -261,7 +276,7 @@ def _train(params, mesh, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_on
             return state, m
 
         tr.step_fn = logged
-    it = batch_iterator(iter(_packs(tloss.Pack)), 1 if accum else 2, S, mesh.cp)
+    it = batch_iterator(iter(_packs(tloss.Pack)), 1 if accum else 2, budget, mesh.cp)
     losses = tr.train(it)["losses"]
     layout = leaf_layout(tr.state.params, cfg, tr.mesh.tp_index, mesh.tp)
     params = gather_named(dict(tr.state.params.named_parameters()), layout, tr.mesh.tp_comm)
@@ -289,6 +304,8 @@ CASES = {
     "tp4_shared_kv_heads": dict(mesh=MeshConfig(tp=4), fv=True),
     "tp2_remat_flash": dict(mesh=MeshConfig(tp=2), fv=True, remat="flash"),
     "tp2_grad_accum": dict(mesh=MeshConfig(tp=2), fv=True, accum=True),
+    # a logit budget that does not divide over cp (JAX: its plain head)
+    "cp2_tp2_budget31": dict(mesh=MeshConfig(cp=2, tp=2), fv=False, budget=31),
 }
 
 
@@ -297,7 +314,7 @@ def test_trainer_over_tp_thread_ranks_matches_jax(case, one_torch_thread):
     kw = dict(CASES[case])
     mesh = kw.pop("mesh")
     whole = long_vita_params_from_jax(_jax_params(0), device="cpu")
-    want = _reference(kw["fv"], kw.get("accum", False))
+    want = _reference(kw["fv"], kw.get("accum", False), kw.get("budget", S))
     for got in run_thread_ranks(lambda comm: _train(whole, mesh, comm, **kw), mesh.size,
                                 timeout=TIMEOUT):
         _check(got, want)
@@ -337,3 +354,84 @@ def test_lora_only_over_dp2_tp2_matches_jax(one_torch_thread):
             lambda comm: _train(params, mesh, comm, fv=True, cfg=cfg, lora_only=True), 4,
             timeout=TIMEOUT):
         _check(got, (_named(state.params), metrics))
+
+
+# ---- refusals beside JAX's ------------------------------------------------------
+
+
+def _jax_seq_loss(cfg, s, cp, tp):
+    """JAX's loss_fn on a cp x tp mesh for two rows of ``s`` tokens (no
+    images): -> the loss, or the error's text."""
+    from long_vita_tpu.models.long_vita import init_long_vita_params as j_init
+
+    rng = np.random.default_rng(0)
+    v = cfg.text.vocab_size
+    batch = {"tokens": jnp.asarray(rng.integers(0, v, (2, s)), jnp.int32),
+             "positions": jnp.tile(jnp.arange(s, dtype=jnp.int32), (2, 1)),
+             "segment_ids": jnp.zeros((2, s), jnp.int32),
+             "logit_positions": jnp.tile(jnp.arange(s, dtype=jnp.int32), (2, 1)),
+             "labels": jnp.asarray(rng.integers(0, v, (2, s)), jnp.int32),
+             "images": None, "image_indices": None}
+    jpar = JParallel(_jmesh(cp, tp))
+    try:
+        return float(jax.jit(lambda p, b: jts.loss_fn(p, b, cfg, jpar, True, 2)[0])(
+            j_init(jax.random.PRNGKey(0), cfg), batch))
+    except ValueError as e:
+        return str(e)
+
+
+@pytest.mark.parametrize("s,cp", [(60, 1), (52, 2)], ids=["s60_tp4", "s52_cp2_tp4"])
+def test_tp4_refusals_beside_jax(s, cp):
+    """At tp 4 on the tiny configuration's 2 kv heads JAX's loss_fn raises
+    shard_map's divisibility error for any sequence: its attention cuts the
+    kv heads over tp (k_ [B, S, 2, D] over tp 4). The port shares each kv
+    head between tp // 2 ranks and trains there (tp4_shared_kv_heads
+    above); at S 52 over cp 2 x tp 4 it refuses by its own rule, a
+    sequence that does not split into cp x tp equal slices. With 4 kv
+    heads JAX trains both sequences (GSPMD's plain layout), and so does
+    not share that refusal (test_sequence_refusal_is_the_ports_own)."""
+    from long_vita_tpu.config import tiny_test_config as j_tiny
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig as PMeshConfig, validate_geometry
+
+    got = _jax_seq_loss(j_tiny(), s, cp, 4)
+    assert isinstance(got, str) and "not evenly divisible" in got and "k_" in got, got
+    if s % (cp * 4):
+        with pytest.raises(ValueError, match=f"seq_len {s} % cp\\*tp {cp * 4}"):
+            validate_geometry(CFG.text, PMeshConfig(cp=cp, tp=4), seq_len=s)
+    else:
+        validate_geometry(CFG.text, PMeshConfig(cp=cp, tp=4), seq_len=s)
+
+
+def test_sequence_refusal_is_the_ports_own():
+    """With 4 kv heads JAX's loss_fn trains a 62-token sequence over tp 4
+    and a 52-token one over cp 2 x tp 4, neither splitting into cp x tp
+    equal slices: GSPMD falls back to its plain layout. The port's
+    sequence-parallel layout needs equal slices and refuses both by name
+    (ROADMAP: a layout JAX trains that the port refuses)."""
+    import dataclasses
+
+    from long_vita_tpu.config import tiny_test_config as j_tiny
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig as PMeshConfig, validate_geometry
+
+    base = j_tiny()
+    cfg4 = dataclasses.replace(base, text=dataclasses.replace(base.text, num_key_value_heads=4))
+    port4 = dataclasses.replace(CFG.text, num_key_value_heads=4)
+    for s, cp in ((62, 1), (52, 2)):
+        assert np.isfinite(_jax_seq_loss(cfg4, s, cp, 4))
+        with pytest.raises(ValueError, match="sequence-parallel layout needs cp x tp equal"):
+            validate_geometry(port4, PMeshConfig(cp=cp, tp=4), seq_len=s)
+
+
+def test_fsdp_refusal_beside_jax():
+    """FSDP over dp 3: the tiny hidden dim 64 (as the 14B's 5120) does not
+    split into 3 pieces. JAX's shard_params (device_put onto its FSDP
+    specs) raises "should be divisible by"; the port's validate_geometry
+    raises by name before anything is cut."""
+    from long_vita_tpu.parallel.sharding import shard_params as j_shard_params
+    from long_vita_tpu_torch.parallel.mesh import MeshConfig as PMeshConfig, validate_geometry
+
+    jmesh = j_make_mesh(JMeshConfig(dp=3), devices=jax.devices()[:3])
+    with pytest.raises(ValueError, match="divisible by 3"):
+        j_shard_params(_jax_params(0), jmesh, fsdp=True)
+    with pytest.raises(ValueError, match="hidden 64 % dp 3"):
+        validate_geometry(CFG.text, PMeshConfig(dp=3), fsdp=True)
