@@ -146,12 +146,15 @@ Phases (each raises on failure; the script then exits non-zero):
      packed row with a 7-tile image, through train.build_from_recipe and
      Trainer.train: one step (the warm-up's lr-0 step; two until the 2-D
      tp geometry joined) at tp 1 (in this process), then at tp 2 in two
-     gloo processes sharing this card
+     gloo processes sharing this card on a row of 16383 tokens, which
+     does not split over tp (rank 1's slice ends in a pad row; against a
+     tp-1 reference at 16383)
      (parallel/comm.init_process_group(..., staged_device="cuda"): each
      collective's operands staged through pinned host memory), then at tp
      2 x tq 2 (the recipe's mesh {dp: 4, tp: 8} cut to {tp: 2, tq: 2}:
      every decoder weight cut over both matrix dims) in four such
-     processes from the same directory, each rank reading only its slices
+     processes from the same directory on 16384 tokens (against a tp-1
+     reference at 16384), each rank reading only its slices
      of the checkpoint. Gates, for each
      geometry: losses and grad_norm
      against tp 1, every rank's loss bits, the first step's gradients
@@ -5050,9 +5053,11 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     decoder cut to ``layers`` layers, the InternViT-300M tower at 24,
     written as a *_HF checkpoint directory; configs/stage2_16k.yaml's
     settings (the tower trainable at lr x 0.1, remat, 16384 tokens), the
-    logit budget cut to 4096; one packed row with a 7-tile image. First the
-    tp-1 reference (_reference: in this process on the card), then tp 2 in
-    two processes
+    logit budget cut to 4096; one packed row with a 7-tile image: of
+    ``seq - 1`` tokens for tp 2 (a row that does not split over tp: rank
+    1's slice ends in a pad row), of ``seq`` for tp 2 x tq (the even
+    path). First the tp-1 reference of each length
+    (_reference: in this process on the card), then tp 2 in two processes
     (backend "staged": gloo sharing this card with host-staged collectives;
     "nccl": a card each, from phase_cp_nccl; "gloo" with device "cpu": the
     rehearsal), each rank loading only its slices; with tq > 1, then 2-D tp
@@ -5088,7 +5093,7 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_train_", dir=build)
-    runs = {}
+    runs, ones = {}, {}
     try:
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(SEED + 72)
@@ -5114,21 +5119,23 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
         print(f"[tp train] the {layers}-layer VLM at full width ({whole_gb:.2f} GB, the decoder "
               f"{text_gb:.2f} GB) written as a checkpoint directory in "
               f"{time.perf_counter() - t0:.1f} s")
-        sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, seq=seq,
-                     budget=budget, fault_seq=fault_seq, steps=steps, answer=answer,
-                     text_sup=text_sup)
-        geometries = [("tp 2", {"tp": 2})]
+        sizes = dict(device=device, backend=backend, work=work, ckpt=ckpt, budget=budget,
+                     fault_seq=fault_seq, steps=steps, answer=answer, text_sup=text_sup)
+        geometries = [("tp 2", {"tp": 2}, seq - 1)]
         if tq > 1:
-            geometries.append((f"tp 2 x tq {tq}", {"tp": 2, "tq": tq}))
-        t0 = time.perf_counter()
-        one = _reference(_tp_train_worker, {**sizes, "backend": "gloo", "mesh": {}},
-                         2 * TP_TRAIN_TIMEOUT)
-        print(f"[tp train] the tp-1 reference {time.perf_counter() - t0:.1f} s (start-up, loading, "
-              "the gradient gate's passes, the steps)")
-        for geom, mesh in geometries:
+            geometries.append((f"tp 2 x tq {tq}", {"tp": 2, "tq": tq}, seq))
+        for geom, mesh, n in geometries:
+            if n not in ones:  # the tp-1 reference of the row's length
+                t0 = time.perf_counter()
+                ones[n] = _reference(_tp_train_worker,
+                                     {**sizes, "seq": n, "backend": "gloo", "mesh": {}},
+                                     2 * TP_TRAIN_TIMEOUT)
+                print(f"[tp train] the tp-1 reference at {n} tokens "
+                      f"{time.perf_counter() - t0:.1f} s (start-up, loading, the gradient "
+                      "gate's passes, the steps)")
             t0 = time.perf_counter()
             world = int(np.prod(list(mesh.values())))
-            runs[geom] = _spawn(_tp_train_worker, world, {**sizes, "mesh": mesh},
+            runs[geom] = _spawn(_tp_train_worker, world, {**sizes, "seq": n, "mesh": mesh},
                                 2 * TP_TRAIN_TIMEOUT)
             print(f"[tp train] the {geom} processes {time.perf_counter() - t0:.1f} s (start-up, "
                   "loading, the gradient gate's passes, the steps)")
@@ -5138,17 +5145,20 @@ def phase_tp_train(*, backend="staged", device="cuda", cfg=None, layers=TP_TRAIN
     where = {"staged": "{n} processes sharing one card, their collectives staged through "
                        "host memory over gloo: no multi-GPU time",
              "nccl": "{n} cards over NCCL", "gloo": "{n} gloo processes on the CPU"}[backend]
-    print(f"[tp train] tp 1 (the reference): read {one['bytes_read'] / 1e6:.3f} MB; "
-          f"steps {[round(t, 3) for t in one['step_s']]} s; peak allocated {one['peak_gb']:.2f} "
-          f"GB; losses {one['losses']} grad_norm {one['norms']}; {one['supervised']} "
-          f"supervised rows")
-    for geom, ranks in runs.items():
-        _tp_train_gates(geom, ranks, one, cfg, seq, fault_seq, whole_gb,
+    for n, one in ones.items():
+        print(f"[tp train] tp 1 (the reference) at {n} tokens: read "
+              f"{one['bytes_read'] / 1e6:.3f} MB; steps {[round(t, 3) for t in one['step_s']]} "
+              f"s; peak allocated {one['peak_gb']:.2f} GB; losses {one['losses']} grad_norm "
+              f"{one['norms']}; {one['supervised']} supervised rows")
+    for geom, mesh, n in geometries:
+        ranks = runs[geom]
+        print(f"[tp train] {geom} at {n} tokens, against tp 1 at {n}")
+        _tp_train_gates(geom, ranks, ones[n], cfg, n, fault_seq, whole_gb,
                         where.format(n=len(ranks)), cpu, failures)
     print(f"[tp train] phase {time.perf_counter() - t_phase:.1f} s")
     if failures:
         raise AssertionError(f"[tp train] {failures}")
-    counts = dict.fromkeys(one["counts"], 0)
+    counts = dict.fromkeys(next(iter(ones.values()))["counts"], 0)
     for ranks in runs.values():
         for r in ranks.values():
             for k in counts:

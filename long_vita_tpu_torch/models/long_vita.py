@@ -29,8 +29,11 @@ layout [B@dp, S@(cp, tp), H] for the whole forward (:268-310): the
 vocab-parallel lookup lands in this rank's 1/tp slice of its cp shard
 (qwen2.embed_tokens_vp), each projected image row is scattered into the
 rank whose slice holds its position, and the decoder runs sequence
-parallel. A trainable tower encodes every tile on every rank (JAX's XLA
-path, :323-330), a frozen one its share of the cp x tp ranks' tiles.
+parallel. A cp shard that does not split over tp is cut as GSPMD pads it:
+each slice has ceil(S_cp / tp) rows, the last ones ending in zero rows
+that no tile row, attention or logit row reaches. A trainable tower
+encodes every tile on every rank (JAX's XLA path, :323-330), a frozen one
+its share of the cp x tp ranks' tiles.
 ``head=False`` returns the budget rows of this rank's cp shard, the same
 rows on every tp rank (JAX's in_specs P(dp, cp, None) for the
 vocab-parallel CE): each tp rank contributes the rows of its slice and the
@@ -65,7 +68,7 @@ from long_vita_tpu_torch.models.projector import (
     project_features,
 )
 from long_vita_tpu_torch.models.qwen2 import KVCache, Qwen2Params
-from long_vita_tpu_torch.parallel.comm import reduce_from_tp
+from long_vita_tpu_torch.parallel.comm import reduce_from_tp, seq_slice
 
 
 class LongVITAParams(nn.Module):
@@ -191,16 +194,17 @@ def cp_logit_rows(logit_positions: torch.Tensor, seq_local: int, rank: int):
     return (local >= 0) & (local < seq_local), local
 
 
-def sp_logit_rows(hidden: torch.Tensor, logit_positions: torch.Tensor, cp_rank: int,
-                  tp) -> torch.Tensor:
-    """The budget rows of this rank's cp shard from the sequence-parallel
-    hidden slice [B, S_cp / tp, H]: -> [1, N, H], the rows of
-    cp_logit_rows(logit_positions, S_cp, cp_rank)'s mask in (row, m) order,
-    the same on every tp rank. Each tp rank fills the rows that lie in its
-    slice, zeros elsewhere, and the rows are summed over tp
-    (reduce_from_tp)."""
+def sp_logit_rows(hidden: torch.Tensor, logit_positions: torch.Tensor, s_cp: int,
+                  cp_rank: int, tp) -> torch.Tensor:
+    """The budget rows of this rank's cp shard of ``s_cp`` tokens from the
+    sequence-parallel hidden slice [B, ceil(s_cp / tp), H] (the last slices
+    end in pad rows where s_cp does not split over tp; no budget row lies
+    there): -> [1, N, H], the rows of cp_logit_rows(logit_positions, s_cp,
+    cp_rank)'s mask in (row, m) order, the same on every tp rank. Each tp
+    rank fills the rows that lie in its slice, zeros elsewhere, and the
+    rows are summed over tp (reduce_from_tp)."""
     b, s_sp, _ = hidden.shape
-    mask, local = cp_logit_rows(logit_positions, s_sp * tp.size, cp_rank)
+    mask, local = cp_logit_rows(logit_positions, s_cp, cp_rank)
     rows = torch.arange(b, device=hidden.device)[:, None].expand_as(mask)[mask]
     local = local[mask] - tp.rank * s_sp
     mine = (local >= 0) & (local < s_sp)
@@ -278,12 +282,12 @@ def long_vita_forward(
     elif sp:
         tp = params.text.tp_comm
         s_cp = input_ids.shape[1]
-        if s_cp % tp.size:
-            raise ValueError(f"a cp shard of {s_cp} tokens % tp {tp.size} != 0 (the "
-                             "sequence-parallel layout, parallel/mesh.validate_geometry)")
         inputs_embeds = qwen2.embed_tokens_vp(params.text, input_ids)
-        # the first position of this rank's slice in the whole sequence
-        offset = parallel.comm.rank * s_cp + tp.rank * (s_cp // tp.size)
+        # the first position of this rank's slice in the whole sequence, and
+        # its real rows (the rest pad an S_cp that does not split over tp)
+        width = seq_slice(s_cp, tp.size)
+        offset = parallel.comm.rank * s_cp + tp.rank * width
+        real = min(max(s_cp - tp.rank * width, 0), width)
     else:
         inputs_embeds = qwen2.embed_tokens(params.text, input_ids)
         offset = parallel.comm.rank * input_ids.shape[1] if cp > 1 else 0
@@ -300,6 +304,8 @@ def long_vita_forward(
                 image_embeds = image_embeds.narrow(-1, tq.rank * h, h)
             idx = image_indices.clone()
             idx[1] -= offset
+            if sp and real < width:  # no tile row lands in a pad row
+                idx[1] = torch.where(idx[1] < real, idx[1], -1)
             inputs_embeds = merge_image_embeddings_chunked(
                 inputs_embeds, image_embeds, idx, vision_chunk or 256
             )
@@ -313,8 +319,8 @@ def long_vita_forward(
     if hidden is None:  # a pipeline stage before the last
         out = None
     elif logit_positions is not None and sp:
-        hidden = sp_logit_rows(hidden, logit_positions, parallel.comm.rank if cp > 1 else 0,
-                               params.text.tp_comm)
+        hidden = sp_logit_rows(hidden, logit_positions, position_ids.shape[1],
+                               parallel.comm.rank if cp > 1 else 0, params.text.tp_comm)
     elif logit_positions is not None and cp > 1:
         mask, local = cp_logit_rows(logit_positions, hidden.shape[1], parallel.comm.rank)
         rows = torch.arange(hidden.shape[0], device=hidden.device)[:, None].expand_as(mask)

@@ -42,12 +42,15 @@ Differences from the JAX package, all of form rather than of numbers:
   - training over tp (sequence parallelism, JAX's training layout
     [B@dp, S@(cp, tp), H], long_vita.py:268-310) is Megatron's sequence
     parallelism written out: x is this rank's 1/tp slice of its cp shard's
-    sequence, RMSNorm runs on the slice, ``gather_seq`` (all-gather, its
-    backward a reduce-scatter) precedes q/k/v and gate/up, ``scatter_seq``
-    (reduce-scatter, its backward an all-gather) follows o_proj and
-    down_proj, and the lookup is vocab-parallel straight into the slice
-    (``embed_tokens_vp``, JAX :918). Attention runs on the rank's q and kv
-    heads over the whole cp shard (the ring over cp as before);
+    sequence (ceil(S_cp / tp) rows where S_cp does not split: the last
+    slices end in zero rows, GSPMD's padding, which the gather drops and
+    the reduce-scatter restores as zeros), RMSNorm runs on the slice,
+    ``gather_seq`` (all-gather, its backward a reduce-scatter) precedes
+    q/k/v and gate/up, ``scatter_seq`` (reduce-scatter, its backward an
+    all-gather) follows o_proj and down_proj, and the lookup is
+    vocab-parallel straight into the slice (``embed_tokens_vp``, JAX :918).
+    Attention runs on the rank's q and kv heads over the whole cp shard
+    (the ring over cp as before);
   - under FSDP (``Qwen2Params.fsdp``, parallel/sharding.shard_params(...,
     fsdp=True)) the tree holds 1/dp of each weight and parallel/fsdp.py
     gathers a layer's norms and projection weights over dp just before the
@@ -124,6 +127,7 @@ from long_vita_tpu_torch.parallel.comm import (
     gather_seq,
     reduce_from_tp,
     scatter_seq,
+    seq_slice,
 )
 from long_vita_tpu_torch.parallel.fsdp import embed_table, gathered_layer, head_weight, streaming
 
@@ -726,8 +730,8 @@ def decoder_layer(
     with sp): x is also the rank's hidden slice (see the module
     docstring). moe: a MoE layer's routing context (moe_route)."""
 
-    def gathered(h):
-        return gather_seq(h, tp, 1) if sp else h
+    def gathered(h):  # position_ids hold the whole sequence's true length
+        return gather_seq(h, tp, 1, position_ids.shape[1]) if sp else h
 
     x = x + _attention_block(
         layer, gathered(rms_norm(x, layer.input_norm, cfg.rms_norm_eps, tq)), cos, sin, cfg,
@@ -939,7 +943,7 @@ def _pipelined_decoder(params: Qwen2Params, inputs_embeds, position_ids, cfg: Te
     local = {"cos": split(cos), "sin": split(sin), "pos": split(position_ids)}
     if segment_ids is not None:
         local["seg"] = split(segment_ids)
-    s_x = s // tp.size if sp else s
+    s_x = seq_slice(s, tp.size) if sp else s
     dev = params.embed.device
     specs = {"x": ((b // m, s_x, cfg.hidden_size), params.embed.dtype, dev)}
     moe = moe_route(params, parallel, sp, False) if cfg.num_experts else None
@@ -1018,18 +1022,20 @@ def embed_tokens_vp(params: Qwen2Params, input_ids: torch.Tensor) -> torch.Tenso
     vocab slice, zeros elsewhere (an id past the whole table is zeros on
     every rank, as JAX's vp path gives, where the plain lookup clamps), and
     the partial rows are reduce-scattered over tp along the sequence
-    (``scatter_seq``): -> this rank's slice [B, S/tp, H], bit for bit the
-    plain rows (one real row plus zeros). The embedding's gradient is the
-    all-gathered rows' gradient at the rank's own ids. On an FSDP shard the
-    rank's tp slice of the table is gathered over dp first. On a 2-D tp
+    (``scatter_seq``): -> this rank's slice [B, ceil(S/tp), H], bit for bit
+    the plain rows (one real row plus zeros), the last slices ending in
+    zero rows where S does not split over tp. The embedding's gradient is
+    the all-gathered rows' gradient at the rank's own ids. On an FSDP shard
+    the rank's tp slice of the table is gathered over dp first. On a 2-D tp
     shard the table is the rank's [V/tp, H/tq] block and the rows its
-    hidden slice; the ids are clamped to the whole table first, since JAX
-    looks them up plainly there (long_vita.py:294-300: past the table, the
-    last row)."""
+    hidden slice. Where JAX looks the ids up plainly (long_vita.py:293-301:
+    under tq, on a pipeline stage, or at an S that does not split over tp)
+    they are clamped to the whole table first: past the table, the last
+    row."""
     tp = params.tp_comm
     table = embed_table(params)
     n = table.shape[0]
-    if params.tq_comm is not None:
+    if params.tq_comm is not None or params.pp is not None or input_ids.shape[1] % tp.size:
         input_ids = input_ids.clamp(max=n * tp.size - 1)
     local = input_ids.long() - tp.rank * n
     hit = (local >= 0) & (local < n)

@@ -681,26 +681,45 @@ class _GatherFromTP(torch.autograd.Function):
         return torch.chunk(g, ctx.comm.size, ctx.dim)[ctx.comm.rank].contiguous(), None, None
 
 
+def _pad_rows(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+    """x with zero rows appended along ``dim`` up to ``rows`` (GSPMD's
+    padding of a dim that does not split evenly); x itself when it has
+    them."""
+    pad = rows - x.shape[dim]
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, dim):
+    def forward(ctx, x, comm, dim, n):
         ctx.comm, ctx.dim = comm, dim
-        return comm.all_gather(x, dim)
+        out = comm.all_gather(x, dim)
+        ctx.rows = out.shape[dim]
+        return out if n == ctx.rows else out.narrow(dim, 0, n)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.reduce_scatter(g.contiguous(), ctx.dim), None, None
+        g = _pad_rows(g.contiguous(), ctx.dim, ctx.rows)
+        return ctx.comm.reduce_scatter(g, ctx.dim), None, None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, dim):
-        ctx.comm, ctx.dim = comm, dim
-        return comm.reduce_scatter(x, dim)
+        ctx.comm, ctx.dim, ctx.n = comm, dim, x.shape[dim]
+        return comm.reduce_scatter(_pad_rows(x, dim, comm.size * seq_slice(ctx.n, comm.size)),
+                                   dim)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.all_gather(g.contiguous(), ctx.dim), None, None
+        out = ctx.comm.all_gather(g.contiguous(), ctx.dim)
+        if ctx.n != out.shape[ctx.dim]:
+            out = out.narrow(ctx.dim, 0, ctx.n).contiguous()
+        return out, None, None
 
 
 def copy_to_tp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
@@ -728,14 +747,28 @@ def gather_from_tp(x: torch.Tensor, comm: Comm, dim: int = -1) -> torch.Tensor:
     return x if comm.size == 1 else _GatherFromTP.apply(x, comm, dim)
 
 
-def gather_seq(x: torch.Tensor, comm: Comm, dim: int = 1) -> torch.Tensor:
+def seq_slice(n: int, size: int) -> int:
+    """The rows of one rank's slice when ``n`` rows of a sequence are cut
+    over ``size`` ranks: ceil(n / size), the last slices carrying zero
+    rows past the end where ``n`` does not split (GSPMD's padded layout)."""
+    return -(-n // size)
+
+
+def gather_seq(x: torch.Tensor, comm: Comm, dim: int = 1, n: Optional[int] = None) -> torch.Tensor:
     """All-gather along ``dim`` forward, reduce-scatter backward (sequence
-    parallelism: the rank's slice of the sequence -> the whole)."""
-    return x if comm.size == 1 else _GatherSeq.apply(x, comm, dim)
+    parallelism: the rank's slice of the sequence -> the whole). ``n``: the
+    whole's true row count (default: the slices' sum); the zero rows that
+    pad the last slices (``seq_slice``) are dropped, and the backward pads
+    the gradient with zeros before its reduce-scatter."""
+    if comm.size == 1:
+        return x
+    return _GatherSeq.apply(x, comm, dim, x.shape[dim] * comm.size if n is None else n)
 
 
 def scatter_seq(x: torch.Tensor, comm: Comm, dim: int = 1) -> torch.Tensor:
     """Reduce-scatter along ``dim`` forward, all-gather backward (partial
-    sums of the whole sequence -> the rank's summed slice)."""
+    sums of the whole sequence -> the rank's summed slice). A whole that
+    does not split over ``comm`` is padded with zero rows first, so each
+    rank gets ``seq_slice(n, size)`` rows; the backward drops the pad
+    rows' gradient after its all-gather."""
     return x if comm.size == 1 else _ScatterSeq.apply(x, comm, dim)
-

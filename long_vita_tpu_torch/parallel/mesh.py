@@ -143,15 +143,15 @@ def make_mesh(cfg: Optional[MeshConfig] = None, comm: Optional[Comm] = None) -> 
 def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
                       virtual_pp: int = 1, fsdp: bool = False) -> None:
     """Fail fast when a model geometry cannot shard over a mesh (JAX :84,
-    the same checks and messages), and, for training over tp, a sequence
-    that does not split into cp x tp equal slices: the port's sequence-
-    parallel layout needs them, where JAX's GSPMD falls back to its plain
-    layout and trains (long_vita.py:283-292; at the tiny configuration's 2
-    kv heads over tp 4 JAX raises for any sequence, its attention cutting
-    the kv heads over tp). A logit budget that does not divide over cp is
-    no refusal: JAX takes its plain head and CE there (train_step.py:
-    75-84), the port its vocab-parallel CE over each cp shard's budget
-    rows, however many (the same loss and gradients).
+    the same checks and messages). A sequence that does not split into cp
+    x tp equal slices is no refusal: JAX's GSPMD pads its [B@dp, S@(cp,
+    tp), H] layout (long_vita.py:268-301), and the port's sequence-parallel
+    layout pads the last tp slices with zero rows (models/qwen2.py); at the
+    tiny configuration's 2 kv heads over tp 4 JAX raises for any sequence,
+    its attention cutting the kv heads over tp. A logit budget that does
+    not divide over cp is no refusal: JAX takes its plain head and CE there
+    (train_step.py:75-84), the port its vocab-parallel CE over each cp
+    shard's budget rows, however many (the same loss and gradients).
     fsdp (over dp > 1): every dim FSDP cuts splits into dp equal pieces,
     the hidden dim (the column kernels' input, the row kernels' output,
     the norms) and the vocabulary into tp x dp pieces (the embedding and
@@ -182,9 +182,6 @@ def validate_geometry(text_cfg, mesh_cfg: MeshConfig, seq_len: int = 0,
         errs.append("pp and cp are mutually exclusive (pipeline runs cp=1)")
     if seq_len and cp > 1 and seq_len % (2 * cp):
         errs.append(f"seq_len {seq_len} % 2*cp {2 * cp} != 0 (zigzag needs 2cp equal chunks)")
-    if seq_len and tp * mesh_cfg.tq > 1 and seq_len % (cp * tp):
-        errs.append(f"seq_len {seq_len} % cp*tp {cp * tp} != 0 (the sequence-parallel layout "
-                    "needs cp x tp equal slices)")
     dp = mesh_cfg.dp
     experts = getattr(text_cfg, "num_experts", 0)
     if experts > 0 and dp > 1 and experts % dp:

@@ -362,6 +362,56 @@ def test_conjugate_collectives_on_local_comm():
     _check_conjugates([_conjugates(LocalComm())])
 
 
+def _uneven_seq(comm) -> dict:
+    """gather_seq and scatter_seq on a whole of n = 4 * size - 3 rows, which
+    does not split over the ranks: -> numpy (x, y, g, x.grad) of each."""
+    from long_vita_tpu_torch.parallel.comm import gather_seq, scatter_seq, seq_slice
+
+    gen = torch.Generator().manual_seed(comm.rank)
+    n = 4 * comm.size - 3
+    width = seq_slice(n, comm.size)
+    real = min(max(n - comm.rank * width, 0), width)
+    out = {}
+    # a slice's pad rows are zeros, as the layout keeps them
+    x = torch.randn(2, width, 3, generator=gen)
+    x[:, real:] = 0
+    for name, fn, x in (("gather", lambda t: gather_seq(t, comm, 1, n), x),
+                        ("scatter", lambda t: scatter_seq(t, comm, 1),
+                         torch.randn(2, n, 3, generator=gen))):
+        x = x.requires_grad_()
+        y = fn(x)
+        g = torch.randn(*y.shape, generator=gen)
+        y.backward(g)
+        out[name] = tuple(t.detach().numpy() for t in (x, y, g, x.grad))
+    return out
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_uneven_sequence_collectives_on_thread_ranks(size):
+    """A whole that does not split over the ranks (GSPMD's padded layout):
+    each slice has ceil(n / size) rows, the last ones zero rows past n.
+    gather_seq drops them (its gradient zero there), scatter_seq pads the
+    whole with them (its gradient the gathered upstream gradients, cut to
+    n rows): exact for gathers and slices, 1e-6 for sums."""
+    res = run_thread_ranks(_uneven_seq, size, timeout=30)
+    n = 4 * size - 3
+    width = -(-n // size)
+    xs = {k: [r[k][0] for r in res] for k in ("gather", "scatter")}
+    gs = {k: [r[k][2] for r in res] for k in xs}
+    pad = np.zeros((2, width * size - n, 3), np.float32)
+    for r, got in enumerate(res):
+        sl = slice(r * width, (r + 1) * width)
+        assert got["gather"][1].shape == (2, n, 3)
+        np.testing.assert_array_equal(got["gather"][1], np.concatenate(xs["gather"], 1)[:, :n])
+        want = np.concatenate([sum(gs["gather"]), pad], 1)[:, sl]
+        np.testing.assert_allclose(got["gather"][3], want, rtol=1e-6, atol=1e-6)
+        assert got["scatter"][1].shape == (2, width, 3)
+        want = np.concatenate([sum(xs["scatter"]), pad], 1)[:, sl]
+        np.testing.assert_allclose(got["scatter"][1], want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got["scatter"][3],
+                                      np.concatenate(gs["scatter"], 1)[:, :n])
+
+
 def _gloo_conjugate_worker(rank, world, init, out):
     torch.set_num_threads(1)
     try:

@@ -186,6 +186,29 @@ def test_packs_batches_and_reports_match_jax(corpus, tok, tmp_path, joint):
     assert "=== batch row 1 ===" in log and "<|im_start|>assistant" in log
 
 
+def test_odd_seq_len_packs_match_jax(corpus, tok):
+    """seq_len 16383, the length the card's tp-2 training check runs: packs
+    of exactly 16383 tokens, and their batch, bit for bit JAX's."""
+    seq = 16383
+    mm, jmm = _mms(tok)
+    samples = jds.load_corpus(corpus, seed=3)
+    got = list(tds.PackedDataset(samples, tds.ChatMLSupervision(mm), seq,
+                                 pad_token_id=tok.pad_token_id))
+    want = list(jds.PackedDataset(samples, jds.ChatMLSupervision(jmm), seq,
+                                  pad_token_id=tok.pad_token_id))
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        assert len(g.tokens) == len(g.labels) == len(g.position_ids) == seq
+        _same_pack(g, w)
+    batch = tloss.collate_packs(got[:2], seq)
+    jbatch = jds.collate_packs(want[:2], seq)
+    assert batch["tokens"].shape[1] == seq and batch.keys() == jbatch.keys()
+    for k in batch:
+        assert (batch[k] is None) == (jbatch[k] is None), k
+        if batch[k] is not None:
+            np.testing.assert_array_equal(batch[k], jbatch[k], err_msg=k)
+
+
 MESSAGES = [
     [{"role": "user", "content": "hi"}],
     [{"role": "system", "content": "sys"}, {"role": "user", "content": "a"},

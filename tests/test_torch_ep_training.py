@@ -7,7 +7,9 @@ the port dropped some; moe_aux_loss_coef 0.1):
   - one step's gradients of every leaf (summed as the step sums them,
     gathered over dp and tp) and the loss against jax.grad of JAX's loss_fn
     on the same mesh: dp 2 (EP), dp 2 x tp 2, dp 2 x cp 2 (ring, zigzag
-    order), cp 2 x tp 2 (local mode over the cp ranks): 1e-4 + 1e-6;
+    order), cp 2 x tp 2 (local mode over the cp ranks): 1e-4 + 1e-6; and
+    sequences that do not split into cp x tp equal slices (S 63 over tp 2,
+    also against one device; S 52 over cp 2 x tp 4, 4 kv heads);
   - planted faults: the expert gradients summed over dp as if replicated,
     and grad_norm counting them as if replicated over dp, must fail the
     Trainer's comparison at dp 2 (which passes without them).
@@ -64,8 +66,8 @@ SPECS = [(1, 2, (40,)), (2, 1, (20, 50)), (3, 0, (30,)), (4, 2, (12, 44)), (5, 1
          (11, 0, (28,)), (12, 1, (10, 30))]
 
 
-def packs(cls, n: int = 6):
-    return [_pack(s, k, c, cls) for s, k, c in SPECS[:n]]
+def packs(cls, n: int = 6, seq: int = S):
+    return [_pack(s, k, c, cls, seq) for s, k, c in SPECS[:n]]
 
 
 def jax_params(cfg=CFG):
@@ -172,36 +174,78 @@ def test_moe_gradients_over_the_mesh_match_jax(geom, one_torch_thread):
     dp and tp, against jax.grad of JAX's loss_fn on the same mesh."""
     from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
 
-    m = GRAD_MESHES[geom]
-    jp = jax_params()
-    jbatch = next(jtrainer.batch_iterator(iter(packs(jdata.Pack, 2)), 2, S, m.cp))
-    jpar = JParallel(jmesh(m))
-    jl, jg = jax.jit(jax.value_and_grad(
-        lambda p, b: jts.loss_fn(p, b, CFG, jpar, False, 2, True)[0]))(jp, _jnp(jbatch))
-    want = _named(jg)
-    whole = long_vita_params_from_jax(jp, device="cpu")
-    batch = next(batch_iterator(iter(packs(tloss.Pack, 2)), 2, S, m.cp))
+    _check_moe_gradients(GRAD_MESHES[geom])
+
+
+def _kv4(cfg):
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_key_value_heads=4))
+
+
+UNEVEN = {
+    # rows of 63 tokens over tp 2: every tp rank routes the 63 gathered
+    # tokens, never the pad row that ends rank 1's slice
+    "tp2_s63": dict(m=MeshConfig(tp=2), s=63),
+    # 52 over cp 2 x tp 4 (4 kv heads): cp shards of 26 tokens, slices of
+    # 7. Against the mesh alone: the routing batch is in zigzag order, so
+    # copies drop by that order, in JAX as in the port (JAX's one-device
+    # loss is 3.6e-5 off its cp mesh's here, 4.6e-6 at S 64 over cp 2)
+    "cp2_tp4_s52": dict(m=MeshConfig(cp=2, tp=4), s=52, kv4=True, whole=False),
+}
+
+
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_moe_uneven_sequence_matches_jax(case, one_torch_thread):
+    """A sequence that does not split into cp x tp equal slices, which
+    JAX's loss_fn trains (GSPMD pads its layout): the pad rows are routed
+    nowhere, so capacity, the global slot ids and the drops are JAX's. The
+    loss and every gradient against JAX's loss_fn on the same mesh and on
+    one device (where the routing order is the same), as above."""
+    kw = UNEVEN[case]
+    cfgs = (_kv4(CFG), _kv4(PORT_CFG)) if kw.get("kv4") else (CFG, PORT_CFG)
+    _check_moe_gradients(kw["m"], kw["s"], *cfgs, whole=kw.get("whole", True))
+
+
+def _check_moe_gradients(m: MeshConfig, s: int = S, jcfg=CFG, cfg=PORT_CFG, whole=False):
+    """One step's loss and gradients of the port over ``m`` (thread-ranks,
+    2 rows of ``s`` tokens) against JAX's loss_fn on the same mesh (and,
+    ``whole``, on one device too): the loss at 1e-5, the gradients at
+    1e-4 + 1e-6; asserts the port dropped copies."""
+    from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
+
+    jp = jax_params(jcfg)
+    jbatch = next(jtrainer.batch_iterator(iter(packs(jdata.Pack, 2, s)), 2, s, m.cp))
+    refs = [(JParallel(jmesh(m)), jbatch)]
+    if whole:
+        refs.append((None, next(jtrainer.batch_iterator(iter(packs(jdata.Pack, 2, s)), 2, s, 1))))
+    wants = []
+    for jpar, b in refs:
+        jl, jg = jax.jit(jax.value_and_grad(
+            lambda p, b: jts.loss_fn(p, b, jcfg, jpar, False, 2, True)[0]))(jp, _jnp(b))
+        wants.append((float(jl), _named(jg)))
+    tree = long_vita_params_from_jax(jp, device="cpu")
+    batch = next(batch_iterator(iter(packs(tloss.Pack, 2, s)), 2, s, m.cp))
     tmoe.reset_stats()
 
     def rank(comm):
         from long_vita_tpu_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh(m, comm)
-        local = shard_params(whole, mesh, PORT_CFG, own=True)
+        local = shard_params(tree, mesh, cfg, own=True)
         grads, loss, _, _ = tts._backward(
-            local, make_global_batch(local_rows(batch, mesh, 2), mesh, "cpu"), PORT_CFG, False,
+            local, make_global_batch(local_rows(batch, mesh, 2), mesh, "cpu"), cfg, False,
             2, True, False, mesh=mesh, parallel=tts.make_parallel_config(mesh))
-        layout = rank_layout(local, PORT_CFG, mesh)
+        layout = rank_layout(local, cfg, mesh)
         return loss, gather_named(grads, layout, mesh.tp_comm, dp_comm=mesh.dp_comm)
 
     got = run_thread_ranks(rank, m.size, timeout=TIMEOUT)
     assert tmoe.stats()["dropped"] > 0, tmoe.stats()
     for loss, grads in got:
-        np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
-        assert set(grads) == {n for n in want if not n.startswith("vision.")}
-        for n, g in grads.items():
-            np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=1e-4, atol=1e-6,
-                                       err_msg=n)
+        for jl, want in wants:
+            np.testing.assert_allclose(loss.item(), jl, rtol=1e-5)
+            assert set(grads) == {n for n in want if not n.startswith("vision.")}
+            for n, g in grads.items():
+                np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=1e-4, atol=1e-6,
+                                           err_msg=n)
 
 
 # ---- planted faults ----------------------------------------------------------------

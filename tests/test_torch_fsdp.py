@@ -17,7 +17,8 @@ holds each kv head on two ranks), over thread-ranks:
   - the Trainer with FSDP over 3 steps against JAX's FSDP train step on
     the same mesh (dp 2; dp 2 x cp 2 x tp 2) and against the one-device
     step (dp 4 x tp 2, dp 2 x tp 4, remat full and "flash", accumulation,
-    a trainable tower, lora_only over dp 2 x tp 2): losses, grad_norm and
+    a trainable tower, lora_only over dp 2 x tp 2, dp 2 x tp 2 on 63-token
+    rows that do not split over tp): losses, grad_norm and
     the gathered parameters at the one-device step's tolerances (1e-5
     relative, +1e-5 absolute);
   - two planted faults must each fail that comparison: grad_norm without
@@ -244,15 +245,15 @@ def _jax_fsdp_reference(m: MeshConfig):
 
 
 def _train_fsdp(params, m, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_only=False,
-                rows=2):
+                rows=2, seq=S):
     """One rank: a Trainer with FSDP over ``comm`` (the whole tree handed in;
-    the Trainer cuts the rank's shard) on the zigzag stream -> (losses, grad
-    norms, the parameters gathered over dp and tp), after checking that the
-    rank's parameters and moments are its shards. rows: a step's rows (2
-    micro-batches of 2 with accum)."""
+    the Trainer cuts the rank's shard) on the zigzag stream of ``seq``-token
+    rows -> (losses, grad norms, the parameters gathered over dp and tp),
+    after checking that the rank's parameters and moments are its shards.
+    rows: a step's rows (2 micro-batches of 2 with accum)."""
     rows = 4 if accum else rows
     tcfg = TrainerConfig(
-        seq_len=S, logit_budget=S, global_batch=rows, micro_batch=2 if accum else 0,
+        seq_len=seq, logit_budget=seq, global_batch=rows, micro_batch=2 if accum else 0,
         steps=STEPS, mesh=m, remat=remat, vision_chunk=2, fsdp=True,
         optim=topt.OptimizerConfig(**OPTIM, freeze_vision=fv, lora_only=lora_only))
     tr = Trainer(params, cfg, tcfg, comm=comm)
@@ -266,8 +267,8 @@ def _train_fsdp(params, m, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_
         return state, mt
 
     setattr(tr, name, logged)
-    packs = _packs(tloss.Pack)
-    losses = tr.train(batch_iterator(iter(packs * (rows // 2)), rows if not accum else 2, S,
+    packs = _packs(tloss.Pack, seq)
+    losses = tr.train(batch_iterator(iter(packs * (rows // 2)), rows if not accum else 2, seq,
                                      m.cp))["losses"]
     layout = rank_layout(tr.state.params, cfg, tr.mesh)
     named = dict(tr.state.params.named_parameters())
@@ -333,6 +334,8 @@ CASES = {
     "dp2_tp2_remat_flash": dict(mesh=MeshConfig(dp=2, tp=2), fv=True, remat="flash"),
     "dp2_grad_accum": dict(mesh=MeshConfig(dp=2), fv=True, accum=True),
     "dp2_cp2_trainable_tower": dict(mesh=MeshConfig(dp=2, cp=2), fv=False),
+    # rows of 63 tokens, which do not split over tp (rank 1's slice ends in a pad row)
+    "dp2_tp2_s63": dict(mesh=MeshConfig(dp=2, tp=2), fv=True, seq=63),
 }
 
 
@@ -343,7 +346,8 @@ def _want(kw):
         return _accum_reference()
     if kw.get("rows") == 4:
         return _rows4_reference()
-    return _reference(kw["fv"])
+    seq = kw.get("seq", S)
+    return _reference(kw["fv"], budget=seq, seq=seq)
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -8,7 +8,8 @@ decoder layers (f32; thread-ranks, one a rank of the mesh):
     step on the same mesh (init_train_state and make_train_step with its
     virtual_pp, the interleaved stack compared in canonical order) over 3
     steps: losses, grad_norm and the gathered parameters at 1e-5 relative;
-    every rank reports the same losses;
+    every rank reports the same losses; pp 2 x tp 2 on 63-token rows (a
+    stage's slices padded) against JAX on the same mesh and on one device;
   - stage 1 (freeze_vision and freeze_text: the projector alone moves,
     every other leaf keeps its bits) with remat over pp 2 x v 2, and
     gradient accumulation over pp 2, against JAX on the same mesh;
@@ -66,21 +67,21 @@ SPECS = [(1, 2, (40,)), (2, 1, (20, 50)), (3, 0, (30,)), (4, 2, (12, 44)), (5, 1
          (11, 0, (28,)), (12, 1, (10, 30))]
 
 
-def _packs(cls):
+def _packs(cls, seq=S):
     # the 4-layer configuration's vocabulary and tile tokens are the 2-layer one's
-    return [_pack(s, n, c, cls) for s, n, c in SPECS]
+    return [_pack(s, n, c, cls, seq) for s, n, c in SPECS]
 
 
 _REFERENCE: dict = {}
 
 
 def _reference(mesh: dict, v: int = 1, fv: bool = True, ft: bool = False, remat=False,
-               accum: bool = False):
+               accum: bool = False, seq: int = S):
     """JAX's train step (with ``accum`` its gradient accumulation, two
     micro-batches of BATCH / 2 rows) on the pp mesh ``mesh`` (one device
-    when {}), STEPS steps on the whole batches: -> (named params in
-    canonical order, [metrics])."""
-    key = (tuple(sorted(mesh.items())), v, fv, ft, remat, accum)
+    when {}), STEPS steps on the whole batches of ``seq``-token rows: ->
+    (named params in canonical order, [metrics])."""
+    key = (tuple(sorted(mesh.items())), v, fv, ft, remat, accum, seq)
     if key in _REFERENCE:
         return _REFERENCE[key]
     jmcfg = JMeshConfig(**mesh)
@@ -92,7 +93,7 @@ def _reference(mesh: dict, v: int = 1, fv: bool = True, ft: bool = False, remat=
                                                             freeze_text=ft), 2)
     state, metrics = jts.init_train_state(jparams, jtx, jmesh, **pp_kw), []
     rows = BATCH // 2 if accum else BATCH
-    batches = list(jtrainer.batch_iterator(iter(_packs(jdata.Pack)), rows, S, 1))
+    batches = list(jtrainer.batch_iterator(iter(_packs(jdata.Pack, seq)), rows, seq, 1))
     if accum:
         grad_fn, accum_fn, apply_fn = jts.make_grad_accum_steps(CFG, jtx, jmesh, **pp_kw,
                                                                 **flags)
@@ -119,12 +120,12 @@ def _reference(mesh: dict, v: int = 1, fv: bool = True, ft: bool = False, remat=
     return _REFERENCE[key]
 
 
-def _train(params, mesh, comm, *, v=1, fv=True, ft=False, remat=False, accum=False):
+def _train(params, mesh, comm, *, v=1, fv=True, ft=False, remat=False, accum=False, seq=S):
     """One rank: a Trainer over ``comm`` (the whole tree handed in; the
-    Trainer cuts the rank's stage and shard) -> (losses, grad norms, the
-    whole parameters gathered over tp and pp)."""
+    Trainer cuts the rank's stage and shard) on ``seq``-token rows ->
+    (losses, grad norms, the whole parameters gathered over tp and pp)."""
     tcfg = TrainerConfig(
-        seq_len=S, logit_budget=S, global_batch=BATCH, micro_batch=BATCH // 2 if accum else 0,
+        seq_len=seq, logit_budget=seq, global_batch=BATCH, micro_batch=BATCH // 2 if accum else 0,
         steps=STEPS, mesh=mesh, remat=remat, vision_chunk=2, virtual_pp=v,
         optim=topt.OptimizerConfig(**OPTIM, freeze_vision=fv, freeze_text=ft))
     tr = Trainer(copy.deepcopy(params), CFG, tcfg, comm=comm)
@@ -139,7 +140,8 @@ def _train(params, mesh, comm, *, v=1, fv=True, ft=False, remat=False, accum=Fal
 
     setattr(tr, name, logged)
     rows = BATCH // 2 if accum else BATCH
-    losses = tr.train(batch_iterator(iter(_packs(tloss.Pack)), rows, S, mesh.cp))["losses"]
+    losses = tr.train(batch_iterator(iter(_packs(tloss.Pack, seq)), rows, seq,
+                                     mesh.cp))["losses"]
     whole = gather_params(tr.state.params, tr.mesh, CFG) if tr.mesh is not None else \
         tr.state.params
     return losses, norms, {n: p.detach().clone() for n, p in whole.named_parameters()}
@@ -180,6 +182,18 @@ def test_trainer_over_pp_matches_jax(case, one_torch_thread):
     want = _reference(kw["mesh"], kw["v"])
     for got in _ranks(MeshConfig(**kw["mesh"]), v=kw["v"]):
         _check(got, want)
+
+
+def test_uneven_sequence_over_pp2_tp2_matches_jax(one_torch_thread):
+    """Rows of 63 tokens over pp 2 x tp 2: each stage's activation is the
+    rank's slice of 32 rows, rank 1's ending in a pad row, and the first
+    stage looks the ids up plainly (JAX's lookup on a pp mesh). Losses,
+    grad_norm and parameters after 3 steps against JAX's train step on the
+    same mesh and on one device."""
+    wants = [_reference(dict(pp=2, tp=2), seq=63), _reference({}, seq=63)]
+    for got in _ranks(MeshConfig(pp=2, tp=2), seq=63):
+        for want in wants:
+            _check(got, want)
 
 
 def test_stage1_with_remat_over_pp2_v2_matches_jax(one_torch_thread):

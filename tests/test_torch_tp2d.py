@@ -23,7 +23,8 @@ thread-ranks:
     unsharded run: loss rtol 1e-6, gradients atol 2e-4 (JAX's own
     test_tp2d_grads_match_unsharded): dp 2 x tp 2 x tq 2 (JAX's test's
     rows), tp 1 x tq 2, cp 2 x tp 2 x tq 2 with the ring, cp 2 x tq 2
-    Ulysses, and images in the rows with the tower trainable;
+    Ulysses, and images in the rows with the tower trainable, also on
+    63-token rows that do not split over tp (grad_norm too, at 1e-5);
   - the Trainer over 3 steps against JAX's make_train_step on one device
     (1e-5 relative): dp 2 x tp 2 x tq 2, tp 2 x tq 2 with remat "flash"
     and gradient accumulation, lora_only over dp 2 x tp 2 x tq 2;
@@ -350,6 +351,9 @@ GRAD_CASES = {
     "cp2_tq2_ulysses": dict(mesh=MeshConfig(cp=2, tq=2), rows="text", cp_algo="ulysses"),
     # packed rows with images, the tower trainable
     "tp2_tq2_images": dict(mesh=MeshConfig(tp=2, tq=2), rows="images"),
+    # rows of 63 tokens, which do not split over tp: rank 1's slice ends in
+    # a pad row (zero in every tq slice through the residual adds)
+    "tp2_tq2_images_s63": dict(mesh=MeshConfig(tp=2, tq=2), rows="images", seq=63),
 }
 
 
@@ -376,11 +380,12 @@ def test_loss_gradients_match_jax(case, one_torch_thread):
             jbatch = batch
         port_batch, chunk = jbatch, 0
     else:
-        jbatch = next(jtrainer.batch_iterator(iter(_packs(jdata.Pack)[:2]), 2, S, mc.cp))
-        port_batch = next(batch_iterator(iter(_packs(tloss.Pack)[:2]), 2, S, mc.cp))
+        seq = spec.get("seq", S)
+        jbatch = next(jtrainer.batch_iterator(iter(_packs(jdata.Pack, seq)[:2]), 2, seq, mc.cp))
+        port_batch = next(batch_iterator(iter(_packs(tloss.Pack, seq)[:2]), 2, seq, mc.cp))
         chunk = 2
     ref_loss, ref = _jax_grads(jparams, batch if spec["rows"] == "text" else jbatch, None,
-                               chunk=chunk, key=spec["rows"])
+                               chunk=chunk, key=(spec["rows"], spec.get("seq", S)))
     jl, want = _jax_grads(jparams, jbatch, JMeshConfig(**_dims(mc)), algo, chunk)
     np.testing.assert_allclose(jl, ref_loss, rtol=LOSS_RTOL)
     whole = long_vita_params_from_jax(jparams, device="cpu")
@@ -400,6 +405,11 @@ def test_loss_gradients_match_jax(case, one_torch_thread):
         np.testing.assert_allclose(loss.item(), jl, rtol=LOSS_RTOL)
         np.testing.assert_allclose(loss.item(), ref_loss, rtol=LOSS_RTOL)
         assert set(grads) == set(want)
+        if "seq" in spec:  # grad_norm too, at the train step's 1e-5
+            norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+            for w in (want, ref):
+                wnorm = torch.sqrt(sum((g.double() ** 2).sum() for g in w.values()))
+                np.testing.assert_allclose(norm.item(), wnorm.item(), rtol=1e-5)
         for n, g in grads.items():
             np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=0, atol=GRAD_ATOL,
                                        err_msg=n)

@@ -188,6 +188,18 @@ def test_main_over_tp2_gloo_processes_matches_jax(files, tmp_path, monkeypatch):
     directory) against JAX's Trainer on the same recipe (on one device): the
     3 losses within 1e-5 relative, both ranks the same; the checkpoint the
     run writes holds the whole tree (the directory's tp-1 shapes)."""
+    _main_over_tp2(files, tmp_path, monkeypatch)
+
+
+def test_main_over_tp2_gloo_processes_at_an_odd_seq_len_matches_jax(files, tmp_path,
+                                                                    monkeypatch):
+    """The same at seq_len 63: the data path packs rows of exactly 63
+    tokens, as JAX's does, and each rank's slice of a row is 32 tokens,
+    rank 1's ending in a pad row."""
+    _main_over_tp2(files, tmp_path, monkeypatch, data={"seq_len": 63, "logit_budget": 63})
+
+
+def _main_over_tp2(files, tmp_path, monkeypatch, **over):
     import long_vita_tpu.tokenizer as jax_tokenizer
     import long_vita_tpu.training.distributed as jax_distributed
     import long_vita_tpu.utils.compile_cache as jax_compile_cache
@@ -198,7 +210,7 @@ def test_main_over_tp2_gloo_processes_matches_jax(files, tmp_path, monkeypatch):
     from test_torch_serving import tiny_tokenizer
 
     root = files
-    recipe = _recipe(root, mesh={"tp": 2}, run={"save_dir": str(tmp_path / "save")})
+    recipe = _recipe(root, mesh={"tp": 2}, run={"save_dir": str(tmp_path / "save")}, **over)
     path = tmp_path / "recipe.yaml"
     path.write_text(yaml.safe_dump(recipe))
     got = run_gloo(_main_worker, 2, str(path), join_timeout=TIMEOUT)

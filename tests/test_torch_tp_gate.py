@@ -88,16 +88,16 @@ def test_tp_serve_phase_rehearsal(chip_smoke, no_cuda_calls, one_torch_thread, c
 
 def test_tp_train_phase_rehearsal(chip_smoke, capsys):
     """chip_smoke.phase_tp_train rehearsed on the CPU (bf16 weights, the
-    tiny configuration's two layers, 512 tokens): the tp-1 reference in a
-    process of its own, then tp 2 in two gloo processes through
+    tiny configuration's two layers, 511 tokens, which do not split over tp
+    as the full run's 16383 do not): the tp-1 reference in a process of
+    its own, then tp 2 in two gloo processes through
     train.build_from_recipe and Trainer.train, each rank reading its slices
     of the checkpoint directory the phase writes. Every gate must hold,
     the planted fault (the norms' tp sum removed) must fail the gradient
     gate, and the tp-2 ranks must read less than the whole checkpoint."""
     out = chip_smoke.phase_tp_train(
         backend="gloo", device="cpu", cfg=tiny_test_config(), layers=2, seq=512, budget=128,
-        fault_seq=256,
-        steps=2, answer=8, text_sup=8, kernels=False,
+        fault_seq=256, steps=2, answer=8, text_sup=8, kernels=False,
         first_special=256)
     text = capsys.readouterr().out
     assert "FAIL" not in text

@@ -7,7 +7,8 @@ replicates each kv head over two ranks):
     tp 2 mesh, and against the plain head, with IGNORE_INDEX rows: loss
     rtol 1e-6, the head's and the rows' gradients atol 2e-5;
   - embed_tokens_vp against JAX's (qwen2.py:918), an id past the table
-    included: exact;
+    included: exact; on a pp 2 x tp 2 stage and at S 15 over tp 2 (JAX's
+    plain lookup there) the clamped rows, exact;
   - the gradients of the training loss over tp 2 and cp 2 x tp 2 (ring),
     the tower trainable and images in the rows, gathered leaf by leaf,
     against JAX's loss_fn on the same mesh (atol 2e-4, as JAX's own test);
@@ -18,15 +19,25 @@ replicates each kv head over two ranks):
     at 1e-5 relative (the train step's tolerances); lora_only over dp 2 x
     tp 2 (grad_norm over the folded base gradients);
   - a planted fault: the norms' gradients not summed over tp must fail the
-    same comparison.
+    same comparison;
+  - sequences that do not split into cp x tp equal slices (the last tp
+    slice padded with zero rows, as GSPMD pads): tp 4 at S 62 and cp 2 x
+    tp 4 at S 52 (4 kv heads), tp 2 at S 63 and 61 (a logit budget, remat
+    "dots", LoRA), the loss and grad_norm at 1e-5 and every gradient at
+    atol 2e-4 against JAX's loss_fn on the same mesh and on one device;
+    the Trainer with accumulation at S 63; an even sequence's step bit for
+    bit that of the plain all-gather / reduce-scatter pair.
 
 The recipe entry over tp and the checkpoints are in
 tests/test_torch_tp_checkpoint.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -60,8 +71,8 @@ OPTIM = dict(lr=1e-3, warmup_steps=1, total_steps=6)
 STEPS = 3
 
 
-def _packs(cls):
-    return [_pack(**spec, pack_cls=cls) for spec in PACK_SPECS]
+def _packs(cls, s=S):
+    return [_pack(**spec, pack_cls=cls, s=s) for spec in PACK_SPECS]
 
 
 def _jmesh(cp, tp):
@@ -155,6 +166,37 @@ def test_embed_tokens_vp_matches_jax(cp):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dims,s", [(dict(pp=2, tp=2), 16), (dict(tp=2), 15)],
+                         ids=["pp2_tp2", "tp2_s15"])
+def test_embed_tokens_vp_clamps_where_jax_looks_up_plainly(dims, s):
+    """On a pipeline stage, and at a sequence that does not split over tp,
+    JAX's training lookup is the plain one (long_vita.py:293-301): an id
+    past the table gets the table's last row, not zeros. Every rank's
+    slice [B, ceil(S/tp), H] is JAX's plain rows bit for bit, in tp order,
+    the last slice ending in zero rows past S."""
+    from long_vita_tpu_torch.parallel.comm import seq_slice
+
+    jparams = _jax_params(0)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, CFG.text.vocab_size, (2, s)).astype(np.int32)
+    ids[0, 3] = CFG.text.vocab_size + 5  # past the table
+    want = np.asarray(jax.jit(jq.embed_tokens)(jparams["text"], jnp.asarray(ids)))
+    table = np.asarray(jparams["text"]["embed"]["embedding"])
+    np.testing.assert_array_equal(want[0, 3], table[-1])
+    whole = long_vita_params_from_jax(jparams, device="cpu")
+    mc = MeshConfig(**dims)
+
+    def rank(comm):
+        mesh = make_mesh(mc, comm)
+        local = shard_params(whole, mesh, CFG)
+        return mesh.tp_index, tq.embed_tokens_vp(local.text, torch.as_tensor(ids))
+
+    w = seq_slice(s, 2)
+    padded = np.concatenate([want, np.zeros((2, 2 * w - s, want.shape[-1]), want.dtype)], 1)
+    for t, got in run_thread_ranks(rank, mc.size, timeout=TIMEOUT):
+        np.testing.assert_array_equal(got.numpy(), padded[:, t * w:(t + 1) * w])
+
+
 # ---- the loss's gradients on a mesh -------------------------------------------
 
 
@@ -176,35 +218,59 @@ def test_budget_not_dividing_over_cp_matches_jax_plain_head(one_torch_thread):
     _check_loss_gradients(2, 31)
 
 
-def _check_loss_gradients(cp, budget):
-    tp = 2
-    jparams = _jax_params(0)
-    packs = _packs(jdata.Pack)[:2]
+def _seq_packs(cls, s):
+    """Two packed rows of ``s`` tokens, images in both (the tower trains)."""
+    return [_pack(1, 2, (s * 5 // 8,), cls, s), _pack(2, 1, (s // 3, s * 3 // 4), cls, s)]
+
+
+def _check_loss_gradients(cp, budget, *, s=S, tp=2, cfg=CFG, remat=True, whole=False,
+                          lora=False):
+    """The port's loss, grad_norm and every gradient over cp x tp against
+    JAX's loss_fn on the same mesh (and, ``whole``, on one device on the
+    unpermuted rows too): the loss and grad_norm at rtol 1e-5, the
+    gradients at atol 2e-4. lora: the tree with test_torch_lora's adapters
+    on four projections."""
+    if lora:
+        from test_torch_lora import _adapted
+
+        jparams, cfg, _, _ = _adapted(("q_proj", "v_proj", "o_proj", "down_proj"))
+    else:
+        jparams = _jax_params(0, cfg)
+    packs = _packs(jdata.Pack)[:2] if s == S else _seq_packs(jdata.Pack, s)
     jbatch = next(jtrainer.batch_iterator(iter(packs), 2, budget, cp))
-    assert (jbatch["logit_positions"].shape[1] % cp == 0) == (budget == S)
-    jpar = JParallel(_jmesh(cp, tp))
-    jl, jg = jax.jit(jax.value_and_grad(
-        lambda p, b: jts.loss_fn(p, b, CFG, jpar, True, 2)[0]))(jparams, _jnp(jbatch))
-    want = _named(jg)
-    whole = long_vita_params_from_jax(jparams, device="cpu")
-    batch = next(batch_iterator(iter(_packs(tloss.Pack)[:2]), 2, budget, cp))
+    assert (jbatch["logit_positions"].shape[1] % cp == 0) == (budget % cp == 0)
+    refs = [(JParallel(_jmesh(cp, tp)), jbatch)]
+    if whole:
+        refs.append((None, next(jtrainer.batch_iterator(iter(packs), 2, budget, 1))))
+    wants = []
+    for jpar, b in refs:
+        jl, jg = jax.jit(jax.value_and_grad(
+            lambda p, b: jts.loss_fn(p, b, cfg, jpar, remat, 2)[0]))(jparams, _jnp(b))
+        wants.append((float(jl), float(optax.global_norm(jg)), _named(jg)))
+    whole_tree = long_vita_params_from_jax(jparams, device="cpu")
+    tpacks = _packs(tloss.Pack)[:2] if s == S else _seq_packs(tloss.Pack, s)
+    batch = next(batch_iterator(iter(tpacks), 2, budget, cp))
 
     def rank(comm):
         from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
 
         mesh = make_mesh(MeshConfig(cp=cp, tp=tp), comm)
-        local = shard_params(whole, mesh, CFG, own=True)
+        local = shard_params(whole_tree, mesh, cfg, own=True)
         grads, loss, _, _ = tts._backward(
-            local, make_global_batch(local_rows(batch, mesh, 2), mesh, "cpu"), CFG, True, 2,
+            local, make_global_batch(local_rows(batch, mesh, 2), mesh, "cpu"), cfg, remat, 2,
             False, False, mesh=mesh, parallel=tts.make_parallel_config(mesh))
-        layout = leaf_layout(local, CFG, mesh.tp_index, tp)
+        layout = leaf_layout(local, cfg, mesh.tp_index, tp)
         return loss, gather_named(grads, layout, mesh.tp_comm)
 
     for loss, grads in run_thread_ranks(rank, cp * tp, timeout=TIMEOUT):
-        np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
-        assert set(grads) == set(want)
-        for n, g in grads.items():
-            np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=0, atol=2e-4, err_msg=n)
+        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())).item()
+        for jl, jnorm, want in wants:
+            np.testing.assert_allclose(loss.item(), jl, rtol=1e-5)
+            np.testing.assert_allclose(norm, jnorm, rtol=1e-5)
+            assert set(grads) == set(want)
+            for n, g in grads.items():
+                np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=0, atol=2e-4,
+                                           err_msg=n)
 
 
 # ---- the Trainer over thread-ranks ---------------------------------------------
@@ -213,11 +279,11 @@ def _check_loss_gradients(cp, budget):
 _REFERENCE: dict = {}
 
 
-def _reference(fv: bool, accum: bool = False, budget: int = S):
+def _reference(fv: bool, accum: bool = False, budget: int = S, seq: int = S):
     """JAX's train step (its gradient accumulation with ``accum``: 2
-    micro-batches of one row) on the whole, unpermuted batches on one
-    device: -> (named params, [metrics]) after STEPS steps."""
-    key = (fv, accum, budget)
+    micro-batches of one row) on the whole, unpermuted batches of ``seq``
+    tokens on one device: -> (named params, [metrics]) after STEPS steps."""
+    key = (fv, accum, budget, seq)
     if key in _REFERENCE:
         return _REFERENCE[key]
     flags = dict(freeze_vision=fv, freeze_text=False)
@@ -227,7 +293,7 @@ def _reference(fv: bool, accum: bool = False, budget: int = S):
     if accum:
         grad_fn, accum_fn, apply_fn = jts.make_grad_accum_steps(CFG, jtx, None, remat=False,
                                                                 vision_chunk=2, **flags)
-        micro = list(jtrainer.batch_iterator(iter(_packs(jdata.Pack)), 1, S, 1))
+        micro = list(jtrainer.batch_iterator(iter(_packs(jdata.Pack, seq)), 1, budget, 1))
         for i in range(STEPS):
             acc = loss_sum = count_sum = None
             for mb in micro[2 * i:2 * i + 2]:
@@ -240,7 +306,7 @@ def _reference(fv: bool, accum: bool = False, budget: int = S):
             metrics.append({k: float(v) for k, v in m.items()})
     else:
         step = jts.make_train_step(CFG, jtx, None, remat=False, vision_chunk=2, **flags)
-        for b in jtrainer.batch_iterator(iter(_packs(jdata.Pack)), 2, budget, 1):
+        for b in jtrainer.batch_iterator(iter(_packs(jdata.Pack, seq)), 2, budget, 1):
             state, m = step(state, _jnp(b))
             metrics.append({k: float(v) for k, v in m.items()})
     _REFERENCE[key] = (_named(state.params), metrics)
@@ -248,12 +314,13 @@ def _reference(fv: bool, accum: bool = False, budget: int = S):
 
 
 def _train(params, mesh, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_only=False,
-           budget=S):
+           budget=S, seq=S):
     """One rank: a Trainer over ``comm`` (the whole tree handed in; the
-    Trainer cuts the rank's shard) on the zigzag stream, -> (losses, grad
-    norms, the parameters gathered over tp)."""
+    Trainer cuts the rank's shard) on the zigzag stream of ``seq``-token
+    rows, -> (losses, grad norms, the parameters gathered over tp)."""
     tcfg = TrainerConfig(
-        seq_len=S, logit_budget=budget, global_batch=2, micro_batch=1 if accum else 0, steps=STEPS,
+        seq_len=seq, logit_budget=budget, global_batch=2, micro_batch=1 if accum else 0,
+        steps=STEPS,
         mesh=mesh, remat=remat, vision_chunk=2,
         optim=topt.OptimizerConfig(**OPTIM, freeze_vision=fv, lora_only=lora_only))
     tr = Trainer(params, cfg, tcfg, comm=comm)
@@ -276,7 +343,7 @@ def _train(params, mesh, comm, *, fv, remat=False, accum=False, cfg=CFG, lora_on
             return state, m
 
         tr.step_fn = logged
-    it = batch_iterator(iter(_packs(tloss.Pack)), 1 if accum else 2, budget, mesh.cp)
+    it = batch_iterator(iter(_packs(tloss.Pack, seq)), 1 if accum else 2, budget, mesh.cp)
     losses = tr.train(it)["losses"]
     layout = leaf_layout(tr.state.params, cfg, tr.mesh.tp_index, mesh.tp)
     params = gather_named(dict(tr.state.params.named_parameters()), layout, tr.mesh.tp_comm)
@@ -306,6 +373,8 @@ CASES = {
     "tp2_grad_accum": dict(mesh=MeshConfig(tp=2), fv=True, accum=True),
     # a logit budget that does not divide over cp (JAX: its plain head)
     "cp2_tp2_budget31": dict(mesh=MeshConfig(cp=2, tp=2), fv=False, budget=31),
+    # a sequence that does not split over tp (the last slice ends in a pad row)
+    "tp2_s63_grad_accum": dict(mesh=MeshConfig(tp=2), fv=True, accum=True, budget=63, seq=63),
 }
 
 
@@ -314,7 +383,7 @@ def test_trainer_over_tp_thread_ranks_matches_jax(case, one_torch_thread):
     kw = dict(CASES[case])
     mesh = kw.pop("mesh")
     whole = long_vita_params_from_jax(_jax_params(0), device="cpu")
-    want = _reference(kw["fv"], kw.get("accum", False), kw.get("budget", S))
+    want = _reference(kw["fv"], kw.get("accum", False), kw.get("budget", S), kw.get("seq", S))
     for got in run_thread_ranks(lambda comm: _train(whole, mesh, comm, **kw), mesh.size,
                                 timeout=TIMEOUT):
         _check(got, want)
@@ -386,40 +455,108 @@ def test_tp4_refusals_beside_jax(s, cp):
     shard_map's divisibility error for any sequence: its attention cuts the
     kv heads over tp (k_ [B, S, 2, D] over tp 4). The port shares each kv
     head between tp // 2 ranks and trains there (tp4_shared_kv_heads
-    above); at S 52 over cp 2 x tp 4 it refuses by its own rule, a
-    sequence that does not split into cp x tp equal slices. With 4 kv
-    heads JAX trains both sequences (GSPMD's plain layout), and so does
-    not share that refusal (test_sequence_refusal_is_the_ports_own)."""
+    above), at S 52 over cp 2 x tp 4 too, whose cp shards of 26 tokens do
+    not split over tp (the last slice ends in pad rows): validate_geometry
+    passes both. With 4 kv heads JAX trains both sequences, and the port
+    matches it (test_sequence_refusal_is_the_ports_own)."""
     from long_vita_tpu.config import tiny_test_config as j_tiny
     from long_vita_tpu_torch.parallel.mesh import MeshConfig as PMeshConfig, validate_geometry
 
     got = _jax_seq_loss(j_tiny(), s, cp, 4)
     assert isinstance(got, str) and "not evenly divisible" in got and "k_" in got, got
-    if s % (cp * 4):
-        with pytest.raises(ValueError, match=f"seq_len {s} % cp\\*tp {cp * 4}"):
-            validate_geometry(CFG.text, PMeshConfig(cp=cp, tp=4), seq_len=s)
-    else:
-        validate_geometry(CFG.text, PMeshConfig(cp=cp, tp=4), seq_len=s)
+    assert bool(s % (cp * 4)) == (cp == 2)
+    validate_geometry(CFG.text, PMeshConfig(cp=cp, tp=4), seq_len=s)
+
+
+def _kv4(cfg):
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_key_value_heads=4))
 
 
 def test_sequence_refusal_is_the_ports_own():
     """With 4 kv heads JAX's loss_fn trains a 62-token sequence over tp 4
     and a 52-token one over cp 2 x tp 4, neither splitting into cp x tp
-    equal slices: GSPMD falls back to its plain layout. The port's
-    sequence-parallel layout needs equal slices and refuses both by name
-    (ROADMAP: a layout JAX trains that the port refuses)."""
-    import dataclasses
-
-    from long_vita_tpu.config import tiny_test_config as j_tiny
-    from long_vita_tpu_torch.parallel.mesh import MeshConfig as PMeshConfig, validate_geometry
-
-    base = j_tiny()
-    cfg4 = dataclasses.replace(base, text=dataclasses.replace(base.text, num_key_value_heads=4))
-    port4 = dataclasses.replace(CFG.text, num_key_value_heads=4)
+    equal slices (GSPMD pads its layout). The port once refused both by
+    a rule of its own; its sequence-parallel layout now pads the last tp
+    slices with zero rows, and trains both at JAX's numbers: the loss,
+    grad_norm and every gradient against JAX's loss_fn on the same mesh
+    and on one device (images in the rows, the tower trainable)."""
     for s, cp in ((62, 1), (52, 2)):
-        assert np.isfinite(_jax_seq_loss(cfg4, s, cp, 4))
-        with pytest.raises(ValueError, match="sequence-parallel layout needs cp x tp equal"):
-            validate_geometry(port4, PMeshConfig(cp=cp, tp=4), seq_len=s)
+        assert s % (cp * 4) and not s % (2 * cp)
+        _check_loss_gradients(cp, s, s=s, tp=4, cfg=_kv4(CFG), whole=True)
+
+
+UNEVEN = {
+    # S 63 over tp 2: rank 1's slice ends in one pad row
+    "tp2_s63": dict(cp=1, budget=63, s=63),
+    # and a logit budget of 21 rows
+    "tp2_s63_budget21": dict(cp=1, budget=21, s=63),
+    # the "dots" remat level over the padded slices
+    "tp2_s61_remat_dots": dict(cp=1, budget=61, s=61, remat="dots"),
+    # LoRA adapters on q, v, o and down
+    "tp2_s63_lora": dict(cp=1, budget=63, s=63, lora=True),
+}
+
+
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_uneven_sequence_over_tp_matches_jax(case, one_torch_thread):
+    """A sequence that does not split over tp, images in the rows and the
+    tower trainable: the port's loss, grad_norm and every gradient against
+    JAX's loss_fn on the same mesh (GSPMD's padded layout, its plain
+    lookup) and on one device, as test_sequence_refusal_is_the_ports_own."""
+    kw = dict(UNEVEN[case])
+    _check_loss_gradients(kw.pop("cp"), kw.pop("budget"), whole=True, **kw)
+
+
+def test_even_sequence_keeps_its_bits(monkeypatch, one_torch_thread):
+    """At S 64 over tp 2 (slices that split) the sequence-parallel
+    collectives take no pad: the loss and every gradient of one step equal,
+    bit for bit, those of the plain all-gather / reduce-scatter pair that
+    the layout used before it padded uneven slices."""
+    from long_vita_tpu_torch.parallel import comm as tcomm
+
+    class Gather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, comm, dim):
+            ctx.comm, ctx.dim = comm, dim
+            return comm.all_gather(x, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return ctx.comm.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+    class Scatter(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, comm, dim):
+            ctx.comm, ctx.dim = comm, dim
+            return comm.reduce_scatter(x, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return ctx.comm.all_gather(g.contiguous(), ctx.dim), None, None
+
+    whole = long_vita_params_from_jax(_jax_params(0), device="cpu")
+    batch = next(batch_iterator(iter(_packs(tloss.Pack)[:2]), 2, S, 1))
+
+    def step(comm):
+        from long_vita_tpu_torch.training.distributed import local_rows, make_global_batch
+
+        mesh = make_mesh(MeshConfig(tp=2), comm)
+        local = shard_params(whole, mesh, CFG, own=True)
+        grads, loss, _, _ = tts._backward(
+            local, make_global_batch(local_rows(batch, mesh, 2), mesh, "cpu"), CFG, True, 2,
+            False, False, mesh=mesh, parallel=tts.make_parallel_config(mesh))
+        return loss, grads
+
+    now = run_thread_ranks(step, 2, timeout=TIMEOUT)
+    monkeypatch.setattr(tq, "gather_seq", lambda x, comm, dim=1, n=None: Gather.apply(x, comm, dim))
+    monkeypatch.setattr(tq, "scatter_seq", lambda x, comm, dim=1: Scatter.apply(x, comm, dim))
+    before = run_thread_ranks(step, 2, timeout=TIMEOUT)
+    assert tcomm.seq_slice(S, 2) * 2 == S
+    for (loss, grads), (loss0, grads0) in zip(now, before):
+        assert torch.equal(loss, loss0)
+        assert grads.keys() == grads0.keys()
+        for n in grads:
+            assert torch.equal(grads[n], grads0[n]), n
 
 
 def test_fsdp_refusal_beside_jax():

@@ -73,19 +73,19 @@ def _jax_params(seed=0, cfg=CFG):
     return jax.tree.map(jnp.asarray, jax.tree_util.tree_map_with_path(fill, p))
 
 
-def _pack(seed, n_img=2, cuts=(40,), pack_cls=tloss.Pack):
-    """A packed row of S tokens: segments restart their positions at each
-    cut, n_img tiles sit in the first segment, and labels supervise a third
-    of the text tokens."""
+def _pack(seed, n_img=2, cuts=(40,), pack_cls=tloss.Pack, s=S):
+    """A packed row of ``s`` tokens (S by default): segments restart their
+    positions at each cut, n_img tiles sit in the first segment, and labels
+    supervise a third of the text tokens."""
     rng = np.random.default_rng(seed)
     t = CFG.image_token_length
-    tokens = rng.integers(0, CFG.text.vocab_size, S).astype(np.int32)
-    seg = np.zeros(S, np.int32)
+    tokens = rng.integers(0, CFG.text.vocab_size, s).astype(np.int32)
+    seg = np.zeros(s, np.int32)
     for c in cuts:
         seg[c:] += 1
     starts = np.concatenate([[0], cuts])
-    pos = (np.arange(S) - starts[seg]).astype(np.int32)
-    labels = np.where(rng.random(S) < 0.35, tokens, IGNORE_INDEX).astype(np.int32)
+    pos = (np.arange(s) - starts[seg]).astype(np.int32)
+    labels = np.where(rng.random(s) < 0.35, tokens, IGNORE_INDEX).astype(np.int32)
     images = idx = None
     if n_img:
         img_pos = (3 + np.arange(n_img * t)).reshape(n_img, t)
